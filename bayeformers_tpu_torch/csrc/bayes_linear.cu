@@ -1,0 +1,374 @@
+// bayes_linear_anti: the antithetic Bayesian linear forward on Hopper.
+//
+// Replaces bayeformers_tpu/ops/fused_linear.py::_anti_kernel (Kp < 2048) and
+// ::_ktall_anti_kernel (Kp >= 2048, the FFN down-projection). On the TPU the
+// K-tall split exists because a full-K weight strip outgrew VMEM; here a
+// block walks K in a loop, so one kernel takes any K.
+//
+// For pair t (samples 2t, 2t+1) with eps drawn from seeds_half[t]:
+//   w0 = mu + softplus(rho) * eps,  w1 = 2 mu - w0
+//   y[2t] = x[2t] @ w0,  y[2t+1] = x[2t+1] @ w1          (bf16 in, f32 acc)
+//   log_q[2t] = log_q[2t+1] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
+//   log_p[2t] = log_p[2t+1] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (...)
+// (the frozen-MOPED prior centred on mu is even in eps, so the pair shares it).
+//
+// Bound on the H100: the matmul's 2*S*M*K*N flops over the bf16 tensor
+// rate bound it at the serving shapes (x, mu, rho and y move a few times
+// fewer bytes); the eps regeneration adds ALU work (Philox, Box-Muller,
+// softplus) for every row tile. Design: each block of 16 warps owns a
+// (BM=256, BN=64) output tile of BOTH pair members, so one eps draw feeds two
+// products and a draw is regenerated once per 256 rows. It walks K in steps
+// of 32 rows (16 cos-branch rows + the 16 sin-branch rows that share their
+// Box-Muller pairs) through a two-stage shared-memory pipeline: while the
+// tensor cores (WMMA / mma.sync, f32 accumulation) work on one stage, the
+// next x chunk streams into the other by cp.async and each thread's mu/rho
+// loads are in flight; it then regenerates its four elements of the next
+// bf16 W pair. The draw and softplus take 26-30% of the time
+// (kernel_ablation.py); the rest is this mma.sync pipeline, whose phases
+// (all warps MMA, then all warps generate, then a barrier) do not overlap.
+// Blocks of row tile 0 also emit per-(pair, column tile) log-prob partials,
+// which a second one-block kernel sums in a fixed order: no float atomics,
+// so log_q / log_p are bit-reproducible for a seed.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+#include "eps.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 256;
+constexpr int BN = 64;
+constexpr int BKH = 16;            // rows per Box-Muller branch in one K step
+constexpr int BK = 2 * BKH;        // K rows per step
+constexpr int THREADS = 512;       // 16 warps: 8 (rows) x 2 (cols), 32x32 each
+constexpr int XLD = BK + 8;        // bf16 leading dims, padded (16 B multiple)
+constexpr int WLD = BN + 8;
+constexpr int CLD = BN + 4;        // f32 leading dim of the epilogue tile
+constexpr int X_VEC_PER_THREAD = 2 * BM * BK / 8 / THREADS;  // 16-byte copies
+
+// two stages of (x pair, W pair); the epilogue tile reuses the space
+constexpr int XS_STAGE = 2 * BM * XLD;  // bf16 elements
+constexpr int WS_STAGE = 2 * BK * WLD;
+constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * 2;
+constexpr int CS_BYTES = BM * CLD * 4;
+constexpr int SMEM_BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+
+__device__ __forceinline__ float softplus_f(float r) {
+  // logaddexp(r, 0), the form jax.nn.softplus and the plain version use
+  return fmaxf(r, 0.0f) + log1pf(expf(-fabsf(r)));
+}
+
+__device__ __forceinline__ float block_sum_fixed(float v, float* red) {
+  // fixed-order block reduction: warp tree, then the warps in order
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < THREADS / 32; ++i) s += red[i];
+  }
+  return s;  // valid in thread 0
+}
+
+// K step s covers the 16 cos-branch rows kc = 256 (s / 8) + 16 (s % 8) and
+// the 16 sin-branch rows kc + 128 that share their Box-Muller pairs.
+__device__ __forceinline__ int step_kc(int s) {
+  return (s >> 3) * bft::UNIT_K + (s & 7) * BKH;
+}
+
+struct Block {
+  const __nv_bfloat16* x;
+  const float* mu;
+  const float* rho;
+  int M, K, N, m0, n0, s0;
+};
+
+// Start the asynchronous copy of this thread's 16-byte chunks of the
+// (2 members, BM, BK) x tile of step s into a stage (zero-filled outside the
+// matrix); cp_async_wait() completes them. No registers hold the data.
+__device__ __forceinline__ void load_x_async(const Block& b, int s, __nv_bfloat16* xs) {
+  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
+#pragma unroll
+  for (int i = 0; i < X_VEC_PER_THREAD; ++i) {
+    const int q = threadIdx.x + i * THREADS;
+    const int chunk = q & 1, seg = (q >> 1) & 1, row = (q >> 2) & (BM - 1);
+    const int h = q / (4 * BM);
+    const int k = (seg ? ks : kc) + chunk * 8;
+    const int m = b.m0 + row;
+    const bool ok = m < b.M && k < b.K;
+    const __nv_bfloat16* src =
+        b.x + (ok ? (static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k : 0);
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+        xs + (h * BM + row) * XLD + seg * BKH + chunk * 8));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element-wise x tile for K % 8 != 0 (no 16-byte loads).
+__device__ __forceinline__ void load_x_scalar(const Block& b, int s, __nv_bfloat16* xs) {
+  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
+  for (int q = threadIdx.x; q < 2 * BM * BK; q += THREADS) {
+    const int col = q % BK, row = (q / BK) % BM, h = q / (BK * BM);
+    const int k = (col < BKH ? kc + col : ks + col - BKH);
+    const int m = b.m0 + row;
+    __nv_bfloat16 v = __float2bfloat16(0.0f);
+    if (m < b.M && k < b.K) v = b.x[(static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k];
+    xs[(h * BM + row) * XLD + col] = v;
+  }
+}
+
+// mu / rho of this thread's four weight elements in step s: rows
+// (cos, sin) x columns (c, c + 1); out-of-range elements read as 0.
+__device__ __forceinline__ void load_weights(const Block& b, int s, float (&m)[4], float (&r)[4]) {
+  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
+  const int rr = threadIdx.x >> 5, c = 2 * (threadIdx.x & 31);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int krow = ((e < 2) ? kc : ks) + rr;
+    const int n = b.n0 + c + (e & 1);
+    m[e] = 0.0f;
+    r[e] = 0.0f;
+    if (krow < b.K && n < b.N) {
+      const size_t idx = static_cast<size_t>(krow) * b.N + n;
+      m[e] = b.mu[idx];
+      r[e] = b.rho[idx];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ mu,
+                         const float* __restrict__ rho,
+                         const int32_t* __restrict__ seeds_half,
+                         __nv_bfloat16* __restrict__ y,
+                         __nv_bfloat16* __restrict__ w_out,
+                         float* __restrict__ partials,
+                         float* __restrict__ ls_part, int M, int K, int N,
+                         int x_vec, float inv_sigma_p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[THREADS / 32];
+  __nv_bfloat16* xs_base = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ws_base = xs_base + 2 * XS_STAGE;
+  float* cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int warp_m = warp & 7, warp_n = warp >> 3;
+  const int tile_n = blockIdx.x, tile_m = blockIdx.y, t = blockIdx.z;
+  const Block b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, 2 * t};
+  const uint32_t seed = static_cast<uint32_t>(seeds_half[t]);
+  const bool do_lp = (tile_m == 0);
+  const uint32_t col_strip = static_cast<uint32_t>(b.n0 / bft::UNIT_N);
+  const int c_unit0 = b.n0 % bft::UNIT_N;
+  const int rr = tid >> 5, c = 2 * (tid & 31);  // this thread's W elements
+  // number of K steps: whole units, then the steps of the last one below K
+  const int full = K / bft::UNIT_K, rem = K - full * bft::UNIT_K;
+  const int n_steps = full * 8 + min(8, (rem + BKH - 1) / BKH);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[h][i][j], 0.0f);
+
+  float q_acc = 0.0f, p_acc = 0.0f, ls_acc = 0.0f;
+  const size_t KN = static_cast<size_t>(K) * N;
+
+  // Regenerate this thread's four elements of the W pair of step s from the
+  // prefetched mu / rho and write them (bf16) into the stage's W tiles.
+  auto gen = [&](int s, const float (&m)[4], const float (&r)[4], __nv_bfloat16* ws) {
+    const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
+    float z[4];
+    bft::unit_normals4(seed, static_cast<uint32_t>(s >> 3), col_strip,
+                       (s & 7) * BKH + rr, c_unit0 + c, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int krow = ((e < 2) ? kc : ks) + rr;
+      const int trow = (e < 2) ? rr : BKH + rr;
+      const int col = c + (e & 1);
+      const int n = b.n0 + col;
+      float w0 = 0.0f, w1 = 0.0f;
+      if (krow < K && n < N) {
+        const float sig = softplus_f(r[e]);
+        const float se = __fmul_rn(sig, z[e]);
+        w0 = __fadd_rn(m[e], se);
+        w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
+        if (do_lp) {
+          q_acc += -0.5f * z[e] * z[e];
+          const float zs = se * inv_sigma_p;
+          p_acc += -0.5f * zs * zs;
+          ls_acc += logf(sig);
+          if (w_out != nullptr) {
+            const size_t idx = static_cast<size_t>(krow) * N + n;
+            w_out[static_cast<size_t>(b.s0) * KN + idx] = __float2bfloat16(w0);
+            w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = __float2bfloat16(w1);
+          }
+        }
+      }
+      ws[trow * WLD + col] = __float2bfloat16(w0);
+      ws[(BK + trow) * WLD + col] = __float2bfloat16(w1);
+    }
+  };
+
+  // ---- prologue: stage 0 holds step 0 ----
+  float mr[4], rr_[4];
+  if (x_vec) {
+    load_x_async(b, 0, xs_base);
+  } else {
+    load_x_scalar(b, 0, xs_base);
+  }
+  load_weights(b, 0, mr, rr_);
+  gen(0, mr, rr_, ws_base);
+  cp_async_wait();
+  __syncthreads();
+
+  // ---- main loop: MMAs on stage s & 1 while step s + 1 fills the other ----
+  for (int s = 0; s < n_steps; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    const bool more = s + 1 < n_steps;
+    if (more) {
+      // the next x tile streams into the other stage over the MMAs
+      if (x_vec) load_x_async(b, s + 1, xs_base + nxt * XS_STAGE);
+      load_weights(b, s + 1, mr, rr_);
+    }
+    const __nv_bfloat16* xs = xs_base + cur * XS_STAGE;
+    const __nv_bfloat16* ws = ws_base + cur * WS_STAGE;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(
+              a[i], xs + (h * BM + warp_m * 32 + i * 16) * XLD + kk, XLD);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          wmma::load_matrix_sync(
+              bf[jn], ws + (h * BK + kk) * WLD + warp_n * 32 + jn * 16, WLD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+            wmma::mma_sync(acc[h][i][jn], a[i], bf[jn], acc[h][i][jn]);
+      }
+    }
+    if (more) {
+      gen(s + 1, mr, rr_, ws_base + nxt * WS_STAGE);
+      if (x_vec) {
+        cp_async_wait();
+      } else {
+        load_x_scalar(b, s + 1, xs_base + nxt * XS_STAGE);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- epilogue: f32 tile through shared memory, bf16 out ----
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h) __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+        wmma::store_matrix_sync(
+            cs + (warp_m * 32 + i * 16) * CLD + warp_n * 32 + jn * 16,
+            acc[h][i][jn], CLD, wmma::mem_row_major);
+    __syncthreads();
+    for (int q = tid; q < BM * BN; q += THREADS) {
+      const int row = q / BN, col = q % BN;
+      const int m = b.m0 + row, n = b.n0 + col;
+      if (m < M && n < N)
+        y[(static_cast<size_t>(b.s0 + h) * M + m) * N + n] =
+            __float2bfloat16(cs[row * CLD + col]);
+    }
+  }
+
+  if (do_lp) {
+    const float q_sum = block_sum_fixed(q_acc, red);
+    if (tid == 0) partials[(static_cast<size_t>(t) * gridDim.x + tile_n) * 2] = q_sum;
+    const float p_sum = block_sum_fixed(p_acc, red);
+    if (tid == 0) partials[(static_cast<size_t>(t) * gridDim.x + tile_n) * 2 + 1] = p_sum;
+    if (t == 0) {
+      const float l_sum = block_sum_fixed(ls_acc, red);
+      if (tid == 0) ls_part[tile_n] = l_sum;
+    }
+  }
+}
+
+// One thread per pair; every sum runs over the column tiles in order.
+__global__ void anti_logprob_finalize(const float* __restrict__ partials,
+                                      const float* __restrict__ ls_part,
+                                      int n_tiles, int S2, float c_q, float c_p,
+                                      float* __restrict__ logq,
+                                      float* __restrict__ logp) {
+  const int t = threadIdx.x;
+  if (t >= S2) return;
+  float ls = 0.0f, q = 0.0f, p = 0.0f;
+  for (int i = 0; i < n_tiles; ++i) {
+    ls += ls_part[i];
+    q += partials[(static_cast<size_t>(t) * n_tiles + i) * 2];
+    p += partials[(static_cast<size_t>(t) * n_tiles + i) * 2 + 1];
+  }
+  const float lq = q - ls - c_q;
+  const float lp = p - c_p;
+  logq[2 * t] = lq;
+  logq[2 * t + 1] = lq;
+  logp[2 * t] = lp;
+  logp[2 * t + 1] = lp;
+}
+
+}  // namespace
+
+// x (S, M, K) bf16, mu / rho (K, N) f32, seeds_half (S/2,) i32 ->
+// y (S, M, N) bf16, logq / logp (S,) f32 and, when w_out is not null, the
+// sampled pair W (S, K, N) bf16. partials: (S/2, ceil(N/64), 2) f32 scratch,
+// ls_part: (ceil(N/64),) f32 scratch. c_q = K*N*log(sqrt(2 pi)),
+// c_p = K*N*(log(sqrt(2 pi)) + log(sigma_p)). Returns cudaGetLastError().
+extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
+                                     const void* rho, const void* seeds_half,
+                                     void* y, void* w_out, void* partials,
+                                     void* ls_part, void* logq, void* logp,
+                                     int S, int M, int K, int N, int x_vec,
+                                     float inv_sigma_p, float c_q, float c_p,
+                                     void* stream) {
+  const int n_tiles = (N + BN - 1) / BN;
+  const dim3 grid(n_tiles, (M + BM - 1) / BM, S / 2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      bayes_linear_anti_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bayes_linear_anti_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mu),
+      static_cast<const float*>(rho), static_cast<const int32_t*>(seeds_half),
+      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(w_out),
+      static_cast<float*>(partials), static_cast<float*>(ls_part), M, K, N,
+      x_vec, inv_sigma_p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  anti_logprob_finalize<<<1, ((S / 2 + 31) / 32) * 32, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<const float*>(ls_part),
+      n_tiles, S / 2, c_q, c_p, static_cast<float*>(logq),
+      static_cast<float*>(logp));
+  return static_cast<int>(cudaGetLastError());
+}

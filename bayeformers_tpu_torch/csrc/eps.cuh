@@ -1,0 +1,81 @@
+// The absolute-unit eps stream on the device.
+//
+// Same function as bayeformers_tpu_torch/ops/common.py::unit_eps (see the
+// docstring there): the normal for weight element (k, n) of a draw is a pure
+// function of (seed, k / 256, n / 128, k % 256, n % 128). Philox4x32-10 is
+// keyed by (seed, k_chunk * 2^16 + col_strip); inside a unit, rows r and
+// r + 128 share one Box-Muller pair (cos / sin branch) and columns c, c + 1
+// (c even) share one Philox call, counter ((r * 128 + c) >> 1, 0, 0, 0).
+//
+// Built without --use_fast_math: logf / sinf / cosf / sqrtf are the precise
+// versions, and the uniform is formed with explicit round-to-nearest
+// intrinsics, so the bits equal the plain-torch stream's and the normals agree
+// to a few ulps.
+#pragma once
+
+#include <cstdint>
+
+namespace bft {
+
+constexpr int UNIT_K = 256;
+constexpr int UNIT_N = 128;
+constexpr uint32_t UNIT_STRIDE = 1u << 16;
+
+struct Philox4 {
+  uint32_t x0, x1, x2, x3;
+};
+
+__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                                  uint32_t c2, uint32_t c3,
+                                                  uint32_t k0, uint32_t k1) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += W0;
+      k1 += W1;
+    }
+    const uint32_t hi0 = __umulhi(M0, c0), lo0 = M0 * c0;
+    const uint32_t hi1 = __umulhi(M1, c2), lo1 = M1 * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return Philox4{c0, c1, c2, c3};
+}
+
+__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
+  // (bits >> 8) * 2^-24 is exact in f32, so fused or not the sum rounds once.
+  return __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f),
+                   0.5f / 16777216.0f);
+}
+
+// Both Box-Muller branches from one pair of words.
+__device__ __forceinline__ void box_muller_pair(uint32_t b1, uint32_t b2,
+                                                float* z_cos, float* z_sin) {
+  const float u1 = uniform_from_bits(b1);
+  const float u2 = uniform_from_bits(b2);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  const float theta = __fmul_rn(6.28318530717958647692f, u2);
+  *z_cos = __fmul_rn(r, cosf(theta));
+  *z_sin = __fmul_rn(r, sinf(theta));
+}
+
+// The four normals of one Philox call: elements (r, c), (r, c + 1) of the cos
+// half and (r + 128, c), (r + 128, c + 1) of the sin half of the unit
+// (k_chunk, col_strip); r in [0, 128), c even in [0, 128).
+// out = {cos(r, c), cos(r, c + 1), sin(r, c), sin(r, c + 1)}.
+__device__ __forceinline__ void unit_normals4(uint32_t seed, uint32_t k_chunk,
+                                              uint32_t col_strip, int r, int c,
+                                              float out[4]) {
+  const uint32_t unit = k_chunk * UNIT_STRIDE + col_strip;
+  const uint32_t ctr = static_cast<uint32_t>((r * UNIT_N + c) >> 1);
+  const Philox4 p = philox4x32_10(ctr, 0u, 0u, 0u, seed, unit);
+  box_muller_pair(p.x0, p.x1, &out[0], &out[2]);
+  box_muller_pair(p.x2, p.x3, &out[1], &out[3]);
+}
+
+}  // namespace bft

@@ -1,0 +1,192 @@
+// mha_fwd: multi-head self-attention forward in the flat (N, L, H) layout.
+//
+// Replaces bayeformers_tpu/ops/attention.py::_fwd_kernel_stacked (and its
+// per-head twin _fwd_kernel). Same contract: q/k/v/out (N, L, H) bf16 with
+// head h in columns [h*64, (h+1)*64), an additive f32 key bias (N, L);
+// scores = (q_h k_h^T) / sqrt(64) + bias in f32, a row softmax in f32, then
+// P cast to bf16 and O = P v_h with f32 accumulation.
+//
+// Bound on the H100: at BERT's L = 128 the work is 4*N*L*L*H flops over
+// 4*N*L*H*2 bytes, about 32 flops a byte, well below the ~295 at which the
+// tensor cores rather than the memory would be the limit: the kernel should
+// move each of q, k, v, out once. Design: one block of 4 warps per (query
+// tile of 64 rows, head, example). Heads are sliced on-chip by stride, so no
+// head-split transpose ever reaches device memory. The block keeps its whole
+// score rows in shared memory (L <= 512: 64 x 512 f32 plus the bf16 P, 200 KB
+// at most), so the softmax is exact rather than online and the P v product
+// needs no rescaling; QK^T and PV run on the tensor cores through WMMA.
+// All-masked rows (bias = finfo(f32).min everywhere) come out uniform over
+// the keys, as in the plain version.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int D = 64;        // head width
+constexpr int BQ = 64;       // query rows per block
+constexpr int BKV = 64;      // keys per staged block
+constexpr int THREADS = 128; // 4 warps, 16 query rows each
+constexpr int QLD = D + 8;   // bf16 leading dim of q / k / v tiles
+constexpr int OLD = D + 4;   // f32 leading dim of the output tile
+constexpr int MAX_L = 512;
+
+__host__ __device__ constexpr int round64(int l) { return (l + 63) / 64 * 64; }
+__host__ __device__ constexpr int sld(int lk) { return lk + 4; }
+__host__ __device__ constexpr int pld(int lk) { return lk + 8; }
+__host__ __device__ constexpr size_t smem_bytes(int lk) {
+  return 2 * static_cast<size_t>(BQ) * QLD * 2 +
+         static_cast<size_t>(BQ) * sld(lk) * 4 +
+         static_cast<size_t>(BQ) * pld(lk) * 2;
+}
+
+// Rows [row0, row0 + 64) of one head's (L, 64) slice into a (64, QLD) tile;
+// rows >= L are zero.
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
+                                          __nv_bfloat16* dst, int n, int h,
+                                          int row0, int L, int H) {
+  for (int q = threadIdx.x; q < BQ * (D / 8); q += THREADS) {
+    const int row = q >> 3, chunk = q & 7;
+    const int l = row0 + row;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (l < L)
+      v = *reinterpret_cast<const uint4*>(
+          src + (static_cast<size_t>(n) * L + l) * H + h * D + chunk * 8);
+    *reinterpret_cast<uint4*>(dst + row * QLD + chunk * 8) = v;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+               int L, int H) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lk = round64(L);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kvs = qs + BQ * QLD;
+  float* ss = reinterpret_cast<float*>(kvs + BKV * QLD);
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + BQ * sld(lk));
+  float* os = ss;  // the output tile reuses the score rows once P exists
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int SLD = sld(lk), PLD = pld(lk);
+
+  load_tile(q, qs, n, h, q0, L, H);
+
+  // ---- scores: (64 query rows, lk keys) f32 ----
+  for (int kb = 0; kb < lk; kb += BKV) {
+    __syncthreads();
+    load_tile(k, kvs, n, h, kb, L, H);
+    __syncthreads();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(sc[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, qs + warp * 16 * QLD + kk, QLD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // k^T as a col-major (d, key) operand straight from the (key, d) tile
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+        wmma::load_matrix_sync(b, kvs + j * 16 * QLD + kk, QLD);
+        wmma::mma_sync(sc[j], a, b, sc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wmma::store_matrix_sync(ss + warp * 16 * SLD + kb + j * 16, sc[j], SLD,
+                              wmma::mem_row_major);
+  }
+  __syncwarp();
+
+  // ---- row softmax in f32; each warp owns its 16 rows ----
+  const float scale = 0.125f;  // 1 / sqrt(64), exact
+  const float* brow = bias + static_cast<size_t>(n) * L;
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    float* srow = ss + r * SLD;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int c = lane; c < L; c += 32) {
+      const float s = __fadd_rn(__fmul_rn(srow[c], scale), brow[c]);
+      srow[c] = s;
+      mx = fmaxf(mx, s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+    for (int c = lane; c < L; c += 32) {
+      const float e = expf(srow[c] - mx);
+      srow[c] = e;
+      sum += e;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    __nv_bfloat16* prow = ps + r * PLD;
+    for (int c = lane; c < lk; c += 32)
+      prow[c] = __float2bfloat16(c < L ? srow[c] / sum : 0.0f);
+  }
+
+  // ---- O = P v ----
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(o[j], 0.0f);
+  for (int kb = 0; kb < lk; kb += BKV) {
+    __syncthreads();
+    load_tile(v, kvs, n, h, kb, L, H);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BKV; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, ps + warp * 16 * PLD + kb + kk, PLD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, kvs + kk * QLD + j * 16, QLD);
+        wmma::mma_sync(o[j], a, b, o[j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wmma::store_matrix_sync(os + warp * 16 * OLD + j * 16, o[j], OLD,
+                            wmma::mem_row_major);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
+    const int row = i / D, col = i % D;
+    const int l = q0 + row;
+    if (l < L)
+      out[(static_cast<size_t>(n) * L + l) * H + h * D + col] =
+          __float2bfloat16(os[row * OLD + col]);
+  }
+}
+
+}  // namespace
+
+// q / k / v / out (N, L, H) bf16, bias (N, L) f32; H = n_heads * 64,
+// L <= 512. Returns cudaGetLastError().
+extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
+                           const void* bias, void* out, int N, int L, int H,
+                           int n_heads, void* stream) {
+  if (L < 1 || L > MAX_L || H != n_heads * D) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(round64(L));
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + BQ - 1) / BQ, n_heads, N);
+  mha_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), L, H);
+  return static_cast<int>(cudaGetLastError());
+}

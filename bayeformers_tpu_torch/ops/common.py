@@ -1,0 +1,152 @@
+"""Shared tiling constants and the absolute-unit eps stream.
+
+Counterpart of ``bayeformers_tpu/ops/common.py`` (``unit_eps``,
+``box_muller_pair``, ``uniform_from_bits``). The invariant is the same: the
+standard normal for weight element (k, n) of draw s is a pure function of
+
+    (seed[s], k_chunk = k // UNIT_K, col_strip = n // UNIT_N,
+     k % UNIT_K, n % UNIT_N)
+
+so any kernel, with any tiling, can rebuild any (UNIT_K, UNIT_N) unit, and a
+sub-block drawn at a unit-aligned offset equals that slice of the full draw.
+
+The bits come from Philox4x32-10 (Salmon et al., SC'11), keyed by
+``(seed, unit_id)`` with ``unit_id = k_chunk * 2**16 + col_strip``. Inside a
+unit, rows ``r`` and ``r + UNIT_K/2`` share one Box-Muller pair (cos branch
+and sin branch), and columns ``c`` and ``c + 1`` (c even) share one Philox
+call: counter ``((r * UNIT_N + c) >> 1, 0, 0, 0)``; column c takes output
+words 0 and 1, column c + 1 words 2 and 3. Uniforms take the top 24 bits
+plus half an ulp, so ``log(u1)`` is finite.
+
+``csrc/eps.cuh`` is the device implementation of the same function; the
+plain version here does the 32-bit arithmetic in int64 masked to 32 bits
+(the 32x32->64 multiply is split into 16-bit halves so int64 never
+overflows). The bits of the two are equal; the normals agree to a few ulps
+(``log``/``sin``/``cos`` differ between math libraries). This stream does
+not reproduce the JAX package's TPU or CPU bits, and need not: parity tests
+feed both packages the same eps.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+UNIT_K = 256
+UNIT_N = 128
+UNIT_STRIDE = 1 << 16  # unit id = k_chunk * stride + col_strip
+TWO_PI = 2.0 * math.pi
+
+_MASK32 = 0xFFFFFFFF
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _mulhilo(m: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of the constant ``m`` times uint32 words ``b``
+    (held in int64), without overflowing int64."""
+    p_lo = m * (b & 0xFFFF)   # < 2**48
+    p_hi = m * (b >> 16)      # < 2**48
+    lo = (p_lo + ((p_hi & 0xFFFF) << 16)) & _MASK32
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi & _MASK32, lo
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 words (broadcasting)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64) -> float32 uniform in (0, 1]: top 24 bits scaled,
+    offset by half an ulp off 0 (so ``log(u)`` is finite)."""
+    u24 = (bits >> 8).to(torch.float32)
+    return u24 * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def box_muller_pair(u1: torch.Tensor, u2: torch.Tensor):
+    """Both Box-Muller outputs (cos and sin branch) in float32."""
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = torch.tensor(TWO_PI, dtype=torch.float32, device=u2.device) * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def philox_bits(seeds: torch.Tensor, k_idx: torch.Tensor, n_idx: torch.Tensor):
+    """(bits1, bits2, is_sin) of the unit stream at absolute element
+    coordinates: ``seeds`` (S,), ``k_idx`` (K,), ``n_idx`` (N,) int64 ->
+    (S, K, N) int64 words and a (K, 1) bool row mask of the sin branch."""
+    s = (seeds.to(torch.int64) & _MASK32)[:, None, None]
+    k = k_idx[:, None]
+    n = n_idx[None, :]
+    unit = ((k // UNIT_K) * UNIT_STRIDE + n // UNIT_N) & _MASK32
+    half = UNIT_K // 2
+    r = (k % UNIT_K) % half
+    pos = r * UNIT_N + n % UNIT_N
+    ctr = (pos >> 1)[None]
+    zero = torch.zeros_like(ctr)
+    x0, x1, x2, x3 = philox4x32(ctr, zero, zero, zero, s, unit[None])
+    odd = ((n % 2) == 1)[None]
+    bits1 = torch.where(odd, x2, x0)
+    bits2 = torch.where(odd, x3, x1)
+    return bits1, bits2, (k % UNIT_K) >= half
+
+
+def unit_eps(seeds: torch.Tensor, shape: tuple[int, int],
+             offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """(S, K, N) float32 standard normals of the unit stream for a weight
+    block whose [0, 0] corner sits at absolute element ``offsets`` (k0, n0).
+
+    Runs on ``seeds.device``; the bits are equal to ``csrc/eps.cuh``'s.
+    """
+    K, N = shape
+    dev = seeds.device
+    k_idx = torch.arange(K, dtype=torch.int64, device=dev) + int(offsets[0])
+    n_idx = torch.arange(N, dtype=torch.int64, device=dev) + int(offsets[1])
+    bits1, bits2, is_sin = philox_bits(seeds, k_idx, n_idx)
+    z_cos, z_sin = box_muller_pair(uniform_from_bits(bits1),
+                                   uniform_from_bits(bits2))
+    return torch.where(is_sin[None], z_sin, z_cos)
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel, in all and per shape.
+
+    The wrapper adds one where it launches the kernel and nowhere else, so
+    a run can show that its main path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.by_shape: dict[tuple, int] = {}
+
+    def add(self, shape: tuple) -> None:
+        self.count += 1
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+
+    def reset(self) -> None:
+        self.count = 0
+        self.by_shape = {}
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond`` holds (kernel input checks)."""
+    if not cond:
+        raise ValueError(msg)

@@ -13,10 +13,30 @@ import torch
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
+class _Softplus(torch.autograd.Function):
+    """The softplus below with its exact derivative ``sigmoid(rho)``: torch's
+    derivatives of ``clamp_min`` and ``abs`` at 0 would give 1 at
+    ``rho = 0``, where MOPED puts every zero weight (zero biases above all),
+    instead of ``sigmoid(0) = 1/2``."""
+
+    @staticmethod
+    def forward(ctx, rho):
+        ctx.save_for_backward(rho)
+        return sigma_from_rho(rho)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rho,) = ctx.saved_tensors
+        return g * torch.sigmoid(rho)
+
+
 def sigma_from_rho(rho: torch.Tensor) -> torch.Tensor:
     """``sigma = softplus(rho)`` in the ``logaddexp(rho, 0)`` form
     ``max(rho, 0) + log1p(exp(-|rho|))`` that ``jax.nn.softplus`` uses; the
-    bayes_linear kernel evaluates the same expression."""
+    bayes_linear kernel evaluates the same expression. Differentiable, with
+    derivative ``sigmoid(rho)``."""
+    if torch.is_grad_enabled() and rho.requires_grad:
+        return _Softplus.apply(rho)
     return torch.clamp_min(rho, 0.0) + torch.log1p(torch.exp(-torch.abs(rho)))
 
 

@@ -68,13 +68,45 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
+class _Lookup(torch.autograd.Function):
+    """Table rows by id, with a backward that sums each row's gradients in
+    a fixed order: ids sorted stably, gradients prefix-summed in float64
+    and differenced at the ends of the runs of equal ids. PyTorch's own
+    embedding backward on the card adds heavily repeated ids (token types,
+    padding) in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sorted_ids = flat[order]
+        # (features, tokens): the scan runs along the innermost dimension,
+        # which the card's scan kernels do ~10x faster than the outer one
+        gt = g.reshape(-1, g.shape[-1])[order].double().t().contiguous()
+        csum = torch.cumsum(gt, dim=1)
+        run_end = torch.ones_like(sorted_ids, dtype=torch.bool)
+        run_end[:-1] = sorted_ids[1:] != sorted_ids[:-1]
+        ends = csum[:, run_end]
+        sums = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
+        out = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        out[sorted_ids[run_end]] = sums.t().to(g.dtype)
+        return out, None
+
+
 class Embed(nn.Module):
     def __init__(self, n: int, d: int, *, device=None):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(n, d, device=device))
 
     def forward(self, ids):
-        return self.embedding[ids]
+        return _Lookup.apply(self.embedding, ids)
 
 
 class BertEmbeddings(nn.Module):

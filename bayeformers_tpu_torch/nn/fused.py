@@ -14,6 +14,13 @@ Per-leaf seeds come from the request's integer seed through
 :func:`derive_seed` (a splitmix64 chain), so identical (inputs, seed) give
 identical draws. Log-probs are collected once per converted leaf and summed
 model-wide.
+
+The forward is differentiable: with ``save_weights=True`` (the default, as
+in the reference) each Bayesian linear op keeps its W pair for the
+backward of ``ops/fused_linear.py::BayesLinearAnti``, attention runs its
+own backward, and the sampled biases and their log-probs differentiate
+through plain autograd. Serving calls it with ``save_weights=False`` inside
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -148,13 +155,11 @@ class FusedMC:
 
     def _route_matmul(self, kpath, mu, rho, xs):
         seeds = self.seeds[self.path_index[kpath]]
+        eps = None
         if self.eps_hook is not None:
             eps = self.eps_hook(kpath, self.n_draws, tuple(mu.shape))
-            y, lq, lp = ops_fused.bayes_linear_plain(xs, mu, rho, eps=eps)
-        elif self.plain:
-            y, lq, lp = ops_fused.bayes_linear_plain(xs, mu, rho, seeds)
-        else:
-            y, lq, lp = ops_fused.bayes_linear(xs, mu, rho, seeds)[:3]
+        y, lq, lp = ops_fused.bayes_linear(xs, mu, rho, seeds, plain=self.plain,
+                                           eps=eps)
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
@@ -197,9 +202,7 @@ class FusedMC:
         q = self.dense(mod.query, hidden)
         k = self.dense(mod.key, hidden)
         v = self.dense(mod.value, hidden)
-        if self.plain:
-            return ops_attention.mha_plain(q, k, v, bias, mod.n_heads)
-        return ops_attention.mha(q, k, v, bias, mod.n_heads)
+        return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
 
     def aux(self) -> dict[str, torch.Tensor]:
         if not self.collected:
@@ -212,18 +215,22 @@ class FusedMC:
         }
 
 
-@torch.no_grad()
 def fused_mc_apply(bmodel, seed: int, n_samples: int, input_ids,
                    attention_mask=None, token_type_ids=None, *,
-                   save_weights: bool = False, antithetic: bool = True,
+                   save_weights: bool = True, antithetic: bool = True,
                    impl: str = "kernel", eps_hook=None):
     """S-sample fused forward of a converted model. Returns ``(outputs,
     aux)``: outputs (S, B, ...) and aux ``log_prior`` /
-    ``log_variational_posterior`` of shape (S,)."""
-    if save_weights:
+    ``log_variational_posterior`` of shape (S,). ``save_weights=False``
+    writes no W residuals; a backward through such a forward (it would
+    regenerate W) comes with a later slice and raises here."""
+    if not save_weights and torch.is_grad_enabled() and any(
+            r.requires_grad for r in bmodel.rho.values()):
         raise NotImplementedError(
-            "fused_mc_apply: W residuals (save_weights=True) serve the "
-            "backward pass, which comes with the training slice"
+            "fused_mc_apply(save_weights=False) under autograd: the backward "
+            "that regenerates W instead of reading the residual comes with a "
+            "later slice; pass save_weights=True or run under "
+            "torch.inference_mode()"
         )
     mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic, impl=impl,
                  eps_hook=eps_hook)

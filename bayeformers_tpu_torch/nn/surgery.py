@@ -5,8 +5,11 @@ Counterpart of ``bayeformers_tpu/nn/surgery.py``. Every ``Dense``
 (``DEFAULT_RULES``, the reference's ``{nn.Linear: Linear}`` scope) becomes
 a variational pair: ``mu`` is the module's own parameter, ``rho``
 lives in :attr:`BayesianModel.rho` under the leaf's Flax path. This slice
-ports the MOPED recipe of the serving path: ``delta`` set and
-``freeze=True``, so the prior is centred on the frozen ``mu``.
+ports the MOPED recipe of the GLUE path: ``delta`` set and ``freeze=True``,
+so the prior is centred on the frozen ``mu``. What trains then is every
+``rho`` and every unconverted parameter (embeddings, LayerNorm scale and
+bias): :meth:`BayesianModel.trainable_mask` and
+:meth:`BayesianModel.trainable_parameters`.
 """
 from __future__ import annotations
 
@@ -73,13 +76,14 @@ class BayesianModel:
 
     def mc_apply_fused(self, seed: int, n_samples: int, input_ids,
                        attention_mask=None, token_type_ids=None, *,
-                       save_weights: bool = False, antithetic: bool = True,
+                       save_weights: bool = True, antithetic: bool = True,
                        impl: str = "kernel", eps_hook=None):
         """S Monte-Carlo forwards as one S-major super-batch through the
         fused tier. Returns ``(logits (S, B, ...), aux)`` with aux's
         ``log_prior`` / ``log_variational_posterior`` of shape (S,).
-        ``save_weights=True`` (the W residual of training) and
-        ``antithetic=False`` come with later slices and raise.
+        Differentiable: ``save_weights=True`` keeps each layer's W pair for
+        the backward (``save_weights=False``, for inference, writes none).
+        ``antithetic=False`` comes with a later slice and raises.
 
         ``seed`` is the request's integer key; per-leaf draws derive from it
         (:func:`nn.fused.derive_seed`). ``impl="plain"`` runs every op's
@@ -93,6 +97,41 @@ class BayesianModel:
             save_weights=save_weights, antithetic=antithetic, impl=impl,
             eps_hook=eps_hook,
         )
+
+    # -- trainability -------------------------------------------------------
+    def trainable_mask(self) -> dict[str, dict[str, bool]]:
+        """``{"params": {path: bool}, "rho": {path: bool}}``, False = do not
+        train (the reference's ``trainable_mask``): with ``freeze`` the
+        converted mu leaves are frozen; every rho and every unconverted
+        parameter trains. The port has no ``prior_mu`` leaf: the frozen
+        recipe's prior is centred on mu itself."""
+        frozen = set(self.spec.paths) if self.spec.frozen else set()
+        params = {name.replace(".", SEP): name.replace(".", SEP) not in frozen
+                  for name, _ in self.model.named_parameters()}
+        return {"params": params, "rho": {p: True for p in self.rho}}
+
+    def trainable_parameters(self, no_decay: Optional[Callable[[str], bool]] = None
+                             ) -> list[tuple[str, torch.Tensor, bool]]:
+        """``(name, tensor, decays)`` of every trainable tensor, named
+        ``params/<path>`` or ``rho/<path>``, after setting ``requires_grad``
+        from :meth:`trainable_mask` (frozen tensors lose it). ``decays`` is
+        False for rho (sigma never decays) and where ``no_decay(path)``
+        (default ``training.default_no_decay``: biases and normalisation)."""
+        if no_decay is None:
+            from bayeformers_tpu_torch.training import default_no_decay
+
+            no_decay = default_no_decay
+        mask = self.trainable_mask()
+        out = []
+        for path, trainable in mask["params"].items():
+            t = leaf(self.model, path)
+            t.requires_grad_(trainable)
+            if trainable:
+                out.append((f"params{SEP}{path}", t, not no_decay(path)))
+        for path, t in self.rho.items():
+            t.requires_grad_(True)
+            out.append((f"rho{SEP}{path}", t, False))
+        return out
 
 
 def to_bayesian(model: nn.Module, *, delta: Optional[float] = 0.05,

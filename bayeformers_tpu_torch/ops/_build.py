@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source for Hopper into a plain shared
+Every source is compiled for Hopper by its own ``nvcc`` process, all
+started together, and one more call links the objects into a plain shared
 library with a C interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libbft_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libbft_<hash>.so _build/*.o
 
 The library's name carries a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads what is there. The build runs at
@@ -14,6 +17,7 @@ a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -27,10 +31,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +44,8 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 5 + [_F] * 3 + [_P]
     ),
     "bft_mha_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "bft_mha_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    "bft_reduce_abuv_anti": [_P] * 8 + [_I] * 6 + [_P],
     "bft_unit_eps": [_P] + [_I] * 5 + [_P] * 3,
 }
 
@@ -77,35 +81,41 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libbft_<hash>.so`` unless that
-    file exists; returns its path. The compiler's ``-Xptxas -v`` report
-    (registers, shared memory, spills of every kernel) goes to
-    ``_build/nvcc.log``."""
+    file exists; returns its path. The sources compile in parallel, one
+    ``nvcc`` each; the compiler's ``-Xptxas -v`` report (registers, shared
+    memory, spills of every kernel) goes to ``_build/nvcc.log``."""
     global last_build_seconds
     out = BUILD_DIR / f"libbft_{source_hash()}.so"
     if out.exists():
         last_build_seconds = 0.0
         return out
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v"]
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd += ["-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            procs = list(pool.map(_run, cmds))
+        so_tmp = Path(tmp) / out.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(so_tmp), *map(str, objs)]
+        if all(p.returncode == 0 for p in procs):
+            procs.append(_run(link))
+            cmds.append(link)
+        log = "".join(f"$ {' '.join(c)}\n{p.stdout}{p.stderr}"
+                      for c, p in zip(cmds, procs))
+        (BUILD_DIR / "nvcc.log").write_text(log)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(so_tmp, out)
     last_build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
     return out
 
 

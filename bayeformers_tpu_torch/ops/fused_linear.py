@@ -13,8 +13,17 @@ Counterpart of ``bayeformers_tpu/ops/fused_linear.py::bayes_linear``
 
 :func:`bayes_linear` is the wrapper: a CPU tensor takes the plain version
 :func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernel
-(``csrc/bayes_linear.cu``) or raises. Other priors and the independent-draw
-estimator come with the next slices and raise ``NotImplementedError``.
+(``csrc/bayes_linear.cu``) or raises. Under autograd it runs
+:class:`BayesLinearAnti`, the saved-residual custom VJP of the reference
+(``_fwd_saved_anti`` / ``_bwd_common_anti``): the forward also writes the
+W pair in x's dtype, and the backward computes
+
+    dx         = g_y @ W^T               (a batched matmul, as XLA's einsum)
+    (A, B, V)  = reduce_abuv_anti(x, g_y, W, mu, g_p)     (ops/fused_backward)
+    dmu, drho  = finalize(A, B, V, rho, g_q)
+
+Other priors and the independent-draw estimator come with the next slices
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 from bayeformers_tpu_torch.core.distributions import LOG_SQRT_2PI, sigma_from_rho
 from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
 from bayeformers_tpu_torch.ops import _build, common
+from bayeformers_tpu_torch.ops import fused_backward as bwd
 
 LAUNCHES = common.LaunchCounter("bayes_linear_anti")
 _BN = 64  # the kernel's column tile (csrc/bayes_linear.cu::BN)
@@ -90,18 +100,60 @@ def _check_estimator(prior_on_mu: bool, antithetic: bool) -> None:
         )
 
 
+def _forward(x, mu, rho, seeds_half, eps, plain: bool, save_w: bool):
+    if plain or x.device.type == "cpu":
+        return bayes_linear_plain(x, mu, rho, seeds_half, eps=eps,
+                                  save_weights=save_w)
+    common.require(eps is None, "an injected eps runs the plain version only")
+    return bayes_linear_cuda(x, mu, rho, seeds_half, save_weights=save_w)
+
+
+class BayesLinearAnti(torch.autograd.Function):
+    """``(y, log_q, log_p)`` with the saved-residual backward: the forward
+    keeps ``(x, mu, rho, W)``; ``plain`` runs the plain versions of both
+    passes on the tensors' device (the reference for the kernels)."""
+
+    @staticmethod
+    def forward(ctx, x, mu, rho, seeds_half, eps, plain):
+        y, lq, lp, w = _forward(x, mu, rho, seeds_half, eps, plain, save_w=True)
+        ctx.save_for_backward(x, mu, rho, w)
+        ctx.plain = plain
+        return y, lq, lp
+
+    @staticmethod
+    def backward(ctx, g_y, g_q, g_p):
+        x, mu, rho, w = ctx.saved_tensors
+        dx = dmu = drho = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(g_y.to(w.dtype), w.transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            reduce = bwd.reduce_abuv_anti_plain if ctx.plain else bwd.reduce_abuv_anti
+            a, b, v = reduce(x, g_y.to(x.dtype).contiguous(), w, mu, g_p)
+            dmu, drho = bwd.finalize(a, b, v, rho, g_q)
+        return (dx, dmu if ctx.needs_input_grad[1] else None,
+                drho if ctx.needs_input_grad[2] else None, None, None, None)
+
+
 def bayes_linear(x, mu, rho, seeds_half, *, prior_on_mu: bool = True,
-                 antithetic: bool = True, save_weights: bool = False):
+                 antithetic: bool = True, save_weights: bool = False,
+                 plain: bool = False, eps=None):
     """``(y, log_q, log_p)`` for x (S, M, K), mu/rho (K, N), seeds_half (S/2,).
 
-    ``save_weights=True`` also returns the sampled pair W (S, K, N) in x's
-    dtype (inference needs no residual; checks of the draw use it). A CPU
-    tensor runs the plain version; a CUDA tensor the kernel."""
+    Differentiable: when grad mode is on and x, mu or rho requires grad,
+    :class:`BayesLinearAnti` runs and keeps the W pair for its backward;
+    otherwise (inference) no W is written. ``save_weights=True`` returns
+    that W pair (S, K, N) in x's dtype as a fourth output, without
+    gradients (checks of the draw use it). A CPU tensor, or ``plain=True``,
+    runs the plain versions; a CUDA tensor the kernels. ``eps`` (S/2, K, N)
+    injects the draw into the plain version (tests)."""
     _check_estimator(prior_on_mu, antithetic)
-    if x.device.type == "cpu":
-        return bayes_linear_plain(x, mu, rho, seeds_half,
-                                  save_weights=save_weights)
-    return bayes_linear_cuda(x, mu, rho, seeds_half, save_weights=save_weights)
+    if save_weights:
+        with torch.no_grad():
+            return _forward(x, mu, rho, seeds_half, eps, plain, save_w=True)
+    if torch.is_grad_enabled() and (x.requires_grad or mu.requires_grad
+                                    or rho.requires_grad):
+        return BayesLinearAnti.apply(x, mu, rho, seeds_half, eps, plain)
+    return _forward(x, mu, rho, seeds_half, eps, plain, save_w=False)
 
 
 def bayes_linear_cuda(x, mu, rho, seeds_half, *, save_weights: bool = False):

@@ -113,12 +113,13 @@ class Predictor:
             out[:n, :L] = v
             padded[k] = torch.from_numpy(out).to(dev)
         key = derive_seed(seed, nb * 100003 + lb)
-        logits, _ = self.bmodel.mc_apply_fused(
-            key, self.n_samples, padded["input_ids"],
-            padded["attention_mask"], padded.get("token_type_ids"),
-            save_weights=False, antithetic=True,
-        )
-        return {k: v[:n].cpu().numpy() for k, v in summarize(logits).items()}
+        with torch.inference_mode():
+            logits, _ = self.bmodel.mc_apply_fused(
+                key, self.n_samples, padded["input_ids"],
+                padded["attention_mask"], padded.get("token_type_ids"),
+                save_weights=False, antithetic=True,
+            )
+            return {k: v[:n].cpu().numpy() for k, v in summarize(logits).items()}
 
     def predict_featurized(self, batch: dict, seed: int = 0) -> dict[str, np.ndarray]:
         """Serve a batch a featurizer padded to its own maximum length: the

@@ -21,7 +21,20 @@ Phases, each timed, each raising on failure:
    around exactly those requests), determinism per seed, and the logits
    against the plain path on the card;
 7. timings of each kernel, its plain version and one PyTorch library call
-   at each shape, and the request latency.
+   at each shape, and the request latency;
+8. ``reduce_abuv_anti`` (the backward's dmu/drho reduce) against its plain
+   version at every shape of the training path and one odd shape, on a W
+   pair from the forward kernel, with bit-identical reruns;
+9. ``mha_bwd`` against its plain version at the training shape (padded
+   keys, one fully masked row) and at L = 512, with bit-identical reruns;
+10. the ELBO step: BERT-base from a seed, MOPED-converted, through
+    ``make_elbo_train_step`` at S=10, B=8, L=128, bf16: finite loss and
+    log-probs, the ELBO falling over steps on one batch and draw, the
+    gradients through the kernels against the ``impl="plain"`` step on the
+    card, bit-identical reruns, launch counts read around exactly the timed
+    steps, and the median step time;
+11. the workload: ``workloads/bert_glue.train`` phases A-D at BERT-base on
+    the synthetic data, three batches an epoch.
 
 The line before the last is a JSON object with one entry per kernel and
 shape; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -32,6 +45,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -302,6 +316,256 @@ def phase_serving(bt, fl, at) -> tuple[dict, float]:
         f"{[round(v, 3) for v in lat]}")
     return launches, latency
 
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b| (f32 sums of the same products in another
+    order are judged against the scale of the result)."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+TRAIN_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
+                (8, 768, 768), (8, 768, 2))
+
+
+def phase_reduce(fl, fb, moped_rho) -> list[dict]:
+    """Kernel #6 against its plain version on the W pair of the forward
+    kernel; returns the timing rows of the training shapes."""
+    S = 10
+    rows = []
+    for M, K, N in TRAIN_SHAPES + ((100, 300, 130),):
+        x, mu, rho, sh = bayes_linear_inputs(S, M, K, N, moped_rho)
+        w = fl.bayes_linear(x, mu, rho, sh, save_weights=True)[3]
+        gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+        g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(torch.bfloat16)
+        g_p = torch.randn(S, device="cuda", generator=gen)
+        out = fb.reduce_abuv_anti(x, g, w, mu, g_p)
+        again = fb.reduce_abuv_anti(x, g, w, mu, g_p)
+        torch.cuda.synchronize()
+        ref = fb.reduce_abuv_anti_plain(x, g, w, mu, g_p)
+        errs = [rel_err(a, r) for a, r in zip(out, ref)]
+        check(max(errs) <= 1e-4, f"reduce_abuv_anti differs at {(M, K, N)}: "
+              f"A/B/V rel err {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"reduce_abuv_anti reruns differ at {(M, K, N)}")
+        summary = "A/B/V rel err " + "/".join(f"{e:.3g}" for e in errs)
+        if (M, K, N) not in TRAIN_SHAPES:
+            say(f"reduce_abuv_anti odd shape M={M} K={K} N={N}: {summary}, reruns equal")
+            continue
+        ms = time_ms(lambda: fb.reduce_abuv_anti(x, g, w, mu, g_p), 20)
+        plain_ms = time_ms(lambda: fb.reduce_abuv_anti_plain(x, g, w, mu, g_p), 3, 1)
+        xt = x.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.bmm(xt, g), 20)
+        n_bytes = (S * M * (K + N) * 2 + S // 2 * K * N * 2 + K * N * 4 + S * 4
+                   + 3 * K * N * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * S * M * K * N)
+        say(f"reduce_abuv_anti M={M} K={K} N={N}: {summary}, reruns equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm x^T g "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(
+            name=f"reduce_abuv_anti[M={M},K={K},N={N}]", shape=(M, K, N),
+            route="cuda", source="bayeformers_tpu_torch/csrc/fused_backward.cu",
+            replaces="bayeformers_tpu/ops/fused_backward.py:202",
+            max_abs_err=max((a - r).abs().max().item() for a, r in zip(out, ref)),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+        ))
+    return rows
+
+
+def mha_bwd_inputs(at, N, L, H, seed):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(N, L, H, device=dev, generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    mask = torch.ones(N, L, device=dev)
+    mask[: N // 2, L - L // 3:] = 0  # padded keys in half the rows
+    mask[N - 1] = 0                  # one fully masked row
+    return q, k, v, at.mask_to_bias(mask), g
+
+
+def phase_mha_bwd(at) -> dict:
+    """Kernel #5 against its plain version; returns the timing row of the
+    training shape."""
+    nh = 12
+    row = None
+    for N, L, H in ((80, 128, 768), (8, 512, 768)):
+        q, k, v, bias, g = mha_bwd_inputs(at, N, L, H, L)
+        out = at.mha_bwd_cuda(q, k, v, bias, g, nh)
+        again = at.mha_bwd_cuda(q, k, v, bias, g, nh)
+        torch.cuda.synchronize()
+        ref = at.mha_bwd_plain(q, k, v, bias, g, nh)
+        errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)]
+        for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+            check(bool(torch.isfinite(a.float()).all()), f"mha_bwd {name} not finite")
+            # bf16 outputs: 2e-2 absolute as the forward, plus 2e-2 relative
+            # where gradients reach |x| ~ 10 and one bf16 step is 0.06
+            check(torch.allclose(a.float(), r.float(), rtol=2e-2, atol=2e-2),
+                  f"mha_bwd {name} differs at {(N, L, H)}: max {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"mha_bwd reruns differ at {(N, L, H)}")
+        summary = "dq/dk/dv max|d| " + "/".join(f"{e:.3g}" for e in errs)
+        if L != 128:
+            say(f"mha_bwd N={N} L={L} H={H}: {summary}, reruns equal")
+            continue
+        ms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh), 20)
+        plain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh), 3, 1)
+        d = H // nh
+        heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
+                 for t in (q, k, v)]
+        sdpa_mask = bias.clamp_min(torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=sdpa_mask[:, None, None, :])
+        go = g.view(N, L, nh, d).transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 20)
+        b_ms, b_by = bound(7 * N * L * H * 2 + N * L * 4, 10.0 * N * L * L * H)
+        say(f"mha_bwd N={N} L={L} H={H}: {summary}, reruns equal; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        row = dict(name=f"mha_bwd[N={N},L={L},H={H}]", shape=(N, L, H), route="cuda",
+                   source="bayeformers_tpu_torch/csrc/mha_bwd.cu",
+                   replaces="bayeformers_tpu/ops/attention.py:181",
+                   max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+    return row
+
+
+def train_batch(bt, B=8, L=128, seed=7):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, bt.BERT_BASE_KWARGS["vocab_size"], (B, L))
+    mask = np.ones((B, L), np.int64)
+    mask[B // 2:, L - 30:] = 0
+    return {k: torch.from_numpy(v).cuda() for k, v in (
+        ("input_ids", ids), ("attention_mask", mask),
+        ("token_type_ids", np.zeros((B, L), np.int64)),
+        ("labels", rng.integers(0, 2, (B,))))}
+
+
+def grads_of(bt, bmodel, named, seed, batch, impl):
+    """Loss and gradients of one ELBO objective (S=10) at the given draw."""
+    for _, t, _ in named:
+        t.grad = None
+    loss, m = bt.training.elbo_objective(
+        bt.training.pick_mc(bmodel), seed, 10, batch, 256, impl=impl)
+    loss.backward()
+    return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
+
+
+def converted_base(bt, dtype):
+    """BERT-base from seed 0, MOPED-converted (delta 0.05, frozen), and its
+    trainable tensors."""
+    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
+    return bmodel, bmodel.trainable_parameters()
+
+
+def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
+    """(largest relative L2 error, smallest cosine, the leaf of the first)
+    of gradients ``a`` against ``b`` over ``names``."""
+    worst = (0.0, 1.0, "")
+    for n in names:
+        x, y = a[n].double().flatten(), b[n].double().flatten()
+        rel = ((x - y).norm() / y.norm().clamp_min(1e-300)).item()
+        cos = (x @ y / (x.norm() * y.norm()).clamp_min(1e-300)).item()
+        worst = (max(worst[0], rel), min(worst[1], cos), n if rel > worst[0] else worst[2])
+    return worst
+
+
+def phase_train(bt, fl, at, fb) -> tuple[dict, float]:
+    """The ELBO step at the recipe: returns the launch counts by kernel and
+    shape over the timed steps and the median step time (ms)."""
+    S, n_batches = 10, 256
+    batch = train_batch(bt)
+    # the same step in f32 activations through the plain versions: the
+    # yardstick for gradients that bf16 activations blur on either path
+    bmodel32, named32 = converted_base(bt, torch.float32)
+    _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain")
+    del bmodel32, named32
+    torch.cuda.empty_cache()
+
+    bmodel, named = converted_base(bt, torch.bfloat16)
+    # the step through the kernels against the plain step, same draw
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel")
+    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel")
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain")
+    check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
+          "the same seed gave another loss or gradient through the kernels")
+    for key in ("loss", "log_prior", "log_variational_posterior", "nll"):
+        check(bool(torch.isfinite(mk[key])), f"{key} is not finite: {mk[key]}")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_rel <= 1e-2, f"step loss kernels {loss_k.item()} vs plain {loss_p.item()}")
+    say(f"train: loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} (rel "
+        f"{loss_rel:.3g}), nll {mk['nll'].item():.7g} vs {mp['nll'].item():.7g}; "
+        "reruns bit-equal")
+    rho = [n for n in gk if n.startswith("rho/")]
+    rel, cos, at_ = worst_agreement(gk, gp, rho)
+    say(f"train: rho gradients ({len(rho)} leaves), kernels vs plain: worst rel L2 "
+        f"{rel:.4g} ({at_}), worst cosine {cos:.7f}")
+    check(rel <= 5e-2 and cos >= 0.999, "rho gradients through the kernels differ "
+          f"from the plain step: rel L2 {rel}, cosine {cos}")
+    # LayerNorm and embedding gradients come from the task loss alone, which
+    # bf16 activations blur on both paths: the kernels' distance from the
+    # f32 step must stay within 1.5x the bf16 plain step's own
+    for group in ("LayerNorm/scale", "LayerNorm/bias", "embedding"):
+        names = [n for n in gk if n.startswith("params/") and n.endswith(group)]
+        rk, ck, nk = worst_agreement(gk, g32, names)
+        rp, cp, _ = worst_agreement(gp, g32, names)
+        rkp, ckp, _ = worst_agreement(gk, gp, names)
+        say(f"train: {group} gradients ({len(names)} leaves) against the f32 plain "
+            f"step: kernels rel L2 {rk:.4g} ({nk}) cosine {ck:.6f}; bf16 plain "
+            f"rel L2 {rp:.4g} cosine {cp:.6f}; kernels vs bf16 plain rel L2 "
+            f"{rkp:.4g} cosine {ckp:.6f}")
+        check(rk <= 1.5 * rp and 1.0 - ck <= 1.5 * (1.0 - cp),
+              f"{group} gradients through the kernels are further from the f32 "
+              "step than the bf16 plain step's")
+    del gk, gk2, gp, g32
+
+    # the ELBO falls on one batch and one draw
+    tx = bt.training.adamw_with_decay_groups(
+        bt.training.linear_schedule(2e-5, 0.0, 100), 0.0,
+        bt.training.default_no_decay, eps=1e-8, clip_norm=1.0)
+    opt = tx.init(named)
+    step = bt.training.make_elbo_train_step(bmodel, opt, S, n_batches)
+    losses = [step(55, batch)["loss"].item() for _ in range(4)]
+    say(f"train: loss over 4 steps at one batch and draw: {losses}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the ELBO did not fall")
+
+    # timed steps, fresh draws; launches counted around exactly these
+    torch.cuda.synchronize()
+    for counter in (fl.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES, fb.LAUNCHES):
+        counter.reset()
+    times = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(1000 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"step {i} loss {m['loss']}")
+    launches = {"bayes_linear_anti": dict(fl.LAUNCHES.by_shape),
+                "mha_fwd": dict(at.LAUNCHES.by_shape),
+                "mha_bwd": dict(at.BWD_LAUNCHES.by_shape),
+                "reduce_abuv_anti": dict(fb.LAUNCHES.by_shape)}
+    check(all(sum(v.values()) > 0 for v in launches.values()),
+          f"the train steps launched no kernel of some kind: {launches}")
+    step_ms = float(np.median(times))
+    say(f"train: launches over 10 steps: {launches}")
+    say(f"train: ELBO step (S=10, B=8, L=128, bf16) median {step_ms:.3f} ms over 10: "
+        f"{[round(v, 3) for v in times]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del opt, step, named, bmodel
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def phase_workload() -> float:
+    from bayeformers_tpu_torch.workloads import bert_glue
+
+    with tempfile.TemporaryDirectory() as logs:
+        score = bert_glue.train(size="base", limit_batches=3, epochs=1, b_epochs=1,
+                                bf16=True, logs=logs)
+    check(np.isfinite(score), f"bert_glue score {score}")
+    say(f"workload: bert_glue phases A-D, 3 batches an epoch: score {score:.4f}")
+    return score
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -312,6 +576,7 @@ def main() -> int:
     from bayeformers_tpu_torch.core.init import moped_rho
     from bayeformers_tpu_torch.ops import _build, common
     from bayeformers_tpu_torch.ops import attention as at
+    from bayeformers_tpu_torch.ops import fused_backward as fb
     from bayeformers_tpu_torch.ops import fused_linear as fl
 
     smi = subprocess.run(
@@ -342,18 +607,36 @@ def main() -> int:
     launches, latency = phase_serving(bt, fl, at)
     say(f"phase serving: {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    train_rows = phase_reduce(fl, fb, moped_rho)
+    say(f"phase reduce: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    train_rows.append(phase_mha_bwd(at))
+    say(f"phase mha_bwd: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    train_launches, step_ms = phase_train(bt, fl, at, fb)
+    say(f"phase train: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    phase_workload()
+    say(f"phase workload: {time.perf_counter() - t:.2f} s")
+
+    # the serving kernels' launches are the requests', the backward
+    # kernels' the train steps'
     kernels = []
-    for r in rows:
+    for r, counts in [(r, launches) for r in rows] + [(r, train_launches) for r in train_rows]:
         kind = r["name"].split("[")[0]
-        n = launches[kind].get(tuple(r.pop("shape")), 0)
-        check(n > 0, f"{r['name']} was not launched by the requests")
+        n = counts[kind].get(tuple(r.pop("shape")), 0)
+        check(n > 0, f"{r['name']} was not launched on the path it serves")
         kernels.append({"name": r["name"], "route": r["route"], "source": r["source"],
                         "replaces": r["replaces"], "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    say(f"{smi}; request latency 8x128 S=10: {latency:.3f} ms; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+    say(f"{smi}; request latency 8x128 S=10: {latency:.3f} ms; ELBO step S=10 "
+        f"B=8 L=128: {step_ms:.3f} ms; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

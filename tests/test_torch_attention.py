@@ -1,5 +1,7 @@
-"""The port's flat-layout attention (plain version) against the JAX
-package's ``ops/attention.py::_mha_xla``, including all-masked rows."""
+"""The port's flat-layout attention (plain versions) against the JAX
+package: the forward against ``ops/attention.py::_mha_xla`` and the backward
+against ``jax.vjp`` of ``ops/attention.py::mha``, including all-masked rows."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,3 +61,51 @@ def test_kernel_wrapper_checks_inputs():
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         at.mha_cuda(bf(q), bf(k), bf(v), bias, 2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_mha_bwd_plain_matches_jax_vjp(dtype, tol):
+    q, k, v, mask = _inputs(seed=3)
+    g = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    bias = np.asarray(jat.mask_to_bias(jnp.asarray(mask)))
+    _, vjp = jax.vjp(lambda a, b, c: jat.mha(a, b, c, jnp.asarray(bias), 2),
+                     *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g, jdt))
+    t = lambda a: torch.from_numpy(a).to(dtype)
+    got = at.mha_bwd_plain(t(q), t(k), t(v), torch.from_numpy(bias), t(g), 2)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        b = np.asarray(b, np.float32)
+        # f32: the same arithmetic in another summation order; bf16: one
+        # bf16 rounding of P and dS (and of the outputs) on either side
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=tol,
+                                   atol=tol * np.abs(b).max(), err_msg=name)
+        # the fully masked row 2 (uniform P) included, and finite
+        assert np.isfinite(a.float().numpy()).all()
+
+
+def test_function_backward_is_the_plain_backward():
+    q, k, v, mask = _inputs(seed=5)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(q.shape).astype(np.float32))
+    bias = at.mask_to_bias(torch.from_numpy(mask))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = at.BWD_LAUNCHES.count
+    at.mha(qt, kt, vt, bias, 2).backward(g)
+    want = at.mha_bwd_plain(*(torch.from_numpy(a) for a in (q, k, v)), bias, g, 2)
+    for got, ref in zip((qt.grad, kt.grad, vt.grad), want):
+        assert torch.equal(got, ref)
+    assert at.BWD_LAUNCHES.count == before
+    # and against autograd through the plain forward (f32)
+    qa, ka, va = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    at.mha_plain(qa, ka, va, bias, 2).backward(g)
+    for got, ref in zip((qt.grad, kt.grad, vt.grad), (qa.grad, ka.grad, va.grad)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_bwd_kernel_wrapper_takes_no_cpu_tensor():
+    q, k, v, mask = _inputs()
+    bias = at.mask_to_bias(torch.from_numpy(mask))
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        at.mha_bwd_cuda(bf(q), bf(k), bf(v), bias, bf(q), 2)

@@ -122,8 +122,13 @@ def test_other_recipes_raise():
         bt.to_bayesian(model, delta=0.05, freeze=False)
     bmodel = bt.to_bayesian(model)
     ids = torch.ones((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bmodel.mc_apply_fused(0, 2, ids, save_weights=True)
+    # W residuals now serve the backward; a backward that would regenerate
+    # W instead (save_weights=False under autograd) comes later and raises
+    out, _ = bmodel.mc_apply_fused(0, 2, ids, save_weights=True)
+    assert out.shape == (2, 2, 2)
+    bmodel.trainable_parameters()
+    with pytest.raises(NotImplementedError, match="regenerates W"):
+        bmodel.mc_apply_fused(0, 2, ids, save_weights=False)
     with pytest.raises(NotImplementedError):
         bmodel.mc_apply_fused(0, 2, ids, antithetic=False)
     with pytest.raises(ValueError):

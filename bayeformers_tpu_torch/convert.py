@@ -75,7 +75,8 @@ def from_jax_params(params, rho, prior_mu=None, *, num_attention_heads=None,
             if not np.array_equal(np.asarray(arr), flat[path]):
                 raise NotImplementedError(
                     f"prior_mu at {path} differs from mu: a prior away from a "
-                    "frozen mu comes with the training slice"
+                    "frozen mu comes with the slice that ports a trainable mu "
+                    "and the other priors (ROADMAP queue 1, items 2 and 3)"
                 )
     rho_t = {p: torch.from_numpy(np.array(a, np.float32)).to(dev)
              for p, a in rho_flat.items()}

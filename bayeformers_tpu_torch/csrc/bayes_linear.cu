@@ -1,32 +1,39 @@
-// bayes_linear_anti: the antithetic Bayesian linear forward on Hopper.
+// bayes_linear / bayes_linear_anti: the Bayesian linear forward on Hopper.
 //
-// Replaces bayeformers_tpu/ops/fused_linear.py::_anti_kernel (Kp < 2048) and
-// ::_ktall_anti_kernel (Kp >= 2048, the FFN down-projection). On the TPU the
-// K-tall split exists because a full-K weight strip outgrew VMEM; here a
-// block walks K in a loop, so one kernel takes any K.
+// Replaces bayeformers_tpu/ops/fused_linear.py::_kernel (independent draws,
+// Kp < 2048) and ::_ktall_kernel (Kp >= 2048, the FFN down-projection) with
+// bft_bayes_linear, and ::_anti_kernel / ::_ktall_anti_kernel (antithetic
+// pairs) with bft_bayes_linear_anti. On the TPU the K-tall split exists
+// because a full-K weight strip outgrew VMEM; here a block walks K in a
+// loop, so one kernel takes any K. Both entries are instances of one
+// template: H members per block, 2 for a pair, 1 for an independent sample.
 //
-// For pair t (samples 2t, 2t+1) with eps drawn from seeds_half[t]:
+// Independent sample s, eps drawn from seeds[s]:
+//   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (bf16 in, f32 acc)
+//   log_q[s] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
+//   log_p[s] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (log sqrt(2pi) + log sigma_p)
+// Antithetic pair t (samples 2t, 2t+1), eps drawn from seeds_half[t]:
 //   w0 = mu + softplus(rho) * eps,  w1 = 2 mu - w0
-//   y[2t] = x[2t] @ w0,  y[2t+1] = x[2t+1] @ w1          (bf16 in, f32 acc)
-//   log_q[2t] = log_q[2t+1] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
-//   log_p[2t] = log_p[2t+1] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (...)
-// (the frozen-MOPED prior centred on mu is even in eps, so the pair shares it).
+//   y[2t] = x[2t] @ w0,  y[2t+1] = x[2t+1] @ w1
+//   log_q / log_p as above, shared by the pair (the frozen-MOPED prior
+//   centred on mu is even in eps).
+// Draw t of either kind reads the same unit-stream eps for the same seed.
 //
 // Bound on the H100: the matmul's 2*S*M*K*N flops over the bf16 tensor
 // rate bound it at the serving shapes (x, mu, rho and y move a few times
 // fewer bytes); the eps regeneration adds ALU work (Philox, Box-Muller,
 // softplus) for every row tile. Design: each block of 16 warps owns a
-// (BM=256, BN=64) output tile of BOTH pair members, so one eps draw feeds two
-// products and a draw is regenerated once per 256 rows. It walks K in steps
-// of 32 rows (16 cos-branch rows + the 16 sin-branch rows that share their
-// Box-Muller pairs) through a two-stage shared-memory pipeline: while the
-// tensor cores (WMMA / mma.sync, f32 accumulation) work on one stage, the
-// next x chunk streams into the other by cp.async and each thread's mu/rho
-// loads are in flight; it then regenerates its four elements of the next
-// bf16 W pair. The draw and softplus take 26-30% of the time
-// (kernel_ablation.py); the rest is this mma.sync pipeline, whose phases
-// (all warps MMA, then all warps generate, then a barrier) do not overlap.
-// Blocks of row tile 0 also emit per-(pair, column tile) log-prob partials,
+// (BM=256, BN=64) output tile of its H members, so one eps draw feeds H
+// products and a draw is regenerated once per 256 rows (an independent
+// sample's draw feeds one product, so its Philox work per output is twice
+// a pair's). It walks K in steps of 32 rows (16 cos-branch rows + the 16
+// sin-branch rows that share their Box-Muller pairs) through a two-stage
+// shared-memory pipeline: while the tensor cores (WMMA / mma.sync, f32
+// accumulation) work on one stage, the next x chunk streams into the other
+// by cp.async and each thread's mu/rho loads are in flight; it then
+// regenerates its four elements of the next bf16 W (pair). The phases (all
+// warps MMA, then all warps generate, then a barrier) do not overlap.
+// Blocks of row tile 0 also emit per-(draw, column tile) log-prob partials,
 // which a second one-block kernel sums in a fixed order: no float atomics,
 // so log_q / log_p are bit-reproducible for a seed.
 #include <cuda_bf16.h>
@@ -49,14 +56,18 @@ constexpr int THREADS = 512;       // 16 warps: 8 (rows) x 2 (cols), 32x32 each
 constexpr int XLD = BK + 8;        // bf16 leading dims, padded (16 B multiple)
 constexpr int WLD = BN + 8;
 constexpr int CLD = BN + 4;        // f32 leading dim of the epilogue tile
-constexpr int X_VEC_PER_THREAD = 2 * BM * BK / 8 / THREADS;  // 16-byte copies
-
-// two stages of (x pair, W pair); the epilogue tile reuses the space
-constexpr int XS_STAGE = 2 * BM * XLD;  // bf16 elements
-constexpr int WS_STAGE = 2 * BK * WLD;
-constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * 2;
 constexpr int CS_BYTES = BM * CLD * 4;
-constexpr int SMEM_BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+
+// Shared memory of H members per block: two stages of (x, W) for each
+// member; the epilogue tile reuses the space.
+template <int H>
+struct Smem {
+  static constexpr int X_VEC_PER_THREAD = H * BM * BK / 8 / THREADS;  // 16-byte copies
+  static constexpr int XS_STAGE = H * BM * XLD;  // bf16 elements
+  static constexpr int WS_STAGE = H * BK * WLD;
+  static constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * 2;
+  static constexpr int BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+};
 
 __device__ __forceinline__ float softplus_f(float r) {
   // logaddexp(r, 0), the form jax.nn.softplus and the plain version use
@@ -92,12 +103,13 @@ struct Block {
 };
 
 // Start the asynchronous copy of this thread's 16-byte chunks of the
-// (2 members, BM, BK) x tile of step s into a stage (zero-filled outside the
+// (H members, BM, BK) x tile of step s into a stage (zero-filled outside the
 // matrix); cp_async_wait() completes them. No registers hold the data.
+template <int H>
 __device__ __forceinline__ void load_x_async(const Block& b, int s, __nv_bfloat16* xs) {
   const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
 #pragma unroll
-  for (int i = 0; i < X_VEC_PER_THREAD; ++i) {
+  for (int i = 0; i < Smem<H>::X_VEC_PER_THREAD; ++i) {
     const int q = threadIdx.x + i * THREADS;
     const int chunk = q & 1, seg = (q >> 1) & 1, row = (q >> 2) & (BM - 1);
     const int h = q / (4 * BM);
@@ -119,9 +131,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Element-wise x tile for K % 8 != 0 (no 16-byte loads).
+template <int H>
 __device__ __forceinline__ void load_x_scalar(const Block& b, int s, __nv_bfloat16* xs) {
   const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
-  for (int q = threadIdx.x; q < 2 * BM * BK; q += THREADS) {
+  for (int q = threadIdx.x; q < H * BM * BK; q += THREADS) {
     const int col = q % BK, row = (q / BK) % BM, h = q / (BK * BM);
     const int k = (col < BKH ? kc + col : ks + col - BKH);
     const int m = b.m0 + row;
@@ -150,16 +163,22 @@ __device__ __forceinline__ void load_weights(const Block& b, int s, float (&m)[4
   }
 }
 
+// H members per block: draw t = blockIdx.z (seed seeds[t]) feeds samples
+// H t .. H t + H - 1, member h's weights being w0 (h = 0) or 2 mu - w0.
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
-bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
-                         const float* __restrict__ mu,
-                         const float* __restrict__ rho,
-                         const int32_t* __restrict__ seeds_half,
-                         __nv_bfloat16* __restrict__ y,
-                         __nv_bfloat16* __restrict__ w_out,
-                         float* __restrict__ partials,
-                         float* __restrict__ ls_part, int M, int K, int N,
-                         int x_vec, float inv_sigma_p) {
+bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
+                    const float* __restrict__ mu,
+                    const float* __restrict__ rho,
+                    const int32_t* __restrict__ seeds,
+                    __nv_bfloat16* __restrict__ y,
+                    __nv_bfloat16* __restrict__ w_out,
+                    float* __restrict__ partials,
+                    float* __restrict__ ls_part, int M, int K, int N,
+                    int x_vec, float inv_sigma_p) {
+  static_assert(H == 1 || H == 2, "one sample or one antithetic pair per block");
+  constexpr int XS_STAGE = Smem<H>::XS_STAGE;
+  constexpr int WS_STAGE = Smem<H>::WS_STAGE;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[THREADS / 32];
   __nv_bfloat16* xs_base = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -170,8 +189,8 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
   const int warp = tid >> 5;
   const int warp_m = warp & 7, warp_n = warp >> 3;
   const int tile_n = blockIdx.x, tile_m = blockIdx.y, t = blockIdx.z;
-  const Block b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, 2 * t};
-  const uint32_t seed = static_cast<uint32_t>(seeds_half[t]);
+  const Block b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, H * t};
+  const uint32_t seed = static_cast<uint32_t>(seeds[t]);
   const bool do_lp = (tile_m == 0);
   const uint32_t col_strip = static_cast<uint32_t>(b.n0 / bft::UNIT_N);
   const int c_unit0 = b.n0 % bft::UNIT_N;
@@ -180,9 +199,9 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
   const int full = K / bft::UNIT_K, rem = K - full * bft::UNIT_K;
   const int n_steps = full * 8 + min(8, (rem + BKH - 1) / BKH);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[H][2][2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -191,8 +210,8 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
   float q_acc = 0.0f, p_acc = 0.0f, ls_acc = 0.0f;
   const size_t KN = static_cast<size_t>(K) * N;
 
-  // Regenerate this thread's four elements of the W pair of step s from the
-  // prefetched mu / rho and write them (bf16) into the stage's W tiles.
+  // Regenerate this thread's four elements of the W (pair) of step s from
+  // the prefetched mu / rho and write them (bf16) into the stage's W tiles.
   auto gen = [&](int s, const float (&m)[4], const float (&r)[4], __nv_bfloat16* ws) {
     const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
     float z[4];
@@ -209,7 +228,7 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
         const float sig = softplus_f(r[e]);
         const float se = __fmul_rn(sig, z[e]);
         w0 = __fadd_rn(m[e], se);
-        w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
+        if (H == 2) w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
         if (do_lp) {
           q_acc += -0.5f * z[e] * z[e];
           const float zs = se * inv_sigma_p;
@@ -218,21 +237,22 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
           if (w_out != nullptr) {
             const size_t idx = static_cast<size_t>(krow) * N + n;
             w_out[static_cast<size_t>(b.s0) * KN + idx] = __float2bfloat16(w0);
-            w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = __float2bfloat16(w1);
+            if (H == 2)
+              w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = __float2bfloat16(w1);
           }
         }
       }
       ws[trow * WLD + col] = __float2bfloat16(w0);
-      ws[(BK + trow) * WLD + col] = __float2bfloat16(w1);
+      if (H == 2) ws[(BK + trow) * WLD + col] = __float2bfloat16(w1);
     }
   };
 
   // ---- prologue: stage 0 holds step 0 ----
   float mr[4], rr_[4];
   if (x_vec) {
-    load_x_async(b, 0, xs_base);
+    load_x_async<H>(b, 0, xs_base);
   } else {
-    load_x_scalar(b, 0, xs_base);
+    load_x_scalar<H>(b, 0, xs_base);
   }
   load_weights(b, 0, mr, rr_);
   gen(0, mr, rr_, ws_base);
@@ -245,13 +265,13 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
     const bool more = s + 1 < n_steps;
     if (more) {
       // the next x tile streams into the other stage over the MMAs
-      if (x_vec) load_x_async(b, s + 1, xs_base + nxt * XS_STAGE);
+      if (x_vec) load_x_async<H>(b, s + 1, xs_base + nxt * XS_STAGE);
       load_weights(b, s + 1, mr, rr_);
     }
     const __nv_bfloat16* xs = xs_base + cur * XS_STAGE;
     const __nv_bfloat16* ws = ws_base + cur * WS_STAGE;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
@@ -276,7 +296,7 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
       if (x_vec) {
         cp_async_wait();
       } else {
-        load_x_scalar(b, s + 1, xs_base + nxt * XS_STAGE);
+        load_x_scalar<H>(b, s + 1, xs_base + nxt * XS_STAGE);
       }
     }
     __syncthreads();
@@ -284,7 +304,7 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
 
   // ---- epilogue: f32 tile through shared memory, bf16 out ----
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < H; ++h) {
     if (h) __syncthreads();
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -315,14 +335,15 @@ bayes_linear_anti_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// One thread per pair; every sum runs over the column tiles in order.
-__global__ void anti_logprob_finalize(const float* __restrict__ partials,
-                                      const float* __restrict__ ls_part,
-                                      int n_tiles, int S2, float c_q, float c_p,
-                                      float* __restrict__ logq,
-                                      float* __restrict__ logp) {
+// One thread per draw; every sum runs over the column tiles in order.
+template <int H>
+__global__ void logprob_finalize(const float* __restrict__ partials,
+                                 const float* __restrict__ ls_part,
+                                 int n_tiles, int n_draws, float c_q, float c_p,
+                                 float* __restrict__ logq,
+                                 float* __restrict__ logp) {
   const int t = threadIdx.x;
-  if (t >= S2) return;
+  if (t >= n_draws) return;
   float ls = 0.0f, q = 0.0f, p = 0.0f;
   for (int i = 0; i < n_tiles; ++i) {
     ls += ls_part[i];
@@ -331,19 +352,59 @@ __global__ void anti_logprob_finalize(const float* __restrict__ partials,
   }
   const float lq = q - ls - c_q;
   const float lp = p - c_p;
-  logq[2 * t] = lq;
-  logq[2 * t + 1] = lq;
-  logp[2 * t] = lp;
-  logp[2 * t + 1] = lp;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    logq[H * t + h] = lq;
+    logp[H * t + h] = lp;
+  }
+}
+
+template <int H>
+int launch(const void* x, const void* mu, const void* rho, const void* seeds,
+           void* y, void* w_out, void* partials, void* ls_part, void* logq,
+           void* logp, int S, int M, int K, int N, int x_vec,
+           float inv_sigma_p, float c_q, float c_p, void* stream) {
+  const int n_tiles = (N + BN - 1) / BN;
+  const int n_draws = S / H;
+  const dim3 grid(n_tiles, (M + BM - 1) / BM, n_draws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      bayes_linear_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<H>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bayes_linear_kernel<H><<<grid, THREADS, Smem<H>::BYTES, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mu),
+      static_cast<const float*>(rho), static_cast<const int32_t*>(seeds),
+      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(w_out),
+      static_cast<float*>(partials), static_cast<float*>(ls_part), M, K, N,
+      x_vec, inv_sigma_p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  logprob_finalize<H><<<1, ((n_draws + 31) / 32) * 32, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<const float*>(ls_part),
+      n_tiles, n_draws, c_q, c_p, static_cast<float*>(logq),
+      static_cast<float*>(logp));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (S, M, K) bf16, mu / rho (K, N) f32, seeds_half (S/2,) i32 ->
-// y (S, M, N) bf16, logq / logp (S,) f32 and, when w_out is not null, the
-// sampled pair W (S, K, N) bf16. partials: (S/2, ceil(N/64), 2) f32 scratch,
-// ls_part: (ceil(N/64),) f32 scratch. c_q = K*N*log(sqrt(2 pi)),
-// c_p = K*N*(log(sqrt(2 pi)) + log(sigma_p)). Returns cudaGetLastError().
+// x (S, M, K) bf16, mu / rho (K, N) f32, seeds (S,) i32 (independent) or
+// seeds_half (S/2,) i32 (antithetic) -> y (S, M, N) bf16, logq / logp (S,)
+// f32 and, when w_out is not null, the sampled W (S, K, N) bf16.
+// partials: (n_draws, ceil(N/64), 2) f32 scratch, ls_part: (ceil(N/64),) f32
+// scratch. c_q = K*N*log(sqrt(2 pi)), c_p = K*N*(log(sqrt(2 pi)) +
+// log(sigma_p)). Each returns cudaGetLastError().
+extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
+                                const void* seeds, void* y, void* w_out,
+                                void* partials, void* ls_part, void* logq,
+                                void* logp, int S, int M, int K, int N,
+                                int x_vec, float inv_sigma_p, float c_q,
+                                float c_p, void* stream) {
+  return launch<1>(x, mu, rho, seeds, y, w_out, partials, ls_part, logq, logp,
+                   S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
+}
+
 extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
                                      const void* rho, const void* seeds_half,
                                      void* y, void* w_out, void* partials,
@@ -351,24 +412,6 @@ extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
                                      int S, int M, int K, int N, int x_vec,
                                      float inv_sigma_p, float c_q, float c_p,
                                      void* stream) {
-  const int n_tiles = (N + BN - 1) / BN;
-  const dim3 grid(n_tiles, (M + BM - 1) / BM, S / 2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      bayes_linear_anti_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bayes_linear_anti_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mu),
-      static_cast<const float*>(rho), static_cast<const int32_t*>(seeds_half),
-      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(w_out),
-      static_cast<float*>(partials), static_cast<float*>(ls_part), M, K, N,
-      x_vec, inv_sigma_p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  anti_logprob_finalize<<<1, ((S / 2 + 31) / 32) * 32, 0, st>>>(
-      static_cast<const float*>(partials), static_cast<const float*>(ls_part),
-      n_tiles, S / 2, c_q, c_p, static_cast<float*>(logq),
-      static_cast<float*>(logp));
-  return static_cast<int>(cudaGetLastError());
+  return launch<2>(x, mu, rho, seeds_half, y, w_out, partials, ls_part, logq,
+                   logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
 }

@@ -120,10 +120,13 @@ class BertEmbeddings(nn.Module):
         self.dtype = dtype
 
     def forward(self, input_ids, token_type_ids, position_ids):
-        x = (self.word_embeddings(input_ids)
-             + self.token_type_embeddings(token_type_ids)
-             + self.position_embeddings(position_ids))
-        return self.LayerNorm(x).to(self.dtype)
+        # as HF's FlaxBertEmbeddings: each lookup in the activation dtype,
+        # summed in it, in this order
+        dt = self.dtype
+        x = (self.word_embeddings(input_ids).to(dt)
+             + self.token_type_embeddings(token_type_ids).to(dt)
+             + self.position_embeddings(position_ids).to(dt))
+        return self.LayerNorm(x)
 
 
 class BertSelfAttention(nn.Module):

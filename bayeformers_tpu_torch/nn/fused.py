@@ -15,11 +15,16 @@ Per-leaf seeds come from the request's integer seed through
 identical draws. Log-probs are collected once per converted leaf and summed
 model-wide.
 
+Two estimators: independent draws (``antithetic=False``, the reference's
+default; one draw per sample, seeds ``derive_seed(seed, leaf, s)``) and
+antithetic pairs (``antithetic=True``; one draw per pair t, seeds
+``derive_seed(seed, leaf, t)``, interleaved as ``(mu + d, mu - d)``).
+
 The forward is differentiable: with ``save_weights=True`` (the default, as
-in the reference) each Bayesian linear op keeps its W pair for the
-backward of ``ops/fused_linear.py::BayesLinearAnti``, attention runs its
-own backward, and the sampled biases and their log-probs differentiate
-through plain autograd. Serving calls it with ``save_weights=False`` inside
+in the reference) each Bayesian linear op keeps its W for the backward of
+``ops/fused_linear.py::BayesLinear``, attention runs its own backward, and
+the sampled biases and their log-probs differentiate through plain
+autograd. Serving calls it with ``save_weights=False`` inside
 ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -104,25 +109,22 @@ class FusedMC:
     ``forward(..., mc)``."""
 
     def __init__(self, bmodel, seed: int, n_samples: int, *,
-                 antithetic: bool, impl: str, eps_hook):
-        if not antithetic:
-            raise NotImplementedError(
-                "fused_mc_apply: this slice ports the antithetic estimator; "
-                "independent draws (antithetic=False) come with the next slice"
-            )
-        if n_samples % 2:
+                 antithetic: bool, save_weights: bool, impl: str, eps_hook):
+        if antithetic and n_samples % 2:
             raise ValueError(f"antithetic needs an even n_samples; got {n_samples}")
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
         self.bmodel = bmodel
         self.S = n_samples
-        self.n_draws = n_samples // 2
+        self.antithetic = antithetic
+        self.save_weights = save_weights
+        self.n_draws = n_samples // 2 if antithetic else n_samples
         self.plain = impl == "plain" or eps_hook is not None
         self.eps_hook = eps_hook
         self.paths = bmodel.spec.paths
         self.path_index = {p: i for i, p in enumerate(self.paths)}
         dev = bmodel.device
-        # every leaf's S/2 seeds, uploaded once per request
+        # every leaf's n_draws seeds, uploaded once per request
         self.seeds = torch.tensor(
             [[derive_seed(seed, i, t) for t in range(self.n_draws)]
              for i in range(len(self.paths))],
@@ -133,7 +135,7 @@ class FusedMC:
         self.seen: set[str] = set()
 
     def _all_bias_eps(self) -> dict[str, torch.Tensor]:
-        """Every converted bias's (S/2, N) eps in one batched draw: bias
+        """Every converted bias's (n_draws, N) eps in one batched draw: bias
         element j of draw t is the unit stream's element (0, j) for the
         leaf's seed t, a pure function of (seed, j // 128, j % 128) like
         the JAX package's ``_unit_bias_eps``."""
@@ -158,8 +160,9 @@ class FusedMC:
         eps = None
         if self.eps_hook is not None:
             eps = self.eps_hook(kpath, self.n_draws, tuple(mu.shape))
-        y, lq, lp = ops_fused.bayes_linear(xs, mu, rho, seeds, plain=self.plain,
-                                           eps=eps)
+        y, lq, lp = ops_fused.bayes_linear(
+            xs, mu, rho, seeds, prior_on_mu=True, save_weights=self.save_weights,
+            antithetic=self.antithetic, plain=self.plain, eps=eps)
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
@@ -188,7 +191,9 @@ class FusedMC:
             beps = self.eps_hook(bpath, self.n_draws, tuple(bmu.shape))
         else:
             beps = self.bias_eps[bpath]
-        beps = self.interleave(beps.to(bmu.dtype))
+        beps = beps.to(bmu.dtype)
+        if self.antithetic:
+            beps = self.interleave(beps)
         bsig = dist.sigma_from_rho(brho)
         b = bmu[None] + bsig[None] * beps
         y = y + b[:, None, :].to(y.dtype)  # bf16 activations stay bf16
@@ -217,23 +222,17 @@ class FusedMC:
 
 def fused_mc_apply(bmodel, seed: int, n_samples: int, input_ids,
                    attention_mask=None, token_type_ids=None, *,
-                   save_weights: bool = True, antithetic: bool = True,
+                   save_weights: bool = True, antithetic: bool = False,
                    impl: str = "kernel", eps_hook=None):
     """S-sample fused forward of a converted model. Returns ``(outputs,
     aux)``: outputs (S, B, ...) and aux ``log_prior`` /
-    ``log_variational_posterior`` of shape (S,). ``save_weights=False``
-    writes no W residuals; a backward through such a forward (it would
-    regenerate W) comes with a later slice and raises here."""
-    if not save_weights and torch.is_grad_enabled() and any(
-            r.requires_grad for r in bmodel.rho.values()):
-        raise NotImplementedError(
-            "fused_mc_apply(save_weights=False) under autograd: the backward "
-            "that regenerates W instead of reading the residual comes with a "
-            "later slice; pass save_weights=True or run under "
-            "torch.inference_mode()"
-        )
-    mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic, impl=impl,
-                 eps_hook=eps_hook)
+    ``log_variational_posterior`` of shape (S,). ``antithetic=True`` pairs
+    the draws (even ``n_samples``). ``save_weights=False`` writes no W
+    residuals; a backward through such a forward (it would regenerate W)
+    comes with a later slice, and the first Bayesian linear op raises
+    under autograd."""
+    mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic,
+                 save_weights=save_weights, impl=impl, eps_hook=eps_hook)
     tiled = [None if a is None else tile_samples(a, n_samples)
              for a in (input_ids, attention_mask, token_type_ids)]
     out = bmodel.model(*tiled, mc=mc)

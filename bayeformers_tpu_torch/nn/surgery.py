@@ -76,14 +76,17 @@ class BayesianModel:
 
     def mc_apply_fused(self, seed: int, n_samples: int, input_ids,
                        attention_mask=None, token_type_ids=None, *,
-                       save_weights: bool = True, antithetic: bool = True,
+                       save_weights: bool = True, antithetic: bool = False,
                        impl: str = "kernel", eps_hook=None):
         """S Monte-Carlo forwards as one S-major super-batch through the
         fused tier. Returns ``(logits (S, B, ...), aux)`` with aux's
         ``log_prior`` / ``log_variational_posterior`` of shape (S,).
-        Differentiable: ``save_weights=True`` keeps each layer's W pair for
-        the backward (``save_weights=False``, for inference, writes none).
-        ``antithetic=False`` comes with a later slice and raises.
+        ``antithetic=False`` (the default, as in the reference) draws each
+        sample's weights independently; ``antithetic=True`` draws one eps
+        per pair of samples (2t, 2t+1) and uses it with both signs (even
+        ``n_samples``). Differentiable: ``save_weights=True`` keeps each
+        layer's sampled W for the backward (``save_weights=False``, for
+        inference, writes none).
 
         ``seed`` is the request's integer key; per-leaf draws derive from it
         (:func:`nn.fused.derive_seed`). ``impl="plain"`` runs every op's
@@ -141,9 +144,10 @@ def to_bayesian(model: nn.Module, *, delta: Optional[float] = 0.05,
     prior N(w, softplus(1)^2); ``freeze`` keeps ``mu`` fixed."""
     if delta is None or not freeze:
         raise NotImplementedError(
-            "to_bayesian: this slice ports MOPED with freeze=True (the "
-            "serving recipe); random init with the mixture prior and a "
-            "trainable mu come with the training slice"
+            "to_bayesian: the port takes MOPED with freeze=True (the GLUE "
+            "recipe); random init with the mixture prior and a trainable mu "
+            "come with the slice that ports core/'s remainder and the other "
+            "priors (ROADMAP queue 1, items 2 and 3)"
         )
     paths = find_convertible_paths(model)
     rho = {}

@@ -1,25 +1,32 @@
-"""The dmu/drho reduce of the antithetic Bayesian linear backward.
+"""The dmu/drho reduce of the Bayesian linear backward.
 
-Counterpart of ``bayeformers_tpu/ops/fused_backward.py``, restricted in this
-slice to the frozen-MOPED prior centred on mu (``gaussian_on_mu``, which
-never reads the U accumulator). Everything the gradients of mu and rho need
-is three (K, N) accumulators over an interleaved antithetic batch, of which
-only the even (+) members' weights are read (``w1 - mu = -(w0 - mu)``):
+Counterpart of ``bayeformers_tpu/ops/fused_backward.py``, restricted to the
+frozen-MOPED prior centred on mu (``gaussian_on_mu``, which never reads the
+U accumulator). Everything the gradients of mu and rho need is three
+(K, N) accumulators. Over S independent samples (:func:`reduce_abuv`, the
+counterpart of ``reduce_abuv`` / ``_xla_reduce``):
+
+    p = x[s]^T g[s],  wc = W[s] - mu
+    A = sum_s p,  B = sum_s p * wc,  V = sum_s g_p[s] * wc^2
+
+Over an interleaved antithetic batch (:func:`reduce_abuv_anti`, the
+counterpart of ``reduce_abuv_anti`` / ``_xla_reduce_anti``), of which only
+the even (+) members' weights are read (``w1 - mu = -(w0 - mu)``):
 
     p0 = x[2t]^T g[2t],  p1 = x[2t+1]^T g[2t+1],  wc = W[2t] - mu
     A = sum_t (p0 + p1)
     B = sum_t (p0 - p1) * wc
     V = sum_t (g_p[2t] + g_p[2t+1]) * wc^2
 
-and :func:`finalize` turns them into ``dmu = A`` and
+:func:`finalize` turns either into ``dmu = A`` and
 ``drho = (B / sigma - V / (sigma_p^2 sigma) - sum(g_q) / sigma) * sigmoid(rho)``
 with elementwise torch on (K, N) tensors, as XLA does it in the reference.
 
-:func:`reduce_abuv_anti` is the wrapper: a CPU tensor takes the plain
-version :func:`reduce_abuv_anti_plain` (the counterpart of
-``_xla_reduce_anti``); a CUDA tensor launches ``csrc/fused_backward.cu`` or
-raises. The mixture prior, a separate ``prior_mu`` and the U accumulator
-come with the slice that ports the other priors and raise here.
+Each reduce is a wrapper: a CPU tensor takes its plain version; a CUDA
+tensor launches ``csrc/fused_backward.cu`` (``bft_reduce_abuv`` or
+``bft_reduce_abuv_anti``) or raises. The mixture prior, a separate
+``prior_mu`` and the U accumulator come with the slice that ports the other
+priors and raise here.
 """
 from __future__ import annotations
 
@@ -30,16 +37,39 @@ from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
 from bayeformers_tpu_torch.ops import _build, common
 
 LAUNCHES = common.LaunchCounter("reduce_abuv_anti")
+INDEP_LAUNCHES = common.LaunchCounter("reduce_abuv")
 
 
 def _check_prior(mixture, want_u: bool) -> None:
     if mixture is not None or want_u:
         raise NotImplementedError(
-            "reduce_abuv_anti: this slice ports the frozen-MOPED prior centred "
-            "on mu (mixture=None, want_u=False); the mixture prior, a separate "
+            "reduce_abuv: the port takes the frozen-MOPED prior centred on mu "
+            "(mixture=None, want_u=False); the mixture prior, a separate "
             "prior_mu and the U accumulator come with the slice that ports the "
-            "other priors"
+            "other priors (ROADMAP queue 1, item 3)"
         )
+
+
+def reduce_abuv_plain(x, g, w, mu, g_p):
+    """Plain version (``_xla_reduce`` for ``mixture=None``): the per-sample
+    products in f32 from the operands as given, W minus mu in f32. Returns
+    ``(A, B, V)``, (K, N) f32 each."""
+    dw = torch.bmm(x.float().transpose(1, 2), g.float())
+    wc = w.float() - mu[None]
+    a = torch.sum(dw, dim=0)
+    b = torch.sum(dw * wc, dim=0)
+    v = torch.sum(g_p.float()[:, None, None] * wc * wc, dim=0)
+    return a, b, v
+
+
+def reduce_abuv(x, g, w, mu, g_p, mixture=None, want_u: bool = False):
+    """``(A, B, V)`` for x (S, M, K), g (S, M, N), the sampled weights W
+    (S, K, N), mu (K, N) and the log-prior cotangent g_p (S,). A CPU tensor
+    runs the plain version; a CUDA tensor the kernel."""
+    _check_prior(mixture, want_u)
+    if x.device.type == "cpu":
+        return reduce_abuv_plain(x, g, w, mu, g_p)
+    return reduce_abuv_cuda(x, g, w, mu, g_p)
 
 
 def reduce_abuv_anti_plain(x, g, w, mu, g_p):
@@ -73,13 +103,22 @@ def reduce_abuv_anti(x, g, w, mu, g_p, mixture=None, want_u: bool = False):
 
 def reduce_abuv_anti_cuda(x, g, w, mu, g_p):
     """Launch ``bft_reduce_abuv_anti`` (csrc/fused_backward.cu)."""
+    return _reduce_cuda(x, g, w, mu, g_p, antithetic=True)
+
+
+def reduce_abuv_cuda(x, g, w, mu, g_p):
+    """Launch ``bft_reduce_abuv`` (csrc/fused_backward.cu)."""
+    return _reduce_cuda(x, g, w, mu, g_p, antithetic=False)
+
+
+def _reduce_cuda(x, g, w, mu, g_p, antithetic: bool):
     req = common.require
-    req(x.is_cuda, f"reduce_abuv_anti kernel needs a CUDA tensor, got {x.device}")
+    req(x.is_cuda, f"reduce_abuv kernel needs a CUDA tensor, got {x.device}")
     req(x.dim() == 3 and g.dim() == 3 and w.dim() == 3 and mu.dim() == 2,
         "x must be (S, M, K), g (S, M, N), w (S, K, N), mu (K, N)")
     S, M, K = x.shape
     N = mu.shape[1]
-    req(S % 2 == 0, f"antithetic needs an even S, got {S}")
+    req(S % 2 == 0 or not antithetic, f"antithetic needs an even S, got {S}")
     req(tuple(g.shape) == (S, M, N), f"g is {tuple(g.shape)}, want {(S, M, N)}")
     req(tuple(w.shape) == (S, K, N), f"w is {tuple(w.shape)}, want {(S, K, N)}")
     req(mu.shape[0] == K, f"mu is {tuple(mu.shape)}, x has K={K}")
@@ -96,14 +135,15 @@ def reduce_abuv_anti_cuda(x, g, w, mu, g_p):
                for _ in range(3))
     x_vec = int(K % 8 == 0 and x.data_ptr() % 16 == 0)
     g_vec = int(N % 8 == 0 and g.data_ptr() % 16 == 0)
+    name = "bft_reduce_abuv_anti" if antithetic else "bft_reduce_abuv"
     with torch.cuda.device(x.device):
-        err = lib.bft_reduce_abuv_anti(
+        err = getattr(lib, name)(
             x.data_ptr(), g.data_ptr(), w.data_ptr(), mu.data_ptr(),
             g_p.data_ptr(), a.data_ptr(), b.data_ptr(), v.data_ptr(),
             S, M, K, N, x_vec, g_vec, common.cuda_stream(x),
         )
-    _build.check(err, "bft_reduce_abuv_anti")
-    LAUNCHES.add((M, K, N))
+    _build.check(err, name)
+    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N))
     return a, b, v
 
 

@@ -1,29 +1,41 @@
 """The combined Bayesian linear op: sampled matmul plus both log-probs.
 
 Counterpart of ``bayeformers_tpu/ops/fused_linear.py::bayes_linear``
-(``:1502-1605``), restricted in this slice to the serving estimator:
-``antithetic=True`` with the frozen-MOPED prior centred on ``mu``
-(``prior_on_mu``). For pair t (samples 2t, 2t+1) and eps from seed t:
+(``:1502-1605``), with its signature and defaults, restricted to the
+frozen-MOPED prior centred on ``mu`` (``prior_on_mu=True``). Two
+estimators share it:
 
-    w[2t]     = mu + softplus(rho) * eps
-    w[2t + 1] = 2 mu - w[2t]                       (interleave_antithetic)
+* independent draws (``antithetic=False``, the reference's default): sample
+  s draws eps from ``seeds[s]`` (``seeds`` of shape (S,));
+* antithetic pairs (``antithetic=True``): pair t (samples 2t, 2t+1) draws
+  eps from ``seeds[t]`` (``seeds`` of shape (S/2,)) and
+  ``w[2t + 1] = 2 mu - w[2t]`` (:func:`interleave_antithetic`).
+
+For every sample:
+
+    w[s]      = mu + softplus(rho) * eps
     y[s]      = x[s] @ w[s]        (dot operands in x's dtype, f32 accumulation)
     log_q[s]  = log N(w[s]; mu, sigma^2).sum()
     log_p[s]  = log N(w[s]; mu, MOPED_PRIOR_SIGMA^2).sum()
 
+An independent sample s with seed ``seeds[s]`` draws exactly what
+antithetic pair t draws from ``seeds[t]``.
+
 :func:`bayes_linear` is the wrapper: a CPU tensor takes the plain version
 :func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernel
-(``csrc/bayes_linear.cu``) or raises. Under autograd it runs
-:class:`BayesLinearAnti`, the saved-residual custom VJP of the reference
-(``_fwd_saved_anti`` / ``_bwd_common_anti``): the forward also writes the
-W pair in x's dtype, and the backward computes
+(``csrc/bayes_linear.cu``: ``bft_bayes_linear`` or
+``bft_bayes_linear_anti``) or raises. Under autograd with
+``save_weights=True`` it runs :class:`BayesLinear`, the saved-residual
+custom VJP of the reference (``_fwd_saved`` / ``_bwd_common`` and their
+antithetic twins): the forward also writes W in x's dtype, and the
+backward computes
 
     dx         = g_y @ W^T               (a batched matmul, as XLA's einsum)
-    (A, B, V)  = reduce_abuv_anti(x, g_y, W, mu, g_p)     (ops/fused_backward)
+    (A, B, V)  = reduce_abuv[_anti](x, g_y, W, mu, g_p)   (ops/fused_backward)
     dmu, drho  = finalize(A, B, V, rho, g_q)
 
-Other priors and the independent-draw estimator come with the next slices
-and raise ``NotImplementedError``.
+The regenerating backward (``save_weights=False`` under autograd) and the
+other priors raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from bayeformers_tpu_torch.ops import _build, common
 from bayeformers_tpu_torch.ops import fused_backward as bwd
 
 LAUNCHES = common.LaunchCounter("bayes_linear_anti")
+INDEP_LAUNCHES = common.LaunchCounter("bayes_linear")
 _BN = 64  # the kernel's column tile (csrc/bayes_linear.cu::BN)
 
 
@@ -66,57 +79,66 @@ def naive_from_w(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
     return y, logq, logp
 
 
-def sample_pair_weights(mu, rho, seeds_half=None, eps=None) -> torch.Tensor:
-    """The (S, K, N) f32 antithetic weights of ``seeds_half`` on the unit
-    stream, or of an explicit (S/2, K, N) ``eps``."""
+def sample_weights(mu, rho, seeds=None, eps=None, *, antithetic: bool = False
+                   ) -> torch.Tensor:
+    """The (S, K, N) f32 weights of ``seeds`` on the unit stream, or of an
+    explicit ``eps``: one draw per sample, or (``antithetic``) one per pair,
+    interleaved as ``(w, 2 mu - w)``."""
     if eps is None:
-        eps = common.unit_eps(seeds_half, tuple(mu.shape))
-    w_half = mu[None] + sigma_from_rho(rho)[None] * eps
-    return interleave_antithetic(w_half, mu)
+        eps = common.unit_eps(seeds, tuple(mu.shape))
+    w = mu[None] + sigma_from_rho(rho)[None] * eps
+    return interleave_antithetic(w, mu) if antithetic else w
 
 
-def bayes_linear_plain(x, mu, rho, seeds_half=None, *, eps=None, w=None,
-                       save_weights: bool = False):
+def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,
+                       eps=None, w=None, save_weights: bool = False):
     """Plain-torch version. The draw is, in order of precedence: an explicit
-    (S, K, N) ``w``, an explicit (S/2, K, N) ``eps``, or the unit stream of
-    ``seeds_half``; ``eps``/``w`` are the injection points for parity tests.
-    Returns ``(y, log_q, log_p)``, plus W in x's dtype when
-    ``save_weights``."""
+    (S, K, N) ``w``, an explicit ``eps`` (one per draw: (S, K, N), or
+    (S/2, K, N) when ``antithetic``), or the unit stream of ``seeds``;
+    ``eps``/``w`` are the injection points for parity tests. Returns
+    ``(y, log_q, log_p)``, plus W in x's dtype when ``save_weights``."""
     if w is None:
-        w = sample_pair_weights(mu, rho, seeds_half, eps)
+        w = sample_weights(mu, rho, seeds, eps, antithetic=antithetic)
     y, lq, lp = naive_from_w(x, w, mu, rho)
     if save_weights:
         return y, lq, lp, w.to(x.dtype)
     return y, lq, lp
 
 
-def _check_estimator(prior_on_mu: bool, antithetic: bool) -> None:
-    if not (prior_on_mu and antithetic):
+def _check_prior(mixture, prior_mu, prior_on_mu: bool) -> None:
+    given = (mixture is not None) + (prior_mu is not None) + bool(prior_on_mu)
+    if given != 1:
+        raise ValueError(
+            "pass exactly one of `mixture`, `prior_mu`, `prior_on_mu`")
+    if not prior_on_mu:
         raise NotImplementedError(
-            "bayes_linear: this slice ports the antithetic estimator with the "
-            "frozen-MOPED prior (prior_on_mu=True, antithetic=True); the "
-            "independent-draw (`fused`) estimator and the mixture / separate "
-            "prior_mu priors come with the next slices"
+            "bayes_linear: the port takes the frozen-MOPED prior centred on "
+            "mu (prior_on_mu=True); the mixture prior and a separate prior_mu "
+            "come with the slice that ports the other priors (ROADMAP queue "
+            "1, item 3)"
         )
 
 
-def _forward(x, mu, rho, seeds_half, eps, plain: bool, save_w: bool):
+def _forward(x, mu, rho, seeds, eps, antithetic: bool, plain: bool, save_w: bool):
     if plain or x.device.type == "cpu":
-        return bayes_linear_plain(x, mu, rho, seeds_half, eps=eps,
-                                  save_weights=save_w)
+        return bayes_linear_plain(x, mu, rho, seeds, antithetic=antithetic,
+                                  eps=eps, save_weights=save_w)
     common.require(eps is None, "an injected eps runs the plain version only")
-    return bayes_linear_cuda(x, mu, rho, seeds_half, save_weights=save_w)
+    return bayes_linear_cuda(x, mu, rho, seeds, antithetic=antithetic,
+                             save_weights=save_w)
 
 
-class BayesLinearAnti(torch.autograd.Function):
+class BayesLinear(torch.autograd.Function):
     """``(y, log_q, log_p)`` with the saved-residual backward: the forward
     keeps ``(x, mu, rho, W)``; ``plain`` runs the plain versions of both
     passes on the tensors' device (the reference for the kernels)."""
 
     @staticmethod
-    def forward(ctx, x, mu, rho, seeds_half, eps, plain):
-        y, lq, lp, w = _forward(x, mu, rho, seeds_half, eps, plain, save_w=True)
+    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain):
+        y, lq, lp, w = _forward(x, mu, rho, seeds, eps, antithetic, plain,
+                                save_w=True)
         ctx.save_for_backward(x, mu, rho, w)
+        ctx.antithetic = antithetic
         ctx.plain = plain
         return y, lq, lp
 
@@ -127,37 +149,59 @@ class BayesLinearAnti(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = torch.bmm(g_y.to(w.dtype), w.transpose(1, 2)).to(x.dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            reduce = bwd.reduce_abuv_anti_plain if ctx.plain else bwd.reduce_abuv_anti
+            if ctx.antithetic:
+                reduce = bwd.reduce_abuv_anti_plain if ctx.plain else bwd.reduce_abuv_anti
+            else:
+                reduce = bwd.reduce_abuv_plain if ctx.plain else bwd.reduce_abuv
             a, b, v = reduce(x, g_y.to(x.dtype).contiguous(), w, mu, g_p)
             dmu, drho = bwd.finalize(a, b, v, rho, g_q)
         return (dx, dmu if ctx.needs_input_grad[1] else None,
-                drho if ctx.needs_input_grad[2] else None, None, None, None)
+                drho if ctx.needs_input_grad[2] else None, None, None, None, None)
 
 
-def bayes_linear(x, mu, rho, seeds_half, *, prior_on_mu: bool = True,
-                 antithetic: bool = True, save_weights: bool = False,
-                 plain: bool = False, eps=None):
-    """``(y, log_q, log_p)`` for x (S, M, K), mu/rho (K, N), seeds_half (S/2,).
+def bayes_linear(x, mu, rho, seeds, *, mixture=None, prior_mu=None,
+                 prior_on_mu: bool = False, save_weights: bool = True,
+                 antithetic: bool = False, plain: bool = False, eps=None):
+    """``(y, log_q, log_p)`` for x (S, M, K), mu/rho (K, N) and ``seeds``
+    (S,), or (S/2,) when ``antithetic``; log-probs of shape (S,).
 
-    Differentiable: when grad mode is on and x, mu or rho requires grad,
-    :class:`BayesLinearAnti` runs and keeps the W pair for its backward;
-    otherwise (inference) no W is written. ``save_weights=True`` returns
-    that W pair (S, K, N) in x's dtype as a fourth output, without
-    gradients (checks of the draw use it). A CPU tensor, or ``plain=True``,
-    runs the plain versions; a CUDA tensor the kernels. ``eps`` (S/2, K, N)
-    injects the draw into the plain version (tests)."""
-    _check_estimator(prior_on_mu, antithetic)
-    if save_weights:
-        with torch.no_grad():
-            return _forward(x, mu, rho, seeds_half, eps, plain, save_w=True)
+    The reference's signature and defaults; exactly one prior is named, and
+    this port takes ``prior_on_mu=True``. Differentiable: when grad mode is
+    on and x, mu or rho requires grad, ``save_weights=True`` runs
+    :class:`BayesLinear`, which keeps W for its backward
+    (``save_weights=False`` would regenerate W in the backward, which comes
+    with a later slice, and raises); without gradients (inference) no W is
+    written. Port keywords: ``plain=True`` runs the plain versions on the
+    tensors' device (a CPU tensor always does); ``eps`` injects the draw
+    into the plain version (tests)."""
+    _check_prior(mixture, prior_mu, prior_on_mu)
     if torch.is_grad_enabled() and (x.requires_grad or mu.requires_grad
                                     or rho.requires_grad):
-        return BayesLinearAnti.apply(x, mu, rho, seeds_half, eps, plain)
-    return _forward(x, mu, rho, seeds_half, eps, plain, save_w=False)
+        if not save_weights:
+            raise NotImplementedError(
+                "bayes_linear(save_weights=False) under autograd: the backward "
+                "that regenerates W from the seeds (kernel #10) comes with a "
+                "later slice (ROADMAP queue 1, item 4); pass save_weights=True "
+                "or run under torch.inference_mode()"
+            )
+        return BayesLinear.apply(x, mu, rho, seeds, eps, antithetic, plain)
+    return _forward(x, mu, rho, seeds, eps, antithetic, plain, save_w=False)
 
 
-def bayes_linear_cuda(x, mu, rho, seeds_half, *, save_weights: bool = False):
-    """Launch ``bft_bayes_linear_anti`` (csrc/bayes_linear.cu)."""
+def bayes_linear_with_w(x, mu, rho, seeds, *, antithetic: bool = False,
+                        plain: bool = False, eps=None):
+    """``(y, log_q, log_p, W)`` without gradients, for checks of the draw:
+    :func:`bayes_linear`'s forward under the frozen-MOPED prior together
+    with the sampled W (S, K, N) in x's dtype, as its saved-residual
+    forward writes it."""
+    with torch.no_grad():
+        return _forward(x, mu, rho, seeds, eps, antithetic, plain, save_w=True)
+
+
+def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
+                      save_weights: bool = False):
+    """Launch ``bft_bayes_linear`` (independent draws, ``seeds`` (S,)) or
+    ``bft_bayes_linear_anti`` (pairs, ``seeds`` (S/2,)), csrc/bayes_linear.cu."""
     req = common.require
     req(x.is_cuda, f"bayes_linear kernel needs a CUDA tensor, got {x.device}")
     req(x.dtype == torch.bfloat16,
@@ -169,29 +213,35 @@ def bayes_linear_cuda(x, mu, rho, seeds_half, *, save_weights: bool = False):
         f"mu/rho {tuple(mu.shape)}/{tuple(rho.shape)} do not match K={K}")
     req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
         "mu and rho must be float32")
-    req(S % 2 == 0 and tuple(seeds_half.shape) == (S // 2,),
-        f"antithetic needs an even S and S/2 seeds; S={S}, "
-        f"seeds {tuple(seeds_half.shape)}")
-    req(seeds_half.dtype == torch.int32, "seeds_half must be int32")
-    for name, t in (("x", x), ("mu", mu), ("rho", rho), ("seeds", seeds_half)):
+    if antithetic:
+        req(S % 2 == 0 and tuple(seeds.shape) == (S // 2,),
+            f"antithetic needs an even S and S/2 seeds; S={S}, "
+            f"seeds {tuple(seeds.shape)}")
+    else:
+        req(tuple(seeds.shape) == (S,),
+            f"independent draws need S seeds; S={S}, seeds {tuple(seeds.shape)}")
+    req(seeds.dtype == torch.int32, "seeds must be int32")
+    for name, t in (("x", x), ("mu", mu), ("rho", rho), ("seeds", seeds)):
         req(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         req(t.is_contiguous(), f"{name} must be contiguous")
-    req(S // 2 <= 1024, "at most 1024 antithetic pairs")
+    n_draws = seeds.shape[0]
+    req(1 <= n_draws <= 1024, "between 1 and 1024 draws")
     lib = _build.library()
     n_tiles = -(-N // _BN)
     y = torch.empty((S, M, N), dtype=x.dtype, device=x.device)
     logq = torch.empty((S,), dtype=torch.float32, device=x.device)
     logp = torch.empty((S,), dtype=torch.float32, device=x.device)
-    partials = torch.empty((S // 2, n_tiles, 2), dtype=torch.float32,
+    partials = torch.empty((n_draws, n_tiles, 2), dtype=torch.float32,
                            device=x.device)
     ls_part = torch.empty((n_tiles,), dtype=torch.float32, device=x.device)
     w = (torch.empty((S, K, N), dtype=x.dtype, device=x.device)
          if save_weights else None)
     x_vec = int(K % 8 == 0 and x.data_ptr() % 16 == 0)
     n_el = K * N
+    name = "bft_bayes_linear_anti" if antithetic else "bft_bayes_linear"
     with torch.cuda.device(x.device):
-        err = lib.bft_bayes_linear_anti(
-            x.data_ptr(), mu.data_ptr(), rho.data_ptr(), seeds_half.data_ptr(),
+        err = getattr(lib, name)(
+            x.data_ptr(), mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
             y.data_ptr(), None if w is None else w.data_ptr(),
             partials.data_ptr(), ls_part.data_ptr(), logq.data_ptr(),
             logp.data_ptr(), S, M, K, N, x_vec, 1.0 / MOPED_PRIOR_SIGMA,
@@ -199,8 +249,8 @@ def bayes_linear_cuda(x, mu, rho, seeds_half, *, save_weights: bool = False):
             n_el * (LOG_SQRT_2PI + math.log(MOPED_PRIOR_SIGMA)),
             common.cuda_stream(x),
         )
-    _build.check(err, "bft_bayes_linear_anti")
-    LAUNCHES.add((M, K, N))
+    _build.check(err, name)
+    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N))
     if save_weights:
         return y, logq, logp, w
     return y, logq, logp

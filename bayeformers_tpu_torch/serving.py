@@ -70,8 +70,9 @@ def summarize(logits: torch.Tensor) -> dict[str, torch.Tensor]:
 class Predictor:
     """Bucketed Bayesian classification serving over a converted model.
 
-    This slice serves the antithetic estimator (``antithetic=True``, even
-    ``n_samples``) for ``task="classification"``.
+    ``antithetic=False`` (the default, as in the reference) draws every
+    sample's weights independently; ``antithetic=True`` pairs the draws and
+    needs an even ``n_samples``. This port serves ``task="classification"``.
     """
 
     bmodel: Any
@@ -79,16 +80,11 @@ class Predictor:
     batch_sizes: tuple[int, ...] = (1, 8, 32)
     seq_lens: tuple[int, ...] = (128,)
     pad_id: int = 0
-    antithetic: bool = True
+    antithetic: bool = False
     task: str = "classification"
 
     def __post_init__(self):
-        if not self.antithetic:
-            raise NotImplementedError(
-                "Predictor: the independent-draw estimator (antithetic=False) "
-                "comes with the next slice of the port"
-            )
-        if self.n_samples % 2:
+        if self.antithetic and self.n_samples % 2:
             raise ValueError("antithetic serving needs an even n_samples")
         if self.task != "classification":
             raise NotImplementedError(
@@ -117,7 +113,7 @@ class Predictor:
             logits, _ = self.bmodel.mc_apply_fused(
                 key, self.n_samples, padded["input_ids"],
                 padded["attention_mask"], padded.get("token_type_ids"),
-                save_weights=False, antithetic=True,
+                save_weights=False, antithetic=self.antithetic,
             )
             return {k: v[:n].cpu().numpy() for k, v in summarize(logits).items()}
 

@@ -8,8 +8,9 @@ runs eagerly, so a step is a plain function; the integer ``seed`` plays the
 role of the reference's step key (per-leaf and per-chunk draws derive from
 it through ``nn.fused.derive_seed``).
 
-This slice ports the antithetic estimator of the GLUE recipe; the other
-estimators raise ``NotImplementedError`` naming the slice that brings them.
+The port runs the fused estimators of the GLUE recipe: independent draws
+(``fused``) and antithetic pairs (``antithetic``); the other estimators
+raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -48,8 +49,6 @@ def regression_loss(out, batch):
 
 
 _LATER_ESTIMATORS = {
-    "fused": "independent draws (the `fused` estimator) come with the serving "
-             "remainder slice",
     "naive": "the naive (per-sample) tier comes with the estimators slice",
     "flipout": "flipout comes with the estimators slice",
     "local": "local reparameterization comes with the estimators slice",
@@ -58,10 +57,12 @@ _LATER_ESTIMATORS = {
 
 
 def pick_mc(bmodel, estimator: str = "antithetic"):
-    """The MC forward of an estimator: ``"antithetic"`` (the fused forward
-    with +- paired draws, the reference's default for even S)."""
-    if estimator == "antithetic":
-        return functools.partial(bmodel.mc_apply_fused, antithetic=True)
+    """The MC forward of an estimator: ``"fused"`` (the fused forward with
+    independent draws, ``mc_apply_fused``) or ``"antithetic"`` (the fused
+    forward with +- paired draws, the reference's default for even S)."""
+    if estimator in ("fused", "antithetic"):
+        return functools.partial(bmodel.mc_apply_fused,
+                                 antithetic=estimator == "antithetic")
     if estimator in _LATER_ESTIMATORS:
         raise NotImplementedError(f"estimator {estimator!r}: "
                                   f"{_LATER_ESTIMATORS[estimator]}")
@@ -102,7 +103,8 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
     accumulation (fresh draws per chunk, seeds ``derive_seed(seed, c)``);
     losses, gradients and metrics are averaged over chunks.
     ``eps_hook(chunk, path, n_draws, shape)`` supplies each leaf's draw
-    (tests only)."""
+    (tests only). An antithetic chunk must be even; a ``fused`` one may be
+    odd."""
     mc = pick_mc(bmodel, estimator)
     n_chunks, chunk = 1, n_samples
     if mc_chunk is not None and mc_chunk < n_samples:

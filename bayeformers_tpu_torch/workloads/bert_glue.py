@@ -5,7 +5,7 @@ Four phases, as in the reference recipe:
   A. frequentist fine-tune (AdamW lr=2e-5 eps=1e-8, CE-sum, global-norm
      clip 1.0, linear LR decay);
   B. ``to_bayesian(model, delta, freeze=True)`` (MOPED);
-  C. Bayesian eval (S=10, antithetic; acc + acc_std across MC draws, ECE);
+  C. Bayesian eval (S=10; acc + acc_std across MC draws, ECE);
   D. Bayesian ELBO fine-tune (fresh AdamW over rho, embeddings and
      LayerNorm; mu frozen).
 
@@ -14,9 +14,13 @@ Data: ``--data`` names an .npz with arrays
 GLUE, any task); otherwise the reference's synthetic stand-in is generated
 from the seed, bit for bit. Raw TSVs need the native tokenizer, and the
 mesh, checkpoint and hypersearch options come with later slices: each of
-them raises here.
+them raises here. The estimator is antithetic pairs when S (and
+``--mc-chunk``) is even and independent draws (``fused``) otherwise, as in
+the reference, or ``--estimator``. On a CUDA device the activations must be
+bf16 (``--bf16``): the kernels' f32 versions come with a later slice.
 
     python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --limit-batches 3
+    python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --samples 9
 """
 from __future__ import annotations
 
@@ -117,6 +121,17 @@ def _later(option: str, slice_name: str):
         f"bert_glue: {option} comes with the {slice_name} slice of the port")
 
 
+def check_activations(bf16: bool, device) -> None:
+    """Refuse f32 activations on a CUDA device: the port's kernels take bf16
+    activations only."""
+    if not bf16 and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            "bert_glue: f32 activations on a CUDA device need the kernels' f32 "
+            "versions, which come with the f32-kernel slice of the port "
+            "(ROADMAP queue 2, item 1); pass bf16=True (--bf16)"
+        )
+
+
 def train(
     exp: str = "bert_glue",
     model_name: str = "bert-base-uncased",
@@ -147,6 +162,7 @@ def train(
     device: str = "cuda",
 ) -> float:
     """Run phases A-D; returns the task's headline dev score after phase D."""
+    check_activations(bf16, device)
     if "bert" not in model_name.lower() or any(
             f in model_name.lower() for f in ("distilbert", "roberta", "albert")):
         raise _later(f"model {model_name!r}", "model families")
@@ -339,7 +355,9 @@ def main():
     parser.add_argument("--mc-chunk", type=int, default=None,
                         help="run the S MC samples in chunks of this size with "
                              "gradient accumulation")
-    parser.add_argument("--estimator", default=None, choices=["antithetic"])
+    parser.add_argument("--estimator", default=None, choices=["antithetic", "fused"],
+                        help="default: antithetic when --samples (and --mc-chunk) "
+                             "is even, fused (independent draws) otherwise")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 activations (variational numerics stay f32)")
     parser.add_argument("--warmup", type=float, default=0.0,

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's time goes on the GPU, from ``torch.profiler``: the
 device time of each kernel in ``chip_smoke.py``'s 8x128 serving request or
-its ELBO train step (BERT-base, S=10, antithetic, bf16).
+its ELBO train step (BERT-base, S=10, bf16), antithetic or with independent
+draws (``--estimator fused``).
 
     python3 profile_port.py [--path serving|train] [--n 3] [--time 0]
-                            [--out trace.json]
+                            [--estimator antithetic|fused] [--out trace.json]
 
 It runs ``chip_smoke.py``'s predictor and request (``serving``) or its
 converted model, batch and step (``train``), and prints the device's busy
@@ -32,6 +33,7 @@ def main() -> int:
     ap.add_argument("--path", choices=("serving", "train"), default="serving")
     ap.add_argument("--n", type=int, default=3)
     ap.add_argument("--time", type=int, default=0)
+    ap.add_argument("--estimator", choices=("antithetic", "fused"), default="antithetic")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,7 +51,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     if args.path == "serving":
-        pred = chip_smoke.build_predictor(bt)
+        # the one-argument call also works with an older chip_smoke.py
+        pred = (chip_smoke.build_predictor(bt) if args.estimator == "antithetic"
+                else chip_smoke.build_predictor(bt, antithetic=False))
         req = chip_smoke.serving_requests(bt)[1]  # fills the (8, 128) bucket
 
         def run(i):
@@ -58,7 +62,8 @@ def main() -> int:
         bmodel, named = chip_smoke.converted_base(bt, torch.bfloat16)
         batch = chip_smoke.train_batch(bt)
         tx = bt.training.adamw_with_decay_groups(2e-5, 0.0, bt.training.default_no_decay)
-        step = bt.make_elbo_train_step(bmodel, tx.init(named), 10, 256)
+        step = bt.make_elbo_train_step(bmodel, tx.init(named), 10, 256,
+                                       estimator=args.estimator)
 
         def run(i):
             step(i, batch)

@@ -4,7 +4,8 @@ A tiny Flax BERT converted by ``bayeformers_tpu.to_bayesian(delta=0.05,
 freeze=True)`` is carried over with ``from_jax_params``; the JAX package's
 own per-leaf draws (``naive_eps`` at its ``layer_seeds``, ``_unit_bias_eps``
 for the biases) are injected into the port through the eps hook, and both
-run ``mc_apply_fused(antithetic=True)`` on the CPU in f32.
+run ``mc_apply_fused`` (antithetic and independent draws) on the CPU in
+f32. The ``Predictor`` on both estimators.
 """
 import os
 import subprocess
@@ -24,8 +25,10 @@ from bayeformers_tpu.models import bert as jbert
 from bayeformers_tpu.nn import fused as jfused
 from bayeformers_tpu.ops import common as jcommon
 from bayeformers_tpu.ops import sampled_linear as jsl
-from bayeformers_tpu_torch import elbo
+from bayeformers_tpu_torch import elbo, training
+from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import leaf
+from bayeformers_tpu_torch.serving import summarize
 from bayeformers_tpu_torch.ops import _build
 
 S = 4
@@ -55,30 +58,37 @@ def pair():
     return bundle, bmodel, bp, port
 
 
-def test_mc_apply_fused_matches_jax_at_injected_draws(pair):
-    _, bmodel, bp, port = pair
-    key = jax.random.key(3)
-    ids, mask, tok = _batch()
-    out, aux = bmodel.mc_apply_fused(
-        bp, key, S, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
-        token_type_ids=jnp.asarray(tok), save_weights=False, antithetic=True)
+def _jax_hook(bmodel, key, drawn=None):
+    """The JAX package's own draw for each leaf (nn/fused.py)."""
     index = {p: i for i, p in enumerate(bmodel.spec.paths)}
-    drawn = []
 
     def hook(path, n_draws, shape):
-        """The JAX package's own draw for this leaf (nn/fused.py)."""
         lkey = jax.random.fold_in(key, index[path])
         if path.endswith("/kernel"):
             seeds = jcommon.seed_from_key(jax.random.split(lkey, n_draws))
             eps = jsl.naive_eps(seeds, shape)
         else:
             eps = jfused._unit_bias_eps(lkey, n_draws, shape[0], None)
-        drawn.append(path)
+        if drawn is not None:
+            drawn.append((path, n_draws))
         return torch.from_numpy(np.array(eps))
 
+    return hook
+
+
+def _fused_against_jax(pair, antithetic, key):
+    _, bmodel, bp, port = pair
+    ids, mask, tok = _batch()
+    out, aux = bmodel.mc_apply_fused(
+        bp, key, S, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+        token_type_ids=jnp.asarray(tok), save_weights=False, antithetic=antithetic)
+    drawn = []
     t = lambda a: torch.from_numpy(a).long()
-    logits, taux = port.mc_apply_fused(0, S, t(ids), t(mask), t(tok), eps_hook=hook)
-    assert sorted(drawn) == sorted(bmodel.spec.paths)
+    logits, taux = port.mc_apply_fused(0, S, t(ids), t(mask), t(tok),
+                                       antithetic=antithetic,
+                                       eps_hook=_jax_hook(bmodel, key, drawn))
+    assert sorted(p for p, _ in drawn) == sorted(bmodel.spec.paths)
+    assert {n for _, n in drawn} == {S // 2 if antithetic else S}
     assert logits.shape == out.shape == (S, 3, 2)
     np.testing.assert_allclose(logits.numpy(), np.asarray(out), atol=1e-4)
     # log_q / log_p are f32 sums over ~3e5 terms of magnitude ~1-7: XLA's CPU
@@ -86,9 +96,22 @@ def test_mc_apply_fused_matches_jax_at_injected_draws(pair):
     # test_torch_fused_linear.py), so absolute agreement is ~1e1 here
     for k in ("log_variational_posterior", "log_prior"):
         np.testing.assert_allclose(taux[k].numpy(), np.asarray(aux[k]), rtol=2e-5)
+    return taux
+
+
+def test_mc_apply_fused_matches_jax_at_injected_draws(pair):
+    taux = _fused_against_jax(pair, True, jax.random.key(3))
     # antithetic pairs share log_q and (frozen MOPED) log_p
     lq = taux["log_variational_posterior"]
     assert torch.allclose(lq[0::2], lq[1::2], rtol=1e-6)
+
+
+def test_independent_mc_apply_fused_matches_jax(pair):
+    """``mc_apply_fused(antithetic=False)``, the reference's default: one
+    draw per sample, logits 1e-4 and aux 2e-5 relative."""
+    taux = _fused_against_jax(pair, False, jax.random.key(4))
+    lq = taux["log_variational_posterior"]
+    assert len(set(lq.tolist())) == S  # every sample has its own draw
 
 
 def test_frequentist_forward_matches_flax(pair):
@@ -129,17 +152,36 @@ def test_other_recipes_raise():
     bmodel.trainable_parameters()
     with pytest.raises(NotImplementedError, match="regenerates W"):
         bmodel.mc_apply_fused(0, 2, ids, save_weights=False)
-    with pytest.raises(NotImplementedError):
-        bmodel.mc_apply_fused(0, 2, ids, antithetic=False)
+    # the estimators not ported yet
+    for est in ("naive", "flipout", "local"):
+        with pytest.raises(NotImplementedError):
+            training.pick_mc(bmodel, est)
     with pytest.raises(ValueError):
-        bmodel.mc_apply_fused(0, 3, ids)
+        bmodel.mc_apply_fused(0, 3, ids, antithetic=True)
+
+
+def test_unported_recipes_name_their_slice(pair):
+    """What still raises names the slice that brings it, not one that has
+    landed."""
+    _, _, bp, port = pair
+    with pytest.raises(NotImplementedError, match="items 2 and 3") as e:
+        bt.to_bayesian(port.model, delta=None)
+    assert "training slice" not in str(e.value)
+    flat = flatten_dict(bp.params, sep="/")
+    prior_mu = {p: np.asarray(m) for p, m in bp.prior_mu.items()}
+    path = "classifier/kernel"
+    prior_mu[path] = prior_mu[path] + 1.0
+    with pytest.raises(NotImplementedError, match="items 2 and 3") as e:
+        bt.from_jax_params(flat, {p: np.asarray(r) for p, r in bp.rho.items()},
+                           prior_mu=prior_mu, device="cpu")
+    assert "training slice" not in str(e.value)
 
 
 @pytest.fixture(scope="module")
 def predictor():
     model = bt.build_bert(size="tiny", seed=1, device="cpu", dtype=torch.float32)
     return bt.Predictor(bt.to_bayesian(model), n_samples=4, batch_sizes=(2, 4),
-                        seq_lens=(8, 16))
+                        seq_lens=(8, 16), antithetic=True)
 
 
 def _request(n, L, seed=0, pad_from=None):
@@ -197,11 +239,39 @@ def test_predictor_rejects(predictor):
     with pytest.raises(ValueError):
         predictor(_request(2, 17))  # > largest sequence bucket
     with pytest.raises(ValueError):
-        bt.Predictor(predictor.bmodel, n_samples=3)
+        bt.Predictor(predictor.bmodel, n_samples=3, antithetic=True)
     with pytest.raises(NotImplementedError):
-        bt.Predictor(predictor.bmodel, antithetic=False)
+        bt.Predictor(predictor.bmodel, task="causal-lm")
     with pytest.raises(NotImplementedError):
         bt.Predictor(predictor.bmodel, task="qa")
+
+
+def test_independent_predictor_summaries(predictor):
+    """The default ``Predictor`` (independent draws), at an odd S: the
+    summaries of the fused forward's S logits at the request's key,
+    deterministic per seed."""
+    pred = bt.Predictor(predictor.bmodel, n_samples=3, batch_sizes=(2, 4),
+                        seq_lens=(8, 16))
+    assert not pred.antithetic
+    r = _request(2, 6, seed=6)  # bucket (2, 8)
+    out = pred(r, seed=1)
+    assert out["probs"].shape == (2, 2) and out["pred"].shape == (2,)
+    np.testing.assert_allclose(out["probs"].sum(-1), 1.0, rtol=1e-6)
+    assert (out["epistemic_std"] > 0).all()  # three different draws
+    assert (out["mutual_info"] >= -1e-6).all()
+    assert (out["mutual_info"] <= out["entropy"] + 1e-6).all()
+    with torch.inference_mode():
+        padded = {k: torch.from_numpy(np.pad(v, ((0, 0), (0, 2)))) for k, v in r.items()}
+        logits, _ = predictor.bmodel.mc_apply_fused(
+            derive_seed(1, 2 * 100003 + 8), 3, padded["input_ids"],
+            padded["attention_mask"], padded["token_type_ids"], save_weights=False)
+        want = summarize(logits)
+    for k in out:
+        np.testing.assert_allclose(out[k], want[k].numpy(), rtol=1e-6, atol=1e-7)
+    again, other = pred(r, seed=1), pred(r, seed=2)
+    for k in out:
+        np.testing.assert_array_equal(out[k], again[k])
+    assert not np.array_equal(out["probs"], other["probs"])
 
 
 def test_mc_logits_mean():
@@ -235,10 +305,12 @@ def test_port_imports_and_serves_without_jax():
         import bayeformers_tpu_torch.convert, bayeformers_tpu_torch.elbo
         import bayeformers_tpu_torch.ops._build
         model = bt.build_bert(size="tiny", device="cpu", dtype=torch.bfloat16)
-        pred = bt.Predictor(bt.to_bayesian(model), n_samples=2,
-                            batch_sizes=(2,), seq_lens=(8,))
-        out = pred({"input_ids": np.arange(1, 13).reshape(2, 6)}, seed=0)
-        assert np.isfinite(out["probs"]).all() and out["probs"].shape == (2, 2)
+        bmodel = bt.to_bayesian(model)
+        for anti, s in ((False, 3), (True, 2)):
+            pred = bt.Predictor(bmodel, n_samples=s, batch_sizes=(2,),
+                                seq_lens=(8,), antithetic=anti)
+            out = pred({"input_ids": np.arange(1, 13).reshape(2, 6)}, seed=0)
+            assert np.isfinite(out["probs"]).all() and out["probs"].shape == (2, 2)
         bad = [m for m in sys.modules if m.split(".")[0] in (
             "jax", "flax", "optax", "transformers", "bayeformers_tpu")
             and sys.modules[m] is not None]

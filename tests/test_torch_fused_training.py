@@ -1,0 +1,122 @@
+"""The port's independent-draw (``fused``) training against the JAX package,
+on the CPU in f32, and the GLUE workload's estimator pick and f32 refusal.
+
+A tiny Flax BERT converted by ``bayeformers_tpu.to_bayesian(delta=0.05,
+freeze=True)`` is carried over with ``from_jax_params``; both packages run
+``make_elbo_train_step(estimator="fused")`` (S draws per step, one per
+sample) with the JAX package's own per-leaf draws injected into the port,
+as ``tests/test_torch_training.py`` does for the antithetic estimator.
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+
+import bayeformers_tpu as bf
+from bayeformers_tpu import training as jtraining
+from bayeformers_tpu.models import bert as jbert
+from bayeformers_tpu.utils.optim import masked_optimizer as jmasked_optimizer
+from bayeformers_tpu_torch import training
+from bayeformers_tpu_torch.nn.surgery import leaf
+from bayeformers_tpu_torch.utils import optim
+from bayeformers_tpu_torch.workloads import bert_glue
+from test_torch_training import LR, N_BATCHES, WD, _batch, _hook, _port, _port_batch
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    bundle = jbert.build_bert(size="tiny", seed=0)
+    return bf.to_bayesian(bundle.apply_fn, bundle.params, delta=0.05, freeze=True)
+
+
+@pytest.mark.parametrize("S,mc_chunk", [(3, None), (6, 3)])
+def test_fused_two_steps_match_jax(jax_model, S, mc_chunk):
+    """One and two AdamW steps of ``estimator="fused"`` at an odd S, and
+    with an odd ``mc_chunk``: metrics 2e-5 relative, parameters 1e-6
+    absolute, frozen mu bit-equal (the bounds of the antithetic test)."""
+    bmodel, bp = jax_model
+    port = _port(bp)
+    schedule = optax.linear_schedule(LR, 0.0, 10)
+    jtx = jmasked_optimizer(
+        jtraining.adamw_with_decay_groups(schedule, WD, jtraining.default_no_decay,
+                                          eps=1e-8, clip_norm=1.0),
+        bmodel.trainable_mask(bp))
+    jstep = jtraining.make_elbo_train_step(bmodel, jtx, S, N_BATCHES,
+                                           estimator="fused", mc_chunk=mc_chunk)
+    tx = training.adamw_with_decay_groups(
+        training.linear_schedule(LR, 0.0, 10), WD, training.default_no_decay,
+        eps=1e-8, clip_norm=1.0)
+    opt = optim.masked_optimizer(tx, port)
+    keys_of_step = [None]
+    drawn = []
+    hook = _hook(bmodel, keys_of_step)
+
+    def counting_hook(chunk, path, n_draws, shape):
+        drawn.append(n_draws)
+        return hook(chunk, path, n_draws, shape)
+
+    step = training.make_elbo_train_step(port, opt, S, N_BATCHES, estimator="fused",
+                                         mc_chunk=mc_chunk, eps_hook=counting_hook)
+    jbp, jstate = bp, jtx.init(bp)
+    n_chunks = S // mc_chunk if mc_chunk else 1
+    for i, key in enumerate((jax.random.key(31), jax.random.key(32))):
+        batch = _batch(i)
+        jbp, jstate, jm = jstep(jbp, jstate, key, {k: jnp.asarray(v) for k, v in batch.items()})
+        keys_of_step[0] = jax.random.split(key, n_chunks) if mc_chunk else [key]
+        m = step(200 + i, _port_batch(batch))
+        for k in ("loss", "nll", "log_prior", "log_variational_posterior"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=2e-5,
+                                       err_msg=f"step {i} {k}")
+        for k in ("acc", "acc_std"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), atol=1e-6)
+        jflat = flatten_dict(jbp.params, sep="/")
+        for path, want in jflat.items():
+            got = leaf(port.model, path).detach().numpy()
+            if path in port.spec.paths:
+                np.testing.assert_array_equal(got, np.asarray(want), err_msg=path)
+            else:
+                np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                           atol=1e-6, err_msg=path)
+        for path, want in jbp.rho.items():
+            np.testing.assert_allclose(port.rho[path].detach().numpy(),
+                                       np.asarray(want), rtol=0, atol=1e-6,
+                                       err_msg=path)
+    assert set(drawn) == {mc_chunk or S}  # one draw per sample of a chunk
+    assert opt.count == 2
+
+
+def test_bert_glue_odd_samples_run_fused_on_cpu(tmp_path, monkeypatch):
+    """An odd S takes the independent-draw estimator end to end."""
+    picked = []
+    make_step = training.make_elbo_train_step
+
+    def spy(*args, **kwargs):
+        picked.append(kwargs["estimator"])
+        return make_step(*args, **kwargs)
+
+    monkeypatch.setattr(training, "make_elbo_train_step", spy)
+    score = bert_glue.train(size="tiny", limit_batches=3, epochs=1, b_epochs=1,
+                            samples=3, batch_size=16, device="cpu",
+                            logs=str(tmp_path))
+    assert 0.0 <= score <= 1.0
+    assert picked == ["fused"]
+
+
+def test_bert_glue_refuses_f32_on_cuda(tmp_path, monkeypatch):
+    """f32 activations on a CUDA device are refused at entry, before any
+    model is built, naming the f32-kernel slice; the check needs no card."""
+    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
+        bert_glue.train(size="tiny", device=torch.device("cuda"), logs=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
+        bert_glue.check_activations(False, "cuda:0")
+    bert_glue.check_activations(True, "cuda")
+    bert_glue.check_activations(False, "cpu")
+    monkeypatch.setattr(sys, "argv", ["bert_glue", "--size", "tiny", "--logs",
+                                      str(tmp_path), "--device", "cuda"])
+    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
+        bert_glue.main()

@@ -270,7 +270,7 @@ def test_default_no_decay_matches_jax():
 
 def test_other_estimators_raise(jax_model):
     port = _port(jax_model[1])
-    for est in ("fused", "naive", "flipout", "local"):
+    for est in ("naive", "flipout", "local"):
         with pytest.raises(NotImplementedError):
             training.pick_mc(port, est)
     with pytest.raises(ValueError):
@@ -355,6 +355,14 @@ def test_training_imports_and_runs_without_jax():
         ids = torch.arange(1, 13).reshape(2, 6)
         m = step(0, {"input_ids": ids, "labels": torch.tensor([0, 1])})
         assert torch.isfinite(m["loss"])
+        # independent draws at an odd S, trained and evaluated
+        step = bt.make_elbo_train_step(bmodel, masked_optimizer(tx, bmodel), 3, 10,
+                                       estimator="fused")
+        m = step(1, {"input_ids": ids, "labels": torch.tensor([0, 1])})
+        assert torch.isfinite(m["loss"])
+        out, _ = bt.training.make_elbo_eval_step(bmodel, 3, estimator="fused")(
+            2, {"input_ids": ids, "labels": torch.tensor([0, 1])})
+        assert out.shape == (3, 2, 2)
         bad = [n for n in sys.modules if n.split(".")[0] in (
             "jax", "flax", "optax", "transformers", "bayeformers_tpu")
             and sys.modules[n] is not None]

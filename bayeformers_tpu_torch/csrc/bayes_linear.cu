@@ -9,7 +9,7 @@
 // template: H members per block, 2 for a pair, 1 for an independent sample.
 //
 // Independent sample s, eps drawn from seeds[s]:
-//   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (bf16 in, f32 acc)
+//   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (f32 acc)
 //   log_q[s] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
 //   log_p[s] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (log sqrt(2pi) + log sigma_p)
 // Antithetic pair t (samples 2t, 2t+1), eps drawn from seeds_half[t]:
@@ -19,19 +19,37 @@
 //   centred on mu is even in eps).
 // Draw t of either kind reads the same unit-stream eps for the same seed.
 //
-// Bound on the H100: the matmul's 2*S*M*K*N flops over the bf16 tensor
-// rate bound it at the serving shapes (x, mu, rho and y move a few times
+// Two operand types, one template: bf16 x (bf16 products, bf16 y and W) and
+// f32 x (true f32 products as 3xTF32, mma.cuh; f32 y and W). The eps draw,
+// W's rounding (bft::sample_w), the log-prob partials and their fixed-order
+// sum are the same in both, so the f32 W equals the regeneration kernel's
+// (regen.cu) bit for bit. Two things differ in f32:
+//  * The tensor cores add into their f32 accumulator without rounding to
+//    nearest: a sum carried across all of K = 3072 in the accumulator drifted
+//    by 5e-5 of max |y| on the H100 (chip_smoke.py), 25x the error of the
+//    products. The f32 instance therefore sums each K step's products in a
+//    fresh fragment and adds it to the running sum in registers (FADD),
+//    so no accumulator chain is longer than one step (12 products).
+//  * Each warp owns 16 rows instead of 32 (BM = 128), which keeps the
+//    running sums, the step's fragments and the split operands within the
+//    128 registers of a 512-thread block, and the tiles within 106 KB of
+//    shared memory for a pair (98 KB in bf16). The draw is then regenerated
+//    once per 128 rows.
+//
+// Bound on the H100: the matmul's 2*S*M*K*N flops over the tensor rate
+// (989 TFLOP/s in bf16; 165 TFLOP/s for f32 as 3xTF32) bound it at the
+// serving shapes (x, mu, rho and y move a few times
 // fewer bytes); the eps regeneration adds ALU work (Philox, Box-Muller,
 // softplus) for every row tile. Design: each block of 16 warps owns a
-// (BM=256, BN=64) output tile of its H members, so one eps draw feeds H
-// products and a draw is regenerated once per 256 rows (an independent
+// (BM=256 in bf16, BN=64) output tile of its H members, so one eps draw
+// feeds H products and a draw is regenerated once per 256 rows (an independent
 // sample's draw feeds one product, so its Philox work per output is twice
 // a pair's). It walks K in steps of 32 rows (16 cos-branch rows + the 16
 // sin-branch rows that share their Box-Muller pairs) through a two-stage
 // shared-memory pipeline: while the tensor cores (WMMA / mma.sync, f32
 // accumulation) work on one stage, the next x chunk streams into the other
 // by cp.async and each thread's mu/rho loads are in flight; it then
-// regenerates its four elements of the next bf16 W (pair). The phases (all
+// regenerates its four elements of the next W (pair). The phases (all
 // warps MMA, then all warps generate, then a barrier) do not overlap.
 // Blocks of row tile 0 also emit per-(draw, column tile) log-prob partials,
 // which a second one-block kernel sums in a fixed order: no float atomics,
@@ -43,36 +61,46 @@
 #include <cstdint>
 
 #include "eps.cuh"
+#include "mma.cuh"
 
 using namespace nvcuda;
+using bft::from_f32;
 
 namespace {
 
-constexpr int BM = 256;
 constexpr int BN = 64;
 constexpr int BKH = 16;            // rows per Box-Muller branch in one K step
 constexpr int BK = 2 * BKH;        // K rows per step
 constexpr int THREADS = 512;       // 16 warps: 8 (rows) x 2 (cols), 32x32 each
-constexpr int XLD = BK + 8;        // bf16 leading dims, padded (16 B multiple)
-constexpr int WLD = BN + 8;
 constexpr int CLD = BN + 4;        // f32 leading dim of the epilogue tile
-constexpr int CS_BYTES = BM * CLD * 4;
 
-// Shared memory of H members per block: two stages of (x, W) for each
-// member; the epilogue tile reuses the space.
-template <int H>
-struct Smem {
-  static constexpr int X_VEC_PER_THREAD = H * BM * BK / 8 / THREADS;  // 16-byte copies
-  static constexpr int XS_STAGE = H * BM * XLD;  // bf16 elements
-  static constexpr int WS_STAGE = H * BK * WLD;
-  static constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * 2;
-  static constexpr int BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+// Rows per block for operand type T: each of the 8 warp rows owns IM
+// fragments of 16 rows (bf16: 2, BM = 256; f32: 1, BM = 128, see above).
+// PROMOTE: the f32 instance's per-step sums (above).
+template <typename T>
+struct Rows {
+  static constexpr int IM = sizeof(T) == 4 ? 1 : 2;
+  static constexpr int BM = 8 * 16 * IM;
+  static constexpr bool PROMOTE = sizeof(T) == 4;
 };
 
-__device__ __forceinline__ float softplus_f(float r) {
-  // logaddexp(r, 0), the form jax.nn.softplus and the plain version use
-  return fmaxf(r, 0.0f) + log1pf(expf(-fabsf(r)));
-}
+// Shared memory of H members per block in operand type T: two stages of
+// (x, W) for each member; the epilogue tile reuses the space. Leading dims
+// are padded by 16 bytes.
+template <int H, typename T>
+struct Smem {
+  static constexpr int BM = Rows<T>::BM;
+  static constexpr int CS_BYTES = BM * CLD * 4;
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int XLD = BK + PAD;
+  static constexpr int WLD = BN + PAD;
+  static constexpr int VEC = bft::Mma<T>::VEC;  // elements in a 16-byte copy
+  static constexpr int X_VEC_PER_THREAD = H * BM * BK / VEC / THREADS;
+  static constexpr int XS_STAGE = H * BM * XLD;  // elements
+  static constexpr int WS_STAGE = H * BK * WLD;
+  static constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * static_cast<int>(sizeof(T));
+  static constexpr int BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+};
 
 __device__ __forceinline__ float block_sum_fixed(float v, float* red) {
   // fixed-order block reduction: warp tree, then the warps in order
@@ -95,8 +123,9 @@ __device__ __forceinline__ int step_kc(int s) {
   return (s >> 3) * bft::UNIT_K + (s & 7) * BKH;
 }
 
+template <typename T>
 struct Block {
-  const __nv_bfloat16* x;
+  const T* x;
   const float* mu;
   const float* rho;
   int M, K, N, m0, n0, s0;
@@ -105,21 +134,23 @@ struct Block {
 // Start the asynchronous copy of this thread's 16-byte chunks of the
 // (H members, BM, BK) x tile of step s into a stage (zero-filled outside the
 // matrix); cp_async_wait() completes them. No registers hold the data.
-template <int H>
-__device__ __forceinline__ void load_x_async(const Block& b, int s, __nv_bfloat16* xs) {
+template <int H, typename T>
+__device__ __forceinline__ void load_x_async(const Block<T>& b, int s, T* xs) {
+  constexpr int VEC = Smem<H, T>::VEC, XLD = Smem<H, T>::XLD, BM = Smem<H, T>::BM;
+  constexpr int CPS = BKH / VEC;  // 16-byte chunks per branch segment
   const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
 #pragma unroll
-  for (int i = 0; i < Smem<H>::X_VEC_PER_THREAD; ++i) {
+  for (int i = 0; i < Smem<H, T>::X_VEC_PER_THREAD; ++i) {
     const int q = threadIdx.x + i * THREADS;
-    const int chunk = q & 1, seg = (q >> 1) & 1, row = (q >> 2) & (BM - 1);
-    const int h = q / (4 * BM);
-    const int k = (seg ? ks : kc) + chunk * 8;
+    const int chunk = q % CPS, seg = (q / CPS) & 1, row = (q / (2 * CPS)) & (BM - 1);
+    const int h = q / (2 * CPS * BM);
+    const int k = (seg ? ks : kc) + chunk * VEC;
     const int m = b.m0 + row;
     const bool ok = m < b.M && k < b.K;
-    const __nv_bfloat16* src =
+    const T* src =
         b.x + (ok ? (static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k : 0);
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
-        xs + (h * BM + row) * XLD + seg * BKH + chunk * 8));
+        xs + (h * BM + row) * XLD + seg * BKH + chunk * VEC));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                  "l"(src), "r"(ok ? 16 : 0));
   }
@@ -130,15 +161,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Element-wise x tile for K % 8 != 0 (no 16-byte loads).
-template <int H>
-__device__ __forceinline__ void load_x_scalar(const Block& b, int s, __nv_bfloat16* xs) {
+// Element-wise x tile for rows that are not whole 16-byte chunks (no
+// 16-byte loads).
+template <int H, typename T>
+__device__ __forceinline__ void load_x_scalar(const Block<T>& b, int s, T* xs) {
+  constexpr int XLD = Smem<H, T>::XLD, BM = Smem<H, T>::BM;
   const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
   for (int q = threadIdx.x; q < H * BM * BK; q += THREADS) {
     const int col = q % BK, row = (q / BK) % BM, h = q / (BK * BM);
     const int k = (col < BKH ? kc + col : ks + col - BKH);
     const int m = b.m0 + row;
-    __nv_bfloat16 v = __float2bfloat16(0.0f);
+    T v = from_f32<T>(0.0f);
     if (m < b.M && k < b.K) v = b.x[(static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k];
     xs[(h * BM + row) * XLD + col] = v;
   }
@@ -146,7 +179,8 @@ __device__ __forceinline__ void load_x_scalar(const Block& b, int s, __nv_bfloat
 
 // mu / rho of this thread's four weight elements in step s: rows
 // (cos, sin) x columns (c, c + 1); out-of-range elements read as 0.
-__device__ __forceinline__ void load_weights(const Block& b, int s, float (&m)[4], float (&r)[4]) {
+template <typename T>
+__device__ __forceinline__ void load_weights(const Block<T>& b, int s, float (&m)[4], float (&r)[4]) {
   const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
   const int rr = threadIdx.x >> 5, c = 2 * (threadIdx.x & 31);
 #pragma unroll
@@ -165,31 +199,38 @@ __device__ __forceinline__ void load_weights(const Block& b, int s, float (&m)[4
 
 // H members per block: draw t = blockIdx.z (seed seeds[t]) feeds samples
 // H t .. H t + H - 1, member h's weights being w0 (h = 0) or 2 mu - w0.
-template <int H>
+// T: the type of x, y, W and the products' operands.
+template <int H, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
+bayes_linear_kernel(const T* __restrict__ x,
                     const float* __restrict__ mu,
                     const float* __restrict__ rho,
                     const int32_t* __restrict__ seeds,
-                    __nv_bfloat16* __restrict__ y,
-                    __nv_bfloat16* __restrict__ w_out,
+                    T* __restrict__ y,
+                    T* __restrict__ w_out,
                     float* __restrict__ partials,
                     float* __restrict__ ls_part, int M, int K, int N,
                     int x_vec, float inv_sigma_p) {
   static_assert(H == 1 || H == 2, "one sample or one antithetic pair per block");
-  constexpr int XS_STAGE = Smem<H>::XS_STAGE;
-  constexpr int WS_STAGE = Smem<H>::WS_STAGE;
+  using S_ = Smem<H, T>;
+  constexpr int XS_STAGE = S_::XS_STAGE, WS_STAGE = S_::WS_STAGE;
+  constexpr int XLD = S_::XLD, WLD = S_::WLD;
+  constexpr int BM = S_::BM, IM = Rows<T>::IM;
+  constexpr bool PROMOTE = Rows<T>::PROMOTE;
+  constexpr int KD = bft::Mma<T>::KDEPTH;
+  using AFrag = bft::Operand<T, wmma::matrix_a, wmma::row_major>;
+  using BFrag = bft::Operand<T, wmma::matrix_b, wmma::row_major>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[THREADS / 32];
-  __nv_bfloat16* xs_base = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws_base = xs_base + 2 * XS_STAGE;
+  T* xs_base = reinterpret_cast<T*>(smem);
+  T* ws_base = xs_base + 2 * XS_STAGE;
   float* cs = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int warp_m = warp & 7, warp_n = warp >> 3;
   const int tile_n = blockIdx.x, tile_m = blockIdx.y, t = blockIdx.z;
-  const Block b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, H * t};
+  const Block<T> b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, H * t};
   const uint32_t seed = static_cast<uint32_t>(seeds[t]);
   const bool do_lp = (tile_m == 0);
   const uint32_t col_strip = static_cast<uint32_t>(b.n0 / bft::UNIT_N);
@@ -199,11 +240,11 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
   const int full = K / bft::UNIT_K, rem = K - full * bft::UNIT_K;
   const int n_steps = full * 8 + min(8, (rem + BKH - 1) / BKH);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[H][2][2];
+  bft::Acc<T> acc[H][IM][2];
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < IM; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[h][i][j], 0.0f);
 
@@ -211,8 +252,8 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
   const size_t KN = static_cast<size_t>(K) * N;
 
   // Regenerate this thread's four elements of the W (pair) of step s from
-  // the prefetched mu / rho and write them (bf16) into the stage's W tiles.
-  auto gen = [&](int s, const float (&m)[4], const float (&r)[4], __nv_bfloat16* ws) {
+  // the prefetched mu / rho and write them (type T) into the stage's W tiles.
+  auto gen = [&](int s, const float (&m)[4], const float (&r)[4], T* ws) {
     const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
     float z[4];
     bft::unit_normals4(seed, static_cast<uint32_t>(s >> 3), col_strip,
@@ -225,9 +266,9 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
       const int n = b.n0 + col;
       float w0 = 0.0f, w1 = 0.0f;
       if (krow < K && n < N) {
-        const float sig = softplus_f(r[e]);
+        const float sig = bft::softplus(r[e]);
         const float se = __fmul_rn(sig, z[e]);
-        w0 = __fadd_rn(m[e], se);
+        w0 = __fadd_rn(m[e], se);  // bft::sample_w, keeping se for log_p
         if (H == 2) w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
         if (do_lp) {
           q_acc += -0.5f * z[e] * z[e];
@@ -236,23 +277,23 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
           ls_acc += logf(sig);
           if (w_out != nullptr) {
             const size_t idx = static_cast<size_t>(krow) * N + n;
-            w_out[static_cast<size_t>(b.s0) * KN + idx] = __float2bfloat16(w0);
+            w_out[static_cast<size_t>(b.s0) * KN + idx] = from_f32<T>(w0);
             if (H == 2)
-              w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = __float2bfloat16(w1);
+              w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = from_f32<T>(w1);
           }
         }
       }
-      ws[trow * WLD + col] = __float2bfloat16(w0);
-      if (H == 2) ws[(BK + trow) * WLD + col] = __float2bfloat16(w1);
+      ws[trow * WLD + col] = from_f32<T>(w0);
+      if (H == 2) ws[(BK + trow) * WLD + col] = from_f32<T>(w1);
     }
   };
 
   // ---- prologue: stage 0 holds step 0 ----
   float mr[4], rr_[4];
   if (x_vec) {
-    load_x_async<H>(b, 0, xs_base);
+    load_x_async<H, T>(b, 0, xs_base);
   } else {
-    load_x_scalar<H>(b, 0, xs_base);
+    load_x_scalar<H, T>(b, 0, xs_base);
   }
   load_weights(b, 0, mr, rr_);
   gen(0, mr, rr_, ws_base);
@@ -265,30 +306,46 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
     const bool more = s + 1 < n_steps;
     if (more) {
       // the next x tile streams into the other stage over the MMAs
-      if (x_vec) load_x_async<H>(b, s + 1, xs_base + nxt * XS_STAGE);
+      if (x_vec) load_x_async<H, T>(b, s + 1, xs_base + nxt * XS_STAGE);
       load_weights(b, s + 1, mr, rr_);
     }
-    const __nv_bfloat16* xs = xs_base + cur * XS_STAGE;
-    const __nv_bfloat16* ws = ws_base + cur * WS_STAGE;
+    const T* xs = xs_base + cur * XS_STAGE;
+    const T* ws = ws_base + cur * WS_STAGE;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
+      // the step's sums: straight into acc, or (PROMOTE) into a fresh
+      // fragment that is then added to acc in registers
+      bft::Acc<T> part[IM][2];
+      if (PROMOTE) {
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
+        for (int i = 0; i < IM; ++i)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              a[i], xs + (h * BM + warp_m * 32 + i * 16) * XLD + kk, XLD);
+          for (int jn = 0; jn < 2; ++jn) wmma::fill_fragment(part[i][jn], 0.0f);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += KD) {
+        AFrag a[IM];
+        BFrag bf[2];
+#pragma unroll
+        for (int i = 0; i < IM; ++i)
+          a[i].load(xs + (h * BM + warp_m * 16 * IM + i * 16) * XLD + kk, XLD);
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn)
-          wmma::load_matrix_sync(
-              bf[jn], ws + (h * BK + kk) * WLD + warp_n * 32 + jn * 16, WLD);
+          bf[jn].load(ws + (h * BK + kk) * WLD + warp_n * 32 + jn * 16, WLD);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < IM; ++i)
 #pragma unroll
           for (int jn = 0; jn < 2; ++jn)
-            wmma::mma_sync(acc[h][i][jn], a[i], bf[jn], acc[h][i][jn]);
+            bft::mma(PROMOTE ? part[i][jn] : acc[h][i][jn], a[i], bf[jn]);
+      }
+      if (PROMOTE) {
+#pragma unroll
+        for (int i = 0; i < IM; ++i)
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+            for (int e = 0; e < part[i][jn].num_elements; ++e)
+              acc[h][i][jn].x[e] = __fadd_rn(acc[h][i][jn].x[e], part[i][jn].x[e]);
       }
     }
     if (more) {
@@ -296,22 +353,22 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
       if (x_vec) {
         cp_async_wait();
       } else {
-        load_x_scalar<H>(b, s + 1, xs_base + nxt * XS_STAGE);
+        load_x_scalar<H, T>(b, s + 1, xs_base + nxt * XS_STAGE);
       }
     }
     __syncthreads();
   }
 
-  // ---- epilogue: f32 tile through shared memory, bf16 out ----
+  // ---- epilogue: f32 tile through shared memory, T out ----
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     if (h) __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < IM; ++i)
 #pragma unroll
       for (int jn = 0; jn < 2; ++jn)
         wmma::store_matrix_sync(
-            cs + (warp_m * 32 + i * 16) * CLD + warp_n * 32 + jn * 16,
+            cs + (warp_m * 16 * IM + i * 16) * CLD + warp_n * 32 + jn * 16,
             acc[h][i][jn], CLD, wmma::mem_row_major);
     __syncthreads();
     for (int q = tid; q < BM * BN; q += THREADS) {
@@ -319,7 +376,7 @@ bayes_linear_kernel(const __nv_bfloat16* __restrict__ x,
       const int m = b.m0 + row, n = b.n0 + col;
       if (m < M && n < N)
         y[(static_cast<size_t>(b.s0 + h) * M + m) * N + n] =
-            __float2bfloat16(cs[row * CLD + col]);
+            from_f32<T>(cs[row * CLD + col]);
     }
   }
 
@@ -359,23 +416,24 @@ __global__ void logprob_finalize(const float* __restrict__ partials,
   }
 }
 
-template <int H>
+template <int H, typename T>
 int launch(const void* x, const void* mu, const void* rho, const void* seeds,
            void* y, void* w_out, void* partials, void* ls_part, void* logq,
            void* logp, int S, int M, int K, int N, int x_vec,
            float inv_sigma_p, float c_q, float c_p, void* stream) {
+  constexpr int BM = Smem<H, T>::BM;
   const int n_tiles = (N + BN - 1) / BN;
   const int n_draws = S / H;
   const dim3 grid(n_tiles, (M + BM - 1) / BM, n_draws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      bayes_linear_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<H>::BYTES);
+      bayes_linear_kernel<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<H, T>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bayes_linear_kernel<H><<<grid, THREADS, Smem<H>::BYTES, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mu),
+  bayes_linear_kernel<H, T><<<grid, THREADS, Smem<H, T>::BYTES, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mu),
       static_cast<const float*>(rho), static_cast<const int32_t*>(seeds),
-      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(w_out),
+      static_cast<T*>(y), static_cast<T*>(w_out),
       static_cast<float*>(partials), static_cast<float*>(ls_part), M, K, N,
       x_vec, inv_sigma_p);
   err = cudaGetLastError();
@@ -387,22 +445,39 @@ int launch(const void* x, const void* mu, const void* rho, const void* seeds,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int H>
+int launch_by_type(int x_f32, const void* x, const void* mu, const void* rho,
+                   const void* seeds, void* y, void* w_out, void* partials,
+                   void* ls_part, void* logq, void* logp, int S, int M, int K,
+                   int N, int x_vec, float inv_sigma_p, float c_q, float c_p,
+                   void* stream) {
+  if (x_f32)
+    return launch<H, float>(x, mu, rho, seeds, y, w_out, partials, ls_part, logq,
+                            logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
+  return launch<H, __nv_bfloat16>(x, mu, rho, seeds, y, w_out, partials, ls_part,
+                                  logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q,
+                                  c_p, stream);
+}
+
 }  // namespace
 
-// x (S, M, K) bf16, mu / rho (K, N) f32, seeds (S,) i32 (independent) or
-// seeds_half (S/2,) i32 (antithetic) -> y (S, M, N) bf16, logq / logp (S,)
-// f32 and, when w_out is not null, the sampled W (S, K, N) bf16.
+// x (S, M, K) bf16 (x_f32 = 0) or f32 (x_f32 = 1), mu / rho (K, N) f32,
+// seeds (S,) i32 (independent) or seeds_half (S/2,) i32 (antithetic) -> y
+// (S, M, N) in x's type, logq / logp (S,) f32 and, when w_out is not null,
+// the sampled W (S, K, N) in x's type.
 // partials: (n_draws, ceil(N/64), 2) f32 scratch, ls_part: (ceil(N/64),) f32
 // scratch. c_q = K*N*log(sqrt(2 pi)), c_p = K*N*(log(sqrt(2 pi)) +
-// log(sigma_p)). Each returns cudaGetLastError().
+// log(sigma_p)). x_vec: x's rows may be copied 16 bytes at a time. Each
+// returns cudaGetLastError().
 extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
                                 const void* seeds, void* y, void* w_out,
                                 void* partials, void* ls_part, void* logq,
                                 void* logp, int S, int M, int K, int N,
-                                int x_vec, float inv_sigma_p, float c_q,
-                                float c_p, void* stream) {
-  return launch<1>(x, mu, rho, seeds, y, w_out, partials, ls_part, logq, logp,
-                   S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
+                                int x_vec, int x_f32, float inv_sigma_p,
+                                float c_q, float c_p, void* stream) {
+  return launch_by_type<1>(x_f32, x, mu, rho, seeds, y, w_out, partials, ls_part,
+                           logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p,
+                           stream);
 }
 
 extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
@@ -410,8 +485,9 @@ extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
                                      void* y, void* w_out, void* partials,
                                      void* ls_part, void* logq, void* logp,
                                      int S, int M, int K, int N, int x_vec,
-                                     float inv_sigma_p, float c_q, float c_p,
-                                     void* stream) {
-  return launch<2>(x, mu, rho, seeds_half, y, w_out, partials, ls_part, logq,
-                   logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
+                                     int x_f32, float inv_sigma_p, float c_q,
+                                     float c_p, void* stream) {
+  return launch_by_type<2>(x_f32, x, mu, rho, seeds_half, y, w_out, partials,
+                           ls_part, logq, logp, S, M, K, N, x_vec, inv_sigma_p,
+                           c_q, c_p, stream);
 }

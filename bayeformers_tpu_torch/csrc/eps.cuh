@@ -78,4 +78,19 @@ __device__ __forceinline__ void unit_normals4(uint32_t seed, uint32_t k_chunk,
   box_muller_pair(p.x2, p.x3, &out[1], &out[3]);
 }
 
+// sigma = softplus(rho) in the logaddexp(rho, 0) form that jax.nn.softplus
+// and the plain version (core/distributions.py::sigma_from_rho) use: no
+// product, so nothing for the compiler to contract.
+__device__ __forceinline__ float softplus(float r) {
+  return fmaxf(r, 0.0f) + log1pf(expf(-fabsf(r)));
+}
+
+// One sampled weight w = mu + sigma * eps, the product and the sum each
+// rounded on its own (no FMA), as torch's plain version rounds them: the
+// forward kernel's W and the regeneration kernel's W are then equal, bit for
+// bit, to each other and to the plain W at the same normals.
+__device__ __forceinline__ float sample_w(float mu, float sigma, float z) {
+  return __fadd_rn(mu, __fmul_rn(sigma, z));
+}
+
 }  // namespace bft

@@ -14,7 +14,23 @@
 //   B += (p0 - p1) * wc
 //   V += (g_p[2t] + g_p[2t+1]) * wc * wc                   (once per pair)
 // and the elementwise finalize (ops/fused_backward.py::finalize) turns A, B,
-// V into dmu and drho. W is the forward's bf16 residual.
+// V into dmu and drho.
+//
+// Three instances of one template over the types of x and g (TX) and of W
+// (TW), as the reference feeds its reduce: (bf16, bf16) reads the bf16
+// forward's W residual; (f32, f32) takes f32 activations with true f32
+// products (3xTF32, mma.cuh) and their f32 residual or regenerated W; and
+// (bf16, f32) is the regenerating backward at bf16, which, as the
+// reference's _bwd_common (bayeformers_tpu/ops/fused_linear.py:1285-1288),
+// hands the regenerated f32 W to the reduce. W enters only the f32 epilogue,
+// (w - mu), so its type is a load, not another product path. The f32
+// tiles double the pipeline's shared memory. The tensor cores add into
+// their f32 accumulator without rounding to nearest: a sample's sum carried
+// over all 1024 tokens in the accumulator drifted by 1.5e-5 of A's largest
+// entry on the H100 (chip_smoke.py). So in f32 each step's products go
+// through shared memory into a running sum (FADD) that each thread keeps
+// for its own 32 elements, and no accumulator chain is longer than one step
+// (32 or 64 tokens); 136 KB a block for a pair.
 //
 // Bound on the H100: the 2*S*M*K*N flops of the S products over the bf16
 // tensor rate (0.012 ms at 768x768, 0.049 ms at 768x3072, S=10, M=1024);
@@ -44,34 +60,43 @@
 
 #include <cstdint>
 
+#include "mma.cuh"
+
 using namespace nvcuda;
+using bft::from_f32;
+using bft::to_f32;
 
 namespace {
 
 constexpr int TK = 64;          // output rows (K) per block
 constexpr int TN = 64;          // output columns (N) per block
 constexpr int THREADS = 128;    // 4 warps: 2 (K) x 2 (N), 32 x 32 outputs each
-constexpr int XLD = TK + 8;     // bf16 leading dims of the token-major tiles
-constexpr int GLD = TN + 8;
 constexpr int PLD = TN + 4;     // f32 leading dim of the per-pair products
 constexpr int PER_THREAD = TK * TN / THREADS;  // output elements per thread
 
-// Tiling of H members per step: TM tokens of each, so that a step holds 64
-// token rows and the same MMA work for a sample as for a pair; two stages
-// of their x and g tiles, then their f32 products.
-template <int H>
+// Tiling of H members per step in operand type T: TM tokens of each, so
+// that a step holds 64 token rows and the same MMA work for a sample as for
+// a pair; two stages of their x and g tiles (leading dims padded by 16
+// bytes), then their f32 products, and in f32 (PROMOTE, above) their
+// running sums.
+template <int H, typename T>
 struct Smem {
+  static constexpr bool PROMOTE = sizeof(T) == 4;
   static constexpr int TM = 64 / H;  // tokens per pipeline step
-  static constexpr int X_STAGE = H * TM * XLD;  // bf16 elements
-  static constexpr int G_STAGE = H * TM * GLD;
-  static constexpr int PIPE_BYTES = 2 * (X_STAGE + G_STAGE) * 2;
-  static constexpr int BYTES = PIPE_BYTES + H * TK * PLD * 4;
-  static constexpr int VEC_PER_THREAD = H * TM * (TK / 8) / THREADS;  // 16-byte copies
+  static constexpr int LD = TK + 16 / static_cast<int>(sizeof(T));  // = TN + pad
+  static constexpr int VEC = bft::Mma<T>::VEC;  // elements in a 16-byte copy
+  static constexpr int X_STAGE = H * TM * LD;  // elements
+  static constexpr int G_STAGE = H * TM * LD;
+  static constexpr int PIPE_BYTES = 2 * (X_STAGE + G_STAGE) * static_cast<int>(sizeof(T));
+  static constexpr int PS_BYTES = H * TK * PLD * 4;
+  static constexpr int BYTES = PIPE_BYTES + (PROMOTE ? 2 : 1) * PS_BYTES;
+  static constexpr int VEC_PER_THREAD = H * TM * (TK / VEC) / THREADS;  // 16-byte copies
 };
 
+template <typename T>
 struct Tiles {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* g;
+  const T* x;
+  const T* g;
   int M, K, N, k0, n0;
 };
 
@@ -83,22 +108,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 
 // Rows [m0, m0 + TM) of the H members s0 .. s0 + H - 1 of a (S, M, C)
 // operand, columns [c0, c0 + 64), into a (H, TM, ld) token-major tile; zero
-// outside the matrix. ``vec``: 16-byte asynchronous copies (C % 8 == 0,
-// 16-byte aligned base), completed by cp_async_commit_wait(); otherwise
-// element loads.
-template <int H>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src, int s0,
-                                          int M, int C, int m0, int c0,
-                                          __nv_bfloat16* dst, int ld, bool vec) {
-  constexpr int TM = Smem<H>::TM;
+// outside the matrix. ``vec``: 16-byte asynchronous copies (rows of whole
+// 16-byte chunks, 16-byte aligned base), completed by cp_async_commit_wait();
+// otherwise element loads.
+template <int H, typename T>
+__device__ __forceinline__ void load_tile(const T* src, int s0, int M, int C,
+                                          int m0, int c0, T* dst, int ld,
+                                          bool vec) {
+  constexpr int TM = Smem<H, T>::TM, VEC = Smem<H, T>::VEC;
+  constexpr int CPR = 64 / VEC;  // 16-byte chunks per tile row
   if (vec) {
 #pragma unroll
-    for (int i = 0; i < Smem<H>::VEC_PER_THREAD; ++i) {
+    for (int i = 0; i < Smem<H, T>::VEC_PER_THREAD; ++i) {
       const int q = threadIdx.x + i * THREADS;
-      const int chunk = q & 7, row = (q >> 3) & (TM - 1), h = q / (8 * TM);
-      const int m = m0 + row, c = c0 + chunk * 8;
+      const int chunk = q % CPR, row = (q / CPR) & (TM - 1), h = q / (CPR * TM);
+      const int m = m0 + row, c = c0 + chunk * VEC;
       const bool ok = m < M && c < C;
-      cp_async16(dst + (h * TM + row) * ld + chunk * 8,
+      cp_async16(dst + (h * TM + row) * ld + chunk * VEC,
                  src + (ok ? (static_cast<size_t>(s0 + h) * M + m) * C + c : 0),
                  ok);
     }
@@ -106,7 +132,7 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* src, int s0,
     for (int q = threadIdx.x; q < H * TM * 64; q += THREADS) {
       const int col = q & 63, row = (q >> 6) & (TM - 1), h = q / (64 * TM);
       const int m = m0 + row, c = c0 + col;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
+      T v = from_f32<T>(0.0f);
       if (m < M && c < C) v = src[(static_cast<size_t>(s0 + h) * M + m) * C + c];
       dst[(h * TM + row) * ld + col] = v;
     }
@@ -119,33 +145,39 @@ __device__ __forceinline__ void cp_async_commit_wait() {
 }
 
 // H members per step: step s covers samples H (s / n_mc) .. + H - 1.
-template <int H>
+template <int H, typename TX, typename TW>
 __global__ void __launch_bounds__(THREADS)
-reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ g,
-                   const __nv_bfloat16* __restrict__ w,
+reduce_abuv_kernel(const TX* __restrict__ x,
+                   const TX* __restrict__ g,
+                   const TW* __restrict__ w,
                    const float* __restrict__ mu,
                    const float* __restrict__ g_p,
                    float* __restrict__ a_out, float* __restrict__ b_out,
                    float* __restrict__ v_out, int S, int M, int K, int N,
                    int x_vec, int g_vec) {
   static_assert(H == 1 || H == 2, "one sample or one antithetic pair per step");
-  constexpr int TM = Smem<H>::TM;
-  constexpr int X_STAGE = Smem<H>::X_STAGE;
-  constexpr int G_STAGE = Smem<H>::G_STAGE;
+  using S_ = Smem<H, TX>;
+  constexpr int TM = S_::TM;
+  constexpr int X_STAGE = S_::X_STAGE;
+  constexpr int G_STAGE = S_::G_STAGE;
+  constexpr int XLD = S_::LD, GLD = S_::LD;
+  constexpr int KD = bft::Mma<TX>::KDEPTH;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs_base = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* gs_base = xs_base + 2 * X_STAGE;
-  float* ps = reinterpret_cast<float*>(smem + Smem<H>::PIPE_BYTES);
+  TX* xs_base = reinterpret_cast<TX*>(smem);
+  TX* gs_base = xs_base + 2 * X_STAGE;
+  float* ps = reinterpret_cast<float*>(smem + S_::PIPE_BYTES);
+  // the sample's (pair's) products: ps itself, or (PROMOTE) their running sum
+  float* run = reinterpret_cast<float*>(smem + S_::PIPE_BYTES +
+                                        (S_::PROMOTE ? S_::PS_BYTES : 0));
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int warp_k = warp & 1, warp_n = warp >> 1;
-  const Tiles tl{x, g, M, K, N, blockIdx.y * TK, blockIdx.x * TN};
+  const Tiles<TX> tl{x, g, M, K, N, blockIdx.y * TK, blockIdx.x * TN};
   const int n_mc = (M + TM - 1) / TM;
   const int n_steps = (S / H) * n_mc;
   const size_t KN = static_cast<size_t>(K) * N;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[H][2][2];
+  bft::Acc<TX> acc[H][2][2];
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
@@ -162,9 +194,9 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
   auto load_step = [&](int s, int stage, bool vec_part) {
     const int s0 = H * (s / n_mc), m0 = (s % n_mc) * TM;
     if (bool(x_vec) == vec_part)
-      load_tile<H>(tl.x, s0, M, K, m0, tl.k0, xs_base + stage * X_STAGE, XLD, vec_part);
+      load_tile<H, TX>(tl.x, s0, M, K, m0, tl.k0, xs_base + stage * X_STAGE, XLD, vec_part);
     if (bool(g_vec) == vec_part)
-      load_tile<H>(tl.g, s0, M, N, m0, tl.n0, gs_base + stage * G_STAGE, GLD, vec_part);
+      load_tile<H, TX>(tl.g, s0, M, N, m0, tl.n0, gs_base + stage * G_STAGE, GLD, vec_part);
   };
 
   load_step(0, 0, true);
@@ -177,27 +209,25 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
     const bool more = s + 1 < n_steps;
     // the other stage was read last in step s - 1, before its barrier
     if (more) load_step(s + 1, cur ^ 1, true);
-    const __nv_bfloat16* xs = xs_base + cur * X_STAGE;
-    const __nv_bfloat16* gs = gs_base + cur * G_STAGE;
+    const TX* xs = xs_base + cur * X_STAGE;
+    const TX* gs = gs_base + cur * G_STAGE;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
 #pragma unroll
-      for (int kk = 0; kk < TM; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
+      for (int kk = 0; kk < TM; kk += KD) {
+        bft::Operand<TX, wmma::matrix_a, wmma::col_major> af[2];
+        bft::Operand<TX, wmma::matrix_b, wmma::row_major> bf[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)  // x^T: (k, token) read from the (token, k) tile
-          wmma::load_matrix_sync(
-              af[i], xs + (h * TM + kk) * XLD + warp_k * 32 + i * 16, XLD);
+          af[i].load(xs + (h * TM + kk) * XLD + warp_k * 32 + i * 16, XLD);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              bf[j], gs + (h * TM + kk) * GLD + warp_n * 32 + j * 16, GLD);
+          bf[j].load(gs + (h * TM + kk) * GLD + warp_n * 32 + j * 16, GLD);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[h][i][j], af[i], bf[j], acc[h][i][j]);
+            bft::mma(acc[h][i][j], af[i], bf[j]);
       }
     }
     if (more) {
@@ -206,10 +236,9 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();
 
-    if (s % n_mc == n_mc - 1) {
-      // member group t's contraction is complete: fold its products into
-      // A, B, V
-      const int t = s / n_mc;
+    const bool last = s % n_mc == n_mc - 1;
+    if (S_::PROMOTE || last) {
+      // the products so far (PROMOTE: this step's) into ps
 #pragma unroll
       for (int h = 0; h < H; ++h)
 #pragma unroll
@@ -222,8 +251,27 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
             wmma::fill_fragment(acc[h][i][j], 0.0f);
           }
       __syncthreads();
+    }
+    if (S_::PROMOTE) {
+      // each thread adds its own elements of the step into the running sum
+      const bool first = s % n_mc == 0;
+#pragma unroll
+      for (int e = 0; e < PER_THREAD; ++e) {
+        const int idx = tid + e * THREADS;
+        const int o = (idx / TN) * PLD + idx % TN;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          run[h * TK * PLD + o] =
+              first ? ps[h * TK * PLD + o] : __fadd_rn(run[h * TK * PLD + o], ps[h * TK * PLD + o]);
+      }
+    }
+
+    if (last) {
+      // member group t's contraction is complete: fold its products into
+      // A, B, V
+      const int t = s / n_mc;
       const float gps = (H == 2) ? g_p[2 * t] + g_p[2 * t + 1] : g_p[t];
-      const __nv_bfloat16* w0 = w + static_cast<size_t>(H * t) * KN;
+      const TW* w0 = w + static_cast<size_t>(H * t) * KN;
 #pragma unroll
       for (int e = 0; e < PER_THREAD; ++e) {
         const int idx = tid + e * THREADS;
@@ -232,15 +280,15 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
         float wc = 0.0f;
         if (k < K && n < N) {
           const size_t o = static_cast<size_t>(k) * N + n;
-          wc = __bfloat162float(w0[o]) - mu[o];
+          wc = to_f32(w0[o]) - mu[o];
         }
         if (H == 2) {
-          const float p0 = ps[r * PLD + c];
-          const float p1 = ps[(TK + r) * PLD + c];
+          const float p0 = run[r * PLD + c];
+          const float p1 = run[(TK + r) * PLD + c];
           a_acc[e] += p0 + p1;
           b_acc[e] += (p0 - p1) * wc;
         } else {
-          const float p = ps[r * PLD + c];
+          const float p = run[r * PLD + c];
           a_acc[e] += p;
           b_acc[e] += p * wc;
         }
@@ -263,43 +311,67 @@ reduce_abuv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int H>
+template <int H, typename TX, typename TW>
 int launch(const void* x, const void* g, const void* w, const void* mu,
            const void* g_p, void* a, void* b, void* v, int S, int M, int K,
            int N, int x_vec, int g_vec, void* stream) {
   if (S < H || S % H || M < 1 || K < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int BYTES = Smem<H, TX>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      reduce_abuv_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<H>::BYTES);
+      reduce_abuv_kernel<H, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TN - 1) / TN, (K + TK - 1) / TK);
-  reduce_abuv_kernel<H><<<grid, THREADS, Smem<H>::BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(mu),
+  reduce_abuv_kernel<H, TX, TW><<<grid, THREADS, BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(g),
+      static_cast<const TW*>(w), static_cast<const float*>(mu),
       static_cast<const float*>(g_p), static_cast<float*>(a),
       static_cast<float*>(b), static_cast<float*>(v), S, M, K, N, x_vec, g_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance of (x's type, W's type): (bf16, bf16), (f32, f32) or
+// (bf16, f32); f32 x with bf16 W is refused.
+template <int H>
+int launch_by_type(int x_f32, int w_f32, const void* x, const void* g,
+                   const void* w, const void* mu, const void* g_p, void* a,
+                   void* b, void* v, int S, int M, int K, int N, int x_vec,
+                   int g_vec, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (x_f32 && w_f32)
+    return launch<H, float, float>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
+                                   g_vec, stream);
+  if (x_f32) return static_cast<int>(cudaErrorInvalidValue);
+  if (w_f32)
+    return launch<H, bf16, float>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
+                                  g_vec, stream);
+  return launch<H, bf16, bf16>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
+                               g_vec, stream);
+}
+
 }  // namespace
 
-// x (S, M, K) bf16, g (S, M, N) bf16, w (S, K, N) bf16 (the antithetic
-// reduce reads the even members only), mu (K, N) f32, g_p (S,) f32 -> A, B,
-// V (K, N) f32. x_vec / g_vec: the rows of x / g may be copied 16 bytes at
-// a time (K / N a multiple of 8, base 16-byte aligned). Each returns
-// cudaGetLastError().
+// x (S, M, K) and g (S, M, N) bf16 (x_f32 = 0) or f32 (x_f32 = 1), w (S, K,
+// N) bf16 (w_f32 = 0) or f32 (w_f32 = 1; the antithetic reduce reads the
+// even members only), mu (K, N) f32, g_p (S,) f32 -> A, B, V (K, N) f32.
+// x_vec / g_vec: the rows of x / g may be copied 16 bytes at a time (whole
+// 16-byte chunks, base 16-byte aligned). Each returns cudaGetLastError().
 extern "C" int bft_reduce_abuv(const void* x, const void* g, const void* w,
                                const void* mu, const void* g_p, void* a,
                                void* b, void* v, int S, int M, int K, int N,
-                               int x_vec, int g_vec, void* stream) {
-  return launch<1>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec, g_vec, stream);
+                               int x_vec, int g_vec, int x_f32, int w_f32,
+                               void* stream) {
+  return launch_by_type<1>(x_f32, w_f32, x, g, w, mu, g_p, a, b, v, S, M, K, N,
+                           x_vec, g_vec, stream);
 }
 
 extern "C" int bft_reduce_abuv_anti(const void* x, const void* g, const void* w,
                                     const void* mu, const void* g_p, void* a,
                                     void* b, void* v, int S, int M, int K, int N,
-                                    int x_vec, int g_vec, void* stream) {
-  return launch<2>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec, g_vec, stream);
+                                    int x_vec, int g_vec, int x_f32, int w_f32,
+                                    void* stream) {
+  return launch_by_type<2>(x_f32, w_f32, x, g, w, mu, g_p, a, b, v, S, M, K, N,
+                           x_vec, g_vec, stream);
 }

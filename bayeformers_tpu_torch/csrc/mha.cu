@@ -12,18 +12,30 @@
 // move each of q, k, v, out once. Design: one block of 4 warps per (query
 // tile of 64 rows, head, example). Heads are sliced on-chip by stride, so no
 // head-split transpose ever reaches device memory. The block keeps its whole
-// score rows in shared memory (L <= 512: 64 x 512 f32 plus the bf16 P, 200 KB
+// score rows in shared memory (L <= 512: 64 x 512 f32 plus the bf16 P, 212 KB
 // at most), so the softmax is exact rather than online and the P v product
 // needs no rescaling; QK^T and PV run on the tensor cores through WMMA.
 // All-masked rows (bias = finfo(f32).min everywhere) come out uniform over
 // the keys, as in the plain version.
+//
+// Two instances of one template over the operand type T: bf16 (above) and
+// f32, where q, k, v and out are f32 and both products are true f32 (3xTF32,
+// mma.cuh), as the reference's kernel takes its dot operands in the stored
+// dtype (bayeformers_tpu/ops/attention.py:83-89). The softmax is f32 in
+// both. In f32, P is the f32 score row itself, so it is written over the
+// scores rather than into a separate tile: at L = 512 the block then needs
+// 163 KB (a separate f32 P tile would need 293 KB, above the 227 KB a block
+// can have); the bf16 instance keeps its layout (212 KB at L = 512).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
 
+#include "mma.cuh"
+
 using namespace nvcuda;
+using bft::from_f32;
 
 namespace {
 
@@ -31,52 +43,64 @@ constexpr int D = 64;        // head width
 constexpr int BQ = 64;       // query rows per block
 constexpr int BKV = 64;      // keys per staged block
 constexpr int THREADS = 128; // 4 warps, 16 query rows each
-constexpr int QLD = D + 8;   // bf16 leading dim of q / k / v tiles
 constexpr int OLD = D + 4;   // f32 leading dim of the output tile
 constexpr int MAX_L = 512;
+
+// q / k / v tiles in T, leading dim padded by 16 bytes; P in T over its own
+// tile (bf16) or over the f32 score rows (f32).
+template <typename T>
+struct Layout {
+  static constexpr int QLD = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int VEC = bft::Mma<T>::VEC;
+  static constexpr bool P_OVER_S = sizeof(T) == 4;
+};
 
 __host__ __device__ constexpr int round64(int l) { return (l + 63) / 64 * 64; }
 __host__ __device__ constexpr int sld(int lk) { return lk + 4; }
 __host__ __device__ constexpr int pld(int lk) { return lk + 8; }
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int lk) {
-  return 2 * static_cast<size_t>(BQ) * QLD * 2 +
+  return 2 * static_cast<size_t>(BQ) * Layout<T>::QLD * sizeof(T) +
          static_cast<size_t>(BQ) * sld(lk) * 4 +
-         static_cast<size_t>(BQ) * pld(lk) * 2;
+         (Layout<T>::P_OVER_S ? 0 : static_cast<size_t>(BQ) * pld(lk) * sizeof(T));
 }
 
 // Rows [row0, row0 + 64) of one head's (L, 64) slice into a (64, QLD) tile;
 // rows >= L are zero.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int n, int h,
-                                          int row0, int L, int H) {
-  for (int q = threadIdx.x; q < BQ * (D / 8); q += THREADS) {
-    const int row = q >> 3, chunk = q & 7;
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, T* dst,
+                                          int n, int h, int row0, int L, int H) {
+  constexpr int VEC = Layout<T>::VEC, CPR = D / VEC, QLD = Layout<T>::QLD;
+  for (int q = threadIdx.x; q < BQ * CPR; q += THREADS) {
+    const int row = q / CPR, chunk = q % CPR;
     const int l = row0 + row;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (l < L)
       v = *reinterpret_cast<const uint4*>(
-          src + (static_cast<size_t>(n) * L + l) * H + h * D + chunk * 8);
-    *reinterpret_cast<uint4*>(dst + row * QLD + chunk * 8) = v;
+          src + (static_cast<size_t>(n) * L + l) * H + h * D + chunk * VEC);
+    *reinterpret_cast<uint4*>(dst + row * QLD + chunk * VEC) = v;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-               int L, int H) {
+mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ bias,
+               T* __restrict__ out, int L, int H) {
+  constexpr int QLD = Layout<T>::QLD, KD = bft::Mma<T>::KDEPTH;
+  constexpr bool P_OVER_S = Layout<T>::P_OVER_S;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lk = round64(L);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kvs = qs + BQ * QLD;
+  T* qs = reinterpret_cast<T*>(smem);
+  T* kvs = qs + BQ * QLD;
   float* ss = reinterpret_cast<float*>(kvs + BKV * QLD);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + BQ * sld(lk));
-  float* os = ss;  // the output tile reuses the score rows once P exists
+  T* ps = P_OVER_S ? reinterpret_cast<T*>(ss)
+                   : reinterpret_cast<T*>(ss + BQ * sld(lk));
+  float* os = ss;  // the output tile reuses the score rows once P is used
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int SLD = sld(lk), PLD = pld(lk);
+  const int SLD = sld(lk), PLD = P_OVER_S ? sld(lk) : pld(lk);
 
   load_tile(q, qs, n, h, q0, L, H);
 
@@ -85,19 +109,19 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     load_tile(k, kvs, n, h, kb, L, H);
     __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[4];
+    bft::Acc<T> sc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(sc[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, qs + warp * 16 * QLD + kk, QLD);
+    for (int kk = 0; kk < D; kk += KD) {
+      bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
+      a.load(qs + warp * 16 * QLD + kk, QLD);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // k^T as a col-major (d, key) operand straight from the (key, d) tile
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, kvs + j * 16 * QLD + kk, QLD);
-        wmma::mma_sync(sc[j], a, b, sc[j]);
+        bft::Operand<T, wmma::matrix_b, wmma::col_major> b;
+        b.load(kvs + j * 16 * QLD + kk, QLD);
+        bft::mma(sc[j], a, b);
       }
     }
 #pragma unroll
@@ -130,13 +154,13 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    __nv_bfloat16* prow = ps + r * PLD;
+    T* prow = ps + r * PLD;  // over srow itself in f32: element c reads, then writes c
     for (int c = lane; c < lk; c += 32)
-      prow[c] = __float2bfloat16(c < L ? srow[c] / sum : 0.0f);
+      prow[c] = from_f32<T>(c < L ? srow[c] / sum : 0.0f);
   }
 
   // ---- O = P v ----
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4];
+  bft::Acc<T> o[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(o[j], 0.0f);
   for (int kb = 0; kb < lk; kb += BKV) {
@@ -144,14 +168,14 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     load_tile(v, kvs, n, h, kb, L, H);
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BKV; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ps + warp * 16 * PLD + kb + kk, PLD);
+    for (int kk = 0; kk < BKV; kk += KD) {
+      bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
+      a.load(ps + warp * 16 * PLD + kb + kk, PLD);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, kvs + kk * QLD + j * 16, QLD);
-        wmma::mma_sync(o[j], a, b, o[j]);
+        bft::Operand<T, wmma::matrix_b, wmma::row_major> b;
+        b.load(kvs + kk * QLD + j * 16, QLD);
+        bft::mma(o[j], a, b);
       }
     }
   }
@@ -166,27 +190,33 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int l = q0 + row;
     if (l < L)
       out[(static_cast<size_t>(n) * L + l) * H + h * D + col] =
-          __float2bfloat16(os[row * OLD + col]);
+          from_f32<T>(os[row * OLD + col]);
   }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* out, int N, int L, int H, int n_heads, void* stream) {
+  const size_t smem = smem_bytes<T>(round64(L));
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + BQ - 1) / BQ, n_heads, N);
+  mha_fwd_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(out), L, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q / k / v / out (N, L, H) bf16, bias (N, L) f32; H = n_heads * 64,
-// L <= 512. Returns cudaGetLastError().
+// q / k / v / out (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1), bias (N, L)
+// f32; H = n_heads * 64, L <= 512. Returns cudaGetLastError().
 extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, int N, int L, int H,
-                           int n_heads, void* stream) {
+                           int n_heads, int f32, void* stream) {
   if (L < 1 || L > MAX_L || H != n_heads * D) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(round64(L));
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + BQ - 1) / BQ, n_heads, N);
-  mha_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), L, H);
-  return static_cast<int>(cudaGetLastError());
+  if (f32) return launch<float>(q, k, v, bias, out, N, L, H, n_heads, stream);
+  return launch<__nv_bfloat16>(q, k, v, bias, out, N, L, H, n_heads, stream);
 }

@@ -24,13 +24,26 @@
 //     pass 1's statistics, and accumulates dV and dK in registers.
 // A fully masked row (bias finfo(f32).min everywhere) gives equal scores,
 // hence a uniform P, as in the plain version; it stays finite.
+//
+// Two instances of one template over the operand type T: bf16 (above) and
+// f32, where q, k, v, g and the outputs are f32 and all five products are
+// true f32 (3xTF32, mma.cuh), as the reference's _bwd_kernel takes its dot
+// operands in the stored dtype (bayeformers_tpu/ops/attention.py:188-193);
+// the softmax, D and dS stay f32 in both. In f32 pass 1 writes dS over the
+// dP rows instead of into a separate tile (element c reads dP[c], then
+// writes dS[c]): at L = 512 it needs 163 KB, where a separate f32 dS tile
+// would need 228 KB, just above the 227 KB a block can have. Pass 2 needs
+// 85 KB in f32 (53 KB in bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
 
+#include "mma.cuh"
+
 using namespace nvcuda;
+using bft::from_f32;
 
 namespace {
 
@@ -38,35 +51,47 @@ constexpr int D = 64;         // head width
 constexpr int BQ = 32;        // query rows per tile (both passes)
 constexpr int BKV = 64;       // keys per tile
 constexpr int THREADS = 128;  // 4 warps
-constexpr int QLD = D + 8;    // bf16 leading dim of q / k / v / g tiles
 constexpr int OLD = D + 4;    // f32 leading dim of 64-wide tiles
 constexpr int MAX_L = 512;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(64), exact
 
+// Tiles of q / k / v / g in T, leading dim padded by 16 bytes; in f32, dS
+// over the dP rows.
+template <typename T>
+struct Layout {
+  static constexpr int QLD = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int VEC = bft::Mma<T>::VEC;
+  static constexpr bool DS_OVER_DP = sizeof(T) == 4;
+  static constexpr size_t TILES1_BYTES = static_cast<size_t>(2 * BQ + BKV) * QLD * sizeof(T);
+  static constexpr size_t SMEM2_BYTES =
+      static_cast<size_t>(2 * BKV + 2 * BQ) * QLD * sizeof(T) + 2 * BQ * OLD * 4 +
+      2 * BQ * QLD * sizeof(T) + 3 * BQ * 4;
+};
+
 __host__ __device__ constexpr int round64(int l) { return (l + 63) / 64 * 64; }
 __host__ __device__ constexpr int sld(int lk) { return lk + 4; }
 __host__ __device__ constexpr int dld(int lk) { return lk + 8; }
-constexpr size_t TILES1_BYTES = static_cast<size_t>(2 * BQ + BKV) * QLD * 2;
+template <typename T>
 __host__ __device__ constexpr size_t smem1_bytes(int lk) {
-  return TILES1_BYTES + 2 * static_cast<size_t>(BQ) * sld(lk) * 4 +
-         static_cast<size_t>(BQ) * dld(lk) * 2;
+  return Layout<T>::TILES1_BYTES + 2 * static_cast<size_t>(BQ) * sld(lk) * 4 +
+         (Layout<T>::DS_OVER_DP ? 0 : static_cast<size_t>(BQ) * dld(lk) * sizeof(T));
 }
-constexpr size_t SMEM2_BYTES = static_cast<size_t>(2 * BKV + 2 * BQ) * QLD * 2 +
-                               2 * BQ * OLD * 4 + 2 * BQ * QLD * 2 + 3 * BQ * 4;
 
 // Rows [row0, row0 + rows) of one head's (L, 64) slice into a (rows, QLD)
 // tile; rows >= L are zero.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int n, int h,
-                                          int row0, int rows, int L, int H) {
-  for (int q = threadIdx.x; q < rows * (D / 8); q += THREADS) {
-    const int row = q >> 3, chunk = q & 7;
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, T* dst,
+                                          int n, int h, int row0, int rows,
+                                          int L, int H) {
+  constexpr int VEC = Layout<T>::VEC, CPR = D / VEC, QLD = Layout<T>::QLD;
+  for (int q = threadIdx.x; q < rows * CPR; q += THREADS) {
+    const int row = q / CPR, chunk = q % CPR;
     const int l = row0 + row;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (l < L)
       v = *reinterpret_cast<const uint4*>(
-          src + (static_cast<size_t>(n) * L + l) * H + h * D + chunk * 8);
-    *reinterpret_cast<uint4*>(dst + row * QLD + chunk * 8) = v;
+          src + (static_cast<size_t>(n) * L + l) * H + h * D + chunk * VEC);
+    *reinterpret_cast<uint4*>(dst + row * QLD + chunk * VEC) = v;
   }
 }
 
@@ -86,23 +111,24 @@ __device__ __forceinline__ float warp_sum(float v) {
 // f32 ``out`` (leading dim ld); warp w owns rows (w & 1) * 16 and keys
 // (w >> 1) * 32 + {0, 16}. Both passes form the scores and dP this way, so
 // an element's products and their order are the same in both.
-__device__ __forceinline__ void rows_by_keys(const __nv_bfloat16* a_tile,
-                                             const __nv_bfloat16* kv_tile,
+template <typename T>
+__device__ __forceinline__ void rows_by_keys(const T* a_tile, const T* kv_tile,
                                              float* out, int ld) {
+  constexpr int QLD = Layout<T>::QLD, KD = bft::Mma<T>::KDEPTH;
   const int warp = threadIdx.x >> 5, wr = warp & 1, wc = warp >> 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  bft::Acc<T> acc[2];
   wmma::fill_fragment(acc[0], 0.0f);
   wmma::fill_fragment(acc[1], 0.0f);
 #pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, a_tile + wr * 16 * QLD + kk, QLD);
+  for (int kk = 0; kk < D; kk += KD) {
+    bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
+    a.load(a_tile + wr * 16 * QLD + kk, QLD);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       // kv^T as a col-major (d, key) operand straight from the (key, d) tile
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, kv_tile + (wc * 32 + j * 16) * QLD + kk, QLD);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+      bft::Operand<T, wmma::matrix_b, wmma::col_major> b;
+      b.load(kv_tile + (wc * 32 + j * 16) * QLD + kk, QLD);
+      bft::mma(acc[j], a, b);
     }
   }
 #pragma unroll
@@ -116,23 +142,25 @@ __device__ __forceinline__ float score(float acc, float bias) {
 }
 
 // Pass 1: one block per (query tile, head, example).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const float* __restrict__ bias,
-                  const __nv_bfloat16* __restrict__ g,
-                  __nv_bfloat16* __restrict__ dq, float* __restrict__ row_max,
-                  float* __restrict__ row_sum, float* __restrict__ row_d, int L,
-                  int H, int n_heads) {
+mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ bias,
+                  const T* __restrict__ g, T* __restrict__ dq,
+                  float* __restrict__ row_max, float* __restrict__ row_sum,
+                  float* __restrict__ row_d, int L, int H, int n_heads) {
+  constexpr int QLD = Layout<T>::QLD, KD = bft::Mma<T>::KDEPTH;
+  constexpr bool DS_OVER_DP = Layout<T>::DS_OVER_DP;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lk = round64(L), SLD = sld(lk), DLD = dld(lk);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* gs = qs + BQ * QLD;
-  __nv_bfloat16* kvs = gs + BQ * QLD;
-  float* ss = reinterpret_cast<float*>(smem + TILES1_BYTES);
+  const int lk = round64(L), SLD = sld(lk);
+  const int DLD = DS_OVER_DP ? SLD : dld(lk);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* gs = qs + BQ * QLD;
+  T* kvs = gs + BQ * QLD;
+  float* ss = reinterpret_cast<float*>(smem + Layout<T>::TILES1_BYTES);
   float* dps = ss + BQ * SLD;
-  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(dps + BQ * SLD);
+  T* dsb = DS_OVER_DP ? reinterpret_cast<T*>(dps)
+                      : reinterpret_cast<T*>(dps + BQ * SLD);
   float* os = ss;  // the dQ tile reuses the score rows once dS exists
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
@@ -178,9 +206,9 @@ mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       dsum += drow[c] * p;
     }
     dsum = warp_sum(dsum);
-    __nv_bfloat16* dsrow = dsb + r * DLD;
+    T* dsrow = dsb + r * DLD;  // over drow itself in f32: element c reads, then writes c
     for (int c = lane; c < lk; c += 32)
-      dsrow[c] = __float2bfloat16(c < L ? srow[c] * (drow[c] - dsum) : 0.0f);
+      dsrow[c] = from_f32<T>(c < L ? srow[c] * (drow[c] - dsum) : 0.0f);
     if (lane == 0 && q0 + r < L) {
       const size_t i = (static_cast<size_t>(n) * n_heads + h) * L + q0 + r;
       row_max[i] = mx;
@@ -192,7 +220,7 @@ mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // dQ = dS k_h, 32 rows x 64 columns; warp w: rows (w & 1) * 16, columns
   // (w >> 1) * 32 + {0, 16}
   const int wr = warp & 1, wc = warp >> 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[2];
+  bft::Acc<T> o[2];
   wmma::fill_fragment(o[0], 0.0f);
   wmma::fill_fragment(o[1], 0.0f);
   for (int kb = 0; kb < lk; kb += BKV) {
@@ -200,14 +228,14 @@ mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     load_rows(k, kvs, n, h, kb, BKV, L, H);
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BKV; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, dsb + wr * 16 * DLD + kb + kk, DLD);
+    for (int kk = 0; kk < BKV; kk += KD) {
+      bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
+      a.load(dsb + wr * 16 * DLD + kb + kk, DLD);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, kvs + kk * QLD + wc * 32 + j * 16, QLD);
-        wmma::mma_sync(o[j], a, b, o[j]);
+        bft::Operand<T, wmma::matrix_b, wmma::row_major> b;
+        b.load(kvs + kk * QLD + wc * 32 + j * 16, QLD);
+        bft::mma(o[j], a, b);
       }
     }
   }
@@ -221,31 +249,29 @@ mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = i / D, col = i % D, l = q0 + row;
     if (l < L)
       dq[(static_cast<size_t>(n) * L + l) * H + h * D + col] =
-          __float2bfloat16(os[row * OLD + col] * SCALE);
+          from_f32<T>(os[row * OLD + col] * SCALE);
   }
 }
 
 // Pass 2: one block per (key tile, head, example).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mha_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ g,
-                   const float* __restrict__ row_max,
+mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   const T* __restrict__ g, const float* __restrict__ row_max,
                    const float* __restrict__ row_sum,
-                   const float* __restrict__ row_d,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                   int L, int H, int n_heads) {
+                   const float* __restrict__ row_d, T* __restrict__ dk,
+                   T* __restrict__ dv, int L, int H, int n_heads) {
+  constexpr int QLD = Layout<T>::QLD, KD = bft::Mma<T>::KDEPTH;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + BKV * QLD;
-  __nv_bfloat16* qs = vs + BKV * QLD;
-  __nv_bfloat16* gs = qs + BQ * QLD;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + BKV * QLD;
+  T* qs = vs + BKV * QLD;
+  T* gs = qs + BQ * QLD;
   float* ss = reinterpret_cast<float*>(gs + BQ * QLD);
   float* dps = ss + BQ * OLD;
-  __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(dps + BQ * OLD);
-  __nv_bfloat16* dsb = pb + BQ * QLD;
+  T* pb = reinterpret_cast<T*>(dps + BQ * OLD);
+  T* dsb = pb + BQ * QLD;
   float* st = reinterpret_cast<float*>(dsb + BQ * QLD);  // max, sum, D
   float* os = ss;  // (64 keys, OLD) output tile over ss and dps at the end
 
@@ -257,7 +283,7 @@ mha_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   load_rows(k, ks, n, h, key0, BKV, L, H);
   load_rows(v, vs, n, h, key0, BKV, L, H);
   // warp w owns keys [w * 16, w * 16 + 16) of dV and dK, all 64 columns
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dva[4], dka[4];
+  bft::Acc<T> dva[4], dka[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     wmma::fill_fragment(dva[j], 0.0f);
@@ -286,23 +312,23 @@ mha_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         p = expf(s - st[r]) / st[BQ + r];
         ds = p * (dps[r * OLD + c] - st[2 * BQ + r]);
       }
-      pb[r * QLD + c] = __float2bfloat16(p);
-      dsb[r * QLD + c] = __float2bfloat16(ds);
+      pb[r * QLD + c] = from_f32<T>(p);
+      dsb[r * QLD + c] = from_f32<T>(ds);
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BQ; kk += 16) {
+    for (int kk = 0; kk < BQ; kk += KD) {
       // P^T and dS^T as col-major (key, query) operands from (query, key) tiles
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> ap, ads;
-      wmma::load_matrix_sync(ap, pb + kk * QLD + warp * 16, QLD);
-      wmma::load_matrix_sync(ads, dsb + kk * QLD + warp * 16, QLD);
+      bft::Operand<T, wmma::matrix_a, wmma::col_major> ap, ads;
+      ap.load(pb + kk * QLD + warp * 16, QLD);
+      ads.load(dsb + kk * QLD + warp * 16, QLD);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bg, bq;
-        wmma::load_matrix_sync(bg, gs + kk * QLD + j * 16, QLD);
-        wmma::load_matrix_sync(bq, qs + kk * QLD + j * 16, QLD);
-        wmma::mma_sync(dva[j], ap, bg, dva[j]);
-        wmma::mma_sync(dka[j], ads, bq, dka[j]);
+        bft::Operand<T, wmma::matrix_b, wmma::row_major> bg, bq;
+        bg.load(gs + kk * QLD + j * 16, QLD);
+        bq.load(qs + kk * QLD + j * 16, QLD);
+        bft::mma(dva[j], ap, bg);
+        bft::mma(dka[j], ads, bq);
       }
     }
   }
@@ -314,54 +340,65 @@ mha_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       wmma::store_matrix_sync(os + warp * 16 * OLD + j * 16,
                               pass ? dka[j] : dva[j], OLD, wmma::mem_row_major);
     __syncthreads();
-    __nv_bfloat16* out = pass ? dk : dv;
+    T* out = pass ? dk : dv;
     const float mul = pass ? SCALE : 1.0f;
     for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
       const int row = i / D, col = i % D, l = key0 + row;
       if (l < L)
         out[(static_cast<size_t>(n) * L + l) * H + h * D + col] =
-            __float2bfloat16(os[row * OLD + col] * mul);
+            from_f32<T>(os[row * OLD + col] * mul);
     }
   }
 }
 
-}  // namespace
-
-// q / k / v / g / dq / dk / dv (N, L, H) bf16, bias (N, L) f32, stats
-// (3, N, n_heads, L) f32 scratch; H = n_heads * 64, L <= 512. Returns
-// cudaGetLastError().
-extern "C" int bft_mha_bwd(const void* q, const void* k, const void* v,
-                           const void* bias, const void* g, void* dq, void* dk,
-                           void* dv, void* stats, int N, int L, int H,
-                           int n_heads, void* stream) {
-  if (N < 1 || L < 1 || L > MAX_L || H != n_heads * D)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* g, void* dq, void* dk, void* dv, void* stats, int N,
+           int L, int H, int n_heads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem1 = smem1_bytes(round64(L));
+  const size_t smem1 = smem1_bytes<T>(round64(L));
+  constexpr size_t smem2 = Layout<T>::SMEM2_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mha_bwd_dkv_kernel,
+  err = cudaFuncSetAttribute(mha_bwd_dkv_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM2_BYTES));
+                             static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t nhl = static_cast<size_t>(N) * n_heads * L;
   float* m = static_cast<float*>(stats);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const auto* qb = static_cast<const T*>(q);
+  const auto* kb = static_cast<const T*>(k);
+  const auto* vb = static_cast<const T*>(v);
+  const auto* gb = static_cast<const T*>(g);
   const auto* bb = static_cast<const float*>(bias);
-  mha_bwd_dq_kernel<<<dim3((L + BQ - 1) / BQ, n_heads, N), THREADS, smem1, st>>>(
-      qb, kb, vb, bb, gb, static_cast<__nv_bfloat16*>(dq), m, m + nhl,
-      m + 2 * nhl, L, H, n_heads);
+  mha_bwd_dq_kernel<T><<<dim3((L + BQ - 1) / BQ, n_heads, N), THREADS, smem1, st>>>(
+      qb, kb, vb, bb, gb, static_cast<T*>(dq), m, m + nhl, m + 2 * nhl, L, H,
+      n_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_dkv_kernel<<<dim3((L + BKV - 1) / BKV, n_heads, N), THREADS,
-                       SMEM2_BYTES, st>>>(
-      qb, kb, vb, bb, gb, m, m + nhl, m + 2 * nhl,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L, H,
-      n_heads);
+  mha_bwd_dkv_kernel<T><<<dim3((L + BKV - 1) / BKV, n_heads, N), THREADS, smem2,
+                          st>>>(qb, kb, vb, bb, gb, m, m + nhl, m + 2 * nhl,
+                                static_cast<T*>(dk), static_cast<T*>(dv), L, H,
+                                n_heads);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q / k / v / g / dq / dk / dv (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1),
+// bias (N, L) f32, stats (3, N, n_heads, L) f32 scratch; H = n_heads * 64,
+// L <= 512. Returns cudaGetLastError().
+extern "C" int bft_mha_bwd(const void* q, const void* k, const void* v,
+                           const void* bias, const void* g, void* dq, void* dk,
+                           void* dv, void* stats, int N, int L, int H,
+                           int n_heads, int f32, void* stream) {
+  if (N < 1 || L < 1 || L > MAX_L || H != n_heads * D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (f32)
+    return launch<float>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H, n_heads,
+                         stream);
+  return launch<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H,
+                               n_heads, stream);
 }

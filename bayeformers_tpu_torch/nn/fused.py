@@ -22,10 +22,11 @@ antithetic pairs (``antithetic=True``; one draw per pair t, seeds
 
 The forward is differentiable: with ``save_weights=True`` (the default, as
 in the reference) each Bayesian linear op keeps its W for the backward of
-``ops/fused_linear.py::BayesLinear``, attention runs its own backward, and
-the sampled biases and their log-probs differentiate through plain
-autograd. Serving calls it with ``save_weights=False`` inside
-``torch.inference_mode()``.
+``ops/fused_linear.py::BayesLinear``; with ``save_weights=False`` it writes
+no W and its backward (``BayesLinearRegen``) regenerates W from the seeds.
+Attention runs its own backward, and the sampled biases and their
+log-probs differentiate through plain autograd. Serving calls it with
+``save_weights=False`` inside ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -228,9 +229,8 @@ def fused_mc_apply(bmodel, seed: int, n_samples: int, input_ids,
     aux)``: outputs (S, B, ...) and aux ``log_prior`` /
     ``log_variational_posterior`` of shape (S,). ``antithetic=True`` pairs
     the draws (even ``n_samples``). ``save_weights=False`` writes no W
-    residuals; a backward through such a forward (it would regenerate W)
-    comes with a later slice, and the first Bayesian linear op raises
-    under autograd."""
+    residuals; a backward through such a forward regenerates each layer's
+    W from its seeds (``ops/fused_linear.py::BayesLinearRegen``)."""
     mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic,
                  save_weights=save_weights, impl=impl, eps_hook=eps_hook)
     tiled = [None if a is None else tile_samples(a, n_samples)

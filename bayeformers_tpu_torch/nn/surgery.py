@@ -85,8 +85,10 @@ class BayesianModel:
         sample's weights independently; ``antithetic=True`` draws one eps
         per pair of samples (2t, 2t+1) and uses it with both signs (even
         ``n_samples``). Differentiable: ``save_weights=True`` keeps each
-        layer's sampled W for the backward (``save_weights=False``, for
-        inference, writes none).
+        layer's sampled W for the backward; ``save_weights=False`` writes
+        none, and a backward regenerates each layer's W from its seeds
+        (inference passes it so). Antithetic f32 layers with a padded K
+        above 2048 regenerate either way, as in the reference.
 
         ``seed`` is the request's integer key; per-leaf draws derive from it
         (:func:`nn.fused.derive_seed`). ``impl="plain"`` runs every op's

@@ -12,7 +12,10 @@ as the reference's ``mha`` is a ``custom_vjp``: a CPU tensor takes the plain
 versions :func:`mha_plain` (the counterpart of ``_mha_xla``) and
 :func:`mha_bwd_plain` (the arithmetic of ``_bwd_kernel``); a CUDA tensor
 launches ``csrc/mha.cu`` forward and ``csrc/mha_bwd.cu`` backward, or
-raises. Causal masking comes with the GPT-2 slice.
+raises. Both kernels take bf16 or f32 q/k/v (f32: true f32 products, the
+dot operands in the stored dtype as in the reference); the launch counters
+key each launch by ``(N, L, H, dtype)``. Causal masking comes with the
+GPT-2 slice.
 """
 from __future__ import annotations
 
@@ -109,12 +112,13 @@ def mha(q, k, v, bias, n_heads: int, *, plain: bool = False) -> torch.Tensor:
     return (mha_plain if plain else mha_cuda)(q, k, v, bias, n_heads)
 
 
-def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> None:
+def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
+    """Raise on what the kernels do not take; returns q's dtype tag."""
     req = common.require
     req(q.is_cuda, f"mha kernel needs a CUDA tensor, got {q.device}")
     req(q.dim() == 3, "q/k/v must be (N, L, H)")
     N, L, H = q.shape
-    req(q.dtype == torch.bfloat16, f"mha kernel takes bf16, got {q.dtype}")
+    tag = common.kernel_dtype(q, "mha")
     req(H == n_heads * HEAD_DIM,
         f"mha kernel needs a head width of {HEAD_DIM}; H={H}, heads={n_heads}")
     req(1 <= L <= MAX_LEN, f"mha kernel takes 1 <= L <= {MAX_LEN}, got {L}")
@@ -129,27 +133,30 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> None:
         req(t.is_contiguous(), f"{name} must be contiguous")
         if name != "bias":
             req(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    return tag
 
 
 def mha_cuda(q, k, v, bias, n_heads: int) -> torch.Tensor:
-    """Launch ``bft_mha_fwd`` (csrc/mha.cu)."""
-    _check_inputs(q, k, v, bias, n_heads)
+    """Launch ``bft_mha_fwd`` (csrc/mha.cu), the bf16 or the f32 instance."""
+    tag = _check_inputs(q, k, v, bias, n_heads)
     N, L, H = q.shape
     lib = _build.library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.bft_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), N, L, H, n_heads, common.cuda_stream(q),
+            out.data_ptr(), N, L, H, n_heads, int(tag == "f32"),
+            common.cuda_stream(q),
         )
     _build.check(err, "bft_mha_fwd")
-    LAUNCHES.add((N, L, H))
+    LAUNCHES.add((N, L, H, tag))
     return out
 
 
 def mha_bwd_cuda(q, k, v, bias, g, n_heads: int):
-    """Launch ``bft_mha_bwd`` (csrc/mha_bwd.cu): ``(dq, dk, dv)``."""
-    _check_inputs(q, k, v, bias, n_heads, extra=(("g", g),))
+    """Launch ``bft_mha_bwd`` (csrc/mha_bwd.cu), the bf16 or the f32
+    instance: ``(dq, dk, dv)``."""
+    tag = _check_inputs(q, k, v, bias, n_heads, extra=(("g", g),))
     N, L, H = q.shape
     lib = _build.library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -158,8 +165,9 @@ def mha_bwd_cuda(q, k, v, bias, g, n_heads: int):
         err = lib.bft_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), N, L, H, n_heads, common.cuda_stream(q),
+            stats.data_ptr(), N, L, H, n_heads, int(tag == "f32"),
+            common.cuda_stream(q),
         )
     _build.check(err, "bft_mha_bwd")
-    BWD_LAUNCHES.add((N, L, H))
+    BWD_LAUNCHES.add((N, L, H, tag))
     return dq, dk, dv

@@ -141,6 +141,18 @@ class LaunchCounter:
         self.by_shape = {}
 
 
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def kernel_dtype(t: torch.Tensor, what: str) -> str:
+    """The tag of ``t``'s dtype among the kernels' operand types (bf16 and
+    f32); any other dtype raises."""
+    tag = KERNEL_DTYPES.get(t.dtype)
+    require(tag is not None,
+            f"{what} kernel takes bf16 or float32 operands, got {t.dtype}")
+    return tag
+
+
 def cuda_stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -24,9 +24,14 @@ with elementwise torch on (K, N) tensors, as XLA does it in the reference.
 
 Each reduce is a wrapper: a CPU tensor takes its plain version; a CUDA
 tensor launches ``csrc/fused_backward.cu`` (``bft_reduce_abuv`` or
-``bft_reduce_abuv_anti``) or raises. The mixture prior, a separate
-``prior_mu`` and the U accumulator come with the slice that ports the other
-priors and raise here.
+``bft_reduce_abuv_anti``) or raises. The kernel has three instances, by the
+types of x and g and of W: (bf16, bf16) behind the saved bf16 residual,
+(f32, f32) at f32 activations, and (bf16, f32) behind the regenerating
+backward at bf16, which hands the reduce the regenerated f32 W as the
+reference does; the launch counters key each launch by ``(M, K, N, tag)``
+with tag ``"bf16"``, ``"f32"`` or ``"bf16x-f32w"``. The mixture prior, a
+separate ``prior_mu`` and the U accumulator come with the slice that ports
+the other priors and raise here.
 """
 from __future__ import annotations
 
@@ -123,8 +128,12 @@ def _reduce_cuda(x, g, w, mu, g_p, antithetic: bool):
     req(tuple(w.shape) == (S, K, N), f"w is {tuple(w.shape)}, want {(S, K, N)}")
     req(mu.shape[0] == K, f"mu is {tuple(mu.shape)}, x has K={K}")
     req(tuple(g_p.shape) == (S,), f"g_p is {tuple(g_p.shape)}, want ({S},)")
-    for name, t in (("x", x), ("g", g), ("w", w)):
-        req(t.dtype == torch.bfloat16, f"{name} must be bf16, got {t.dtype}")
+    xt = common.kernel_dtype(x, "reduce_abuv")
+    wt = common.kernel_dtype(w, "reduce_abuv")
+    req(g.dtype == x.dtype, f"g must be {x.dtype} as x, got {g.dtype}")
+    req(xt == "bf16" or wt == "f32",
+        "reduce_abuv kernel takes W as f32 or, with bf16 x, as bf16; "
+        f"got x {x.dtype}, W {w.dtype}")
     for name, t in (("mu", mu), ("g_p", g_p)):
         req(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
     for name, t in (("x", x), ("g", g), ("w", w), ("mu", mu), ("g_p", g_p)):
@@ -133,17 +142,20 @@ def _reduce_cuda(x, g, w, mu, g_p, antithetic: bool):
     lib = _build.library()
     a, b, v = (torch.empty((K, N), dtype=torch.float32, device=x.device)
                for _ in range(3))
-    x_vec = int(K % 8 == 0 and x.data_ptr() % 16 == 0)
-    g_vec = int(N % 8 == 0 and g.data_ptr() % 16 == 0)
+    per16 = 16 // x.element_size()  # elements in a 16-byte copy
+    x_vec = int(K % per16 == 0 and x.data_ptr() % 16 == 0)
+    g_vec = int(N % per16 == 0 and g.data_ptr() % 16 == 0)
     name = "bft_reduce_abuv_anti" if antithetic else "bft_reduce_abuv"
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(
             x.data_ptr(), g.data_ptr(), w.data_ptr(), mu.data_ptr(),
             g_p.data_ptr(), a.data_ptr(), b.data_ptr(), v.data_ptr(),
-            S, M, K, N, x_vec, g_vec, common.cuda_stream(x),
+            S, M, K, N, x_vec, g_vec, int(xt == "f32"), int(wt == "f32"),
+            common.cuda_stream(x),
         )
     _build.check(err, name)
-    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N))
+    tag = xt if xt == wt else f"{xt}x-{wt}w"
+    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N, tag))
     return a, b, v
 
 

@@ -24,18 +24,28 @@ antithetic pair t draws from ``seeds[t]``.
 :func:`bayes_linear` is the wrapper: a CPU tensor takes the plain version
 :func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernel
 (``csrc/bayes_linear.cu``: ``bft_bayes_linear`` or
-``bft_bayes_linear_anti``) or raises. Under autograd with
-``save_weights=True`` it runs :class:`BayesLinear`, the saved-residual
-custom VJP of the reference (``_fwd_saved`` / ``_bwd_common`` and their
-antithetic twins): the forward also writes W in x's dtype, and the
-backward computes
+``bft_bayes_linear_anti``, each with a bf16 and an f32 instance) or raises.
+Under autograd there are the reference's two custom VJPs:
 
-    dx         = g_y @ W^T               (a batched matmul, as XLA's einsum)
+* ``save_weights=True``: :class:`BayesLinear` (``_fwd_saved`` /
+  ``_bwd_common`` and their antithetic twins). The forward also writes W in
+  x's dtype and the backward reads it.
+* ``save_weights=False``: :class:`BayesLinearRegen` (``_fwd`` / ``_bwd`` and
+  ``_fwd_anti`` / ``_bwd_anti``). The forward writes no W and keeps
+  ``(x, mu, rho, seeds)``; the backward rebuilds the f32 W from the seeds
+  with :func:`regenerate_weights` (``csrc/regen.cu``, the counterpart of
+  ``_fullk_regen_kernel``), interleaved as ``(w, 2 mu - w)`` for pairs.
+
+Both backwards then compute
+
+    dx         = g_y @ W^T               (a batched matmul in x's dtype, as
+                                          XLA's einsum)
     (A, B, V)  = reduce_abuv[_anti](x, g_y, W, mu, g_p)   (ops/fused_backward)
     dmu, drho  = finalize(A, B, V, rho, g_q)
 
-The regenerating backward (``save_weights=False`` under autograd) and the
-other priors raise ``NotImplementedError``.
+Antithetic layers at f32 activations with a padded K above 2048 take the
+regenerating VJP even when ``save_weights=True``, as the reference routes
+them (:func:`bayes_linear`). The other priors raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +60,11 @@ from bayeformers_tpu_torch.ops import fused_backward as bwd
 
 LAUNCHES = common.LaunchCounter("bayes_linear_anti")
 INDEP_LAUNCHES = common.LaunchCounter("bayes_linear")
+REGEN_LAUNCHES = common.LaunchCounter("regen")
 _BN = 64  # the kernel's column tile (csrc/bayes_linear.cu::BN)
+# The reference's f32 antithetic routing: Kp above this takes the
+# regenerating VJP (bayeformers_tpu/ops/fused_linear.py:1561).
+ANTI_F32_SAVED_MAX_KP = 2048
 
 
 def interleave_antithetic(w_half: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -83,11 +97,79 @@ def sample_weights(mu, rho, seeds=None, eps=None, *, antithetic: bool = False
                    ) -> torch.Tensor:
     """The (S, K, N) f32 weights of ``seeds`` on the unit stream, or of an
     explicit ``eps``: one draw per sample, or (``antithetic``) one per pair,
-    interleaved as ``(w, 2 mu - w)``."""
+    interleaved as ``(w, 2 mu - w)``. The plain version of the forward
+    kernel's W and of :func:`regenerate_weights`: ``mu + sigma * eps`` with
+    the product and the sum each rounded, as the kernels round them."""
     if eps is None:
         eps = common.unit_eps(seeds, tuple(mu.shape))
     w = mu[None] + sigma_from_rho(rho)[None] * eps
     return interleave_antithetic(w, mu) if antithetic else w
+
+
+def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
+    """(S', K, N) f32 weights of ``seeds`` (S',) on the unit stream: exactly
+    the W that the forward drew for those seeds (the reference's
+    ``regenerate_weights`` / ``_regen``). A CPU tensor, or ``plain=True``,
+    takes the plain version (:func:`sample_weights`); a CUDA tensor launches
+    ``csrc/regen.cu`` (``bft_regen``, Pallas #10) or raises."""
+    if plain or mu.device.type == "cpu":
+        return sample_weights(mu, rho, seeds)
+    return regenerate_weights_cuda(mu, rho, seeds)
+
+
+def regenerate_weights_cuda(mu, rho, seeds) -> torch.Tensor:
+    """Launch ``bft_regen`` (csrc/regen.cu)."""
+    req = common.require
+    req(mu.is_cuda, f"regen kernel needs a CUDA tensor, got {mu.device}")
+    req(mu.dim() == 2 and tuple(rho.shape) == tuple(mu.shape),
+        f"mu and rho must be one (K, N); got {tuple(mu.shape)} / {tuple(rho.shape)}")
+    req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
+        "mu and rho must be float32")
+    req(seeds.dim() == 1 and seeds.dtype == torch.int32, "seeds must be (S,) int32")
+    for name, t in (("mu", mu), ("rho", rho), ("seeds", seeds)):
+        req(t.device == mu.device, f"{name} is on {t.device}, mu on {mu.device}")
+        req(t.is_contiguous(), f"{name} must be contiguous")
+    K, N = mu.shape
+    S = seeds.shape[0]
+    req(S >= 1, "at least one seed")
+    lib = _build.library()
+    w = torch.empty((S, K, N), dtype=torch.float32, device=mu.device)
+    with torch.cuda.device(mu.device):
+        err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
+                            w.data_ptr(), S, K, N, common.cuda_stream(mu))
+    _build.check(err, "bft_regen")
+    REGEN_LAUNCHES.add((S, K, N))
+    return w
+
+
+class SampledWeights(torch.autograd.Function):
+    """The reference's ``sampled_weights`` custom VJP: W from
+    :func:`regenerate_weights` (or from an injected ``eps``), and the
+    reparametrisation backward ``dmu = sum_s g``, ``drho = sum_s g eps
+    sigmoid(rho)`` with ``eps = (W - mu) / sigma`` read back from W."""
+
+    @staticmethod
+    def forward(ctx, mu, rho, seeds, eps, plain):
+        w = (sample_weights(mu, rho, eps=eps) if eps is not None
+             else regenerate_weights(mu, rho, seeds, plain=plain))
+        ctx.save_for_backward(mu, rho, w)
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        mu, rho, w = ctx.saved_tensors
+        sigma = sigma_from_rho(rho)
+        eps = (w - mu[None]) / sigma[None]
+        dmu = torch.sum(g, dim=0)
+        drho = torch.sum(g * eps, dim=0) * torch.sigmoid(rho)
+        return dmu, drho, None, None, None
+
+
+def sampled_weights(mu, rho, seeds, *, plain: bool = False, eps=None):
+    """Differentiable (S, K, N) sampled weights with :func:`bayes_linear`'s
+    eps stream (the reference's ``sampled_weights``), for weights that flow
+    into the loss themselves. ``eps`` (S, K, N) injects the draw (tests)."""
+    return SampledWeights.apply(mu, rho, seeds, eps, plain)
 
 
 def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,
@@ -128,6 +210,25 @@ def _forward(x, mu, rho, seeds, eps, antithetic: bool, plain: bool, save_w: bool
                              save_weights=save_w)
 
 
+def _backward(ctx, x, mu, rho, w, g_y, g_q, g_p):
+    """The gradients of ``(x, mu, rho, seeds, eps, antithetic, plain)`` from
+    the (S, K, N) sampled W, the reference's ``_bwd_common`` and
+    ``_bwd_common_anti``: dx in x's dtype (W cast to it), the reduce on W as
+    given (x's dtype when saved, f32 when regenerated), then ``finalize``."""
+    dx = dmu = drho = None
+    if ctx.needs_input_grad[0]:
+        dx = torch.bmm(g_y.to(x.dtype), w.to(x.dtype).transpose(1, 2)).to(x.dtype)
+    if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        if ctx.antithetic:
+            reduce = bwd.reduce_abuv_anti_plain if ctx.plain else bwd.reduce_abuv_anti
+        else:
+            reduce = bwd.reduce_abuv_plain if ctx.plain else bwd.reduce_abuv
+        a, b, v = reduce(x, g_y.to(x.dtype).contiguous(), w, mu, g_p)
+        dmu, drho = bwd.finalize(a, b, v, rho, g_q)
+    return (dx, dmu if ctx.needs_input_grad[1] else None,
+            drho if ctx.needs_input_grad[2] else None, None, None, None, None)
+
+
 class BayesLinear(torch.autograd.Function):
     """``(y, log_q, log_p)`` with the saved-residual backward: the forward
     keeps ``(x, mu, rho, W)``; ``plain`` runs the plain versions of both
@@ -145,18 +246,53 @@ class BayesLinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_y, g_q, g_p):
         x, mu, rho, w = ctx.saved_tensors
-        dx = dmu = drho = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.bmm(g_y.to(w.dtype), w.transpose(1, 2)).to(x.dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        return _backward(ctx, x, mu, rho, w, g_y, g_q, g_p)
+
+
+class BayesLinearRegen(torch.autograd.Function):
+    """``(y, log_q, log_p)`` with the regenerating backward: the forward
+    writes no W and keeps ``(x, mu, rho, seeds)`` (and an injected ``eps``);
+    the backward rebuilds the f32 W of the seeds (:func:`regenerate_weights`,
+    kernel #10 on the card) and interleaves the pairs, as the reference's
+    ``_bwd`` / ``_bwd_anti`` do; ``plain`` as in :class:`BayesLinear`."""
+
+    @staticmethod
+    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain):
+        y, lq, lp = _forward(x, mu, rho, seeds, eps, antithetic, plain,
+                             save_w=False)
+        ctx.save_for_backward(x, mu, rho, seeds, eps)
+        ctx.antithetic = antithetic
+        ctx.plain = plain
+        return y, lq, lp
+
+    @staticmethod
+    def backward(ctx, g_y, g_q, g_p):
+        x, mu, rho, seeds, eps = ctx.saved_tensors
+        if eps is not None:
+            w = sample_weights(mu, rho, eps=eps, antithetic=ctx.antithetic)
+        else:
+            w = regenerate_weights(mu, rho, seeds, plain=ctx.plain)
             if ctx.antithetic:
-                reduce = bwd.reduce_abuv_anti_plain if ctx.plain else bwd.reduce_abuv_anti
-            else:
-                reduce = bwd.reduce_abuv_plain if ctx.plain else bwd.reduce_abuv
-            a, b, v = reduce(x, g_y.to(x.dtype).contiguous(), w, mu, g_p)
-            dmu, drho = bwd.finalize(a, b, v, rho, g_q)
-        return (dx, dmu if ctx.needs_input_grad[1] else None,
-                drho if ctx.needs_input_grad[2] else None, None, None, None, None)
+                w = interleave_antithetic(w, mu)
+        return _backward(ctx, x, mu, rho, w, g_y, g_q, g_p)
+
+
+def takes_regen_vjp(x, antithetic: bool, save_weights: bool) -> bool:
+    """Whether :func:`bayes_linear` differentiates through the regenerating
+    VJP: ``save_weights=False``, or the reference's f32 antithetic route.
+
+    The reference sends antithetic layers with f32 x and
+    ``round_up(K, 256) > 2048`` to the non-saved VJP even when
+    ``save_weights=True`` (bayeformers_tpu/ops/fused_linear.py:1555-1562),
+    to dodge a Mosaic crash that CUDA does not have. The port copies the
+    route all the same: each layer then takes the reference's VJP, so the
+    f32 recipe keeps no (S, 3072, 768) f32 residual in each of its 12 FFN
+    down-projections (1.13 GB at S=10), and its backward regenerates those
+    pairs with kernel #10, as the reference's does."""
+    if not save_weights:
+        return True
+    kp = common.round_up(x.shape[-1], common.UNIT_K)
+    return antithetic and x.dtype == torch.float32 and kp > ANTI_F32_SAVED_MAX_KP
 
 
 def bayes_linear(x, mu, rho, seeds, *, mixture=None, prior_mu=None,
@@ -168,23 +304,20 @@ def bayes_linear(x, mu, rho, seeds, *, mixture=None, prior_mu=None,
     The reference's signature and defaults; exactly one prior is named, and
     this port takes ``prior_on_mu=True``. Differentiable: when grad mode is
     on and x, mu or rho requires grad, ``save_weights=True`` runs
-    :class:`BayesLinear`, which keeps W for its backward
-    (``save_weights=False`` would regenerate W in the backward, which comes
-    with a later slice, and raises); without gradients (inference) no W is
+    :class:`BayesLinear`, which keeps W for its backward, and
+    ``save_weights=False`` runs :class:`BayesLinearRegen`, which writes no
+    W and regenerates it in the backward; antithetic f32 layers with a
+    padded K above 2048 take the latter either way
+    (:func:`takes_regen_vjp`). Without gradients (inference) no W is
     written. Port keywords: ``plain=True`` runs the plain versions on the
     tensors' device (a CPU tensor always does); ``eps`` injects the draw
     into the plain version (tests)."""
     _check_prior(mixture, prior_mu, prior_on_mu)
     if torch.is_grad_enabled() and (x.requires_grad or mu.requires_grad
                                     or rho.requires_grad):
-        if not save_weights:
-            raise NotImplementedError(
-                "bayes_linear(save_weights=False) under autograd: the backward "
-                "that regenerates W from the seeds (kernel #10) comes with a "
-                "later slice (ROADMAP queue 1, item 4); pass save_weights=True "
-                "or run under torch.inference_mode()"
-            )
-        return BayesLinear.apply(x, mu, rho, seeds, eps, antithetic, plain)
+        fn = (BayesLinearRegen if takes_regen_vjp(x, antithetic, save_weights)
+              else BayesLinear)
+        return fn.apply(x, mu, rho, seeds, eps, antithetic, plain)
     return _forward(x, mu, rho, seeds, eps, antithetic, plain, save_w=False)
 
 
@@ -201,11 +334,12 @@ def bayes_linear_with_w(x, mu, rho, seeds, *, antithetic: bool = False,
 def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
                       save_weights: bool = False):
     """Launch ``bft_bayes_linear`` (independent draws, ``seeds`` (S,)) or
-    ``bft_bayes_linear_anti`` (pairs, ``seeds`` (S/2,)), csrc/bayes_linear.cu."""
+    ``bft_bayes_linear_anti`` (pairs, ``seeds`` (S/2,)), csrc/bayes_linear.cu,
+    in its bf16 or its f32 instance by x's dtype; y and W take x's dtype.
+    The launch counters key each launch by ``(M, K, N, dtype)``."""
     req = common.require
     req(x.is_cuda, f"bayes_linear kernel needs a CUDA tensor, got {x.device}")
-    req(x.dtype == torch.bfloat16,
-        f"bayes_linear kernel takes bf16 activations, got {x.dtype}")
+    tag = common.kernel_dtype(x, "bayes_linear")
     req(x.dim() == 3 and mu.dim() == 2, "x must be (S, M, K), mu (K, N)")
     S, M, K = x.shape
     N = mu.shape[1]
@@ -236,7 +370,7 @@ def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
     ls_part = torch.empty((n_tiles,), dtype=torch.float32, device=x.device)
     w = (torch.empty((S, K, N), dtype=x.dtype, device=x.device)
          if save_weights else None)
-    x_vec = int(K % 8 == 0 and x.data_ptr() % 16 == 0)
+    x_vec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
     n_el = K * N
     name = "bft_bayes_linear_anti" if antithetic else "bft_bayes_linear"
     with torch.cuda.device(x.device):
@@ -244,13 +378,14 @@ def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
             x.data_ptr(), mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
             y.data_ptr(), None if w is None else w.data_ptr(),
             partials.data_ptr(), ls_part.data_ptr(), logq.data_ptr(),
-            logp.data_ptr(), S, M, K, N, x_vec, 1.0 / MOPED_PRIOR_SIGMA,
+            logp.data_ptr(), S, M, K, N, x_vec, int(tag == "f32"),
+            1.0 / MOPED_PRIOR_SIGMA,
             n_el * LOG_SQRT_2PI,
             n_el * (LOG_SQRT_2PI + math.log(MOPED_PRIOR_SIGMA)),
             common.cuda_stream(x),
         )
     _build.check(err, name)
-    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N))
+    (LAUNCHES if antithetic else INDEP_LAUNCHES).add((M, K, N, tag))
     if save_weights:
         return y, logq, logp, w
     return y, logq, logp

@@ -16,10 +16,12 @@ from the seed, bit for bit. Raw TSVs need the native tokenizer, and the
 mesh, checkpoint and hypersearch options come with later slices: each of
 them raises here. The estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws (``fused``) otherwise, as in
-the reference, or ``--estimator``. On a CUDA device the activations must be
-bf16 (``--bf16``): the kernels' f32 versions come with a later slice.
+the reference, or ``--estimator``. Activations are f32 by default, as in
+the reference, and bf16 with ``--bf16``; the kernels take either. At f32
+and even S the FFN down-projections (K = 3072) regenerate their W pairs in
+the backward, as the reference routes them.
 
-    python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --limit-batches 3
+    python -m bayeformers_tpu_torch.workloads.bert_glue --limit-batches 3
     python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --samples 9
 """
 from __future__ import annotations
@@ -121,17 +123,6 @@ def _later(option: str, slice_name: str):
         f"bert_glue: {option} comes with the {slice_name} slice of the port")
 
 
-def check_activations(bf16: bool, device) -> None:
-    """Refuse f32 activations on a CUDA device: the port's kernels take bf16
-    activations only."""
-    if not bf16 and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "bert_glue: f32 activations on a CUDA device need the kernels' f32 "
-            "versions, which come with the f32-kernel slice of the port "
-            "(ROADMAP queue 2, item 1); pass bf16=True (--bf16)"
-        )
-
-
 def train(
     exp: str = "bert_glue",
     model_name: str = "bert-base-uncased",
@@ -162,7 +153,6 @@ def train(
     device: str = "cuda",
 ) -> float:
     """Run phases A-D; returns the task's headline dev score after phase D."""
-    check_activations(bf16, device)
     if "bert" not in model_name.lower() or any(
             f in model_name.lower() for f in ("distilbert", "roberta", "albert")):
         raise _later(f"model {model_name!r}", "model families")

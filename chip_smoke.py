@@ -39,11 +39,27 @@ Phases, each timed, each raising on failure:
     steps, and the median step time;
 11. the workload: ``workloads/bert_glue.train`` phases A-D at BERT-base on
     the synthetic data, three batches an epoch, at S=10 (antithetic) and at
-    S=3 (the default pick for an odd S: independent draws).
+    S=3 (the default pick for an odd S: independent draws), in bf16;
+12. f32, the recipe's default activations (every f32 phase after the
+    check that torch's f32 matmuls run in full f32, no TF32, so that the
+    plain versions are a true-f32 yardstick): ``regen`` (Pallas #10)
+    against the plain stream and against the f32 W of both forward
+    kernels, bit for bit; the f32 forward instances at the serving shapes
+    (y within 2e-5 of max |y|, log-probs 1e-5 relative, W bit-equal); the
+    f32 and the (bf16 x, f32 W) reduces (A/B/V within 1e-5 of each one's
+    largest entry); f32 ``mha_fwd`` / ``mha_bwd`` (1e-4 absolute plus 1e-4
+    relative); f32 serving under both estimators (logits within 1e-4 of
+    the plain path); the f32 ELBO step of each estimator against the plain
+    f32 step (loss 1e-6 relative, every gradient group 1e-3 relative L2,
+    reruns bit-equal, #10 launched 12 times a step antithetic and never
+    ``fused``); in bf16, each estimator's step with ``save_weights=False``
+    (the regenerating backward, #10 on all 74 layers) against its plain
+    regenerating step under the bf16 step's gates; the workload at its f32
+    default at S=10, which must launch #10.
 
-The line before the last is a JSON object with one entry per kernel and
-shape; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-card it prints no result and exits with code 2.
+The line before the last is a JSON object with one entry per kernel,
+instance and shape; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA card it prints no result and exits with code 2.
 """
 from __future__ import annotations
 
@@ -57,7 +73,13 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core rate, NVIDIA data sheet (SXM)
+# A true f32 product as 3xTF32 takes three TF32 products: the dense TF32
+# peak (494.7 TFLOP/s, same sheet) over three, the least time an f32
+# product could take on the tensor cores
+H100_F32_FLOPS = 494.7e12 / 3
 H100_BYTES_PER_S = 3.35e12  # HBM3
+BF16, F32 = torch.bfloat16, torch.float32
+TAG = {BF16: "bf16", F32: "f32"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -83,10 +105,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float, dtype=BF16) -> tuple[float, str]:
+    """The least time (ms) for the bytes at the HBM rate and the products'
+    flops at the tensor rate of their type; which of the two is larger."""
+    rate = H100_F32_FLOPS if dtype == F32 else H100_BF16_FLOPS
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    t_ops = n_flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row(name, counter, shape, path, source, replaces, err, ms, plain_ms, b,
+        lib_ms) -> dict:
+    """One entry of the kernels line, before its launches are known:
+    ``counter``/``shape`` name the launch count it takes from the run of
+    ``path`` (a phase's key in main)."""
+    return dict(name=name, counter=counter, shape=shape, path=path, route="cuda",
+                source=source, replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+def require_f32_matmuls() -> None:
+    """torch's f32 matmuls must run in full f32: the plain versions are the
+    yardstick of the kernels' true-f32 products, and a TF32 yardstick would
+    hide a TF32 kernel."""
+    check(torch.get_float32_matmul_precision() == "highest",
+          f"float32 matmul precision is {torch.get_float32_matmul_precision()!r}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are allowed")
 
 
 def phase_eps(lib, common, _build) -> None:
@@ -117,13 +161,13 @@ def phase_eps(lib, common, _build) -> None:
     check(not torch.equal(draw, other), "another seed gave the same draw")
 
 
-def bayes_linear_inputs(S, M, K, N, moped_rho, n_draws, offset=0):
-    """Seeded bf16 x (S, M, K), f32 mu/rho (K, N) and ``n_draws`` seeds on
-    the card; ``offset`` > 0 starts x that many bf16 elements into its
+def bayes_linear_inputs(S, M, K, N, moped_rho, n_draws, offset=0, dtype=BF16):
+    """Seeded x (S, M, K) in ``dtype``, f32 mu/rho (K, N) and ``n_draws``
+    seeds on the card; ``offset`` > 0 starts x that many elements into its
     buffer, so that it is contiguous but not 16-byte aligned."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(M * 7 + K * 3 + N)
-    buf = torch.empty(S * M * K + offset, dtype=torch.bfloat16, device=dev)
+    buf = torch.empty(S * M * K + offset, dtype=dtype, device=dev)
     x = buf[offset:].view(S, M, K)
     x.copy_(torch.randn(S, M, K, device=dev, generator=gen))
     mu = torch.randn(K, N, device=dev, generator=gen) * 0.02
@@ -137,7 +181,7 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic):
     """The forward kernel against its plain version on one input, and a
     rerun; raises on a mismatch. Returns (max |d y|, the kernel's W, a
     summary)."""
-    shape = tuple(x.shape[1:]) + (mu.shape[1],)
+    shape = tuple(x.shape[1:]) + (mu.shape[1], TAG[x.dtype])
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
     y, lq, lp, w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)
     again = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)
@@ -147,14 +191,21 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic):
     check(all(torch.equal(a, b) for a, b in zip((y, lq, lp, w), again)),
           f"{name} reruns differ at {shape}")
     err = (y.float() - yp.float()).abs().max().item()
-    check(torch.allclose(y.float(), yp.float(), rtol=2e-2, atol=2e-2),
-          f"{name} y differs at {shape}: max {err}")
+    if x.dtype == F32:
+        # true f32 products: 2e-5 of max |y| (one TF32 product would miss
+        # it by about ten times)
+        scale = yp.abs().max().item()
+        check(err <= 2e-5 * scale, f"{name} y differs at {shape}: max {err}, "
+              f"{err / scale:.3g} of max |y|")
+    else:
+        check(torch.allclose(y.float(), yp.float(), rtol=2e-2, atol=2e-2),
+              f"{name} y differs at {shape}: max {err}")
     for tag, a, b in (("log_q", lq, lqp), ("log_p", lp, lpp)):
         check(torch.allclose(a, b, rtol=1e-5, atol=0.0),
               f"{name} {tag} differs at {shape}: {a} vs {b}")
-    # W = mu + softplus(rho) eps in bf16 (and 2 mu - w for a pair's second
-    # member), each step rounded as the plain version rounds it, from the
-    # same normals (phase eps): equal to the plain W
+    # W = mu + softplus(rho) eps in x's dtype (and 2 mu - w for a pair's
+    # second member), each step rounded as the plain version rounds it, from
+    # the same normals (phase eps): equal to the plain W
     w_err = (w.float() - wp.float()).abs().max().item()
     check(torch.equal(w, wp), f"{name} W differs at {shape}: max {w_err}")
     return err, w, (
@@ -167,69 +218,82 @@ SERVING_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                   (8, 768, 768), (8, 768, 2))
 
 
-def phase_bayes_linear(fl, moped_rho, antithetic) -> list[dict]:
-    """A forward kernel against its plain version; returns the timing rows."""
+def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16) -> list[dict]:
+    """A forward kernel's instance for ``dtype`` against its plain version;
+    returns the timing rows."""
     S = 10
     n_draws = S // 2 if antithetic else S
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
+    tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     rows = []
     for M, K, N in SERVING_SHAPES:
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws)
+        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                dtype=dtype)
         err, w, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic)
         ms = time_ms(lambda: fl.bayes_linear(x, mu, rho, seeds, prior_on_mu=True,
                                              antithetic=antithetic), 20)
         plain_ms = time_ms(lambda: fl.bayes_linear_plain(
             x, mu, rho, seeds, antithetic=antithetic), 3, 1)
         lib_ms = time_ms(lambda: torch.bmm(x, w), 20)
-        n_bytes = (S * M * K * 2 + 2 * K * N * 4 + S * M * N * 2 + 2 * S * 4
+        n_bytes = (S * M * K * isz + 2 * K * N * 4 + S * M * N * isz + 2 * S * 4
                    + n_draws * 4)
-        b_ms, b_by = bound(n_bytes, 2.0 * S * M * K * N)
-        say(f"{name} M={M} K={K} N={N}: {summary}; "
+        b = bound(n_bytes, 2.0 * S * M * K * N, dtype)
+        say(f"{name} ({tag}) M={M} K={K} N={N}: {summary}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b[0]:.4f} ms ({b[1]})")
         if antithetic:
             line = 912 if K >= 2048 else 636
         else:
             line = 412 if K >= 2048 else 106
-        rows.append(dict(
-            name=f"{name}[M={M},K={K},N={N}]", shape=(M, K, N),
-            route="cuda", source="bayeformers_tpu_torch/csrc/bayes_linear.cu",
-            replaces=f"bayeformers_tpu/ops/fused_linear.py:{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms,
-        ))
-    # the kernel's scalar x path, taken when K % 8 != 0 or x is not 16-byte
-    # aligned: off the serving path, so checked here but neither timed nor
-    # counted
-    for M, K, N, offset in ((100, 300, 130, 0), (64, 768, 130, 1)):
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws, offset)
-        check(K % 8 != 0 or x.data_ptr() % 16 != 0,
+        suffix = "" if dtype == BF16 else f",{tag}"
+        rows.append(row(
+            f"{name}[M={M},K={K},N={N}{suffix}]", name, (M, K, N, tag),
+            f"serve/{'anti' if antithetic else 'indep'}/{tag}",
+            "bayeformers_tpu_torch/csrc/bayes_linear.cu",
+            f"bayeformers_tpu/ops/fused_linear.py:{line}", err, ms, plain_ms, b,
+            lib_ms))
+    # the kernel's scalar x path, taken when x's rows are not whole 16-byte
+    # chunks or x is not 16-byte aligned: off the serving path, so checked
+    # here but neither timed nor counted
+    per16 = 16 // isz
+    for M, K, N, offset in ((100, 300 if dtype == BF16 else 302, 130, 0),
+                            (64, 768, 130, 1)):
+        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                offset, dtype)
+        check(K % per16 != 0 or x.data_ptr() % 16 != 0,
               f"{(M, K, N, offset)} does not take the scalar x path")
         _, _, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic)
-        say(f"{name} scalar x path M={M} K={K} N={N} "
+        say(f"{name} ({tag}) scalar x path M={M} K={K} N={N} "
             f"x offset {offset}: {summary}")
     return rows
 
 
-def phase_mha(at) -> dict:
+def phase_mha(at, dtype=BF16) -> dict:
     dev = torch.device("cuda")
     N, L, H, nh = 80, 128, 768, 12
+    tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = (torch.randn(N, L, H, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (torch.randn(N, L, H, device=dev, generator=gen).to(dtype)
                for _ in range(3))
     mask = torch.ones(N, L, device=dev)
     mask[: N // 2, L - 40:] = 0   # padded keys in half the rows
     mask[N - 1] = 0               # one fully masked row
     bias = at.mask_to_bias(mask)
     out = at.mha(q, k, v, bias, nh)
+    again = at.mha(q, k, v, bias, nh)
     torch.cuda.synchronize()
     ref = at.mha_plain(q, k, v, bias, nh)
     err = (out.float() - ref.float()).abs().max().item()
     check(bool(torch.isfinite(out.float()).all()), "mha output not finite")
-    check(err <= 2e-2, f"mha differs from its plain version: max {err}")
+    if dtype == F32:
+        check(torch.allclose(out, ref, rtol=1e-4, atol=1e-4),
+              f"f32 mha differs from its plain version: max {err}")
+    else:
+        check(err <= 2e-2, f"mha differs from its plain version: max {err}")
+    check(torch.equal(out, again), f"mha ({tag}) reruns differ")
     ms = time_ms(lambda: at.mha(q, k, v, bias, nh), 50)
     plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh), 5, 1)
-    sdpa_mask = bias.clamp_min(torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
+    sdpa_mask = bias.clamp_min(torch.finfo(dtype).min).to(dtype)
     sdpa_mask = sdpa_mask[:, None, None, :]
 
     def sdpa():
@@ -239,21 +303,21 @@ def phase_mha(at) -> dict:
             v.view(N, L, nh, H // nh).transpose(1, 2), attn_mask=sdpa_mask)
 
     lib_ms = time_ms(sdpa, 50)
-    b_ms, b_by = bound(4 * N * L * H * 2 + N * L * 4, 4.0 * N * L * L * H)
-    say(f"mha_fwd N={N} L={L} H={H}: max|d| {err:.3g}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(name=f"mha_fwd[N={N},L={L},H={H}]", shape=(N, L, H), route="cuda",
-                source="bayeformers_tpu_torch/csrc/mha.cu",
-                replaces="bayeformers_tpu/ops/attention.py:119",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+    b = bound(4 * N * L * H * isz + N * L * 4, 4.0 * N * L * L * H, dtype)
+    say(f"mha_fwd ({tag}) N={N} L={L} H={H}: max|d| {err:.3g}, reruns equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]})")
+    suffix = "" if dtype == BF16 else f",{tag}"
+    return row(f"mha_fwd[N={N},L={L},H={H}{suffix}]", "mha_fwd", (N, L, H, tag),
+               f"serve/anti/{tag}", "bayeformers_tpu_torch/csrc/mha.cu",
+               "bayeformers_tpu/ops/attention.py:119", err, ms, plain_ms, b, lib_ms)
 
 
-def build_predictor(bt, antithetic=True):
+def build_predictor(bt, antithetic=True, dtype=BF16):
     """BERT-base from seed 0, MOPED-converted (delta 0.05, frozen), served at
-    S=10, antithetic or with independent draws, in one (8, 128) bucket on
-    the card."""
-    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=torch.bfloat16,
+    S=10, antithetic or with independent draws, in ``dtype`` activations,
+    in one (8, 128) bucket on the card."""
+    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype,
                           device="cuda")
     bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
     return bt.Predictor(bmodel, n_samples=10, batch_sizes=(8,), seq_lens=(128,),
@@ -271,14 +335,14 @@ def serving_requests(bt) -> list[dict]:
             for n, L in ((3, 77), (8, 128), (5, 20))]
 
 
-def phase_serving(bt, fl, at, antithetic) -> tuple[dict, float]:
+def phase_serving(bt, fl, at, antithetic, dtype=BF16) -> tuple[dict, float]:
     """Returns per-kernel launch counts by shape over the three requests,
     and the median latency (ms) of the 8x128 request."""
     t0 = time.perf_counter()
-    pred = build_predictor(bt, antithetic)
+    pred = build_predictor(bt, antithetic, dtype)
     fwd, fwd_name = ((fl.LAUNCHES, "bayes_linear_anti") if antithetic
                      else (fl.INDEP_LAUNCHES, "bayes_linear"))
-    tag = "antithetic" if antithetic else "independent"
+    tag = ("antithetic" if antithetic else "independent") + f", {TAG[dtype]}"
     bmodel = pred.bmodel
     torch.cuda.synchronize()
     say(f"serving ({tag}): BERT-base built and converted in "
@@ -322,7 +386,8 @@ def phase_serving(bt, fl, at, antithetic) -> tuple[dict, float]:
     lp, auxp = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
                                      impl="plain")
     err = (lk.float() - lp.float()).abs().max().item()
-    check(err <= 5e-2, f"logits through the kernels differ from the plain path by {err}")
+    limit = 1e-4 if dtype == F32 else 5e-2
+    check(err <= limit, f"logits through the kernels differ from the plain path by {err}")
     for key in auxk:
         check(torch.allclose(auxk[key], auxp[key], rtol=1e-5, atol=0.0),
               f"{key} differs from the plain path: {auxk[key]} vs {auxp[key]}")
@@ -348,9 +413,10 @@ def phase_serving(bt, fl, at, antithetic) -> tuple[dict, float]:
 def reset_counters(*modules) -> None:
     """Every launch counter of the given op modules to 0."""
     for m in modules:
-        for name in ("LAUNCHES", "INDEP_LAUNCHES", "BWD_LAUNCHES"):
+        for name in ("LAUNCHES", "INDEP_LAUNCHES", "BWD_LAUNCHES", "REGEN_LAUNCHES"):
             if hasattr(m, name):
                 getattr(m, name).reset()
+
 
 def rel_err(a, b) -> float:
     """max |a - b| over max |b| (f32 sums of the same products in another
@@ -362,62 +428,119 @@ TRAIN_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                 (8, 768, 768), (8, 768, 2))
 
 
-def phase_reduce(fl, fb, moped_rho, antithetic) -> list[dict]:
-    """A reduce kernel against its plain version on the W the forward
-    kernel wrote; returns the timing rows of the training shapes."""
+REDUCE_INSTANCES = {  # tag: (x's and g's type, W's type, path of its launches)
+    "bf16": (BF16, BF16, "train/{est}/bf16"),
+    "f32": (F32, F32, "train/{est}/f32"),
+    "bf16x-f32w": (BF16, F32, "regen/{est}/bf16"),
+}
+
+
+def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16") -> list[dict]:
+    """A reduce kernel's instance against its plain version, on the W the
+    forward kernel wrote (saved residuals: bf16, f32) or on the regenerated
+    f32 W (``bf16x-f32w``); returns the timing rows of the training
+    shapes. A/B/V within 1e-4 (bf16) or 1e-5 (an f32 operand: x or W) of
+    each one's largest entry."""
     S = 10
     n_draws = S // 2 if antithetic else S
+    xdt, wdt, path = REDUCE_INSTANCES[tag]
+    est = "anti" if antithetic else "indep"
     if antithetic:
         name, fn, plain = "reduce_abuv_anti", fb.reduce_abuv_anti, fb.reduce_abuv_anti_plain
     else:
         name, fn, plain = "reduce_abuv", fb.reduce_abuv, fb.reduce_abuv_plain
+    limit = 1e-5 if F32 in (xdt, wdt) else 1e-4
+    isz = torch.finfo(xdt).bits // 8
     rows = []
     for M, K, N in TRAIN_SHAPES + ((100, 300, 130),):
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws)
-        w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)[3]
+        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                dtype=xdt)
+        if wdt == xdt:
+            w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)[3]
+        else:
+            w = fl.regenerate_weights(mu, rho, seeds)
+            w = fl.interleave_antithetic(w, mu) if antithetic else w
         gen = torch.Generator(device="cuda").manual_seed(M + K + N)
-        g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(torch.bfloat16)
+        g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(xdt)
         g_p = torch.randn(S, device="cuda", generator=gen)
         out = fn(x, g, w, mu, g_p)
         again = fn(x, g, w, mu, g_p)
         torch.cuda.synchronize()
         ref = plain(x, g, w, mu, g_p)
         errs = [rel_err(a, r) for a, r in zip(out, ref)]
-        check(max(errs) <= 1e-4, f"{name} differs at {(M, K, N)}: "
+        check(max(errs) <= limit, f"{name} ({tag}) differs at {(M, K, N)}: "
               f"A/B/V rel err {errs}")
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
-              f"{name} reruns differ at {(M, K, N)}")
+              f"{name} ({tag}) reruns differ at {(M, K, N)}")
         summary = "A/B/V rel err " + "/".join(f"{e:.3g}" for e in errs)
         if (M, K, N) not in TRAIN_SHAPES:
-            say(f"{name} odd shape M={M} K={K} N={N}: {summary}, reruns equal")
+            say(f"{name} ({tag}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
             continue
         ms = time_ms(lambda: fn(x, g, w, mu, g_p), 20)
         plain_ms = time_ms(lambda: plain(x, g, w, mu, g_p), 3, 1)
         xt = x.transpose(1, 2)
         lib_ms = time_ms(lambda: torch.bmm(xt, g), 20)
         # the pair reduce reads the even half of W, the independent one all
-        n_bytes = (S * M * (K + N) * 2 + n_draws * K * N * 2 + K * N * 4 + S * 4
+        wsz = torch.finfo(wdt).bits // 8
+        n_bytes = (S * M * (K + N) * isz + n_draws * K * N * wsz + K * N * 4 + S * 4
                    + 3 * K * N * 4)
-        b_ms, b_by = bound(n_bytes, 2.0 * S * M * K * N)
-        say(f"{name} M={M} K={K} N={N}: {summary}, reruns equal; "
+        b = bound(n_bytes, 2.0 * S * M * K * N, xdt)
+        say(f"{name} ({tag}) M={M} K={K} N={N}: {summary}, reruns equal; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm x^T g "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        rows.append(dict(
-            name=f"{name}[M={M},K={K},N={N}]", shape=(M, K, N),
-            route="cuda", source="bayeformers_tpu_torch/csrc/fused_backward.cu",
-            replaces=("bayeformers_tpu/ops/fused_backward.py:202" if antithetic
-                      else "bayeformers_tpu/ops/fused_backward.py:97"),
-            max_abs_err=max((a - r).abs().max().item() for a, r in zip(out, ref)),
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms,
-        ))
+            f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        suffix = "" if tag == "bf16" else f",{tag}"
+        rows.append(row(
+            f"{name}[M={M},K={K},N={N}{suffix}]", name, (M, K, N, tag),
+            path.format(est=est), "bayeformers_tpu_torch/csrc/fused_backward.cu",
+            ("bayeformers_tpu/ops/fused_backward.py:202" if antithetic
+             else "bayeformers_tpu/ops/fused_backward.py:97"),
+            max((a - r).abs().max().item() for a, r in zip(out, ref)),
+            ms, plain_ms, b, lib_ms))
     return rows
 
 
-def mha_bwd_inputs(at, N, L, H, seed):
+def phase_regen(fl, moped_rho) -> list[dict]:
+    """Kernel #10 against the plain stream and against the f32 W that each
+    forward kernel draws for the same seeds, bit for bit, and a rerun;
+    returns the timing row of the f32 recipe's shape (the FFN
+    down-projection's five pairs)."""
+    S, M = 10, 64
+    for K, N in ((768, 768), (768, 3072), (3072, 768), (300, 130)):
+        for antithetic in (True, False):
+            n_draws = S // 2 if antithetic else S
+            x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                    dtype=F32)
+            w = fl.regenerate_weights(mu, rho, seeds)
+            again = fl.regenerate_weights(mu, rho, seeds)
+            torch.cuda.synchronize()
+            plain = fl.sample_weights(mu, rho, seeds)
+            w_fwd = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)[3]
+            pair = fl.interleave_antithetic(w, mu) if antithetic else w
+            check(torch.equal(w, again), f"regen reruns differ at {(n_draws, K, N)}")
+            check(torch.equal(w, plain), f"regen differs from the plain stream at "
+                  f"{(n_draws, K, N)}: max {(w - plain).abs().max().item()}")
+            check(torch.equal(pair, w_fwd), "regen differs from the "
+                  f"{'pair' if antithetic else 'independent'} forward kernel's f32 W "
+                  f"at {(n_draws, K, N)}: max {(pair - w_fwd).abs().max().item()}")
+    say("regen: W bit-equal to the plain stream and to both forward kernels' f32 W "
+        "at (S', K, N) = (5|10, 768, 768), (5|10, 768, 3072), (5|10, 3072, 768), "
+        "(5|10, 300, 130); reruns equal")
+    n, K, N = 5, 3072, 768
+    _, mu, rho, seeds = bayes_linear_inputs(S, 8, K, N, moped_rho, n, dtype=F32)
+    ms = time_ms(lambda: fl.regenerate_weights(mu, rho, seeds), 50)
+    plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, seeds), 5, 1)
+    b = bound(n * K * N * 4 + 2 * K * N * 4 + n * 4, 0.0, F32)
+    say(f"regen S'={n} K={K} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]}), no library call")
+    return [row(f"regen[S={n},K={K},N={N}]", "regen", (n, K, N), "train/anti/f32",
+                "bayeformers_tpu_torch/csrc/regen.cu",
+                "bayeformers_tpu/ops/fused_linear.py:1143", 0.0, ms, plain_ms, b, None)]
+
+
+def mha_bwd_inputs(at, N, L, H, seed, dtype=BF16):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, g = (torch.randn(N, L, H, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v, g = (torch.randn(N, L, H, device=dev, generator=gen).to(dtype)
                   for _ in range(4))
     mask = torch.ones(N, L, device=dev)
     mask[: N // 2, L - L // 3:] = 0  # padded keys in half the rows
@@ -425,50 +548,53 @@ def mha_bwd_inputs(at, N, L, H, seed):
     return q, k, v, at.mask_to_bias(mask), g
 
 
-def phase_mha_bwd(at) -> dict:
-    """Kernel #5 against its plain version; returns the timing row of the
-    training shape."""
+def phase_mha_bwd(at, dtype=BF16) -> dict:
+    """Kernel #5's instance for ``dtype`` against its plain version; returns
+    the timing row of the training shape."""
     nh = 12
-    row = None
+    tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
+    out_row = None
     for N, L, H in ((80, 128, 768), (8, 512, 768)):
-        q, k, v, bias, g = mha_bwd_inputs(at, N, L, H, L)
+        q, k, v, bias, g = mha_bwd_inputs(at, N, L, H, L, dtype)
         out = at.mha_bwd_cuda(q, k, v, bias, g, nh)
         again = at.mha_bwd_cuda(q, k, v, bias, g, nh)
         torch.cuda.synchronize()
         ref = at.mha_bwd_plain(q, k, v, bias, g, nh)
         errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)]
+        # bf16 outputs: 2e-2 absolute as the forward, plus 2e-2 relative
+        # where gradients reach |x| ~ 10 and one bf16 step is 0.06; f32
+        # outputs of true f32 products: 1e-4 absolute plus 1e-4 relative
+        tol = 1e-4 if dtype == F32 else 2e-2
         for name, a, r in zip(("dq", "dk", "dv"), out, ref):
             check(bool(torch.isfinite(a.float()).all()), f"mha_bwd {name} not finite")
-            # bf16 outputs: 2e-2 absolute as the forward, plus 2e-2 relative
-            # where gradients reach |x| ~ 10 and one bf16 step is 0.06
-            check(torch.allclose(a.float(), r.float(), rtol=2e-2, atol=2e-2),
-                  f"mha_bwd {name} differs at {(N, L, H)}: max {errs}")
+            check(torch.allclose(a.float(), r.float(), rtol=tol, atol=tol),
+                  f"mha_bwd ({tag}) {name} differs at {(N, L, H)}: max {errs}")
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
-              f"mha_bwd reruns differ at {(N, L, H)}")
+              f"mha_bwd ({tag}) reruns differ at {(N, L, H)}")
         summary = "dq/dk/dv max|d| " + "/".join(f"{e:.3g}" for e in errs)
         if L != 128:
-            say(f"mha_bwd N={N} L={L} H={H}: {summary}, reruns equal")
+            say(f"mha_bwd ({tag}) N={N} L={L} H={H}: {summary}, reruns equal")
             continue
         ms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh), 20)
         plain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh), 3, 1)
         d = H // nh
         heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
                  for t in (q, k, v)]
-        sdpa_mask = bias.clamp_min(torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
+        sdpa_mask = bias.clamp_min(torch.finfo(dtype).min).to(dtype)
         o = torch.nn.functional.scaled_dot_product_attention(
             *heads, attn_mask=sdpa_mask[:, None, None, :])
         go = g.view(N, L, nh, d).transpose(1, 2)
         lib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 20)
-        b_ms, b_by = bound(7 * N * L * H * 2 + N * L * 4, 10.0 * N * L * L * H)
-        say(f"mha_bwd N={N} L={L} H={H}: {summary}, reruns equal; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        row = dict(name=f"mha_bwd[N={N},L={L},H={H}]", shape=(N, L, H), route="cuda",
-                   source="bayeformers_tpu_torch/csrc/mha_bwd.cu",
-                   replaces="bayeformers_tpu/ops/attention.py:181",
-                   max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms)
-    return row
+        b = bound(7 * N * L * H * isz + N * L * 4, 10.0 * N * L * L * H, dtype)
+        say(f"mha_bwd ({tag}) N={N} L={L} H={H}: {summary}, reruns equal; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]})")
+        suffix = "" if dtype == BF16 else f",{tag}"
+        out_row = row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd", (N, L, H, tag),
+                      f"train/anti/{tag}", "bayeformers_tpu_torch/csrc/mha_bwd.cu",
+                      "bayeformers_tpu/ops/attention.py:181", max(errs), ms, plain_ms,
+                      b, lib_ms)
+    return out_row
 
 
 def train_batch(bt, B=8, L=128, seed=7):
@@ -482,12 +608,14 @@ def train_batch(bt, B=8, L=128, seed=7):
         ("labels", rng.integers(0, 2, (B,))))}
 
 
-def grads_of(bt, bmodel, named, seed, batch, impl, estimator):
-    """Loss and gradients of one ELBO objective (S=10) at the given draw."""
+def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True):
+    """Loss and gradients of one ELBO objective (S=10) at the given draw;
+    ``save_weights=False`` differentiates through the regenerating VJP."""
     for _, t, _ in named:
         t.grad = None
     loss, m = bt.training.elbo_objective(
-        bt.training.pick_mc(bmodel, estimator), seed, 10, batch, 256, impl=impl)
+        bt.training.pick_mc(bmodel, estimator), seed, 10, batch, 256, impl=impl,
+        save_weights=save_weights)
     loss.backward()
     return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
 
@@ -512,55 +640,125 @@ def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
     return worst
 
 
-def phase_train(bt, fl, at, fb, estimator) -> tuple[dict, float]:
-    """The ELBO step at the recipe: returns the launch counts by kernel and
-    shape over the timed steps and the median step time (ms)."""
-    S, n_batches = 10, 256
-    anti = estimator == "antithetic"
-    batch = train_batch(bt)
-    # the same step in f32 activations through the plain versions: the
-    # yardstick for gradients that bf16 activations blur on either path
-    bmodel32, named32 = converted_base(bt, torch.float32)
-    _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain", estimator)
-    del bmodel32, named32
-    torch.cuda.empty_cache()
+PARAM_GROUPS = ("LayerNorm/scale", "LayerNorm/bias", "embedding")
 
-    bmodel, named = converted_base(bt, torch.bfloat16)
-    # the step through the kernels against the plain step, same draw
-    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
-    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
-    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator)
-    check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
-          "the same seed gave another loss or gradient through the kernels")
+
+def grad_groups(names) -> dict[str, list[str]]:
+    """The trainable leaves by group: rho, LayerNorm scales and biases,
+    embeddings, and any other parameter."""
+    groups = {"rho": [n for n in names if n.startswith("rho/")]}
+    for g in PARAM_GROUPS:
+        groups[g] = [n for n in names if n.startswith("params/") and n.endswith(g)]
+    seen = {n for v in groups.values() for n in v}
+    rest = [n for n in names if n not in seen]
+    if rest:
+        groups["other"] = rest
+    return groups
+
+
+def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32) -> None:
+    """A bf16 step through the kernels against the plain bf16 step at the
+    same draw: loss 1e-2 relative, rho gradients 5e-2 relative L2 and cosine
+    0.999; LayerNorm and embedding gradients, which bf16 activations blur
+    on both paths, no further from the f32 plain step ``g32`` than 1.5x the
+    plain bf16 step's distance."""
     for key in ("loss", "log_prior", "log_variational_posterior", "nll"):
         check(bool(torch.isfinite(mk[key])), f"{key} is not finite: {mk[key]}")
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    check(loss_rel <= 1e-2, f"step loss kernels {loss_k.item()} vs plain {loss_p.item()}")
-    say(f"train ({estimator}): loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} (rel "
+    check(loss_rel <= 1e-2, f"{label} loss kernels {loss_k.item()} vs plain {loss_p.item()}")
+    say(f"{label}: loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} (rel "
         f"{loss_rel:.3g}), nll {mk['nll'].item():.7g} vs {mp['nll'].item():.7g}; "
         "reruns bit-equal")
     rho = [n for n in gk if n.startswith("rho/")]
     rel, cos, at_ = worst_agreement(gk, gp, rho)
-    say(f"train ({estimator}): rho gradients ({len(rho)} leaves), kernels vs plain: worst rel L2 "
+    say(f"{label}: rho gradients ({len(rho)} leaves), kernels vs plain: worst rel L2 "
         f"{rel:.4g} ({at_}), worst cosine {cos:.7f}")
-    check(rel <= 5e-2 and cos >= 0.999, "rho gradients through the kernels differ "
-          f"from the plain step: rel L2 {rel}, cosine {cos}")
-    # LayerNorm and embedding gradients come from the task loss alone, which
-    # bf16 activations blur on both paths: the kernels' distance from the
-    # f32 step must stay within 1.5x the bf16 plain step's own
-    for group in ("LayerNorm/scale", "LayerNorm/bias", "embedding"):
+    check(rel <= 5e-2 and cos >= 0.999, f"{label} rho gradients through the kernels "
+          f"differ from the plain step: rel L2 {rel}, cosine {cos}")
+    for group in PARAM_GROUPS:
         names = [n for n in gk if n.startswith("params/") and n.endswith(group)]
         rk, ck, nk = worst_agreement(gk, g32, names)
         rp, cp, _ = worst_agreement(gp, g32, names)
         rkp, ckp, _ = worst_agreement(gk, gp, names)
-        say(f"train ({estimator}): {group} gradients ({len(names)} leaves) against the f32 plain "
+        say(f"{label}: {group} gradients ({len(names)} leaves) against the f32 plain "
             f"step: kernels rel L2 {rk:.4g} ({nk}) cosine {ck:.6f}; bf16 plain "
             f"rel L2 {rp:.4g} cosine {cp:.6f}; kernels vs bf16 plain rel L2 "
             f"{rkp:.4g} cosine {ckp:.6f}")
         check(rk <= 1.5 * rp and 1.0 - ck <= 1.5 * (1.0 - cp),
-              f"{group} gradients through the kernels are further from the f32 "
-              "step than the bf16 plain step's")
-    del gk, gk2, gp, g32
+              f"{label} {group} gradients through the kernels are further from the "
+              "f32 step than the bf16 plain step's")
+
+
+def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dict]:
+    """The ELBO step at the recipe in ``dtype`` activations: returns the
+    launch counts by kernel and shape over the timed steps, the median step
+    time (ms) and, in bf16, the launch counts of one step through the
+    regenerating backward (``save_weights=False``)."""
+    S, n_batches = 10, 256
+    anti = estimator == "antithetic"
+    tag = TAG[dtype]
+    label = f"train ({estimator}, {tag})"
+    batch = train_batch(bt)
+    n_layers = 74  # converted kernels of BERT-base: 12 x 6, the pooler, the classifier
+    regen_counts = {}
+    if dtype == BF16:
+        # the same step in f32 activations through the plain versions: the
+        # yardstick for gradients that bf16 activations blur on either path
+        bmodel32, named32 = converted_base(bt, F32)
+        _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain", estimator)
+        del bmodel32, named32
+        torch.cuda.empty_cache()
+
+    bmodel, named = converted_base(bt, dtype)
+    # the step through the kernels against the plain step, same draw; #10
+    # runs in the f32 antithetic step's 12 FFN down-projections only
+    reset_counters(fl)
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+    n_regen = dict(fl.REGEN_LAUNCHES.by_shape)
+    want = {(S // 2, 3072, 768): 12} if anti and dtype == F32 else {}
+    check(n_regen == want, f"{label}: regen launched {n_regen}, want {want}")
+    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator)
+    check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
+          f"{label}: the same seed gave another loss or gradient through the kernels")
+    if dtype == BF16:
+        check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32)
+        # the regenerating backward (save_weights=False): #10 on every layer,
+        # the reduce on the regenerated f32 W; counts read around this step
+        rlabel = f"train ({estimator}, bf16, save_weights=False)"
+        reset_counters(fl, at, fb)
+        loss_r, mr, gr = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                                  save_weights=False)
+        red = fb.LAUNCHES if anti else fb.INDEP_LAUNCHES
+        regen_counts = {"regen": dict(fl.REGEN_LAUNCHES.by_shape),
+                        red.name: dict(red.by_shape)}
+        check(fl.REGEN_LAUNCHES.count == n_layers,
+              f"{rlabel}: regen launched {fl.REGEN_LAUNCHES.count} times, want {n_layers}")
+        check(sum(n for s_, n in red.by_shape.items() if s_[3] == "bf16x-f32w") == n_layers,
+              f"{rlabel}: the (bf16 x, f32 W) reduce did not serve every layer: "
+              f"{red.by_shape}")
+        loss_r2, _, gr2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                                   save_weights=False)
+        loss_rp, mrp, grp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator,
+                                     save_weights=False)
+        check(torch.equal(loss_r, loss_r2) and all(torch.equal(gr[n], gr2[n]) for n in gr),
+              f"{rlabel}: the same seed gave another loss or gradient")
+        check_bf16_step(rlabel, loss_r, loss_rp, mr, mrp, gr, grp, g32)
+        say(f"{rlabel}: launches in one step: {regen_counts}")
+        del gr, gr2, grp, g32
+    else:
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        say(f"{label}: loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} "
+            f"(rel {loss_rel:.3g}); reruns bit-equal; regen launches {n_regen}")
+        check(loss_rel <= 1e-6, f"{label}: loss kernels {loss_k.item()} vs plain "
+              f"{loss_p.item()}")
+        for group, names in grad_groups(list(gk)).items():
+            rel, cos, at_ = worst_agreement(gk, gp, names)
+            say(f"{label}: {group} gradients ({len(names)} leaves), kernels vs plain "
+                f"f32: worst rel L2 {rel:.4g} ({at_}), worst cosine {cos:.9f}")
+            check(rel <= 1e-3, f"{label}: {group} gradients differ from the plain f32 "
+                  f"step: rel L2 {rel} at {at_}")
+    del gk, gk2, gp
 
     # the ELBO falls on one batch and one draw
     tx = bt.training.adamw_with_decay_groups(
@@ -570,7 +768,7 @@ def phase_train(bt, fl, at, fb, estimator) -> tuple[dict, float]:
     step = bt.training.make_elbo_train_step(bmodel, opt, S, n_batches,
                                             estimator=estimator)
     losses = [step(55, batch)["loss"].item() for _ in range(4)]
-    say(f"train ({estimator}): loss over 4 steps at one batch and draw: {losses}")
+    say(f"{label}: loss over 4 steps at one batch and draw: {losses}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the ELBO did not fall")
 
     # timed steps, fresh draws; launches counted around exactly these
@@ -592,33 +790,41 @@ def phase_train(bt, fl, at, fb, estimator) -> tuple[dict, float]:
                 red.name: dict(red.by_shape)}
     check(all(sum(v.values()) > 0 for v in launches.values()),
           f"the train steps launched no kernel of some kind: {launches}")
+    launches["regen"] = dict(fl.REGEN_LAUNCHES.by_shape)
+    check(fl.REGEN_LAUNCHES.count == 10 * sum(want.values()),
+          f"{label}: regen launched {fl.REGEN_LAUNCHES.count} times in 10 steps")
     step_ms = float(np.median(times))
-    say(f"train ({estimator}): launches over 10 steps: {launches}")
-    say(f"train ({estimator}): ELBO step (S=10, B=8, L=128, bf16) median {step_ms:.3f} ms over 10: "
+    say(f"{label}: launches over 10 steps: {launches}")
+    say(f"{label}: ELBO step (S=10, B=8, L=128, {tag}) median {step_ms:.3f} ms over 10: "
         f"{[round(v, 3) for v in times]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del opt, step, named, bmodel
     torch.cuda.empty_cache()
-    return launches, step_ms
+    return launches, step_ms, regen_counts
 
 
-def phase_workload(fl, fb, samples) -> float:
+def phase_workload(fl, fb, samples, bf16=True) -> float:
     """bert_glue phases A-D at ``samples`` draws; an odd S must run the
-    independent-draw kernels and no antithetic one."""
+    independent-draw kernels and no antithetic one; at the f32 default and
+    S=10 the FFN down-projections' backward must launch #10."""
     from bayeformers_tpu_torch.workloads import bert_glue
 
     reset_counters(fl, fb)
     with tempfile.TemporaryDirectory() as logs:
         score = bert_glue.train(size="base", limit_batches=3, epochs=1, b_epochs=1,
-                                bf16=True, logs=logs, samples=samples)
+                                bf16=bf16, logs=logs, samples=samples)
     check(np.isfinite(score), f"bert_glue score {score}")
     counts = {c.name: c.count for c in (fl.LAUNCHES, fl.INDEP_LAUNCHES,
                                          fb.LAUNCHES, fb.INDEP_LAUNCHES)}
     odd = samples % 2 == 1
     check(all((counts[n] > 0) == (("anti" in n) != odd) for n in counts),
           f"bert_glue at S={samples} took the wrong estimator's kernels: {counts}")
-    say(f"workload: bert_glue phases A-D at S={samples}, 3 batches an epoch: "
-        f"score {score:.4f}; launches {counts}")
+    counts["regen"] = fl.REGEN_LAUNCHES.count
+    check((counts["regen"] > 0) == (not bf16 and not odd),
+          f"bert_glue at S={samples}, {'bf16' if bf16 else 'f32'}: regen launched "
+          f"{counts['regen']} times")
+    say(f"workload: bert_glue phases A-D at S={samples}, {'bf16' if bf16 else 'f32'}, "
+        f"3 batches an epoch: score {score:.4f}; launches {counts}")
     return score
 
 
@@ -641,74 +847,70 @@ def main() -> int:
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    # before any f32 work: the plain versions' f32 matmuls are true f32
+    require_f32_matmuls()
+    say("f32 matmuls: precision 'highest', TF32 off")
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase {label}: {time.perf_counter() - t:.2f} s")
+        return out
 
     t = time.perf_counter()
     lib = _build.library()
     say(f"phase build: {time.perf_counter() - t:.2f} s (nvcc {_build.last_build_seconds:.2f} s)")
+    timed("eps", phase_eps, lib, common, _build)
 
-    t = time.perf_counter()
-    phase_eps(lib, common, _build)
-    say(f"phase eps: {time.perf_counter() - t:.2f} s")
+    # rows: one per kernel, instance and shape; paths: the launch counts of
+    # each main-path run, by counter and shape
+    rows, paths, serve_ms, step_ms = [], {}, {}, {}
+    ests = ((True, "anti", "antithetic"), (False, "indep", "fused"))
+    for dtype in (BF16, F32):
+        tag = TAG[dtype]
+        if dtype == F32:
+            rows += timed("regen (f32)", phase_regen, fl, moped_rho)
+        for anti, key, est in ests:
+            rows += timed(f"bayes_linear ({est}, {tag})", phase_bayes_linear, fl,
+                          moped_rho, anti, dtype)
+        rows.append(timed(f"mha ({tag})", phase_mha, at, dtype))
+        for anti, key, est in ests:
+            paths[f"serve/{key}/{tag}"], serve_ms[(key, tag)] = timed(
+                f"serving ({est}, {tag})", phase_serving, bt, fl, at, anti, dtype)
+        for anti, key, est in ests:
+            for inst in ((tag, "bf16x-f32w") if dtype == BF16 else (tag,)):
+                rows += timed(f"reduce ({est}, {inst})", phase_reduce, fl, fb,
+                              moped_rho, anti, inst)
+        rows.append(timed(f"mha_bwd ({tag})", phase_mha_bwd, at, dtype))
+        for anti, key, est in ests:
+            paths[f"train/{key}/{tag}"], step_ms[(key, tag)], regen = timed(
+                f"train ({est}, {tag})", phase_train, bt, fl, at, fb, est, dtype)
+            if regen:
+                paths[f"regen/{key}/{tag}"] = regen
+        for samples in ((10, 3) if dtype == BF16 else (10,)):
+            timed(f"workload (S={samples}, {tag})", phase_workload, fl, fb, samples,
+                  dtype == BF16)
 
-    rows, train_rows, serve, train = [], [], {}, {}
-    for anti in (True, False):
-        t = time.perf_counter()
-        rows.append((phase_bayes_linear(fl, moped_rho, anti), anti))
-        say(f"phase bayes_linear ({'antithetic' if anti else 'independent'}): "
-            f"{time.perf_counter() - t:.2f} s")
-
-    t = time.perf_counter()
-    rows.append(([phase_mha(at)], True))
-    say(f"phase mha: {time.perf_counter() - t:.2f} s")
-
-    for anti in (True, False):
-        t = time.perf_counter()
-        serve[anti] = phase_serving(bt, fl, at, anti)
-        say(f"phase serving ({'antithetic' if anti else 'independent'}): "
-            f"{time.perf_counter() - t:.2f} s")
-
-    for anti in (True, False):
-        t = time.perf_counter()
-        train_rows.append((phase_reduce(fl, fb, moped_rho, anti), anti))
-        say(f"phase reduce ({'antithetic' if anti else 'independent'}): "
-            f"{time.perf_counter() - t:.2f} s")
-
-    t = time.perf_counter()
-    train_rows.append(([phase_mha_bwd(at)], True))
-    say(f"phase mha_bwd: {time.perf_counter() - t:.2f} s")
-
-    for anti in (True, False):
-        est = "antithetic" if anti else "fused"
-        t = time.perf_counter()
-        train[anti] = phase_train(bt, fl, at, fb, est)
-        say(f"phase train ({est}): {time.perf_counter() - t:.2f} s")
-
-    for samples in (10, 3):
-        t = time.perf_counter()
-        phase_workload(fl, fb, samples)
-        say(f"phase workload (S={samples}): {time.perf_counter() - t:.2f} s")
-
-    # each kernel's launches are those of the path it serves: the forward
-    # kernels' and mha_fwd's the requests', the backward kernels' the train
-    # steps', each estimator's its own
+    # each kernel's launches are those of the main-path run it serves: the
+    # forward kernels' and mha_fwd's the requests', the backward kernels'
+    # and regen's the train steps', each estimator's and dtype's its own,
+    # the (bf16 x, f32 W) reduce's the bf16 step with save_weights=False
     kernels = []
-    pairs = ([(r, serve[anti][0]) for group, anti in rows for r in group]
-             + [(r, train[anti][0]) for group, anti in train_rows for r in group])
-    for r, counts in pairs:
-        kind = r["name"].split("[")[0]
-        n = counts[kind].get(tuple(r.pop("shape")), 0)
-        check(n > 0, f"{r['name']} was not launched on the path it serves")
+    for r in rows:
+        n = paths[r["path"]][r["counter"]].get(r["shape"], 0)
+        check(n > 0, f"{r['name']} was not launched on the path it serves ({r['path']})")
         kernels.append({"name": r["name"], "route": r["route"], "source": r["source"],
                         "replaces": r["replaces"], "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    latency, latency_ind = serve[True][1], serve[False][1]
-    step_ms, step_ind = train[True][1], train[False][1]
-    say(f"{smi}; request latency 8x128 S=10: antithetic {latency:.3f} ms, "
-        f"independent {latency_ind:.3f} ms; ELBO step S=10 B=8 L=128: antithetic "
-        f"{step_ms:.3f} ms, fused {step_ind:.3f} ms; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+    say(f"{smi}; request latency 8x128 S=10: antithetic {serve_ms['anti', 'bf16']:.3f} ms, "
+        f"independent {serve_ms['indep', 'bf16']:.3f} ms (bf16), antithetic "
+        f"{serve_ms['anti', 'f32']:.3f} ms, independent {serve_ms['indep', 'f32']:.3f} ms "
+        f"(f32); ELBO step S=10 B=8 L=128: antithetic {step_ms['anti', 'bf16']:.3f} ms, "
+        f"fused {step_ms['indep', 'bf16']:.3f} ms (bf16), antithetic "
+        f"{step_ms['anti', 'f32']:.3f} ms, fused {step_ms['indep', 'f32']:.3f} ms (f32); "
+        f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

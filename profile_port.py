@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's time goes on the GPU, from ``torch.profiler``: the
 device time of each kernel in ``chip_smoke.py``'s 8x128 serving request or
-its ELBO train step (BERT-base, S=10, bf16), antithetic or with independent
-draws (``--estimator fused``).
+its ELBO train step (BERT-base, S=10), antithetic or with independent draws
+(``--estimator fused``), in bf16 or f32 activations (``--dtype``).
 
     python3 profile_port.py [--path serving|train] [--n 3] [--time 0]
-                            [--estimator antithetic|fused] [--out trace.json]
+                            [--estimator antithetic|fused] [--dtype bf16|f32]
+                            [--out trace.json]
 
 It runs ``chip_smoke.py``'s predictor and request (``serving``) or its
 converted model, batch and step (``train``), and prints the device's busy
@@ -34,6 +35,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=3)
     ap.add_argument("--time", type=int, default=0)
     ap.add_argument("--estimator", choices=("antithetic", "fused"), default="antithetic")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -50,16 +52,19 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
     if args.path == "serving":
         # the one-argument call also works with an older chip_smoke.py
-        pred = (chip_smoke.build_predictor(bt) if args.estimator == "antithetic"
-                else chip_smoke.build_predictor(bt, antithetic=False))
+        if args.estimator == "antithetic" and args.dtype == "bf16":
+            pred = chip_smoke.build_predictor(bt)
+        else:
+            pred = chip_smoke.build_predictor(bt, args.estimator == "antithetic", dtype)
         req = chip_smoke.serving_requests(bt)[1]  # fills the (8, 128) bucket
 
         def run(i):
             pred(req, seed=i)
     else:
-        bmodel, named = chip_smoke.converted_base(bt, torch.bfloat16)
+        bmodel, named = chip_smoke.converted_base(bt, dtype)
         batch = chip_smoke.train_batch(bt)
         tx = bt.training.adamw_with_decay_groups(2e-5, 0.0, bt.training.default_no_decay)
         step = bt.make_elbo_train_step(bmodel, tx.init(named), 10, 256,
@@ -92,7 +97,8 @@ def main() -> int:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
     unit = "request" if args.path == "serving" else "step"
-    print(f"profiled {args.n} {unit}s: wall {wall_ms:.3f} ms, device busy "
+    print(f"profiled {args.n} {unit}s ({args.estimator}, {args.dtype}): wall "
+          f"{wall_ms:.3f} ms, device busy "
           f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}% of wall)")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)
     print(f"{'device ms/' + unit:>18} {'calls/' + unit:>14}  name")

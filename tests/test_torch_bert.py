@@ -145,13 +145,23 @@ def test_other_recipes_raise():
         bt.to_bayesian(model, delta=0.05, freeze=False)
     bmodel = bt.to_bayesian(model)
     ids = torch.ones((2, 8), dtype=torch.long)
-    # W residuals now serve the backward; a backward that would regenerate
-    # W instead (save_weights=False under autograd) comes later and raises
+    # W residuals serve the backward (save_weights=True); save_weights=False
+    # under autograd regenerates W in the backward instead, to the same
+    # gradients in f32
     out, _ = bmodel.mc_apply_fused(0, 2, ids, save_weights=True)
     assert out.shape == (2, 2, 2)
-    bmodel.trainable_parameters()
-    with pytest.raises(NotImplementedError, match="regenerates W"):
-        bmodel.mc_apply_fused(0, 2, ids, save_weights=False)
+    named = bmodel.trainable_parameters()
+    grads = []
+    for sw in (True, False):
+        for _, t, _ in named:
+            t.grad = None
+        out, aux = bmodel.mc_apply_fused(0, 2, ids, save_weights=sw)
+        (out.float().sum() + aux["log_variational_posterior"].sum()).backward()
+        grads.append({n: t.grad.clone() for n, t, _ in named})
+    assert set(grads[0]) == set(grads[1])
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-7,
+                                   msg=n)
     # the estimators not ported yet
     for est in ("naive", "flipout", "local"):
         with pytest.raises(NotImplementedError):

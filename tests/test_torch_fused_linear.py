@@ -111,7 +111,8 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 def test_other_estimators_raise():
     """The op takes the frozen-MOPED prior only: the other priors raise,
-    naming their slice, as does the regenerating backward."""
+    naming their slice. The regenerating backward (``save_weights=False``
+    under autograd) no longer raises: it runs ``BayesLinearRegen``."""
     x, mu, rho, _ = _inputs(2, 4, 8, 8)
     t = torch.from_numpy
     seeds = torch.tensor([1, 2], dtype=torch.int32)
@@ -121,9 +122,9 @@ def test_other_estimators_raise():
         fl.bayes_linear(t(x), t(mu), t(rho), seeds, mixture=(0.5, 1.0, 0.0025))
     with pytest.raises(NotImplementedError, match="other priors"):
         fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu))
-    with pytest.raises(NotImplementedError, match="regenerates W"):
-        fl.bayes_linear(t(x).requires_grad_(), t(mu), t(rho), seeds,
-                        prior_on_mu=True, save_weights=False)
+    y, _, _ = fl.bayes_linear(t(x).requires_grad_(), t(mu), t(rho), seeds,
+                              prior_on_mu=True, save_weights=False)
+    assert isinstance(y.grad_fn, fl.BayesLinearRegen._backward_cls)
 
 
 def test_kernel_wrapper_takes_no_cpu_tensor():

@@ -1,5 +1,7 @@
 """The port's independent-draw (``fused``) training against the JAX package,
-on the CPU in f32, and the GLUE workload's estimator pick and f32 refusal.
+on the CPU in f32, and the GLUE workload's estimator pick and its f32
+default (antithetic at S=10, through the regenerating VJP where the
+reference's routing sends it).
 
 A tiny Flax BERT converted by ``bayeformers_tpu.to_bayesian(delta=0.05,
 freeze=True)`` is carried over with ``from_jax_params``; both packages run
@@ -23,6 +25,7 @@ from bayeformers_tpu.models import bert as jbert
 from bayeformers_tpu.utils.optim import masked_optimizer as jmasked_optimizer
 from bayeformers_tpu_torch import training
 from bayeformers_tpu_torch.nn.surgery import leaf
+from bayeformers_tpu_torch.ops import fused_linear as fl
 from bayeformers_tpu_torch.utils import optim
 from bayeformers_tpu_torch.workloads import bert_glue
 from test_torch_training import LR, N_BATCHES, WD, _batch, _hook, _port, _port_batch
@@ -108,15 +111,55 @@ def test_bert_glue_odd_samples_run_fused_on_cpu(tmp_path, monkeypatch):
 
 
 def test_bert_glue_refuses_f32_on_cuda(tmp_path, monkeypatch):
-    """f32 activations on a CUDA device are refused at entry, before any
-    model is built, naming the f32-kernel slice; the check needs no card."""
-    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
+    """f32 activations on a CUDA device are no longer refused: the kernels
+    take f32, so ``train()`` and the CLI at their f32 default pass the entry
+    and go on to build the f32 model on the card (stopped there: the run
+    itself is ``chip_smoke.py``'s)."""
+    assert not hasattr(bert_glue, "check_activations")
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def spy(*args, **kwargs):  # stops the run where it would reach the card
+        built.append((kwargs["dtype"], torch.device(kwargs["device"]).type))
+        raise Built
+
+    monkeypatch.setattr(bert_glue, "build_bert", spy)
+    with pytest.raises(Built):
         bert_glue.train(size="tiny", device=torch.device("cuda"), logs=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
-        bert_glue.check_activations(False, "cuda:0")
-    bert_glue.check_activations(True, "cuda")
-    bert_glue.check_activations(False, "cpu")
     monkeypatch.setattr(sys, "argv", ["bert_glue", "--size", "tiny", "--logs",
                                       str(tmp_path), "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="f32-kernel slice"):
+    with pytest.raises(Built):
         bert_glue.main()
+    assert built == [(torch.float32, "cuda")] * 2
+
+
+def test_bert_glue_f32_default_trains_on_cpu(tmp_path, monkeypatch):
+    """The recipe at its defaults, f32 activations and S=10 (antithetic), on
+    the CPU at the tiny size. The tiny model's K pads to 256 in every layer,
+    below the f32 routing's threshold of 2048 (which BERT-base's FFN
+    down-projections, K = 3072, pass), so the threshold is lowered to 0
+    here: every converted layer then trains through the regenerating VJP."""
+    picked, regen = [], []
+    make_step = training.make_elbo_train_step
+    real_regen = fl.regenerate_weights
+
+    def spy_step(*args, **kwargs):
+        picked.append(kwargs["estimator"])
+        return make_step(*args, **kwargs)
+
+    def spy_regen(mu, rho, seeds, **kwargs):
+        regen.append(tuple(mu.shape))
+        return real_regen(mu, rho, seeds, **kwargs)
+
+    monkeypatch.setattr(training, "make_elbo_train_step", spy_step)
+    monkeypatch.setattr(fl, "regenerate_weights", spy_regen)
+    monkeypatch.setattr(fl, "ANTI_F32_SAVED_MAX_KP", 0)
+    score = bert_glue.train(size="tiny", limit_batches=2, epochs=1, b_epochs=1,
+                            batch_size=16, device="cpu", logs=str(tmp_path))
+    assert 0.0 <= score <= 1.0
+    assert picked == ["antithetic"]
+    # two steps, each regenerating the 14 converted kernels once (2 layers
+    # x q, k, v, out, FFN up, FFN down; the pooler; the classifier)
+    assert len(regen) == 28 and regen.count((256, 128)) == 4

@@ -275,11 +275,14 @@ def test_other_estimators_raise(jax_model):
             training.pick_mc(port, est)
     with pytest.raises(ValueError):
         training.pick_mc(port, "nope")
-    # a forward without W residuals has no backward in this slice
-    port.trainable_parameters()
+    # a forward without W residuals now has a backward: it regenerates W
+    named = port.trainable_parameters()
     ids = torch.ones((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="regenerates W"):
-        port.mc_apply_fused(0, 2, ids, save_weights=False)
+    out, aux = port.mc_apply_fused(0, 2, ids, save_weights=False)
+    (out.float().sum() + aux["log_prior"].sum()).backward()
+    rho_grads = [t.grad for n, t, _ in named if n.startswith("rho/")]
+    assert rho_grads and all(g is not None and bool(torch.isfinite(g).all())
+                             for g in rho_grads)
 
 
 @pytest.mark.parametrize("regression", [False, True])

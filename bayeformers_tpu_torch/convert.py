@@ -1,18 +1,23 @@
 """Carry the JAX package's converted BERT over to the port.
 
-``from_jax_params(params, rho, prior_mu=None)`` takes the Flax BERT
-parameter tree (nested dicts, or a flat ``{'/'-joined path: array}``) and
-the ``BayesParams.rho`` dict of the JAX package, as numpy arrays, and builds
+``from_jax_params(params, rho, prior_mu=None, *, prior, moped, frozen)``
+takes the fields of the JAX package's ``BayesParams`` (the Flax BERT
+parameter tree, nested dicts or a flat ``{'/'-joined path: array}``, and
+the ``rho`` and ``prior_mu`` dicts), as numpy arrays, and the facts of its
+``ConversionSpec`` (the mixture prior, ``moped``, ``frozen``), and builds
 the port's :class:`~models.bert.BertForSequenceClassification` and
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
-same function. The JAX package is never imported: callers pass arrays.
+same function. This is how a conversion made by the JAX package, random
+init included, is held against the port. The JAX package is never
+imported: callers pass arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from bayeformers_tpu_torch.core.prior import DEFAULT_SCALE_MIXTURE, ScaleMixturePrior
 from bayeformers_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
@@ -47,18 +52,37 @@ def _config_from(flat: dict[str, np.ndarray], n_heads) -> BertConfig:
 
 
 @torch.no_grad()
-def from_jax_params(params, rho, prior_mu=None, *, num_attention_heads=None,
-                    dtype=torch.float32, device="cuda") -> BayesianModel:
-    """A frozen-MOPED :class:`BayesianModel` holding the JAX package's mu
-    (``params``) and ``rho``, on ``device`` (the card unless the caller
-    passes ``"cpu"``). ``prior_mu``, when given, must equal mu at every
-    converted leaf (the frozen recipe centres the prior on mu).
-    ``num_attention_heads`` defaults to BERT's 64-wide heads."""
+def from_jax_params(params, rho, prior_mu=None, *,
+                    prior=DEFAULT_SCALE_MIXTURE, moped: bool = True,
+                    frozen: bool = True,
+                    num_attention_heads=None, dtype=torch.float32,
+                    device="cuda") -> BayesianModel:
+    """A :class:`BayesianModel` holding the JAX package's mu (``params``),
+    ``rho`` and, under MOPED, ``prior_mu``, on ``device`` (the card unless
+    the caller passes ``"cpu"``).
+
+    The defaults are frozen MOPED (the GLUE recipe), whose prior is centred
+    on mu: its ``prior_mu`` may be left out, and where given must equal mu.
+    ``frozen=False`` is MOPED with a trainable mu, which needs ``prior_mu``
+    at every converted leaf; ``moped=False, frozen=False`` is a random-init
+    conversion under ``prior``, the scale mixture (a ``ScaleMixturePrior``
+    or ``(pi, sigma1, sigma2)``). ``num_attention_heads`` defaults to
+    BERT's 64-wide heads."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params(device='cuda'): no CUDA device")
     flat = flatten(params)
     rho_flat = flatten(rho)
+    pmu_flat = flatten(prior_mu) if prior_mu is not None else {}
+    if frozen and not moped:
+        raise ValueError("only a MOPED conversion freezes mu")
+    if not moped and pmu_flat:
+        raise ValueError("prior_mu is given, but the conversion is not MOPED")
+    if moped and not frozen and set(pmu_flat) != set(rho_flat):
+        raise ValueError("MOPED with a trainable mu needs a prior_mu at every "
+                         "converted leaf")
+    if not isinstance(prior, ScaleMixturePrior):
+        prior = ScaleMixturePrior(*prior)
     cfg = _config_from(flat, num_attention_heads)
     model = BertForSequenceClassification(cfg, dtype=dtype, device=dev)
     names = {n.replace(".", SEP) for n, _ in model.named_parameters()}
@@ -70,18 +94,23 @@ def from_jax_params(params, rho, prior_mu=None, *, num_attention_heads=None,
     for path, arr in flat.items():
         leaf(model, path).copy_(torch.from_numpy(np.array(arr, np.float32)))
     model.requires_grad_(False)
-    if prior_mu is not None:
-        for path, arr in flatten(prior_mu).items():
+    if frozen:
+        for path, arr in pmu_flat.items():
             if not np.array_equal(np.asarray(arr), flat[path]):
-                raise NotImplementedError(
-                    f"prior_mu at {path} differs from mu: a prior away from a "
-                    "frozen mu comes with the slice that ports a trainable mu "
-                    "and the other priors (ROADMAP queue 1, items 2 and 3)"
+                raise ValueError(
+                    f"prior_mu at {path} differs from mu: a frozen conversion "
+                    "centres its prior on mu (pass frozen=False for MOPED "
+                    "with a trainable mu)"
                 )
-    rho_t = {p: torch.from_numpy(np.array(a, np.float32)).to(dev)
-             for p, a in rho_flat.items()}
-    spec = ConversionSpec(
-        paths=tuple(sorted(rho_t, key=lambda p: tuple(p.split(SEP)))),
-        moped=True, frozen=True, delta=None,
-    )
-    return BayesianModel(model, spec, rho_t)
+
+    def tensors(d):
+        return {p: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                for p, a in d.items()}
+
+    rho_t = tensors(rho_flat)
+    paths = tuple(sorted(rho_t, key=lambda p: tuple(p.split(SEP))))
+    pmu_t = ({p: leaf(model, p).detach() for p in paths} if frozen
+             else tensors(pmu_flat))
+    spec = ConversionSpec(paths=paths, prior=prior, moped=moped, frozen=frozen,
+                          delta=None)
+    return BayesianModel(model, spec, rho_t, pmu_t)

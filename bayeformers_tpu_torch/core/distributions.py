@@ -45,6 +45,15 @@ def inv_softplus(y: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.expm1(y))
 
 
+def gaussian_log_prob(w: torch.Tensor, mu: torch.Tensor, sigma, dim=None) -> torch.Tensor:
+    """Summed elementwise Gaussian log-density
+    ``sum(-log sqrt(2 pi) - log sigma - (w - mu)^2 / (2 sigma^2))``, over
+    every element or over ``dim``."""
+    sigma = torch.as_tensor(sigma, dtype=w.dtype, device=w.device)
+    z = (w - mu) / sigma
+    return torch.sum(-LOG_SQRT_2PI - torch.log(sigma) - 0.5 * z * z, dim=dim)
+
+
 def gaussian_log_prob_from_eps(eps: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Posterior log-density of its own sample ``w = mu + sigma * eps``:
     ``(w - mu)^2 / (2 sigma^2) = eps^2 / 2``, so W is never needed."""

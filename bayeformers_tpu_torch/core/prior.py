@@ -32,3 +32,9 @@ class ScaleMixturePrior:
 
 
 DEFAULT_SCALE_MIXTURE = ScaleMixturePrior()
+
+
+def moped_prior_log_prob(w: torch.Tensor, prior_mu: torch.Tensor, dim=None) -> torch.Tensor:
+    """Gaussian prior centred on the pretrained weight, sigma = softplus(1),
+    summed over every element or over ``dim``."""
+    return dist.gaussian_log_prob(w, prior_mu, MOPED_PRIOR_SIGMA, dim=dim)

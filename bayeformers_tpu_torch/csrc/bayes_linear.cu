@@ -12,12 +12,20 @@
 //   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (f32 acc)
 //   log_q[s] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
 //   log_p[s] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (log sqrt(2pi) + log sigma_p)
+//              (ON_MU: the MOPED prior centred on mu)
+//            = sum(-((w - prior_mu) / sigma_p)^2 / 2) - KN (...)    (GAUSSIAN)
+//            = sum(mixture_log_pdf(w))                              (MIXTURE)
 // Antithetic pair t (samples 2t, 2t+1), eps drawn from seeds_half[t]:
 //   w0 = mu + softplus(rho) * eps,  w1 = 2 mu - w0
 //   y[2t] = x[2t] @ w0,  y[2t+1] = x[2t+1] @ w1
-//   log_q / log_p as above, shared by the pair (the frozen-MOPED prior
-//   centred on mu is even in eps).
+//   log_q as above, shared by the pair; log_p shared under ON_MU (the prior
+//   centred on mu is even in eps), else one per member, at w0 and at w1.
 // Draw t of either kind reads the same unit-stream eps for the same seed.
+// The prior is a template parameter (prior.cuh); the log-probs are taken at
+// the f32 w, also in the bf16 instances, which store W in bf16. They are
+// computed only by the blocks of row tile 0, so GAUSSIAN reads prior_mu
+// there and nowhere else, and neither prior adds to the registers that
+// the product loop holds.
 //
 // Two operand types, one template: bf16 x (bf16 products, bf16 y and W) and
 // f32 x (true f32 products as 3xTF32, mma.cuh; f32 y and W). The eps draw,
@@ -62,6 +70,7 @@
 
 #include "eps.cuh"
 #include "mma.cuh"
+#include "prior.cuh"
 
 using namespace nvcuda;
 using bft::from_f32;
@@ -197,21 +206,31 @@ __device__ __forceinline__ void load_weights(const Block<T>& b, int s, float (&m
   }
 }
 
+// Log-prob partials per (draw, column tile): log_q, then one log_p per
+// member that has its own (a pair under a prior not centred on mu).
+template <int H, int PRIOR>
+struct LogP {
+  static constexpr int N_LP = (H == 2 && PRIOR != bft::ON_MU) ? 2 : 1;
+  static constexpr int N_PART = 1 + N_LP;
+};
+
 // H members per block: draw t = blockIdx.z (seed seeds[t]) feeds samples
 // H t .. H t + H - 1, member h's weights being w0 (h = 0) or 2 mu - w0.
-// T: the type of x, y, W and the products' operands.
-template <int H, typename T>
+// T: the type of x, y, W and the products' operands; PRIOR: prior.cuh.
+template <int H, typename T, int PRIOR>
 __global__ void __launch_bounds__(THREADS, 1)
 bayes_linear_kernel(const T* __restrict__ x,
                     const float* __restrict__ mu,
                     const float* __restrict__ rho,
                     const int32_t* __restrict__ seeds,
+                    const float* __restrict__ prior_mu,
                     T* __restrict__ y,
                     T* __restrict__ w_out,
                     float* __restrict__ partials,
                     float* __restrict__ ls_part, int M, int K, int N,
-                    int x_vec, float inv_sigma_p) {
+                    int x_vec, float inv_sigma_p, bft::Mixture mix) {
   static_assert(H == 1 || H == 2, "one sample or one antithetic pair per block");
+  constexpr int N_PART = LogP<H, PRIOR>::N_PART;
   using S_ = Smem<H, T>;
   constexpr int XS_STAGE = S_::XS_STAGE, WS_STAGE = S_::WS_STAGE;
   constexpr int XLD = S_::XLD, WLD = S_::WLD;
@@ -248,7 +267,7 @@ bayes_linear_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[h][i][j], 0.0f);
 
-  float q_acc = 0.0f, p_acc = 0.0f, ls_acc = 0.0f;
+  float q_acc = 0.0f, p_acc = 0.0f, p1_acc = 0.0f, ls_acc = 0.0f;
   const size_t KN = static_cast<size_t>(K) * N;
 
   // Regenerate this thread's four elements of the W (pair) of step s from
@@ -271,12 +290,25 @@ bayes_linear_kernel(const T* __restrict__ x,
         w0 = __fadd_rn(m[e], se);  // bft::sample_w, keeping se for log_p
         if (H == 2) w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
         if (do_lp) {
+          const size_t idx = static_cast<size_t>(krow) * N + n;
           q_acc += -0.5f * z[e] * z[e];
-          const float zs = se * inv_sigma_p;
-          p_acc += -0.5f * zs * zs;
+          if (PRIOR == bft::ON_MU) {
+            const float zs = se * inv_sigma_p;
+            p_acc += -0.5f * zs * zs;
+          } else if (PRIOR == bft::GAUSSIAN) {
+            const float pm = prior_mu[idx];
+            const float d0 = (w0 - pm) * inv_sigma_p;
+            p_acc += -0.5f * d0 * d0;
+            if (H == 2) {
+              const float d1 = (w1 - pm) * inv_sigma_p;
+              p1_acc += -0.5f * d1 * d1;
+            }
+          } else {
+            p_acc += bft::mixture_log_pdf(w0, mix);
+            if (H == 2) p1_acc += bft::mixture_log_pdf(w1, mix);
+          }
           ls_acc += logf(sig);
           if (w_out != nullptr) {
-            const size_t idx = static_cast<size_t>(krow) * N + n;
             w_out[static_cast<size_t>(b.s0) * KN + idx] = from_f32<T>(w0);
             if (H == 2)
               w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = from_f32<T>(w1);
@@ -381,10 +413,15 @@ bayes_linear_kernel(const T* __restrict__ x,
   }
 
   if (do_lp) {
+    float* part = partials + (static_cast<size_t>(t) * gridDim.x + tile_n) * N_PART;
     const float q_sum = block_sum_fixed(q_acc, red);
-    if (tid == 0) partials[(static_cast<size_t>(t) * gridDim.x + tile_n) * 2] = q_sum;
+    if (tid == 0) part[0] = q_sum;
     const float p_sum = block_sum_fixed(p_acc, red);
-    if (tid == 0) partials[(static_cast<size_t>(t) * gridDim.x + tile_n) * 2 + 1] = p_sum;
+    if (tid == 0) part[1] = p_sum;
+    if (N_PART == 3) {
+      const float p1_sum = block_sum_fixed(p1_acc, red);
+      if (tid == 0) part[2] = p1_sum;
+    }
     if (t == 0) {
       const float l_sum = block_sum_fixed(ls_acc, red);
       if (tid == 0) ls_part[tile_n] = l_sum;
@@ -392,102 +429,139 @@ bayes_linear_kernel(const T* __restrict__ x,
   }
 }
 
-// One thread per draw; every sum runs over the column tiles in order.
-template <int H>
+// One thread per draw; every sum runs over the column tiles in order. A
+// pair's members share log_q, and log_p too when the draw has one (N_LP 1).
+template <int H, int N_LP>
 __global__ void logprob_finalize(const float* __restrict__ partials,
                                  const float* __restrict__ ls_part,
                                  int n_tiles, int n_draws, float c_q, float c_p,
                                  float* __restrict__ logq,
                                  float* __restrict__ logp) {
+  constexpr int N_PART = 1 + N_LP;
   const int t = threadIdx.x;
   if (t >= n_draws) return;
-  float ls = 0.0f, q = 0.0f, p = 0.0f;
+  float ls = 0.0f, q = 0.0f, p[N_LP];
+#pragma unroll
+  for (int j = 0; j < N_LP; ++j) p[j] = 0.0f;
   for (int i = 0; i < n_tiles; ++i) {
     ls += ls_part[i];
-    q += partials[(static_cast<size_t>(t) * n_tiles + i) * 2];
-    p += partials[(static_cast<size_t>(t) * n_tiles + i) * 2 + 1];
+    q += partials[(static_cast<size_t>(t) * n_tiles + i) * N_PART];
+#pragma unroll
+    for (int j = 0; j < N_LP; ++j)
+      p[j] += partials[(static_cast<size_t>(t) * n_tiles + i) * N_PART + 1 + j];
   }
   const float lq = q - ls - c_q;
-  const float lp = p - c_p;
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     logq[H * t + h] = lq;
-    logp[H * t + h] = lp;
+    logp[H * t + h] = p[N_LP == 1 ? 0 : h] - c_p;
   }
 }
 
-template <int H, typename T>
+template <int H, typename T, int PRIOR>
 int launch(const void* x, const void* mu, const void* rho, const void* seeds,
-           void* y, void* w_out, void* partials, void* ls_part, void* logq,
-           void* logp, int S, int M, int K, int N, int x_vec,
-           float inv_sigma_p, float c_q, float c_p, void* stream) {
+           const void* prior_mu, void* y, void* w_out, void* partials,
+           void* ls_part, void* logq, void* logp, int S, int M, int K, int N,
+           int x_vec, float inv_sigma_p, float c_q, float c_p, bft::Mixture mix,
+           void* stream) {
   constexpr int BM = Smem<H, T>::BM;
   const int n_tiles = (N + BN - 1) / BN;
   const int n_draws = S / H;
   const dim3 grid(n_tiles, (M + BM - 1) / BM, n_draws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (PRIOR == bft::GAUSSIAN && prior_mu == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      bayes_linear_kernel<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bayes_linear_kernel<H, T, PRIOR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Smem<H, T>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bayes_linear_kernel<H, T><<<grid, THREADS, Smem<H, T>::BYTES, st>>>(
+  bayes_linear_kernel<H, T, PRIOR><<<grid, THREADS, Smem<H, T>::BYTES, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(mu),
       static_cast<const float*>(rho), static_cast<const int32_t*>(seeds),
-      static_cast<T*>(y), static_cast<T*>(w_out),
-      static_cast<float*>(partials), static_cast<float*>(ls_part), M, K, N,
-      x_vec, inv_sigma_p);
+      static_cast<const float*>(prior_mu), static_cast<T*>(y),
+      static_cast<T*>(w_out), static_cast<float*>(partials),
+      static_cast<float*>(ls_part), M, K, N, x_vec, inv_sigma_p, mix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  logprob_finalize<H><<<1, ((n_draws + 31) / 32) * 32, 0, st>>>(
+  logprob_finalize<H, LogP<H, PRIOR>::N_LP><<<1, ((n_draws + 31) / 32) * 32, 0, st>>>(
       static_cast<const float*>(partials), static_cast<const float*>(ls_part),
       n_tiles, n_draws, c_q, c_p, static_cast<float*>(logq),
       static_cast<float*>(logp));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance of (x's type, prior).
 template <int H>
-int launch_by_type(int x_f32, const void* x, const void* mu, const void* rho,
-                   const void* seeds, void* y, void* w_out, void* partials,
-                   void* ls_part, void* logq, void* logp, int S, int M, int K,
-                   int N, int x_vec, float inv_sigma_p, float c_q, float c_p,
+int launch_by_type(int x_f32, int prior, const void* x, const void* mu,
+                   const void* rho, const void* seeds, const void* prior_mu,
+                   void* y, void* w_out, void* partials, void* ls_part,
+                   void* logq, void* logp, int S, int M, int K, int N, int x_vec,
+                   float inv_sigma_p, float c_q, float c_p, bft::Mixture mix,
                    void* stream) {
-  if (x_f32)
-    return launch<H, float>(x, mu, rho, seeds, y, w_out, partials, ls_part, logq,
-                            logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, stream);
-  return launch<H, __nv_bfloat16>(x, mu, rho, seeds, y, w_out, partials, ls_part,
-                                  logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q,
-                                  c_p, stream);
+  using bf16 = __nv_bfloat16;
+#define BFT_LAUNCH(T, P)                                                          \
+  return launch<H, T, P>(x, mu, rho, seeds, prior_mu, y, w_out, partials, ls_part, \
+                         logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, mix, \
+                         stream)
+  switch (prior) {
+    case bft::ON_MU:
+      if (x_f32) BFT_LAUNCH(float, bft::ON_MU);
+      BFT_LAUNCH(bf16, bft::ON_MU);
+    case bft::GAUSSIAN:
+      if (x_f32) BFT_LAUNCH(float, bft::GAUSSIAN);
+      BFT_LAUNCH(bf16, bft::GAUSSIAN);
+    case bft::MIXTURE:
+      if (x_f32) BFT_LAUNCH(float, bft::MIXTURE);
+      BFT_LAUNCH(bf16, bft::MIXTURE);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef BFT_LAUNCH
 }
 
 }  // namespace
 
 // x (S, M, K) bf16 (x_f32 = 0) or f32 (x_f32 = 1), mu / rho (K, N) f32,
-// seeds (S,) i32 (independent) or seeds_half (S/2,) i32 (antithetic) -> y
+// seeds (S,) i32 (independent) or seeds_half (S/2,) i32 (antithetic), and
+// prior_mu (K, N) f32 for prior = GAUSSIAN (else unread, may be null) -> y
 // (S, M, N) in x's type, logq / logp (S,) f32 and, when w_out is not null,
-// the sampled W (S, K, N) in x's type.
-// partials: (n_draws, ceil(N/64), 2) f32 scratch, ls_part: (ceil(N/64),) f32
-// scratch. c_q = K*N*log(sqrt(2 pi)), c_p = K*N*(log(sqrt(2 pi)) +
-// log(sigma_p)). x_vec: x's rows may be copied 16 bytes at a time. Each
-// returns cudaGetLastError().
+// the sampled W (S, K, N) in x's type. prior: ON_MU 0, GAUSSIAN 1,
+// MIXTURE 2 (prior.cuh). partials: (n_draws, ceil(N/64), n_part) f32
+// scratch, n_part = 3 for a pair under GAUSSIAN or MIXTURE, else 2;
+// ls_part: (ceil(N/64),) f32 scratch. inv_sigma_p = 1 / softplus(1);
+// c_q = K*N*log(sqrt(2 pi)); c_p = K*N*(log(sqrt(2 pi)) + log(sigma_p))
+// under the Gaussian priors and 0 under the mixture, whose log-density
+// carries its own; mix_*: the mixture's terms (prior.cuh::Mixture). x_vec:
+// x's rows may be copied 16 bytes at a time. Each returns
+// cudaGetLastError().
 extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
-                                const void* seeds, void* y, void* w_out,
-                                void* partials, void* ls_part, void* logq,
-                                void* logp, int S, int M, int K, int N,
-                                int x_vec, int x_f32, float inv_sigma_p,
-                                float c_q, float c_p, void* stream) {
-  return launch_by_type<1>(x_f32, x, mu, rho, seeds, y, w_out, partials, ls_part,
-                           logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p,
+                                const void* seeds, const void* prior_mu, void* y,
+                                void* w_out, void* partials, void* ls_part,
+                                void* logq, void* logp, int S, int M, int K,
+                                int N, int x_vec, int x_f32, int prior,
+                                float inv_sigma_p, float c_q, float c_p,
+                                float mix_c1, float mix_c2, float mix_inv_s1,
+                                float mix_inv_s2, void* stream) {
+  return launch_by_type<1>(x_f32, prior, x, mu, rho, seeds, prior_mu, y, w_out,
+                           partials, ls_part, logq, logp, S, M, K, N, x_vec,
+                           inv_sigma_p, c_q, c_p,
+                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
                            stream);
 }
 
 extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
                                      const void* rho, const void* seeds_half,
-                                     void* y, void* w_out, void* partials,
-                                     void* ls_part, void* logq, void* logp,
-                                     int S, int M, int K, int N, int x_vec,
-                                     int x_f32, float inv_sigma_p, float c_q,
-                                     float c_p, void* stream) {
-  return launch_by_type<2>(x_f32, x, mu, rho, seeds_half, y, w_out, partials,
-                           ls_part, logq, logp, S, M, K, N, x_vec, inv_sigma_p,
-                           c_q, c_p, stream);
+                                     const void* prior_mu, void* y, void* w_out,
+                                     void* partials, void* ls_part, void* logq,
+                                     void* logp, int S, int M, int K, int N,
+                                     int x_vec, int x_f32, int prior,
+                                     float inv_sigma_p, float c_q, float c_p,
+                                     float mix_c1, float mix_c2,
+                                     float mix_inv_s1, float mix_inv_s2,
+                                     void* stream) {
+  return launch_by_type<2>(x_f32, prior, x, mu, rho, seeds_half, prior_mu, y,
+                           w_out, partials, ls_part, logq, logp, S, M, K, N,
+                           x_vec, inv_sigma_p, c_q, c_p,
+                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
+                           stream);
 }

@@ -1,20 +1,35 @@
 // reduce_abuv / reduce_abuv_anti: the dmu/drho reduce of the Bayesian
-// linear backward on Hopper, for the frozen-MOPED prior centred on mu.
+// linear backward on Hopper, under each prior of prior.cuh.
 //
 // Replaces bayeformers_tpu/ops/fused_backward.py::_kernel (independent
 // samples) with bft_reduce_abuv and ::_kernel_anti (antithetic pairs) with
-// bft_reduce_abuv_anti, both for mixture=None, want_u=False. Over S
-// independent samples:
+// bft_reduce_abuv_anti. Over S independent samples:
 //   p = x[s]^T g[s],  wc = float(W[s]) - mu                (K, N), f32 acc
-//   A += p,  B += p * wc,  V += g_p[s] * wc * wc
+//   A += p,  B += p * wc
+//   ON_MU (want_u=False):  V += g_p[s] * wc * wc
+//   GAUSSIAN (want_u):     U += g_p[s] * wc,  V += g_p[s] * wc * wc
+//   MIXTURE:               U += g_p[s] * score(w),  V += g_p[s] * score(w) * wc
 // Over an interleaved antithetic batch (pair t = samples 2t, 2t+1; only the
 // even member's weights are read, since w1 - mu = -(w0 - mu)):
 //   p0 = x[2t]^T g[2t],  p1 = x[2t+1]^T g[2t+1],  wc = float(W[2t]) - mu
 //   A += p0 + p1
 //   B += (p0 - p1) * wc
-//   V += (g_p[2t] + g_p[2t+1]) * wc * wc                   (once per pair)
-// and the elementwise finalize (ops/fused_backward.py::finalize) turns A, B,
-// V into dmu and drho.
+//   ON_MU:     V += (g_p[2t] + g_p[2t+1]) * wc * wc        (once per pair)
+//   GAUSSIAN:  U += (g_p[2t] - g_p[2t+1]) * wc,  V as ON_MU
+//   MIXTURE:   s0 = score(mu + wc), s1 = score(mu - wc),
+//              U += g_p[2t] s0 + g_p[2t+1] s1,  V += (g_p[2t] s0 - g_p[2t+1] s1) * wc
+// with score the mixture's (prior.cuh), taken on the W the reduce is given
+// (the saved residual, bf16 in bf16 runs, or the regenerated f32 W), and the
+// elementwise finalize (ops/fused_backward.py::finalize) turns A, B, U, V
+// into dmu and drho.
+//
+// The prior terms read only W, mu and g_p, once per sample (the Pallas
+// kernels take them under i == 0). ON_MU folds V in with A and B when a
+// sample's products are complete, as it always has; GAUSSIAN and MIXTURE
+// fold only A and B there and take U and V in an epilogue after the last
+// sample, over each sample's W tile again, in the registers that held A and
+// B: a fourth accumulator of 32 elements a thread would not fit beside the
+// three of the product loop (the f32 pair instance already spills at 255).
 //
 // Three instances of one template over the types of x and g (TX) and of W
 // (TW), as the reference feeds its reduce: (bf16, bf16) reads the bf16
@@ -61,6 +76,7 @@
 #include <cstdint>
 
 #include "mma.cuh"
+#include "prior.cuh"
 
 using namespace nvcuda;
 using bft::from_f32;
@@ -145,7 +161,7 @@ __device__ __forceinline__ void cp_async_commit_wait() {
 }
 
 // H members per step: step s covers samples H (s / n_mc) .. + H - 1.
-template <int H, typename TX, typename TW>
+template <int H, typename TX, typename TW, int PRIOR>
 __global__ void __launch_bounds__(THREADS)
 reduce_abuv_kernel(const TX* __restrict__ x,
                    const TX* __restrict__ g,
@@ -153,8 +169,8 @@ reduce_abuv_kernel(const TX* __restrict__ x,
                    const float* __restrict__ mu,
                    const float* __restrict__ g_p,
                    float* __restrict__ a_out, float* __restrict__ b_out,
-                   float* __restrict__ v_out, int S, int M, int K, int N,
-                   int x_vec, int g_vec) {
+                   float* __restrict__ u_out, float* __restrict__ v_out, int S,
+                   int M, int K, int N, int x_vec, int g_vec, bft::Mixture mix) {
   static_assert(H == 1 || H == 2, "one sample or one antithetic pair per step");
   using S_ = Smem<H, TX>;
   constexpr int TM = S_::TM;
@@ -292,7 +308,7 @@ reduce_abuv_kernel(const TX* __restrict__ x,
           a_acc[e] += p;
           b_acc[e] += p * wc;
         }
-        v_acc[e] += gps * wc * wc;
+        if (PRIOR == bft::ON_MU) v_acc[e] += gps * wc * wc;
       }
       // ps is written again only after the next step's barrier
     }
@@ -306,72 +322,154 @@ reduce_abuv_kernel(const TX* __restrict__ x,
       const size_t o = static_cast<size_t>(k) * N + n;
       a_out[o] = a_acc[e];
       b_out[o] = b_acc[e];
-      v_out[o] = v_acc[e];
+      if (PRIOR == bft::ON_MU) v_out[o] = v_acc[e];
+    }
+  }
+  if (PRIOR == bft::ON_MU) return;
+
+  // GAUSSIAN, MIXTURE: U and V over the samples (pairs) in order, each
+  // thread on its own 32 elements of the tile (neighbouring threads on
+  // neighbouring columns); A and B are dead, so these take their registers
+  float u_e[PER_THREAD], v_e[PER_THREAD], mu_e[PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const int idx = tid + e * THREADS;
+    const int k = tl.k0 + idx / TN, n = tl.n0 + idx % TN;
+    u_e[e] = v_e[e] = 0.0f;
+    mu_e[e] = (k < K && n < N) ? mu[static_cast<size_t>(k) * N + n] : 0.0f;
+  }
+  for (int t = 0; t < S / H; ++t) {
+    const TW* w0 = w + static_cast<size_t>(H * t) * KN;
+    const float gp0 = g_p[H * t], gp1 = (H == 2) ? g_p[H * t + 1] : 0.0f;
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e) {
+      const int idx = tid + e * THREADS;
+      const int k = tl.k0 + idx / TN, n = tl.n0 + idx % TN;
+      if (k >= K || n >= N) continue;
+      const float wv = to_f32(w0[static_cast<size_t>(k) * N + n]);
+      const float wc = wv - mu_e[e];
+      if (PRIOR == bft::GAUSSIAN) {
+        u_e[e] += (H == 2 ? gp0 - gp1 : gp0) * wc;
+        v_e[e] += (H == 2 ? gp0 + gp1 : gp0) * wc * wc;
+      } else if (H == 2) {
+        const float s0 = gp0 * bft::mixture_score(mu_e[e] + wc, mix);
+        const float s1 = gp1 * bft::mixture_score(mu_e[e] - wc, mix);
+        u_e[e] += s0 + s1;
+        v_e[e] += (s0 - s1) * wc;
+      } else {
+        const float s0 = gp0 * bft::mixture_score(wv, mix);
+        u_e[e] += s0;
+        v_e[e] += s0 * wc;
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const int idx = tid + e * THREADS;
+    const int k = tl.k0 + idx / TN, n = tl.n0 + idx % TN;
+    if (k < K && n < N) {
+      const size_t o = static_cast<size_t>(k) * N + n;
+      u_out[o] = u_e[e];
+      v_out[o] = v_e[e];
     }
   }
 }
 
-template <int H, typename TX, typename TW>
+template <int H, typename TX, typename TW, int PRIOR>
 int launch(const void* x, const void* g, const void* w, const void* mu,
-           const void* g_p, void* a, void* b, void* v, int S, int M, int K,
-           int N, int x_vec, int g_vec, void* stream) {
-  if (S < H || S % H || M < 1 || K < 1 || N < 1)
+           const void* g_p, void* a, void* b, void* u, void* v, int S, int M,
+           int K, int N, int x_vec, int g_vec, bft::Mixture mix, void* stream) {
+  if (S < H || S % H || M < 1 || K < 1 || N < 1 ||
+      (PRIOR != bft::ON_MU && u == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int BYTES = Smem<H, TX>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      reduce_abuv_kernel<H, TX, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BYTES);
+      reduce_abuv_kernel<H, TX, TW, PRIOR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TN - 1) / TN, (K + TK - 1) / TK);
-  reduce_abuv_kernel<H, TX, TW><<<grid, THREADS, BYTES,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  reduce_abuv_kernel<H, TX, TW, PRIOR><<<grid, THREADS, BYTES,
+                                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(g),
       static_cast<const TW*>(w), static_cast<const float*>(mu),
       static_cast<const float*>(g_p), static_cast<float*>(a),
-      static_cast<float*>(b), static_cast<float*>(v), S, M, K, N, x_vec, g_vec);
+      static_cast<float*>(b), static_cast<float*>(u), static_cast<float*>(v), S,
+      M, K, N, x_vec, g_vec, mix);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of (x's type, W's type): (bf16, bf16), (f32, f32) or
-// (bf16, f32); f32 x with bf16 W is refused.
-template <int H>
-int launch_by_type(int x_f32, int w_f32, const void* x, const void* g,
-                   const void* w, const void* mu, const void* g_p, void* a,
-                   void* b, void* v, int S, int M, int K, int N, int x_vec,
-                   int g_vec, void* stream) {
+template <int H, int PRIOR>
+int launch_by_types(int x_f32, int w_f32, const void* x, const void* g,
+                    const void* w, const void* mu, const void* g_p, void* a,
+                    void* b, void* u, void* v, int S, int M, int K, int N,
+                    int x_vec, int g_vec, bft::Mixture mix, void* stream) {
   using bf16 = __nv_bfloat16;
   if (x_f32 && w_f32)
-    return launch<H, float, float>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
-                                   g_vec, stream);
+    return launch<H, float, float, PRIOR>(x, g, w, mu, g_p, a, b, u, v, S, M, K,
+                                          N, x_vec, g_vec, mix, stream);
   if (x_f32) return static_cast<int>(cudaErrorInvalidValue);
   if (w_f32)
-    return launch<H, bf16, float>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
-                                  g_vec, stream);
-  return launch<H, bf16, bf16>(x, g, w, mu, g_p, a, b, v, S, M, K, N, x_vec,
-                               g_vec, stream);
+    return launch<H, bf16, float, PRIOR>(x, g, w, mu, g_p, a, b, u, v, S, M, K,
+                                         N, x_vec, g_vec, mix, stream);
+  return launch<H, bf16, bf16, PRIOR>(x, g, w, mu, g_p, a, b, u, v, S, M, K, N,
+                                      x_vec, g_vec, mix, stream);
+}
+
+// The instance of (x's type, W's type, prior): (bf16, bf16), (f32, f32) or
+// (bf16, f32); f32 x with bf16 W is refused.
+template <int H>
+int launch_by_type(int x_f32, int w_f32, int prior, const void* x, const void* g,
+                   const void* w, const void* mu, const void* g_p, void* a,
+                   void* b, void* u, void* v, int S, int M, int K, int N,
+                   int x_vec, int g_vec, bft::Mixture mix, void* stream) {
+  switch (prior) {
+    case bft::ON_MU:
+      return launch_by_types<H, bft::ON_MU>(x_f32, w_f32, x, g, w, mu, g_p, a, b,
+                                            u, v, S, M, K, N, x_vec, g_vec, mix,
+                                            stream);
+    case bft::GAUSSIAN:
+      return launch_by_types<H, bft::GAUSSIAN>(x_f32, w_f32, x, g, w, mu, g_p, a,
+                                               b, u, v, S, M, K, N, x_vec, g_vec,
+                                               mix, stream);
+    case bft::MIXTURE:
+      return launch_by_types<H, bft::MIXTURE>(x_f32, w_f32, x, g, w, mu, g_p, a,
+                                              b, u, v, S, M, K, N, x_vec, g_vec,
+                                              mix, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // x (S, M, K) and g (S, M, N) bf16 (x_f32 = 0) or f32 (x_f32 = 1), w (S, K,
 // N) bf16 (w_f32 = 0) or f32 (w_f32 = 1; the antithetic reduce reads the
-// even members only), mu (K, N) f32, g_p (S,) f32 -> A, B, V (K, N) f32.
-// x_vec / g_vec: the rows of x / g may be copied 16 bytes at a time (whole
-// 16-byte chunks, base 16-byte aligned). Each returns cudaGetLastError().
+// even members only), mu (K, N) f32, g_p (S,) f32 -> A, B, V (K, N) f32 and,
+// for prior GAUSSIAN (1) or MIXTURE (2), U (K, N) f32 (u may be null under
+// ON_MU, 0); mix_*: the mixture's terms (prior.cuh::Mixture). x_vec / g_vec:
+// the rows of x / g may be copied 16 bytes at a time (whole 16-byte chunks,
+// base 16-byte aligned). Each returns cudaGetLastError().
 extern "C" int bft_reduce_abuv(const void* x, const void* g, const void* w,
                                const void* mu, const void* g_p, void* a,
-                               void* b, void* v, int S, int M, int K, int N,
-                               int x_vec, int g_vec, int x_f32, int w_f32,
-                               void* stream) {
-  return launch_by_type<1>(x_f32, w_f32, x, g, w, mu, g_p, a, b, v, S, M, K, N,
-                           x_vec, g_vec, stream);
+                               void* b, void* u, void* v, int S, int M, int K,
+                               int N, int x_vec, int g_vec, int x_f32,
+                               int w_f32, int prior, float mix_c1, float mix_c2,
+                               float mix_inv_s1, float mix_inv_s2, void* stream) {
+  return launch_by_type<1>(x_f32, w_f32, prior, x, g, w, mu, g_p, a, b, u, v, S,
+                           M, K, N, x_vec, g_vec,
+                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
+                           stream);
 }
 
 extern "C" int bft_reduce_abuv_anti(const void* x, const void* g, const void* w,
                                     const void* mu, const void* g_p, void* a,
-                                    void* b, void* v, int S, int M, int K, int N,
-                                    int x_vec, int g_vec, int x_f32, int w_f32,
-                                    void* stream) {
-  return launch_by_type<2>(x_f32, w_f32, x, g, w, mu, g_p, a, b, v, S, M, K, N,
-                           x_vec, g_vec, stream);
+                                    void* b, void* u, void* v, int S, int M,
+                                    int K, int N, int x_vec, int g_vec, int x_f32,
+                                    int w_f32, int prior, float mix_c1,
+                                    float mix_c2, float mix_inv_s1,
+                                    float mix_inv_s2, void* stream) {
+  return launch_by_type<2>(x_f32, w_f32, prior, x, g, w, mu, g_p, a, b, u, v, S,
+                           M, K, N, x_vec, g_vec,
+                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
+                           stream);
 }

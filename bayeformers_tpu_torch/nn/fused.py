@@ -10,6 +10,12 @@ intercepts Flax module calls, the port dispatches at module level: each
 module's ``forward(..., mc)`` hands itself to the :class:`FusedMC` of the
 call.
 
+Each layer's prior follows the conversion, as in the reference
+(``nn/fused.py:368-386``): frozen MOPED centres it on mu itself
+(``prior_on_mu``), MOPED with a trainable mu on the fixed ``prior_mu``,
+and a random-init conversion takes the scale mixture; the sampled biases'
+log-priors follow the same choice.
+
 Per-leaf seeds come from the request's integer seed through
 :func:`derive_seed` (a splitmix64 chain), so identical (inputs, seed) give
 identical draws. Log-probs are collected once per converted leaf and summed
@@ -30,15 +36,13 @@ log-probs differentiate through plain autograd. Serving calls it with
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
-from bayeformers_tpu_torch.core import prior as prior_lib
 from bayeformers_tpu_torch.ops import attention as ops_attention
 from bayeformers_tpu_torch.ops import common as ops_common
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
+from bayeformers_tpu_torch.ops.logprob import ON_MU, prior_log_prob, prior_of
 
 SEP = "/"
 _M64 = (1 << 64) - 1
@@ -93,16 +97,13 @@ def check_converted_paths_seen(paths, seen: set, tier: str) -> None:
         )
 
 
-def bias_logprobs(b, bmu, bsig, beps, prior_mu):
-    """(S,) log_q and MOPED log_p of a sampled bias (small; plain torch)."""
+def bias_logprobs(b, bsig, beps, prior, centre=None):
+    """(S,) log_q and log_p of a sampled bias (small; plain torch) under a
+    prior tuple (``ops/logprob.py``): the MOPED prior centred on ``centre``
+    (the bias's mu or its prior_mu), or the scale mixture."""
     lq = torch.sum(-dist.LOG_SQRT_2PI - torch.log(bsig)[None] - 0.5 * beps * beps,
                    dim=-1)
-    z = (b - prior_mu[None]) / prior_lib.MOPED_PRIOR_SIGMA
-    lp = torch.sum(
-        -dist.LOG_SQRT_2PI - math.log(prior_lib.MOPED_PRIOR_SIGMA) - 0.5 * z * z,
-        dim=-1,
-    )
-    return lq, lp
+    return lq, prior_log_prob(b, centre, prior, dim=-1)
 
 
 class FusedMC:
@@ -123,6 +124,8 @@ class FusedMC:
         self.plain = impl == "plain" or eps_hook is not None
         self.eps_hook = eps_hook
         self.paths = bmodel.spec.paths
+        spec = bmodel.spec
+        self.mixture = (spec.prior.pi, spec.prior.sigma1, spec.prior.sigma2)
         self.path_index = {p: i for i, p in enumerate(self.paths)}
         dev = bmodel.device
         # every leaf's n_draws seeds, uploaded once per request
@@ -156,14 +159,27 @@ class FusedMC:
             (-1,) + tuple(a_half.shape[1:])
         )
 
+    def _prior_kwargs(self, path) -> dict:
+        """The prior keyword of :func:`ops.fused_linear.bayes_linear` for a
+        converted leaf: frozen MOPED's prior sits on mu itself, so the
+        kernel streams no third array; MOPED with a trainable mu centres it
+        on ``prior_mu``; random init takes the mixture."""
+        spec = self.bmodel.spec
+        if spec.moped and spec.frozen:
+            return {"prior_on_mu": True}
+        if spec.moped:
+            return {"prior_mu": self.bmodel.prior_mu[path]}
+        return {"mixture": self.mixture}
+
     def _route_matmul(self, kpath, mu, rho, xs):
         seeds = self.seeds[self.path_index[kpath]]
         eps = None
         if self.eps_hook is not None:
             eps = self.eps_hook(kpath, self.n_draws, tuple(mu.shape))
         y, lq, lp = ops_fused.bayes_linear(
-            xs, mu, rho, seeds, prior_on_mu=True, save_weights=self.save_weights,
-            antithetic=self.antithetic, plain=self.plain, eps=eps)
+            xs, mu, rho, seeds, save_weights=self.save_weights,
+            antithetic=self.antithetic, plain=self.plain, eps=eps,
+            **self._prior_kwargs(kpath))
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
@@ -199,7 +215,10 @@ class FusedMC:
         b = bmu[None] + bsig[None] * beps
         y = y + b[:, None, :].to(y.dtype)  # bf16 activations stay bf16
         if new_leaf:
-            self.collected.append(bias_logprobs(b, bmu, bsig, beps, bmu))
+            kw = self._prior_kwargs(bpath)
+            prior = prior_of(**kw)
+            centre = bmu if prior == ON_MU else kw.get("prior_mu")
+            self.collected.append(bias_logprobs(b, bsig, beps, prior, centre))
         return y
 
     def self_attention(self, mod, hidden, bias):

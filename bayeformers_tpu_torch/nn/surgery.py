@@ -4,11 +4,20 @@ Counterpart of ``bayeformers_tpu/nn/surgery.py``. Every ``Dense``
 (``nn/dense.py``, the port's ``nn.Dense``) kernel and bias
 (``DEFAULT_RULES``, the reference's ``{nn.Linear: Linear}`` scope) becomes
 a variational pair: ``mu`` is the module's own parameter, ``rho``
-lives in :attr:`BayesianModel.rho` under the leaf's Flax path. This slice
-ports the MOPED recipe of the GLUE path: ``delta`` set and ``freeze=True``,
-so the prior is centred on the frozen ``mu``. What trains then is every
-``rho`` and every unconverted parameter (embeddings, LayerNorm scale and
-bias): :meth:`BayesianModel.trainable_mask` and
+lives in :attr:`BayesianModel.rho` under the leaf's Flax path. The
+reference's conversions (``to_bayesian(model, initialization, prior,
+delta, freeze)``):
+
+- ``delta=None`` (the default): random init of mu and rho from
+  ``initialization`` under the scale-mixture ``prior``; mu trains;
+- ``delta`` set: MOPED, ``mu <- w``, ``rho <- softplus^-1(delta |w|)``, and
+  a Gaussian prior centred on the pretrained weights, kept in
+  :attr:`BayesianModel.prior_mu` (never trained); ``freeze=True`` (the GLUE
+  recipe) freezes mu, so the prior sits on mu itself.
+
+What trains is every ``rho``, mu unless frozen, and every unconverted
+parameter (embeddings, LayerNorm scale and bias):
+:meth:`BayesianModel.trainable_mask` and
 :meth:`BayesianModel.trainable_parameters`.
 """
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 from torch import nn
 
 from bayeformers_tpu_torch.core import init as init_lib
+from bayeformers_tpu_torch.core import prior as prior_lib
 from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
 
 SEP = "/"
@@ -38,6 +48,7 @@ class ConversionSpec:
     """Static description of a conversion."""
 
     paths: tuple[str, ...]
+    prior: prior_lib.ScaleMixturePrior
     moped: bool
     frozen: bool
     delta: Optional[float]
@@ -61,14 +72,17 @@ def leaf(model: nn.Module, path: str) -> torch.Tensor:
 
 
 class BayesianModel:
-    """A converted model: the module tree holds ``mu`` (frozen, and the
-    prior's centre); ``rho`` is a ``{path: tensor}`` dict."""
+    """A converted model: the module tree holds ``mu``; ``rho`` and, under
+    MOPED, ``prior_mu`` (the prior's fixed centre, never trained) are
+    ``{path: tensor}`` dicts."""
 
     def __init__(self, model: nn.Module, spec: ConversionSpec,
-                 rho: dict[str, torch.Tensor]):
+                 rho: dict[str, torch.Tensor],
+                 prior_mu: Optional[dict[str, torch.Tensor]] = None):
         self.model = model
         self.spec = spec
         self.rho = rho
+        self.prior_mu = prior_mu if prior_mu is not None else {}
 
     @property
     def device(self) -> torch.device:
@@ -105,23 +119,26 @@ class BayesianModel:
 
     # -- trainability -------------------------------------------------------
     def trainable_mask(self) -> dict[str, dict[str, bool]]:
-        """``{"params": {path: bool}, "rho": {path: bool}}``, False = do not
-        train (the reference's ``trainable_mask``): with ``freeze`` the
-        converted mu leaves are frozen; every rho and every unconverted
-        parameter trains. The port has no ``prior_mu`` leaf: the frozen
-        recipe's prior is centred on mu itself."""
+        """``{"params": {path: bool}, "rho": {path: bool}, "prior_mu":
+        {path: bool}}``, False = do not train (the reference's
+        ``trainable_mask``): with ``freeze`` the converted mu leaves are
+        frozen; every rho and every unconverted parameter trains; no
+        ``prior_mu`` ever does."""
         frozen = set(self.spec.paths) if self.spec.frozen else set()
         params = {name.replace(".", SEP): name.replace(".", SEP) not in frozen
                   for name, _ in self.model.named_parameters()}
-        return {"params": params, "rho": {p: True for p in self.rho}}
+        return {"params": params, "rho": {p: True for p in self.rho},
+                "prior_mu": {p: False for p in self.prior_mu}}
 
     def trainable_parameters(self, no_decay: Optional[Callable[[str], bool]] = None
                              ) -> list[tuple[str, torch.Tensor, bool]]:
         """``(name, tensor, decays)`` of every trainable tensor, named
-        ``params/<path>`` or ``rho/<path>``, after setting ``requires_grad``
-        from :meth:`trainable_mask` (frozen tensors lose it). ``decays`` is
-        False for rho (sigma never decays) and where ``no_decay(path)``
-        (default ``training.default_no_decay``: biases and normalisation)."""
+        ``params/<path>`` (mu of an unfrozen conversion among them) or
+        ``rho/<path>``, after setting ``requires_grad`` from
+        :meth:`trainable_mask` (frozen tensors lose it; ``prior_mu`` never
+        has it). ``decays`` is False for rho (sigma never decays) and where
+        ``no_decay(path)`` (default ``training.default_no_decay``: biases and
+        normalisation)."""
         if no_decay is None:
             from bayeformers_tpu_torch.training import default_no_decay
 
@@ -139,24 +156,46 @@ class BayesianModel:
         return out
 
 
-def to_bayesian(model: nn.Module, *, delta: Optional[float] = 0.05,
-                freeze: bool = True) -> BayesianModel:
-    """Convert a port model into a Bayesian one with MOPED init:
-    ``mu <- w``, ``rho <- softplus^-1(delta |w|)`` (the -inf -> 0 patch),
-    prior N(w, softplus(1)^2); ``freeze`` keeps ``mu`` fixed."""
-    if delta is None or not freeze:
-        raise NotImplementedError(
-            "to_bayesian: the port takes MOPED with freeze=True (the GLUE "
-            "recipe); random init with the mixture prior and a trainable mu "
-            "come with the slice that ports core/'s remainder and the other "
-            "priors (ROADMAP queue 1, items 2 and 3)"
-        )
+def to_bayesian(model: nn.Module, *,
+                initialization: init_lib.UniformInit = init_lib.DEFAULT_UNIFORM,
+                prior: prior_lib.ScaleMixturePrior = prior_lib.DEFAULT_SCALE_MIXTURE,
+                delta: Optional[float] = None, freeze: bool = False,
+                generator: Optional[torch.Generator] = None) -> BayesianModel:
+    """Convert a port model into a Bayesian one, in place, with the
+    reference's signature and defaults (``bayeformers/__init__.py:19-24``;
+    the JAX package's ``rng`` is ``generator`` here):
+
+    - ``delta=None``: random init, ``(mu, rho) = initialization(generator,
+      shape)`` for each converted leaf in path order, under the
+      scale-mixture ``prior``; needs ``generator`` (a ``torch.Generator``),
+      as the JAX package needs ``rng``;
+    - ``delta`` set: MOPED, ``mu <- w``, ``rho <- softplus^-1(delta |w|)``
+      (the -inf -> 0 patch), prior N(w, softplus(1)^2) centred on a fixed
+      copy of w (``prior_mu``); ``freeze`` keeps ``mu`` fixed (and the prior
+      then sits on mu itself, with no copy).
+
+    ``freeze`` applies to MOPED only, as in the reference."""
     paths = find_convertible_paths(model)
-    rho = {}
+    rho, prior_mu = {}, {}
+    frozen = freeze and delta is not None
     with torch.no_grad():
-        for path in paths:
-            w = leaf(model, path)
-            w.requires_grad_(False)
-            rho[path] = init_lib.moped_rho(w.detach(), delta)
-    spec = ConversionSpec(paths=paths, moped=True, frozen=True, delta=delta)
-    return BayesianModel(model, spec, rho)
+        if delta is None:
+            if generator is None:
+                raise ValueError(
+                    "to_bayesian(delta=None) needs `generator` for random init")
+            for path in paths:
+                w = leaf(model, path)
+                mu, r = initialization(generator, w.shape, w.dtype, w.device)
+                w.copy_(mu)
+                rho[path] = r
+        else:
+            for path in paths:
+                w = leaf(model, path).detach()
+                rho[path] = init_lib.moped_rho(w, delta)
+                # a frozen mu is the prior's centre itself
+                prior_mu[path] = w if frozen else w.clone()
+    for path in paths:
+        leaf(model, path).requires_grad_(not frozen)
+    spec = ConversionSpec(paths=paths, prior=prior, moped=delta is not None,
+                          frozen=frozen, delta=delta)
+    return BayesianModel(model, spec, rho, prior_mu)

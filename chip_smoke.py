@@ -55,15 +55,37 @@ Phases, each timed, each raising on failure:
     ``fused``); in bf16, each estimator's step with ``save_weights=False``
     (the regenerating backward, #10 on all 74 layers) against its plain
     regenerating step under the bf16 step's gates; the workload at its f32
-    default at S=10, which must launch #10.
+    default at S=10, which must launch #10;
+13. the other two priors, in each dtype beside the phases above, whose
+    instances the forward and reduce templates carry: MOPED with a
+    trainable mu (the Gaussian prior on a separate prior_mu; mu moved off
+    it by 1e-3 N(0, 1)) and the reference's default conversion, random
+    init under the scale mixture. Each kernel instance against its plain
+    version at the same shapes and gates (a pair's log_p per member; U and
+    V of the reduce with A and B), and the forward's log-prob partial sums
+    before their constants against plain f64 sums, 1e-5 of their sum of
+    |terms|, on inputs whose pair members stand at least 10x that gate
+    apart (:func:`check_logprob_terms`); serving under both estimators,
+    every layer of the request held against its plain version, partials
+    included (:class:`LayerCheck`), and the logits at the existing gates,
+    but for random init, whose logits are ill-conditioned
+    (:func:`mixture_logits_gate`); the ELBO step of both estimators in each
+    dtype against its plain step, mu now trained (its gradients judged as
+    the LayerNorm ones are in bf16), the gradients of the prior part alone
+    against the plain step's (:func:`check_prior_grads`; under the
+    mixture in bf16 also with each reduce's U, then V, zeroed, which it
+    must fail), mu moved and prior_mu bit-identical after one step.
 
 The line before the last is a JSON object with one entry per kernel,
-instance and shape; the last line is ``{"ok": true, "device": {...}}``.
+instance (operand types and prior) and shape; the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -80,6 +102,17 @@ H100_F32_FLOPS = 494.7e12 / 3
 H100_BYTES_PER_S = 3.35e12  # HBM3
 BF16, F32 = torch.bfloat16, torch.float32
 TAG = {BF16: "bf16", F32: "f32"}
+# The fused tier's three priors, by the conversion that chooses each: frozen
+# MOPED (the prior on mu itself), MOPED with a trainable mu (the Gaussian
+# prior on a separate prior_mu) and the reference's default, random init
+# under the scale mixture (0.5, e^0, e^-6).
+PRIORS = ("on_mu", "gaussian", "mixture")
+MIXTURE = (0.5, 1.0, math.exp(-6.0))
+# Each kernel's and library call's time is the median of this many windows
+# of CUDA-event timing (one window of 20 launches could catch a slow spell)
+WINDOWS = 5
+# converted kernels of BERT-base: 12 x 6, the pooler, the classifier
+BERT_BASE_LAYERS = 74
 
 
 def check(cond: bool, msg: str) -> None:
@@ -91,18 +124,22 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events over ``iters``."""
+def time_ms(fn, iters: int, warmup: int = 2, windows: int = 1) -> float:
+    """Device time of one call of ``fn`` in ms: the mean by CUDA events over
+    ``iters`` calls, the median of ``windows`` such windows."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
 
 
 def bound(n_bytes: float, n_flops: float, dtype=BF16) -> tuple[float, str]:
@@ -161,33 +198,159 @@ def phase_eps(lib, common, _build) -> None:
     check(not torch.equal(draw, other), "another seed gave the same draw")
 
 
-def bayes_linear_inputs(S, M, K, N, moped_rho, n_draws, offset=0, dtype=BF16):
-    """Seeded x (S, M, K) in ``dtype``, f32 mu/rho (K, N) and ``n_draws``
-    seeds on the card; ``offset`` > 0 starts x that many elements into its
-    buffer, so that it is contiguous but not 16-byte aligned."""
+def bayes_linear_inputs(S, M, K, N, moped_rho, n_draws, offset=0, dtype=BF16,
+                        prior="on_mu"):
+    """Seeded x (S, M, K) in ``dtype``, f32 mu/rho (K, N), ``n_draws`` seeds
+    on the card and the op's prior keywords: MOPED mu and rho for the
+    Gaussian priors, with a prior_mu that mu has moved sigma N(0, 1) away
+    from under ``gaussian`` (on the scale of sigma, so that the two members
+    of a pair differ in their log-prior terms as much as they can, see
+    :func:`check_partials`); the uniform init's mu and rho (U(-0.2, 0.2),
+    U(-5, -4)) under ``mixture``. ``offset`` > 0 starts x that many
+    elements into its buffer, so that it is contiguous but not 16-byte
+    aligned."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(M * 7 + K * 3 + N)
     buf = torch.empty(S * M * K + offset, dtype=dtype, device=dev)
     x = buf[offset:].view(S, M, K)
     x.copy_(torch.randn(S, M, K, device=dev, generator=gen))
-    mu = torch.randn(K, N, device=dev, generator=gen) * 0.02
-    rho = moped_rho(mu, 0.05)
+    if prior == "mixture":
+        mu = torch.rand(K, N, device=dev, generator=gen) * 0.4 - 0.2
+        rho = torch.rand(K, N, device=dev, generator=gen) - 5.0
+    else:
+        mu = torch.randn(K, N, device=dev, generator=gen) * 0.02
+        rho = moped_rho(mu, 0.05)
     seeds = torch.randint(0, 2**31 - 1, (n_draws,), device=dev, generator=gen,
                           dtype=torch.int32)
-    return x, mu, rho, seeds
+    kw = {}
+    if prior == "gaussian":
+        sigma = torch.nn.functional.softplus(rho)
+        kw["prior_mu"] = mu + sigma * torch.randn(K, N, device=dev, generator=gen)
+    elif prior == "mixture":
+        kw["mixture"] = MIXTURE
+    return x, mu, rho, seeds, kw
 
 
-def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic):
-    """The forward kernel against its plain version on one input, and a
-    rerun; raises on a mismatch. Returns (max |d y|, the kernel's W, a
-    summary)."""
-    shape = tuple(x.shape[1:]) + (mu.shape[1], TAG[x.dtype])
+def prior_suffix(prior: str) -> str:
+    """The launch counters' tag suffix of a prior (``ops/fused_linear.py``)."""
+    return "" if prior == "on_mu" else f"/{prior}"
+
+
+def plain_partials(common, mu, rho, seeds, antithetic, kw):
+    """The forward kernel's log-prob partial sums (``bayes_linear_cuda(...,
+    logprob_partials=True)``) in f64 from the plain f32 draw, with each
+    one's sum of |terms|, the scale of its f32 rounding: per draw and
+    column tile of 64, the sum of -eps^2 / 2, then of each member's
+    log-prior terms (before the constants) where the members have their
+    own (a pair under a prior not centred on mu)."""
+    from bayeformers_tpu_torch.core.distributions import sigma_from_rho
+    from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
+    from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
+
+    K, N = mu.shape
+    eps = common.unit_eps(seeds, (K, N))
+    se = sigma_from_rho(rho)[None] * eps  # f32, as the kernel rounds it
+    w0 = mu[None] + se
+    members = [w0, 2.0 * mu[None] - w0] if antithetic and kw else [w0]
+    terms = [-0.5 * eps.double() ** 2]
+    for w in members:
+        if "mixture" in kw:
+            terms.append(mixture_log_pdf(w.double(), *kw["mixture"]))
+        else:
+            d = w.double() - kw["prior_mu"].double() if kw else se.double()
+            terms.append(-0.5 * (d / MOPED_PRIOR_SIGMA) ** 2)
+    n_tiles = -(-N // 64)
+
+    def tile_sums(t):
+        t = torch.nn.functional.pad(t, (0, n_tiles * 64 - N))
+        return t.view(t.shape[0], K, n_tiles, 64).sum(dim=(1, 3))
+
+    ref = torch.stack([tile_sums(t) for t in terms], -1)
+    scale = torch.stack([tile_sums(t.abs()) for t in terms], -1)
+    return ref, scale
+
+
+def check_partials(common, part, mu, rho, seeds, antithetic, kw, what) -> tuple[float, float]:
+    """The forward kernel's log-prob partials against :func:`plain_partials`:
+    each within 1e-5 of its sum of |terms|. The log-prob outputs cannot
+    show these terms: they add a constant of K N (log sqrt(2 pi) + log
+    sigma_p) (7.0e5 at 768x768 under a Gaussian prior, one f32 step 0.06)
+    to a data part that, for MOPED weights, is tens of nats, and a pair's
+    two members differ by 1e-3 to 1e-2 of it. Returns (the largest error
+    over its gate, and for a pair with a log-prior each, the largest
+    difference of the members' plain partials over their gate: how far a
+    kernel that wrote one member's terms for both, or swapped them, would
+    miss it; 0 otherwise)."""
+    ref, scale = plain_partials(common, mu, rho, seeds, antithetic, kw)
+    check(tuple(part.shape) == tuple(ref.shape),
+          f"{what}: partials {tuple(part.shape)}, want {tuple(ref.shape)}")
+    gate = 1e-5 * scale
+    ratio = ((part.double() - ref).abs() / gate).max().item()
+    check(ratio <= 1.0, f"{what}: log-prob partials differ from the plain f64 sums by "
+          f"{ratio:.3g}x their gate (1e-5 of the sum of |terms|)")
+    sep = 0.0
+    if ref.shape[-1] == 3:
+        sep = ((ref[..., 1] - ref[..., 2]).abs()
+               / torch.maximum(gate[..., 1], gate[..., 2])).max().item()
+    return ratio, sep
+
+
+def check_logprob_terms(fl, x, mu, rho, seeds, antithetic, kw, lp, what,
+                        need_sep: bool = True) -> str:
+    """A rerun of the forward kernel that returns its log-prob partials:
+    the partials against the plain f64 sums (:func:`check_partials`); with
+    ``need_sep``, a pair's members, where each has a log-prior, far enough
+    apart in the inputs (10x the gate) that a member written for the other
+    would fail it; and ``lp``, the log_p that the kernel's finalize wrote, equal to
+    each member's partials summed less the constant, to within f32 steps
+    of the running sums. Returns the partials' largest error over their
+    gate and the members' distances over the partials' gate and over
+    finalize's f32 steps (0 where the members share a log-prior)."""
+    from bayeformers_tpu_torch.core.distributions import LOG_SQRT_2PI
+    from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
+    from bayeformers_tpu_torch.ops import common
+
+    part = fl.bayes_linear_cuda(x, mu, rho, seeds, antithetic=antithetic,
+                                logprob_partials=True, **kw)[-1]
+    ratio, sep = check_partials(common, part, mu, rho, seeds, antithetic, kw, what)
+    if need_sep and part.shape[-1] == 3:
+        check(sep >= 10.0, f"{what}: the inputs' pair members differ by only {sep:.3g}x "
+              "the partials' gate")
+    n_tiles = part.shape[1]
+    c_p = 0.0 if "mixture" in kw else mu.numel() * (LOG_SQRT_2PI
+                                                    + math.log(MOPED_PRIOR_SIGMA))
+    sums = part[..., 1:].double().sum(1)
+    want = (sums.reshape(-1) if part.shape[-1] == 3
+            else sums[:, 0].repeat_interleave(2 if antithetic else 1)) - c_p
+    tol = 2.0 ** -23 * (n_tiles * part[..., 1:].double().abs().sum(1).max()
+                        + want.abs().max()).item()
+    fin = (lp.double() - want).abs().max().item()
+    check(fin <= tol, f"{what}: log_p is {fin} from its partials' sums less the "
+          f"constant (f32 steps {tol:.3g})")
+    msep = (want[0::2] - want[1::2]).abs().max().item() / tol if sep else 0.0
+    return ratio, sep, msep
+
+
+def partials_summary(ratio, sep, msep) -> str:
+    summary = f"partials within {ratio:.3g}x their gate"
+    if sep:
+        summary += (f", members apart {sep:.3g}x the gate in the partials and "
+                    f"{msep:.3g}x finalize's f32 steps in log_p")
+    return summary
+
+
+def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
+    """The forward kernel against its plain version on one input under the
+    prior of ``kw``, and a rerun; raises on a mismatch. Returns (max |d y|,
+    the kernel's W, a summary)."""
+    kw = kw or {}
+    shape = tuple(x.shape[1:]) + (mu.shape[1], TAG[x.dtype]) + tuple(kw)
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
-    y, lq, lp, w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)
-    again = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)
+    y, lq, lp, w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic, **kw)
+    again = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic, **kw)
     torch.cuda.synchronize()
     yp, lqp, lpp, wp = fl.bayes_linear_plain(x, mu, rho, seeds, antithetic=antithetic,
-                                             save_weights=True)
+                                             save_weights=True, **kw)
     check(all(torch.equal(a, b) for a, b in zip((y, lq, lp, w), again)),
           f"{name} reruns differ at {shape}")
     err = (y.float() - yp.float()).abs().max().item()
@@ -200,9 +363,14 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic):
     else:
         check(torch.allclose(y.float(), yp.float(), rtol=2e-2, atol=2e-2),
               f"{name} y differs at {shape}: max {err}")
+    # log_q, and log_p of every member (a pair's two under the priors not
+    # centred on mu): 1e-5 relative
     for tag, a, b in (("log_q", lq, lqp), ("log_p", lp, lpp)):
         check(torch.allclose(a, b, rtol=1e-5, atol=0.0),
               f"{name} {tag} differs at {shape}: {a} vs {b}")
+    lp_err = ((lp - lpp).abs() / lpp.abs()).max().item()
+    lp_check = partials_summary(*check_logprob_terms(fl, x, mu, rho, seeds, antithetic,
+                                                     kw, lp, f"{name} at {shape}"))
     # W = mu + softplus(rho) eps in x's dtype (and 2 mu - w for a pair's
     # second member), each step rounded as the plain version rounds it, from
     # the same normals (phase eps): equal to the plain W
@@ -211,44 +379,49 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic):
     return err, w, (
         f"y max|d| {err:.3g}, W max|d| {w_err:.3g} "
         f"({(w == wp).float().mean().item():.6f} equal), "
-        f"log_q {lq[0].item():.6g} vs {lqp[0].item():.6g}, reruns equal")
+        f"log_q {lq[0].item():.6g} vs {lqp[0].item():.6g}, log_p rel err {lp_err:.3g}, "
+        f"{lp_check}, reruns equal")
 
 
 SERVING_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                   (8, 768, 768), (8, 768, 2))
 
 
-def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16) -> list[dict]:
-    """A forward kernel's instance for ``dtype`` against its plain version;
-    returns the timing rows."""
+def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu") -> list[dict]:
+    """A forward kernel's instance for ``dtype`` and ``prior`` against its
+    plain version; returns the timing rows."""
     S = 10
     n_draws = S // 2 if antithetic else S
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
+    label = tag + ("" if prior == "on_mu" else f", {prior}")
     rows = []
     for M, K, N in SERVING_SHAPES:
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
-                                                dtype=dtype)
-        err, w, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic)
-        ms = time_ms(lambda: fl.bayes_linear(x, mu, rho, seeds, prior_on_mu=True,
-                                             antithetic=antithetic), 20)
+        x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                    dtype=dtype, prior=prior)
+        err, w, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw)
+        ms = time_ms(lambda: fl.bayes_linear(x, mu, rho, seeds, antithetic=antithetic,
+                                             prior_on_mu=not kw, **kw), 20, windows=WINDOWS)
         plain_ms = time_ms(lambda: fl.bayes_linear_plain(
-            x, mu, rho, seeds, antithetic=antithetic), 3, 1)
-        lib_ms = time_ms(lambda: torch.bmm(x, w), 20)
-        n_bytes = (S * M * K * isz + 2 * K * N * 4 + S * M * N * isz + 2 * S * 4
-                   + n_draws * 4)
+            x, mu, rho, seeds, antithetic=antithetic, **kw), 3, 1)
+        lib_ms = time_ms(lambda: torch.bmm(x, w), 20, windows=WINDOWS)
+        # x, mu, rho (and prior_mu) read, y written, the log-probs and seeds
+        n_bytes = (S * M * K * isz + (2 + ("prior_mu" in kw)) * K * N * 4
+                   + S * M * N * isz + 2 * S * 4 + n_draws * 4)
         b = bound(n_bytes, 2.0 * S * M * K * N, dtype)
-        say(f"{name} ({tag}) M={M} K={K} N={N}: {summary}; "
+        say(f"{name} ({label}) M={M} K={K} N={N}: {summary}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
             f"bound {b[0]:.4f} ms ({b[1]})")
         if antithetic:
             line = 912 if K >= 2048 else 636
         else:
             line = 412 if K >= 2048 else 106
-        suffix = "" if dtype == BF16 else f",{tag}"
+        suffix = ("" if dtype == BF16 else f",{tag}") + (
+            "" if prior == "on_mu" else f",{prior}")
         rows.append(row(
-            f"{name}[M={M},K={K},N={N}{suffix}]", name, (M, K, N, tag),
-            f"serve/{'anti' if antithetic else 'indep'}/{tag}",
+            f"{name}[M={M},K={K},N={N}{suffix}]", name,
+            (M, K, N, tag + prior_suffix(prior)),
+            f"serve/{'anti' if antithetic else 'indep'}/{tag}{prior_suffix(prior)}",
             "bayeformers_tpu_torch/csrc/bayes_linear.cu",
             f"bayeformers_tpu/ops/fused_linear.py:{line}", err, ms, plain_ms, b,
             lib_ms))
@@ -258,12 +431,12 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16) -> list[dict]:
     per16 = 16 // isz
     for M, K, N, offset in ((100, 300 if dtype == BF16 else 302, 130, 0),
                             (64, 768, 130, 1)):
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
-                                                offset, dtype)
+        x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                    offset, dtype, prior)
         check(K % per16 != 0 or x.data_ptr() % 16 != 0,
               f"{(M, K, N, offset)} does not take the scalar x path")
-        _, _, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic)
-        say(f"{name} ({tag}) scalar x path M={M} K={K} N={N} "
+        _, _, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw)
+        say(f"{name} ({label}) scalar x path M={M} K={K} N={N} "
             f"x offset {offset}: {summary}")
     return rows
 
@@ -291,7 +464,7 @@ def phase_mha(at, dtype=BF16) -> dict:
     else:
         check(err <= 2e-2, f"mha differs from its plain version: max {err}")
     check(torch.equal(out, again), f"mha ({tag}) reruns differ")
-    ms = time_ms(lambda: at.mha(q, k, v, bias, nh), 50)
+    ms = time_ms(lambda: at.mha(q, k, v, bias, nh), 50, windows=WINDOWS)
     plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh), 5, 1)
     sdpa_mask = bias.clamp_min(torch.finfo(dtype).min).to(dtype)
     sdpa_mask = sdpa_mask[:, None, None, :]
@@ -302,7 +475,7 @@ def phase_mha(at, dtype=BF16) -> dict:
             k.view(N, L, nh, H // nh).transpose(1, 2),
             v.view(N, L, nh, H // nh).transpose(1, 2), attn_mask=sdpa_mask)
 
-    lib_ms = time_ms(sdpa, 50)
+    lib_ms = time_ms(sdpa, 50, windows=WINDOWS)
     b = bound(4 * N * L * H * isz + N * L * 4, 4.0 * N * L * L * H, dtype)
     say(f"mha_fwd ({tag}) N={N} L={L} H={H}: max|d| {err:.3g}, reruns equal; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
@@ -313,13 +486,40 @@ def phase_mha(at, dtype=BF16) -> dict:
                "bayeformers_tpu/ops/attention.py:119", err, ms, plain_ms, b, lib_ms)
 
 
-def build_predictor(bt, antithetic=True, dtype=BF16):
-    """BERT-base from seed 0, MOPED-converted (delta 0.05, frozen), served at
-    S=10, antithetic or with independent draws, in ``dtype`` activations,
-    in one (8, 128) bucket on the card."""
-    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype,
-                          device="cuda")
-    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
+def convert(bt, model, prior):
+    """The conversion that chooses each prior: frozen MOPED (delta 0.05,
+    the GLUE recipe); MOPED with a trainable mu (``freeze=False``), whose mu
+    is then moved 1e-3 N(0, 1) off its prior_mu as fine-tuning moves it
+    (seed 1), so that the Gaussian prior's centre is not mu; or the
+    reference's default, random init from a generator (seed 0)."""
+    from bayeformers_tpu_torch.nn.surgery import leaf
+
+    if prior == "on_mu":
+        return bt.to_bayesian(model, delta=0.05, freeze=True)
+    if prior == "mixture":
+        return bt.to_bayesian(model, generator=torch.Generator(device="cuda").manual_seed(0))
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=False)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for path in bmodel.spec.paths:
+            w = leaf(bmodel.model, path)
+            w.add_(1e-3 * torch.randn(w.shape, device=w.device, generator=gen))
+    return bmodel
+
+
+def converted_base(bt, dtype, prior="on_mu"):
+    """BERT-base from seed 0 in ``dtype`` activations, converted for
+    ``prior`` (:func:`convert`), and its trainable tensors."""
+    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
+    bmodel = convert(bt, model, prior)
+    return bmodel, bmodel.trainable_parameters()
+
+
+def build_predictor(bt, antithetic=True, dtype=BF16, prior="on_mu"):
+    """BERT-base from seed 0, converted for ``prior``, served at S=10,
+    antithetic or with independent draws, in ``dtype`` activations, in one
+    (8, 128) bucket on the card."""
+    bmodel, _ = converted_base(bt, dtype, prior)
     return bt.Predictor(bmodel, n_samples=10, batch_sizes=(8,), seq_lens=(128,),
                         antithetic=antithetic)
 
@@ -335,14 +535,67 @@ def serving_requests(bt) -> list[dict]:
             for n, L in ((3, 77), (8, 128), (5, 20))]
 
 
-def phase_serving(bt, fl, at, antithetic, dtype=BF16) -> tuple[dict, float]:
+class LayerCheck:
+    """Holds every Bayesian linear launch of a forward against its plain
+    version on the same inputs (the kernel phases' gates: y 2e-2 in bf16,
+    2e-5 of max |y| in f32; log-probs 1e-5 relative, and their partials,
+    :func:`check_logprob_terms`), by wrapping ``bayes_linear`` while the
+    forward runs. A well-conditioned check of a path whose end-to-end
+    logits are not (random init), and of each layer's log-prior, which the
+    model's summed log-probs cannot resolve (see ``phase_serving``)."""
+
+    def __init__(self, fl):
+        self.fl, self.orig = fl, fl.bayes_linear
+        self.n, self.y_err, self.lp_err = 0, 0.0, 0.0
+        self.part_err, self.sep, self.msep = 0.0, math.inf, math.inf
+
+    def __enter__(self):
+        def wrapped(x, mu, rho, seeds, **kw):
+            out = self.orig(x, mu, rho, seeds, **kw)
+            ref = self.orig(x, mu, rho, seeds, **dict(kw, plain=True))
+            pkw = {k: kw[k] for k in ("mixture", "prior_mu") if kw.get(k) is not None}
+            ratio, sep, msep = check_logprob_terms(
+                self.fl, x, mu, rho, seeds, kw["antithetic"], pkw, out[2],
+                f"layer {tuple(x.shape)}x{tuple(mu.shape)}", need_sep=False)
+            self.part_err = max(self.part_err, ratio)
+            if sep:
+                self.sep, self.msep = min(self.sep, sep), min(self.msep, msep)
+            y, yp = out[0].float(), ref[0].float()
+            err = (y - yp).abs().max().item()
+            if x.dtype == F32:
+                ok = err <= 2e-5 * yp.abs().max().item()
+            else:
+                ok = torch.allclose(y, yp, rtol=2e-2, atol=2e-2)
+            check(ok, f"a layer's y differs from its plain version at "
+                  f"{tuple(x.shape)}x{tuple(mu.shape)}: max {err}")
+            for a, b in zip(out[1:], ref[1:]):
+                check(torch.allclose(a, b, rtol=1e-5, atol=0.0),
+                      f"a layer's log-probs differ from the plain version: {a} vs {b}")
+                self.lp_err = max(self.lp_err, ((a - b).abs() / b.abs()).max().item())
+            self.n += 1
+            self.y_err = max(self.y_err, err)
+            return out
+
+        self.fl.bayes_linear = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.fl.bayes_linear = self.orig
+
+
+def max_dist(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_serving(bt, fl, at, antithetic, dtype=BF16, prior="on_mu") -> tuple[dict, float]:
     """Returns per-kernel launch counts by shape over the three requests,
     and the median latency (ms) of the 8x128 request."""
     t0 = time.perf_counter()
-    pred = build_predictor(bt, antithetic, dtype)
+    pred = build_predictor(bt, antithetic, dtype, prior)
     fwd, fwd_name = ((fl.LAUNCHES, "bayes_linear_anti") if antithetic
                      else (fl.INDEP_LAUNCHES, "bayes_linear"))
-    tag = ("antithetic" if antithetic else "independent") + f", {TAG[dtype]}"
+    tag = (("antithetic" if antithetic else "independent") + f", {TAG[dtype]}"
+           + ("" if prior == "on_mu" else f", {prior}"))
     bmodel = pred.bmodel
     torch.cuda.synchronize()
     say(f"serving ({tag}): BERT-base built and converted in "
@@ -382,18 +635,36 @@ def phase_serving(bt, fl, at, antithetic, dtype=BF16) -> tuple[dict, float]:
     dev = bmodel.device
     batch = {k: torch.from_numpy(v).to(dev) for k, v in requests[1].items()}
     args = (batch["input_ids"], batch["attention_mask"], batch["token_type_ids"])
-    lk, auxk = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic)
-    lp, auxp = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
-                                     impl="plain")
-    err = (lk.float() - lp.float()).abs().max().item()
-    limit = 1e-4 if dtype == F32 else 5e-2
-    check(err <= limit, f"logits through the kernels differ from the plain path by {err}")
+    with torch.inference_mode():
+        if prior != "on_mu":
+            with LayerCheck(fl) as layers:
+                lk, auxk = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic)
+            check(layers.n == BERT_BASE_LAYERS, f"the request ran {layers.n} Bayesian "
+                  f"linear layers through the check, want {BERT_BASE_LAYERS}")
+            say(f"serving ({tag}): every Bayesian linear launch of the request against "
+                f"its plain version on the same inputs: {layers.n} layers, y max|d| "
+                f"{layers.y_err:.3g}, log-probs rel err {layers.lp_err:.3g}, "
+                + partials_summary(layers.part_err, layers.sep if antithetic else 0.0,
+                                   layers.msep)
+                + (" (least over the layers)" if antithetic else ""))
+        else:
+            lk, auxk = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic)
+        lp, auxp = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
+                                         impl="plain")
+    err = max_dist(lk, lp)
+    if prior != "mixture":
+        limit = 1e-4 if dtype == F32 else 5e-2
+        check(err <= limit, f"logits through the kernels differ from the plain path by {err}")
+    else:
+        err_note = mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err)
+        say(f"serving ({tag}): {err_note}")
     for key in auxk:
         check(torch.allclose(auxk[key], auxp[key], rtol=1e-5, atol=0.0),
               f"{key} differs from the plain path: {auxk[key]} vs {auxp[key]}")
     say(f"serving ({tag}): logits kernels vs plain max|d| {err:.4g} (S=10, B=8, L=128); "
         f"log_q {auxk['log_variational_posterior'][0].item():.7g} vs "
-        f"{auxp['log_variational_posterior'][0].item():.7g}")
+        f"{auxp['log_variational_posterior'][0].item():.7g}, log_p "
+        f"{auxk['log_prior'][0].item():.7g} vs {auxp['log_prior'][0].item():.7g}")
 
     lat = []
     for i in range(10):
@@ -408,6 +679,48 @@ def phase_serving(bt, fl, at, antithetic, dtype=BF16) -> tuple[dict, float]:
     del pred, bmodel
     torch.cuda.empty_cache()
     return launches, latency
+
+
+MIXTURE_F32_LOGITS = 2e-3
+
+
+def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err) -> str:
+    """The end-to-end gate of the random-init (mixture) path, whose logits
+    are ill-conditioned: at U(-0.2, 0.2) weights each layer amplifies a
+    rounding difference, so that f32 products taken in f64 instead moved
+    BERT-base's logits by 7.5e-5 on the CPU (2.4e-7 after MOPED). Set as
+    the existing bf16 gates were, against a less exact path: bf16 logits
+    through the kernels no further from the f32 plain path's than 1.5x the
+    bf16 plain path's. f32 logits within 2e-3 of the plain path's (read
+    2.1e-4 on an H100), a gate that the same plain path with TF32 products
+    (read 0.13) must fail: the f32 instances must be true f32. Every layer
+    is also held against its plain version (:class:`LayerCheck`)."""
+    if dtype == BF16:
+        twin, _ = converted_base(bt, F32, "mixture")
+        with torch.inference_mode():
+            l32, _ = twin.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
+                                         impl="plain")
+        dk, dp = max_dist(lk, l32), max_dist(lp, l32)
+        del twin
+        check(dk <= 1.5 * dp, f"bf16 logits through the kernels are {dk} from the f32 "
+              f"plain path's, the bf16 plain path's {dp}")
+        return (f"logits kernels vs f32 plain max|d| {dk:.4g}, bf16 plain vs f32 plain "
+                f"{dp:.4g} (gate 1.5x)")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            ltf, _ = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
+                                           impl="plain")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    require_f32_matmuls()
+    dtf = max_dist(ltf, lp)
+    check(err <= MIXTURE_F32_LOGITS, f"f32 logits through the kernels are {err} from the "
+          f"plain path's (gate {MIXTURE_F32_LOGITS})")
+    check(dtf > MIXTURE_F32_LOGITS, f"the plain path with TF32 products is only {dtf} from "
+          f"the true f32 one: the gate {MIXTURE_F32_LOGITS} would not fail a TF32 kernel")
+    return (f"logits kernels vs plain max|d| {err:.4g} (gate {MIXTURE_F32_LOGITS}), plain "
+            f"with TF32 products {dtf:.4g}")
 
 
 def reset_counters(*modules) -> None:
@@ -435,62 +748,70 @@ REDUCE_INSTANCES = {  # tag: (x's and g's type, W's type, path of its launches)
 }
 
 
-def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16") -> list[dict]:
+def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu") -> list[dict]:
     """A reduce kernel's instance against its plain version, on the W the
     forward kernel wrote (saved residuals: bf16, f32) or on the regenerated
-    f32 W (``bf16x-f32w``); returns the timing rows of the training
-    shapes. A/B/V within 1e-4 (bf16) or 1e-5 (an f32 operand: x or W) of
-    each one's largest entry."""
+    f32 W (``bf16x-f32w``), under ``prior`` (the priors not centred on mu
+    add U, the mixture's taken of its score); returns the timing rows of
+    the training shapes. A/B/(U/)V within 1e-4 (bf16) or 1e-5 (an f32
+    operand: x or W) of each one's largest entry."""
     S = 10
     n_draws = S // 2 if antithetic else S
     xdt, wdt, path = REDUCE_INSTANCES[tag]
+    path = path + prior_suffix(prior)
     est = "anti" if antithetic else "indep"
+    label = tag + ("" if prior == "on_mu" else f", {prior}")
     if antithetic:
         name, fn, plain = "reduce_abuv_anti", fb.reduce_abuv_anti, fb.reduce_abuv_anti_plain
     else:
         name, fn, plain = "reduce_abuv", fb.reduce_abuv, fb.reduce_abuv_plain
+    from bayeformers_tpu_torch.ops.logprob import prior_of, reduce_keywords
+
     limit = 1e-5 if F32 in (xdt, wdt) else 1e-4
     isz = torch.finfo(xdt).bits // 8
     rows = []
     for M, K, N in TRAIN_SHAPES + ((100, 300, 130),):
-        x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
-                                                dtype=xdt)
+        x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                    dtype=xdt, prior=prior)
         if wdt == xdt:
-            w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)[3]
+            w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic, **kw)[3]
         else:
             w = fl.regenerate_weights(mu, rho, seeds)
             w = fl.interleave_antithetic(w, mu) if antithetic else w
         gen = torch.Generator(device="cuda").manual_seed(M + K + N)
         g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(xdt)
         g_p = torch.randn(S, device="cuda", generator=gen)
-        out = fn(x, g, w, mu, g_p)
-        again = fn(x, g, w, mu, g_p)
+        pkw = reduce_keywords(prior_of(**kw))
+        out = fn(x, g, w, mu, g_p, **pkw)
+        again = fn(x, g, w, mu, g_p, **pkw)
         torch.cuda.synchronize()
-        ref = plain(x, g, w, mu, g_p)
+        ref = plain(x, g, w, mu, g_p, **pkw)
         errs = [rel_err(a, r) for a, r in zip(out, ref)]
-        check(max(errs) <= limit, f"{name} ({tag}) differs at {(M, K, N)}: "
-              f"A/B/V rel err {errs}")
+        names = "A/B/V" if prior == "on_mu" else "A/B/U/V"
+        check(max(errs) <= limit, f"{name} ({label}) differs at {(M, K, N)}: "
+              f"{names} rel err {errs}")
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
-              f"{name} ({tag}) reruns differ at {(M, K, N)}")
-        summary = "A/B/V rel err " + "/".join(f"{e:.3g}" for e in errs)
+              f"{name} ({label}) reruns differ at {(M, K, N)}")
+        summary = f"{names} rel err " + "/".join(f"{e:.3g}" for e in errs)
         if (M, K, N) not in TRAIN_SHAPES:
-            say(f"{name} ({tag}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
+            say(f"{name} ({label}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
             continue
-        ms = time_ms(lambda: fn(x, g, w, mu, g_p), 20)
-        plain_ms = time_ms(lambda: plain(x, g, w, mu, g_p), 3, 1)
+        ms = time_ms(lambda: fn(x, g, w, mu, g_p, **pkw), 20, windows=WINDOWS)
+        plain_ms = time_ms(lambda: plain(x, g, w, mu, g_p, **pkw), 3, 1)
         xt = x.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.bmm(xt, g), 20)
+        lib_ms = time_ms(lambda: torch.bmm(xt, g), 20, windows=WINDOWS)
         # the pair reduce reads the even half of W, the independent one all
         wsz = torch.finfo(wdt).bits // 8
         n_bytes = (S * M * (K + N) * isz + n_draws * K * N * wsz + K * N * 4 + S * 4
-                   + 3 * K * N * 4)
+                   + len(out) * K * N * 4)
         b = bound(n_bytes, 2.0 * S * M * K * N, xdt)
-        say(f"{name} ({tag}) M={M} K={K} N={N}: {summary}, reruns equal; "
+        say(f"{name} ({label}) M={M} K={K} N={N}: {summary}, reruns equal; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm x^T g "
             f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        suffix = "" if tag == "bf16" else f",{tag}"
+        suffix = ("" if tag == "bf16" else f",{tag}") + (
+            "" if prior == "on_mu" else f",{prior}")
         rows.append(row(
-            f"{name}[M={M},K={K},N={N}{suffix}]", name, (M, K, N, tag),
+            f"{name}[M={M},K={K},N={N}{suffix}]", name, (M, K, N, tag + prior_suffix(prior)),
             path.format(est=est), "bayeformers_tpu_torch/csrc/fused_backward.cu",
             ("bayeformers_tpu/ops/fused_backward.py:202" if antithetic
              else "bayeformers_tpu/ops/fused_backward.py:97"),
@@ -508,8 +829,8 @@ def phase_regen(fl, moped_rho) -> list[dict]:
     for K, N in ((768, 768), (768, 3072), (3072, 768), (300, 130)):
         for antithetic in (True, False):
             n_draws = S // 2 if antithetic else S
-            x, mu, rho, seeds = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
-                                                    dtype=F32)
+            x, mu, rho, seeds, _ = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
+                                                       dtype=F32)
             w = fl.regenerate_weights(mu, rho, seeds)
             again = fl.regenerate_weights(mu, rho, seeds)
             torch.cuda.synchronize()
@@ -526,8 +847,8 @@ def phase_regen(fl, moped_rho) -> list[dict]:
         "at (S', K, N) = (5|10, 768, 768), (5|10, 768, 3072), (5|10, 3072, 768), "
         "(5|10, 300, 130); reruns equal")
     n, K, N = 5, 3072, 768
-    _, mu, rho, seeds = bayes_linear_inputs(S, 8, K, N, moped_rho, n, dtype=F32)
-    ms = time_ms(lambda: fl.regenerate_weights(mu, rho, seeds), 50)
+    _, mu, rho, seeds, _ = bayes_linear_inputs(S, 8, K, N, moped_rho, n, dtype=F32)
+    ms = time_ms(lambda: fl.regenerate_weights(mu, rho, seeds), 50, windows=WINDOWS)
     plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, seeds), 5, 1)
     b = bound(n * K * N * 4 + 2 * K * N * 4 + n * 4, 0.0, F32)
     say(f"regen S'={n} K={K} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -575,7 +896,7 @@ def phase_mha_bwd(at, dtype=BF16) -> dict:
         if L != 128:
             say(f"mha_bwd ({tag}) N={N} L={L} H={H}: {summary}, reruns equal")
             continue
-        ms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh), 20)
+        ms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh), 20, windows=WINDOWS)
         plain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh), 3, 1)
         d = H // nh
         heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
@@ -584,7 +905,8 @@ def phase_mha_bwd(at, dtype=BF16) -> dict:
         o = torch.nn.functional.scaled_dot_product_attention(
             *heads, attn_mask=sdpa_mask[:, None, None, :])
         go = g.view(N, L, nh, d).transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 20)
+        lib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 20,
+                         windows=WINDOWS)
         b = bound(7 * N * L * H * isz + N * L * 4, 10.0 * N * L * L * H, dtype)
         say(f"mha_bwd ({tag}) N={N} L={L} H={H}: {summary}, reruns equal; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
@@ -620,12 +942,72 @@ def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True)
     return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
 
 
-def converted_base(bt, dtype):
-    """BERT-base from seed 0, MOPED-converted (delta 0.05, frozen), and its
-    trainable tensors."""
-    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
-    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
-    return bmodel, bmodel.trainable_parameters()
+@contextlib.contextmanager
+def broken_reduce(fb, fault: str):
+    """While the block runs, every reduce kernel's U (``"U"``) or V
+    (``"V"``) output is zeroed: a broken kernel that a gate must fail."""
+    orig = fb.reduce_abuv_anti, fb.reduce_abuv
+
+    def broken(fn):
+        def run(*args, **kw):
+            acc = list(fn(*args, **kw))
+            i = 2 if fault == "U" else len(acc) - 1
+            acc[i] = torch.zeros_like(acc[i])
+            return tuple(acc)
+        return run
+
+    fb.reduce_abuv_anti, fb.reduce_abuv = map(broken, orig)
+    try:
+        yield
+    finally:
+        fb.reduce_abuv_anti, fb.reduce_abuv = orig
+
+
+def prior_grads(bt, bmodel, named, batch, impl, estimator, save_weights=True) -> dict:
+    """The gradients of the ELBO's prior part alone, mean log_q - mean
+    log_p, at :func:`grads_of`'s draw (seed 123)."""
+    for _, t, _ in named:
+        t.grad = None
+    _, m = bt.training.elbo_objective(
+        bt.training.pick_mc(bmodel, estimator), 123, 10, batch, 256, impl=impl,
+        save_weights=save_weights)
+    (m["log_variational_posterior"] - m["log_prior"]).backward()
+    return {n: t.grad.clone() for n, t, _ in named if t.grad is not None}
+
+
+PRIOR_GRADS_GATE = 1e-3
+
+
+def check_prior_grads(bt, fb, bmodel, named, batch, estimator, label, mu_names,
+                      save_weights=True, faults=False) -> None:
+    """The prior part's gradients of mu and rho through the kernels against
+    the plain step's, each leaf within 1e-3 relative L2. Without the task
+    loss every reduce sees g_y = 0, so A and B vanish and what is compared
+    is U, V and finalize on the same W: sums of the same operands in
+    another order, free of the rounding that bf16 activations spread
+    through a random-init network (which blurs the whole step's rho
+    gradients by 0.15 relative L2). With ``faults``, the same check of a
+    run with every reduce's U, and one with its V, zeroed must fail."""
+    gk = prior_grads(bt, bmodel, named, batch, "kernel", estimator, save_weights)
+    gp = prior_grads(bt, bmodel, named, batch, "plain", estimator, save_weights)
+    rho = [n for n in gp if n.startswith("rho/")]
+    mu = [n for n in mu_names if n in gp]
+    for group, names in (("mu", mu), ("rho", rho)):
+        rel, cos, at_ = worst_agreement(gk, gp, names)
+        say(f"{label}: prior-part {group} gradients ({len(names)} leaves), kernels vs "
+            f"plain: worst rel L2 {rel:.4g} ({at_}), worst cosine {cos:.9f}")
+        check(rel <= PRIOR_GRADS_GATE, f"{label}: the prior part's {group} gradients "
+              f"through the kernels differ from the plain step's: rel L2 {rel} at {at_}")
+    if not faults:
+        return
+    for fault, group, names in (("U", "mu", mu), ("V", "rho", rho)):
+        with broken_reduce(fb, fault):
+            gf = prior_grads(bt, bmodel, named, batch, "kernel", estimator, save_weights)
+        rel, _, at_ = worst_agreement(gf, gp, names)
+        say(f"{label}: with every reduce's {fault} zeroed, prior-part {group} gradients "
+            f"worst rel L2 {rel:.4g} ({at_}), gate {PRIOR_GRADS_GATE}")
+        check(rel > PRIOR_GRADS_GATE, f"{label}: the prior-part check passed a reduce "
+              f"with {fault} zeroed")
 
 
 def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
@@ -656,12 +1038,17 @@ def grad_groups(names) -> dict[str, list[str]]:
     return groups
 
 
-def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32) -> None:
+def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32, mu_names=(),
+                    rho_by_f32=False) -> None:
     """A bf16 step through the kernels against the plain bf16 step at the
     same draw: loss 1e-2 relative, rho gradients 5e-2 relative L2 and cosine
     0.999; LayerNorm and embedding gradients, which bf16 activations blur
     on both paths, no further from the f32 plain step ``g32`` than 1.5x the
-    plain bf16 step's distance."""
+    plain bf16 step's distance; and so the trained mu's (``mu_names``,
+    under the priors not centred on a frozen mu), whose task part bf16
+    blurs as well. ``rho_by_f32``: rho is judged that way too (random init,
+    where rho's task part is as large as its KL part and bf16 blurs it by
+    ~0.15 relative L2 on both paths)."""
     for key in ("loss", "log_prior", "log_variational_posterior", "nll"):
         check(bool(torch.isfinite(mk[key])), f"{key} is not finite: {mk[key]}")
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -673,10 +1060,16 @@ def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32) -> None:
     rel, cos, at_ = worst_agreement(gk, gp, rho)
     say(f"{label}: rho gradients ({len(rho)} leaves), kernels vs plain: worst rel L2 "
         f"{rel:.4g} ({at_}), worst cosine {cos:.7f}")
-    check(rel <= 5e-2 and cos >= 0.999, f"{label} rho gradients through the kernels "
-          f"differ from the plain step: rel L2 {rel}, cosine {cos}")
-    for group in PARAM_GROUPS:
-        names = [n for n in gk if n.startswith("params/") and n.endswith(group)]
+    if not rho_by_f32:
+        check(rel <= 5e-2 and cos >= 0.999, f"{label} rho gradients through the kernels "
+              f"differ from the plain step: rel L2 {rel}, cosine {cos}")
+    groups = {g: [n for n in gk if n.startswith("params/") and n.endswith(g)]
+              for g in PARAM_GROUPS}
+    if mu_names:
+        groups["mu"] = list(mu_names)
+    if rho_by_f32:
+        groups["rho"] = rho
+    for group, names in groups.items():
         rk, ck, nk = worst_agreement(gk, g32, names)
         rp, cp, _ = worst_agreement(gp, g32, names)
         rkp, ckp, _ = worst_agreement(gk, gp, names)
@@ -689,27 +1082,33 @@ def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32) -> None:
               "f32 step than the bf16 plain step's")
 
 
-def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dict]:
-    """The ELBO step at the recipe in ``dtype`` activations: returns the
-    launch counts by kernel and shape over the timed steps, the median step
-    time (ms) and, in bf16, the launch counts of one step through the
-    regenerating backward (``save_weights=False``)."""
+def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
+                ) -> tuple[dict, float, dict]:
+    """The ELBO step at the recipe in ``dtype`` activations, under the
+    conversion of ``prior``: returns the launch counts by kernel and shape
+    over the timed steps, the median step time (ms) and, in bf16, the
+    launch counts of one step through the regenerating backward
+    (``save_weights=False``)."""
+    from bayeformers_tpu_torch.nn.surgery import leaf
+
     S, n_batches = 10, 256
     anti = estimator == "antithetic"
     tag = TAG[dtype]
-    label = f"train ({estimator}, {tag})"
+    sfx = prior_suffix(prior)
+    label = f"train ({estimator}, {tag}" + ("" if prior == "on_mu" else f", {prior}") + ")"
     batch = train_batch(bt)
-    n_layers = 74  # converted kernels of BERT-base: 12 x 6, the pooler, the classifier
     regen_counts = {}
     if dtype == BF16:
         # the same step in f32 activations through the plain versions: the
         # yardstick for gradients that bf16 activations blur on either path
-        bmodel32, named32 = converted_base(bt, F32)
+        bmodel32, named32 = converted_base(bt, F32, prior)
         _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain", estimator)
         del bmodel32, named32
         torch.cuda.empty_cache()
 
-    bmodel, named = converted_base(bt, dtype)
+    bmodel, named = converted_base(bt, dtype, prior)
+    mu_names = ([] if prior == "on_mu" else
+                [f"params/{p}" for p in bmodel.spec.paths])
     # the step through the kernels against the plain step, same draw; #10
     # runs in the f32 antithetic step's 12 FFN down-projections only
     reset_counters(fl)
@@ -722,19 +1121,35 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dic
     check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
           f"{label}: the same seed gave another loss or gradient through the kernels")
     if dtype == BF16:
-        check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32)
+        check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32, mu_names,
+                        prior == "mixture")
+        if prior != "on_mu":
+            check_prior_grads(bt, fb, bmodel, named, batch, estimator, label, mu_names,
+                              faults=prior == "mixture")
+        if prior == "mixture":
+            # the whole step's rho gate (1.5x the bf16 plain step's distance
+            # from the f32 one) against the same fault: a reading
+            with broken_reduce(fb, "V"):
+                _, _, gv = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+            rho = [n for n in gk if n.startswith("rho/")]
+            say(f"{label}: with every reduce's V zeroed, the whole step's rho gradients "
+                f"are rel L2 {worst_agreement(gv, g32, rho)[0]:.4g} from the f32 plain "
+                "step's (gate: 1.5x the bf16 plain step's "
+                f"{worst_agreement(gp, g32, rho)[0]:.4g})")
+            del gv
         # the regenerating backward (save_weights=False): #10 on every layer,
         # the reduce on the regenerated f32 W; counts read around this step
-        rlabel = f"train ({estimator}, bf16, save_weights=False)"
+        rlabel = label[:-1] + ", save_weights=False)"
         reset_counters(fl, at, fb)
         loss_r, mr, gr = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
                                   save_weights=False)
         red = fb.LAUNCHES if anti else fb.INDEP_LAUNCHES
         regen_counts = {"regen": dict(fl.REGEN_LAUNCHES.by_shape),
                         red.name: dict(red.by_shape)}
-        check(fl.REGEN_LAUNCHES.count == n_layers,
-              f"{rlabel}: regen launched {fl.REGEN_LAUNCHES.count} times, want {n_layers}")
-        check(sum(n for s_, n in red.by_shape.items() if s_[3] == "bf16x-f32w") == n_layers,
+        check(fl.REGEN_LAUNCHES.count == BERT_BASE_LAYERS,
+              f"{rlabel}: regen launched {fl.REGEN_LAUNCHES.count} times, want {BERT_BASE_LAYERS}")
+        check(sum(n for s_, n in red.by_shape.items() if s_[3] == "bf16x-f32w" + sfx)
+              == BERT_BASE_LAYERS,
               f"{rlabel}: the (bf16 x, f32 W) reduce did not serve every layer: "
               f"{red.by_shape}")
         loss_r2, _, gr2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
@@ -743,7 +1158,11 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dic
                                      save_weights=False)
         check(torch.equal(loss_r, loss_r2) and all(torch.equal(gr[n], gr2[n]) for n in gr),
               f"{rlabel}: the same seed gave another loss or gradient")
-        check_bf16_step(rlabel, loss_r, loss_rp, mr, mrp, gr, grp, g32)
+        check_bf16_step(rlabel, loss_r, loss_rp, mr, mrp, gr, grp, g32, mu_names,
+                        prior == "mixture")
+        if prior != "on_mu":
+            check_prior_grads(bt, fb, bmodel, named, batch, estimator, rlabel, mu_names,
+                              save_weights=False)
         say(f"{rlabel}: launches in one step: {regen_counts}")
         del gr, gr2, grp, g32
     else:
@@ -758,6 +1177,8 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dic
                 f"f32: worst rel L2 {rel:.4g} ({at_}), worst cosine {cos:.9f}")
             check(rel <= 1e-3, f"{label}: {group} gradients differ from the plain f32 "
                   f"step: rel L2 {rel} at {at_}")
+        if prior != "on_mu":
+            check_prior_grads(bt, fb, bmodel, named, batch, estimator, label, mu_names)
     del gk, gk2, gp
 
     # the ELBO falls on one batch and one draw
@@ -767,7 +1188,22 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dic
     opt = tx.init(named)
     step = bt.training.make_elbo_train_step(bmodel, opt, S, n_batches,
                                             estimator=estimator)
-    losses = [step(55, batch)["loss"].item() for _ in range(4)]
+    # after one step a trained mu has moved, a frozen one has not, and
+    # prior_mu (MOPED with a trainable mu) is bit-identical
+    mu0 = {p: leaf(bmodel.model, p).detach().clone() for p in bmodel.spec.paths}
+    pmu0 = ({p: t.clone() for p, t in bmodel.prior_mu.items()}
+            if prior == "gaussian" else {})
+    losses = [step(55, batch)["loss"].item()]
+    moved = sum(not torch.equal(leaf(bmodel.model, p), mu0[p]) for p in mu0)
+    check(moved == (0 if prior == "on_mu" else len(mu0)),
+          f"{label}: {moved} of {len(mu0)} mu leaves moved in one step")
+    check(all(torch.equal(t, pmu0[p]) for p, t in bmodel.prior_mu.items() if p in pmu0)
+          and len(pmu0) == (len(mu0) if prior == "gaussian" else 0),
+          f"{label}: prior_mu changed in a step")
+    say(f"{label}: after one step {moved} of {len(mu0)} mu leaves moved"
+        + (f", prior_mu bit-identical ({len(pmu0)} leaves)" if pmu0 else ""))
+    del mu0, pmu0
+    losses += [step(55, batch)["loss"].item() for _ in range(3)]
     say(f"{label}: loss over 4 steps at one batch and draw: {losses}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the ELBO did not fall")
 
@@ -784,6 +1220,9 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16) -> tuple[dict, float, dic
         check(bool(torch.isfinite(m["loss"])), f"step {i} loss {m['loss']}")
     fwd, red = ((fl.LAUNCHES, fb.LAUNCHES) if anti
                 else (fl.INDEP_LAUNCHES, fb.INDEP_LAUNCHES))
+    check(all(k[3].endswith(sfx) if sfx else "/" not in k[3]
+              for c in (fwd, red) for k in c.by_shape),
+          f"{label}: a launch of another prior's instance: {fwd.by_shape} {red.by_shape}")
     launches = {fwd.name: dict(fwd.by_shape),
                 "mha_fwd": dict(at.LAUNCHES.by_shape),
                 "mha_bwd": dict(at.BWD_LAUNCHES.by_shape),
@@ -870,23 +1309,30 @@ def main() -> int:
         tag = TAG[dtype]
         if dtype == F32:
             rows += timed("regen (f32)", phase_regen, fl, moped_rho)
-        for anti, key, est in ests:
-            rows += timed(f"bayes_linear ({est}, {tag})", phase_bayes_linear, fl,
-                          moped_rho, anti, dtype)
+        for prior in PRIORS:
+            for anti, key, est in ests:
+                rows += timed(f"bayes_linear ({est}, {tag}, {prior})", phase_bayes_linear,
+                              fl, moped_rho, anti, dtype, prior)
         rows.append(timed(f"mha ({tag})", phase_mha, at, dtype))
-        for anti, key, est in ests:
-            paths[f"serve/{key}/{tag}"], serve_ms[(key, tag)] = timed(
-                f"serving ({est}, {tag})", phase_serving, bt, fl, at, anti, dtype)
-        for anti, key, est in ests:
-            for inst in ((tag, "bf16x-f32w") if dtype == BF16 else (tag,)):
-                rows += timed(f"reduce ({est}, {inst})", phase_reduce, fl, fb,
-                              moped_rho, anti, inst)
+        for prior in PRIORS:
+            for anti, key, est in ests:
+                paths[f"serve/{key}/{tag}{prior_suffix(prior)}"], serve_ms[key, tag, prior] = (
+                    timed(f"serving ({est}, {tag}, {prior})", phase_serving, bt, fl, at,
+                          anti, dtype, prior))
+        for prior in PRIORS:
+            for anti, key, est in ests:
+                for inst in ((tag, "bf16x-f32w") if dtype == BF16 else (tag,)):
+                    rows += timed(f"reduce ({est}, {inst}, {prior})", phase_reduce, fl, fb,
+                                  moped_rho, anti, inst, prior)
         rows.append(timed(f"mha_bwd ({tag})", phase_mha_bwd, at, dtype))
-        for anti, key, est in ests:
-            paths[f"train/{key}/{tag}"], step_ms[(key, tag)], regen = timed(
-                f"train ({est}, {tag})", phase_train, bt, fl, at, fb, est, dtype)
-            if regen:
-                paths[f"regen/{key}/{tag}"] = regen
+        for prior in PRIORS:
+            for anti, key, est in ests:
+                sfx = prior_suffix(prior)
+                paths[f"train/{key}/{tag}{sfx}"], step_ms[key, tag, prior], regen = timed(
+                    f"train ({est}, {tag}, {prior})", phase_train, bt, fl, at, fb, est,
+                    dtype, prior)
+                if regen:
+                    paths[f"regen/{key}/{tag}{sfx}"] = regen
         for samples in ((10, 3) if dtype == BF16 else (10,)):
             timed(f"workload (S={samples}, {tag})", phase_workload, fl, fb, samples,
                   dtype == BF16)
@@ -904,12 +1350,15 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    say(f"{smi}; request latency 8x128 S=10: antithetic {serve_ms['anti', 'bf16']:.3f} ms, "
-        f"independent {serve_ms['indep', 'bf16']:.3f} ms (bf16), antithetic "
-        f"{serve_ms['anti', 'f32']:.3f} ms, independent {serve_ms['indep', 'f32']:.3f} ms "
-        f"(f32); ELBO step S=10 B=8 L=128: antithetic {step_ms['anti', 'bf16']:.3f} ms, "
-        f"fused {step_ms['indep', 'bf16']:.3f} ms (bf16), antithetic "
-        f"{step_ms['anti', 'f32']:.3f} ms, fused {step_ms['indep', 'f32']:.3f} ms (f32); "
+    def medians(d):
+        return "; ".join(
+            f"{prior} " + ", ".join(f"{'antithetic' if k == 'anti' else 'independent'} "
+                                    f"{d[k, t, prior]:.3f} ms ({t})"
+                                    for t in ("bf16", "f32") for k in ("anti", "indep"))
+            for prior in PRIORS)
+
+    say(f"{smi}; request latency 8x128 S=10: {medians(serve_ms)}")
+    say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}; "
         f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

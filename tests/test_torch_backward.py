@@ -137,15 +137,24 @@ def test_backward_returns_only_what_is_asked():
 
 
 def test_other_priors_raise():
+    """The reduces take every prior: ``want_u`` adds U (four outputs), the
+    mixture takes U and V of its score. What raises is the mixture without
+    U, which its ``finalize`` reads."""
     x, mu, rho, g, _, g_p = _inputs(2, 4, 8, 8)
     t = torch.from_numpy
     w = t(_pair_w(mu, rho, np.zeros((1, 8, 8), np.float32)))
-    with pytest.raises(NotImplementedError, match="other priors"):
+    with pytest.raises(ValueError, match="want_u"):
         fb.reduce_abuv_anti(t(x), t(g), w, t(mu), t(g_p), mixture=(0.5, 1.0, 0.1))
-    with pytest.raises(NotImplementedError):
-        fb.reduce_abuv_anti(t(x), t(g), w, t(mu), t(g_p), want_u=True)
-    with pytest.raises(NotImplementedError, match="other priors"):
+    with pytest.raises(ValueError, match="want_u"):
         fb.reduce_abuv(t(x), t(g), w, t(mu), t(g_p), mixture=(0.5, 1.0, 0.1))
+    three = fb.reduce_abuv_anti(t(x), t(g), w, t(mu), t(g_p))
+    four = fb.reduce_abuv_anti(t(x), t(g), w, t(mu), t(g_p), want_u=True)
+    assert len(three) == 3 and len(four) == 4
+    assert all(torch.equal(a, b) for a, b in zip(three, four[:2] + four[3:]))
+    mix = fb.reduce_abuv(t(x), t(g), w, t(mu), t(g_p), mixture=(0.5, 1.0, 0.1),
+                         want_u=True)
+    assert len(mix) == 4
+    assert torch.equal(mix[0], fb.reduce_abuv(t(x), t(g), w, t(mu), t(g_p))[0])
 
 
 def test_kernel_wrapper_takes_no_cpu_tensor():

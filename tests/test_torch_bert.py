@@ -138,12 +138,24 @@ def test_to_bayesian_matches_jax_conversion(pair):
 
 
 def test_other_recipes_raise():
+    """Every conversion of the reference now runs: random init (the
+    default, which needs a generator, as the JAX package's needs ``rng``)
+    and MOPED with a trainable mu. What raises is a random init without a
+    generator, the estimators not ported, and an odd S for pairs."""
     model = bt.build_bert(size="tiny", device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
+        bt.to_bayesian(model)
+    with pytest.raises(ValueError, match="generator"):
         bt.to_bayesian(model, delta=None)
-    with pytest.raises(NotImplementedError):
-        bt.to_bayesian(model, delta=0.05, freeze=False)
-    bmodel = bt.to_bayesian(model)
+    ids = torch.ones((2, 8), dtype=torch.long)
+    for kw in ({"generator": torch.Generator().manual_seed(0)},
+               {"delta": 0.05, "freeze": False}):
+        other = bt.to_bayesian(
+            bt.build_bert(size="tiny", device="cpu", dtype=torch.float32), **kw)
+        assert not other.spec.frozen
+        out, aux = other.mc_apply_fused(0, 2, ids)
+        assert out.shape == (2, 2, 2) and torch.isfinite(aux["log_prior"]).all()
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
     ids = torch.ones((2, 8), dtype=torch.long)
     # W residuals serve the backward (save_weights=True); save_weights=False
     # under autograd regenerates W in the backward instead, to the same
@@ -171,26 +183,36 @@ def test_other_recipes_raise():
 
 
 def test_unported_recipes_name_their_slice(pair):
-    """What still raises names the slice that brings it, not one that has
-    landed."""
+    """What still raises names the slice that brings it, or what the caller
+    must pass, not a slice that has landed: the conversions of ROADMAP
+    queue 1 items 2 and 3 now run."""
     _, _, bp, port = pair
-    with pytest.raises(NotImplementedError, match="items 2 and 3") as e:
+    with pytest.raises(ValueError, match="generator") as e:
         bt.to_bayesian(port.model, delta=None)
-    assert "training slice" not in str(e.value)
+    assert "items 2 and 3" not in str(e.value)
+    with pytest.raises(NotImplementedError, match="estimators slice") as e:
+        training.pick_mc(port, "naive")
     flat = flatten_dict(bp.params, sep="/")
     prior_mu = {p: np.asarray(m) for p, m in bp.prior_mu.items()}
     path = "classifier/kernel"
     prior_mu[path] = prior_mu[path] + 1.0
-    with pytest.raises(NotImplementedError, match="items 2 and 3") as e:
-        bt.from_jax_params(flat, {p: np.asarray(r) for p, r in bp.rho.items()},
-                           prior_mu=prior_mu, device="cpu")
-    assert "training slice" not in str(e.value)
+    rho = {p: np.asarray(r) for p, r in bp.rho.items()}
+    # a frozen conversion centres its prior on mu: a prior_mu away from mu
+    # names the conversion that carries it
+    with pytest.raises(ValueError, match="frozen=False") as e:
+        bt.from_jax_params(flat, rho, prior_mu=prior_mu, device="cpu")
+    assert "items 2 and 3" not in str(e.value)
+    moved = bt.from_jax_params(flat, rho, prior_mu=prior_mu, frozen=False,
+                               device="cpu")
+    assert moved.spec.moped and not moved.spec.frozen
+    np.testing.assert_array_equal(moved.prior_mu[path].numpy(), prior_mu[path])
 
 
 @pytest.fixture(scope="module")
 def predictor():
     model = bt.build_bert(size="tiny", seed=1, device="cpu", dtype=torch.float32)
-    return bt.Predictor(bt.to_bayesian(model), n_samples=4, batch_sizes=(2, 4),
+    return bt.Predictor(bt.to_bayesian(model, delta=0.05, freeze=True), n_samples=4,
+                        batch_sizes=(2, 4),
                         seq_lens=(8, 16), antithetic=True)
 
 
@@ -315,7 +337,7 @@ def test_port_imports_and_serves_without_jax():
         import bayeformers_tpu_torch.convert, bayeformers_tpu_torch.elbo
         import bayeformers_tpu_torch.ops._build
         model = bt.build_bert(size="tiny", device="cpu", dtype=torch.bfloat16)
-        bmodel = bt.to_bayesian(model)
+        bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
         for anti, s in ((False, 3), (True, 2)):
             pred = bt.Predictor(bmodel, n_samples=s, batch_sizes=(2,),
                                 seq_lens=(8,), antithetic=anti)

@@ -110,18 +110,27 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_other_estimators_raise():
-    """The op takes the frozen-MOPED prior only: the other priors raise,
-    naming their slice. The regenerating backward (``save_weights=False``
-    under autograd) no longer raises: it runs ``BayesLinearRegen``."""
+    """The op takes each of the reference's three priors, exactly one at a
+    time: none, or two, raise, as in the reference; the mixture and a
+    separate ``prior_mu`` run (their log-priors differ from the one on mu).
+    The regenerating backward (``save_weights=False`` under autograd) runs
+    ``BayesLinearRegen``; the tensor-parallel unit offsets are not taken."""
     x, mu, rho, _ = _inputs(2, 4, 8, 8)
     t = torch.from_numpy
     seeds = torch.tensor([1, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="exactly one"):
         fl.bayes_linear(t(x), t(mu), t(rho), seeds)  # the reference's default
-    with pytest.raises(NotImplementedError, match="other priors"):
-        fl.bayes_linear(t(x), t(mu), t(rho), seeds, mixture=(0.5, 1.0, 0.0025))
-    with pytest.raises(NotImplementedError, match="other priors"):
-        fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu))
+    with pytest.raises(ValueError, match="exactly one"):
+        fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu), prior_on_mu=True)
+    with pytest.raises(TypeError):
+        fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_on_mu=True,
+                        unit_offsets=(0, 0))
+    on_mu = fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_on_mu=True)
+    mix = fl.bayes_linear(t(x), t(mu), t(rho), seeds, mixture=(0.5, 1.0, 0.0025))
+    moved = fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu) + 0.5)
+    for out in (mix, moved):
+        assert torch.equal(out[0], on_mu[0]) and torch.equal(out[1], on_mu[1])
+        assert not torch.allclose(out[2], on_mu[2])
     y, _, _ = fl.bayes_linear(t(x).requires_grad_(), t(mu), t(rho), seeds,
                               prior_on_mu=True, save_weights=False)
     assert isinstance(y.grad_fn, fl.BayesLinearRegen._backward_cls)

@@ -352,7 +352,8 @@ def test_training_imports_and_runs_without_jax():
         for m in pkgutil.walk_packages(bt.__path__, "bayeformers_tpu_torch."):
             __import__(m.name)
         from bayeformers_tpu_torch.utils.optim import masked_optimizer
-        bmodel = bt.to_bayesian(bt.build_bert(size="tiny", device="cpu"))
+        bmodel = bt.to_bayesian(bt.build_bert(size="tiny", device="cpu"),
+                                delta=0.05, freeze=True)
         tx = bt.training.adamw_with_decay_groups(1e-3, 0.0, bt.training.default_no_decay)
         step = bt.make_elbo_train_step(bmodel, masked_optimizer(tx, bmodel), 2, 10)
         ids = torch.arange(1, 13).reshape(2, 6)

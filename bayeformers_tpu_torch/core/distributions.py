@@ -67,3 +67,24 @@ def scale_mixture_log_prob(w: torch.Tensor, pi: float, sigma1: float,
     lp1 = -LOG_SQRT_2PI - math.log(sigma1) - 0.5 * (w / sigma1) ** 2
     lp2 = -LOG_SQRT_2PI - math.log(sigma2) - 0.5 * (w / sigma2) ** 2
     return torch.sum(torch.logaddexp(math.log(pi) + lp1, math.log1p(-pi) + lp2))
+
+
+def gaussian_kl(mu_q: torch.Tensor, sigma_q: torch.Tensor, mu_p, sigma_p) -> torch.Tensor:
+    """Closed-form ``KL(q || p)`` between diagonal Gaussians, summed: the
+    flipout and local-reparameterization tiers' KL under a Gaussian
+    (MOPED) prior, where no single sampled weight is scored."""
+    var_ratio = (sigma_q / sigma_p) ** 2
+    delta = (mu_q - mu_p) / sigma_p
+    return 0.5 * torch.sum(var_ratio + delta * delta - 1.0 - torch.log(var_ratio))
+
+
+def sample_gaussian(generator: torch.Generator, mu: torch.Tensor, rho: torch.Tensor,
+                    n_samples=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reparametrized sample ``w = mu + softplus(rho) * eps`` with
+    ``eps ~ N(0, 1)`` from ``generator`` (the JAX package's explicit key).
+    Returns ``(w, eps)`` so that the forward and the log-prob terms see the
+    same draw; ``n_samples`` draws a leading axis of that many samples at
+    once."""
+    shape = tuple(mu.shape) if n_samples is None else (n_samples,) + tuple(mu.shape)
+    eps = torch.randn(shape, generator=generator, dtype=mu.dtype, device=mu.device)
+    return mu + sigma_from_rho(rho) * eps, eps

@@ -7,6 +7,14 @@
 // because a full-K weight strip outgrew VMEM; here a block walks K in a
 // loop, so one kernel takes any K. Both entries are instances of one
 // template: H members per block, 2 for a pair, 1 for an independent sample.
+// A third entry, bft_sampled_dense, is the one-sample instance with no prior
+// (prior.cuh's NONE): y only, no log-probs and no W. It replaces
+// bayeformers_tpu/ops/sampled_linear.py::_fused_kernel (pallas_sampled_dense),
+// the split op's sampled matmul that flipout runs its perturbation through
+// (mu = 0). The TPU kernel draws eps per (BK, BN) VMEM tile (tile_eps); the
+// port's split ops draw from the one absolute-unit stream instead, so its W
+// is the one regen.cu rebuilds for the same seeds. Its bound is the
+// forward's: the products at the tensor rate.
 //
 // Independent sample s, eps drawn from seeds[s]:
 //   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (f32 acc)
@@ -251,7 +259,8 @@ bayes_linear_kernel(const T* __restrict__ x,
   const int tile_n = blockIdx.x, tile_m = blockIdx.y, t = blockIdx.z;
   const Block<T> b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, H * t};
   const uint32_t seed = static_cast<uint32_t>(seeds[t]);
-  const bool do_lp = (tile_m == 0);
+  // compile-time false in the NONE instance, which emits no log-probs
+  const bool do_lp = PRIOR != bft::NONE && tile_m == 0;
   const uint32_t col_strip = static_cast<uint32_t>(b.n0 / bft::UNIT_N);
   const int c_unit0 = b.n0 % bft::UNIT_N;
   const int rr = tid >> 5, c = 2 * (tid & 31);  // this thread's W elements
@@ -482,7 +491,7 @@ int launch(const void* x, const void* mu, const void* rho, const void* seeds,
       static_cast<T*>(w_out), static_cast<float*>(partials),
       static_cast<float*>(ls_part), M, K, N, x_vec, inv_sigma_p, mix);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || PRIOR == bft::NONE) return static_cast<int>(err);
   logprob_finalize<H, LogP<H, PRIOR>::N_LP><<<1, ((n_draws + 31) / 32) * 32, 0, st>>>(
       static_cast<const float*>(partials), static_cast<const float*>(ls_part),
       n_tiles, n_draws, c_q, c_p, static_cast<float*>(logq),
@@ -564,4 +573,21 @@ extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
                            x_vec, inv_sigma_p, c_q, c_p,
                            bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
                            stream);
+}
+
+// The split op's sampled matmul: x (S, M, K) bf16 (x_f32 = 0) or f32, mu /
+// rho (K, N) f32, seeds (S,) i32 -> y[s] = x[s] @ (mu + softplus(rho) eps_s)
+// (S, M, N) in x's type, eps_s the unit stream of seeds[s]. Returns
+// cudaGetLastError().
+extern "C" int bft_sampled_dense(const void* x, const void* mu, const void* rho,
+                                 const void* seeds, void* y, int S, int M, int K,
+                                 int N, int x_vec, int x_f32, void* stream) {
+  const bft::Mixture none{0.0f, 0.0f, 0.0f, 0.0f};
+  if (x_f32)
+    return launch<1, float, bft::NONE>(x, mu, rho, seeds, nullptr, y, nullptr,
+                                       nullptr, nullptr, nullptr, nullptr, S, M, K,
+                                       N, x_vec, 0.0f, 0.0f, 0.0f, none, stream);
+  return launch<1, __nv_bfloat16, bft::NONE>(
+      x, mu, rho, seeds, nullptr, y, nullptr, nullptr, nullptr, nullptr, nullptr, S,
+      M, K, N, x_vec, 0.0f, 0.0f, 0.0f, none, stream);
 }

@@ -5,7 +5,10 @@
 // ::_kernel_anti (:244-255):
 //   ON_MU     the MOPED Gaussian prior centred on mu itself (frozen mu);
 //   GAUSSIAN  the MOPED Gaussian prior centred on a separate prior_mu;
-//   MIXTURE   the zero-mean scale mixture pi N(0, s1^2) + (1 - pi) N(0, s2^2).
+//   MIXTURE   the zero-mean scale mixture pi N(0, s1^2) + (1 - pi) N(0, s2^2);
+//   NONE      no prior and no log-probs: the forward's sampled matmul alone
+//             (bayes_linear.cu's bft_sampled_dense, the split op of
+//             bayeformers_tpu/ops/sampled_linear.py::_fused_kernel).
 // Each kernel takes the prior as a template parameter, so an instance
 // carries only its own prior's work.
 //
@@ -19,7 +22,7 @@
 
 namespace bft {
 
-enum Prior : int { ON_MU = 0, GAUSSIAN = 1, MIXTURE = 2 };
+enum Prior : int { ON_MU = 0, GAUSSIAN = 1, MIXTURE = 2, NONE = 3 };
 
 // c1 = log(pi) - log sqrt(2 pi) - log s1, c2 = log(1 - pi) - log sqrt(2 pi)
 // - log s2, and the inverse scales (ops/logprob.py::mixture_constants).

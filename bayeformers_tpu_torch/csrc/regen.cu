@@ -2,7 +2,13 @@
 //
 // Replaces bayeformers_tpu/ops/fused_linear.py::_fullk_regen_kernel
 // (_pallas_fullk_regen), which the reference's non-saved VJPs (_bwd,
-// _bwd_anti via _regen / _regen_anti) and sampled_weights call. For draw s
+// _bwd_anti via _regen / _regen_anti) and sampled_weights call, and
+// bayeformers_tpu/ops/sampled_linear.py::_regen_kernel
+// (pallas_regenerate_weights), which the split ops' VJPs (sampled_dense's,
+// sampled_logprobs') call: on the TPU the two differ by their eps streams
+// (unit_eps against the VMEM-tiled tile_eps); the port's split ops draw from
+// the one unit stream, so one kernel serves both, S independent draws of any
+// mu (flipout's perturbation passes mu = 0). For draw s
 // with seed seeds[s]:
 //   W[s, k, n] = mu[k, n] + softplus(rho[k, n]) * eps_s[k, n]      (f32)
 // on the absolute-unit stream of eps.cuh, with the product and the sum each

@@ -1,0 +1,238 @@
+"""Flipout estimator (Wen et al. 2018), counterpart of
+``bayeformers_tpu/nn/flipout.py``.
+
+Bayes-by-Backprop shares one weight draw across the whole batch; flipout
+decorrelates the perturbation per example with Rademacher sign flips
+around a shared Gaussian draw:
+
+    y_b = x_b @ mu + ((x_b * r_b) @ (sigma * eps)) * s_b,   r_b, s_b = +-1
+
+The perturbation matmul runs through the split op
+``ops/sampled_linear.py::sampled_dense`` with ``mu = 0`` (Pallas #12 on the
+card; its VJP rebuilds the draw with #13). Each converted bias is drawn
+with its own signs.
+
+The KL term is analytic (:func:`analytic_leaf_kl`): the closed form
+``gaussian_kl`` under a MOPED prior (centred on mu itself when mu is
+frozen, on ``prior_mu`` when it trains), and under the scale mixture the
+``kl_draws``-draw MC estimate ``mean(log_q - log_p)``, which for a kernel
+leaf is ``ops/logprob.py::sampled_logprobs`` (Pallas #11 on the card, its
+VJP through #13) and for a bias its plain version, as in
+``nn/fused.py::bias_logprobs``.
+
+Where the JAX package intercepts Flax module calls, the port's model hands
+each converted ``Dense`` and self-attention block to :class:`FlipoutMC`
+(``models/bert.py``'s ``mc=``), as it does to ``nn/fused.py::FusedMC``.
+
+Draws, per converted kernel leaf i of the request's integer ``seed``: the
+perturbation's S seeds ``derive_seed(seed, i, 0, s)`` and the mixture KL's
+``derive_seed(seed, i, 1, t)`` on the unit stream; the signs r, s and the
+bias's signs from ``torch.Generator``s seeded ``derive_seed(seed, i, 2)``,
+``(seed, i, 3)`` and ``(seed, i, 5)``; the bias's eps and its KL draws from
+the unit stream of ``derive_seed(seed, i, 4, s)`` and ``(seed, i, 6, t)``.
+The JAX package's draws differ (another stream); tests inject them through
+``eps_hook(path, what, shape)``, ``what`` one of ``"r"``, ``"s"``,
+``"eps"`` (the perturbation's (S, K, N)), ``"kl"`` (the KL's
+(kl_draws, K, N)), ``"bias_eps"``, ``"bias_s"`` and ``"bias_kl"``.
+
+The conv branch (``handle_conv``) and GPT-2's transposed Conv1D come with
+the model families (ROADMAP queue 1, item 10).
+"""
+from __future__ import annotations
+
+import torch
+
+from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
+from bayeformers_tpu_torch.nn.fused import (
+    SEP, MCBase, bias_logprobs, derive_seed, run_mc, unit_bias_eps)
+from bayeformers_tpu_torch.ops import logprob as ops_logprob
+from bayeformers_tpu_torch.ops import sampled_linear as ops_linear
+
+KL_DRAWS = 4
+
+
+def analytic_leaf_kl(bmodel, path: str, mu, rho, seeds=None, *, plain: bool = False,
+                     eps=None) -> torch.Tensor:
+    """Per-leaf ``KL(q || prior)`` for the estimators with no sampled weight
+    to score (flipout, local reparameterization): the closed form under a
+    MOPED prior (centred on mu itself when mu is frozen, else on the leaf's
+    ``prior_mu``); under the scale mixture, the MC estimate ``mean(log_q -
+    log_p)``: a kernel leaf over the draws of ``seeds`` (kl_draws,), or of
+    an injected ``eps`` (kl_draws, K, N), through ``sampled_logprobs`` (its
+    kernel on the card unless ``plain``); a bias leaf (1-D) over its draws
+    ``eps`` (kl_draws, N), in plain torch."""
+    spec = bmodel.spec
+    sigma = dist.sigma_from_rho(rho)
+    if spec.moped:
+        centre = mu if spec.frozen else bmodel.prior_mu[path]
+        return dist.gaussian_kl(mu, sigma, centre, MOPED_PRIOR_SIGMA)
+    mixture = (spec.prior.pi, spec.prior.sigma1, spec.prior.sigma2)
+    if mu.dim() == 1:
+        b = mu[None] + sigma[None] * eps
+        lq, lp = bias_logprobs(b, sigma, eps, ("mixture",) + mixture)
+    else:
+        lq, lp = ops_logprob.sampled_logprobs(mu, rho, seeds, mixture=mixture,
+                                              plain=plain, eps=eps)
+    return torch.mean(lq - lp)
+
+
+def rademacher(seed: int, shape, device, dtype) -> torch.Tensor:
+    """+-1 of ``shape`` from a ``torch.Generator`` seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 2, shape, generator=gen, device=device, dtype=torch.int8)
+    return (bits * 2 - 1).to(dtype)
+
+
+class AnalyticKLMC(MCBase):
+    """What the analytic-KL tiers (flipout, local reparameterization) share:
+    the request's seed, each converted leaf's KL collected once per forward
+    (:func:`analytic_leaf_kl`) and the aux. Under the scale mixture each
+    kernel leaf i's KL draws come from the seeds ``derive_seed(seed, i, 1,
+    t)`` and its bias's from ``derive_seed(seed, i, 6, t)``, uploaded once
+    per request; under MOPED the KL is closed-form and nothing is drawn."""
+
+    def __init__(self, bmodel, seed: int, n_samples: int, *, kl_draws: int = KL_DRAWS,
+                 impl: str = "kernel", eps_hook=None):
+        super().__init__(bmodel, n_samples, impl, eps_hook)
+        self.seed = seed
+        self.kl_draws = kl_draws
+        self.needs_draws = not bmodel.spec.moped
+        self.kl_terms: list[torch.Tensor] = []
+        self.kl_seeds, self.bias_kl_eps = None, {}
+        if self.needs_draws:
+            self.kl_seeds = self.seed_table(((1, kl_draws), (6, kl_draws)))
+            if eps_hook is None:
+                self.bias_kl_eps = self.bias_draws(self.kl_seeds[:, kl_draws:])
+
+    def seed_table(self, streams) -> torch.Tensor:
+        """(n_leaves, sum of counts) int32 on the device: for each
+        ``(stream, count)`` the leaf i's seeds ``derive_seed(seed, i, stream,
+        t)``, t < count, side by side."""
+        return torch.tensor(
+            [[derive_seed(self.seed, i, stream, t) for stream, n in streams
+              for t in range(n)] for i in range(len(self.paths))],
+            dtype=torch.int32).to(self.bmodel.device)
+
+    def bias_draws(self, columns: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Every converted bias's eps in one batched draw from its kernel
+        leaf's row of the seed ``columns`` (n_leaves, n)."""
+        bpaths = self.bias_paths()
+        if not bpaths:
+            return {}
+        rows = columns[[self.path_index[p.rsplit(SEP, 1)[0] + SEP + "kernel"]
+                        for p in bpaths]]
+        widths = [self.bmodel.rho[p].shape[0] for p in bpaths]
+        return dict(zip(bpaths, unit_bias_eps(rows.contiguous(), widths)))
+
+    def _draw(self, path, what, shape, make):
+        if self.eps_hook is not None:
+            return self.eps_hook(path, what, shape).to(self.bmodel.device)
+        return make()
+
+    def kernel_kl(self, kpath, i, mu, rho) -> None:
+        """Collect a kernel leaf's KL once per forward (its KL draws: the
+        leaf's seeds, or the hook's ``"kl"``)."""
+        if kpath in self.seen:
+            return
+        self.seen.add(kpath)
+        seeds = eps = None
+        if self.needs_draws:
+            kd = self.kl_draws
+            if self.eps_hook is not None:
+                eps = self._draw(kpath, "kl", (kd,) + tuple(mu.shape), None)
+            else:
+                seeds = self.kl_seeds[i][:kd]
+        self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, mu, rho, seeds,
+                                              plain=self.plain, eps=eps))
+
+    def bias_kl(self, bpath, bmu, brho) -> None:
+        """Collect a bias leaf's KL once per forward, in plain torch."""
+        if bpath in self.seen:
+            return
+        self.seen.add(bpath)
+        eps = None
+        if self.needs_draws:
+            eps = self._draw(bpath, "bias_kl", (self.kl_draws, bmu.shape[0]),
+                             lambda: self.bias_kl_eps[bpath])
+        self.kl_terms.append(analytic_leaf_kl(self.bmodel, bpath, bmu, brho, eps=eps))
+
+    def aux(self) -> dict[str, torch.Tensor]:
+        self.check_seen(self.kl_terms)
+        return kl_aux(torch.stack(self.kl_terms).sum(), self.S)
+
+
+class FlipoutMC(AnalyticKLMC):
+    """The state of one flipout S-sample forward, handed to every module's
+    ``forward(..., mc)``."""
+
+    tier = "flipout"
+
+    def __init__(self, bmodel, seed: int, n_samples: int, **kwargs):
+        super().__init__(bmodel, seed, n_samples, **kwargs)
+        S = n_samples
+        # every leaf's perturbation seeds and its bias's, uploaded once per request
+        self.seeds = self.seed_table(((0, S), (4, S)))
+        self.bias_eps = {} if self.eps_hook is not None else self.bias_draws(self.seeds[:, S:])
+
+    def _signs(self, path, what, i, stream, shape, dtype):
+        return self._draw(path, what, shape, lambda: rademacher(
+            derive_seed(self.seed, i, stream), shape, self.bmodel.device, dtype)).to(dtype)
+
+    def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
+        """A converted ``Dense`` over an S-major (S*B, ..., K) input."""
+        kpath = mod.path + SEP + "kernel"
+        if kpath not in self.bmodel.rho:
+            return mod(x)
+        i = self.path_index[kpath]
+        S = self.S
+        mu, rho = mod.kernel, self.bmodel.rho[kpath]
+        lead, K = tuple(x.shape[:-1]), x.shape[-1]
+        N = mu.shape[1]
+        xs = x.reshape(S, -1, K)
+        M = xs.shape[1]
+        r = self._signs(kpath, "r", i, 2, (S, M, K), xs.dtype)
+        s_out = self._signs(kpath, "s", i, 3, (S, M, N), xs.dtype)
+        eps = None if self.eps_hook is None else self._draw(kpath, "eps", (S, K, N), None)
+        pert = ops_linear.sampled_dense((xs * r).contiguous(), torch.zeros_like(mu), rho,
+                                        self.seeds[i][:S], plain=self.plain, eps=eps)
+        y = torch.matmul(xs, mu.to(xs.dtype)) + pert * s_out
+        self.kernel_kl(kpath, i, mu, rho)
+        bpath = mod.path + SEP + "bias"
+        if bpath in self.bmodel.rho:
+            y = self._add_bias(y, mod, bpath, i, M)
+        else:
+            y = y + mod.bias.to(y.dtype)
+        return y.reshape(lead + (N,))
+
+    def _add_bias(self, y, mod, bpath, i, M):
+        bmu, brho = mod.bias, self.bmodel.rho[bpath]
+        S, N = self.S, bmu.shape[0]
+        bsig = dist.sigma_from_rho(brho)
+        beps = self._draw(bpath, "bias_eps", (S, N), lambda: self.bias_eps[bpath])
+        bs = self._signs(bpath, "bias_s", i, 5, (S, M, N), torch.float32)
+        y = (y.float() + bmu[None, None, :] + (bsig[None] * beps)[:, None, :] * bs
+             ).to(y.dtype)
+        self.bias_kl(bpath, bmu, brho)
+        return y
+
+
+def kl_aux(kl: torch.Tensor, n_samples: int) -> dict[str, torch.Tensor]:
+    """The aux of the analytic-KL tiers: ``kl``, and ``(-kl, 0)`` shaped
+    (S,) as ``log_prior`` / ``log_variational_posterior``, so that the ELBO
+    plumbing (``elbo.elbo_loss``) works unchanged."""
+    return {"kl": kl, "log_prior": (-kl).expand(n_samples),
+            "log_variational_posterior": torch.zeros(n_samples, dtype=torch.float32,
+                                                     device=kl.device)}
+
+
+def flipout_mc_apply(bmodel, seed: int, n_samples: int, input_ids, attention_mask=None,
+                     token_type_ids=None, *, kl_draws: int = KL_DRAWS,
+                     impl: str = "kernel", eps_hook=None):
+    """S flipout forwards as one S-major super-batched pass. Returns
+    ``(outputs (S, B, ...), aux)`` with aux ``kl`` (the analytic KL summed
+    over the converted leaves) and ``log_prior`` / ``log_variational_posterior``
+    ``(-kl, 0)`` of shape (S,)."""
+    mc = FlipoutMC(bmodel, seed, n_samples, kl_draws=kl_draws, impl=impl,
+                   eps_hook=eps_hook)
+    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)

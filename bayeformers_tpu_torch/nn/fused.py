@@ -106,27 +106,83 @@ def bias_logprobs(b, bsig, beps, prior, centre=None):
     return lq, prior_log_prob(b, centre, prior, dim=-1)
 
 
-class FusedMC:
-    """The state of one fused S-sample forward, handed to every module's
-    ``forward(..., mc)``."""
+def unit_bias_eps(seed_rows: torch.Tensor, widths) -> list[torch.Tensor]:
+    """Biases' eps in one batched draw: ``seed_rows`` (n_leaves, n) int32,
+    ``widths`` the leaves' N; returns each leaf's (n, N) eps, element j of
+    draw t being the unit stream's element (0, j) for the leaf's seed t, a
+    pure function of (seed, j // 128, j % 128) like the JAX package's
+    ``_unit_bias_eps``."""
+    eps = ops_common.unit_eps(seed_rows.reshape(-1), (1, max(widths)))
+    eps = eps.reshape(seed_rows.shape[0], seed_rows.shape[1], -1)
+    return [eps[i, :, :w] for i, w in enumerate(widths)]
 
-    def __init__(self, bmodel, seed: int, n_samples: int, *,
-                 antithetic: bool, save_weights: bool, impl: str, eps_hook):
-        if antithetic and n_samples % 2:
-            raise ValueError(f"antithetic needs an even n_samples; got {n_samples}")
+
+class MCBase:
+    """What every S-sample forward's state shares (the fused, flipout,
+    local-reparameterization and naive tiers): the converted leaves and
+    their indices, the leaves dispatched so far, the prior, and the
+    self-attention block, whose q/k/v go through the tier's :meth:`dense`
+    and attention through the flat-layout mha op (its kernels on the card).
+    ``impl="plain"`` runs every op's plain version on the tensors' device
+    (the reference for the kernels on the card); an ``eps_hook`` supplies
+    the draws (tests only) and implies it."""
+
+    tier = ""
+
+    def __init__(self, bmodel, n_samples: int, impl: str, eps_hook):
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
         self.bmodel = bmodel
         self.S = n_samples
-        self.antithetic = antithetic
-        self.save_weights = save_weights
-        self.n_draws = n_samples // 2 if antithetic else n_samples
         self.plain = impl == "plain" or eps_hook is not None
         self.eps_hook = eps_hook
         self.paths = bmodel.spec.paths
         spec = bmodel.spec
         self.mixture = (spec.prior.pi, spec.prior.sigma1, spec.prior.sigma2)
         self.path_index = {p: i for i, p in enumerate(self.paths)}
+        self.seen: set[str] = set()
+
+    def bias_paths(self) -> list[str]:
+        return [p for p in self.paths if p.endswith(SEP + "bias")]
+
+    def self_attention(self, mod, hidden, bias):
+        """The whole self-attention block: q/k/v through :meth:`dense` and
+        attention through the flat-layout mha op."""
+        q = self.dense(mod.query, hidden)
+        k = self.dense(mod.key, hidden)
+        v = self.dense(mod.value, hidden)
+        return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+
+    def check_seen(self, collected) -> None:
+        if not collected:
+            raise ValueError(f"{self.tier}_mc_apply dispatched no converted layers")
+        check_converted_paths_seen(self.paths, self.seen, self.tier)
+
+
+def run_mc(mc: MCBase, n_samples: int, input_ids, attention_mask=None,
+           token_type_ids=None):
+    """Run the converted model once over the S-major tiled inputs with the
+    tier state ``mc``; returns ``(outputs (S, B, ...), mc.aux())``."""
+    tiled = [None if a is None else tile_samples(a, n_samples)
+             for a in (input_ids, attention_mask, token_type_ids)]
+    out = mc.bmodel.model(*tiled, mc=mc)
+    return untile_samples(out, n_samples), mc.aux()
+
+
+class FusedMC(MCBase):
+    """The state of one fused S-sample forward, handed to every module's
+    ``forward(..., mc)``."""
+
+    tier = "fused"
+
+    def __init__(self, bmodel, seed: int, n_samples: int, *,
+                 antithetic: bool, save_weights: bool, impl: str, eps_hook):
+        if antithetic and n_samples % 2:
+            raise ValueError(f"antithetic needs an even n_samples; got {n_samples}")
+        super().__init__(bmodel, n_samples, impl, eps_hook)
+        self.antithetic = antithetic
+        self.save_weights = save_weights
+        self.n_draws = n_samples // 2 if antithetic else n_samples
         dev = bmodel.device
         # every leaf's n_draws seeds, uploaded once per request
         self.seeds = torch.tensor(
@@ -136,21 +192,16 @@ class FusedMC:
         ).to(dev)
         self.bias_eps = {} if eps_hook is not None else self._all_bias_eps()
         self.collected: list[tuple[torch.Tensor, torch.Tensor]] = []
-        self.seen: set[str] = set()
 
     def _all_bias_eps(self) -> dict[str, torch.Tensor]:
-        """Every converted bias's (n_draws, N) eps in one batched draw: bias
-        element j of draw t is the unit stream's element (0, j) for the
-        leaf's seed t, a pure function of (seed, j // 128, j % 128) like
-        the JAX package's ``_unit_bias_eps``."""
-        bpaths = [p for p in self.paths if p.endswith(SEP + "bias")]
+        """Every converted bias's (n_draws, N) eps in one batched draw
+        (:func:`unit_bias_eps` on the leaf's seeds)."""
+        bpaths = self.bias_paths()
         if not bpaths:
             return {}
-        rows = self.seeds[[self.path_index[p] for p in bpaths]]  # (nb, S/2)
+        rows = self.seeds[[self.path_index[p] for p in bpaths]]  # (nb, n_draws)
         widths = [self.bmodel.rho[p].shape[0] for p in bpaths]
-        eps = ops_common.unit_eps(rows.reshape(-1), (1, max(widths)))
-        eps = eps.reshape(len(bpaths), self.n_draws, -1)
-        return {p: eps[i, :, :w] for i, (p, w) in enumerate(zip(bpaths, widths))}
+        return dict(zip(bpaths, unit_bias_eps(rows, widths)))
 
     @staticmethod
     def interleave(a_half: torch.Tensor) -> torch.Tensor:
@@ -221,18 +272,8 @@ class FusedMC:
             self.collected.append(bias_logprobs(b, bsig, beps, prior, centre))
         return y
 
-    def self_attention(self, mod, hidden, bias):
-        """The whole self-attention block: q/k/v through :meth:`dense` and
-        attention through the flat-layout mha op."""
-        q = self.dense(mod.query, hidden)
-        k = self.dense(mod.key, hidden)
-        v = self.dense(mod.value, hidden)
-        return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
-
     def aux(self) -> dict[str, torch.Tensor]:
-        if not self.collected:
-            raise ValueError("fused_mc_apply dispatched no converted layers")
-        check_converted_paths_seen(self.paths, self.seen, "fused")
+        self.check_seen(self.collected)
         return {
             "log_prior": torch.stack([lp for _, lp in self.collected]).sum(0),
             "log_variational_posterior": torch.stack(
@@ -252,7 +293,4 @@ def fused_mc_apply(bmodel, seed: int, n_samples: int, input_ids,
     W from its seeds (``ops/fused_linear.py::BayesLinearRegen``)."""
     mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic,
                  save_weights=save_weights, impl=impl, eps_hook=eps_hook)
-    tiled = [None if a is None else tile_samples(a, n_samples)
-             for a in (input_ids, attention_mask, token_type_ids)]
-    out = bmodel.model(*tiled, mc=mc)
-    return untile_samples(out, n_samples), mc.aux()
+    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)

@@ -1,0 +1,83 @@
+"""The naive tier, counterpart of ``BayesianModel.mc_apply`` in
+``bayeformers_tpu/nn/surgery.py``: S Monte-Carlo forwards, each on its own
+draw of every converted leaf, run as one S-major super-batch with
+per-sample (S, K, N) weights, which computes what the reference's vmap of
+``apply`` over S keys computes. Leaf i draws its S samples with
+``sample_gaussian`` from a ``torch.Generator`` seeded ``derive_seed(seed,
+i)`` and scores them in plain torch (``BayesianModel.prior_log_prob``); the
+products are ``torch.bmm``, as they are XLA in the JAX package, so no
+Bayesian linear kernel runs, and attention runs its kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.nn.fused import SEP, MCBase, derive_seed, run_mc
+
+
+class NaiveMC(MCBase):
+    """The state of one naive-tier S-sample forward (:meth:`BayesianModel.
+    mc_apply`), handed to every module's ``forward(..., mc)``: each converted
+    ``Dense`` draws its (S, K, N) weights and (S, N) bias and runs the
+    per-sample products."""
+
+    tier = "naive"
+
+    def __init__(self, bmodel, seed: int, n_samples: int, *, impl: str = "kernel",
+                 eps_hook=None):
+        super().__init__(bmodel, n_samples, impl, eps_hook)
+        self.seed = seed
+        self.collected: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def _sample(self, path: str, mu, rho):
+        """Leaf ``path``'s (S, *shape) weights, scored: ``(w, log_q, log_p)``
+        with log-probs of shape (S,)."""
+        dims = tuple(range(1, mu.dim() + 1))
+        if self.eps_hook is not None:
+            eps = self.eps_hook(path, tuple(mu.shape)).to(mu.device)
+            w = mu + dist.sigma_from_rho(rho) * eps
+        else:
+            gen = torch.Generator(device=mu.device).manual_seed(
+                derive_seed(self.seed, self.path_index[path]))
+            w, _ = dist.sample_gaussian(gen, mu, rho, n_samples=self.S)
+        lq = dist.gaussian_log_prob(w, mu, dist.sigma_from_rho(rho), dim=dims)
+        return w, lq, self.bmodel.prior_log_prob(path, w, dim=dims)
+
+    def _leaf(self, path, mu, rho):
+        w, lq, lp = self._sample(path, mu, rho)
+        if path not in self.seen:
+            self.seen.add(path)
+            self.collected.append((lq, lp))
+        return w
+
+    def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
+        """A converted ``Dense`` over an S-major (S*B, ..., K) input, with the
+        arithmetic of ``Dense.forward`` on each sample's weights."""
+        kpath = mod.path + SEP + "kernel"
+        if kpath not in self.bmodel.rho:
+            return mod(x)
+        lead, K = tuple(x.shape[:-1]), x.shape[-1]
+        xs = x.reshape(self.S, -1, K)
+        w = self._leaf(kpath, mod.kernel, self.bmodel.rho[kpath])
+        y = torch.bmm(xs.float(), w.to(x.dtype).float()).to(x.dtype)
+        bpath = mod.path + SEP + "bias"
+        b = (self._leaf(bpath, mod.bias, self.bmodel.rho[bpath])[:, None, :]
+             if bpath in self.bmodel.rho else mod.bias)
+        y = y + b.to(x.dtype)
+        return y.reshape(lead + (y.shape[-1],))
+
+    def aux(self) -> dict[str, torch.Tensor]:
+        self.check_seen(self.collected)
+        return {"log_prior": torch.stack([lp for _, lp in self.collected]).sum(0),
+                "log_variational_posterior": torch.stack(
+                    [lq for lq, _ in self.collected]).sum(0)}
+
+
+def naive_mc_apply(bmodel, seed: int, n_samples: int, input_ids, attention_mask=None,
+                   token_type_ids=None, *, impl: str = "kernel", eps_hook=None):
+    """S naive-tier forwards as one S-major super-batched pass. Returns
+    ``(outputs (S, B, ...), aux)`` with aux's ``log_prior`` /
+    ``log_variational_posterior`` of shape (S,)."""
+    mc = NaiveMC(bmodel, seed, n_samples, impl=impl, eps_hook=eps_hook)
+    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)

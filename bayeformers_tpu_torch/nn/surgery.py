@@ -28,9 +28,11 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.core import init as init_lib
 from bayeformers_tpu_torch.core import prior as prior_lib
 from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
+from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
 
 SEP = "/"
 
@@ -116,6 +118,82 @@ class BayesianModel:
             save_weights=save_weights, antithetic=antithetic, impl=impl,
             eps_hook=eps_hook,
         )
+
+    def sample(self, generator: torch.Generator):
+        """Draw one concrete set of converted leaves with ``generator`` (the
+        JAX package's key), each ``sample_gaussian(generator, mu, rho)`` in
+        path order. Returns ``(params {path: w}, log_prior, log_q)``, the
+        log-probs summed over the leaves: the posterior's Gaussian
+        log-density and the conversion's prior (the MOPED Gaussian on
+        ``prior_mu``, or the scale mixture) at the drawn weights."""
+        params = {}
+        log_p = log_q = torch.zeros((), dtype=torch.float32, device=self.device)
+        for path in self.spec.paths:
+            mu, rho = leaf(self.model, path), self.rho[path]
+            w, _ = dist.sample_gaussian(generator, mu, rho)
+            log_q = log_q + dist.gaussian_log_prob(w, mu, dist.sigma_from_rho(rho))
+            log_p = log_p + self.prior_log_prob(path, w)
+            params[path] = w
+        return params, log_p, log_q
+
+    def prior_log_prob(self, path: str, w: torch.Tensor, dim=None) -> torch.Tensor:
+        """The conversion's log-prior of a leaf's sampled ``w``, summed over
+        every element or over ``dim``: the MOPED Gaussian on the leaf's
+        ``prior_mu`` (a frozen mu's own values), or the scale mixture."""
+        if self.spec.moped:
+            return prior_lib.moped_prior_log_prob(w, self.prior_mu[path], dim=dim)
+        p = self.spec.prior
+        return torch.sum(mixture_log_pdf(w, p.pi, p.sigma1, p.sigma2), dim=dim)
+
+    def apply(self, generator: torch.Generator, input_ids, attention_mask=None,
+              token_type_ids=None):
+        """One stochastic forward: the model run on the leaves of
+        :meth:`sample`. Returns ``(output, aux)`` with aux's ``log_prior``
+        and ``log_variational_posterior`` scalars."""
+        params, log_p, log_q = self.sample(generator)
+        out = torch.func.functional_call(
+            self.model, {p.replace(SEP, "."): w for p, w in params.items()},
+            (input_ids, attention_mask, token_type_ids))
+        return out, {"log_prior": log_p, "log_variational_posterior": log_q}
+
+    def mc_apply(self, seed: int, n_samples: int, input_ids, attention_mask=None,
+                 token_type_ids=None, *, impl: str = "kernel", eps_hook=None):
+        """The naive tier: S Monte-Carlo forwards, each on its own draw of
+        every converted leaf, as one S-major super-batch with per-sample
+        (S, K, N) weights, which computes what the reference's vmap of
+        :meth:`apply` over S keys computes. Leaf i draws its S samples with
+        ``sample_gaussian`` from a ``torch.Generator`` seeded
+        ``derive_seed(seed, i)`` and scores them in plain torch; the products
+        are ``torch.bmm``, as they are XLA in the JAX package, and attention
+        runs its kernels. Returns ``(logits (S, B, ...), aux)`` with aux's
+        ``log_prior`` / ``log_variational_posterior`` of shape (S,).
+        ``eps_hook(path, shape)`` supplies each leaf's (S, *shape) eps (tests
+        only; implies ``impl="plain"``)."""
+        from bayeformers_tpu_torch.nn import naive as naive_lib
+
+        return naive_lib.naive_mc_apply(self, seed, n_samples, input_ids, attention_mask,
+                                        token_type_ids, impl=impl, eps_hook=eps_hook)
+
+    def mc_apply_flipout(self, seed: int, n_samples: int, input_ids, attention_mask=None,
+                         token_type_ids=None, **kwargs):
+        """The flipout estimator (``nn/flipout.py``): per-example
+        decorrelated perturbations around shared weight draws and the
+        analytic KL. Same return contract as :meth:`mc_apply`, with the KL
+        in aux's ``kl``."""
+        from bayeformers_tpu_torch.nn import flipout as flipout_lib
+
+        return flipout_lib.flipout_mc_apply(self, seed, n_samples, input_ids,
+                                            attention_mask, token_type_ids, **kwargs)
+
+    def mc_apply_lrt(self, seed: int, n_samples: int, input_ids, attention_mask=None,
+                     token_type_ids=None, **kwargs):
+        """The local reparameterization estimator (``nn/lrt.py``):
+        activations drawn from their exact Gaussian marginals and the
+        analytic KL. Same return contract as :meth:`mc_apply_flipout`."""
+        from bayeformers_tpu_torch.nn import lrt as lrt_lib
+
+        return lrt_lib.lrt_mc_apply(self, seed, n_samples, input_ids, attention_mask,
+                                    token_type_ids, **kwargs)
 
     # -- trainability -------------------------------------------------------
     def trainable_mask(self) -> dict[str, dict[str, bool]]:

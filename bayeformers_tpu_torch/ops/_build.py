@@ -46,7 +46,9 @@ SIGNATURES = {
     "bft_mha_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "bft_reduce_abuv": [_P] * 9 + [_I] * 9 + [_F] * 4 + [_P],
     "bft_reduce_abuv_anti": [_P] * 9 + [_I] * 9 + [_F] * 4 + [_P],
+    "bft_logprob": [_P] * 8 + [_I] * 4 + [_F] * 7 + [_P],
     "bft_regen": [_P] * 4 + [_I] * 3 + [_P],
+    "bft_sampled_dense": [_P] * 5 + [_I] * 6 + [_P],
     "bft_unit_eps": [_P] + [_I] * 5 + [_P] * 3,
 }
 

@@ -74,6 +74,7 @@ from bayeformers_tpu_torch.core.distributions import LOG_SQRT_2PI, sigma_from_rh
 from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
 from bayeformers_tpu_torch.ops import _build, common
 from bayeformers_tpu_torch.ops import fused_backward as bwd
+from bayeformers_tpu_torch.ops import sampled_linear
 from bayeformers_tpu_torch.ops.logprob import (
     ON_MU, PRIOR_CODE, PRIOR_TAG, mixture_constants, prior_log_prob, prior_of,
     reduce_keywords)
@@ -115,9 +116,7 @@ def sample_weights(mu, rho, seeds=None, eps=None, *, antithetic: bool = False
     interleaved as ``(w, 2 mu - w)``. The plain version of the forward
     kernel's W and of :func:`regenerate_weights`: ``mu + sigma * eps`` with
     the product and the sum each rounded, as the kernels round them."""
-    if eps is None:
-        eps = common.unit_eps(seeds, tuple(mu.shape))
-    w = mu[None] + sigma_from_rho(rho)[None] * eps
+    w = sampled_linear.naive_weights(mu, rho, seeds, eps)
     return interleave_antithetic(w, mu) if antithetic else w
 
 
@@ -133,28 +132,10 @@ def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
 
 
 def regenerate_weights_cuda(mu, rho, seeds) -> torch.Tensor:
-    """Launch ``bft_regen`` (csrc/regen.cu)."""
-    req = common.require
-    req(mu.is_cuda, f"regen kernel needs a CUDA tensor, got {mu.device}")
-    req(mu.dim() == 2 and tuple(rho.shape) == tuple(mu.shape),
-        f"mu and rho must be one (K, N); got {tuple(mu.shape)} / {tuple(rho.shape)}")
-    req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
-        "mu and rho must be float32")
-    req(seeds.dim() == 1 and seeds.dtype == torch.int32, "seeds must be (S,) int32")
-    for name, t in (("mu", mu), ("rho", rho), ("seeds", seeds)):
-        req(t.device == mu.device, f"{name} is on {t.device}, mu on {mu.device}")
-        req(t.is_contiguous(), f"{name} must be contiguous")
-    K, N = mu.shape
-    S = seeds.shape[0]
-    req(S >= 1, "at least one seed")
-    lib = _build.library()
-    w = torch.empty((S, K, N), dtype=torch.float32, device=mu.device)
-    with torch.cuda.device(mu.device):
-        err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
-                            w.data_ptr(), S, K, N, common.cuda_stream(mu))
-    _build.check(err, "bft_regen")
-    REGEN_LAUNCHES.add((S, K, N))
-    return w
+    """Launch ``bft_regen`` (csrc/regen.cu, shared with the split ops'
+    ``sampled_linear.regenerate_weights``), counted in
+    :data:`REGEN_LAUNCHES`."""
+    return sampled_linear.regen_cuda(mu, rho, seeds, REGEN_LAUNCHES)
 
 
 class SampledWeights(torch.autograd.Function):

@@ -1,0 +1,186 @@
+"""The split ops' sampled matmul, ``y[s] = x[s] @ (mu + softplus(rho) * eps[s])``,
+and the regeneration of its W.
+
+Counterpart of ``bayeformers_tpu/ops/sampled_linear.py``: ``sampled_dense``
+with the reference's custom VJP (``_sampled_dense_bwd``),
+``regenerate_weights`` and the plain versions ``naive_weights`` /
+``naive_sampled_dense``. Layout as there: x (S, M, K) with the Monte-Carlo
+sample axis first, mu and rho (K, N) f32, ``seeds`` (S,) int32, one
+independent draw per sample. Flipout (``nn/flipout.py``) runs its weight
+perturbation through :func:`sampled_dense` with ``mu = 0``.
+
+**The draw stream.** The split ops draw from the port's one stream, the
+absolute-unit Philox stream of ``ops/common.py`` and ``csrc/eps.cuh``, the
+stream of the fused op (``ops/fused_linear.py``) too. On the TPU the split
+kernels draw from a second, tile-keyed stream (``tile_eps``), whose units
+follow the VMEM tiling and do not carry over to Hopper; the JAX package's
+docstring of ``regenerate_weights`` (:239-241) therefore says that its W
+differs from ``fused_linear.regenerate_weights``'s. In the port the two are
+the same W for the same seeds, bit for bit, since one backend uses one
+stream.
+
+Kernels (``csrc/``), each launched by its wrapper for a CUDA tensor (a CPU
+tensor, or ``plain=True``, takes the plain version; there is no fallback):
+
+* :func:`sampled_dense_cuda`: ``bft_sampled_dense`` (``csrc/bayes_linear.cu``),
+  the one-sample instance of the forward template with no prior: y only
+  (Pallas #12, ``_fused_kernel``), bf16 or f32 x;
+* :func:`regen_cuda`: ``bft_regen`` (``csrc/regen.cu``), the (S, K, N) f32 W
+  of S seeds (Pallas #13, ``_regen_kernel``, and #10 of the fused op, which
+  on one stream compute the same W). :func:`regenerate_weights` counts its
+  launches in :data:`REGEN_LAUNCHES`, ``fused_linear.regenerate_weights`` in
+  its own counter.
+
+The VJP rebuilds W with :func:`regenerate_weights` and takes
+
+    eps  = (W - mu) / sigma
+    dx   = g @ W^T               (g's dtype, f32 accumulation)
+    dW   = x^T g                 (f32)
+    dmu  = sum_s dW,  drho = sum_s (dW * eps) * sigmoid(rho)
+
+These products are XLA einsums outside any Pallas kernel in the JAX
+package; here they are ``torch.bmm`` (dW on operands cast to f32, which is
+exact, so bf16 activations still give an f32 dW).
+"""
+from __future__ import annotations
+
+import torch
+
+from bayeformers_tpu_torch.core.distributions import sigma_from_rho
+from bayeformers_tpu_torch.ops import _build, common
+
+LAUNCHES = common.LaunchCounter("sampled_dense")
+REGEN_LAUNCHES = common.LaunchCounter("sampled_regen")
+
+
+def naive_weights(mu, rho, seeds=None, eps=None) -> torch.Tensor:
+    """The plain (S, K, N) f32 weights ``mu + softplus(rho) * eps`` of
+    ``seeds`` on the unit stream, or of an explicit ``eps`` (S, K, N): the
+    product and the sum each rounded, as the kernels round them."""
+    if eps is None:
+        eps = common.unit_eps(seeds, tuple(mu.shape))
+    return mu[None] + sigma_from_rho(rho)[None] * eps
+
+
+def naive_sampled_dense(x, mu, rho, seeds=None, eps=None) -> torch.Tensor:
+    """The plain sampled matmul: W cast to x's dtype, products accumulated in
+    f32, y in x's dtype."""
+    w = naive_weights(mu, rho, seeds, eps)
+    return torch.bmm(x.float(), w.to(x.dtype).float()).to(x.dtype)
+
+
+def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter) -> torch.Tensor:
+    """Launch ``bft_regen`` (csrc/regen.cu): the (S, K, N) f32 W of ``seeds``
+    (S,) on the unit stream; ``counter`` takes the launch."""
+    req = common.require
+    req(mu.is_cuda, f"regen kernel needs a CUDA tensor, got {mu.device}")
+    req(mu.dim() == 2 and tuple(rho.shape) == tuple(mu.shape),
+        f"mu and rho must be one (K, N); got {tuple(mu.shape)} / {tuple(rho.shape)}")
+    req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
+        "mu and rho must be float32")
+    req(seeds.dim() == 1 and seeds.dtype == torch.int32, "seeds must be (S,) int32")
+    for name, t in (("mu", mu), ("rho", rho), ("seeds", seeds)):
+        req(t.device == mu.device, f"{name} is on {t.device}, mu on {mu.device}")
+        req(t.is_contiguous(), f"{name} must be contiguous")
+    K, N = mu.shape
+    S = seeds.shape[0]
+    req(S >= 1, "at least one seed")
+    lib = _build.library()
+    w = torch.empty((S, K, N), dtype=torch.float32, device=mu.device)
+    with torch.cuda.device(mu.device):
+        err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
+                            w.data_ptr(), S, K, N, common.cuda_stream(mu))
+    _build.check(err, "bft_regen")
+    counter.add((S, K, N))
+    return w
+
+
+def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
+    """(S, K, N) f32 weights of ``seeds`` (S,): exactly the W that
+    :func:`sampled_dense` drew for those seeds, and the W that
+    ``fused_linear.regenerate_weights`` returns for them. A CPU tensor, or
+    ``plain=True``, takes :func:`naive_weights`; a CUDA tensor launches
+    ``bft_regen`` (Pallas #13) or raises."""
+    if plain or mu.device.type == "cpu":
+        return naive_weights(mu, rho, seeds)
+    return regen_cuda(mu, rho, seeds, REGEN_LAUNCHES)
+
+
+def sampled_dense_cuda(x, mu, rho, seeds) -> torch.Tensor:
+    """Launch ``bft_sampled_dense`` (csrc/bayes_linear.cu) in its instance
+    for x's dtype; y takes x's dtype. The launch counter keys each launch by
+    ``(M, K, N, dtype tag)``."""
+    req = common.require
+    req(x.is_cuda, f"sampled_dense kernel needs a CUDA tensor, got {x.device}")
+    tag = common.kernel_dtype(x, "sampled_dense")
+    req(x.dim() == 3 and mu.dim() == 2, "x must be (S, M, K), mu (K, N)")
+    S, M, K = x.shape
+    N = mu.shape[1]
+    req(mu.shape[0] == K and tuple(rho.shape) == (K, N),
+        f"mu/rho {tuple(mu.shape)}/{tuple(rho.shape)} do not match K={K}")
+    req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
+        "mu and rho must be float32")
+    req(tuple(seeds.shape) == (S,) and seeds.dtype == torch.int32,
+        f"S={S} samples need (S,) int32 seeds, got {tuple(seeds.shape)} {seeds.dtype}")
+    for name, t in (("x", x), ("mu", mu), ("rho", rho), ("seeds", seeds)):
+        req(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
+        req(t.is_contiguous(), f"{name} must be contiguous")
+    req(1 <= S <= 65535, "between 1 and 65535 samples")
+    lib = _build.library()
+    y = torch.empty((S, M, N), dtype=x.dtype, device=x.device)
+    x_vec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        err = lib.bft_sampled_dense(x.data_ptr(), mu.data_ptr(), rho.data_ptr(),
+                                    seeds.data_ptr(), y.data_ptr(), S, M, K, N, x_vec,
+                                    int(tag == "f32"), common.cuda_stream(x))
+    _build.check(err, "bft_sampled_dense")
+    LAUNCHES.add((M, K, N, tag))
+    return y
+
+
+def _forward(x, mu, rho, seeds, eps, plain: bool) -> torch.Tensor:
+    if plain or x.device.type == "cpu":
+        return naive_sampled_dense(x, mu, rho, seeds, eps)
+    common.require(eps is None, "an injected eps runs the plain version only")
+    return sampled_dense_cuda(x, mu, rho, seeds)
+
+
+class SampledDense(torch.autograd.Function):
+    """:func:`sampled_dense` with the reference's VJP: the forward keeps
+    ``(x, mu, rho, seeds)`` (and an injected ``eps``) and no W; the backward
+    rebuilds W (:func:`regenerate_weights`, kernel #13 on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, mu, rho, seeds, eps, plain):
+        ctx.save_for_backward(x, mu, rho, seeds, eps)
+        ctx.plain = plain
+        return _forward(x, mu, rho, seeds, eps, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mu, rho, seeds, eps = ctx.saved_tensors
+        w = (naive_weights(mu, rho, eps=eps) if eps is not None
+             else regenerate_weights(mu, rho, seeds, plain=ctx.plain))
+        dx = dmu = drho = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(g.to(x.dtype), w.to(x.dtype).transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw = torch.bmm(x.float().transpose(1, 2), g.float())
+            dmu = torch.sum(dw, dim=0)
+            if ctx.needs_input_grad[2]:
+                sigma = sigma_from_rho(rho)
+                drho = torch.sum(dw * ((w - mu[None]) / sigma[None]), dim=0) * torch.sigmoid(rho)
+        return (dx, dmu if ctx.needs_input_grad[1] else None, drho, None, None, None)
+
+
+def sampled_dense(x, mu, rho, seeds, *, plain: bool = False, eps=None) -> torch.Tensor:
+    """``(S, M, K) @ sampled (K, N) -> (S, M, N)`` with one independent draw
+    per sample, ``seeds`` (S,); y in x's dtype. Differentiable in x, mu and
+    rho through the reference's VJP (:class:`SampledDense`). Port keywords:
+    ``plain=True`` runs the plain versions on the tensors' device (a CPU
+    tensor always does); ``eps`` (S, K, N) injects the draw into the plain
+    version (tests)."""
+    if torch.is_grad_enabled() and (x.requires_grad or mu.requires_grad
+                                    or rho.requires_grad):
+        return SampledDense.apply(x, mu, rho, seeds, eps, plain)
+    return _forward(x, mu, rho, seeds, eps, plain)

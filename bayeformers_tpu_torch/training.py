@@ -8,9 +8,9 @@ runs eagerly, so a step is a plain function; the integer ``seed`` plays the
 role of the reference's step key (per-leaf and per-chunk draws derive from
 it through ``nn.fused.derive_seed``).
 
-The port runs the fused estimators of the GLUE recipe: independent draws
-(``fused``) and antithetic pairs (``antithetic``); the other estimators
-raise ``NotImplementedError`` naming the slice that brings them.
+Every estimator of the reference runs (:func:`pick_mc`): the fused tier's
+independent draws (``fused``) and antithetic pairs (``antithetic``), the
+naive tier, flipout and local reparameterization.
 """
 from __future__ import annotations
 
@@ -48,25 +48,28 @@ def regression_loss(out, batch):
                  "mse_std": torch.std(per_sample_mse, unbiased=False)}
 
 
-_LATER_ESTIMATORS = {
-    "naive": "the naive (per-sample) tier comes with the estimators slice",
-    "flipout": "flipout comes with the estimators slice",
-    "local": "local reparameterization comes with the estimators slice",
-    "lrt": "local reparameterization comes with the estimators slice",
-}
-
-
-def pick_mc(bmodel, estimator: str = "antithetic"):
-    """The MC forward of an estimator: ``"fused"`` (the fused forward with
-    independent draws, ``mc_apply_fused``) or ``"antithetic"`` (the fused
-    forward with +- paired draws, the reference's default for even S)."""
-    if estimator in ("fused", "antithetic"):
-        return functools.partial(bmodel.mc_apply_fused,
-                                 antithetic=estimator == "antithetic")
-    if estimator in _LATER_ESTIMATORS:
-        raise NotImplementedError(f"estimator {estimator!r}: "
-                                  f"{_LATER_ESTIMATORS[estimator]}")
-    raise ValueError(f"unknown estimator {estimator!r}")
+def pick_mc(bmodel, estimator: str = "antithetic", save_weights: bool = True):
+    """The MC forward of an estimator, the reference's table: ``"fused"``
+    (the fused forward with independent draws, ``mc_apply_fused``),
+    ``"antithetic"`` (the fused forward with +- paired draws, the
+    reference's default for even S), ``"naive"`` (per-sample weights,
+    ``mc_apply``), ``"flipout"`` (per-example sign-flipped perturbations,
+    ``mc_apply_flipout``) and ``"local"`` / ``"lrt"`` (local
+    reparameterization, ``mc_apply_lrt``). ``save_weights`` goes to the
+    fused tier's two entries (keep W for the backward, or regenerate it);
+    the other tiers keep no weights."""
+    fused = functools.partial(bmodel.mc_apply_fused, save_weights=save_weights)
+    table = {
+        "fused": functools.partial(fused, antithetic=False),
+        "antithetic": functools.partial(fused, antithetic=True),
+        "naive": bmodel.mc_apply,
+        "flipout": bmodel.mc_apply_flipout,
+        "local": bmodel.mc_apply_lrt,
+        "lrt": bmodel.mc_apply_lrt,
+    }
+    if estimator not in table:
+        raise ValueError(f"unknown estimator {estimator!r}")
+    return table[estimator]
 
 
 def elbo_objective(mc, seed: int, n_samples: int, batch: dict, n_batches: int,
@@ -102,9 +105,11 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
     ``mc_chunk``: run the S samples in chunks of this size with gradient
     accumulation (fresh draws per chunk, seeds ``derive_seed(seed, c)``);
     losses, gradients and metrics are averaged over chunks.
-    ``eps_hook(chunk, path, n_draws, shape)`` supplies each leaf's draw
-    (tests only). An antithetic chunk must be even; a ``fused`` one may be
-    odd."""
+    ``eps_hook(chunk, *args)`` supplies each leaf's draw (tests only), as the
+    estimator's forward calls its hook with ``args`` (the fused tier's
+    ``(path, n_draws, shape)``, flipout's and LRT's ``(path, what, shape)``,
+    the naive tier's ``(path, shape)``). An antithetic chunk must be even;
+    the others may be odd."""
     mc = pick_mc(bmodel, estimator)
     n_chunks, chunk = 1, n_samples
     if mc_chunk is not None and mc_chunk < n_samples:
@@ -140,8 +145,8 @@ def make_elbo_eval_step(bmodel, n_samples: int,
                         input_keys: tuple[str, ...] = INPUT_KEYS,
                         estimator: str = "antithetic"):
     """Returns ``eval_step(seed, batch) -> (out, metrics)``, run under
-    ``torch.inference_mode()`` without weight residuals."""
-    mc = functools.partial(pick_mc(bmodel, estimator), save_weights=False)
+    ``torch.inference_mode()`` (the fused tier without weight residuals)."""
+    mc = pick_mc(bmodel, estimator, save_weights=False)
 
     @torch.inference_mode()
     def eval_step(seed: int, batch: dict):

@@ -16,7 +16,9 @@ from the seed, bit for bit. Raw TSVs need the native tokenizer, and the
 mesh, checkpoint and hypersearch options come with later slices: each of
 them raises here. The estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws (``fused``) otherwise, as in
-the reference, or ``--estimator``. Activations are f32 by default, as in
+the reference, or ``--estimator`` (any of the reference's five:
+``fused``, ``naive``, ``flipout``, ``antithetic``, ``local``), under which
+phases C and D run. Activations are f32 by default, as in
 the reference, and bf16 with ``--bf16``; the kernels take either. At f32
 and even S the FFN down-projections (K = 3072) regenerate their W pairs in
 the backward, as the reference routes them.
@@ -345,9 +347,11 @@ def main():
     parser.add_argument("--mc-chunk", type=int, default=None,
                         help="run the S MC samples in chunks of this size with "
                              "gradient accumulation")
-    parser.add_argument("--estimator", default=None, choices=["antithetic", "fused"],
-                        help="default: antithetic when --samples (and --mc-chunk) "
-                             "is even, fused (independent draws) otherwise")
+    parser.add_argument("--estimator", default=None,
+                        choices=["fused", "naive", "flipout", "antithetic", "local"],
+                        help="MC estimator of phases C and D; default: antithetic "
+                             "when --samples (and --mc-chunk) is even, fused "
+                             "(independent draws) otherwise")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 activations (variational numerics stay f32)")
     parser.add_argument("--warmup", type=float, default=0.0,

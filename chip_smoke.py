@@ -76,6 +76,21 @@ Phases, each timed, each raising on failure:
     mixture in bf16 also with each reduce's U, then V, zeroed, which it
     must fail), mu moved and prior_mu bit-identical after one step.
 
+14. the estimators slice: the split ops' kernels at flipout's shapes,
+    ``sampled_dense`` (Pallas #12) in bf16 and f32 with mu = 0 and mu != 0
+    against its plain version and ``x @ regenerate_weights`` at gates
+    scaled to y, which two planted faults must fail, the split
+    ``regenerate_weights`` (#13) bit-equal to the plain stream and to
+    ``fused_linear.regenerate_weights``, ``logprob`` (#11) under both
+    priors, its partial sums against plain f64 sums and its log-probs
+    against the plain version; then flipout and local reparameterization
+    under the GLUE recipe and random init, and the naive tier under the
+    GLUE recipe, in bf16 and f32: the 8x128 request and the ELBO step
+    against their plain runs (:func:`phase_estimator`), with launch counts
+    (#12 and #13 on every flipout layer, #11 and its VJP's #13 on every
+    layer under the mixture, no Bayesian linear kernel on the local and
+    naive paths); and ``bert_glue --estimator flipout`` and ``local``.
+
 The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -684,7 +699,8 @@ def phase_serving(bt, fl, at, antithetic, dtype=BF16, prior="on_mu") -> tuple[di
 MIXTURE_F32_LOGITS = 2e-3
 
 
-def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err) -> str:
+def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err,
+                        forward=None) -> str:
     """The end-to-end gate of the random-init (mixture) path, whose logits
     are ill-conditioned: at U(-0.2, 0.2) weights each layer amplifies a
     rounding difference, so that f32 products taken in f64 instead moved
@@ -694,12 +710,16 @@ def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err) ->
     bf16 plain path's. f32 logits within 2e-3 of the plain path's (read
     2.1e-4 on an H100), a gate that the same plain path with TF32 products
     (read 0.13) must fail: the f32 instances must be true f32. Every layer
-    is also held against its plain version (:class:`LayerCheck`)."""
+    is also held against its plain version (:class:`LayerCheck`).
+    ``forward(bmodel, impl)`` runs the request's forward (default: the
+    fused tier's at ``antithetic``)."""
+    if forward is None:
+        def forward(m, impl):
+            return m.mc_apply_fused(12345, 10, *args, antithetic=antithetic, impl=impl)[0]
     if dtype == BF16:
         twin, _ = converted_base(bt, F32, "mixture")
         with torch.inference_mode():
-            l32, _ = twin.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
-                                         impl="plain")
+            l32 = forward(twin, "plain")
         dk, dp = max_dist(lk, l32), max_dist(lp, l32)
         del twin
         check(dk <= 1.5 * dp, f"bf16 logits through the kernels are {dk} from the f32 "
@@ -709,8 +729,7 @@ def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err) ->
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with torch.inference_mode():
-            ltf, _ = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
-                                           impl="plain")
+            ltf = forward(bmodel, "plain")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     require_f32_matmuls()
@@ -936,8 +955,8 @@ def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True)
     for _, t, _ in named:
         t.grad = None
     loss, m = bt.training.elbo_objective(
-        bt.training.pick_mc(bmodel, estimator), seed, 10, batch, 256, impl=impl,
-        save_weights=save_weights)
+        bt.training.pick_mc(bmodel, estimator, save_weights), seed, 10, batch, 256,
+        impl=impl)
     loss.backward()
     return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
 
@@ -969,8 +988,8 @@ def prior_grads(bt, bmodel, named, batch, impl, estimator, save_weights=True) ->
     for _, t, _ in named:
         t.grad = None
     _, m = bt.training.elbo_objective(
-        bt.training.pick_mc(bmodel, estimator), 123, 10, batch, 256, impl=impl,
-        save_weights=save_weights)
+        bt.training.pick_mc(bmodel, estimator, save_weights), 123, 10, batch, 256,
+        impl=impl)
     (m["log_variational_posterior"] - m["log_prior"]).backward()
     return {n: t.grad.clone() for n, t, _ in named if t.grad is not None}
 
@@ -1267,6 +1286,459 @@ def phase_workload(fl, fb, samples, bf16=True) -> float:
     return score
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the estimators (flipout, local reparameterization, naive) and
+# the split ops' kernels (#11 logprob, #12 sampled_dense, #13 regen)
+# ---------------------------------------------------------------------------
+
+KL_DRAWS = 4  # nn/flipout.py::KL_DRAWS: the mixture KL's draws per leaf
+
+
+def sampled_dense_inputs(S, M, K, N, moped_rho, dtype, zero_mu):
+    """Seeded x (S, M, K), f32 mu (0 for flipout's perturbation, else MOPED
+    weights) and rho, and S seeds, on the card."""
+    x, mu, rho, seeds, _ = bayes_linear_inputs(S, M, K, N, moped_rho, S, dtype=dtype)
+    return x, torch.zeros_like(mu) if zero_mu else mu, rho, seeds
+
+
+# #12's gates. bf16, per element: 1e-2 of |ref| + std(ref), since y is rounded
+# to bf16 (one ulp is at most 2^-7 of |y|) and flipout's mu = 0 outputs are a
+# few 1e-2, so no fixed absolute tolerance fits them; f32 (3xTF32): 2e-5 of
+# max |ref|.
+Y_GATE = {BF16: "1e-2 of |y| + std(y) per element", F32: "2e-5 of max |y|"}
+
+
+def y_gate_ratio(y, ref, dtype) -> float:
+    """The largest ``|y - ref|`` over #12's gate (:data:`Y_GATE`); at most 1
+    passes."""
+    r = ref.float()
+    d = (y.float() - r).abs()
+    if dtype == F32:
+        return d.max().item() / (2e-5 * r.abs().max().item())
+    return (d / (1e-2 * (r.abs() + r.std()))).max().item()
+
+
+def sampled_dense_faults(sl, x, mu, rho, seeds, ref, dtype, shape) -> str:
+    """Two planted faults of #12 that its gate must fail, made by launching
+    the kernel on altered inputs: sigma scaled by 0.9 (rho' =
+    softplus^-1(0.9 softplus(rho))) and one K step (the kernel's BK = 32 rows
+    of K) dropped (x's first 32 columns zeroed). Returns each fault's reading
+    beside what the former absolute bf16 gate (allclose at rtol = atol =
+    2e-2, which mu = 0's |y| of a few 1e-2 cannot resolve) said of it."""
+    from bayeformers_tpu_torch.core.distributions import sigma_from_rho
+
+    rho_f = torch.log(torch.expm1(0.9 * sigma_from_rho(rho)))
+    x_f = x.clone()
+    x_f[..., :32] = 0
+    out = []
+    for what, y_f in (("sigma x 0.9", sl.sampled_dense(x, mu, rho_f, seeds)),
+                      ("one K step dropped", sl.sampled_dense(x_f, mu, rho, seeds))):
+        ratio = y_gate_ratio(y_f, ref, dtype)
+        check(ratio > 1.0, f"sampled_dense ({TAG[dtype]}) gate passes a planted fault "
+              f"({what}) at {shape}: {ratio:.3g}x the gate")
+        old = torch.allclose(y_f.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        out.append(f"{what} {ratio:.3g}x the gate (failed; the absolute gate "
+                   f"{'passed' if old else 'failed'} it)")
+    return "; ".join(out)
+
+
+def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
+    """Kernel #12 (``bft_sampled_dense``) at flipout's shapes (S=10, the
+    serving and training shapes of every converted layer), mu = 0 (flipout's
+    perturbation) and mu != 0: against its plain version at the gates of
+    :data:`Y_GATE` (bf16 1e-2 of |y| + std(y), f32 2e-5 of max |y|), against ``x @
+    regenerate_weights`` (the same draw, #13's W, by ``torch.bmm``) at the
+    same gates, and a bit-equal rerun; at mu = 0 and M = 1024 the gate must
+    fail two planted faults (:func:`sampled_dense_faults`). Returns the
+    timing rows (mu = 0)."""
+    S, tag, isz = 10, TAG[dtype], torch.finfo(dtype).bits // 8
+    rows = []
+    for M, K, N in SERVING_SHAPES:
+        for zero_mu in (True, False):
+            x, mu, rho, seeds = sampled_dense_inputs(S, M, K, N, moped_rho, dtype, zero_mu)
+            y = sl.sampled_dense(x, mu, rho, seeds)
+            again = sl.sampled_dense(x, mu, rho, seeds)
+            w = sl.regenerate_weights(mu, rho, seeds)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"sampled_dense ({tag}) reruns differ at {(M, K, N)}")
+            yp = sl.naive_sampled_dense(x, mu, rho, seeds)
+            yw = torch.bmm(x, w.to(dtype))
+            errs, ratios = [], []
+            for what, ref in (("plain version", yp), ("x @ regenerate_weights", yw)):
+                ratio = y_gate_ratio(y, ref, dtype)
+                check(ratio <= 1.0, f"sampled_dense ({tag}) y differs from its {what} at "
+                      f"{(M, K, N)}: {ratio:.3g}x the gate ({Y_GATE[dtype]})")
+                errs.append(max_dist(y, ref))
+                ratios.append(ratio)
+            y_max, y_std = yp.float().abs().max().item(), yp.float().std().item()
+            mu_tag = "mu = 0" if zero_mu else "mu != 0"
+            summary = (f"max|y| {y_max:.4g} (std {y_std:.3g}), y max|d| {errs[0]:.3g} from "
+                       f"the plain version "
+                       f"({ratios[0]:.3g}x the gate), {errs[1]:.3g} from x @ "
+                       f"regenerate_weights ({ratios[1]:.3g}x), reruns equal")
+            if zero_mu and M == 1024:
+                summary += "; planted faults: " + sampled_dense_faults(
+                    sl, x, mu, rho, seeds, yp, dtype, (M, K, N))
+            if not zero_mu:
+                say(f"sampled_dense ({tag}, {mu_tag}) M={M} K={K} N={N}: {summary}")
+                continue
+            ms = time_ms(lambda: sl.sampled_dense(x, mu, rho, seeds), 20, windows=WINDOWS)
+            plain_ms = time_ms(lambda: sl.naive_sampled_dense(x, mu, rho, seeds), 3, 1)
+            wd = w.to(dtype)
+            lib_ms = time_ms(lambda: torch.bmm(x, wd), 20, windows=WINDOWS)
+            n_bytes = S * M * K * isz + 2 * K * N * 4 + S * M * N * isz + S * 4
+            b = bound(n_bytes, 2.0 * S * M * K * N, dtype)
+            say(f"sampled_dense ({tag}, {mu_tag}) M={M} K={K} N={N}: {summary}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm on W {lib_ms:.4f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]})")
+            suffix = "" if dtype == BF16 else f",{tag}"
+            rows.append(row(f"sampled_dense[M={M},K={K},N={N}{suffix}]", "sampled_dense",
+                            (M, K, N, tag), f"serve/flipout/{tag}",
+                            "bayeformers_tpu_torch/csrc/bayes_linear.cu",
+                            "bayeformers_tpu/ops/sampled_linear.py:117", errs[0], ms,
+                            plain_ms, b, lib_ms))
+    return rows
+
+
+REGEN_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 2))
+
+
+def phase_split_regen(sl, fl, moped_rho) -> list[dict]:
+    """Kernel #13 (``bft_regen`` through ``sampled_linear.regenerate_weights``)
+    at flipout's (S=10 perturbation draws, mu = 0) and the mixture KL's
+    (``KL_DRAWS`` draws, mu != 0) instance data: W bit-equal to the plain
+    stream and to ``fused_linear.regenerate_weights`` (the one stream), and a
+    bit-equal rerun. Returns the timing rows, each with the path whose
+    backward launches it."""
+    rows = []
+    for n, zero_mu, path in ((10, True, "train/flipout/bf16"),
+                             (KL_DRAWS, False, "train/flipout/bf16/mixture")):
+        for K, N in REGEN_SHAPES + ((300, 130),):
+            _, mu, rho, seeds = sampled_dense_inputs(n, 8, K, N, moped_rho, F32, zero_mu)
+            w = sl.regenerate_weights(mu, rho, seeds)
+            again = sl.regenerate_weights(mu, rho, seeds)
+            wf = fl.regenerate_weights(mu, rho, seeds)
+            torch.cuda.synchronize()
+            plain = sl.naive_weights(mu, rho, seeds)
+            check(torch.equal(w, again), f"split regen reruns differ at {(n, K, N)}")
+            check(torch.equal(w, plain), f"split regen differs from the plain stream at "
+                  f"{(n, K, N)}: max {max_dist(w, plain)}")
+            check(torch.equal(w, wf), f"split regen differs from fused_linear's at "
+                  f"{(n, K, N)}: max {max_dist(w, wf)}")
+            if (K, N) not in REGEN_SHAPES:
+                continue
+            ms = time_ms(lambda: sl.regenerate_weights(mu, rho, seeds), 20, windows=WINDOWS)
+            plain_ms = time_ms(lambda: sl.naive_weights(mu, rho, seeds), 3, 1)
+            b = bound(n * K * N * 4 + 2 * K * N * 4 + n * 4, 0.0, F32)
+            mu_tag = "mu = 0" if zero_mu else "mu != 0"
+            say(f"split regen S={n} ({mu_tag}) K={K} N={N}: W bit-equal to the plain "
+                f"stream and to fused_linear.regenerate_weights, reruns equal; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                "no library call")
+            rows.append(row(f"sampled_regen[S={n},K={K},N={N}]", "sampled_regen",
+                            (n, K, N), path, "bayeformers_tpu_torch/csrc/regen.cu",
+                            "bayeformers_tpu/ops/sampled_linear.py:205", 0.0, ms, plain_ms,
+                            b, None))
+    return rows
+
+
+def plain_logprob_partials(lpm, common, mu, rho, seeds, prior, prior_mu):
+    """``csrc/logprob.cu``'s sums before their constants in f64 from the
+    plain f32 draw, each with its sum of |terms| (the scale of its f32
+    rounding): per draw and block, the sums of -eps^2 / 2 and of log_p's
+    terms; per block, the sum of log sigma."""
+    from bayeformers_tpu_torch.core.distributions import sigma_from_rho
+    from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
+    from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
+
+    K, N = mu.shape
+    eps = common.unit_eps(seeds, (K, N))
+    sig = sigma_from_rho(rho)
+    w = mu[None] + sig[None] * eps
+    if prior[0] == "mixture":
+        p_terms = mixture_log_pdf(w.double(), *prior[1:])
+    else:
+        p_terms = -0.5 * ((w.double() - prior_mu.double()) / MOPED_PRIOR_SIGMA) ** 2
+    block = lpm.logprob_block_of(K, N, mu.device).reshape(-1)
+    n_blocks = lpm.logprob_blocks(K, N)
+
+    def sums(t):  # (..., K, N) -> (..., n_blocks)
+        flat = t.reshape(-1, K * N)
+        out = torch.zeros(flat.shape[0], n_blocks, dtype=torch.float64, device=t.device)
+        return out.index_add_(1, block, flat)
+
+    terms = (-0.5 * eps.double() ** 2, p_terms)
+    ref = torch.stack([sums(t) for t in terms], -1)
+    scale = torch.stack([sums(t.abs()) for t in terms], -1)
+    ls = torch.log(sig.double())
+    return ref, scale, sums(ls)[0], sums(ls.abs())[0]
+
+
+def phase_logprob(lpm, sl, common, moped_rho) -> list[dict]:
+    """Kernel #11 (``bft_logprob``) under both priors at every converted
+    layer's (K, N), ``KL_DRAWS`` seeds: its partial sums before the constants
+    against plain f64 sums within 1e-5 of their sum of |terms| (per draw and
+    block; the sum of log sigma per block), the finalized ``(log_q, log_p)``
+    within 1e-5 relative of the plain version's, and a bit-equal rerun.
+    Returns the timing rows; only the mixture instance lies on a main path
+    (flipout's and LRT's mixture KL), the Gaussian one is held here."""
+    rows = []
+    for prior in ("mixture", "gaussian"):
+        for K, N in REGEN_SHAPES + ((300, 130),):
+            _, mu, rho, seeds, kw = bayes_linear_inputs(KL_DRAWS, 8, K, N, moped_rho,
+                                                        KL_DRAWS, dtype=F32, prior=prior)
+            ptuple = lpm.prior_of(kw.get("mixture"), kw.get("prior_mu"))
+            pm = kw.get("prior_mu")
+            lq, lp, part, ls_part = lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm,
+                                                      partials=True)
+            again = lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm, partials=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip((lq, lp, part, ls_part), again)),
+                  f"logprob ({prior}) reruns differ at {(K, N)}")
+            ref, scale, ls_ref, ls_scale = plain_logprob_partials(lpm, common, mu, rho, seeds,
+                                                                  ptuple, pm)
+            # blocks past a ragged K hold no element: their sums are 0 on both sides
+            ratio = ((part.double() - ref).abs() / (1e-5 * scale).clamp_min(1e-300)).max().item()
+            ls_ratio = ((ls_part.double() - ls_ref).abs()
+                        / (1e-5 * ls_scale).clamp_min(1e-300)).max().item()
+            check(max(ratio, ls_ratio) <= 1.0, f"logprob ({prior}) partials at {(K, N)} "
+                  f"differ from the plain f64 sums by {ratio:.3g}x / {ls_ratio:.3g}x their "
+                  "gate (1e-5 of the sum of |terms|)")
+            lqp, lpp = lpm.logprobs_plain(mu, rho, seeds, ptuple, pm)
+            errs = [((a - b).abs() / b.abs()).max().item() for a, b in ((lq, lqp), (lp, lpp))]
+            check(max(errs) <= 1e-5, f"logprob ({prior}) log_q/log_p differ from the plain "
+                  f"version at {(K, N)}: rel {errs}")
+            summary = (f"partials within {ratio:.3g}x (log sigma {ls_ratio:.3g}x) their gate, "
+                       f"log_q/log_p rel err {errs[0]:.3g}/{errs[1]:.3g}, reruns equal")
+            if (K, N) not in REGEN_SHAPES:
+                say(f"logprob ({prior}) odd shape K={K} N={N}: {summary}")
+                continue
+            ms = time_ms(lambda: lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm), 20,
+                         windows=WINDOWS)
+            plain_ms = time_ms(lambda: lpm.logprobs_plain(mu, rho, seeds, ptuple, pm), 3, 1)
+            b = bound((2 + (pm is not None)) * K * N * 4 + KL_DRAWS * 12, 0.0, F32)
+            say(f"logprob ({prior}) S={KL_DRAWS} K={K} N={N}: {summary}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), no library call")
+            r = row(f"logprob[S={KL_DRAWS},K={K},N={N},{prior}]", "logprob",
+                    (KL_DRAWS, K, N, prior),
+                    "serve/flipout/bf16/mixture" if prior == "mixture" else None,
+                    "bayeformers_tpu_torch/csrc/logprob.cu",
+                    "bayeformers_tpu/ops/logprob.py:65",
+                    max((a - b).abs().max().item() for a, b in ((lq, lqp), (lp, lpp))),
+                    ms, plain_ms, b, None)
+            rows.append(r)
+    return rows
+
+
+# The new estimators' runs: (estimator, dtype, prior) of phase 14
+ESTIMATOR_RUNS = tuple((est, dt, prior) for dt in (BF16, F32)
+                       for est, priors in (("flipout", ("on_mu", "mixture")),
+                                           ("local", ("on_mu", "mixture")),
+                                           ("naive", ("on_mu",)))
+                       for prior in priors)
+
+
+def estimator_counts(fl, fb, at, sl, lpm) -> dict:
+    """Every counter's total by name (the Bayesian linear kernels, #11-#13
+    and attention's)."""
+    return {c.name: c.count for c in (fl.LAUNCHES, fl.INDEP_LAUNCHES, fl.REGEN_LAUNCHES,
+                                      fb.LAUNCHES, fb.INDEP_LAUNCHES, sl.LAUNCHES,
+                                      sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES,
+                                      at.BWD_LAUNCHES)}
+
+
+def want_counts(estimator, prior, n_layers, n_attn, backward: int) -> dict:
+    """The launches of one request (``backward=0``) or of ``backward``
+    steps: flipout runs #12 on every converted layer a forward and, a
+    backward, #13 for its VJP; under the mixture flipout and LRT run #11 on
+    every converted layer a forward and #13 for its VJP; the naive tier and
+    LRT run no Bayesian linear kernel; attention runs mha_fwd (and mha_bwd)
+    in every layer. Every other counter stays 0."""
+    n = max(backward, 1)
+    want = {"mha_fwd": n_attn * n, "mha_bwd": n_attn * backward}
+    regen = 0
+    if estimator == "flipout":
+        want["sampled_dense"] = n_layers * n
+        regen += n_layers * backward
+    if prior == "mixture" and estimator != "naive":
+        want["logprob"] = n_layers * n
+        regen += n_layers * backward
+    want["sampled_regen"] = regen
+    return want
+
+
+def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior):
+    """One of the new estimators on BERT-base at S=10 in ``dtype`` under the
+    conversion of ``prior``: the 8x128 request (the forward and the
+    posterior summaries, under ``torch.inference_mode()``) and the ELBO step
+    at B=8, L=128, each through the kernels against its ``impl="plain"`` run
+    on the card at the existing gates of its dtype (random init's logits
+    through :func:`mixture_logits_gate`), bit-equal reruns, launch counts
+    read around exactly one request and the 10 timed steps
+    (:func:`want_counts`), and the median request and step times. Returns
+    (request launches by counter and shape, request ms, step launches, step
+    ms)."""
+    from bayeformers_tpu_torch.serving import summarize
+
+    tag, sfx = TAG[dtype], prior_suffix(prior)
+    label = f"{estimator} ({tag}" + ("" if prior == "on_mu" else f", {prior}") + ")"
+    mc_of = lambda m: bt.training.pick_mc(m, estimator)
+    counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
+    bmodel, named = converted_base(bt, dtype, prior)
+    n_layers, n_attn = len([p for p in bmodel.spec.paths if p.endswith("/kernel")]), 12
+    check(n_layers == BERT_BASE_LAYERS, f"{label}: {n_layers} converted kernels")
+    req = serving_requests(bt)[1]
+    dev = bmodel.device
+    args = tuple(torch.from_numpy(req[k]).to(dev)
+                 for k in ("input_ids", "attention_mask", "token_type_ids"))
+
+    def serve(m, seed, impl="kernel"):
+        with torch.inference_mode():
+            logits, aux = mc_of(m)(seed, 10, *args, impl=impl)
+            return logits, aux, summarize(logits)
+
+    serve(bmodel, 7)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    lk, auxk, summ = serve(bmodel, 12345)
+    torch.cuda.synchronize()
+    got = estimator_counts(fl, fb, at, sl, lpm)
+    want = want_counts(estimator, prior, n_layers, n_attn, 0)
+    check(all(got[k] == want.get(k, 0) for k in got),
+          f"{label}: one request launched {got}, want {want} (0 elsewhere)")
+    serve_launches = {c.name: dict(c.by_shape) for c in counters}
+    again, aux_again, _ = serve(bmodel, 12345)
+    other, _, _ = serve(bmodel, 999)
+    check(torch.equal(lk, again) and all(torch.equal(auxk[k], aux_again[k]) for k in auxk),
+          f"{label}: the same seed gave other logits")
+    check(not torch.equal(lk, other), f"{label}: another seed gave the same logits")
+    check(bool(torch.isfinite(lk.float()).all()) and tuple(lk.shape) == (10, 8, 2),
+          f"{label}: logits {tuple(lk.shape)} not finite")
+    probs = summ["probs"]
+    check(bool(torch.allclose(probs.sum(-1), torch.ones(8, device=dev), atol=1e-5)),
+          f"{label}: probs do not sum to 1")
+    lp_, auxp, _ = serve(bmodel, 12345, "plain")
+    err = max_dist(lk, lp_)
+    if prior == "mixture":
+        note = mixture_logits_gate(bt, fl, bmodel, args, False, dtype, lk, lp_, err,
+                                   forward=lambda m, impl: serve(m, 12345, impl)[0])
+    else:
+        limit = 1e-4 if dtype == F32 else 5e-2
+        check(err <= limit, f"{label}: logits through the kernels differ from the plain "
+              f"path by {err} (gate {limit})")
+        note = f"logits kernels vs plain max|d| {err:.4g} (gate {limit})"
+    for key in auxk:
+        check(torch.allclose(auxk[key], auxp[key], rtol=1e-5, atol=0.0),
+              f"{label}: {key} differs from the plain path: {auxk[key]} vs {auxp[key]}")
+    kl_note = (f"kl {auxk['kl'].item():.9g} vs plain {auxp['kl'].item():.9g}" if "kl" in auxk
+               else f"log_q {auxk['log_variational_posterior'][0].item():.9g} vs "
+               f"{auxp['log_variational_posterior'][0].item():.9g}")
+    say(f"serving {label}: launches in one request {got}; {note}; {kl_note}; reruns "
+        "equal, another seed differs")
+    lat = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        serve(bmodel, 200 + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    serve_ms = float(np.median(lat))
+    say(f"serving {label}: 8x128 request (S=10) median {serve_ms:.3f} ms over 10: "
+        f"{[round(v, 3) for v in lat]}")
+
+    # the ELBO step through the kernels against the plain step, same draw
+    batch = train_batch(bt)
+    mu_names = [] if prior == "on_mu" else [f"params/{p}" for p in bmodel.spec.paths]
+    if dtype == BF16:
+        m32, n32 = converted_base(bt, F32, prior)
+        _, _, g32 = grads_of(bt, m32, n32, 123, batch, "plain", estimator)
+        del m32, n32
+        torch.cuda.empty_cache()
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator)
+    check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
+          f"{label}: the same seed gave another loss or gradient through the kernels")
+    step_label = f"train {label}"
+    if dtype == BF16:
+        check_bf16_step(step_label, loss_k, loss_p, mk, mp, gk, gp, g32, mu_names,
+                        prior == "mixture")
+        del g32
+    else:
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        say(f"{step_label}: loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} "
+            f"(rel {loss_rel:.3g}); reruns bit-equal")
+        check(loss_rel <= 1e-6, f"{step_label}: loss kernels {loss_k.item()} vs plain "
+              f"{loss_p.item()}")
+        for group, names in grad_groups(list(gk)).items():
+            rel, cos, at_ = worst_agreement(gk, gp, names)
+            say(f"{step_label}: {group} gradients ({len(names)} leaves), kernels vs plain "
+                f"f32: worst rel L2 {rel:.4g} ({at_}), worst cosine {cos:.9f}")
+            check(rel <= 1e-3, f"{step_label}: {group} gradients differ from the plain "
+                  f"f32 step: rel L2 {rel} at {at_}")
+    if prior == "mixture" and estimator != "naive":
+        # the KL part alone (#11's forward and its VJP's #13) against the
+        # plain step's, as check_prior_grads holds the fused tier's
+        check_prior_grads(bt, fb, bmodel, named, batch, estimator, step_label, mu_names)
+    del gk, gk2, gp
+
+    tx = bt.training.adamw_with_decay_groups(
+        bt.training.linear_schedule(2e-5, 0.0, 100), 0.0,
+        bt.training.default_no_decay, eps=1e-8, clip_norm=1.0)
+    opt = tx.init(named)
+    step = bt.training.make_elbo_train_step(bmodel, opt, 10, 256, estimator=estimator)
+    losses = [step(55, batch)["loss"].item() for _ in range(4)]
+    say(f"{step_label}: loss over 4 steps at one batch and draw: {losses}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{step_label}: the ELBO "
+          "did not fall")
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    times = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(1000 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"{step_label}: step {i} loss {m['loss']}")
+    got = estimator_counts(fl, fb, at, sl, lpm)
+    want = want_counts(estimator, prior, n_layers, n_attn, 10)
+    check(all(got[k] == want.get(k, 0) for k in got),
+          f"{step_label}: 10 steps launched {got}, want {want} (0 elsewhere)")
+    step_launches = {c.name: dict(c.by_shape) for c in counters}
+    step_ms = float(np.median(times))
+    say(f"{step_label}: launches over 10 steps {got}; ELBO step (S=10, B=8, L=128) median "
+        f"{step_ms:.3f} ms over 10: {[round(v, 3) for v in times]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del opt, step, named, bmodel
+    torch.cuda.empty_cache()
+    return serve_launches, serve_ms, step_launches, step_ms
+
+
+def phase_workload_estimator(fl, fb, at, sl, lpm, estimator) -> float:
+    """bert_glue phases A-D with ``--estimator`` at S=10 in bf16, three
+    batches an epoch (the GLUE recipe: frozen MOPED): flipout must launch
+    #12 and #13 and nothing of the fused tier or #11; local reparameterization
+    none of #1-#13."""
+    from bayeformers_tpu_torch.workloads import bert_glue
+
+    reset_counters(fl, fb, at, sl, lpm)
+    with tempfile.TemporaryDirectory() as logs:
+        score = bert_glue.train(size="base", limit_batches=3, epochs=1, b_epochs=1,
+                                bf16=True, logs=logs, samples=10, estimator=estimator)
+    check(np.isfinite(score), f"bert_glue --estimator {estimator} score {score}")
+    counts = estimator_counts(fl, fb, at, sl, lpm)
+    flip = estimator == "flipout"
+    bayes = {k: v for k, v in counts.items() if not k.startswith("mha")}
+    ok = all((v > 0) == (flip and k in ("sampled_dense", "sampled_regen"))
+             for k, v in bayes.items())
+    check(ok and counts["mha_fwd"] > 0 and counts["mha_bwd"] > 0,
+          f"bert_glue --estimator {estimator} launched {counts}")
+    say(f"workload: bert_glue --estimator {estimator} phases A-D at S=10, bf16, 3 batches "
+        f"an epoch: score {score:.4f}; launches {counts}")
+    return score
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -1278,6 +1750,8 @@ def main() -> int:
     from bayeformers_tpu_torch.ops import attention as at
     from bayeformers_tpu_torch.ops import fused_backward as fb
     from bayeformers_tpu_torch.ops import fused_linear as fl
+    from bayeformers_tpu_torch.ops import logprob as lpm
+    from bayeformers_tpu_torch.ops import sampled_linear as sl
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1337,14 +1811,34 @@ def main() -> int:
             timed(f"workload (S={samples}, {tag})", phase_workload, fl, fb, samples,
                   dtype == BF16)
 
+    # phase 14: the split ops' kernels (#11-#13), then flipout, local
+    # reparameterization and the naive tier
+    rows += timed("logprob", phase_logprob, lpm, sl, common, moped_rho)
+    rows += timed("split regen", phase_split_regen, sl, fl, moped_rho)
+    for dtype in (BF16, F32):
+        rows += timed(f"sampled_dense ({TAG[dtype]})", phase_sampled_dense, sl, fl,
+                      moped_rho, dtype)
+    est_ms = {}
+    for est, dtype, prior in ESTIMATOR_RUNS:
+        key = f"{est}/{TAG[dtype]}{prior_suffix(prior)}"
+        (paths[f"serve/{key}"], serve_ms_, paths[f"train/{key}"], step_ms_) = timed(
+            f"estimator ({est}, {TAG[dtype]}, {prior})", phase_estimator, bt, fl, fb, at,
+            sl, lpm, est, dtype, prior)
+        est_ms[est, TAG[dtype], prior] = (serve_ms_, step_ms_)
+    for est in ("flipout", "local"):
+        timed(f"workload (--estimator {est})", phase_workload_estimator, fl, fb, at, sl,
+              lpm, est)
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
     # the (bf16 x, f32 W) reduce's the bf16 step with save_weights=False
+    # (the Gaussian instance of #11 serves no main path: its launches are 0)
     kernels = []
     for r in rows:
-        n = paths[r["path"]][r["counter"]].get(r["shape"], 0)
-        check(n > 0, f"{r['name']} was not launched on the path it serves ({r['path']})")
+        n = 0 if r["path"] is None else paths[r["path"]][r["counter"]].get(r["shape"], 0)
+        check(n > 0 or r["path"] is None,
+              f"{r['name']} was not launched on the path it serves ({r['path']})")
         kernels.append({"name": r["name"], "route": r["route"], "source": r["source"],
                         "replaces": r["replaces"], "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1358,8 +1852,11 @@ def main() -> int:
             for prior in PRIORS)
 
     say(f"{smi}; request latency 8x128 S=10: {medians(serve_ms)}")
-    say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+    say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}")
+    say(f"{smi}; request / ELBO step (S=10) by estimator: " + "; ".join(
+        f"{est} ({tag}, {prior}) {a:.3f} / {b:.3f} ms"
+        for (est, tag, prior), (a, b) in est_ms.items())
+        + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,7 +141,7 @@ def test_other_recipes_raise():
     """Every conversion of the reference now runs: random init (the
     default, which needs a generator, as the JAX package's needs ``rng``)
     and MOPED with a trainable mu. What raises is a random init without a
-    generator, the estimators not ported, and an odd S for pairs."""
+    generator and an odd S for pairs; every estimator runs."""
     model = bt.build_bert(size="tiny", device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="generator"):
         bt.to_bayesian(model)
@@ -174,10 +174,11 @@ def test_other_recipes_raise():
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-7,
                                    msg=n)
-    # the estimators not ported yet
+    # the other estimators run too: each serves the S samples, finite
     for est in ("naive", "flipout", "local"):
-        with pytest.raises(NotImplementedError):
-            training.pick_mc(bmodel, est)
+        with torch.no_grad():
+            out, aux = training.pick_mc(bmodel, est)(0, 2, ids)
+        assert out.shape == (2, 2, 2) and torch.isfinite(aux["log_prior"]).all(), est
     with pytest.raises(ValueError):
         bmodel.mc_apply_fused(0, 3, ids, antithetic=True)
 
@@ -190,8 +191,7 @@ def test_unported_recipes_name_their_slice(pair):
     with pytest.raises(ValueError, match="generator") as e:
         bt.to_bayesian(port.model, delta=None)
     assert "items 2 and 3" not in str(e.value)
-    with pytest.raises(NotImplementedError, match="estimators slice") as e:
-        training.pick_mc(port, "naive")
+    assert training.pick_mc(port, "naive") == port.mc_apply
     flat = flatten_dict(bp.params, sep="/")
     prior_mu = {p: np.asarray(m) for p, m in bp.prior_mu.items()}
     path = "classifier/kernel"

@@ -270,9 +270,11 @@ def test_default_no_decay_matches_jax():
 
 def test_other_estimators_raise(jax_model):
     port = _port(jax_model[1])
-    for est in ("naive", "flipout", "local"):
-        with pytest.raises(NotImplementedError):
-            training.pick_mc(port, est)
+    # every estimator of the reference's table now resolves; only an
+    # unknown name raises
+    assert training.pick_mc(port, "naive") == port.mc_apply
+    assert training.pick_mc(port, "flipout") == port.mc_apply_flipout
+    assert training.pick_mc(port, "local") == training.pick_mc(port, "lrt") == port.mc_apply_lrt
     with pytest.raises(ValueError):
         training.pick_mc(port, "nope")
     # a forward without W residuals now has a backward: it regenerates W

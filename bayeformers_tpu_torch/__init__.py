@@ -1,11 +1,13 @@
 """BayeFormers on PyTorch and CUDA: the port of ``bayeformers_tpu`` to one
 NVIDIA H100.
 
-Bayes-by-Backprop over the port's own BERT: ``to_bayesian`` converts every
-Linear into a Gaussian variational pair with MOPED init,
-``training.make_elbo_train_step`` fine-tunes it by the Monte-Carlo ELBO
-(``workloads/bert_glue.py`` runs the four-phase GLUE recipe), and
-``Predictor`` serves posterior-predictive summaries. The fused S-sample
+Bayes-by-Backprop over the port's own BERT and GPT-2: ``to_bayesian``
+converts every Linear (GPT-2's Conv1D among them) into a Gaussian
+variational pair, ``training.make_elbo_train_step`` fine-tunes it by the
+Monte-Carlo ELBO (``workloads/bert_glue.py`` runs the four-phase GLUE
+recipe, ``workloads/gpt2_lm.py`` the causal-LM one), and ``Predictor``
+serves posterior-predictive summaries (classification, or next-token
+``task="causal-lm"``). The fused S-sample
 forward and its backward run the Bayesian linear layers, their dmu/drho
 reduce and attention on hand-written Hopper kernels (``csrc/``, built with
 ``nvcc`` at first use). Entry points run on
@@ -22,6 +24,11 @@ from bayeformers_tpu_torch.models.bert import (
     BERT_TINY_KWARGS,
     build_bert,
 )
+from bayeformers_tpu_torch.models.gpt2 import (
+    GPT2_BASE_KWARGS,
+    GPT2_TINY_KWARGS,
+    build_gpt2,
+)
 from bayeformers_tpu_torch.nn.surgery import BayesianModel, to_bayesian
 from bayeformers_tpu_torch.serving import Predictor
 from bayeformers_tpu_torch.training import make_elbo_train_step
@@ -30,10 +37,13 @@ __all__ = [
     "BERT_BASE_KWARGS",
     "BERT_TINY_KWARGS",
     "BayesianModel",
+    "GPT2_BASE_KWARGS",
+    "GPT2_TINY_KWARGS",
     "MOPED_PRIOR_SIGMA",
     "Predictor",
     "ScaleMixturePrior",
     "build_bert",
+    "build_gpt2",
     "from_jax_params",
     "make_elbo_train_step",
     "to_bayesian",

@@ -1,11 +1,13 @@
-"""Carry the JAX package's converted BERT over to the port.
+"""Carry the JAX package's converted BERT or GPT-2 over to the port.
 
 ``from_jax_params(params, rho, prior_mu=None, *, prior, moped, frozen)``
-takes the fields of the JAX package's ``BayesParams`` (the Flax BERT
-parameter tree, nested dicts or a flat ``{'/'-joined path: array}``, and
-the ``rho`` and ``prior_mu`` dicts), as numpy arrays, and the facts of its
+takes the fields of the JAX package's ``BayesParams`` (the Flax parameter
+tree, nested dicts or a flat ``{'/'-joined path: array}``, and the ``rho``
+and ``prior_mu`` dicts), as numpy arrays, and the facts of its
 ``ConversionSpec`` (the mixture prior, ``moped``, ``frozen``), and builds
-the port's :class:`~models.bert.BertForSequenceClassification` and
+the port's model, picked from the tree (``bert/...``: the port's
+:class:`~models.bert.BertForSequenceClassification`; ``transformer/...``:
+its :class:`~models.gpt2.GPT2LMHeadModel`), and the
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
 same function. This is how a conversion made by the JAX package, random
@@ -19,6 +21,7 @@ import torch
 
 from bayeformers_tpu_torch.core.prior import DEFAULT_SCALE_MIXTURE, ScaleMixturePrior
 from bayeformers_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
+from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
 
@@ -34,11 +37,36 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _layers(flat, prefix: str) -> int:
+    depth = prefix.count(SEP)
+    return len({p.split(SEP)[depth] for p in flat if p.startswith(prefix)})
+
+
+def _gpt2_config_from(flat: dict[str, np.ndarray], n_heads) -> GPT2Config:
+    wte = flat["transformer/wte/embedding"]
+    return GPT2Config(
+        vocab_size=wte.shape[0],
+        n_embd=wte.shape[1],
+        n_layer=_layers(flat, "transformer/h/"),
+        n_head=n_heads or wte.shape[1] // 64,
+        n_positions=flat["transformer/wpe/embedding"].shape[0],
+        n_inner=flat["transformer/h/0/mlp/c_fc/kernel"].shape[0],
+    )
+
+
+def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device):
+    """The port's model of the tree's family, uninitialised."""
+    if "transformer/wte/embedding" in flat:
+        return GPT2LMHeadModel(_gpt2_config_from(flat, n_heads), dtype=dtype,
+                               device=device)
+    return BertForSequenceClassification(_config_from(flat, n_heads), dtype=dtype,
+                                         device=device)
+
+
 def _config_from(flat: dict[str, np.ndarray], n_heads) -> BertConfig:
     word = flat["bert/embeddings/word_embeddings/embedding"]
     hidden = word.shape[1]
-    n_layers = len({p.split(SEP)[3] for p in flat
-                    if p.startswith("bert/encoder/layer/")})
+    n_layers = _layers(flat, "bert/encoder/layer/")
     return BertConfig(
         vocab_size=word.shape[0],
         hidden_size=hidden,
@@ -67,7 +95,7 @@ def from_jax_params(params, rho, prior_mu=None, *,
     at every converted leaf; ``moped=False, frozen=False`` is a random-init
     conversion under ``prior``, the scale mixture (a ``ScaleMixturePrior``
     or ``(pi, sigma1, sigma2)``). ``num_attention_heads`` defaults to
-    BERT's 64-wide heads."""
+    64-wide heads (BERT's and GPT-2's)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params(device='cuda'): no CUDA device")
@@ -83,12 +111,11 @@ def from_jax_params(params, rho, prior_mu=None, *,
                          "converted leaf")
     if not isinstance(prior, ScaleMixturePrior):
         prior = ScaleMixturePrior(*prior)
-    cfg = _config_from(flat, num_attention_heads)
-    model = BertForSequenceClassification(cfg, dtype=dtype, device=dev)
+    model = _model_from(flat, num_attention_heads, dtype, dev)
     names = {n.replace(".", SEP) for n, _ in model.named_parameters()}
     if names != set(flat):
         raise ValueError(
-            "params do not match the port's BERT: missing "
+            f"params do not match the port's {type(model).__name__}: missing "
             f"{sorted(names - set(flat))}, unexpected {sorted(set(flat) - names)}"
         )
     for path, arr in flat.items():

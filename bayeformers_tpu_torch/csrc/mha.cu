@@ -1,10 +1,22 @@
 // mha_fwd: multi-head self-attention forward in the flat (N, L, H) layout.
 //
-// Replaces bayeformers_tpu/ops/attention.py::_fwd_kernel_stacked (and its
-// per-head twin _fwd_kernel). Same contract: q/k/v/out (N, L, H) bf16 with
-// head h in columns [h*64, (h+1)*64), an additive f32 key bias (N, L);
-// scores = (q_h k_h^T) / sqrt(64) + bias in f32, a row softmax in f32, then
-// P cast to bf16 and O = P v_h with f32 accumulation.
+// Replaces bayeformers_tpu/ops/attention.py::_fwd_kernel_stacked (Pallas #3),
+// the head-grouped forward the TPU runs whenever a head group of 2 or more
+// fits VMEM, which is every shape this port serves. Its per-head twin
+// _fwd_kernel (#4) computes the same function; whether this kernel also
+// stands for it is open until a measurement settles it (ROADMAP queue 2).
+// Same contract as #3: q/k/v/out (N, L, H) bf16 with head h in columns
+// [h*64, (h+1)*64), an additive f32 key bias (N, L); scores = (q_h k_h^T) /
+// sqrt(64) + bias in f32, a row softmax in f32, then P cast to bf16 and
+// O = P v_h with f32 accumulation.
+//
+// Causal instances (CAUSAL = true, GPT-2): after the bias add and before the
+// row max, score (i, j) with key j > query i becomes NEG_BIG = finfo(f32).min,
+// a select as in the reference's jnp.where (attention.py:106-107), not an
+// add: bias-masked and causal-masked scores then hold the same value, and a
+// row with every key masked stays uniform over all L keys. No key tile above
+// the diagonal is skipped: skipping them would make that row uniform over
+// the causal prefix instead.
 //
 // Bound on the H100: at BERT's L = 128 the work is 4*N*L*L*H flops over
 // 4*N*L*H*2 bytes, about 32 flops a byte, well below the ~295 at which the
@@ -18,12 +30,12 @@
 // All-masked rows (bias = finfo(f32).min everywhere) come out uniform over
 // the keys, as in the plain version.
 //
-// Two instances of one template over the operand type T: bf16 (above) and
-// f32, where q, k, v and out are f32 and both products are true f32 (3xTF32,
-// mma.cuh), as the reference's kernel takes its dot operands in the stored
-// dtype (bayeformers_tpu/ops/attention.py:83-89). The softmax is f32 in
-// both. In f32, P is the f32 score row itself, so it is written over the
-// scores rather than into a separate tile: at L = 512 the block then needs
+// Four instances of one template over the operand type T and CAUSAL: bf16
+// (above) and f32, where q, k, v and out are f32 and both products are true
+// f32 (3xTF32, mma.cuh), as the reference's kernel takes its dot operands in
+// the stored dtype (bayeformers_tpu/ops/attention.py:83-89). The softmax is
+// f32 in both. In f32, P is the f32 score row itself, so it is written over
+// the scores rather than into a separate tile: at L = 512 the block then needs
 // 163 KB (a separate f32 P tile would need 293 KB, above the 227 KB a block
 // can have); the bf16 instance keeps its layout (212 KB at L = 512).
 #include <cuda_bf16.h>
@@ -45,6 +57,7 @@ constexpr int BKV = 64;      // keys per staged block
 constexpr int THREADS = 128; // 4 warps, 16 query rows each
 constexpr int OLD = D + 4;   // f32 leading dim of the output tile
 constexpr int MAX_L = 512;
+constexpr unsigned NEG_BIG_BITS = 0xff7fffffu;  // finfo(f32).min = -FLT_MAX
 
 // q / k / v tiles in T, leading dim padded by 16 bytes; P in T over its own
 // tile (bf16) or over the f32 score rows (f32).
@@ -82,7 +95,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, T* dst,
   }
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const float* __restrict__ bias,
@@ -138,7 +151,8 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* srow = ss + r * SLD;
     float mx = __int_as_float(0xff800000);  // -inf
     for (int c = lane; c < L; c += 32) {
-      const float s = __fadd_rn(__fmul_rn(srow[c], scale), brow[c]);
+      float s = __fadd_rn(__fmul_rn(srow[c], scale), brow[c]);
+      if (CAUSAL && c > q0 + r) s = __int_as_float(NEG_BIG_BITS);
       srow[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -194,16 +208,16 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int N, int L, int H, int n_heads, void* stream) {
   const size_t smem = smem_bytes<T>(round64(L));
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_fwd_kernel<T, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + BQ - 1) / BQ, n_heads, N);
-  mha_fwd_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  mha_fwd_kernel<T, CAUSAL><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<T*>(out), L, H);
   return static_cast<int>(cudaGetLastError());
@@ -212,11 +226,16 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // q / k / v / out (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1), bias (N, L)
-// f32; H = n_heads * 64, L <= 512. Returns cudaGetLastError().
+// f32, causal masking when causal = 1; H = n_heads * 64, L <= 512. Returns
+// cudaGetLastError().
 extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, int N, int L, int H,
-                           int n_heads, int f32, void* stream) {
+                           int n_heads, int f32, int causal, void* stream) {
   if (L < 1 || L > MAX_L || H != n_heads * D) return static_cast<int>(cudaErrorInvalidValue);
-  if (f32) return launch<float>(q, k, v, bias, out, N, L, H, n_heads, stream);
-  return launch<__nv_bfloat16>(q, k, v, bias, out, N, L, H, n_heads, stream);
+  if (f32)
+    return causal ? launch<float, true>(q, k, v, bias, out, N, L, H, n_heads, stream)
+                  : launch<float, false>(q, k, v, bias, out, N, L, H, n_heads, stream);
+  return causal
+             ? launch<__nv_bfloat16, true>(q, k, v, bias, out, N, L, H, n_heads, stream)
+             : launch<__nv_bfloat16, false>(q, k, v, bias, out, N, L, H, n_heads, stream);
 }

@@ -1,6 +1,7 @@
 // mha_bwd: multi-head self-attention backward in the flat (N, L, H) layout.
 //
-// Replaces bayeformers_tpu/ops/attention.py::_bwd_kernel. Same arithmetic:
+// Replaces bayeformers_tpu/ops/attention.py::_bwd_kernel (Pallas #5). Same
+// arithmetic:
 // recompute the f32 scores s = (q_h k_h^T) / sqrt(64) + bias and their exact
 // f32 softmax P; P goes to bf16 for dV = P^T g; dP = g v_h^T in f32;
 // dS = P * (dP - rowsum(dP * P)) in f32, then bf16 for dQ = dS k_h / sqrt(64)
@@ -24,6 +25,16 @@
 //     pass 1's statistics, and accumulates dV and dK in registers.
 // A fully masked row (bias finfo(f32).min everywhere) gives equal scores,
 // hence a uniform P, as in the plain version; it stays finite.
+//
+// Causal instances (CAUSAL = true, GPT-2): both passes set score (i, j) with
+// key j > query i to finfo(f32).min after the bias add, a select as the
+// reference's jnp.where (attention.py:207-209). They must mask identically:
+// pass 2 rebuilds P from pass 1's row max and sum, so a mask in one pass and
+// not the other gives wrong dK/dV, not a crash; both go through
+// masked_score(). As in _bwd_kernel, a row with every key masked keeps its
+// uniform P, and its dS reaches every key, future ones included (XLA's
+// autodiff of _mha_xla would give those zero). No tile above the diagonal
+// is skipped.
 //
 // Two instances of one template over the operand type T: bf16 (above) and
 // f32, where q, k, v, g and the outputs are f32 and all five products are
@@ -54,6 +65,7 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int OLD = D + 4;    // f32 leading dim of 64-wide tiles
 constexpr int MAX_L = 512;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(64), exact
+constexpr unsigned NEG_BIG_BITS = 0xff7fffffu;  // finfo(f32).min = -FLT_MAX
 
 // Tiles of q / k / v / g in T, leading dim padded by 16 bytes; in f32, dS
 // over the dP rows.
@@ -137,12 +149,15 @@ __device__ __forceinline__ void rows_by_keys(const T* a_tile, const T* kv_tile,
                             wmma::mem_row_major);
 }
 
-__device__ __forceinline__ float score(float acc, float bias) {
-  return __fadd_rn(__fmul_rn(acc, SCALE), bias);
+// The masked f32 score of query row i and key j, the same in both passes.
+template <bool CAUSAL>
+__device__ __forceinline__ float masked_score(float acc, float bias, int i, int j) {
+  const float s = __fadd_rn(__fmul_rn(acc, SCALE), bias);
+  return (CAUSAL && j > i) ? __int_as_float(NEG_BIG_BITS) : s;
 }
 
 // Pass 1: one block per (query tile, head, example).
-template <typename T>
+template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ bias,
@@ -187,7 +202,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* drow = dps + r * SLD;
     float mx = __int_as_float(0xff800000);  // -inf
     for (int c = lane; c < L; c += 32) {
-      const float s = score(srow[c], brow[c]);
+      const float s = masked_score<CAUSAL>(srow[c], brow[c], q0 + r, c);
       srow[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -254,7 +269,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Pass 2: one block per (key tile, head, example).
-template <typename T>
+template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
@@ -308,7 +323,8 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / BKV, c = i % BKV;
       float p = 0.0f, ds = 0.0f;
       if (qb + r < L && key0 + c < L) {
-        const float s = score(ss[r * OLD + c], brow[key0 + c]);
+        const float s = masked_score<CAUSAL>(ss[r * OLD + c], brow[key0 + c], qb + r,
+                                             key0 + c);
         p = expf(s - st[r]) / st[BQ + r];
         ds = p * (dps[r * OLD + c] - st[2 * BQ + r]);
       }
@@ -351,7 +367,7 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* g, void* dq, void* dk, void* dv, void* stats, int N,
            int L, int H, int n_heads, void* stream) {
@@ -359,10 +375,10 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const size_t smem1 = smem1_bytes<T>(round64(L));
   constexpr size_t smem2 = Layout<T>::SMEM2_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_bwd_dq_kernel<T, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mha_bwd_dkv_kernel<T>,
+  err = cudaFuncSetAttribute(mha_bwd_dkv_kernel<T, CAUSAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -373,12 +389,12 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const auto* vb = static_cast<const T*>(v);
   const auto* gb = static_cast<const T*>(g);
   const auto* bb = static_cast<const float*>(bias);
-  mha_bwd_dq_kernel<T><<<dim3((L + BQ - 1) / BQ, n_heads, N), THREADS, smem1, st>>>(
+  mha_bwd_dq_kernel<T, CAUSAL><<<dim3((L + BQ - 1) / BQ, n_heads, N), THREADS, smem1, st>>>(
       qb, kb, vb, bb, gb, static_cast<T*>(dq), m, m + nhl, m + 2 * nhl, L, H,
       n_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_dkv_kernel<T><<<dim3((L + BKV - 1) / BKV, n_heads, N), THREADS, smem2,
+  mha_bwd_dkv_kernel<T, CAUSAL><<<dim3((L + BKV - 1) / BKV, n_heads, N), THREADS, smem2,
                           st>>>(qb, kb, vb, bb, gb, m, m + nhl, m + 2 * nhl,
                                 static_cast<T*>(dk), static_cast<T*>(dv), L, H,
                                 n_heads);
@@ -388,17 +404,21 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // q / k / v / g / dq / dk / dv (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1),
-// bias (N, L) f32, stats (3, N, n_heads, L) f32 scratch; H = n_heads * 64,
-// L <= 512. Returns cudaGetLastError().
+// bias (N, L) f32, stats (3, N, n_heads, L) f32 scratch, causal masking when
+// causal = 1; H = n_heads * 64, L <= 512. Returns cudaGetLastError().
 extern "C" int bft_mha_bwd(const void* q, const void* k, const void* v,
                            const void* bias, const void* g, void* dq, void* dk,
                            void* dv, void* stats, int N, int L, int H,
-                           int n_heads, int f32, void* stream) {
+                           int n_heads, int f32, int causal, void* stream) {
   if (N < 1 || L < 1 || L > MAX_L || H != n_heads * D)
     return static_cast<int>(cudaErrorInvalidValue);
   if (f32)
-    return launch<float>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H, n_heads,
-                         stream);
-  return launch<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H,
-                               n_heads, stream);
+    return causal ? launch<float, true>(q, k, v, bias, g, dq, dk, dv, stats, N, L,
+                                        H, n_heads, stream)
+                  : launch<float, false>(q, k, v, bias, g, dq, dk, dv, stats, N, L,
+                                         H, n_heads, stream);
+  return causal ? launch<__nv_bfloat16, true>(q, k, v, bias, g, dq, dk, dv, stats,
+                                              N, L, H, n_heads, stream)
+                : launch<__nv_bfloat16, false>(q, k, v, bias, g, dq, dk, dv, stats,
+                                               N, L, H, n_heads, stream);
 }

@@ -1,10 +1,12 @@
-"""The layer that ``to_bayesian`` converts, shared by every port model.
+"""The layers that ``to_bayesian`` converts, shared by every port model.
 
 ``Dense`` is the port's counterpart of Flax's ``nn.Dense`` (the hand-built
 Bayesian layers of ``bayeformers_tpu/nn/layers.py`` come with a later
 slice): it holds ``kernel`` stored (in, out), the orientation that defines
-the eps stream, and ``bias``. A converted model passes an ``mc`` (:class:`nn.fused.FusedMC`)
-through its forward; a ``Dense`` given one dispatches to it.
+the eps stream, and ``bias``. ``Conv1D`` is HF's ``FlaxConv1D`` (GPT-2's
+projections): ``kernel`` stored (out, in), ``y = x @ kernel.T + bias``.
+A converted model passes an ``mc`` (:class:`nn.fused.FusedMC` or another
+tier's state) through its forward; a layer given one dispatches to it.
 """
 from __future__ import annotations
 
@@ -15,21 +17,36 @@ from torch import nn
 class Dense(nn.Module):
     """``y = x @ kernel + bias`` with ``kernel`` stored (in, out)."""
 
+    transposed = False  # the kernel is stored (in, out)
+
     def __init__(self, n_in: int, n_out: int, *, device=None):
         super().__init__()
-        self.kernel = nn.Parameter(torch.empty(n_in, n_out, device=device))
+        shape = (n_out, n_in) if self.transposed else (n_in, n_out)
+        self.kernel = nn.Parameter(torch.empty(shape, device=device))
         self.bias = nn.Parameter(torch.zeros(n_out, device=device))
         self.path = ""  # the Flax path of this module, set by assign_paths
 
     def forward(self, x, mc=None):
         if mc is not None:
             return mc.dense(self, x)
-        y = torch.matmul(x.float(), self.kernel.to(x.dtype).float())
+        w = self.kernel.to(x.dtype).float()
+        y = torch.matmul(x.float(), w.t() if self.transposed else w)
         return (y.to(x.dtype) + self.bias.to(x.dtype))
 
 
+class Conv1D(Dense):
+    """HF's ``FlaxConv1D`` (GPT-2's projections): ``y = x @ kernel.T +
+    bias`` with ``kernel`` stored (out, in). The fused, flipout and LRT
+    tiers define their draws on the transposed (in, out) view, as the JAX
+    package's ``handle_dense(transposed=True)`` does; the naive tier draws
+    in the stored orientation."""
+
+    transposed = True
+
+
 def assign_paths(model: nn.Module) -> None:
-    """Give every ``Dense`` its Flax path (``bert/pooler/dense``, ...)."""
+    """Give every ``Dense`` and ``Conv1D`` its Flax path
+    (``bert/pooler/dense``, ``transformer/h/0/attn/c_attn``, ...)."""
     for name, mod in model.named_modules():
         if isinstance(mod, Dense):
             mod.path = name.replace(".", "/")

@@ -21,8 +21,12 @@ VJP through #13) and for a bias its plain version, as in
 ``nn/fused.py::bias_logprobs``.
 
 Where the JAX package intercepts Flax module calls, the port's model hands
-each converted ``Dense`` and self-attention block to :class:`FlipoutMC`
-(``models/bert.py``'s ``mc=``), as it does to ``nn/fused.py::FusedMC``.
+each converted ``Dense`` or ``Conv1D`` and each attention block to
+:class:`FlipoutMC` (the models' ``mc=``), as it does to
+``nn/fused.py::FusedMC``. A ``Conv1D`` (GPT-2, stored (out, in)) runs on
+(in, out) copies of mu and rho, and its KL on a transposed ``prior_mu``,
+as the JAX package's ``handle_dense(transposed=True)`` does
+(``nn/flipout.py:54-64``, :153-168).
 
 Draws, per converted kernel leaf i of the request's integer ``seed``: the
 perturbation's S seeds ``derive_seed(seed, i, 0, s)`` and the mixture KL's
@@ -33,10 +37,9 @@ the unit stream of ``derive_seed(seed, i, 4, s)`` and ``(seed, i, 6, t)``.
 The JAX package's draws differ (another stream); tests inject them through
 ``eps_hook(path, what, shape)``, ``what`` one of ``"r"``, ``"s"``,
 ``"eps"`` (the perturbation's (S, K, N)), ``"kl"`` (the KL's
-(kl_draws, K, N)), ``"bias_eps"``, ``"bias_s"`` and ``"bias_kl"``.
-
-The conv branch (``handle_conv``) and GPT-2's transposed Conv1D come with
-the model families (ROADMAP queue 1, item 10).
+(kl_draws, K, N)), ``"bias_eps"``, ``"bias_s"`` and ``"bias_kl"``; (K, N)
+is the (in, out) view for a ``Conv1D`` too. The conv branch
+(``handle_conv``) is not ported (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
 from bayeformers_tpu_torch.nn.fused import (
-    SEP, MCBase, bias_logprobs, derive_seed, run_mc, unit_bias_eps)
+    SEP, MCBase, bias_logprobs, derive_seed, run_mc, transposed_view, unit_bias_eps)
 from bayeformers_tpu_torch.ops import logprob as ops_logprob
 from bayeformers_tpu_torch.ops import sampled_linear as ops_linear
 
@@ -53,19 +56,22 @@ KL_DRAWS = 4
 
 
 def analytic_leaf_kl(bmodel, path: str, mu, rho, seeds=None, *, plain: bool = False,
-                     eps=None) -> torch.Tensor:
+                     eps=None, transposed: bool = False) -> torch.Tensor:
     """Per-leaf ``KL(q || prior)`` for the estimators with no sampled weight
     to score (flipout, local reparameterization): the closed form under a
     MOPED prior (centred on mu itself when mu is frozen, else on the leaf's
-    ``prior_mu``); under the scale mixture, the MC estimate ``mean(log_q -
-    log_p)``: a kernel leaf over the draws of ``seeds`` (kl_draws,), or of
+    ``prior_mu``, transposed where ``mu`` and ``rho`` are a ``Conv1D``'s
+    (in, out) copies); under the scale mixture, the MC estimate ``mean(log_q
+    - log_p)``: a kernel leaf over the draws of ``seeds`` (kl_draws,), or of
     an injected ``eps`` (kl_draws, K, N), through ``sampled_logprobs`` (its
     kernel on the card unless ``plain``); a bias leaf (1-D) over its draws
     ``eps`` (kl_draws, N), in plain torch."""
     spec = bmodel.spec
     sigma = dist.sigma_from_rho(rho)
     if spec.moped:
-        centre = mu if spec.frozen else bmodel.prior_mu[path]
+        centre = mu
+        if not spec.frozen:
+            centre = bmodel.prior_mu[path].t() if transposed else bmodel.prior_mu[path]
         return dist.gaussian_kl(mu, sigma, centre, MOPED_PRIOR_SIGMA)
     mixture = (spec.prior.pi, spec.prior.sigma1, spec.prior.sigma2)
     if mu.dim() == 1:
@@ -130,9 +136,10 @@ class AnalyticKLMC(MCBase):
             return self.eps_hook(path, what, shape).to(self.bmodel.device)
         return make()
 
-    def kernel_kl(self, kpath, i, mu, rho) -> None:
+    def kernel_kl(self, kpath, i, mu, rho, transposed: bool = False) -> None:
         """Collect a kernel leaf's KL once per forward (its KL draws: the
-        leaf's seeds, or the hook's ``"kl"``)."""
+        leaf's seeds, or the hook's ``"kl"``); ``transposed``: ``mu`` and
+        ``rho`` are a ``Conv1D``'s (in, out) copies."""
         if kpath in self.seen:
             return
         self.seen.add(kpath)
@@ -144,7 +151,8 @@ class AnalyticKLMC(MCBase):
             else:
                 seeds = self.kl_seeds[i][:kd]
         self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, mu, rho, seeds,
-                                              plain=self.plain, eps=eps))
+                                              plain=self.plain, eps=eps,
+                                              transposed=transposed))
 
     def bias_kl(self, bpath, bmu, brho) -> None:
         """Collect a bias leaf's KL once per forward, in plain torch."""
@@ -180,13 +188,14 @@ class FlipoutMC(AnalyticKLMC):
             derive_seed(self.seed, i, stream), shape, self.bmodel.device, dtype)).to(dtype)
 
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
-        """A converted ``Dense`` over an S-major (S*B, ..., K) input."""
+        """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
+        input."""
         kpath = mod.path + SEP + "kernel"
         if kpath not in self.bmodel.rho:
             return mod(x)
         i = self.path_index[kpath]
         S = self.S
-        mu, rho = mod.kernel, self.bmodel.rho[kpath]
+        mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
         lead, K = tuple(x.shape[:-1]), x.shape[-1]
         N = mu.shape[1]
         xs = x.reshape(S, -1, K)
@@ -197,7 +206,7 @@ class FlipoutMC(AnalyticKLMC):
         pert = ops_linear.sampled_dense((xs * r).contiguous(), torch.zeros_like(mu), rho,
                                         self.seeds[i][:S], plain=self.plain, eps=eps)
         y = torch.matmul(xs, mu.to(xs.dtype)) + pert * s_out
-        self.kernel_kl(kpath, i, mu, rho)
+        self.kernel_kl(kpath, i, mu, rho, mod.transposed)
         bpath = mod.path + SEP + "bias"
         if bpath in self.bmodel.rho:
             y = self._add_bias(y, mod, bpath, i, M)

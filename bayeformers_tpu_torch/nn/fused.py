@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.models.gpt2 import causal_attention
 from bayeformers_tpu_torch.ops import attention as ops_attention
 from bayeformers_tpu_torch.ops import common as ops_common
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
@@ -106,6 +107,16 @@ def bias_logprobs(b, bsig, beps, prior, centre=None):
     return lq, prior_log_prob(b, centre, prior, dim=-1)
 
 
+def transposed_view(mod, rho):
+    """A converted layer's (mu, rho) in the (in, out) orientation that
+    defines the fused, flipout and LRT tiers' draws: a ``Conv1D``'s
+    (stored (out, in)) as contiguous transposed copies, a ``Dense``'s as
+    they are."""
+    if mod.transposed:
+        return mod.kernel.t().contiguous(), rho.t().contiguous()
+    return mod.kernel, rho
+
+
 def unit_bias_eps(seed_rows: torch.Tensor, widths) -> list[torch.Tensor]:
     """Biases' eps in one batched draw: ``seed_rows`` (n_leaves, n) int32,
     ``widths`` the leaves' N; returns each leaf's (n, N) eps, element j of
@@ -152,6 +163,12 @@ class MCBase:
         k = self.dense(mod.key, hidden)
         v = self.dense(mod.value, hidden)
         return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+
+    def gpt2_attention(self, mod, hidden, bias):
+        """GPT-2's attention block (``handle_gpt2_attention``): the packed
+        ``c_attn`` and ``c_proj`` through :meth:`dense`, attention through
+        the flat-layout mha op with the causal mask."""
+        return causal_attention(mod, hidden, bias, self.dense, plain=self.plain)
 
     def check_seen(self, collected) -> None:
         if not collected:
@@ -210,19 +227,21 @@ class FusedMC(MCBase):
             (-1,) + tuple(a_half.shape[1:])
         )
 
-    def _prior_kwargs(self, path) -> dict:
+    def _prior_kwargs(self, path, transposed: bool = False) -> dict:
         """The prior keyword of :func:`ops.fused_linear.bayes_linear` for a
         converted leaf: frozen MOPED's prior sits on mu itself, so the
         kernel streams no third array; MOPED with a trainable mu centres it
-        on ``prior_mu``; random init takes the mixture."""
+        on ``prior_mu`` (transposed with a ``Conv1D`` kernel); random init
+        takes the mixture."""
         spec = self.bmodel.spec
         if spec.moped and spec.frozen:
             return {"prior_on_mu": True}
         if spec.moped:
-            return {"prior_mu": self.bmodel.prior_mu[path]}
+            pm = self.bmodel.prior_mu[path]
+            return {"prior_mu": pm.t().contiguous() if transposed else pm}
         return {"mixture": self.mixture}
 
-    def _route_matmul(self, kpath, mu, rho, xs):
+    def _route_matmul(self, kpath, mu, rho, xs, transposed=False):
         seeds = self.seeds[self.path_index[kpath]]
         eps = None
         if self.eps_hook is not None:
@@ -230,7 +249,7 @@ class FusedMC(MCBase):
         y, lq, lp = ops_fused.bayes_linear(
             xs, mu, rho, seeds, save_weights=self.save_weights,
             antithetic=self.antithetic, plain=self.plain, eps=eps,
-            **self._prior_kwargs(kpath))
+            **self._prior_kwargs(kpath, transposed))
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
@@ -238,13 +257,19 @@ class FusedMC(MCBase):
         return y, new_leaf
 
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
-        """A converted ``Dense`` over an S-major (S*B, ..., K) input."""
+        """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
+        input. A ``Conv1D`` kernel (stored (out, in)) goes to the op as
+        (in, out) copies of mu and rho (and ``prior_mu``), so its eps stream
+        is defined on the transposed view, as the JAX package's
+        ``handle_dense(transposed=True)`` defines it (``nn/fused.py:397-
+        420``); the copies are the reference's cost too."""
         kpath = mod.path + SEP + "kernel"
         if kpath not in self.bmodel.rho:
             return mod(x)
         lead, K = tuple(x.shape[:-1]), x.shape[-1]
         xs = x.reshape(self.S, -1, K).contiguous()
-        y, new_leaf = self._route_matmul(kpath, mod.kernel, self.bmodel.rho[kpath], xs)
+        mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
+        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, mod.transposed)
         bpath = mod.path + SEP + "bias"
         if bpath in self.bmodel.rho:
             y = self._add_bias(y, mod, bpath, new_leaf)

@@ -21,8 +21,11 @@ activation noise from a ``torch.Generator`` seeded ``derive_seed(seed, i,
 through ``eps_hook(path, what, shape)``, ``what`` one of ``"eps"`` (the
 (S, M, N) noise), ``"kl"`` and ``"bias_kl"``.
 
-The embed and conv branches (``handle_embed``, ``handle_conv``) and GPT-2's
-transposed Conv1D come with the model families (ROADMAP queue 1, item 10).
+A ``Conv1D`` (GPT-2, stored (out, in)) runs on (in, out) copies of mu and
+rho and its KL on a transposed ``prior_mu``, as the JAX package's
+``handle_dense(transposed=True)`` (``nn/lrt.py:98-121``, :211-214). The
+embed and conv branches (``handle_embed``, ``handle_conv``) are not ported
+(ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.nn.flipout import KL_DRAWS, AnalyticKLMC
-from bayeformers_tpu_torch.nn.fused import SEP, derive_seed, run_mc
+from bayeformers_tpu_torch.nn.fused import SEP, derive_seed, run_mc, transposed_view
 
 
 class LrtMC(AnalyticKLMC):
@@ -40,13 +43,14 @@ class LrtMC(AnalyticKLMC):
     tier = "lrt"
 
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
-        """A converted ``Dense`` over an S-major (S*B, ..., K) input."""
+        """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
+        input."""
         kpath = mod.path + SEP + "kernel"
         if kpath not in self.bmodel.rho:
             return mod(x)
         i = self.path_index[kpath]
         S = self.S
-        mu, rho = mod.kernel, self.bmodel.rho[kpath]
+        mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
         sigma = dist.sigma_from_rho(rho)
         lead, K = tuple(x.shape[:-1]), x.shape[-1]
         N = mu.shape[1]
@@ -55,7 +59,7 @@ class LrtMC(AnalyticKLMC):
         m = torch.matmul(xs, mu.to(xs.dtype))
         # the variance: operands in x's dtype, products accumulated in f32
         v = torch.matmul((xs * xs).float(), (sigma * sigma).to(xs.dtype).float())
-        self.kernel_kl(kpath, i, mu, rho)
+        self.kernel_kl(kpath, i, mu, rho, mod.transposed)
         bpath = mod.path + SEP + "bias"
         if bpath in self.bmodel.rho:
             bmu, brho = mod.bias, self.bmodel.rho[bpath]

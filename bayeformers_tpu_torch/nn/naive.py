@@ -52,15 +52,17 @@ class NaiveMC(MCBase):
         return w
 
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
-        """A converted ``Dense`` over an S-major (S*B, ..., K) input, with the
-        arithmetic of ``Dense.forward`` on each sample's weights."""
+        """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
+        input, with the arithmetic of ``Dense.forward`` on each sample's
+        weights; a ``Conv1D``'s are drawn in its stored (out, in)
+        orientation, as ``bmodel.sample`` draws every leaf."""
         kpath = mod.path + SEP + "kernel"
         if kpath not in self.bmodel.rho:
             return mod(x)
         lead, K = tuple(x.shape[:-1]), x.shape[-1]
         xs = x.reshape(self.S, -1, K)
-        w = self._leaf(kpath, mod.kernel, self.bmodel.rho[kpath])
-        y = torch.bmm(xs.float(), w.to(x.dtype).float()).to(x.dtype)
+        w = self._leaf(kpath, mod.kernel, self.bmodel.rho[kpath]).to(x.dtype).float()
+        y = torch.bmm(xs.float(), w.transpose(1, 2) if mod.transposed else w).to(x.dtype)
         bpath = mod.path + SEP + "bias"
         b = (self._leaf(bpath, mod.bias, self.bmodel.rho[bpath])[:, None, :]
              if bpath in self.bmodel.rho else mod.bias)

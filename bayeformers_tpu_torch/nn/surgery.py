@@ -1,9 +1,11 @@
 """``to_bayesian`` over the port's own modules.
 
 Counterpart of ``bayeformers_tpu/nn/surgery.py``. Every ``Dense``
-(``nn/dense.py``, the port's ``nn.Dense``) kernel and bias
-(``DEFAULT_RULES``, the reference's ``{nn.Linear: Linear}`` scope) becomes
-a variational pair: ``mu`` is the module's own parameter, ``rho``
+(``nn/dense.py``, the port's ``nn.Dense``) and ``Conv1D`` (GPT-2's
+projections, stored (out, in)) kernel and bias (``DEFAULT_RULES``, the
+reference's ``{nn.Linear: Linear}`` scope, which the JAX package's
+``_match_linear`` reads as any 2-D kernel with a 1-D bias, FlaxConv1D's
+included) becomes a variational pair: ``mu`` is the module's own parameter, ``rho``
 lives in :attr:`BayesianModel.rho` under the leaf's Flax path. The
 reference's conversions (``to_bayesian(model, initialization, prior,
 delta, freeze)``):
@@ -16,7 +18,8 @@ delta, freeze)``):
   recipe) freezes mu, so the prior sits on mu itself.
 
 What trains is every ``rho``, mu unless frozen, and every unconverted
-parameter (embeddings, LayerNorm scale and bias):
+parameter (embeddings, LayerNorm scale and bias; GPT-2's tied LM head is
+its ``wte`` and stays frequentist):
 :meth:`BayesianModel.trainable_mask` and
 :meth:`BayesianModel.trainable_parameters`.
 """
@@ -38,6 +41,7 @@ SEP = "/"
 
 
 def _match_linear(name: str, mod: nn.Module) -> bool:
+    """``Dense`` and its subclass ``Conv1D``."""
     return isinstance(mod, Dense)
 
 

@@ -42,8 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "bft_bayes_linear": [_P] * 11 + [_I] * 7 + [_F] * 7 + [_P],
     "bft_bayes_linear_anti": [_P] * 11 + [_I] * 7 + [_F] * 7 + [_P],
-    "bft_mha_fwd": [_P] * 5 + [_I] * 5 + [_P],
-    "bft_mha_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    "bft_mha_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "bft_mha_bwd": [_P] * 9 + [_I] * 6 + [_P],
     "bft_reduce_abuv": [_P] * 9 + [_I] * 9 + [_F] * 4 + [_P],
     "bft_reduce_abuv_anti": [_P] * 9 + [_I] * 9 + [_F] * 4 + [_P],
     "bft_logprob": [_P] * 8 + [_I] * 4 + [_F] * 7 + [_P],

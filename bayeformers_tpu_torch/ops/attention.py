@@ -14,8 +14,20 @@ versions :func:`mha_plain` (the counterpart of ``_mha_xla``) and
 launches ``csrc/mha.cu`` forward and ``csrc/mha_bwd.cu`` backward, or
 raises. Both kernels take bf16 or f32 q/k/v (f32: true f32 products, the
 dot operands in the stored dtype as in the reference); the launch counters
-key each launch by ``(N, L, H, dtype)``. Causal masking comes with the
-GPT-2 slice.
+key each launch by ``(N, L, H, dtype, causal)``.
+
+``causal=True`` (GPT-2) masks key j > query i with ``_mha_xla``'s
+semantics (``attention.py:66-69``): ``where(j <= i, s + bias, NEG_BIG)``,
+after the bias, a ``where`` and not an add. Bias-masked and causal-masked
+scores then sit at the same ``NEG_BIG``, so a row whose every key is masked
+(query 0 of a row whose first key is masked; a padded bucket row) comes out
+uniform over all L keys, future keys included, as in the reference. The
+backward follows the reference's ``_bwd_kernel`` (``attention.py:181``):
+such a uniform row's dS reaches every key, future ones too, where XLA's
+autodiff of ``_mha_xla`` (the JAX package's route off the TPU) gives the
+causal-masked keys zero. The kernels mask in both passes and skip no key
+tile above the diagonal (skipping would make the all-masked row uniform
+over the causal prefix instead).
 """
 from __future__ import annotations
 
@@ -41,7 +53,14 @@ def mask_to_bias(attention_mask: torch.Tensor) -> torch.Tensor:
     )
 
 
-def mha_plain(q, k, v, bias, n_heads: int) -> torch.Tensor:
+def causal_where(s: torch.Tensor) -> torch.Tensor:
+    """``where(key <= query, s, NEG_BIG)`` over (..., L, L) f32 scores."""
+    L = s.shape[-1]
+    keep = torch.ones(L, L, dtype=torch.bool, device=s.device).tril()
+    return torch.where(keep, s, torch.full((), NEG_BIG, dtype=s.dtype, device=s.device))
+
+
+def mha_plain(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
     """Plain version (``_mha_xla``): f32 scores and softmax, dot operands in
     the input dtype with f32 accumulation."""
     N, L, H = q.shape
@@ -51,12 +70,14 @@ def mha_plain(q, k, v, bias, n_heads: int) -> torch.Tensor:
     vh = v.reshape(N, L, n_heads, d).permute(0, 2, 1, 3).float()
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     scores = scores + bias[:, None, None, :].float()
+    if causal:
+        scores = causal_where(scores)
     p = torch.softmax(scores, dim=-1)
     out = torch.matmul(p.to(q.dtype).float(), vh)
     return out.permute(0, 2, 1, 3).reshape(N, L, H).to(q.dtype)
 
 
-def mha_bwd_plain(q, k, v, bias, g, n_heads: int):
+def mha_bwd_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
     """Plain backward, written out as ``_bwd_kernel``: f32 scores and exact
     softmax P; P in the input dtype for dV = P^T g; dP = g V^T in f32;
     dS = P (dP - rowsum(dP P)) in f32, then the input dtype for
@@ -74,6 +95,8 @@ def mha_bwd_plain(q, k, v, bias, g, n_heads: int):
 
     qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias[:, None, None, :].float()
+    if causal:
+        s = causal_where(s)
     p = torch.softmax(s, dim=-1)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
     dp = torch.matmul(gh, vh.transpose(-1, -2))
@@ -88,28 +111,29 @@ class MHA(torch.autograd.Function):
     plain versions of both passes on the tensors' device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, n_heads, plain):
+    def forward(ctx, q, k, v, bias, n_heads, causal, plain):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.n_heads = n_heads
+        ctx.n_heads, ctx.causal = n_heads, causal
         ctx.plain = plain or q.device.type == "cpu"
-        return (mha_plain if ctx.plain else mha_cuda)(q, k, v, bias, n_heads)
+        return (mha_plain if ctx.plain else mha_cuda)(q, k, v, bias, n_heads, causal)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
         bwd = mha_bwd_plain if ctx.plain else mha_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, bias, g.contiguous(), ctx.n_heads)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = bwd(q, k, v, bias, g.contiguous(), ctx.n_heads, ctx.causal)
+        return dq, dk, dv, None, None, None, None
 
 
-def mha(q, k, v, bias, n_heads: int, *, plain: bool = False) -> torch.Tensor:
-    """Self-attention over q/k/v (N, L, H) with an (N, L) key bias;
-    differentiable in q, k and v."""
+def mha(q, k, v, bias, n_heads: int, *, causal: bool = False,
+        plain: bool = False) -> torch.Tensor:
+    """Self-attention over q/k/v (N, L, H) with an (N, L) key bias, causal
+    (``key <= query``) with ``causal=True``; differentiable in q, k and v."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return MHA.apply(q, k, v, bias, n_heads, plain)
+        return MHA.apply(q, k, v, bias, n_heads, causal, plain)
     plain = plain or q.device.type == "cpu"
-    return (mha_plain if plain else mha_cuda)(q, k, v, bias, n_heads)
+    return (mha_plain if plain else mha_cuda)(q, k, v, bias, n_heads, causal)
 
 
 def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
@@ -119,9 +143,12 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
     req(q.dim() == 3, "q/k/v must be (N, L, H)")
     N, L, H = q.shape
     tag = common.kernel_dtype(q, "mha")
+    # other head widths and longer sequences: ROADMAP queue 2 item 5
     req(H == n_heads * HEAD_DIM,
-        f"mha kernel needs a head width of {HEAD_DIM}; H={H}, heads={n_heads}")
-    req(1 <= L <= MAX_LEN, f"mha kernel takes 1 <= L <= {MAX_LEN}, got {L}")
+        f"mha kernel needs a head width of {HEAD_DIM}; H={H}, heads={n_heads} "
+        "(other widths: ROADMAP queue 2 item 5)")
+    req(1 <= L <= MAX_LEN, f"mha kernel takes 1 <= L <= {MAX_LEN}, got {L} "
+        "(longer sequences: ROADMAP queue 2 item 5)")
     operands = (("k", k), ("v", v)) + tuple(extra)
     for name, t in operands:
         req(t.shape == q.shape and t.dtype == q.dtype,
@@ -136,8 +163,9 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
     return tag
 
 
-def mha_cuda(q, k, v, bias, n_heads: int) -> torch.Tensor:
-    """Launch ``bft_mha_fwd`` (csrc/mha.cu), the bf16 or the f32 instance."""
+def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
+    """Launch ``bft_mha_fwd`` (csrc/mha.cu), the bf16 or the f32 instance,
+    causal or not."""
     tag = _check_inputs(q, k, v, bias, n_heads)
     N, L, H = q.shape
     lib = _build.library()
@@ -145,17 +173,17 @@ def mha_cuda(q, k, v, bias, n_heads: int) -> torch.Tensor:
     with torch.cuda.device(q.device):
         err = lib.bft_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), N, L, H, n_heads, int(tag == "f32"),
+            out.data_ptr(), N, L, H, n_heads, int(tag == "f32"), int(causal),
             common.cuda_stream(q),
         )
     _build.check(err, "bft_mha_fwd")
-    LAUNCHES.add((N, L, H, tag))
+    LAUNCHES.add((N, L, H, tag, causal))
     return out
 
 
-def mha_bwd_cuda(q, k, v, bias, g, n_heads: int):
+def mha_bwd_cuda(q, k, v, bias, g, n_heads: int, causal: bool = False):
     """Launch ``bft_mha_bwd`` (csrc/mha_bwd.cu), the bf16 or the f32
-    instance: ``(dq, dk, dv)``."""
+    instance, causal or not: ``(dq, dk, dv)``."""
     tag = _check_inputs(q, k, v, bias, n_heads, extra=(("g", g),))
     N, L, H = q.shape
     lib = _build.library()
@@ -165,9 +193,9 @@ def mha_bwd_cuda(q, k, v, bias, g, n_heads: int):
         err = lib.bft_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), N, L, H, n_heads, int(tag == "f32"),
+            stats.data_ptr(), N, L, H, n_heads, int(tag == "f32"), int(causal),
             common.cuda_stream(q),
         )
     _build.check(err, "bft_mha_bwd")
-    BWD_LAUNCHES.add((N, L, H, tag))
+    BWD_LAUNCHES.add((N, L, H, tag, causal))
     return dq, dk, dv

@@ -155,6 +155,9 @@ def train(
     device: str = "cuda",
 ) -> float:
     """Run phases A-D; returns the task's headline dev score after phase D."""
+    if "gpt2" in model_name.lower():
+        raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; GPT-2 "
+                         "runs in workloads/gpt2_lm.py")
     if "bert" not in model_name.lower() or any(
             f in model_name.lower() for f in ("distilbert", "roberta", "albert")):
         raise _later(f"model {model_name!r}", "model families")

@@ -90,6 +90,23 @@ Phases, each timed, each raising on failure:
     (#12 and #13 on every flipout layer, #11 and its VJP's #13 on every
     layer under the mixture, no Bayesian linear kernel on the local and
     naive paths); and ``bert_glue --estimator flipout`` and ``local``.
+15. GPT-2 base, the causal LM: the causal instances of ``mha_fwd`` (#3) and
+    ``mha_bwd`` (#5) against their plain versions at N = S B = 80, L = 128,
+    H = 768 and at L = 512, in bf16 and f32, at the attention gates, with
+    right-padded keys, a fully masked row and a first-key-masked row (finite
+    and uniform over all L keys), bit-equal reruns, and two planted faults
+    that must fail the gates (the non-causal instance against the causal
+    plain output; the plain mask one column off); the forward and reduce
+    kernels at the packed c_attn's 768 -> 2304; ``Predictor(task=
+    "causal-lm")`` on GPT-2 base (seed 0, zero leaves 0.01, MOPED 0.05
+    frozen) under both estimators in bf16 and f32, with launch counts read
+    around exactly three ragged requests (48 Bayesian linear launches and 12
+    causal ``mha_fwd`` a request) and the logits against the plain path; the
+    ELBO step with the LM loss under both estimators in each dtype against
+    the plain step (48 reduces and 12 causal ``mha_bwd`` a step, 12 #10 in
+    the f32 antithetic step), peak memory; ``workloads/gpt2_lm.train`` for
+    3 batches at its default (naive, f32) and antithetic bf16; flipout and
+    local on GPT-2 in bf16 through :func:`phase_estimator`.
 
 The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
@@ -128,6 +145,9 @@ MIXTURE = (0.5, 1.0, math.exp(-6.0))
 WINDOWS = 5
 # converted kernels of BERT-base: 12 x 6, the pooler, the classifier
 BERT_BASE_LAYERS = 74
+# converted kernels of GPT-2 base: 12 x 4 Conv1D (c_attn, c_proj, c_fc, mlp c_proj)
+GPT2_BASE_LAYERS = 48
+GPT2_VOCAB = 50257
 
 
 def check(cond: bool, msg: str) -> None:
@@ -400,18 +420,27 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
 
 SERVING_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                   (8, 768, 768), (8, 768, 2))
+# the model families of the main paths: BERT-base, and GPT-2 base (phase 15),
+# whose launch paths carry the prefix "gpt2/"
+BERT, GPT2 = "", "gpt2/"
+# GPT-2's one shape that BERT's path has not: the packed c_attn, 768 -> 2304;
+# and the (K, N) of its four Conv1D layers a block
+GPT2_SHAPES = ((1024, 768, 2304),)
+GPT2_SHAPES_ALL = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 
 
-def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu") -> list[dict]:
+def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
+                       family=BERT) -> list[dict]:
     """A forward kernel's instance for ``dtype`` and ``prior`` against its
-    plain version; returns the timing rows."""
+    plain version, at the shapes of ``family``'s serving path that the
+    rows do not hold yet; returns the timing rows."""
     S = 10
     n_draws = S // 2 if antithetic else S
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     label = tag + ("" if prior == "on_mu" else f", {prior}")
     rows = []
-    for M, K, N in SERVING_SHAPES:
+    for M, K, N in (GPT2_SHAPES if family else SERVING_SHAPES):
         x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                     dtype=dtype, prior=prior)
         err, w, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw)
@@ -436,10 +465,12 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu") -> 
         rows.append(row(
             f"{name}[M={M},K={K},N={N}{suffix}]", name,
             (M, K, N, tag + prior_suffix(prior)),
-            f"serve/{'anti' if antithetic else 'indep'}/{tag}{prior_suffix(prior)}",
+            f"serve/{family}{'anti' if antithetic else 'indep'}/{tag}{prior_suffix(prior)}",
             "bayeformers_tpu_torch/csrc/bayes_linear.cu",
             f"bayeformers_tpu/ops/fused_linear.py:{line}", err, ms, plain_ms, b,
             lib_ms))
+    if family:
+        return rows
     # the kernel's scalar x path, taken when x's rows are not whole 16-byte
     # chunks or x is not 16-byte aligned: off the serving path, so checked
     # here but neither timed nor counted
@@ -496,7 +527,7 @@ def phase_mha(at, dtype=BF16) -> dict:
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]})")
     suffix = "" if dtype == BF16 else f",{tag}"
-    return row(f"mha_fwd[N={N},L={L},H={H}{suffix}]", "mha_fwd", (N, L, H, tag),
+    return row(f"mha_fwd[N={N},L={L},H={H}{suffix}]", "mha_fwd", (N, L, H, tag, False),
                f"serve/anti/{tag}", "bayeformers_tpu_torch/csrc/mha.cu",
                "bayeformers_tpu/ops/attention.py:119", err, ms, plain_ms, b, lib_ms)
 
@@ -522,10 +553,21 @@ def convert(bt, model, prior):
     return bmodel
 
 
-def converted_base(bt, dtype, prior="on_mu"):
-    """BERT-base from seed 0 in ``dtype`` activations, converted for
-    ``prior`` (:func:`convert`), and its trainable tensors."""
-    model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
+def converted_base(bt, dtype, prior="on_mu", family=BERT):
+    """BERT-base (or, ``family=GPT2``, GPT-2 base) from seed 0 in ``dtype``
+    activations, converted for ``prior`` (:func:`convert`), and its
+    trainable tensors. GPT-2's zero leaves (its biases) are set to 0.01
+    first, as the JAX package's tests do (``tests/test_models.py:204-211``):
+    MOPED would give a zero weight sigma = softplus(0) = 0.69."""
+    if family == GPT2:
+        from bayeformers_tpu_torch.models.gpt2 import build_gpt2
+
+        model = build_gpt2("base", seed=0, dtype=dtype, device="cuda")
+        with torch.no_grad():
+            for p in model.parameters():
+                p.masked_fill_(p == 0, 0.01)
+    else:
+        model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
     bmodel = convert(bt, model, prior)
     return bmodel, bmodel.trainable_parameters()
 
@@ -767,7 +809,8 @@ REDUCE_INSTANCES = {  # tag: (x's and g's type, W's type, path of its launches)
 }
 
 
-def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu") -> list[dict]:
+def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
+                 family=BERT) -> list[dict]:
     """A reduce kernel's instance against its plain version, on the W the
     forward kernel wrote (saved residuals: bf16, f32) or on the regenerated
     f32 W (``bf16x-f32w``), under ``prior`` (the priors not centred on mu
@@ -778,7 +821,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu") -> li
     n_draws = S // 2 if antithetic else S
     xdt, wdt, path = REDUCE_INSTANCES[tag]
     path = path + prior_suffix(prior)
-    est = "anti" if antithetic else "indep"
+    est = family + ("anti" if antithetic else "indep")
     label = tag + ("" if prior == "on_mu" else f", {prior}")
     if antithetic:
         name, fn, plain = "reduce_abuv_anti", fb.reduce_abuv_anti, fb.reduce_abuv_anti_plain
@@ -789,7 +832,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu") -> li
     limit = 1e-5 if F32 in (xdt, wdt) else 1e-4
     isz = torch.finfo(xdt).bits // 8
     rows = []
-    for M, K, N in TRAIN_SHAPES + ((100, 300, 130),):
+    for M, K, N in (GPT2_SHAPES if family else TRAIN_SHAPES + ((100, 300, 130),)):
         x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                     dtype=xdt, prior=prior)
         if wdt == xdt:
@@ -812,7 +855,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu") -> li
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"{name} ({label}) reruns differ at {(M, K, N)}")
         summary = f"{names} rel err " + "/".join(f"{e:.3g}" for e in errs)
-        if (M, K, N) not in TRAIN_SHAPES:
+        if (M, K, N) not in TRAIN_SHAPES + GPT2_SHAPES:
             say(f"{name} ({label}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
             continue
         ms = time_ms(lambda: fn(x, g, w, mu, g_p, **pkw), 20, windows=WINDOWS)
@@ -931,14 +974,20 @@ def phase_mha_bwd(at, dtype=BF16) -> dict:
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
             f"bound {b[0]:.4f} ms ({b[1]})")
         suffix = "" if dtype == BF16 else f",{tag}"
-        out_row = row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd", (N, L, H, tag),
+        out_row = row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd", (N, L, H, tag, False),
                       f"train/anti/{tag}", "bayeformers_tpu_torch/csrc/mha_bwd.cu",
                       "bayeformers_tpu/ops/attention.py:181", max(errs), ms, plain_ms,
                       b, lib_ms)
     return out_row
 
 
-def train_batch(bt, B=8, L=128, seed=7):
+def train_batch(bt, B=8, L=128, seed=7, family=BERT):
+    if family == GPT2:  # the GPT-2 workload's synthetic language
+        from bayeformers_tpu_torch.models.gpt2 import GPT2_BASE_KWARGS, synthetic_lm_batch
+
+        ids = synthetic_lm_batch(np.random.default_rng(seed), B, L,
+                                 GPT2_BASE_KWARGS["vocab_size"])["input_ids"]
+        return {"input_ids": torch.from_numpy(ids).cuda()}
     rng = np.random.default_rng(seed)
     ids = rng.integers(4, bt.BERT_BASE_KWARGS["vocab_size"], (B, L))
     mask = np.ones((B, L), np.int64)
@@ -949,14 +998,25 @@ def train_batch(bt, B=8, L=128, seed=7):
         ("labels", rng.integers(0, 2, (B,))))}
 
 
-def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True):
+def loss_keywords(family) -> dict:
+    """The ELBO objective's loss and inputs for a family: BERT's
+    classification loss on its three inputs, GPT-2's LM loss on its ids."""
+    if family == GPT2:
+        from bayeformers_tpu_torch.workloads.gpt2_lm import lm_loss
+
+        return {"loss_fn": lm_loss, "input_keys": ("input_ids",)}
+    return {}
+
+
+def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True,
+             family=BERT):
     """Loss and gradients of one ELBO objective (S=10) at the given draw;
     ``save_weights=False`` differentiates through the regenerating VJP."""
     for _, t, _ in named:
         t.grad = None
     loss, m = bt.training.elbo_objective(
         bt.training.pick_mc(bmodel, estimator, save_weights), seed, 10, batch, 256,
-        impl=impl)
+        impl=impl, **loss_keywords(family))
     loss.backward()
     return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
 
@@ -1041,15 +1101,22 @@ def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
     return worst
 
 
-PARAM_GROUPS = ("LayerNorm/scale", "LayerNorm/bias", "embedding")
+def param_groups(names) -> dict[str, list[str]]:
+    """The trainable unconverted parameters by group: the norms' scales and
+    biases (BERT's LayerNorm, GPT-2's ln_1, ln_2 and ln_f) and the
+    embeddings (GPT-2's wte is its tied head too)."""
+    params = [n for n in names if n.startswith("params/")]
+    norm = [n for n in params if "LayerNorm/" in n or "/ln_" in n]
+    return {"LayerNorm/scale": [n for n in norm if n.endswith("/scale")],
+            "LayerNorm/bias": [n for n in norm if n.endswith("/bias")],
+            "embedding": [n for n in params if n.endswith("embedding")]}
 
 
 def grad_groups(names) -> dict[str, list[str]]:
     """The trainable leaves by group: rho, LayerNorm scales and biases,
     embeddings, and any other parameter."""
     groups = {"rho": [n for n in names if n.startswith("rho/")]}
-    for g in PARAM_GROUPS:
-        groups[g] = [n for n in names if n.startswith("params/") and n.endswith(g)]
+    groups.update(param_groups(names))
     seen = {n for v in groups.values() for n in v}
     rest = [n for n in names if n not in seen]
     if rest:
@@ -1082,8 +1149,7 @@ def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32, mu_names=(),
     if not rho_by_f32:
         check(rel <= 5e-2 and cos >= 0.999, f"{label} rho gradients through the kernels "
               f"differ from the plain step: rel L2 {rel}, cosine {cos}")
-    groups = {g: [n for n in gk if n.startswith("params/") and n.endswith(g)]
-              for g in PARAM_GROUPS}
+    groups = param_groups(list(gk))
     if mu_names:
         groups["mu"] = list(mu_names)
     if rho_by_f32:
@@ -1101,11 +1167,12 @@ def check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32, mu_names=(),
               "f32 step than the bf16 plain step's")
 
 
-def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
+def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BERT
                 ) -> tuple[dict, float, dict]:
     """The ELBO step at the recipe in ``dtype`` activations, under the
-    conversion of ``prior``: returns the launch counts by kernel and shape
-    over the timed steps, the median step time (ms) and, in bf16, the
+    conversion of ``prior``, on BERT-base or (``family=GPT2``) GPT-2 base
+    with the LM loss: returns the launch counts by kernel and shape over
+    the timed steps, the median step time (ms) and, in bf16 on BERT, the
     launch counts of one step through the regenerating backward
     (``save_weights=False``)."""
     from bayeformers_tpu_torch.nn.surgery import leaf
@@ -1114,29 +1181,34 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
     anti = estimator == "antithetic"
     tag = TAG[dtype]
     sfx = prior_suffix(prior)
-    label = f"train ({estimator}, {tag}" + ("" if prior == "on_mu" else f", {prior}") + ")"
-    batch = train_batch(bt)
+    label = (f"train{' GPT-2' if family else ''} ({estimator}, {tag}"
+             + ("" if prior == "on_mu" else f", {prior}") + ")")
+    batch = train_batch(bt, family=family)
     regen_counts = {}
     if dtype == BF16:
         # the same step in f32 activations through the plain versions: the
         # yardstick for gradients that bf16 activations blur on either path
-        bmodel32, named32 = converted_base(bt, F32, prior)
-        _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain", estimator)
+        bmodel32, named32 = converted_base(bt, F32, prior, family)
+        _, _, g32 = grads_of(bt, bmodel32, named32, 123, batch, "plain", estimator,
+                             family=family)
         del bmodel32, named32
         torch.cuda.empty_cache()
 
-    bmodel, named = converted_base(bt, dtype, prior)
+    bmodel, named = converted_base(bt, dtype, prior, family)
     mu_names = ([] if prior == "on_mu" else
                 [f"params/{p}" for p in bmodel.spec.paths])
     # the step through the kernels against the plain step, same draw; #10
     # runs in the f32 antithetic step's 12 FFN down-projections only
     reset_counters(fl)
-    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                              family=family)
     n_regen = dict(fl.REGEN_LAUNCHES.by_shape)
     want = {(S // 2, 3072, 768): 12} if anti and dtype == F32 else {}
     check(n_regen == want, f"{label}: regen launched {n_regen}, want {want}")
-    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
-    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator)
+    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                               family=family)
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator,
+                              family=family)
     check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
           f"{label}: the same seed gave another loss or gradient through the kernels")
     if dtype == BF16:
@@ -1156,6 +1228,7 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
                 "step's (gate: 1.5x the bf16 plain step's "
                 f"{worst_agreement(gp, g32, rho)[0]:.4g})")
             del gv
+    if dtype == BF16 and family == BERT:
         # the regenerating backward (save_weights=False): #10 on every layer,
         # the reduce on the regenerated f32 W; counts read around this step
         rlabel = label[:-1] + ", save_weights=False)"
@@ -1183,7 +1256,9 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
             check_prior_grads(bt, fb, bmodel, named, batch, estimator, rlabel, mu_names,
                               save_weights=False)
         say(f"{rlabel}: launches in one step: {regen_counts}")
-        del gr, gr2, grp, g32
+        del gr, gr2, grp
+    if dtype == BF16:
+        del g32
     else:
         loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
         say(f"{label}: loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} "
@@ -1206,7 +1281,7 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
         bt.training.default_no_decay, eps=1e-8, clip_norm=1.0)
     opt = tx.init(named)
     step = bt.training.make_elbo_train_step(bmodel, opt, S, n_batches,
-                                            estimator=estimator)
+                                            estimator=estimator, **loss_keywords(family))
     # after one step a trained mu has moved, a frozen one has not, and
     # prior_mu (MOPED with a trainable mu) is bit-identical
     mu0 = {p: leaf(bmodel.model, p).detach().clone() for p in bmodel.spec.paths}
@@ -1226,9 +1301,10 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
     say(f"{label}: loss over 4 steps at one batch and draw: {losses}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the ELBO did not fall")
 
-    # timed steps, fresh draws; launches counted around exactly these
+    # timed steps, fresh draws; launches and peak memory read around exactly these
     torch.cuda.synchronize()
     reset_counters(fl, at, fb)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(10):
         torch.cuda.synchronize()
@@ -1251,6 +1327,15 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu"
     launches["regen"] = dict(fl.REGEN_LAUNCHES.by_shape)
     check(fl.REGEN_LAUNCHES.count == 10 * sum(want.values()),
           f"{label}: regen launched {fl.REGEN_LAUNCHES.count} times in 10 steps")
+    if family == GPT2:
+        # a step: the four Conv1D shapes' reduce once a layer, the causal
+        # attention backward once a layer
+        per_step = {(1024, k, n, tag): 12 for k, n in GPT2_SHAPES_ALL}
+        got = {k: v / 10 for k, v in red.by_shape.items()}
+        check(got == per_step, f"{label}: reduce launches a step {got}, want {per_step}")
+        check(at.BWD_LAUNCHES.by_shape == {(80, 128, 768, tag, True): 120},
+              f"{label}: mha_bwd launches {at.BWD_LAUNCHES.by_shape} in 10 steps, "
+              "want 12 causal a step")
     step_ms = float(np.median(times))
     say(f"{label}: launches over 10 steps: {launches}")
     say(f"{label}: ELBO step (S=10, B=8, L=128, {tag}) median {step_ms:.3f} ms over 10: "
@@ -1567,35 +1652,40 @@ def want_counts(estimator, prior, n_layers, n_attn, backward: int) -> dict:
     return want
 
 
-def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior):
-    """One of the new estimators on BERT-base at S=10 in ``dtype`` under the
-    conversion of ``prior``: the 8x128 request (the forward and the
-    posterior summaries, under ``torch.inference_mode()``) and the ELBO step
-    at B=8, L=128, each through the kernels against its ``impl="plain"`` run
-    on the card at the existing gates of its dtype (random init's logits
-    through :func:`mixture_logits_gate`), bit-equal reruns, launch counts
-    read around exactly one request and the 10 timed steps
-    (:func:`want_counts`), and the median request and step times. Returns
-    (request launches by counter and shape, request ms, step launches, step
-    ms)."""
-    from bayeformers_tpu_torch.serving import summarize
+def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BERT):
+    """One of the new estimators on BERT-base (or, ``family=GPT2``, GPT-2
+    base) at S=10 in ``dtype`` under the conversion of ``prior``: the 8x128
+    request (the forward and the posterior summaries, under
+    ``torch.inference_mode()``) and the ELBO step at B=8, L=128, each
+    through the kernels against its ``impl="plain"`` run on the card at the
+    existing gates of its dtype (random init's logits through
+    :func:`mixture_logits_gate`), bit-equal reruns, launch counts read
+    around exactly one request and the 10 timed steps (:func:`want_counts`),
+    and the median request and step times. Returns (request launches by
+    counter and shape, request ms, step launches, step ms)."""
+    from bayeformers_tpu_torch.serving import summarize, summarize_causal_lm
 
     tag, sfx = TAG[dtype], prior_suffix(prior)
-    label = f"{estimator} ({tag}" + ("" if prior == "on_mu" else f", {prior}") + ")"
+    label = (f"{estimator}{' GPT-2' if family else ''} ({tag}"
+             + ("" if prior == "on_mu" else f", {prior}") + ")")
     mc_of = lambda m: bt.training.pick_mc(m, estimator)
     counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
-    bmodel, named = converted_base(bt, dtype, prior)
+    bmodel, named = converted_base(bt, dtype, prior, family)
     n_layers, n_attn = len([p for p in bmodel.spec.paths if p.endswith("/kernel")]), 12
-    check(n_layers == BERT_BASE_LAYERS, f"{label}: {n_layers} converted kernels")
-    req = serving_requests(bt)[1]
+    want_layers = GPT2_BASE_LAYERS if family else BERT_BASE_LAYERS
+    check(n_layers == want_layers, f"{label}: {n_layers} converted kernels")
+    req = (gpt2_requests() if family else serving_requests(bt))[1]
     dev = bmodel.device
     args = tuple(torch.from_numpy(req[k]).to(dev)
-                 for k in ("input_ids", "attention_mask", "token_type_ids"))
+                 for k in ("input_ids", "attention_mask", "token_type_ids") if k in req)
+    out_shape = (10, 8, 128, GPT2_VOCAB) if family else (10, 8, 2)
 
     def serve(m, seed, impl="kernel"):
         with torch.inference_mode():
             logits, aux = mc_of(m)(seed, 10, *args, impl=impl)
-            return logits, aux, summarize(logits)
+            summ = (summarize_causal_lm(logits, args[1], 50) if family
+                    else summarize(logits))
+            return logits, aux, summ
 
     serve(bmodel, 7)
     torch.cuda.synchronize()
@@ -1612,11 +1702,13 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior):
     check(torch.equal(lk, again) and all(torch.equal(auxk[k], aux_again[k]) for k in auxk),
           f"{label}: the same seed gave other logits")
     check(not torch.equal(lk, other), f"{label}: another seed gave the same logits")
-    check(bool(torch.isfinite(lk.float()).all()) and tuple(lk.shape) == (10, 8, 2),
+    check(bool(torch.isfinite(lk.float()).all()) and tuple(lk.shape) == out_shape,
           f"{label}: logits {tuple(lk.shape)} not finite")
-    probs = summ["probs"]
-    check(bool(torch.allclose(probs.sum(-1), torch.ones(8, device=dev), atol=1e-5)),
-          f"{label}: probs do not sum to 1")
+    probs = summ["topk_probs"] if family else summ["probs"]
+    total = probs.sum(-1)
+    check(bool(torch.allclose(total, torch.ones(8, device=dev), atol=1e-5)) if not family
+          else bool((total <= 1 + 1e-5).all() and (probs.diff(dim=-1) <= 1e-7).all()),
+          f"{label}: probs do not sum to 1 (top-k: not sorted or above 1)")
     lp_, auxp, _ = serve(bmodel, 12345, "plain")
     err = max_dist(lk, lp_)
     if prior == "mixture":
@@ -1647,16 +1739,19 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior):
         f"{[round(v, 3) for v in lat]}")
 
     # the ELBO step through the kernels against the plain step, same draw
-    batch = train_batch(bt)
+    batch = train_batch(bt, family=family)
     mu_names = [] if prior == "on_mu" else [f"params/{p}" for p in bmodel.spec.paths]
     if dtype == BF16:
-        m32, n32 = converted_base(bt, F32, prior)
-        _, _, g32 = grads_of(bt, m32, n32, 123, batch, "plain", estimator)
+        m32, n32 = converted_base(bt, F32, prior, family)
+        _, _, g32 = grads_of(bt, m32, n32, 123, batch, "plain", estimator, family=family)
         del m32, n32
         torch.cuda.empty_cache()
-    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
-    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator)
-    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator)
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                              family=family)
+    loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
+                               family=family)
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", estimator,
+                              family=family)
     check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
           f"{label}: the same seed gave another loss or gradient through the kernels")
     step_label = f"train {label}"
@@ -1686,13 +1781,15 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior):
         bt.training.linear_schedule(2e-5, 0.0, 100), 0.0,
         bt.training.default_no_decay, eps=1e-8, clip_norm=1.0)
     opt = tx.init(named)
-    step = bt.training.make_elbo_train_step(bmodel, opt, 10, 256, estimator=estimator)
+    step = bt.training.make_elbo_train_step(bmodel, opt, 10, 256, estimator=estimator,
+                                            **loss_keywords(family))
     losses = [step(55, batch)["loss"].item() for _ in range(4)]
     say(f"{step_label}: loss over 4 steps at one batch and draw: {losses}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{step_label}: the ELBO "
           "did not fall")
     torch.cuda.synchronize()
     reset_counters(fl, fb, at, sl, lpm)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(10):
         torch.cuda.synchronize()
@@ -1737,6 +1834,301 @@ def phase_workload_estimator(fl, fb, at, sl, lpm, estimator) -> float:
     say(f"workload: bert_glue --estimator {estimator} phases A-D at S=10, bf16, 3 batches "
         f"an epoch: score {score:.4f}; launches {counts}")
     return score
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: GPT-2 base, causal-LM serving and training, through the causal
+# instances of #3 (csrc/mha.cu) and #5 (csrc/mha_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def causal_inputs(at, N, L, H, seed, dtype):
+    """Seeded q, k, v, g (N, L, H) and the key bias: right-padded keys in
+    half the rows, one fully masked row (a padded bucket row) and one row
+    whose first key is masked (its query 0 sees no live key)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(N, L, H, device=dev, generator=gen).to(dtype)
+                  for _ in range(4))
+    mask = torch.ones(N, L, device=dev)
+    mask[: N // 2, L - L // 3:] = 0
+    mask[N - 1] = 0
+    mask[N - 2, 0] = 0
+    return q, k, v, g, at.mask_to_bias(mask)
+
+
+def attn_gate_ok(out, ref, dtype, backward=False) -> bool:
+    """The attention gates: bf16 forward 2e-2 absolute, bf16 backward 2e-2
+    absolute plus 2e-2 relative, f32 1e-4 absolute plus 1e-4 relative."""
+    tol = 1e-4 if dtype == F32 else 2e-2
+    if dtype == BF16 and not backward:
+        return (out.float() - ref.float()).abs().max().item() <= tol
+    return torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@contextlib.contextmanager
+def shifted_causal_mask(at):
+    """While the block runs, the plain versions mask key j > i + 1 instead of
+    j > i: the reference of a planted fault, a mask one column off."""
+    orig = at.causal_where
+
+    def shifted(s):
+        L = s.shape[-1]
+        keep = torch.ones(L, L, dtype=torch.bool, device=s.device).tril(1)
+        return torch.where(keep, s, torch.full((), at.NEG_BIG, device=s.device))
+
+    at.causal_where = shifted
+    try:
+        yield
+    finally:
+        at.causal_where = orig
+
+
+def causal_sdpa_mask(at, bias, dtype):
+    """The combined (N, 1, L, L) float mask that gives SDPA the same
+    function: the key bias where key <= query, else the type's minimum."""
+    L = bias.shape[1]
+    keep = torch.ones(L, L, dtype=torch.bool, device=bias.device).tril()
+    full = torch.where(keep[None], bias[:, None, :], torch.full((), at.NEG_BIG,
+                                                              device=bias.device))
+    return full.clamp_min(torch.finfo(dtype).min).to(dtype)[:, None]
+
+
+def phase_causal_mha(at, dtype) -> list[dict]:
+    """The causal instances of #3 and #5 against their plain versions at the
+    GPT-2 serving and training shape (N = S B = 80, L = 128, H = 768) and
+    at L = 512: the attention gates, the fully masked row (and the
+    first-key-masked row's query 0) finite and uniform over all L keys,
+    bit-equal reruns, and two planted faults that must fail the gates (the
+    non-causal instance against the causal plain output; the plain mask
+    one column off). Returns the timing rows of the L = 128 shape."""
+    nh = 12
+    tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
+    rows = []
+    for N, L, H in ((80, 128, 768), (8, 512, 768)):
+        q, k, v, g, bias = causal_inputs(at, N, L, H, L + 1, dtype)
+        out = at.mha_cuda(q, k, v, bias, nh, causal=True)
+        again = at.mha_cuda(q, k, v, bias, nh, causal=True)
+        grads = at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True)
+        grads2 = at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True)
+        torch.cuda.synchronize()
+        ref = at.mha_plain(q, k, v, bias, nh, causal=True)
+        gref = at.mha_bwd_plain(q, k, v, bias, g, nh, causal=True)
+        err = max_dist(out, ref)
+        gerrs = [max_dist(a, r) for a, r in zip(grads, gref)]
+        check(attn_gate_ok(out, ref, dtype), f"causal mha ({tag}) differs from its plain "
+              f"version at {(N, L, H)}: max {err}")
+        for name, a, r in zip(("dq", "dk", "dv"), grads, gref):
+            check(bool(torch.isfinite(a.float()).all()), f"causal mha_bwd {name} not finite")
+            check(attn_gate_ok(a, r, dtype, True), f"causal mha_bwd ({tag}) {name} differs "
+                  f"at {(N, L, H)}: max {gerrs}")
+        check(torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"causal mha ({tag}) reruns differ at {(N, L, H)}")
+        # the all-masked rows: uniform P over all L keys, so the mean of v
+        vbar = v.float().mean(1)
+        uni = max(max_dist(out[N - 1], vbar[N - 1].expand(L, H)),
+                  max_dist(out[N - 2, 0], vbar[N - 2]))
+        check(bool(torch.isfinite(out.float()).all()) and uni <= (1e-4 if dtype == F32
+                                                                   else 2e-2),
+              f"causal mha ({tag}): the all-masked rows are not uniform over L: {uni}")
+        # planted faults: the gates must fail them
+        plain_nc = at.mha_cuda(q, k, v, bias, nh)
+        with shifted_causal_mask(at):
+            ref_shift = at.mha_plain(q, k, v, bias, nh, causal=True)
+        nc_bwd = at.mha_bwd_cuda(q, k, v, bias, g, nh)
+        faults = {"non-causal instance": max_dist(plain_nc, ref),
+                  "mask one column off": max_dist(out, ref_shift),
+                  "non-causal backward": max(max_dist(a, r) for a, r in zip(nc_bwd, gref))}
+        check(not attn_gate_ok(plain_nc, ref, dtype)
+              and not attn_gate_ok(out, ref_shift, dtype)
+              and not all(attn_gate_ok(a, r, dtype, True) for a, r in zip(nc_bwd, gref)),
+              f"causal mha ({tag}): a planted fault passes the gates: {faults}")
+        summary = (f"fwd max|d| {err:.3g}, dq/dk/dv max|d| "
+                   + "/".join(f"{e:.3g}" for e in gerrs)
+                   + f", all-masked rows uniform within {uni:.3g}, reruns equal; planted "
+                   "faults fail the gates: " + ", ".join(f"{k} max|d| {e:.3g}"
+                                                        for k, e in faults.items()))
+        if L != 128:
+            say(f"causal mha ({tag}) N={N} L={L} H={H}: {summary}")
+            continue
+        ms = time_ms(lambda: at.mha_cuda(q, k, v, bias, nh, causal=True), 50,
+                     windows=WINDOWS)
+        plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh, causal=True), 5, 1)
+        bms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True), 20,
+                      windows=WINDOWS)
+        bplain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh, causal=True), 3, 1)
+        d = H // nh
+        mask4 = causal_sdpa_mask(at, bias, dtype)
+        heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
+                 for t in (q, k, v)]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=mask4)
+
+        lib_ms = time_ms(sdpa, 50, windows=WINDOWS)
+        o = sdpa()
+        go = g.view(N, L, nh, d).transpose(1, 2)
+        blib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 20,
+                          windows=WINDOWS)
+        # the products the causal function needs: key <= query, L (L + 1) / 2 a head
+        pairs = N * L * (L + 1) / 2
+        b = bound(4 * N * L * H * isz + N * L * 4, 4.0 * pairs * H, dtype)
+        bb = bound(7 * N * L * H * isz + N * L * 4, 10.0 * pairs * H, dtype)
+        say(f"causal mha ({tag}) N={N} L={L} H={H}: {summary}; forward kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa (combined mask) {lib_ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}); backward kernel {bms:.4f} ms, plain {bplain_ms:.4f} "
+            f"ms, sdpa backward {blib_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+        suffix = ("" if dtype == BF16 else f",{tag}") + ",causal"
+        rows.append(row(f"mha_fwd[N={N},L={L},H={H}{suffix}]", "mha_fwd",
+                        (N, L, H, tag, True), f"serve/gpt2/anti/{tag}",
+                        "bayeformers_tpu_torch/csrc/mha.cu",
+                        "bayeformers_tpu/ops/attention.py:119", err, ms, plain_ms, b, lib_ms))
+        rows.append(row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd",
+                        (N, L, H, tag, True), f"train/gpt2/anti/{tag}",
+                        "bayeformers_tpu_torch/csrc/mha_bwd.cu",
+                        "bayeformers_tpu/ops/attention.py:181", max(gerrs), bms, bplain_ms,
+                        bb, blib_ms))
+    return rows
+
+
+def gpt2_requests() -> list[dict]:
+    """Three ragged requests (3x77, 8x128, 5x20 token ids) from a seed; the
+    second fills the (8, 128) bucket, its last three rows right-padded after
+    90 tokens."""
+    rng = np.random.default_rng(0)
+    out = []
+    for n, L in ((3, 77), (8, 128), (5, 20)):
+        mask = np.ones((n, L), np.int64)
+        if n == 8:
+            mask[5:, 90:] = 0
+        out.append({"input_ids": rng.integers(0, GPT2_VOCAB, (n, L)),
+                    "attention_mask": mask})
+    return out
+
+
+def phase_serving_gpt2(bt, fl, at, antithetic, dtype) -> tuple[dict, float]:
+    """GPT-2 base from seed 0 (zero leaves to 0.01), MOPED 0.05 frozen,
+    served by ``Predictor(task="causal-lm", n_samples=10, seq_lens=(128,))``
+    antithetic or with independent draws: three ragged requests, launch
+    counts read around exactly them (the Bayesian linear kernel 48 times a
+    request, 12 at each Conv1D shape, 768 -> 2304 among them; causal
+    ``mha_fwd`` 12 times a request), the summaries' properties,
+    determinism per seed, the 8x128 request's logits against the plain
+    path on the card (1e-4 in f32, 5e-2 in bf16), its log-probs (1e-5
+    relative) and its latency. Returns (launches by counter and shape,
+    median latency in ms)."""
+    t0 = time.perf_counter()
+    tag = TAG[dtype]
+    label = f"serving GPT-2 ({'antithetic' if antithetic else 'independent'}, {tag})"
+    bmodel, _ = converted_base(bt, dtype, "on_mu", GPT2)
+    pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(8,), seq_lens=(128,),
+                        antithetic=antithetic, task="causal-lm")
+    fwd, other = ((fl.LAUNCHES, fl.INDEP_LAUNCHES) if antithetic
+                  else (fl.INDEP_LAUNCHES, fl.LAUNCHES))
+    torch.cuda.synchronize()
+    say(f"{label}: GPT-2 base built and converted in {time.perf_counter() - t0:.2f} s "
+        f"({len(bmodel.spec.paths)} converted leaves)")
+    check(len(bmodel.spec.paths) == 2 * GPT2_BASE_LAYERS,
+          f"{label}: {len(bmodel.spec.paths)} converted leaves")
+    requests = gpt2_requests()
+    pred(requests[0], seed=100)  # the first request pays one-time set-up
+    torch.cuda.synchronize()
+
+    reset_counters(fl, at)
+    outs = [pred(r, seed=100 + i) for i, r in enumerate(requests)]
+    torch.cuda.synchronize()
+    launches = {fwd.name: dict(fwd.by_shape), "mha_fwd": dict(at.LAUNCHES.by_shape)}
+    want = {(1024, k, n, tag): 3 * 12 for k, n in GPT2_SHAPES_ALL}
+    check(fwd.by_shape == want and other.count == 0,
+          f"{label}: Bayesian linear launches {fwd.by_shape} (other {other.count}), "
+          f"want {want}")
+    check(at.LAUNCHES.by_shape == {(80, 128, 768, tag, True): 36},
+          f"{label}: mha_fwd launches {at.LAUNCHES.by_shape}, want 12 causal a request")
+    say(f"{label}: launches over 3 requests: {launches}")
+    for r, o in zip(requests, outs):
+        n = r["input_ids"].shape[0]
+        check(o["topk_ids"].shape == (n, 50) and o["entropy"].shape == (n,),
+              f"{label}: topk_ids {o['topk_ids'].shape}")
+        check(all(np.isfinite(v).all() for v in o.values()), f"{label}: non-finite output")
+        check(bool((np.diff(o["topk_probs"], axis=-1) <= 1e-7).all()
+                   and (o["topk_probs"].sum(-1) <= 1 + 1e-5).all()),
+              f"{label}: top-k probs not sorted or above 1")
+        check(np.array_equal(o["pred"], o["topk_ids"][:, 0]), f"{label}: pred")
+        check(bool((o["mutual_info"] >= -1e-6).all()
+                   and (o["mutual_info"] <= o["entropy"] + 1e-6).all()),
+              f"{label}: BALD mutual information outside [0, entropy]")
+    again = pred(requests[1], seed=101)
+    diff = pred(requests[1], seed=999)
+    check(all(np.array_equal(again[k], outs[1][k]) for k in again),
+          f"{label}: the same seed gave other outputs")
+    check(not np.array_equal(diff["topk_probs"], outs[1]["topk_probs"]),
+          f"{label}: another seed gave the same outputs")
+    say(f"{label}: request 2's next tokens {outs[1]['pred'].tolist()}, top prob "
+        f"{outs[1]['topk_probs'][:, 0].round(5).tolist()}, mutual info "
+        f"{outs[1]['mutual_info'].round(6).tolist()}")
+
+    dev = bmodel.device
+    args = tuple(torch.from_numpy(requests[1][k]).to(dev)
+                 for k in ("input_ids", "attention_mask"))
+    with torch.inference_mode():
+        lk, auxk = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic)
+        lp, auxp = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
+                                         impl="plain")
+    err = max_dist(lk, lp)
+    limit = 1e-4 if dtype == F32 else 5e-2
+    check(err <= limit, f"{label}: logits through the kernels differ from the plain path "
+          f"by {err} (gate {limit})")
+    for key in auxk:
+        check(torch.allclose(auxk[key], auxp[key], rtol=1e-5, atol=0.0),
+              f"{label}: {key} differs from the plain path: {auxk[key]} vs {auxp[key]}")
+    say(f"{label}: logits kernels vs plain max|d| {err:.4g} (gate {limit}; max |logit| "
+        f"{lp.float().abs().max().item():.4g}); log_q {auxk['log_variational_posterior'][0].item():.7g}"
+        f" vs {auxp['log_variational_posterior'][0].item():.7g}")
+    del lk, lp
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred(requests[1], seed=200 + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    latency = float(np.median(lat))
+    say(f"{label}: 8x128 request latency (S=10) median {latency:.3f} ms over 10: "
+        f"{[round(v, 3) for v in lat]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pred, bmodel
+    torch.cuda.empty_cache()
+    return launches, latency
+
+
+def phase_workload_gpt2(fl, fb, at, estimator, bf16) -> dict:
+    """``gpt2_lm.train`` phases 1-4 at GPT-2 base for 3 batches: the naive
+    estimator in f32 (its default) takes no Bayesian linear kernel; the
+    antithetic one in bf16 takes #1/#2 and #6 and no other estimator's;
+    every attention launch is causal."""
+    from bayeformers_tpu_torch.workloads import gpt2_lm
+
+    reset_counters(fl, fb, at)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        res = gpt2_lm.train(size="base", limit_batches=3, estimator=estimator, bf16=bf16,
+                            logs=logs)
+    wall = time.perf_counter() - t
+    check(all(np.isfinite(v) for v in res.values()), f"gpt2_lm: {res}")
+    counts = {c.name: c.count for c in (fl.LAUNCHES, fl.INDEP_LAUNCHES, fb.LAUNCHES,
+                                         fb.INDEP_LAUNCHES, fl.REGEN_LAUNCHES)}
+    anti = estimator == "antithetic"
+    check(all((n > 0) == (anti and "anti" in k) for k, n in counts.items()),
+          f"gpt2_lm --estimator {estimator}: {counts}")
+    for c in (at.LAUNCHES, at.BWD_LAUNCHES):
+        check(c.count > 0 and all(k[4] for k in c.by_shape),
+              f"gpt2_lm: {c.name} launches {c.by_shape}, want causal only")
+        counts[c.name + " (causal)"] = c.count
+    tag = "bf16" if bf16 else "f32"
+    say(f"workload: gpt2_lm --estimator {estimator} ({tag}) phases 1-4, 3 batches: "
+        f"{res}; launches {counts}; {wall:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -1829,6 +2221,33 @@ def main() -> int:
         timed(f"workload (--estimator {est})", phase_workload_estimator, fl, fb, at, sl,
               lpm, est)
 
+    # phase 15: GPT-2 base, causal LM, through the causal instances of #3/#5
+    gpt2_ms = {}
+    for dtype in (BF16, F32):
+        tag = TAG[dtype]
+        rows += timed(f"causal mha ({tag})", phase_causal_mha, at, dtype)
+        for anti, key, est in ests:
+            rows += timed(f"bayes_linear GPT-2 ({est}, {tag})", phase_bayes_linear, fl,
+                          moped_rho, anti, dtype, "on_mu", GPT2)
+            rows += timed(f"reduce GPT-2 ({est}, {tag})", phase_reduce, fl, fb, moped_rho,
+                          anti, tag, "on_mu", GPT2)
+        for anti, key, est in ests:
+            paths[f"serve/gpt2/{key}/{tag}"], gpt2_ms["request", est, tag] = timed(
+                f"serving GPT-2 ({est}, {tag})", phase_serving_gpt2, bt, fl, at, anti,
+                dtype)
+        for anti, key, est in ests:
+            paths[f"train/gpt2/{key}/{tag}"], gpt2_ms["step", est, tag], _ = timed(
+                f"train GPT-2 ({est}, {tag})", phase_train, bt, fl, at, fb, est, dtype,
+                "on_mu", GPT2)
+    for est, bf16 in (("naive", False), ("antithetic", True)):
+        timed(f"workload gpt2_lm ({est}, {'bf16' if bf16 else 'f32'})",
+              phase_workload_gpt2, fl, fb, at, est, bf16)
+    for est in ("flipout", "local"):
+        (paths[f"serve/gpt2/{est}/bf16"], gpt2_ms["request", est, "bf16"],
+         paths[f"train/gpt2/{est}/bf16"], gpt2_ms["step", est, "bf16"]) = timed(
+            f"estimator GPT-2 ({est}, bf16)", phase_estimator, bt, fl, fb, at, sl, lpm, est,
+            BF16, "on_mu", GPT2)
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
@@ -1855,7 +2274,11 @@ def main() -> int:
     say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}")
     say(f"{smi}; request / ELBO step (S=10) by estimator: " + "; ".join(
         f"{est} ({tag}, {prior}) {a:.3f} / {b:.3f} ms"
-        for (est, tag, prior), (a, b) in est_ms.items())
+        for (est, tag, prior), (a, b) in est_ms.items()))
+    say(f"{smi}; GPT-2 base (frozen MOPED), request 8x128 / ELBO step B=8 L=128, S=10: "
+        + "; ".join(f"{est} ({tag}) {gpt2_ms['request', est, tag]:.3f} / "
+                    f"{gpt2_ms['step', est, tag]:.3f} ms"
+                    for (what, est, tag) in gpt2_ms if what == "request")
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -272,9 +272,12 @@ def test_predictor_rejects(predictor):
         predictor(_request(2, 17))  # > largest sequence bucket
     with pytest.raises(ValueError):
         bt.Predictor(predictor.bmodel, n_samples=3, antithetic=True)
-    with pytest.raises(NotImplementedError):
-        bt.Predictor(predictor.bmodel, task="causal-lm")
-    with pytest.raises(NotImplementedError):
+    # a decoder's next-token serving is a task now (tests/test_torch_gpt2.py);
+    # an unknown task raises, and qa names the slice that brings it
+    assert bt.Predictor(predictor.bmodel, task="causal-lm").task == "causal-lm"
+    with pytest.raises(ValueError, match="unknown task"):
+        bt.Predictor(predictor.bmodel, task="translation")
+    with pytest.raises(NotImplementedError, match="item 8"):
         bt.Predictor(predictor.bmodel, task="qa")
 
 

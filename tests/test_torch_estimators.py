@@ -151,24 +151,25 @@ def _jax_grad(grads, name):
     return np.asarray(flatten_dict(grads.params, sep="/")[path])
 
 
-def check_against_jax(conversion, estimator):
+def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2)):
     """Logits within 1e-4, the KL (flipout, LRT) or both log-probs (naive)
     within 2e-5 relative, and the gradients of the logits' part and of the
     KL part, each trained leaf (rho; mu where it trains; LayerNorm and
     embeddings) within 1e-4 of its largest entry. Under the mixture the
     port's flipout and LRT score each kernel leaf's KL through
-    ``sampled_logprobs`` and its closed-form VJP."""
+    ``sampled_logprobs`` and its closed-form VJP. ``batch`` (default: this
+    module's BERT batch) holds the model's inputs, ``out_shape`` the shape
+    of one sample's output."""
     name, bmodel, bp, port = conversion
     key = jax.random.key(11)
-    batch = _batch()
-    weights = np.random.default_rng(3).normal(size=(S, B, 2)).astype(np.float32)
+    batch = _batch() if batch is None else batch
+    weights = np.random.default_rng(3).normal(size=(S,) + tuple(out_shape)).astype(np.float32)
     jout, jaux, jg_out, jg_kl = _jax_run(bmodel, bp, key, estimator, batch,
                                          jnp.asarray(weights))
     named = port.trainable_parameters()
     t = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     out, aux = training.pick_mc(port, estimator)(
-        0, S, t["input_ids"], t["attention_mask"], t["token_type_ids"],
-        eps_hook=_hook(bmodel, key, estimator))
+        0, S, **t, eps_hook=_hook(bmodel, key, estimator))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=1e-4)
     if estimator == "naive":
         for k in ("log_prior", "log_variational_posterior"):

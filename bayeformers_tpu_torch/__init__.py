@@ -1,7 +1,8 @@
 """BayeFormers on PyTorch and CUDA: the port of ``bayeformers_tpu`` to one
 NVIDIA H100.
 
-Bayes-by-Backprop over the port's own BERT and GPT-2: ``to_bayesian``
+Bayes-by-Backprop over the port's own BERT, GPT-2 and LLaMA-architecture
+causal LMs (LLaMA, Mistral, Gemma): ``to_bayesian``
 converts every Linear (GPT-2's Conv1D among them) into a Gaussian
 variational pair, ``training.make_elbo_train_step`` fine-tunes it by the
 Monte-Carlo ELBO (``workloads/bert_glue.py`` runs the four-phase GLUE
@@ -29,6 +30,7 @@ from bayeformers_tpu_torch.models.gpt2 import (
     GPT2_TINY_KWARGS,
     build_gpt2,
 )
+from bayeformers_tpu_torch.models.llama import LlamaConfig, build_llama_family
 from bayeformers_tpu_torch.nn.surgery import BayesianModel, to_bayesian
 from bayeformers_tpu_torch.serving import Predictor
 from bayeformers_tpu_torch.training import make_elbo_train_step
@@ -39,11 +41,13 @@ __all__ = [
     "BayesianModel",
     "GPT2_BASE_KWARGS",
     "GPT2_TINY_KWARGS",
+    "LlamaConfig",
     "MOPED_PRIOR_SIGMA",
     "Predictor",
     "ScaleMixturePrior",
     "build_bert",
     "build_gpt2",
+    "build_llama_family",
     "from_jax_params",
     "make_elbo_train_step",
     "to_bayesian",

@@ -1,4 +1,5 @@
-"""Carry the JAX package's converted BERT or GPT-2 over to the port.
+"""Carry the JAX package's converted BERT, GPT-2 or LLaMA-architecture model
+over to the port.
 
 ``from_jax_params(params, rho, prior_mu=None, *, prior, moped, frozen)``
 takes the fields of the JAX package's ``BayesParams`` (the Flax parameter
@@ -7,7 +8,10 @@ and ``prior_mu`` dicts), as numpy arrays, and the facts of its
 ``ConversionSpec`` (the mixture prior, ``moped``, ``frozen``), and builds
 the port's model, picked from the tree (``bert/...``: the port's
 :class:`~models.bert.BertForSequenceClassification`; ``transformer/...``:
-its :class:`~models.gpt2.GPT2LMHeadModel`), and the
+its :class:`~models.gpt2.GPT2LMHeadModel`; ``model/...``: its
+:class:`~models.llama.LlamaForCausalLM`, whose family and rotary table the
+tree cannot tell, so the caller passes ``config``, a
+:class:`~models.llama.LlamaConfig`), and the
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
 same function. This is how a conversion made by the JAX package, random
@@ -22,6 +26,7 @@ import torch
 from bayeformers_tpu_torch.core.prior import DEFAULT_SCALE_MIXTURE, ScaleMixturePrior
 from bayeformers_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
 from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from bayeformers_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
 
@@ -54,8 +59,13 @@ def _gpt2_config_from(flat: dict[str, np.ndarray], n_heads) -> GPT2Config:
     )
 
 
-def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device):
+def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None):
     """The port's model of the tree's family, uninitialised."""
+    if "model/embed_tokens/embedding" in flat:
+        if not isinstance(config, LlamaConfig):
+            raise ValueError("a LLaMA-architecture tree needs config=LlamaConfig(...): "
+                             "the tree does not tell the family or the positions")
+        return LlamaForCausalLM(config, dtype=dtype, device=device)
     if "transformer/wte/embedding" in flat:
         return GPT2LMHeadModel(_gpt2_config_from(flat, n_heads), dtype=dtype,
                                device=device)
@@ -83,7 +93,7 @@ def _config_from(flat: dict[str, np.ndarray], n_heads) -> BertConfig:
 def from_jax_params(params, rho, prior_mu=None, *,
                     prior=DEFAULT_SCALE_MIXTURE, moped: bool = True,
                     frozen: bool = True,
-                    num_attention_heads=None, dtype=torch.float32,
+                    num_attention_heads=None, config=None, dtype=torch.float32,
                     device="cuda") -> BayesianModel:
     """A :class:`BayesianModel` holding the JAX package's mu (``params``),
     ``rho`` and, under MOPED, ``prior_mu``, on ``device`` (the card unless
@@ -95,7 +105,8 @@ def from_jax_params(params, rho, prior_mu=None, *,
     at every converted leaf; ``moped=False, frozen=False`` is a random-init
     conversion under ``prior``, the scale mixture (a ``ScaleMixturePrior``
     or ``(pi, sigma1, sigma2)``). ``num_attention_heads`` defaults to
-    64-wide heads (BERT's and GPT-2's)."""
+    64-wide heads (BERT's and GPT-2's); a LLaMA-architecture tree takes its
+    whole configuration from ``config`` (a ``LlamaConfig``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params(device='cuda'): no CUDA device")
@@ -111,7 +122,7 @@ def from_jax_params(params, rho, prior_mu=None, *,
                          "converted leaf")
     if not isinstance(prior, ScaleMixturePrior):
         prior = ScaleMixturePrior(*prior)
-    model = _model_from(flat, num_attention_heads, dtype, dev)
+    model = _model_from(flat, num_attention_heads, dtype, dev, config)
     names = {n.replace(".", SEP) for n, _ in model.named_parameters()}
     if names != set(flat):
         raise ValueError(

@@ -39,7 +39,8 @@ The JAX package's draws differ (another stream); tests inject them through
 ``"eps"`` (the perturbation's (S, K, N)), ``"kl"`` (the KL's
 (kl_draws, K, N)), ``"bias_eps"``, ``"bias_s"`` and ``"bias_kl"``; (K, N)
 is the (in, out) view for a ``Conv1D`` too. The conv branch
-(``handle_conv``) is not ported (ROADMAP queue 1, item 10).
+(``handle_conv``) is not ported (ROADMAP queue 1: the other model families
+and their handlers).
 """
 from __future__ import annotations
 
@@ -211,7 +212,7 @@ class FlipoutMC(AnalyticKLMC):
         if bpath in self.bmodel.rho:
             y = self._add_bias(y, mod, bpath, i, M)
         else:
-            y = y + mod.bias.to(y.dtype)
+            y = mod.add_bias(y)
         return y.reshape(lead + (N,))
 
     def _add_bias(self, y, mod, bpath, i, M):

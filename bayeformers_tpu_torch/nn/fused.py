@@ -40,6 +40,7 @@ import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.models.gpt2 import causal_attention
+from bayeformers_tpu_torch.models.llama import gqa_attention
 from bayeformers_tpu_torch.ops import attention as ops_attention
 from bayeformers_tpu_torch.ops import common as ops_common
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
@@ -170,6 +171,13 @@ class MCBase:
         the flat-layout mha op with the causal mask."""
         return causal_attention(mod, hidden, bias, self.dense, plain=self.plain)
 
+    def gqa_attention(self, mod, hidden, bias, position_ids):
+        """The LLaMA-architecture attention block (``handle_gqa_attention``):
+        q/k/v and o_proj through :meth:`dense`, rotary, k/v repeated to the
+        full head count, the flat-layout mha op with the causal mask (plain
+        banded attention where Mistral's window bites)."""
+        return gqa_attention(mod, hidden, bias, position_ids, self.dense, plain=self.plain)
+
     def check_seen(self, collected) -> None:
         if not collected:
             raise ValueError(f"{self.tier}_mc_apply dispatched no converted layers")
@@ -274,7 +282,7 @@ class FusedMC(MCBase):
         if bpath in self.bmodel.rho:
             y = self._add_bias(y, mod, bpath, new_leaf)
         else:
-            y = y + mod.bias.to(y.dtype)
+            y = mod.add_bias(y)
         return y.reshape(lead + (y.shape[-1],))
 
     def _add_bias(self, y, mod, bpath, new_leaf):

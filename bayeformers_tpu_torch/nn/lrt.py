@@ -25,7 +25,7 @@ A ``Conv1D`` (GPT-2, stored (out, in)) runs on (in, out) copies of mu and
 rho and its KL on a transposed ``prior_mu``, as the JAX package's
 ``handle_dense(transposed=True)`` (``nn/lrt.py:98-121``, :211-214). The
 embed and conv branches (``handle_embed``, ``handle_conv``) are not ported
-(ROADMAP queue 1, item 10).
+(ROADMAP queue 1: the other model families and their handlers).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class LrtMC(AnalyticKLMC):
             v = v + bsig * bsig
             self.bias_kl(bpath, bmu, brho)
         else:
-            m = m + mod.bias.to(m.dtype)
+            m = mod.add_bias(m)
         dev = self.bmodel.device
         eps = self._draw(kpath, "eps", (S, M, N), lambda: torch.randn(
             (S, M, N), generator=torch.Generator(device=dev).manual_seed(

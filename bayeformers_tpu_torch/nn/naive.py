@@ -64,9 +64,10 @@ class NaiveMC(MCBase):
         w = self._leaf(kpath, mod.kernel, self.bmodel.rho[kpath]).to(x.dtype).float()
         y = torch.bmm(xs.float(), w.transpose(1, 2) if mod.transposed else w).to(x.dtype)
         bpath = mod.path + SEP + "bias"
-        b = (self._leaf(bpath, mod.bias, self.bmodel.rho[bpath])[:, None, :]
-             if bpath in self.bmodel.rho else mod.bias)
-        y = y + b.to(x.dtype)
+        if bpath in self.bmodel.rho:
+            y = y + self._leaf(bpath, mod.bias, self.bmodel.rho[bpath])[:, None, :].to(x.dtype)
+        else:
+            y = mod.add_bias(y)
         return y.reshape(lead + (y.shape[-1],))
 
     def aux(self) -> dict[str, torch.Tensor]:

@@ -13,10 +13,20 @@ versions :func:`mha_plain` (the counterpart of ``_mha_xla``) and
 :func:`mha_bwd_plain` (the arithmetic of ``_bwd_kernel``); a CUDA tensor
 launches ``csrc/mha.cu`` forward and ``csrc/mha_bwd.cu`` backward, or
 raises. Both kernels take bf16 or f32 q/k/v (f32: true f32 products, the
-dot operands in the stored dtype as in the reference); the launch counters
-key each launch by ``(N, L, H, dtype, causal)``.
+dot operands in the stored dtype as in the reference), head widths 32 and
+64 (:data:`HEAD_DIMS`; any other raises on a CUDA tensor), and any L: up
+to :data:`ROWS_MAX_LEN` they keep whole score rows on chip, above it they
+walk the keys in tiles with the same exact softmax.
 
-``causal=True`` (GPT-2) masks key j > query i with ``_mha_xla``'s
+The launch counters key each launch by ``(N, L, H, dtype, causal)``. The
+reference runs two Pallas forwards of one function, the head-grouped #3
+(``_fwd_kernel_stacked``) and the per-head #4 (``_fwd_kernel``), and picks
+#4 where Pallas fits but no head group of 2 or more does
+(:func:`pallas_route`, a copy of its VMEM model); the port's forward kernel
+serves both, and a launch at a shape where the reference would take #4
+counts in :data:`PER_HEAD_LAUNCHES` instead of :data:`LAUNCHES`.
+
+``causal=True`` (the decoders) masks key j > query i with ``_mha_xla``'s
 semantics (``attention.py:66-69``): ``where(j <= i, s + bias, NEG_BIG)``,
 after the bias, a ``where`` and not an add. Bias-masked and causal-masked
 scores then sit at the same ``NEG_BIG``, so a row whose every key is masked
@@ -25,7 +35,7 @@ uniform over all L keys, future keys included, as in the reference. The
 backward follows the reference's ``_bwd_kernel`` (``attention.py:181``):
 such a uniform row's dS reaches every key, future ones too, where XLA's
 autodiff of ``_mha_xla`` (the JAX package's route off the TPU) gives the
-causal-masked keys zero. The kernels mask in both passes and skip no key
+causal-masked keys zero. The kernels mask in every pass and skip no key
 tile above the diagonal (skipping would make the all-masked row uniform
 over the causal prefix instead).
 """
@@ -38,10 +48,40 @@ import torch
 from bayeformers_tpu_torch.ops import _build, common
 
 LAUNCHES = common.LaunchCounter("mha_fwd")
+PER_HEAD_LAUNCHES = common.LaunchCounter("mha_fwd_per_head")
 BWD_LAUNCHES = common.LaunchCounter("mha_bwd")
-HEAD_DIM = 64   # the kernel's head width
-MAX_LEN = 512   # BERT's max position; the kernel keeps whole score rows
+HEAD_DIMS = (32, 64)  # the kernels' head widths
+ROWS_MAX_LEN = 512    # the longest L whose whole score rows the kernels keep
 NEG_BIG = float(torch.finfo(torch.float32).min)
+
+# the reference's VMEM model of its attention kernels (attention.py:246-314,
+# its default limit, no BAYEFORMERS_VMEM_LIMIT_MB)
+_NB, _VMEM_LIMIT, _TEMPS = 4, 14 * 1024 * 1024, 4 * 1024 * 1024
+
+
+def _fits_nb(L: int, H: int, itemsize: int, n_arrays: int) -> bool:
+    nb = _NB
+    while nb >= 1:
+        if n_arrays * nb * L * H * itemsize * 2 + _TEMPS <= _VMEM_LIMIT:
+            return True
+        nb //= 2
+    return False
+
+
+def pallas_route(L: int, H: int, n_heads: int, itemsize: int) -> str:
+    """The reference's attention forward at a shape (``_mha_pallas_fwd`` and
+    ``pallas_fits``, ``bayeformers_tpu/ops/attention.py:246-330``):
+    ``"stacked"`` (#3) where a head group of 2 or more fits VMEM, else
+    ``"per_head"`` (#4) where Pallas fits at all, else ``"xla"``."""
+    if L % 8 or not (_fits_nb(L, H, itemsize, 5) and _fits_nb(L, H, itemsize, 8)):
+        return "xla"
+    for g in (g for g in range(n_heads, 1, -1) if n_heads % g == 0):
+        nb = _NB
+        while nb >= 1:
+            if 4 * nb * L * H * itemsize * 2 + 2 * nb * g * L * L * 4 <= _VMEM_LIMIT:
+                return "stacked"
+            nb //= 2
+    return "per_head"
 
 
 def mask_to_bias(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -143,12 +183,10 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
     req(q.dim() == 3, "q/k/v must be (N, L, H)")
     N, L, H = q.shape
     tag = common.kernel_dtype(q, "mha")
-    # other head widths and longer sequences: ROADMAP queue 2 item 5
-    req(H == n_heads * HEAD_DIM,
-        f"mha kernel needs a head width of {HEAD_DIM}; H={H}, heads={n_heads} "
-        "(other widths: ROADMAP queue 2 item 5)")
-    req(1 <= L <= MAX_LEN, f"mha kernel takes 1 <= L <= {MAX_LEN}, got {L} "
-        "(longer sequences: ROADMAP queue 2 item 5)")
+    req(n_heads >= 1 and H % n_heads == 0 and H // n_heads in HEAD_DIMS,
+        f"mha kernels take head widths {HEAD_DIMS}; H={H}, heads={n_heads} (wider "
+        "heads: ROADMAP queue 2, the attention kernels' other head widths)")
+    req(N >= 1 and L >= 1, f"mha kernels need N, L >= 1, got {(N, L)}")
     operands = (("k", k), ("v", v)) + tuple(extra)
     for name, t in operands:
         req(t.shape == q.shape and t.dtype == q.dtype,
@@ -165,7 +203,8 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
 
 def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
     """Launch ``bft_mha_fwd`` (csrc/mha.cu), the bf16 or the f32 instance,
-    causal or not."""
+    causal or not, whole-row or key-tiled; counted as #4 where the
+    reference would take its per-head forward (:func:`pallas_route`)."""
     tag = _check_inputs(q, k, v, bias, n_heads)
     N, L, H = q.shape
     lib = _build.library()
@@ -177,7 +216,8 @@ def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
             common.cuda_stream(q),
         )
     _build.check(err, "bft_mha_fwd")
-    LAUNCHES.add((N, L, H, tag, causal))
+    per_head = pallas_route(L, H, n_heads, q.element_size()) == "per_head"
+    (PER_HEAD_LAUNCHES if per_head else LAUNCHES).add((N, L, H, tag, causal))
     return out
 
 

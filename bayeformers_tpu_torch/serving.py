@@ -109,7 +109,7 @@ class Predictor:
     ``"causal-lm"`` (a decoder such as GPT-2: next-token summaries at each
     row's last live position, :func:`summarize_causal_lm`, ``top_k``
     candidates); ``"qa"`` comes with the SQuAD slice (ROADMAP queue 1,
-    item 8).
+    SQuAD).
     """
 
     bmodel: Any
@@ -127,7 +127,7 @@ class Predictor:
         if self.task == "qa":
             raise NotImplementedError(
                 "Predictor(task='qa') comes with the SQuAD slice of the port "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP queue 1, SQuAD)")
         if self.task not in ("classification", "causal-lm"):
             raise ValueError(f"unknown task {self.task!r}")
 

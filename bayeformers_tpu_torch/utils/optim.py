@@ -70,6 +70,8 @@ class ClippedAdamW:
             p.grad = None
 
     def grads(self) -> list[torch.Tensor]:
+        """The gradients that exist: a tensor without one adds nothing to the
+        global norm, nor to a chunked step's average."""
         return [p.grad for p in self.params if p.grad is not None]
 
     def set_weight_decay(self, weight_decay: float) -> None:
@@ -78,18 +80,17 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self) -> None:
         """Clip the gradients in place, then one AdamW update of every
-        tensor that has a gradient."""
+        tensor. A tensor whose ``grad`` is None (a trainable leaf the loss
+        did not reach) takes a zero gradient, as under optax's ``masked``:
+        its moments decay, it takes the m_hat update and it is decayed."""
         if self.clip_norm is not None:
             clip_by_global_norm_(self.grads(), self.clip_norm)
         lr = self.lr_at(self.count)
         self.count += 1
-        live = [i for i, p in enumerate(self.params) if p.grad is not None]
-        if not live:
+        if not self.params:
             return
-        ps = [self.params[i] for i in live]
-        gs = [p.grad for p in ps]
-        ms = [self.m[i] for i in live]
-        vs = [self.v[i] for i in live]
+        ps, ms, vs = self.params, self.m, self.v
+        gs = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
         torch._foreach_mul_(ms, self.B1)
         torch._foreach_add_(ms, gs, alpha=1.0 - self.B1)
         torch._foreach_mul_(vs, self.B2)
@@ -100,7 +101,7 @@ class ClippedAdamW:
         upd = torch._foreach_div(ms, 1.0 - self.B1 ** self.count)
         torch._foreach_div_(upd, den)
         if self.weight_decay:
-            dec = [j for j, i in enumerate(live) if self.decays[i]]
+            dec = [j for j, d in enumerate(self.decays) if d]
             if dec:
                 torch._foreach_add_([upd[j] for j in dec], [ps[j] for j in dec],
                                     alpha=self.weight_decay)

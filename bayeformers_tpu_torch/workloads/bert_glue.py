@@ -158,9 +158,12 @@ def train(
     if "gpt2" in model_name.lower():
         raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; GPT-2 "
                          "runs in workloads/gpt2_lm.py")
-    if "bert" not in model_name.lower() or any(
-            f in model_name.lower() for f in ("distilbert", "roberta", "albert")):
+    if "bert" not in model_name.lower():
         raise _later(f"model {model_name!r}", "model families")
+    # the reference's build_model sends these to their own build functions
+    # (bayeformers_tpu/models/bert.py:286-295): CamemBERT to RoBERTa's
+    if any(f in model_name.lower() for f in ("distilbert", "roberta", "camembert", "albert")):
+        raise _later(f"model {model_name!r}", "BERT's sibling families")
     if pretrained:
         raise _later("loading pretrained weights", "checkpoint")
     if save_dir or resume:

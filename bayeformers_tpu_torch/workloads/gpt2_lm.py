@@ -1,5 +1,6 @@
-"""GPT-2 causal-LM workload on one GPU (counterpart of
-``bayeformers_tpu/workloads/gpt2_lm.py``).
+"""Causal-LM workload on one GPU (counterpart of
+``bayeformers_tpu/workloads/gpt2_lm.py``): GPT-2, and with ``--model
+llama|mistral|gemma`` the LLaMA-architecture families.
 
 The four-phase recipe on a decoder: (1) frequentist next-token training
 (AdamW, optax's defaults: weight decay 1e-4 on every leaf), (2) MOPED
@@ -16,11 +17,15 @@ S=10, B=8, L=128; ``--estimator`` takes the reference's five, ``--bf16``
 bf16 activations. The evals run the test set in batches of ``batch_size``
 and sum exactly what the JAX workload takes over the whole set at once
 (an S x n_test x L x vocab logits array would be 33 GB in f32 at GPT-2
-base). ``--corpus`` (the native BPE tokenizer), the dp/tp mesh and the
-LLaMA-architecture families raise, naming their ROADMAP items.
+base). ``train(**config_overrides)`` go to the model's build function, as
+in the JAX workload (``max_position_embeddings=1024``,
+``sliding_window=...``); ``--seq`` may go up to the model's maximum
+position. ``--corpus`` (the native BPE tokenizer) and the dp/tp mesh
+raise, naming their ROADMAP items.
 
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --limit-batches 3
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --estimator antithetic --bf16
+    python -m bayeformers_tpu_torch.workloads.gpt2_lm --model llama --limit-batches 3
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.models.gpt2 import build_gpt2, synthetic_lm_batch
+from bayeformers_tpu_torch.models.llama import FAMILIES, build_llama_family
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
 from bayeformers_tpu_torch.utils.dumper import Dumper
@@ -51,6 +57,7 @@ DELTA = 0.05
 ORDER_FRAC = 0.85
 WEIGHT_DECAY = 1e-4  # optax.adamw's default
 ESTIMATORS = ("naive", "fused", "flipout", "antithetic", "local")
+MODELS = ("gpt2",) + FAMILIES
 
 
 def adamw(named, lr: float) -> ClippedAdamW:
@@ -114,8 +121,21 @@ def _eval_sums(out: torch.Tensor, ids: torch.Tensor) -> dict:
 
 def _later(option: str, item: str):
     return NotImplementedError(
-        f"gpt2_lm: {option} comes with a later slice of the port (ROADMAP queue 1, "
+        f"gpt2_lm: {option} comes with a later slice of the port (ROADMAP queue 1: "
         f"{item})")
+
+
+def build_lm(model: str, size: str, seed: int, dtype, device, **overrides):
+    """GPT-2 or a LLaMA-architecture family at ``size``, from ``seed``;
+    returns ``(model, vocab size, maximum position)``."""
+    if model == "gpt2":
+        net = build_gpt2(size=size, seed=seed, dtype=dtype, device=device, **overrides)
+        return net, net.config.vocab_size, net.config.n_positions
+    if model not in FAMILIES:
+        raise ValueError(f"unknown model {model!r}; one of {MODELS}")
+    net = build_llama_family(model, size=size, seed=seed, dtype=dtype, device=device,
+                             **overrides)
+    return net, net.config.vocab_size, net.config.max_position_embeddings
 
 
 def train(
@@ -147,20 +167,21 @@ def train(
 ) -> dict[str, float]:
     """Run phases 1-4; returns the frequentist, MOPED and final Bayesian
     next-token accuracies, the last ``acc_std`` and the Bayes rate."""
-    if model != "gpt2":
-        raise _later(f"--model {model}", "item 10 (the LLaMA-architecture families)")
     if corpus is not None:
-        raise _later("--corpus", "item 12 (the native BPE tokenizer)")
+        raise _later("--corpus", "the auxiliary utilities (the native BPE tokenizer)")
     if (dp, tp) != (1, 1) or independent_draws:
-        raise _later("the dp/tp mesh", "item 11 (the parallel tiers)")
+        raise _later("the dp/tp mesh", "the parallel tiers")
     if estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator {estimator!r}")
     exp = exp or f"{model}_lm"
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
-    net = build_gpt2(size=size, seed=seed, dtype=torch.bfloat16 if bf16 else torch.float32,
-                     device=dev, **config_overrides)
-    vocab = net.config.vocab_size
+    net, vocab, max_pos = build_lm(model, size, seed,
+                                   torch.bfloat16 if bf16 else torch.float32, dev,
+                                   **config_overrides)
+    if not 2 <= seq <= max_pos:
+        raise ValueError(f"seq={seq} must be in [2, {max_pos}], the model's maximum "
+                         "position")
     train_ids = synthetic_lm_batch(rng, n_train, seq, vocab, order_frac)["input_ids"]
     test_ids = synthetic_lm_batch(rng, n_test, seq, vocab, order_frac)["input_ids"]
     bayes_rate = order_frac + (1 - order_frac) / vocab
@@ -277,9 +298,8 @@ def train(
 
 
 def main():
-    parser = argparse.ArgumentParser(description="Bayesian GPT-2 causal LM (one GPU)")
-    parser.add_argument("--model", default="gpt2",
-                        choices=["gpt2", "llama", "mistral", "gemma"])
+    parser = argparse.ArgumentParser(description="Bayesian causal LM (one GPU)")
+    parser.add_argument("--model", default="gpt2", choices=list(MODELS))
     parser.add_argument("--logs", default="logs")
     parser.add_argument("--epochs", type=int, default=EPOCHS)
     parser.add_argument("--b-epochs", type=int, default=B_EPOCHS)

@@ -107,8 +107,20 @@ Phases, each timed, each raising on failure:
     the f32 antithetic step), peak memory; ``workloads/gpt2_lm.train`` for
     3 batches at its default (naive, f32) and antithetic bf16; flipout and
     local on GPT-2 in bf16 through :func:`phase_estimator`.
+16. the LLaMA-architecture families: the head-width-32, key-tiled (L > 512)
+    and #4 instances of ``mha_fwd`` / ``mha_bwd`` against their plain
+    versions (:func:`phase_attention16`: planted faults, a width-128
+    refusal); the forward and reduce kernels at LLaMA's shapes; LLaMA base
+    served under both estimators and trained (antithetic) in bf16 and f32
+    (:func:`phase_serving_gpt2`, :func:`phase_train`); the tiny LLaMA at
+    8x128 (head width 32) and at (1, 1024) with 1024 positions (#4's
+    path), LLaMA base and GPT-2 base at (1, 1024), Mistral and Gemma base
+    (:func:`phase_lm_once`); ``gpt2_lm --model llama``; flipout and local
+    requests. bf16 logits of these paths are held against an f32 plain run
+    (:func:`f32_logits_gate`).
 
-The line before the last is a JSON object with one entry per kernel,
+``python3 chip_smoke.py --from 16`` runs the build, the eps stream and the
+phases from 16 on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -145,9 +157,6 @@ MIXTURE = (0.5, 1.0, math.exp(-6.0))
 WINDOWS = 5
 # converted kernels of BERT-base: 12 x 6, the pooler, the classifier
 BERT_BASE_LAYERS = 74
-# converted kernels of GPT-2 base: 12 x 4 Conv1D (c_attn, c_proj, c_fc, mlp c_proj)
-GPT2_BASE_LAYERS = 48
-GPT2_VOCAB = 50257
 
 
 def check(cond: bool, msg: str) -> None:
@@ -420,13 +429,26 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
 
 SERVING_SHAPES = ((1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                   (8, 768, 768), (8, 768, 2))
-# the model families of the main paths: BERT-base, and GPT-2 base (phase 15),
-# whose launch paths carry the prefix "gpt2/"
+# the model families of the main paths: BERT-base, GPT-2 base (phase 15) and
+# the LLaMA-architecture families at base (phase 16), whose launch paths
+# carry the prefixes "gpt2/", "llama/", "mistral/" and "gemma/"
 BERT, GPT2 = "", "gpt2/"
-# GPT-2's one shape that BERT's path has not: the packed c_attn, 768 -> 2304;
-# and the (K, N) of its four Conv1D layers a block
-GPT2_SHAPES = ((1024, 768, 2304),)
-GPT2_SHAPES_ALL = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+LLAMA, MISTRAL, GEMMA = "llama/", "mistral/", "gemma/"
+LM_NAME = {GPT2: "GPT-2", LLAMA: "LLaMA", MISTRAL: "Mistral", GEMMA: "Gemma"}
+LM_VOCAB = {GPT2: 50257, LLAMA: 32000, MISTRAL: 32000, GEMMA: 32000}
+# the causal LMs' converted (K, N) and their launches a forward: GPT-2's four
+# Conv1D layers a block; the LLaMA families' q/o (768 -> 768), k/v (768 ->
+# 256: 4 kv heads), gate/up (768 -> 2048) and down (2048 -> 768) a block, and
+# the untied lm_head (768 -> 32000)
+LM_LAYERS = {GPT2: {(768, 2304): 12, (768, 768): 12, (768, 3072): 12, (3072, 768): 12},
+             LLAMA: {(768, 768): 24, (768, 256): 24, (768, 2048): 24, (2048, 768): 12,
+                     (768, 32000): 1}}
+LM_LAYERS[MISTRAL] = LM_LAYERS[GEMMA] = LM_LAYERS[LLAMA]
+# the serving shapes of a family that the rows do not hold yet: GPT-2's packed
+# c_attn, 768 -> 2304; the LLaMA families' k/v, gate/up, down and lm_head
+FAMILY_SHAPES = {GPT2: ((1024, 768, 2304),),
+                 LLAMA: ((1024, 768, 256), (1024, 768, 2048), (1024, 2048, 768),
+                         (1024, 768, 32000))}
 
 
 def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
@@ -440,7 +462,7 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     label = tag + ("" if prior == "on_mu" else f", {prior}")
     rows = []
-    for M, K, N in (GPT2_SHAPES if family else SERVING_SHAPES):
+    for M, K, N in (FAMILY_SHAPES[family] if family else SERVING_SHAPES):
         x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                     dtype=dtype, prior=prior)
         err, w, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw)
@@ -553,16 +575,20 @@ def convert(bt, model, prior):
     return bmodel
 
 
-def converted_base(bt, dtype, prior="on_mu", family=BERT):
-    """BERT-base (or, ``family=GPT2``, GPT-2 base) from seed 0 in ``dtype``
-    activations, converted for ``prior`` (:func:`convert`), and its
-    trainable tensors. GPT-2's zero leaves (its biases) are set to 0.01
-    first, as the JAX package's tests do (``tests/test_models.py:204-211``):
-    MOPED would give a zero weight sigma = softplus(0) = 0.69."""
-    if family == GPT2:
+def converted_base(bt, dtype, prior="on_mu", family=BERT, size="base", **overrides):
+    """BERT-base (or, ``family=GPT2``, GPT-2 base; ``LLAMA``, ``MISTRAL``,
+    ``GEMMA``: that family at ``size`` with config ``overrides``) from seed
+    0 in ``dtype`` activations, converted for ``prior`` (:func:`convert`),
+    and its trainable tensors. GPT-2's zero leaves (its biases) are set to
+    0.01 first, as the JAX package's tests do (``tests/test_models.py:204-
+    211``): MOPED would give a zero weight sigma = softplus(0) = 0.69."""
+    if family in (LLAMA, MISTRAL, GEMMA):
+        model = bt.build_llama_family(family[:-1], size, seed=0, dtype=dtype,
+                                      device="cuda", **overrides)
+    elif family == GPT2:
         from bayeformers_tpu_torch.models.gpt2 import build_gpt2
 
-        model = build_gpt2("base", seed=0, dtype=dtype, device="cuda")
+        model = build_gpt2(size, seed=0, dtype=dtype, device="cuda", **overrides)
         with torch.no_grad():
             for p in model.parameters():
                 p.masked_fill_(p == 0, 0.01)
@@ -832,7 +858,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
     limit = 1e-5 if F32 in (xdt, wdt) else 1e-4
     isz = torch.finfo(xdt).bits // 8
     rows = []
-    for M, K, N in (GPT2_SHAPES if family else TRAIN_SHAPES + ((100, 300, 130),)):
+    for M, K, N in (FAMILY_SHAPES[family] if family else TRAIN_SHAPES + ((100, 300, 130),)):
         x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                     dtype=xdt, prior=prior)
         if wdt == xdt:
@@ -855,7 +881,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"{name} ({label}) reruns differ at {(M, K, N)}")
         summary = f"{names} rel err " + "/".join(f"{e:.3g}" for e in errs)
-        if (M, K, N) not in TRAIN_SHAPES + GPT2_SHAPES:
+        if (M, K, N) not in TRAIN_SHAPES + FAMILY_SHAPES.get(family, ()):
             say(f"{name} ({label}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
             continue
         ms = time_ms(lambda: fn(x, g, w, mu, g_p, **pkw), 20, windows=WINDOWS)
@@ -981,12 +1007,12 @@ def phase_mha_bwd(at, dtype=BF16) -> dict:
     return out_row
 
 
-def train_batch(bt, B=8, L=128, seed=7, family=BERT):
-    if family == GPT2:  # the GPT-2 workload's synthetic language
-        from bayeformers_tpu_torch.models.gpt2 import GPT2_BASE_KWARGS, synthetic_lm_batch
+def train_batch(bt, B=8, L=128, seed=7, family=BERT, vocab=None):
+    if family:  # the causal-LM workload's synthetic language
+        from bayeformers_tpu_torch.models.gpt2 import synthetic_lm_batch
 
         ids = synthetic_lm_batch(np.random.default_rng(seed), B, L,
-                                 GPT2_BASE_KWARGS["vocab_size"])["input_ids"]
+                                 vocab or LM_VOCAB[family])["input_ids"]
         return {"input_ids": torch.from_numpy(ids).cuda()}
     rng = np.random.default_rng(seed)
     ids = rng.integers(4, bt.BERT_BASE_KWARGS["vocab_size"], (B, L))
@@ -1000,8 +1026,9 @@ def train_batch(bt, B=8, L=128, seed=7, family=BERT):
 
 def loss_keywords(family) -> dict:
     """The ELBO objective's loss and inputs for a family: BERT's
-    classification loss on its three inputs, GPT-2's LM loss on its ids."""
-    if family == GPT2:
+    classification loss on its three inputs, the causal LMs' LM loss on
+    their ids."""
+    if family:
         from bayeformers_tpu_torch.workloads.gpt2_lm import lm_loss
 
         return {"loss_fn": lm_loss, "input_keys": ("input_ids",)}
@@ -1103,13 +1130,16 @@ def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
 
 def param_groups(names) -> dict[str, list[str]]:
     """The trainable unconverted parameters by group: the norms' scales and
-    biases (BERT's LayerNorm, GPT-2's ln_1, ln_2 and ln_f) and the
-    embeddings (GPT-2's wte is its tied head too)."""
+    biases (BERT's LayerNorm, GPT-2's ln_1, ln_2 and ln_f), the LLaMA
+    families' RMSNorm weights, and the embeddings (GPT-2's wte is its tied
+    head too); the groups a model has."""
     params = [n for n in names if n.startswith("params/")]
     norm = [n for n in params if "LayerNorm/" in n or "/ln_" in n]
-    return {"LayerNorm/scale": [n for n in norm if n.endswith("/scale")],
-            "LayerNorm/bias": [n for n in norm if n.endswith("/bias")],
-            "embedding": [n for n in params if n.endswith("embedding")]}
+    groups = {"LayerNorm/scale": [n for n in norm if n.endswith("/scale")],
+              "LayerNorm/bias": [n for n in norm if n.endswith("/bias")],
+              "RMSNorm/weight": [n for n in params if n.endswith("norm/weight")],
+              "embedding": [n for n in params if n.endswith("embedding")]}
+    return {k: v for k, v in groups.items() if v}
 
 
 def grad_groups(names) -> dict[str, list[str]]:
@@ -1181,7 +1211,7 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
     anti = estimator == "antithetic"
     tag = TAG[dtype]
     sfx = prior_suffix(prior)
-    label = (f"train{' GPT-2' if family else ''} ({estimator}, {tag}"
+    label = (f"train{' ' + LM_NAME[family] if family else ''} ({estimator}, {tag}"
              + ("" if prior == "on_mu" else f", {prior}") + ")")
     batch = train_batch(bt, family=family)
     regen_counts = {}
@@ -1203,7 +1233,9 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
     loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
                               family=family)
     n_regen = dict(fl.REGEN_LAUNCHES.by_shape)
-    want = {(S // 2, 3072, 768): 12} if anti and dtype == F32 else {}
+    # (the LLaMA families' widest K, 2048, pads to no more than 2048: none)
+    want = ({(S // 2, 3072, 768): 12} if anti and dtype == F32 and family in (BERT, GPT2)
+            else {})
     check(n_regen == want, f"{label}: regen launched {n_regen}, want {want}")
     loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
                                family=family)
@@ -1327,10 +1359,10 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
     launches["regen"] = dict(fl.REGEN_LAUNCHES.by_shape)
     check(fl.REGEN_LAUNCHES.count == 10 * sum(want.values()),
           f"{label}: regen launched {fl.REGEN_LAUNCHES.count} times in 10 steps")
-    if family == GPT2:
-        # a step: the four Conv1D shapes' reduce once a layer, the causal
+    if family:
+        # a step: each converted shape's reduce once a layer, the causal
         # attention backward once a layer
-        per_step = {(1024, k, n, tag): 12 for k, n in GPT2_SHAPES_ALL}
+        per_step = {(1024, k, n, tag): c for (k, n), c in LM_LAYERS[family].items()}
         got = {k: v / 10 for k, v in red.by_shape.items()}
         check(got == per_step, f"{label}: reduce launches a step {got}, want {per_step}")
         check(at.BWD_LAUNCHES.by_shape == {(80, 128, 768, tag, True): 120},
@@ -1652,9 +1684,11 @@ def want_counts(estimator, prior, n_layers, n_attn, backward: int) -> dict:
     return want
 
 
-def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BERT):
+def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BERT,
+                    with_step=True):
     """One of the new estimators on BERT-base (or, ``family=GPT2``, GPT-2
-    base) at S=10 in ``dtype`` under the conversion of ``prior``: the 8x128
+    base; ``LLAMA``: LLaMA base, the request only, ``with_step=False``) at
+    S=10 in ``dtype`` under the conversion of ``prior``: the 8x128
     request (the forward and the posterior summaries, under
     ``torch.inference_mode()``) and the ELBO step at B=8, L=128, each
     through the kernels against its ``impl="plain"`` run on the card at the
@@ -1666,19 +1700,19 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     from bayeformers_tpu_torch.serving import summarize, summarize_causal_lm
 
     tag, sfx = TAG[dtype], prior_suffix(prior)
-    label = (f"{estimator}{' GPT-2' if family else ''} ({tag}"
+    label = (f"{estimator}{' ' + LM_NAME[family] if family else ''} ({tag}"
              + ("" if prior == "on_mu" else f", {prior}") + ")")
     mc_of = lambda m: bt.training.pick_mc(m, estimator)
     counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
     bmodel, named = converted_base(bt, dtype, prior, family)
     n_layers, n_attn = len([p for p in bmodel.spec.paths if p.endswith("/kernel")]), 12
-    want_layers = GPT2_BASE_LAYERS if family else BERT_BASE_LAYERS
+    want_layers = sum(LM_LAYERS[family].values()) if family else BERT_BASE_LAYERS
     check(n_layers == want_layers, f"{label}: {n_layers} converted kernels")
-    req = (gpt2_requests() if family else serving_requests(bt))[1]
+    req = (gpt2_requests(LM_VOCAB[family]) if family else serving_requests(bt))[1]
     dev = bmodel.device
     args = tuple(torch.from_numpy(req[k]).to(dev)
                  for k in ("input_ids", "attention_mask", "token_type_ids") if k in req)
-    out_shape = (10, 8, 128, GPT2_VOCAB) if family else (10, 8, 2)
+    out_shape = (10, 8, 128, LM_VOCAB[family]) if family else (10, 8, 2)
 
     def serve(m, seed, impl="kernel"):
         with torch.inference_mode():
@@ -1714,6 +1748,8 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     if prior == "mixture":
         note = mixture_logits_gate(bt, fl, bmodel, args, False, dtype, lk, lp_, err,
                                    forward=lambda m, impl: serve(m, 12345, impl)[0])
+    elif dtype == BF16 and family not in (BERT, GPT2):
+        note = f32_logits_gate(bt, family, lambda m: serve(m, 12345, "plain")[0], lk, lp_)
     else:
         limit = 1e-4 if dtype == F32 else 5e-2
         check(err <= limit, f"{label}: logits through the kernels differ from the plain "
@@ -1737,6 +1773,10 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     serve_ms = float(np.median(lat))
     say(f"serving {label}: 8x128 request (S=10) median {serve_ms:.3f} ms over 10: "
         f"{[round(v, 3) for v in lat]}")
+    if not with_step:
+        del named, bmodel
+        torch.cuda.empty_cache()
+        return serve_launches, serve_ms, None, None
 
     # the ELBO step through the kernels against the plain step, same draw
     batch = train_batch(bt, family=family)
@@ -1990,7 +2030,7 @@ def phase_causal_mha(at, dtype) -> list[dict]:
     return rows
 
 
-def gpt2_requests() -> list[dict]:
+def gpt2_requests(vocab=LM_VOCAB[GPT2]) -> list[dict]:
     """Three ragged requests (3x77, 8x128, 5x20 token ids) from a seed; the
     second fills the (8, 128) bucket, its last three rows right-padded after
     90 tokens."""
@@ -2000,36 +2040,71 @@ def gpt2_requests() -> list[dict]:
         mask = np.ones((n, L), np.int64)
         if n == 8:
             mask[5:, 90:] = 0
-        out.append({"input_ids": rng.integers(0, GPT2_VOCAB, (n, L)),
+        out.append({"input_ids": rng.integers(0, vocab, (n, L)),
                     "attention_mask": mask})
     return out
 
 
-def phase_serving_gpt2(bt, fl, at, antithetic, dtype) -> tuple[dict, float]:
-    """GPT-2 base from seed 0 (zero leaves to 0.01), MOPED 0.05 frozen,
-    served by ``Predictor(task="causal-lm", n_samples=10, seq_lens=(128,))``
-    antithetic or with independent draws: three ragged requests, launch
-    counts read around exactly them (the Bayesian linear kernel 48 times a
-    request, 12 at each Conv1D shape, 768 -> 2304 among them; causal
-    ``mha_fwd`` 12 times a request), the summaries' properties,
-    determinism per seed, the 8x128 request's logits against the plain
-    path on the card (1e-4 in f32, 5e-2 in bf16), its log-probs (1e-5
-    relative) and its latency. Returns (launches by counter and shape,
-    median latency in ms)."""
+def f32_logits_gate(bt, family, forward, lk, lp, size="base", **overrides) -> str:
+    """The bf16 logits gate of the paths phase 16 adds: the kernel path's
+    logits no farther from the f32 plain run's (the same weights and draws)
+    than 1.5x the bf16 plain path's, in max |d| and in relative L2, as the
+    bf16 steps' LayerNorm gradients are held. Two bf16 paths each round the
+    model (norms, residuals, activations) their own way; at LLaMA base the
+    bf16 plain path itself reads ~0.1 from f32 (``probe_bf16_blocks.py``),
+    two bf16 steps of its largest logits, so a fixed absolute gate cannot
+    tell a kernel fault from that rounding. ``forward(model)`` gives a
+    converted model's plain logits at the draw of ``lk`` and ``lp``."""
+    m32, _ = converted_base(bt, F32, "on_mu", family, size, **overrides)
+    with torch.inference_mode():
+        l32 = forward(m32).float()
+    del m32
+
+    def dist(a):
+        d = a.float() - l32
+        return d.abs().max().item(), (d.norm() / l32.norm()).item()
+
+    (kd, kr), (pd, pr) = dist(lk), dist(lp)
+    check(kd <= 1.5 * pd and kr <= 1.5 * pr,
+          f"{family} bf16 logits: the kernels are farther from the f32 plain run (max|d| "
+          f"{kd}, rel L2 {kr}) than 1.5x the bf16 plain path (max|d| {pd}, rel L2 {pr})")
+    del l32
+    torch.cuda.empty_cache()
+    return (f"logits against the f32 plain run: kernels max|d| {kd:.4g} rel L2 {kr:.4g}, "
+            f"bf16 plain max|d| {pd:.4g} rel L2 {pr:.4g} (gate 1.5x); kernels vs bf16 plain "
+            f"max|d| {max_dist(lk, lp):.4g}; max |logit| {lp.float().abs().max().item():.4g}")
+
+
+def phase_serving_gpt2(bt, fl, at, antithetic, dtype, family=GPT2) -> tuple[dict, float]:
+    """GPT-2 base from seed 0 (zero leaves to 0.01; or, ``family=LLAMA``,
+    LLaMA base), MOPED 0.05 frozen, served by ``Predictor(task="causal-lm",
+    n_samples=10, seq_lens=(128,))`` antithetic or with independent draws:
+    three ragged requests, launch counts read around exactly them (the
+    Bayesian linear kernel once a converted layer, :data:`LM_LAYERS`: GPT-2
+    48 times a request, 12 at each Conv1D shape, 768 -> 2304 among them;
+    LLaMA 85; causal ``mha_fwd`` 12 times a request), the summaries'
+    properties, determinism per seed, the 8x128 request's logits against
+    the plain path on the card (1e-4 in f32; in bf16, GPT-2's 5e-2, the
+    LLaMA families' :func:`f32_logits_gate`), its log-probs (1e-5 relative)
+    and its latency. Returns (launches by counter and shape, median latency
+    in ms)."""
     t0 = time.perf_counter()
     tag = TAG[dtype]
-    label = f"serving GPT-2 ({'antithetic' if antithetic else 'independent'}, {tag})"
-    bmodel, _ = converted_base(bt, dtype, "on_mu", GPT2)
+    name = LM_NAME[family]
+    label = f"serving {name} ({'antithetic' if antithetic else 'independent'}, {tag})"
+    bmodel, _ = converted_base(bt, dtype, "on_mu", family)
     pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(8,), seq_lens=(128,),
                         antithetic=antithetic, task="causal-lm")
     fwd, other = ((fl.LAUNCHES, fl.INDEP_LAUNCHES) if antithetic
                   else (fl.INDEP_LAUNCHES, fl.LAUNCHES))
     torch.cuda.synchronize()
-    say(f"{label}: GPT-2 base built and converted in {time.perf_counter() - t0:.2f} s "
+    say(f"{label}: {name} base built and converted in {time.perf_counter() - t0:.2f} s "
         f"({len(bmodel.spec.paths)} converted leaves)")
-    check(len(bmodel.spec.paths) == 2 * GPT2_BASE_LAYERS,
-          f"{label}: {len(bmodel.spec.paths)} converted leaves")
-    requests = gpt2_requests()
+    layers = LM_LAYERS[family]
+    n_leaves = sum(layers.values()) * (2 if family == GPT2 else 1)  # GPT-2's biases
+    check(len(bmodel.spec.paths) == n_leaves,
+          f"{label}: {len(bmodel.spec.paths)} converted leaves, want {n_leaves}")
+    requests = gpt2_requests(LM_VOCAB[family])
     pred(requests[0], seed=100)  # the first request pays one-time set-up
     torch.cuda.synchronize()
 
@@ -2037,7 +2112,7 @@ def phase_serving_gpt2(bt, fl, at, antithetic, dtype) -> tuple[dict, float]:
     outs = [pred(r, seed=100 + i) for i, r in enumerate(requests)]
     torch.cuda.synchronize()
     launches = {fwd.name: dict(fwd.by_shape), "mha_fwd": dict(at.LAUNCHES.by_shape)}
-    want = {(1024, k, n, tag): 3 * 12 for k, n in GPT2_SHAPES_ALL}
+    want = {(1024, k, n, tag): 3 * c for (k, n), c in layers.items()}
     check(fwd.by_shape == want and other.count == 0,
           f"{label}: Bayesian linear launches {fwd.by_shape} (other {other.count}), "
           f"want {want}")
@@ -2074,14 +2149,19 @@ def phase_serving_gpt2(bt, fl, at, antithetic, dtype) -> tuple[dict, float]:
         lp, auxp = bmodel.mc_apply_fused(12345, 10, *args, antithetic=antithetic,
                                          impl="plain")
     err = max_dist(lk, lp)
-    limit = 1e-4 if dtype == F32 else 5e-2
-    check(err <= limit, f"{label}: logits through the kernels differ from the plain path "
-          f"by {err} (gate {limit})")
+    if dtype == BF16 and family != GPT2:
+        note = f32_logits_gate(bt, family, lambda m: m.mc_apply_fused(
+            12345, 10, *args, antithetic=antithetic, impl="plain")[0], lk, lp)
+    else:
+        limit = 1e-4 if dtype == F32 else 5e-2
+        check(err <= limit, f"{label}: logits through the kernels differ from the plain "
+              f"path by {err} (gate {limit})")
+        note = (f"logits kernels vs plain max|d| {err:.4g} (gate {limit}; max |logit| "
+                f"{lp.float().abs().max().item():.4g})")
     for key in auxk:
         check(torch.allclose(auxk[key], auxp[key], rtol=1e-5, atol=0.0),
               f"{label}: {key} differs from the plain path: {auxk[key]} vs {auxp[key]}")
-    say(f"{label}: logits kernels vs plain max|d| {err:.4g} (gate {limit}; max |logit| "
-        f"{lp.float().abs().max().item():.4g}); log_q {auxk['log_variational_posterior'][0].item():.7g}"
+    say(f"{label}: {note}; log_q {auxk['log_variational_posterior'][0].item():.7g}"
         f" vs {auxp['log_variational_posterior'][0].item():.7g}")
     del lk, lp
     torch.cuda.empty_cache()
@@ -2102,18 +2182,18 @@ def phase_serving_gpt2(bt, fl, at, antithetic, dtype) -> tuple[dict, float]:
     return launches, latency
 
 
-def phase_workload_gpt2(fl, fb, at, estimator, bf16) -> dict:
-    """``gpt2_lm.train`` phases 1-4 at GPT-2 base for 3 batches: the naive
-    estimator in f32 (its default) takes no Bayesian linear kernel; the
-    antithetic one in bf16 takes #1/#2 and #6 and no other estimator's;
-    every attention launch is causal."""
+def phase_workload_gpt2(fl, fb, at, estimator, bf16, model="gpt2") -> dict:
+    """``gpt2_lm.train`` phases 1-4 at GPT-2 base (or ``model``: LLaMA
+    base) for 3 batches: the naive estimator in f32 (its default) takes no
+    Bayesian linear kernel; the antithetic one in bf16 takes #1/#2 and #6
+    and no other estimator's; every attention launch is causal."""
     from bayeformers_tpu_torch.workloads import gpt2_lm
 
     reset_counters(fl, fb, at)
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as logs:
-        res = gpt2_lm.train(size="base", limit_batches=3, estimator=estimator, bf16=bf16,
-                            logs=logs)
+        res = gpt2_lm.train(model=model, size="base", limit_batches=3, estimator=estimator,
+                            bf16=bf16, logs=logs)
     wall = time.perf_counter() - t
     check(all(np.isfinite(v) for v in res.values()), f"gpt2_lm: {res}")
     counts = {c.name: c.count for c in (fl.LAUNCHES, fl.INDEP_LAUNCHES, fb.LAUNCHES,
@@ -2126,9 +2206,310 @@ def phase_workload_gpt2(fl, fb, at, estimator, bf16) -> dict:
               f"gpt2_lm: {c.name} launches {c.by_shape}, want causal only")
         counts[c.name + " (causal)"] = c.count
     tag = "bf16" if bf16 else "f32"
-    say(f"workload: gpt2_lm --estimator {estimator} ({tag}) phases 1-4, 3 batches: "
+    say(f"workload: gpt2_lm --model {model} --estimator {estimator} ({tag}) phases 1-4, "
+        "3 batches: "
         f"{res}; launches {counts}; {wall:.1f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the LLaMA-architecture families (LLaMA, Mistral, Gemma), through
+# the head-width-32 and key-tiled instances of #3 and #5 and the instance
+# that serves #4's shapes
+# ---------------------------------------------------------------------------
+
+# the attention shapes of phase 16: (N, L, H, heads, causal, the rows' paths)
+#  * d = 32, the tiny configurations' heads, at the 8x128 bucket (N = S B);
+#  * the key-tiled instances at base width: L = 520 (a tail key tile),
+#    L = 1024 (the long-context request and step, B = 1, N = S) and 2048;
+#  * #4's shape: H = 128, 4 heads, L = 1024 (the tiny LLaMA at
+#    max_position_embeddings=1024, one request, N = S), where the
+#    reference finds no head group and takes its per-head forward.
+ATTN16 = ((80, 128, 128, 4, False, None), (80, 128, 128, 4, True, "llama-tiny"),
+          (8, 520, 768, 12, True, None), (10, 1024, 768, 12, True, "llama-long"),
+          (2, 2048, 768, 12, True, None),
+          (10, 1024, 128, 4, True, "llama-tiny-long"))
+
+
+def scaled_plain(at, q, k, v, bias, nh, causal, scale):
+    """The plain forward with the scores scaled by ``scale`` instead of 1 /
+    sqrt(d): the reference of a planted fault (a kernel that kept 1 /
+    sqrt(64) at head width 32)."""
+    d = q.shape[-1] // nh
+    return at.mha_plain(q * (scale * math.sqrt(d)), k, v, bias, nh, causal=causal)
+
+
+def phase_attention16(at, dtype) -> list[dict]:
+    """The head-width-32, key-tiled and #4 instances of ``mha_fwd`` and
+    ``mha_bwd`` against their plain versions at :data:`ATTN16`, in
+    ``dtype``: the attention gates, the fully masked rows finite and
+    uniform over all L keys, bit-equal reruns, and planted faults that must
+    fail the gates (at d = 32 the score scale of d = 64; causal: the
+    non-causal instance and the plain mask one column off; key-tiled: the
+    keys past the whole-row design's 512 dropped); an unsupported head
+    width raises on the card. Returns the timing rows of the shapes a
+    phase-16 path serves."""
+    tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
+    tol = 1e-4 if dtype == F32 else 2e-2
+    rows = []
+    for N, L, H, nh, causal, path in ATTN16:
+        d = H // nh
+        q, k, v, g, bias = causal_inputs(at, N, L, H, L + H + 1, dtype)
+        counter = at.PER_HEAD_LAUNCHES if at.pallas_route(L, H, nh, isz) == "per_head" \
+            else at.LAUNCHES
+        reset_counters(at)
+        at.PER_HEAD_LAUNCHES.reset()
+        out = at.mha_cuda(q, k, v, bias, nh, causal=causal)
+        again = at.mha_cuda(q, k, v, bias, nh, causal=causal)
+        grads = at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=causal)
+        grads2 = at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=causal)
+        torch.cuda.synchronize()
+        check(counter.count == 2, f"mha ({tag}) {(N, L, H)}: {counter.name} counted "
+              f"{counter.count} of 2 launches")
+        ref = at.mha_plain(q, k, v, bias, nh, causal=causal)
+        gref = at.mha_bwd_plain(q, k, v, bias, g, nh, causal=causal)
+        err = max_dist(out, ref)
+        gerrs = [max_dist(a, r) for a, r in zip(grads, gref)]
+        what = f"mha ({tag}) N={N} L={L} H={H} d={d}{' causal' if causal else ''}"
+        check(attn_gate_ok(out, ref, dtype), f"{what}: forward differs from its plain "
+              f"version: max {err}")
+        for name, a, r in zip(("dq", "dk", "dv"), grads, gref):
+            check(bool(torch.isfinite(a.float()).all()), f"{what}: {name} not finite")
+            check(attn_gate_ok(a, r, dtype, True), f"{what}: {name} differs: max {gerrs}")
+        check(torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"{what}: reruns differ")
+        vbar = v.float().mean(1)
+        uni = max(max_dist(out[N - 1], vbar[N - 1].expand(L, H)),
+                  max_dist(out[N - 2, 0], vbar[N - 2]) if causal else 0.0)
+        check(bool(torch.isfinite(out.float()).all()) and uni <= tol,
+              f"{what}: the all-masked rows are not uniform over L: {uni}")
+        faults = {}
+        if d == 32:
+            faults["scale of d = 64"] = (out, scaled_plain(at, q, k, v, bias, nh, causal,
+                                                           0.125))
+        if causal:
+            faults["non-causal instance"] = (at.mha_cuda(q, k, v, bias, nh), ref)
+            with shifted_causal_mask(at):
+                faults["mask one column off"] = (out, at.mha_plain(q, k, v, bias, nh,
+                                                                   causal=True))
+        if L > at.ROWS_MAX_LEN:
+            cut = bias.clone()
+            cut[:, at.ROWS_MAX_LEN:] = at.NEG_BIG
+            faults["keys past 512 dropped"] = (out, at.mha_plain(q, k, v, cut, nh,
+                                                                 causal=causal))
+        check(all(not attn_gate_ok(a, b, dtype) for a, b in faults.values()),
+              f"{what}: a planted fault passes the gates: "
+              + str({f: max_dist(a, b) for f, (a, b) in faults.items()}))
+        summary = (f"fwd max|d| {err:.3g}, dq/dk/dv max|d| "
+                   + "/".join(f"{e:.3g}" for e in gerrs)
+                   + f", all-masked rows uniform within {uni:.3g}, reruns equal, counted as "
+                   f"{counter.name}; planted faults fail the gates: "
+                   + ", ".join(f"{f} max|d| {max_dist(a, b):.3g}"
+                               for f, (a, b) in faults.items()))
+        if path is None:
+            say(f"{what}: {summary}")
+            continue
+        ms = time_ms(lambda: at.mha_cuda(q, k, v, bias, nh, causal=True), 20,
+                     windows=WINDOWS)
+        plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh, causal=True), 3, 1)
+        bms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True), 10,
+                      windows=WINDOWS)
+        bplain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh, causal=True),
+                            2, 1)
+        mask4 = causal_sdpa_mask(at, bias, dtype)
+        heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
+                 for t in (q, k, v)]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=mask4)
+
+        lib_ms = time_ms(sdpa, 20, windows=WINDOWS)
+        o = sdpa()
+        go = g.view(N, L, nh, d).transpose(1, 2)
+        blib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 10,
+                          windows=WINDOWS)
+        del o, heads, mask4
+        # the products the causal function needs: key <= query, L (L + 1) / 2 a head
+        pairs = N * L * (L + 1) / 2
+        b = bound(4 * N * L * H * isz + N * L * 4, 4.0 * pairs * H, dtype)
+        bb = bound(7 * N * L * H * isz + N * L * 4, 10.0 * pairs * H, dtype)
+        say(f"{what}: {summary}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa (combined mask) {lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); backward "
+            f"kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, sdpa backward {blib_ms:.4f} "
+            f"ms, bound {bb[0]:.4f} ms ({bb[1]})")
+        suffix = ("" if dtype == BF16 else f",{tag}") + f",d={d},causal"
+        per_head = counter is at.PER_HEAD_LAUNCHES
+        rows.append(row(f"mha_fwd{'_per_head' if per_head else ''}[N={N},L={L},H={H}{suffix}]",
+                        counter.name, (N, L, H, tag, True), f"serve/{path}/{tag}",
+                        "bayeformers_tpu_torch/csrc/mha.cu",
+                        "bayeformers_tpu/ops/attention.py:" + ("78" if per_head else "119"),
+                        err, ms, plain_ms, b, lib_ms))
+        if not per_head:  # #4's shape is a forward-only request
+            rows.append(row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd",
+                            (N, L, H, tag, True), f"train/{path}/{tag}",
+                            "bayeformers_tpu_torch/csrc/mha_bwd.cu",
+                            "bayeformers_tpu/ops/attention.py:181", max(gerrs), bms,
+                            bplain_ms, bb, blib_ms))
+        del q, k, v, g, out, again, grads, grads2, ref, gref, faults
+        torch.cuda.empty_cache()
+    # a head width no instance takes raises on the card
+    q = torch.zeros(2, 64, 256, device="cuda", dtype=dtype)
+    bias = torch.zeros(2, 64, device="cuda")
+    try:
+        at.mha_cuda(q, q, q, bias, 2, causal=True)
+        check(False, "mha at head width 128 did not raise")
+    except ValueError as e:
+        say(f"mha ({tag}) at head width 128 raises: {e}")
+    return rows
+
+
+def lm_counts(fl, fb, at) -> dict:
+    """Every counter of the Bayesian linear and attention kernels by name and
+    shape."""
+    return {c.name: dict(c.by_shape) for c in (
+        fl.LAUNCHES, fl.INDEP_LAUNCHES, fb.LAUNCHES, fb.INDEP_LAUNCHES, fl.REGEN_LAUNCHES,
+        at.LAUNCHES, at.PER_HEAD_LAUNCHES, at.BWD_LAUNCHES) if c.count}
+
+
+def lm_want(bmodel, B, L, H, layers, tag, n_req=0, n_steps=0, per_head=False) -> dict:
+    """The launches of ``n_req`` antithetic requests or ``n_steps`` steps of
+    a converted causal LM at (B, L), S = 10, width H, ``layers`` blocks: the
+    forward kernel (and the reduce a step) once a converted kernel at M = B
+    L, on its (in, out) view, the causal attention forward (and backward a
+    step) once a block, under #4's name where the reference would take its
+    per-head forward."""
+    n = n_req + n_steps
+    by_kn = {}
+    for p in bmodel.spec.paths:
+        if p.endswith("/kernel"):
+            K, N = bmodel.rho[p].shape
+            if "/c_" in p:  # a GPT-2 Conv1D, stored (out, in)
+                K, N = N, K
+            by_kn[(B * L, K, N, tag)] = by_kn.get((B * L, K, N, tag), 0) + n
+    key = (10 * B, L, H, tag, True)
+    want = {"bayes_linear_anti": by_kn,
+            "mha_fwd_per_head" if per_head else "mha_fwd": {key: layers * n}}
+    if n_steps:
+        want["reduce_abuv_anti"] = dict(by_kn)
+        want["mha_bwd"] = {key: layers * n_steps}
+    return want
+
+
+def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
+                  step=True, **overrides) -> tuple[dict, float, dict, float]:
+    """One causal LM of phase 16 at (B, L), S = 10, antithetic, frozen MOPED
+    0.05: a ``Predictor(task="causal-lm")`` request (a warm-up, then three,
+    launch counts read around exactly them), its logits against the plain
+    path on the card (1e-4 in f32, :func:`f32_logits_gate` in bf16) and its
+    latency; with
+    ``step``, the ELBO step with the LM loss through the kernels against the
+    plain step at the same draw (bf16: loss 1e-2 relative, rho gradients 5e-2
+    relative L2 and cosine 0.999; f32: loss 1e-6, every group 1e-3 relative
+    L2), then three timed steps with their launch counts. Returns (request
+    launches, request ms, step launches, step ms)."""
+    tag = TAG[dtype]
+    name = f"{LM_NAME[family]} {size}" + (f" {overrides}" if overrides else "")
+    label = f"{name} at ({B}, {L}) ({tag})"
+    bmodel, named = converted_base(bt, dtype, "on_mu", family, size, **overrides)
+    isz = torch.finfo(dtype).bits // 8
+    cfg = bmodel.model.config
+    if family == GPT2:
+        H, nh, layers = cfg.n_embd, cfg.n_head, cfg.n_layer
+    else:
+        nh, layers = cfg.num_attention_heads, cfg.num_hidden_layers
+        H = nh * cfg.attn_head_dim
+    per_head = at.pallas_route(L, H, nh, isz) == "per_head"
+    pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(B,), seq_lens=(L,),
+                        antithetic=True, task="causal-lm")
+    rng = np.random.default_rng(L)
+    mask = np.ones((B, L), np.int64)
+    mask[B // 2:, L - L // 4:] = 0
+    req = {"input_ids": rng.integers(0, cfg.vocab_size, (B, L)), "attention_mask": mask}
+    pred(req, seed=1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    at.PER_HEAD_LAUNCHES.reset()
+    lat = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pred(req, seed=10 + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    serve = lm_counts(fl, fb, at)
+    want = lm_want(bmodel, B, L, H, layers, tag, n_req=3, per_head=per_head)
+    check(serve == want, f"{label}: launches over 3 requests {serve}, want {want}")
+    check(all(np.isfinite(v).all() for v in out.values()), f"{label}: non-finite output")
+    dev = bmodel.device
+    args = tuple(torch.from_numpy(req[k]).to(dev) for k in ("input_ids", "attention_mask"))
+    with torch.inference_mode():
+        lk, _ = bmodel.mc_apply_fused(12345, 10, *args, antithetic=True)
+        lp, _ = bmodel.mc_apply_fused(12345, 10, *args, antithetic=True, impl="plain")
+    if dtype == BF16:
+        note = f32_logits_gate(bt, family, lambda m: m.mc_apply_fused(
+            12345, 10, *args, antithetic=True, impl="plain")[0], lk, lp, size, **overrides)
+    else:
+        err = max_dist(lk, lp)
+        check(err <= 1e-4, f"{label}: logits through the kernels differ from the plain "
+              f"path by {err} (gate 1e-4)")
+        note = f"logits kernels vs plain max|d| {err:.4g} (gate 1e-4)"
+    del lk, lp
+    serve_ms = float(np.median(lat))
+    say(f"{label}: request launches {serve}; {note}; request latency (S=10) median "
+        f"{serve_ms:.3f} ms of 3: {[round(v, 3) for v in lat]}")
+    del pred
+    if not step:
+        del named, bmodel
+        torch.cuda.empty_cache()
+        return serve, serve_ms, None, None
+    batch = train_batch(bt, B, L, family=family, vocab=cfg.vocab_size)
+    loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", "antithetic",
+                              family=family)
+    loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", "antithetic",
+                              family=family)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(bool(torch.isfinite(loss_k)) and loss_rel <= (1e-6 if dtype == F32 else 1e-2),
+          f"{label}: loss kernels {loss_k.item()} vs plain {loss_p.item()}")
+    notes = []
+    for group, names in grad_groups(list(gk)).items():
+        rel, cos, at_ = worst_agreement(gk, gp, names)
+        notes.append(f"{group} rel L2 {rel:.4g} cosine {cos:.7f}")
+        if dtype == F32:
+            check(rel <= 1e-3, f"{label}: {group} gradients differ from the plain f32 "
+                  f"step: rel L2 {rel} at {at_}")
+        elif group == "rho":
+            check(rel <= 5e-2 and cos >= 0.999, f"{label}: rho gradients differ from the "
+                  f"plain step: rel L2 {rel}, cosine {cos}")
+    del gk, gp
+    say(f"{label}: ELBO step loss kernels {loss_k.item():.9g} vs plain {loss_p.item():.9g} "
+        f"(rel {loss_rel:.3g}); gradients kernels vs plain: " + "; ".join(notes))
+    opt = bt.training.adamw_with_decay_groups(
+        2e-5, 0.0, bt.training.default_no_decay).init(named)
+    stepf = bt.training.make_elbo_train_step(bmodel, opt, 10, 256, estimator="antithetic",
+                                             **loss_keywords(family))
+    stepf(55, batch)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = stepf(1000 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"{label}: step {i} loss {m['loss']}")
+    steps = lm_counts(fl, fb, at)
+    want = lm_want(bmodel, B, L, H, layers, tag, n_steps=3, per_head=per_head)
+    check(steps == want, f"{label}: launches over 3 steps {steps}, want {want}")
+    step_ms = float(np.median(times))
+    say(f"{label}: step launches {steps}; ELBO step (S=10) median {step_ms:.3f} ms of 3: "
+        f"{[round(v, 3) for v in times]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del opt, stepf, named, bmodel
+    torch.cuda.empty_cache()
+    return serve, serve_ms, steps, step_ms
 
 
 def main() -> int:
@@ -2136,6 +2517,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
+    # ``--from 16`` runs only the phases from 16 on, after the build and the
+    # eps stream (a quicker check of a later slice); no arguments run all
+    first = int(sys.argv[sys.argv.index("--from") + 1]) if "--from" in sys.argv else 0
     import bayeformers_tpu_torch as bt
     from bayeformers_tpu_torch.core.init import moped_rho
     from bayeformers_tpu_torch.ops import _build, common
@@ -2170,83 +2554,125 @@ def main() -> int:
     # rows: one per kernel, instance and shape; paths: the launch counts of
     # each main-path run, by counter and shape
     rows, paths, serve_ms, step_ms = [], {}, {}, {}
+    est_ms, gpt2_ms, llama_ms = {}, {}, {}
     ests = ((True, "anti", "antithetic"), (False, "indep", "fused"))
-    for dtype in (BF16, F32):
-        tag = TAG[dtype]
-        if dtype == F32:
-            rows += timed("regen (f32)", phase_regen, fl, moped_rho)
-        for prior in PRIORS:
-            for anti, key, est in ests:
-                rows += timed(f"bayes_linear ({est}, {tag}, {prior})", phase_bayes_linear,
-                              fl, moped_rho, anti, dtype, prior)
-        rows.append(timed(f"mha ({tag})", phase_mha, at, dtype))
-        for prior in PRIORS:
-            for anti, key, est in ests:
-                paths[f"serve/{key}/{tag}{prior_suffix(prior)}"], serve_ms[key, tag, prior] = (
-                    timed(f"serving ({est}, {tag}, {prior})", phase_serving, bt, fl, at,
-                          anti, dtype, prior))
-        for prior in PRIORS:
-            for anti, key, est in ests:
-                for inst in ((tag, "bf16x-f32w") if dtype == BF16 else (tag,)):
-                    rows += timed(f"reduce ({est}, {inst}, {prior})", phase_reduce, fl, fb,
-                                  moped_rho, anti, inst, prior)
-        rows.append(timed(f"mha_bwd ({tag})", phase_mha_bwd, at, dtype))
-        for prior in PRIORS:
-            for anti, key, est in ests:
-                sfx = prior_suffix(prior)
-                paths[f"train/{key}/{tag}{sfx}"], step_ms[key, tag, prior], regen = timed(
-                    f"train ({est}, {tag}, {prior})", phase_train, bt, fl, at, fb, est,
-                    dtype, prior)
-                if regen:
-                    paths[f"regen/{key}/{tag}{sfx}"] = regen
-        for samples in ((10, 3) if dtype == BF16 else (10,)):
-            timed(f"workload (S={samples}, {tag})", phase_workload, fl, fb, samples,
-                  dtype == BF16)
+    if first <= 13:
+        for dtype in (BF16, F32):
+            tag = TAG[dtype]
+            if dtype == F32:
+                rows += timed("regen (f32)", phase_regen, fl, moped_rho)
+            for prior in PRIORS:
+                for anti, key, est in ests:
+                    rows += timed(f"bayes_linear ({est}, {tag}, {prior})", phase_bayes_linear,
+                                  fl, moped_rho, anti, dtype, prior)
+            rows.append(timed(f"mha ({tag})", phase_mha, at, dtype))
+            for prior in PRIORS:
+                for anti, key, est in ests:
+                    paths[f"serve/{key}/{tag}{prior_suffix(prior)}"], serve_ms[key, tag, prior] = (
+                        timed(f"serving ({est}, {tag}, {prior})", phase_serving, bt, fl, at,
+                              anti, dtype, prior))
+            for prior in PRIORS:
+                for anti, key, est in ests:
+                    for inst in ((tag, "bf16x-f32w") if dtype == BF16 else (tag,)):
+                        rows += timed(f"reduce ({est}, {inst}, {prior})", phase_reduce, fl, fb,
+                                      moped_rho, anti, inst, prior)
+            rows.append(timed(f"mha_bwd ({tag})", phase_mha_bwd, at, dtype))
+            for prior in PRIORS:
+                for anti, key, est in ests:
+                    sfx = prior_suffix(prior)
+                    paths[f"train/{key}/{tag}{sfx}"], step_ms[key, tag, prior], regen = timed(
+                        f"train ({est}, {tag}, {prior})", phase_train, bt, fl, at, fb, est,
+                        dtype, prior)
+                    if regen:
+                        paths[f"regen/{key}/{tag}{sfx}"] = regen
+            for samples in ((10, 3) if dtype == BF16 else (10,)):
+                timed(f"workload (S={samples}, {tag})", phase_workload, fl, fb, samples,
+                      dtype == BF16)
 
-    # phase 14: the split ops' kernels (#11-#13), then flipout, local
-    # reparameterization and the naive tier
-    rows += timed("logprob", phase_logprob, lpm, sl, common, moped_rho)
-    rows += timed("split regen", phase_split_regen, sl, fl, moped_rho)
-    for dtype in (BF16, F32):
-        rows += timed(f"sampled_dense ({TAG[dtype]})", phase_sampled_dense, sl, fl,
-                      moped_rho, dtype)
-    est_ms = {}
-    for est, dtype, prior in ESTIMATOR_RUNS:
-        key = f"{est}/{TAG[dtype]}{prior_suffix(prior)}"
-        (paths[f"serve/{key}"], serve_ms_, paths[f"train/{key}"], step_ms_) = timed(
-            f"estimator ({est}, {TAG[dtype]}, {prior})", phase_estimator, bt, fl, fb, at,
-            sl, lpm, est, dtype, prior)
-        est_ms[est, TAG[dtype], prior] = (serve_ms_, step_ms_)
-    for est in ("flipout", "local"):
-        timed(f"workload (--estimator {est})", phase_workload_estimator, fl, fb, at, sl,
-              lpm, est)
+    if first <= 14:
+        # phase 14: the split ops' kernels (#11-#13), then flipout, local
+        # reparameterization and the naive tier
+        rows += timed("logprob", phase_logprob, lpm, sl, common, moped_rho)
+        rows += timed("split regen", phase_split_regen, sl, fl, moped_rho)
+        for dtype in (BF16, F32):
+            rows += timed(f"sampled_dense ({TAG[dtype]})", phase_sampled_dense, sl, fl,
+                          moped_rho, dtype)
+        for est, dtype, prior in ESTIMATOR_RUNS:
+            key = f"{est}/{TAG[dtype]}{prior_suffix(prior)}"
+            (paths[f"serve/{key}"], serve_ms_, paths[f"train/{key}"], step_ms_) = timed(
+                f"estimator ({est}, {TAG[dtype]}, {prior})", phase_estimator, bt, fl, fb, at,
+                sl, lpm, est, dtype, prior)
+            est_ms[est, TAG[dtype], prior] = (serve_ms_, step_ms_)
+        for est in ("flipout", "local"):
+            timed(f"workload (--estimator {est})", phase_workload_estimator, fl, fb, at, sl,
+                  lpm, est)
 
-    # phase 15: GPT-2 base, causal LM, through the causal instances of #3/#5
-    gpt2_ms = {}
-    for dtype in (BF16, F32):
-        tag = TAG[dtype]
-        rows += timed(f"causal mha ({tag})", phase_causal_mha, at, dtype)
-        for anti, key, est in ests:
-            rows += timed(f"bayes_linear GPT-2 ({est}, {tag})", phase_bayes_linear, fl,
-                          moped_rho, anti, dtype, "on_mu", GPT2)
-            rows += timed(f"reduce GPT-2 ({est}, {tag})", phase_reduce, fl, fb, moped_rho,
-                          anti, tag, "on_mu", GPT2)
-        for anti, key, est in ests:
-            paths[f"serve/gpt2/{key}/{tag}"], gpt2_ms["request", est, tag] = timed(
-                f"serving GPT-2 ({est}, {tag})", phase_serving_gpt2, bt, fl, at, anti,
-                dtype)
-        for anti, key, est in ests:
-            paths[f"train/gpt2/{key}/{tag}"], gpt2_ms["step", est, tag], _ = timed(
-                f"train GPT-2 ({est}, {tag})", phase_train, bt, fl, at, fb, est, dtype,
-                "on_mu", GPT2)
-    for est, bf16 in (("naive", False), ("antithetic", True)):
-        timed(f"workload gpt2_lm ({est}, {'bf16' if bf16 else 'f32'})",
-              phase_workload_gpt2, fl, fb, at, est, bf16)
-    for est in ("flipout", "local"):
-        (paths[f"serve/gpt2/{est}/bf16"], gpt2_ms["request", est, "bf16"],
-         paths[f"train/gpt2/{est}/bf16"], gpt2_ms["step", est, "bf16"]) = timed(
-            f"estimator GPT-2 ({est}, bf16)", phase_estimator, bt, fl, fb, at, sl, lpm, est,
-            BF16, "on_mu", GPT2)
+    if first <= 15:
+        # phase 15: GPT-2 base, causal LM, through the causal instances of #3/#5
+        for dtype in (BF16, F32):
+            tag = TAG[dtype]
+            rows += timed(f"causal mha ({tag})", phase_causal_mha, at, dtype)
+            for anti, key, est in ests:
+                rows += timed(f"bayes_linear GPT-2 ({est}, {tag})", phase_bayes_linear, fl,
+                              moped_rho, anti, dtype, "on_mu", GPT2)
+                rows += timed(f"reduce GPT-2 ({est}, {tag})", phase_reduce, fl, fb, moped_rho,
+                              anti, tag, "on_mu", GPT2)
+            for anti, key, est in ests:
+                paths[f"serve/gpt2/{key}/{tag}"], gpt2_ms["request", est, tag] = timed(
+                    f"serving GPT-2 ({est}, {tag})", phase_serving_gpt2, bt, fl, at, anti,
+                    dtype)
+            for anti, key, est in ests:
+                paths[f"train/gpt2/{key}/{tag}"], gpt2_ms["step", est, tag], _ = timed(
+                    f"train GPT-2 ({est}, {tag})", phase_train, bt, fl, at, fb, est, dtype,
+                    "on_mu", GPT2)
+        for est, bf16 in (("naive", False), ("antithetic", True)):
+            timed(f"workload gpt2_lm ({est}, {'bf16' if bf16 else 'f32'})",
+                  phase_workload_gpt2, fl, fb, at, est, bf16)
+        for est in ("flipout", "local"):
+            (paths[f"serve/gpt2/{est}/bf16"], gpt2_ms["request", est, "bf16"],
+             paths[f"train/gpt2/{est}/bf16"], gpt2_ms["step", est, "bf16"]) = timed(
+                f"estimator GPT-2 ({est}, bf16)", phase_estimator, bt, fl, fb, at, sl, lpm, est,
+                BF16, "on_mu", GPT2)
+
+    if first <= 16:
+        # phase 16: the LLaMA-architecture families, through the head-width-32,
+        # key-tiled and #4 instances of the attention kernels
+        for dtype in (BF16, F32):
+            tag = TAG[dtype]
+            rows += timed(f"attention 16 ({tag})", phase_attention16, at, dtype)
+            for anti, key, est in ests:
+                rows += timed(f"bayes_linear LLaMA ({est}, {tag})", phase_bayes_linear, fl,
+                              moped_rho, anti, dtype, "on_mu", LLAMA)
+            rows += timed(f"reduce LLaMA (antithetic, {tag})", phase_reduce, fl, fb, moped_rho,
+                          True, tag, "on_mu", LLAMA)
+            for anti, key, est in ests:
+                paths[f"serve/llama/{key}/{tag}"], llama_ms["request", est, tag] = timed(
+                    f"serving LLaMA ({est}, {tag})", phase_serving_gpt2, bt, fl, at, anti, dtype,
+                    LLAMA)
+            paths[f"train/llama/anti/{tag}"], llama_ms["step", "antithetic", tag], _ = timed(
+                f"train LLaMA (antithetic, {tag})", phase_train, bt, fl, at, fb, "antithetic",
+                dtype, "on_mu", LLAMA)
+            for where, size, B, L, kw in (("llama-tiny", "tiny", 8, 128, {}),
+                                          ("llama-long", "base", 1, 1024, {}),
+                                          ("llama-tiny-long", "tiny", 1, 1024,
+                                           {"max_position_embeddings": 1024})):
+                step = where != "llama-tiny-long"
+                (paths[f"serve/{where}/{tag}"], llama_ms["request", where, tag],
+                 paths[f"train/{where}/{tag}"], llama_ms["step", where, tag]) = timed(
+                    f"{where} ({tag})", phase_lm_once, bt, fl, fb, at, LLAMA, dtype, size, B, L,
+                    step, **kw)
+        _, llama_ms["request", "gpt2-long", "bf16"], _, _ = timed(
+            "GPT-2 long (bf16)", phase_lm_once, bt, fl, fb, at, GPT2, BF16, "base", 1, 1024, False)
+        for fam in (MISTRAL, GEMMA):
+            _, llama_ms["request", fam[:-1], "bf16"], _, llama_ms["step", fam[:-1], "bf16"] = timed(
+                f"{LM_NAME[fam]} (bf16)", phase_lm_once, bt, fl, fb, at, fam, BF16)
+        for est, bf16 in (("naive", False), ("antithetic", True)):
+            timed(f"workload gpt2_lm --model llama ({est}, {'bf16' if bf16 else 'f32'})",
+                  phase_workload_gpt2, fl, fb, at, est, bf16, "llama")
+        for est in ("flipout", "local"):
+            _, llama_ms["request", est, "bf16"], _, _ = timed(
+                f"estimator LLaMA ({est}, bf16)", phase_estimator, bt, fl, fb, at, sl, lpm, est,
+                BF16, "on_mu", LLAMA, False)
 
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
@@ -2270,15 +2696,21 @@ def main() -> int:
                                     for t in ("bf16", "f32") for k in ("anti", "indep"))
             for prior in PRIORS)
 
-    say(f"{smi}; request latency 8x128 S=10: {medians(serve_ms)}")
-    say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}")
-    say(f"{smi}; request / ELBO step (S=10) by estimator: " + "; ".join(
-        f"{est} ({tag}, {prior}) {a:.3f} / {b:.3f} ms"
-        for (est, tag, prior), (a, b) in est_ms.items()))
-    say(f"{smi}; GPT-2 base (frozen MOPED), request 8x128 / ELBO step B=8 L=128, S=10: "
-        + "; ".join(f"{est} ({tag}) {gpt2_ms['request', est, tag]:.3f} / "
-                    f"{gpt2_ms['step', est, tag]:.3f} ms"
-                    for (what, est, tag) in gpt2_ms if what == "request")
+    if first <= 13:
+        say(f"{smi}; request latency 8x128 S=10: {medians(serve_ms)}")
+        say(f"{smi}; ELBO step S=10 B=8 L=128: {medians(step_ms)}")
+    if first <= 14:
+        say(f"{smi}; request / ELBO step (S=10) by estimator: " + "; ".join(
+            f"{est} ({tag}, {prior}) {a:.3f} / {b:.3f} ms"
+            for (est, tag, prior), (a, b) in est_ms.items()))
+    if first <= 15:
+        say(f"{smi}; GPT-2 base (frozen MOPED), request 8x128 / ELBO step B=8 L=128, S=10: "
+            + "; ".join(f"{est} ({tag}) {gpt2_ms['request', est, tag]:.3f} / "
+                        f"{gpt2_ms['step', est, tag]:.3f} ms"
+                        for (what, est, tag) in gpt2_ms if what == "request"))
+    say(f"{smi}; phase 16 (frozen MOPED, antithetic unless named), request / ELBO step, "
+        "S=10: " + "; ".join(f"{what} {est} ({tag}) {v:.3f} ms"
+                             for (what, est, tag), v in llama_ms.items() if v is not None)
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

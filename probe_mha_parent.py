@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Bit-equality probe of the non-causal attention kernels across a change.
+"""Bit-equality probe of the head-width-64, L <= 512 attention kernels
+across a change.
 
 Runs ``mha_cuda`` and ``mha_bwd_cuda`` of the ``bayeformers_tpu_torch``
 package found under ``TREE`` (its ``csrc/`` built by that tree's own
-``_build``), bf16 and f32, on fixed seeded inputs with padded keys and a
-fully masked row, at the serving/training shape, at L = 512 and at a ragged
-L, without the causal mask; then either saves the outputs or compares them
-with saved ones by ``torch.equal``. To hold a change's non-causal instances
-against its parent's on one card, in one call::
+``_build``), bf16 and f32, causal and not, on fixed seeded inputs with
+padded keys and a fully masked row, at the serving/training shape, at L =
+512 and at a ragged L; then either saves the outputs or compares them with
+saved ones by ``torch.equal``. To hold a change's instances against its
+parent's on one card, in one call::
 
     git archive <parent> bayeformers_tpu_torch | tar -x -C .scratch/parent
     python3 probe_mha_parent.py save .scratch/parent .scratch/mha_parent.pt
@@ -41,10 +42,12 @@ def outputs(tree: str) -> dict[str, torch.Tensor]:
             mask[: N // 2, L - L // 3:] = 0
             mask[N - 1] = 0
             bias = at.mask_to_bias(mask)
-            tag = f"{N}x{L}x{H}/{str(dtype)[6:]}"
-            out[f"fwd/{tag}"] = at.mha_cuda(q, k, v, bias, 12)
-            for name, t in zip(("dq", "dk", "dv"), at.mha_bwd_cuda(q, k, v, bias, g, 12)):
-                out[f"{name}/{tag}"] = t
+            for causal in (False, True):
+                tag = f"{N}x{L}x{H}/{str(dtype)[6:]}" + ("/causal" if causal else "")
+                out[f"fwd/{tag}"] = at.mha_cuda(q, k, v, bias, 12, causal)
+                for name, t in zip(("dq", "dk", "dv"),
+                                   at.mha_bwd_cuda(q, k, v, bias, g, 12, causal)):
+                    out[f"{name}/{tag}"] = t
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
@@ -65,7 +68,7 @@ def main() -> int:
     for k in want:
         if k not in same:
             print(f"DIFFERS {k}: max {(got[k].float() - want[k].float()).abs().max().item()}")
-    print(f"non-causal attention outputs bit-equal to the saved tree's: "
+    print(f"attention outputs (d = 64, L <= 512) bit-equal to the saved tree's: "
           f"{len(same)} of {len(want)}")
     return 0 if len(same) == len(want) == len(got) else 1
 

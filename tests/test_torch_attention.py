@@ -9,6 +9,7 @@ import torch
 
 from bayeformers_tpu.ops import attention as jat
 from bayeformers_tpu_torch.ops import attention as at
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _inputs(N=4, L=16, H=128, seed=0):

@@ -20,6 +20,7 @@ from bayeformers_tpu.ops import sampled_linear as jsl
 from bayeformers_tpu_torch.core.init import moped_rho
 from bayeformers_tpu_torch.ops import fused_backward as fb
 from bayeformers_tpu_torch.ops import fused_linear as fl
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SHAPES = [(4, 16, 64, 48), (2, 5, 300, 2), (6, 8, 256, 130)]
 

@@ -28,6 +28,7 @@ import bayeformers_tpu as bf
 import bayeformers_tpu_torch as bt
 from bayeformers_tpu.models import bert as jbert
 from test_torch_bert import _batch, _jax_hook
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S = 4
 

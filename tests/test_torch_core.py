@@ -18,6 +18,7 @@ from bayeformers_tpu_torch.core import prior as prior_lib
 from bayeformers_tpu_torch.nn import fused as fused_lib
 from bayeformers_tpu_torch.nn import surgery
 from bayeformers_tpu_torch.nn.dense import Dense
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _np(x):

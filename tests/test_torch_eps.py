@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from bayeformers_tpu_torch.ops import common
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 M32 = 0xFFFFFFFF
 

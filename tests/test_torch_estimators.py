@@ -31,6 +31,7 @@ from bayeformers_tpu_torch import training
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
 from bayeformers_tpu_torch.nn.surgery import leaf
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, B, L = 3, 2, 12
 CONVERSIONS = {"frozen-moped": {"delta": 0.05, "freeze": True},

@@ -9,6 +9,7 @@ from test_torch_estimators import check_against_jax, conversion  # noqa: F401 (a
 
 from bayeformers_tpu_torch import training
 from bayeformers_tpu_torch.workloads import bert_glue
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_lrt_matches_jax(conversion):

@@ -12,6 +12,7 @@ import torch
 from bayeformers_tpu.ops import fused_linear as jfl
 from bayeformers_tpu_torch.core.init import moped_rho
 from bayeformers_tpu_torch.ops import fused_linear as fl
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PRIOR = ("gaussian_on_mu",)
 

@@ -29,6 +29,7 @@ from bayeformers_tpu_torch.ops import fused_linear as fl
 from bayeformers_tpu_torch.utils import optim
 from bayeformers_tpu_torch.workloads import bert_glue
 from test_torch_training import LR, N_BATCHES, WD, _batch, _hook, _port, _port_batch
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -37,23 +37,12 @@ from bayeformers_tpu_torch.ops import attention as at
 from bayeformers_tpu_torch.serving import Predictor, summarize_causal_lm
 from test_torch_bert import _jax_hook
 from test_torch_bf16 import _within_two_bf16_steps
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, B, L = 4, 3, 16
 CONVERSIONS = {"frozen-moped": {"delta": 0.05, "freeze": True},
                "moped-trainable": {"delta": 0.05},
                "random-init": {"rng": jax.random.key(5)}}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread while this module runs, restored after: the
-    port's plain eps stream is many small int64 ops, which slow down by
-    orders of magnitude when several test workers each spin a full set of
-    OpenMP threads on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +328,7 @@ def test_predictor_causal_lm(served):
     # one request row in a bucket of two: the all-pad bucket row is dropped
     one = pred({"input_ids": ids[:1], "attention_mask": mask[:1]}, seed=3)
     assert one["topk_ids"].shape == (1, 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="SQuAD"):
         Predictor(port, task="qa")
     with pytest.raises(ValueError, match="unknown task"):
         Predictor(port, task="translation")

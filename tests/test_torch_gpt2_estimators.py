@@ -20,7 +20,7 @@ import bayeformers_tpu as bf
 import bayeformers_tpu_torch as bt
 from bayeformers_tpu.models import gpt2 as jgpt2
 from test_torch_estimators import B, CONVERSIONS, S, check_against_jax
-from test_torch_gpt2 import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 L = 12
 # flipout and LRT share the KL (``AnalyticKLMC``): flipout takes the Gaussian

@@ -32,7 +32,7 @@ from bayeformers_tpu_torch.models.gpt2 import synthetic_lm_batch
 from bayeformers_tpu_torch.nn.surgery import leaf
 from bayeformers_tpu_torch.workloads import bert_glue, gpt2_lm
 from test_torch_training import _hook
-from test_torch_gpt2 import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, B, L = 4, 2, 12
 N_BATCHES = 7
@@ -174,12 +174,16 @@ def test_gpt2_lm_runs_on_cpu(tmp_path, estimator):
 
 
 def test_what_still_raises(tmp_path):
-    """The corpus, the mesh and the other decoder families name their
-    ROADMAP items; ``bert_glue`` sends GPT-2 to this workload."""
+    """The corpus and the mesh name their ROADMAP items; a sequence longer
+    than the model's maximum position raises; ``bert_glue`` sends GPT-2 to
+    this workload."""
     kw = dict(size="tiny", device="cpu", logs=str(tmp_path))
-    for bad, item in (({"corpus": "x.txt"}, "item 12"), ({"dp": 2}, "item 11"),
-                      ({"tp": 2}, "item 11"), ({"model": "llama"}, "item 10")):
+    for bad, item in (({"corpus": "x.txt"}, "native BPE tokenizer"),
+                      ({"dp": 2}, "parallel tiers"), ({"tp": 2}, "parallel tiers")):
         with pytest.raises(NotImplementedError, match=item):
             gpt2_lm.train(**bad, **kw)
+    for model in ("gpt2", "llama"):
+        with pytest.raises(ValueError, match="maximum position"):
+            gpt2_lm.train(model=model, seq=129, **kw)
     with pytest.raises(ValueError, match="gpt2_lm"):
         bert_glue.train(model_name="gpt2", size="tiny", device="cpu", logs=str(tmp_path))

@@ -34,6 +34,7 @@ from bayeformers_tpu_torch.core import prior as prior_lib
 from bayeformers_tpu_torch.ops import fused_backward as fb
 from bayeformers_tpu_torch.ops import fused_linear as fl
 from bayeformers_tpu_torch.ops import logprob
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 MIX = (0.5, 1.0, math.exp(-6.0))
 PRIORS = ["mixture", "gaussian"]

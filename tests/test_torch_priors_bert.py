@@ -34,6 +34,7 @@ from bayeformers_tpu_torch import training
 from bayeformers_tpu_torch.core.init import DEFAULT_UNIFORM, UniformInit
 from bayeformers_tpu_torch.nn.surgery import leaf
 from bayeformers_tpu_torch.utils import optim
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, B, L = 4, 3, 16
 N_BATCHES = 7

@@ -24,6 +24,7 @@ from bayeformers_tpu_torch.core.distributions import sigma_from_rho
 from bayeformers_tpu_torch.core.init import moped_rho
 from bayeformers_tpu_torch.ops import common
 from bayeformers_tpu_torch.ops import fused_linear as fl
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 

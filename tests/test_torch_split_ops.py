@@ -41,6 +41,7 @@ from bayeformers_tpu_torch.ops import fused_linear as fl
 from bayeformers_tpu_torch.ops import logprob as lp
 from bayeformers_tpu_torch.ops import sampled_linear as sl
 from bayeformers_tpu_torch.nn.surgery import leaf, to_bayesian
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 MIXTURE = (0.5, 1.0, float(np.exp(-6.0)))
 

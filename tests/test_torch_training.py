@@ -37,6 +37,7 @@ from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.nn.surgery import leaf
 from bayeformers_tpu_torch.utils import metrics, optim
 from bayeformers_tpu_torch.workloads import bert_glue
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, B, L = 4, 3, 16
 N_BATCHES = 7

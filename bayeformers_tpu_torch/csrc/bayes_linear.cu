@@ -1,593 +1,432 @@
-// bayes_linear / bayes_linear_anti: the Bayesian linear forward on Hopper.
+// The Bayesian linear forward's product on Hopper: y[s] = x[s] @ W[s].
 //
-// Replaces bayeformers_tpu/ops/fused_linear.py::_kernel (independent draws,
-// Kp < 2048) and ::_ktall_kernel (Kp >= 2048, the FFN down-projection) with
-// bft_bayes_linear, and ::_anti_kernel / ::_ktall_anti_kernel (antithetic
-// pairs) with bft_bayes_linear_anti. On the TPU the K-tall split exists
-// because a full-K weight strip outgrew VMEM; here a block walks K in a
-// loop, so one kernel takes any K. Both entries are instances of one
-// template: H members per block, 2 for a pair, 1 for an independent sample.
-// A third entry, bft_sampled_dense, is the one-sample instance with no prior
-// (prior.cuh's NONE): y only, no log-probs and no W. It replaces
-// bayeformers_tpu/ops/sampled_linear.py::_fused_kernel (pallas_sampled_dense),
-// the split op's sampled matmul that flipout runs its perturbation through
-// (mu = 0). The TPU kernel draws eps per (BK, BN) VMEM tile (tile_eps); the
-// port's split ops draw from the one absolute-unit stream instead, so its W
-// is the one regen.cu rebuilds for the same seeds. Its bound is the
-// forward's: the products at the tensor rate.
+// Replaces the matmul half of bayeformers_tpu/ops/fused_linear.py::_kernel
+// (independent draws, Kp < 2048), ::_ktall_kernel (Kp >= 2048, the FFN
+// down-projection), ::_anti_kernel / ::_ktall_anti_kernel (antithetic pairs)
+// and bayeformers_tpu/ops/sampled_linear.py::_fused_kernel (the split op's
+// sampled matmul, no prior). On the TPU each draws W inside its matmul, tile
+// by tile of VMEM; the port splits the op in two stages: the draw pass
+// (regen.cu, bft_draw) writes the (S, K, N) W of every sample once, in the
+// operand type, with the log-prob partials, and this kernel multiplies;
+// bft_bayes_linear launches the two, chunk of draws by chunk, and the
+// log-probs' fixed-order finalize, for the wrappers
+// (ops/fused_linear.py::bayes_linear_cuda,
+// ops/sampled_linear.py::sampled_dense_cuda). On the training path W is
+// the saved residual anyway, so the split adds only its read; serving adds
+// S K N bytes written and read (11.8 MB at 768 x 768, S = 10, bf16), most
+// of it out of the 50 MB L2.
 //
-// Independent sample s, eps drawn from seeds[s]:
-//   w = mu + softplus(rho) * eps,  y[s] = x[s] @ w                (f32 acc)
-//   log_q[s] = sum(-eps^2/2) - sum(log sigma) - KN log sqrt(2pi)
-//   log_p[s] = sum(-(sigma eps / sigma_p)^2 / 2) - KN (log sqrt(2pi) + log sigma_p)
-//              (ON_MU: the MOPED prior centred on mu)
-//            = sum(-((w - prior_mu) / sigma_p)^2 / 2) - KN (...)    (GAUSSIAN)
-//            = sum(mixture_log_pdf(w))                              (MIXTURE)
-// Antithetic pair t (samples 2t, 2t+1), eps drawn from seeds_half[t]:
-//   w0 = mu + softplus(rho) * eps,  w1 = 2 mu - w0
-//   y[2t] = x[2t] @ w0,  y[2t+1] = x[2t+1] @ w1
-//   log_q as above, shared by the pair; log_p shared under ON_MU (the prior
-//   centred on mu is even in eps), else one per member, at w0 and at w1.
-// Draw t of either kind reads the same unit-stream eps for the same seed.
-// The prior is a template parameter (prior.cuh); the log-probs are taken at
-// the f32 w, also in the bf16 instances, which store W in bf16. They are
-// computed only by the blocks of row tile 0, so GAUSSIAN reads prior_mu
-// there and nowhere else, and neither prior adds to the registers that
-// the product loop holds.
+// Bound on the H100: the 2 S M K N flops at the tensor rate (989 TFLOP/s in
+// bf16: 0.0122 ms at 768 x 768, S = 10, M = 1024; 165 TFLOP/s for f32 as
+// 3xTF32); x, W and y are a few times fewer bytes. A draw inside the
+// product would be redone in every row tile (4 to 8 times at M = 1024) and
+// hold the tensor cores while it ran; drawn once, W costs its write and
+// read.
 //
-// Two operand types, one template: bf16 x (bf16 products, bf16 y and W) and
-// f32 x (true f32 products as 3xTF32, mma.cuh; f32 y and W). The eps draw,
-// W's rounding (bft::sample_w), the log-prob partials and their fixed-order
-// sum are the same in both, so the f32 W equals the regeneration kernel's
-// (regen.cu) bit for bit. Two things differ in f32:
-//  * The tensor cores add into their f32 accumulator without rounding to
-//    nearest: a sum carried across all of K = 3072 in the accumulator drifted
-//    by 5e-5 of max |y| on the H100 (chip_smoke.py), 25x the error of the
-//    products. The f32 instance therefore sums each K step's products in a
-//    fresh fragment and adds it to the running sum in registers (FADD),
-//    so no accumulator chain is longer than one step (12 products).
-//  * Each warp owns 16 rows instead of 32 (BM = 128), which keeps the
-//    running sums, the step's fragments and the split operands within the
-//    128 registers of a 512-thread block, and the tiles within 106 KB of
-//    shared memory for a pair (98 KB in bf16). The draw is then regenerated
-//    once per 128 rows.
+// bf16 (bmm_bf16_kernel): a persistent grid, one block an SM, walks the
+// (sample, 128-row tile, 128-column tile) tiles (480 at 768 x 768). Two
+// consumer warpgroups each own 64 rows of the tile and run wgmma
+// m64n128k16 (f32 accumulation in registers) on 64-deep K steps that TMA
+// loads into a ring of 5 shared-memory stages (hopper.cuh): x's (128, 64)
+// tile K-major, W's (64, 128) tile as two N-contiguous (64, 64) boxes,
+// which wgmma reads through its transpose bit. A producer warp issues the
+// loads, up to 5 steps ahead, across tile boundaries, so a tile's epilogue
+// (y stored from the accumulator registers) overlaps the next tile's
+// loads; a stage is refilled when all 8 consumer warps have released it (an
+// mbarrier each way). One wgmma group stays in flight while the next
+// stage's is issued. The consumers branch on nothing that differs between
+// their threads (a branch by thread around wgmma work makes ptxas
+// serialize every wgmma of the kernel).
 //
-// Bound on the H100: the matmul's 2*S*M*K*N flops over the tensor rate
-// (989 TFLOP/s in bf16; 165 TFLOP/s for f32 as 3xTF32) bound it at the
-// serving shapes (x, mu, rho and y move a few times
-// fewer bytes); the eps regeneration adds ALU work (Philox, Box-Muller,
-// softplus) for every row tile. Design: each block of 16 warps owns a
-// (BM=256 in bf16, BN=64) output tile of its H members, so one eps draw
-// feeds H products and a draw is regenerated once per 256 rows (an independent
-// sample's draw feeds one product, so its Philox work per output is twice
-// a pair's). It walks K in steps of 32 rows (16 cos-branch rows + the 16
-// sin-branch rows that share their Box-Muller pairs) through a two-stage
-// shared-memory pipeline: while the tensor cores (WMMA / mma.sync, f32
-// accumulation) work on one stage, the next x chunk streams into the other
-// by cp.async and each thread's mu/rho loads are in flight; it then
-// regenerates its four elements of the next W (pair). The phases (all
-// warps MMA, then all warps generate, then a barrier) do not overlap.
-// Blocks of row tile 0 also emit per-(draw, column tile) log-prob partials,
-// which a second one-block kernel sums in a fixed order: no float atomics,
-// so log_q / log_p are bit-reproducible for a seed.
+// f32 (bmm_f32_kernel): true f32 products as 3xTF32 (mma.cuh) on WMMA, not
+// wgmma: TF32 wgmma takes a shared-memory operand only K-major, and W is
+// N-major; a K-major hi/lo copy of W would double the draw pass's writes.
+// The tensor cores add into their f32 accumulator without rounding to
+// nearest: a sum carried across all of K = 3072 in the accumulator drifted
+// by 5e-5 of max |y| on the H100 (chip_smoke.py), against a 2e-5 gate, so
+// each 32-deep K step's products go into a fresh fragment that is added to
+// the running sum in registers (FADD); no accumulator chain is longer than
+// one step (12 products). A persistent grid of blocks of 8 warps (4 x 2,
+// 32 x 32 outputs each: two A and two B fragments feed four products), two
+// blocks an SM, walks the (sample, 128-row, 64-column) tiles through a
+// two-stage cp.async pipeline.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
 
-#include "eps.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
-#include "prior.cuh"
 
 using namespace nvcuda;
-using bft::from_f32;
 
 namespace {
 
-constexpr int BN = 64;
-constexpr int BKH = 16;            // rows per Box-Muller branch in one K step
-constexpr int BK = 2 * BKH;        // K rows per step
-constexpr int THREADS = 512;       // 16 warps: 8 (rows) x 2 (cols), 32x32 each
-constexpr int CLD = BN + 4;        // f32 leading dim of the epilogue tile
+using bf16 = __nv_bfloat16;
 
-// Rows per block for operand type T: each of the 8 warp rows owns IM
-// fragments of 16 rows (bf16: 2, BM = 256; f32: 1, BM = 128, see above).
-// PROMOTE: the f32 instance's per-step sums (above).
-template <typename T>
-struct Rows {
-  static constexpr int IM = sizeof(T) == 4 ? 1 : 2;
-  static constexpr int BM = 8 * 16 * IM;
-  static constexpr bool PROMOTE = sizeof(T) == 4;
-};
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
 
-// Shared memory of H members per block in operand type T: two stages of
-// (x, W) for each member; the epilogue tile reuses the space. Leading dims
-// are padded by 16 bytes.
-template <int H, typename T>
-struct Smem {
-  static constexpr int BM = Rows<T>::BM;
-  static constexpr int CS_BYTES = BM * CLD * 4;
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int XLD = BK + PAD;
-  static constexpr int WLD = BN + PAD;
-  static constexpr int VEC = bft::Mma<T>::VEC;  // elements in a 16-byte copy
-  static constexpr int X_VEC_PER_THREAD = H * BM * BK / VEC / THREADS;
-  static constexpr int XS_STAGE = H * BM * XLD;  // elements
-  static constexpr int WS_STAGE = H * BK * WLD;
-  static constexpr int PIPE_BYTES = 2 * (XS_STAGE + WS_STAGE) * static_cast<int>(sizeof(T));
-  static constexpr int BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
-};
+// cudaFuncSetAttribute once per kernel and device (it costs a driver call)
+template <auto KERNEL>
+cudaError_t allow_smem(int bytes) {
+  static unsigned done = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
 
-__device__ __forceinline__ float block_sum_fixed(float v, float* red) {
-  // fixed-order block reduction: warp tree, then the warps in order
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
+// ---------------------------------------------------------------- bf16 ----
+namespace wg {
+
+constexpr int TM = 128, TN = 128, TK = 64, STAGES = 5;
+constexpr int CONSUMERS = 256;                // two warpgroups, 64 rows each
+constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
+constexpr int A_BYTES = TM * TK * 2;          // x tile, 16 KB
+constexpr int B_BYTES = TK * TN * 2;          // W tile, two 8 KB boxes
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+
+__global__ void __launch_bounds__(THREADS, 1)
+bmm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w, bf16* __restrict__ y,
+                int M, int N, int n_k, int tiles_m, int tiles_n, int n_tiles) {
+  using namespace bft::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < THREADS / 32; ++i) s += red[i];
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    fence_barrier_init();
   }
-  return s;  // valid in thread 0
-}
+  __syncthreads();
+  const int my_tiles =
+      static_cast<int>(blockIdx.x) < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * n_k;
 
-// K step s covers the 16 cos-branch rows kc = 256 (s / 8) + 16 (s % 8) and
-// the 16 sin-branch rows kc + 128 that share their Box-Muller pairs.
-__device__ __forceinline__ int step_kc(int s) {
-  return (s >> 3) * bft::UNIT_K + (s & 7) * BKH;
-}
+  if (threadIdx.x >= CONSUMERS) {
+    // the producer warp: one thread keeps the ring full, STAGES steps ahead
+    // of the consumers, across tile boundaries; step j is tile blockIdx.x +
+    // (j / n_k) gridDim.x, K step j % n_k
+    if (threadIdx.x != CONSUMERS) return;
+    for (int j = 0; j < total; ++j) {
+      const int slot = j % STAGES;
+      if (j >= STAGES) mbar_wait(&empty[slot], ((j / STAGES) + 1) & 1);
+      const int tile = blockIdx.x + (j / n_k) * gridDim.x, kt = j % n_k;
+      const int tn = tile % tiles_n, tm = (tile / tiles_n) % tiles_m,
+                s = tile / (tiles_n * tiles_m);
+      unsigned char* st = smem + slot * STAGE_BYTES;
+      mbar_expect_tx(&full[slot], STAGE_BYTES);
+      tma_load_3d(st, &map_x, &full[slot], kt * TK, tm * TM, s);
+      tma_load_3d(st + A_BYTES, &map_w, &full[slot], tn * TN, kt * TK, s);
+      tma_load_3d(st + A_BYTES + TK * 128, &map_w, &full[slot], tn * TN + 64, kt * TK, s);
+    }
+    return;
+  }
 
-template <typename T>
-struct Block {
-  const T* x;
-  const float* mu;
-  const float* rho;
-  int M, K, N, m0, n0, s0;
-};
-
-// Start the asynchronous copy of this thread's 16-byte chunks of the
-// (H members, BM, BK) x tile of step s into a stage (zero-filled outside the
-// matrix); cp_async_wait() completes them. No registers hold the data.
-template <int H, typename T>
-__device__ __forceinline__ void load_x_async(const Block<T>& b, int s, T* xs) {
-  constexpr int VEC = Smem<H, T>::VEC, XLD = Smem<H, T>::XLD, BM = Smem<H, T>::BM;
-  constexpr int CPS = BKH / VEC;  // 16-byte chunks per branch segment
-  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
+  // the consumers: no branch on the thread inside, so ptxas keeps the
+  // wgmmas asynchronous
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const bool paired = (N % 2 == 0);
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < Smem<H, T>::X_VEC_PER_THREAD; ++i) {
-    const int q = threadIdx.x + i * THREADS;
-    const int chunk = q % CPS, seg = (q / CPS) & 1, row = (q / (2 * CPS)) & (BM - 1);
-    const int h = q / (2 * CPS * BM);
-    const int k = (seg ? ks : kc) + chunk * VEC;
-    const int m = b.m0 + row;
-    const bool ok = m < b.M && k < b.K;
-    const T* src =
-        b.x + (ok ? (static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k : 0);
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
-        xs + (h * BM + row) * XLD + seg * BKH + chunk * VEC));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(ok ? 16 : 0));
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  int j = 0;
+  for (int ti = 0; ti < my_tiles; ++ti) {
+    for (int kt = 0; kt < n_k; ++kt, ++j) {
+      const int slot = j % STAGES;
+      mbar_wait(&full[slot], (j / STAGES) & 1);
+      const unsigned char* st = smem + slot * STAGE_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        const uint64_t da = desc_sw128(st + wgi * 64 * 128 + kk * 32, 16, 1024);
+        const uint64_t db = desc_sw128(st + A_BYTES + kk * 2048, TK * 128, 1024);
+        wgmma_m64n128k16<0, 1>(acc, da, db, (kt > 0 || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // the previous step's group is done: release its stage
+      fence_acc(acc);
+      if (kt > 0) mbar_arrive(&empty[(j - 1) % STAGES], lane == 0);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[(j - 1) % STAGES], lane == 0);
+    // epilogue: the tile's y from the accumulator registers, predicated
+    // stores; the next tile's loads are already in flight
+    const int tile = blockIdx.x + ti * gridDim.x;
+    const int tn = tile % tiles_n, tm = (tile / tiles_n) % tiles_m, s = tile / (tiles_n * tiles_m);
+    const int r0 = tm * TM + wgi * 64 + warp * 16 + (lane >> 2);
+    const int c0 = tn * TN + 2 * (lane & 3);
+    bf16* ys = y + static_cast<size_t>(s) * M * N;
+#pragma unroll
+    for (int jn = 0; jn < TN / 8; ++jn) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 8 * hf, col = c0 + 8 * jn;
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(acc[4 * jn + 2 * hf], acc[4 * jn + 2 * hf + 1]);
+        bf16* dst = ys + static_cast<size_t>(row) * N + col;
+        const bool in = row < M && col < N;
+        if (paired) {
+          st_b32(dst, *reinterpret_cast<const uint32_t*>(&v), in);
+        } else {
+          st_b16(dst, __bfloat16_as_ushort(v.x), in);
+          st_b16(dst + 1, __bfloat16_as_ushort(v.y), in && col + 1 < N);
+        }
+      }
+    }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+}  // namespace wg
+
+// ----------------------------------------------------------------- f32 ----
+namespace tf32 {
+
+constexpr int BM = 128, BN = 64, BK = 32;
+constexpr int THREADS = 256;        // 8 warps: 4 (rows) x 2 (cols), 32 x 32 each
+constexpr int XLD = BK + 4, WLD = BN + 4, CLD = BN + 4;  // padded by 16 bytes
+constexpr int XS = BM * XLD, WS = BK * WLD;  // floats a stage
+constexpr int PIPE_BYTES = 2 * (XS + WS) * 4;
+constexpr int CS_BYTES = BM * CLD * 4;
+constexpr int SMEM_BYTES = PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Element-wise x tile for rows that are not whole 16-byte chunks (no
-// 16-byte loads).
-template <int H, typename T>
-__device__ __forceinline__ void load_x_scalar(const Block<T>& b, int s, T* xs) {
-  constexpr int XLD = Smem<H, T>::XLD, BM = Smem<H, T>::BM;
-  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
-  for (int q = threadIdx.x; q < H * BM * BK; q += THREADS) {
-    const int col = q % BK, row = (q / BK) % BM, h = q / (BK * BM);
-    const int k = (col < BKH ? kc + col : ks + col - BKH);
-    const int m = b.m0 + row;
-    T v = from_f32<T>(0.0f);
-    if (m < b.M && k < b.K) v = b.x[(static_cast<size_t>(b.s0 + h) * b.M + m) * b.K + k];
-    xs[(h * BM + row) * XLD + col] = v;
-  }
-}
-
-// mu / rho of this thread's four weight elements in step s: rows
-// (cos, sin) x columns (c, c + 1); out-of-range elements read as 0.
-template <typename T>
-__device__ __forceinline__ void load_weights(const Block<T>& b, int s, float (&m)[4], float (&r)[4]) {
-  const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
-  const int rr = threadIdx.x >> 5, c = 2 * (threadIdx.x & 31);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int krow = ((e < 2) ? kc : ks) + rr;
-    const int n = b.n0 + c + (e & 1);
-    m[e] = 0.0f;
-    r[e] = 0.0f;
-    if (krow < b.K && n < b.N) {
-      const size_t idx = static_cast<size_t>(krow) * b.N + n;
-      m[e] = b.mu[idx];
-      r[e] = b.rho[idx];
-    }
-  }
-}
-
-// Log-prob partials per (draw, column tile): log_q, then one log_p per
-// member that has its own (a pair under a prior not centred on mu).
-template <int H, int PRIOR>
-struct LogP {
-  static constexpr int N_LP = (H == 2 && PRIOR != bft::ON_MU) ? 2 : 1;
-  static constexpr int N_PART = 1 + N_LP;
-};
-
-// H members per block: draw t = blockIdx.z (seed seeds[t]) feeds samples
-// H t .. H t + H - 1, member h's weights being w0 (h = 0) or 2 mu - w0.
-// T: the type of x, y, W and the products' operands; PRIOR: prior.cuh.
-template <int H, typename T, int PRIOR>
-__global__ void __launch_bounds__(THREADS, 1)
-bayes_linear_kernel(const T* __restrict__ x,
-                    const float* __restrict__ mu,
-                    const float* __restrict__ rho,
-                    const int32_t* __restrict__ seeds,
-                    const float* __restrict__ prior_mu,
-                    T* __restrict__ y,
-                    T* __restrict__ w_out,
-                    float* __restrict__ partials,
-                    float* __restrict__ ls_part, int M, int K, int N,
-                    int x_vec, float inv_sigma_p, bft::Mixture mix) {
-  static_assert(H == 1 || H == 2, "one sample or one antithetic pair per block");
-  constexpr int N_PART = LogP<H, PRIOR>::N_PART;
-  using S_ = Smem<H, T>;
-  constexpr int XS_STAGE = S_::XS_STAGE, WS_STAGE = S_::WS_STAGE;
-  constexpr int XLD = S_::XLD, WLD = S_::WLD;
-  constexpr int BM = S_::BM, IM = Rows<T>::IM;
-  constexpr bool PROMOTE = Rows<T>::PROMOTE;
-  constexpr int KD = bft::Mma<T>::KDEPTH;
-  using AFrag = bft::Operand<T, wmma::matrix_a, wmma::row_major>;
-  using BFrag = bft::Operand<T, wmma::matrix_b, wmma::row_major>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[THREADS / 32];
-  T* xs_base = reinterpret_cast<T*>(smem);
-  T* ws_base = xs_base + 2 * XS_STAGE;
-  float* cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 7, warp_n = warp >> 3;
-  const int tile_n = blockIdx.x, tile_m = blockIdx.y, t = blockIdx.z;
-  const Block<T> b{x, mu, rho, M, K, N, tile_m * BM, tile_n * BN, H * t};
-  const uint32_t seed = static_cast<uint32_t>(seeds[t]);
-  // compile-time false in the NONE instance, which emits no log-probs
-  const bool do_lp = PRIOR != bft::NONE && tile_m == 0;
-  const uint32_t col_strip = static_cast<uint32_t>(b.n0 / bft::UNIT_N);
-  const int c_unit0 = b.n0 % bft::UNIT_N;
-  const int rr = tid >> 5, c = 2 * (tid & 31);  // this thread's W elements
-  // number of K steps: whole units, then the steps of the last one below K
-  const int full = K / bft::UNIT_K, rem = K - full * bft::UNIT_K;
-  const int n_steps = full * 8 + min(8, (rem + BKH - 1) / BKH);
-
-  bft::Acc<T> acc[H][IM][2];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int i = 0; i < IM; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[h][i][j], 0.0f);
-
-  float q_acc = 0.0f, p_acc = 0.0f, p1_acc = 0.0f, ls_acc = 0.0f;
-  const size_t KN = static_cast<size_t>(K) * N;
-
-  // Regenerate this thread's four elements of the W (pair) of step s from
-  // the prefetched mu / rho and write them (type T) into the stage's W tiles.
-  auto gen = [&](int s, const float (&m)[4], const float (&r)[4], T* ws) {
-    const int kc = step_kc(s), ks = kc + bft::UNIT_K / 2;
-    float z[4];
-    bft::unit_normals4(seed, static_cast<uint32_t>(s >> 3), col_strip,
-                       (s & 7) * BKH + rr, c_unit0 + c, z);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int krow = ((e < 2) ? kc : ks) + rr;
-      const int trow = (e < 2) ? rr : BKH + rr;
-      const int col = c + (e & 1);
-      const int n = b.n0 + col;
-      float w0 = 0.0f, w1 = 0.0f;
-      if (krow < K && n < N) {
-        const float sig = bft::softplus(r[e]);
-        const float se = __fmul_rn(sig, z[e]);
-        w0 = __fadd_rn(m[e], se);  // bft::sample_w, keeping se for log_p
-        if (H == 2) w1 = __fsub_rn(__fmul_rn(2.0f, m[e]), w0);  // 2 mu - w0, as the plain version
-        if (do_lp) {
-          const size_t idx = static_cast<size_t>(krow) * N + n;
-          q_acc += -0.5f * z[e] * z[e];
-          if (PRIOR == bft::ON_MU) {
-            const float zs = se * inv_sigma_p;
-            p_acc += -0.5f * zs * zs;
-          } else if (PRIOR == bft::GAUSSIAN) {
-            const float pm = prior_mu[idx];
-            const float d0 = (w0 - pm) * inv_sigma_p;
-            p_acc += -0.5f * d0 * d0;
-            if (H == 2) {
-              const float d1 = (w1 - pm) * inv_sigma_p;
-              p1_acc += -0.5f * d1 * d1;
-            }
-          } else {
-            p_acc += bft::mixture_log_pdf(w0, mix);
-            if (H == 2) p1_acc += bft::mixture_log_pdf(w1, mix);
-          }
-          ls_acc += logf(sig);
-          if (w_out != nullptr) {
-            w_out[static_cast<size_t>(b.s0) * KN + idx] = from_f32<T>(w0);
-            if (H == 2)
-              w_out[static_cast<size_t>(b.s0 + 1) * KN + idx] = from_f32<T>(w1);
-          }
-        }
-      }
-      ws[trow * WLD + col] = from_f32<T>(w0);
-      if (H == 2) ws[(BK + trow) * WLD + col] = from_f32<T>(w1);
-    }
-  };
-
-  // ---- prologue: stage 0 holds step 0 ----
-  float mr[4], rr_[4];
+// The x tile (rows m0.., columns k0..k0 + 31) and the W tile (rows k0..,
+// columns n0..n0 + 63) of one K step into a stage; zero outside the
+// matrices. x: 16-byte asynchronous copies when its rows allow (x_vec),
+// else element loads; W's rows (ldw, a multiple of 4) always allow them.
+// Columns of W between N and ldw are read as they are: they reach only
+// y's columns past N, which are not stored.
+__device__ __forceinline__ void load_step(const float* xs, const float* ws, int M, int K,
+                                          int N, int ldw, int m0, int n0, int k0,
+                                          bool x_vec, float* xt, float* wt) {
   if (x_vec) {
-    load_x_async<H, T>(b, 0, xs_base);
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
+      const int q = threadIdx.x + i * THREADS;
+      const int chunk = q % (BK / 4), row = q / (BK / 4);
+      const int m = m0 + row, k = k0 + chunk * 4;
+      const bool ok = m < M && k < K;
+      cp_async16(xt + row * XLD + chunk * 4, xs + (ok ? static_cast<size_t>(m) * K + k : 0), ok);
+    }
   } else {
-    load_x_scalar<H, T>(b, 0, xs_base);
+    for (int q = threadIdx.x; q < BM * BK; q += THREADS) {
+      const int col = q % BK, row = q / BK;
+      const int m = m0 + row, k = k0 + col;
+      xt[row * XLD + col] = (m < M && k < K) ? xs[static_cast<size_t>(m) * K + k] : 0.0f;
+    }
   }
-  load_weights(b, 0, mr, rr_);
-  gen(0, mr, rr_, ws_base);
-  cp_async_wait();
-  __syncthreads();
-
-  // ---- main loop: MMAs on stage s & 1 while step s + 1 fills the other ----
-  for (int s = 0; s < n_steps; ++s) {
-    const int cur = s & 1, nxt = cur ^ 1;
-    const bool more = s + 1 < n_steps;
-    if (more) {
-      // the next x tile streams into the other stage over the MMAs
-      if (x_vec) load_x_async<H, T>(b, s + 1, xs_base + nxt * XS_STAGE);
-      load_weights(b, s + 1, mr, rr_);
-    }
-    const T* xs = xs_base + cur * XS_STAGE;
-    const T* ws = ws_base + cur * WS_STAGE;
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      // the step's sums: straight into acc, or (PROMOTE) into a fresh
-      // fragment that is then added to acc in registers
-      bft::Acc<T> part[IM][2];
-      if (PROMOTE) {
-#pragma unroll
-        for (int i = 0; i < IM; ++i)
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn) wmma::fill_fragment(part[i][jn], 0.0f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += KD) {
-        AFrag a[IM];
-        BFrag bf[2];
-#pragma unroll
-        for (int i = 0; i < IM; ++i)
-          a[i].load(xs + (h * BM + warp_m * 16 * IM + i * 16) * XLD + kk, XLD);
-#pragma unroll
-        for (int jn = 0; jn < 2; ++jn)
-          bf[jn].load(ws + (h * BK + kk) * WLD + warp_n * 32 + jn * 16, WLD);
-#pragma unroll
-        for (int i = 0; i < IM; ++i)
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn)
-            bft::mma(PROMOTE ? part[i][jn] : acc[h][i][jn], a[i], bf[jn]);
-      }
-      if (PROMOTE) {
-#pragma unroll
-        for (int i = 0; i < IM; ++i)
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-            for (int e = 0; e < part[i][jn].num_elements; ++e)
-              acc[h][i][jn].x[e] = __fadd_rn(acc[h][i][jn].x[e], part[i][jn].x[e]);
-      }
-    }
-    if (more) {
-      gen(s + 1, mr, rr_, ws_base + nxt * WS_STAGE);
-      if (x_vec) {
-        cp_async_wait();
-      } else {
-        load_x_scalar<H, T>(b, s + 1, xs_base + nxt * XS_STAGE);
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+    const int q = threadIdx.x + i * THREADS;
+    const int chunk = q % (BN / 4), row = q / (BN / 4);
+    const int k = k0 + row, n = n0 + chunk * 4;
+    const bool ok = k < K && n < N;
+    cp_async16(wt + row * WLD + chunk * 4, ws + (ok ? static_cast<size_t>(k) * ldw + n : 0), ok);
   }
+}
 
-  // ---- epilogue: f32 tile through shared memory, T out ----
+__global__ void __launch_bounds__(THREADS, 2)
+bmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ y, int M, int K, int N, int ldw, int x_vec,
+               int tiles_m, int tiles_n, int n_tiles) {
+  using AFrag = bft::Operand<float, wmma::matrix_a, wmma::row_major>;
+  using BFrag = bft::Operand<float, wmma::matrix_b, wmma::row_major>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xt_base = reinterpret_cast<float*>(smem);
+  float* wt_base = xt_base + 2 * XS;
+  float* cs = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5, warp_m = warp & 3, warp_n = warp >> 2;
+  const int n_steps = (K + BK - 1) / BK;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tn = tile % tiles_n, tm = (tile / tiles_n) % tiles_m, s = tile / (tiles_n * tiles_m);
+    const int m0 = tm * BM, n0 = tn * BN;
+    const float* xs = x + static_cast<size_t>(s) * M * K;
+    const float* ws = w + static_cast<size_t>(s) * K * ldw;
+    bft::Acc<float> acc[2][2];
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
-    if (h) __syncthreads();
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int i = 0; i < IM; ++i)
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn)
-        wmma::store_matrix_sync(
-            cs + (warp_m * 16 * IM + i * 16) * CLD + warp_n * 32 + jn * 16,
-            acc[h][i][jn], CLD, wmma::mem_row_major);
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+    load_step(xs, ws, M, K, N, ldw, m0, n0, 0, x_vec, xt_base, wt_base);
+    cp_async_wait();
     __syncthreads();
-    for (int q = tid; q < BM * BN; q += THREADS) {
+    for (int st = 0; st < n_steps; ++st) {
+      const int cur = st & 1;
+      if (st + 1 < n_steps)
+        load_step(xs, ws, M, K, N, ldw, m0, n0, (st + 1) * BK, x_vec,
+                  xt_base + (cur ^ 1) * XS, wt_base + (cur ^ 1) * WS);
+      const float* xt = xt_base + cur * XS;
+      const float* wt = wt_base + cur * WS;
+      bft::Acc<float> part[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        AFrag a[2];
+        BFrag b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) a[i].load(xt + (warp_m * 32 + i * 16) * XLD + kk, XLD);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) b[j].load(wt + kk * WLD + warp_n * 32 + j * 16, WLD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) bft::mma(part[i][j], a[i], b[j]);
+      }
+      // the step's products into the running sum, rounded to nearest
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < part[i][j].num_elements; ++e)
+            acc[i][j].x[e] = __fadd_rn(acc[i][j].x[e], part[i][j].x[e]);
+      if (st + 1 < n_steps) cp_async_wait();
+      __syncthreads();
+    }
+    // epilogue: the f32 tile through shared memory
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(cs + (warp_m * 32 + i * 16) * CLD + warp_n * 32 + j * 16,
+                                acc[i][j], CLD, wmma::mem_row_major);
+    __syncthreads();
+    float* ys = y + static_cast<size_t>(s) * M * N;
+    for (int q = threadIdx.x; q < BM * BN; q += THREADS) {
       const int row = q / BN, col = q % BN;
-      const int m = b.m0 + row, n = b.n0 + col;
-      if (m < M && n < N)
-        y[(static_cast<size_t>(b.s0 + h) * M + m) * N + n] =
-            from_f32<T>(cs[row * CLD + col]);
+      const int m = m0 + row, n = n0 + col;
+      if (m < M && n < N) ys[static_cast<size_t>(m) * N + n] = cs[row * CLD + col];
     }
-  }
-
-  if (do_lp) {
-    float* part = partials + (static_cast<size_t>(t) * gridDim.x + tile_n) * N_PART;
-    const float q_sum = block_sum_fixed(q_acc, red);
-    if (tid == 0) part[0] = q_sum;
-    const float p_sum = block_sum_fixed(p_acc, red);
-    if (tid == 0) part[1] = p_sum;
-    if (N_PART == 3) {
-      const float p1_sum = block_sum_fixed(p1_acc, red);
-      if (tid == 0) part[2] = p1_sum;
-    }
-    if (t == 0) {
-      const float l_sum = block_sum_fixed(ls_acc, red);
-      if (tid == 0) ls_part[tile_n] = l_sum;
-    }
+    __syncthreads();
   }
 }
 
-// One thread per draw; every sum runs over the column tiles in order. A
-// pair's members share log_q, and log_p too when the draw has one (N_LP 1).
-template <int H, int N_LP>
-__global__ void logprob_finalize(const float* __restrict__ partials,
-                                 const float* __restrict__ ls_part,
-                                 int n_tiles, int n_draws, float c_q, float c_p,
-                                 float* __restrict__ logq,
-                                 float* __restrict__ logp) {
-  constexpr int N_PART = 1 + N_LP;
-  const int t = threadIdx.x;
-  if (t >= n_draws) return;
-  float ls = 0.0f, q = 0.0f, p[N_LP];
-#pragma unroll
-  for (int j = 0; j < N_LP; ++j) p[j] = 0.0f;
-  for (int i = 0; i < n_tiles; ++i) {
-    ls += ls_part[i];
-    q += partials[(static_cast<size_t>(t) * n_tiles + i) * N_PART];
-#pragma unroll
-    for (int j = 0; j < N_LP; ++j)
-      p[j] += partials[(static_cast<size_t>(t) * n_tiles + i) * N_PART + 1 + j];
-  }
-  const float lq = q - ls - c_q;
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    logq[H * t + h] = lq;
-    logp[H * t + h] = p[N_LP == 1 ? 0 : h] - c_p;
-  }
-}
-
-template <int H, typename T, int PRIOR>
-int launch(const void* x, const void* mu, const void* rho, const void* seeds,
-           const void* prior_mu, void* y, void* w_out, void* partials,
-           void* ls_part, void* logq, void* logp, int S, int M, int K, int N,
-           int x_vec, float inv_sigma_p, float c_q, float c_p, bft::Mixture mix,
-           void* stream) {
-  constexpr int BM = Smem<H, T>::BM;
-  const int n_tiles = (N + BN - 1) / BN;
-  const int n_draws = S / H;
-  const dim3 grid(n_tiles, (M + BM - 1) / BM, n_draws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (PRIOR == bft::GAUSSIAN && prior_mu == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      bayes_linear_kernel<H, T, PRIOR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<H, T>::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bayes_linear_kernel<H, T, PRIOR><<<grid, THREADS, Smem<H, T>::BYTES, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mu),
-      static_cast<const float*>(rho), static_cast<const int32_t*>(seeds),
-      static_cast<const float*>(prior_mu), static_cast<T*>(y),
-      static_cast<T*>(w_out), static_cast<float*>(partials),
-      static_cast<float*>(ls_part), M, K, N, x_vec, inv_sigma_p, mix);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || PRIOR == bft::NONE) return static_cast<int>(err);
-  logprob_finalize<H, LogP<H, PRIOR>::N_LP><<<1, ((n_draws + 31) / 32) * 32, 0, st>>>(
-      static_cast<const float*>(partials), static_cast<const float*>(ls_part),
-      n_tiles, n_draws, c_q, c_p, static_cast<float*>(logq),
-      static_cast<float*>(logp));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The instance of (x's type, prior).
-template <int H>
-int launch_by_type(int x_f32, int prior, const void* x, const void* mu,
-                   const void* rho, const void* seeds, const void* prior_mu,
-                   void* y, void* w_out, void* partials, void* ls_part,
-                   void* logq, void* logp, int S, int M, int K, int N, int x_vec,
-                   float inv_sigma_p, float c_q, float c_p, bft::Mixture mix,
-                   void* stream) {
-  using bf16 = __nv_bfloat16;
-#define BFT_LAUNCH(T, P)                                                          \
-  return launch<H, T, P>(x, mu, rho, seeds, prior_mu, y, w_out, partials, ls_part, \
-                         logq, logp, S, M, K, N, x_vec, inv_sigma_p, c_q, c_p, mix, \
-                         stream)
-  switch (prior) {
-    case bft::ON_MU:
-      if (x_f32) BFT_LAUNCH(float, bft::ON_MU);
-      BFT_LAUNCH(bf16, bft::ON_MU);
-    case bft::GAUSSIAN:
-      if (x_f32) BFT_LAUNCH(float, bft::GAUSSIAN);
-      BFT_LAUNCH(bf16, bft::GAUSSIAN);
-    case bft::MIXTURE:
-      if (x_f32) BFT_LAUNCH(float, bft::MIXTURE);
-      BFT_LAUNCH(bf16, bft::MIXTURE);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef BFT_LAUNCH
-}
+}  // namespace tf32
 
 }  // namespace
 
-// x (S, M, K) bf16 (x_f32 = 0) or f32 (x_f32 = 1), mu / rho (K, N) f32,
-// seeds (S,) i32 (independent) or seeds_half (S/2,) i32 (antithetic), and
-// prior_mu (K, N) f32 for prior = GAUSSIAN (else unread, may be null) -> y
-// (S, M, N) in x's type, logq / logp (S,) f32 and, when w_out is not null,
-// the sampled W (S, K, N) in x's type. prior: ON_MU 0, GAUSSIAN 1,
-// MIXTURE 2 (prior.cuh). partials: (n_draws, ceil(N/64), n_part) f32
-// scratch, n_part = 3 for a pair under GAUSSIAN or MIXTURE, else 2;
-// ls_part: (ceil(N/64),) f32 scratch. inv_sigma_p = 1 / softplus(1);
-// c_q = K*N*log(sqrt(2 pi)); c_p = K*N*(log(sqrt(2 pi)) + log(sigma_p))
-// under the Gaussian priors and 0 under the mixture, whose log-density
-// carries its own; mix_*: the mixture's terms (prior.cuh::Mixture). x_vec:
-// x's rows may be copied 16 bytes at a time. Each returns
-// cudaGetLastError().
+// y (S, M, N) = x (S, M, K) @ w (S, K, ldw)[..., :N], in bf16 (x_f32 = 0:
+// bf16 x, W and y, f32 accumulation) or f32 (x_f32 = 1, 3xTF32). bf16: x's
+// rows are ldx elements apart (ldx >= K, a multiple of 8, base 16-byte
+// aligned; columns K..ldx zero), ldw a multiple of 8. f32: x contiguous (ldx
+// = K; x_vec: its rows may be copied 16 bytes at a time), ldw a multiple of
+// 4. Returns cudaGetLastError().
+extern "C" int bft_bmm(const void* x, const void* w, void* y, int S, int M, int K, int N,
+                       int ldx, int ldw, int x_f32, int x_vec, void* stream) {
+  if (S < 1 || M < 1 || K < 1 || N < 1 || ldw < N) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_sm = sm_count();
+  if (x_f32) {
+    using namespace tf32;
+    if (ldw % 4) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+    const int n_tiles = S * tiles_m * tiles_n;
+    cudaError_t err = allow_smem<bmm_f32_kernel>(SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int grid = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
+    bmm_f32_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), M,
+        K, N, ldw, x_vec, tiles_m, tiles_n, n_tiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using namespace wg;
+  if (ldx < K) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  int e = bft::make_map_bf16(&map_x, x, S, M, ldx, ldx, TM);
+  if (e) return e;
+  e = bft::make_map_bf16(&map_w, w, S, K, N, ldw, TK);
+  if (e) return e;
+  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
+  const int n_tiles = S * tiles_m * tiles_n;
+  cudaError_t err = allow_smem<bmm_bf16_kernel>(SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = n_tiles < n_sm ? n_tiles : n_sm;
+  bmm_bf16_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(map_x, map_w, static_cast<bf16*>(y), M, N,
+                                                     (ldx + TK - 1) / TK, tiles_m, tiles_n,
+                                                     n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stages in regen.cu.
+extern "C" int bft_draw(const void* mu, const void* rho, const void* seeds,
+                        const void* prior_mu, void* w, void* partials, void* ls_part,
+                        int n_draws, int K, int N, int ldw, int pair, int w_f32, int prior,
+                        float inv_sigma_p, float mix_c1, float mix_c2, float mix_inv_s1,
+                        float mix_inv_s2, void* stream);
+extern "C" int bft_draw_finalize(const void* partials, const void* ls_part, void* tile_part,
+                                 void* logq, void* logp, int n_draws, int K, int N, int pair,
+                                 int n_lp, float c_q, float c_p, void* stream);
+
+// The Bayesian linear forward, both stages and the log-probs' finalize in
+// one call: x (S, M, K) bf16 (x_f32 = 0) or f32, rows ldx apart (bf16: see
+// bft_bmm), mu / rho (K, N) f32, seeds (S / H,) i32 (H = 2 for pairs),
+// prior_mu (K, N) f32 under GAUSSIAN -> y (S, M, N) in x's type, w (H *
+// chunk, K, ldw) in x's type (the draws of each chunk of ``chunk`` draws
+// in turn: the whole W when chunk = S / H), and under a prior (not NONE)
+// partials (part_per_draw floats a draw) / ls_part / tile_part (bft_draw,
+// bft_draw_finalize) and logq / logp (S,) f32. Returns the first CUDA
+// error.
 extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
-                                const void* seeds, const void* prior_mu, void* y,
-                                void* w_out, void* partials, void* ls_part,
-                                void* logq, void* logp, int S, int M, int K,
-                                int N, int x_vec, int x_f32, int prior,
-                                float inv_sigma_p, float c_q, float c_p,
-                                float mix_c1, float mix_c2, float mix_inv_s1,
-                                float mix_inv_s2, void* stream) {
-  return launch_by_type<1>(x_f32, prior, x, mu, rho, seeds, prior_mu, y, w_out,
-                           partials, ls_part, logq, logp, S, M, K, N, x_vec,
-                           inv_sigma_p, c_q, c_p,
-                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
-                           stream);
-}
-
-extern "C" int bft_bayes_linear_anti(const void* x, const void* mu,
-                                     const void* rho, const void* seeds_half,
-                                     const void* prior_mu, void* y, void* w_out,
-                                     void* partials, void* ls_part, void* logq,
-                                     void* logp, int S, int M, int K, int N,
-                                     int x_vec, int x_f32, int prior,
-                                     float inv_sigma_p, float c_q, float c_p,
-                                     float mix_c1, float mix_c2,
-                                     float mix_inv_s1, float mix_inv_s2,
-                                     void* stream) {
-  return launch_by_type<2>(x_f32, prior, x, mu, rho, seeds_half, prior_mu, y,
-                           w_out, partials, ls_part, logq, logp, S, M, K, N,
-                           x_vec, inv_sigma_p, c_q, c_p,
-                           bft::Mixture{mix_c1, mix_c2, mix_inv_s1, mix_inv_s2},
-                           stream);
-}
-
-// The split op's sampled matmul: x (S, M, K) bf16 (x_f32 = 0) or f32, mu /
-// rho (K, N) f32, seeds (S,) i32 -> y[s] = x[s] @ (mu + softplus(rho) eps_s)
-// (S, M, N) in x's type, eps_s the unit stream of seeds[s]. Returns
-// cudaGetLastError().
-extern "C" int bft_sampled_dense(const void* x, const void* mu, const void* rho,
-                                 const void* seeds, void* y, int S, int M, int K,
-                                 int N, int x_vec, int x_f32, void* stream) {
-  const bft::Mixture none{0.0f, 0.0f, 0.0f, 0.0f};
-  if (x_f32)
-    return launch<1, float, bft::NONE>(x, mu, rho, seeds, nullptr, y, nullptr,
-                                       nullptr, nullptr, nullptr, nullptr, S, M, K,
-                                       N, x_vec, 0.0f, 0.0f, 0.0f, none, stream);
-  return launch<1, __nv_bfloat16, bft::NONE>(
-      x, mu, rho, seeds, nullptr, y, nullptr, nullptr, nullptr, nullptr, nullptr, S,
-      M, K, N, x_vec, 0.0f, 0.0f, 0.0f, none, stream);
+                                const void* seeds, const void* prior_mu, void* y, void* w,
+                                void* partials, void* ls_part, void* tile_part, void* logq,
+                                void* logp, int S, int M, int K, int N, int ldx, int ldw,
+                                int chunk, int part_per_draw, int pair, int x_f32, int x_vec,
+                                int prior,
+                                float inv_sigma_p, float c_q, float c_p, float mix_c1,
+                                float mix_c2, float mix_inv_s1, float mix_inv_s2,
+                                void* stream) {
+  const int h = pair ? 2 : 1, n_draws = S / h;
+  if (S < 1 || S % h || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool lp = prior != 3;  // prior.cuh::NONE writes no log-probs
+  const size_t isz = x_f32 ? 4 : 2;
+  for (int t0 = 0; t0 < n_draws; t0 += chunk) {
+    const int n = n_draws - t0 < chunk ? n_draws - t0 : chunk;
+    int err = bft_draw(mu, rho, static_cast<const int32_t*>(seeds) + t0, prior_mu, w,
+                       lp ? static_cast<float*>(partials) + static_cast<size_t>(t0) * part_per_draw
+                          : nullptr,
+                       lp && t0 == 0 ? ls_part : nullptr, n, K, N, ldw, pair, x_f32, prior,
+                       inv_sigma_p, mix_c1, mix_c2, mix_inv_s1, mix_inv_s2, stream);
+    if (err) return err;
+    err = bft_bmm(static_cast<const char*>(x) + static_cast<size_t>(h) * t0 * M * ldx * isz, w,
+                  static_cast<char*>(y) + static_cast<size_t>(h) * t0 * M * N * isz, h * n, M,
+                  K, N, ldx, ldw, x_f32, x_vec, stream);
+    if (err) return err;
+  }
+  if (!lp) return 0;
+  return bft_draw_finalize(partials, ls_part, tile_part, logq, logp, n_draws, K, N, pair,
+                           pair && prior != 0 ? 2 : 1, c_q, c_p, stream);
 }

@@ -28,6 +28,8 @@ feed both packages the same eps.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
@@ -153,12 +155,48 @@ def kernel_dtype(t: torch.Tensor, what: str) -> str:
     return tag
 
 
+def tma_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(t, ld)`` for an operand that the kernels load by TMA: ``t`` itself
+    when its rows are whole 16-byte chunks and it starts 16-byte aligned,
+    else a copy whose rows are zero-padded to the next 16 bytes; ``ld`` is
+    the row length of what is returned."""
+    per = 16 // t.element_size()
+    C = t.shape[-1]
+    if C % per == 0 and t.data_ptr() % 16 == 0:
+        return t, C
+    ld = round_up(C, per)
+    out = t.new_zeros(tuple(t.shape[:-1]) + (ld,))
+    out[..., :C] = t
+    return out, ld
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The number of streaming multiprocessors of ``t``'s card."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s card the current one (a no-op context
+    when it is already)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def cuda_stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(cond: bool, msg: str) -> None:
-    """Raise ``ValueError(msg)`` unless ``cond`` holds (kernel input checks)."""
+def require(cond: bool, msg: str, *args) -> None:
+    """Raise ``ValueError`` unless ``cond`` holds (kernel input checks);
+    the message is ``msg.format(*args)``, formed only on failure (the
+    wrappers run on every layer of every step)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)

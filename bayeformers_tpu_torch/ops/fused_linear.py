@@ -35,10 +35,15 @@ An independent sample s with seed ``seeds[s]`` draws exactly what
 antithetic pair t draws from ``seeds[t]``.
 
 :func:`bayes_linear` is the wrapper: a CPU tensor takes the plain version
-:func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernel
-(``csrc/bayes_linear.cu``: ``bft_bayes_linear`` or
-``bft_bayes_linear_anti``, each with an instance per activation type, bf16
-or f32, and per prior) or raises.
+:func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernels
+or raises. On the card the op runs in two stages (:func:`bayes_linear_cuda`):
+the draw pass (``csrc/regen.cu``, ``bft_draw``, an instance per pair or
+sample, operand type and prior) writes the (S, K, N) W in x's dtype and the
+log-prob partial sums, the product (``csrc/bayes_linear.cu``, ``bft_bmm``:
+wgmma in bf16, 3xTF32 in f32) takes ``y[s] = x[s] @ W[s]``, and
+``bft_draw_finalize`` sums the partials in a fixed order. The plain mirror
+of that decomposition is :func:`draw_plain`, :func:`draw_finalize_plain`
+and :func:`bmm_plain`.
 Under autograd there are the reference's two custom VJPs:
 
 * ``save_weights=True``: :class:`BayesLinear` (``_fwd_saved`` /
@@ -76,13 +81,12 @@ from bayeformers_tpu_torch.ops import _build, common
 from bayeformers_tpu_torch.ops import fused_backward as bwd
 from bayeformers_tpu_torch.ops import sampled_linear
 from bayeformers_tpu_torch.ops.logprob import (
-    ON_MU, PRIOR_CODE, PRIOR_TAG, mixture_constants, prior_log_prob, prior_of,
-    reduce_keywords)
+    ON_MU, PRIOR_CODE, PRIOR_NONE, PRIOR_TAG, mixture_constants, mixture_log_pdf,
+    prior_log_prob, prior_of, reduce_keywords)
 
 LAUNCHES = common.LaunchCounter("bayes_linear_anti")
 INDEP_LAUNCHES = common.LaunchCounter("bayes_linear")
 REGEN_LAUNCHES = common.LaunchCounter("regen")
-_BN = 64  # the kernel's column tile (csrc/bayes_linear.cu::BN)
 # The reference's f32 antithetic routing: Kp above this takes the
 # regenerating VJP (bayeformers_tpu/ops/fused_linear.py:1561).
 ANTI_F32_SAVED_MAX_KP = 2048
@@ -98,8 +102,7 @@ def naive_from_w(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
     """Matmul and both log-probs from materialized weights (counterpart of
     ``_naive_from_w``, by default with the MOPED prior centred on mu). ``w``
     is f32; the dot runs on ``w`` cast to x's dtype, accumulated in f32."""
-    wd = w.to(x.dtype)
-    y = torch.bmm(x.float(), wd.float()).to(x.dtype)
+    y = bmm_plain(x, w)
     sigma = sigma_from_rho(rho)
     eps = (w - mu[None]) / sigma[None]
     logq = torch.sum(
@@ -333,84 +336,223 @@ def bayes_linear_with_w(x, mu, rho, seeds, *, antithetic: bool = False,
                         prior_of(mixture, prior_mu), prior_mu)
 
 
+# The draw pass's blocks (csrc/regen.cu): a column tile of 64 and a row
+# group of 8 unit rows (16 weight rows), 16 groups to a 256-row unit.
+DRAW_TILE_N = 64
+DRAW_GROUP_ROWS = 8
+# Serving writes W only for the product: a W of more bytes than this is
+# drawn and multiplied in chunks of draws (LLaMA's 768 -> 32000 lm_head at
+# S = 10 would take 0.49 GB in bf16).
+DRAW_CHUNK_BYTES = 128 << 20
+
+
+def draw_layout(K: int, N: int) -> tuple[int, int]:
+    """(column tiles, row groups) of the draw pass's log-prob partials."""
+    n_groups = -(-K // common.UNIT_K) * (common.UNIT_K // 2 // DRAW_GROUP_ROWS)
+    return -(-N // DRAW_TILE_N), n_groups
+
+
+def _block_rows(K: int) -> torch.Tensor:
+    """(n_groups, 16) the weight rows of each row group of the draw pass: 8
+    unit rows r and their sin-branch twins r + 128 (-1 past K)."""
+    half = common.UNIT_K // 2
+    n_groups = draw_layout(K, 1)[1]
+    g = torch.arange(n_groups)[:, None]
+    r = (g % (half // DRAW_GROUP_ROWS)) * DRAW_GROUP_ROWS + torch.arange(DRAW_GROUP_ROWS)[None]
+    base = (g // (half // DRAW_GROUP_ROWS)) * common.UNIT_K + r
+    rows = torch.cat([base, base + half], dim=1)
+    return torch.where(rows < K, rows, torch.full_like(rows, -1))
+
+
+def draw_plain(mu, rho, seeds=None, *, antithetic: bool = False, eps=None,
+               dtype=torch.float32, mixture=None, prior_mu=None):
+    """Plain mirror of the draw pass (``bft_draw``): ``(W, partials,
+    ls_part)`` with W (S, K, N) in ``dtype`` (pairs interleaved), partials
+    (n_draws, n_tiles, n_groups, 1 + n_lp) f32 the per-block sums of
+    ``-eps^2 / 2`` and of each member's log-prior terms (both members of a
+    pair under a prior not centred on mu), and ls_part (n_tiles, n_groups)
+    the sums of log sigma, each block a 64-column tile of a row group
+    (:func:`draw_layout`). Sums in f32 in torch's order, not the kernel's."""
+    prior = prior_of(mixture, prior_mu)
+    K, N = mu.shape
+    if eps is None:
+        eps = common.unit_eps(seeds, (K, N))
+    sigma = sigma_from_rho(rho)
+    se = sigma[None] * eps
+    w0 = mu[None] + se
+    members = [w0]
+    if antithetic:
+        members.append(2.0 * mu[None] - w0)
+    own = antithetic and prior != ON_MU
+    terms = [-0.5 * eps * eps]
+    for w in members[: 2 if own else 1]:
+        if prior == ON_MU:
+            terms.append(-0.5 * (se / MOPED_PRIOR_SIGMA) ** 2)
+        elif prior[0] == "gaussian":
+            terms.append(-0.5 * ((w - prior_mu[None]) / MOPED_PRIOR_SIGMA) ** 2)
+        else:
+            terms.append(mixture_log_pdf(w, *prior[1:]))
+    n_tiles, n_groups = draw_layout(K, N)
+    rows = _block_rows(K)
+
+    def block_sums(t):  # (..., K, N) -> (..., n_tiles, n_groups)
+        t = torch.nn.functional.pad(t, (0, n_tiles * DRAW_TILE_N - N))
+        t = torch.cat([t, torch.zeros_like(t[..., :1, :])], dim=-2)  # row -1: zeros
+        t = t[..., rows, :]  # (..., n_groups, 16, n_tiles * 64)
+        t = t.reshape(t.shape[:-1] + (n_tiles, DRAW_TILE_N)).sum(dim=(-3, -1))
+        return t.transpose(-1, -2)
+
+    partials = torch.stack([block_sums(t) for t in terms], dim=-1)
+    ls_part = block_sums(torch.log(sigma))
+    w = torch.stack(members, dim=1).reshape((-1, K, N)) if antithetic else w0
+    return w.to(dtype), partials, ls_part
+
+
+def draw_finalize_plain(partials, ls_part, K: int, N: int, antithetic: bool,
+                        prior: tuple):
+    """Plain mirror of ``bft_draw_finalize``: ``(tile_part, log_q, log_p)``,
+    the row groups of each column tile summed in order, then the tiles in
+    order, less the constants (:func:`bayes_linear_cuda`)."""
+    n_draws, n_tiles, n_groups, n_part = partials.shape
+    tile_part = torch.zeros((n_draws, n_tiles, n_part), dtype=torch.float32)
+    for g in range(n_groups):
+        tile_part = tile_part + partials[:, :, g]
+    ls = torch.zeros((), dtype=torch.float32)
+    q = torch.zeros((n_draws,), dtype=torch.float32)
+    p = torch.zeros((n_draws, n_part - 1), dtype=torch.float32)
+    for i in range(n_tiles):
+        lt = torch.zeros((), dtype=torch.float32)
+        for g in range(n_groups):
+            lt = lt + ls_part[i, g]
+        ls = ls + lt
+        q = q + tile_part[:, i, 0]
+        p = p + tile_part[:, i, 1:]
+    c_q, c_p = _constants(K, N, prior)
+    lq = q - ls - c_q
+    lp = p - c_p
+    h = 2 if antithetic else 1
+    lp = lp.reshape(-1) if n_part == 3 else lp[:, 0].repeat_interleave(h)
+    return tile_part, lq.repeat_interleave(h), lp
+
+
+def bmm_plain(x, w):
+    """Plain mirror of the product (``bft_bmm``): ``x[s] @ W[s]`` with W in
+    x's dtype, f32 accumulation, y in x's dtype."""
+    return torch.bmm(x.float(), w.to(x.dtype).float()).to(x.dtype)
+
+
+def _constants(K: int, N: int, prior: tuple) -> tuple[float, float]:
+    """The log-probs' constants: K N log sqrt(2 pi) for log_q; for log_p K N
+    (log sqrt(2 pi) + log sigma_p) under the Gaussian priors and 0 under
+    the mixture, whose log-density carries its own."""
+    n_el = K * N
+    c_p = 0.0 if prior[0] == "mixture" else n_el * (LOG_SQRT_2PI + math.log(MOPED_PRIOR_SIGMA))
+    return n_el * LOG_SQRT_2PI, c_p
+
+
+def launch_forward(x, mu, rho, seeds, y, w, chunk: int, *, pair: bool, prior: tuple,
+                   prior_mu=None, scratch=None, part_per_draw: int = 0, logq=None,
+                   logp=None) -> None:
+    """Launch ``bft_bayes_linear`` (csrc/bayes_linear.cu): the draw pass
+    (``bft_draw``, csrc/regen.cu) and the product (``bft_bmm``) for each
+    chunk of ``chunk`` draws in turn into ``w`` (H chunk, K, ldw), y in
+    place, then, under a prior, the log-probs' finalize from ``scratch`` =
+    the device addresses of (partials, ``part_per_draw`` floats a draw,
+    ls_part, tile_part) into ``logq`` / ``logp``. A prior of ``("none",)``
+    draws and multiplies only."""
+    S, M, K = x.shape
+    N = mu.shape[1]
+    if x.dtype == torch.bfloat16:
+        x, ldx = common.tma_rows(x)
+        x_vec = 1
+    else:
+        ldx = K
+        x_vec = int(K % 4 == 0 and x.data_ptr() % 16 == 0)
+    pi, s1, s2 = prior[1:] if prior[0] == "mixture" else (0.5, 1.0, 1.0)
+    c_q, c_p = _constants(K, N, prior) if prior[0] != "none" else (0.0, 0.0)
+    err = _build.library().bft_bayes_linear(
+        x.data_ptr(), mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
+        None if prior_mu is None else prior_mu.data_ptr(), y.data_ptr(), w.data_ptr(),
+        *(scratch or (None,) * 3), None if logq is None else logq.data_ptr(),
+        None if logp is None else logp.data_ptr(), S, M, K, N, ldx, w.shape[-1], chunk,
+        part_per_draw, int(pair),
+        int(x.dtype == torch.float32), x_vec, PRIOR_CODE.get(prior[0], PRIOR_NONE),
+        1.0 / MOPED_PRIOR_SIGMA, c_q, c_p, *mixture_constants(pi, s1, s2),
+        common.cuda_stream(x))
+    _build.check(err, "bft_bayes_linear")
+
+
 def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
                       save_weights: bool = False, mixture=None, prior_mu=None,
                       logprob_partials: bool = False):
-    """Launch ``bft_bayes_linear`` (independent draws, ``seeds`` (S,)) or
-    ``bft_bayes_linear_anti`` (pairs, ``seeds`` (S/2,)), csrc/bayes_linear.cu,
-    in its instance for x's dtype and the prior (``mixture``, ``prior_mu``
-    or, with neither, the one centred on mu); y and W take x's dtype. The
-    launch counters key each launch by ``(M, K, N, tag)``, the tag naming
-    the dtype and any prior but the one on mu (``"bf16/mixture"``).
-    ``logprob_partials`` also returns the log-prob partial sums before their
-    constants, (n_draws, ceil(N / 64), 1 + n_lp) f32: per draw and column
-    tile of 64, the sum of ``-eps^2 / 2``, then of the log-prior's terms of
-    each member with its own (both of a pair under a prior not centred on
-    mu, else one), for checks of terms that the constants drown in f32."""
+    """Launch the draw pass, the product and the log-probs' finalize on the
+    card (independent draws, ``seeds`` (S,), or pairs, ``seeds`` (S/2,)),
+    each in its instance for x's dtype and the prior (``mixture``,
+    ``prior_mu`` or, with neither, the one centred on mu); y and W take x's
+    dtype. The launch counters key each call by ``(M, K, N, tag)``, the tag
+    naming the dtype and any prior but the one on mu (``"bf16/mixture"``).
+    Without ``save_weights`` a W of more than :data:`DRAW_CHUNK_BYTES` is
+    drawn and multiplied in chunks of draws. ``logprob_partials`` also
+    returns the log-prob partial sums before their constants,
+    (n_draws, ceil(N / 64), 1 + n_lp) f32: per draw and column tile of 64,
+    the sum of ``-eps^2 / 2``, then of the log-prior's terms of each member
+    with its own (both of a pair under a prior not centred on mu, else
+    one), for checks of terms that the constants drown in f32."""
     req = common.require
-    req(x.is_cuda, f"bayes_linear kernel needs a CUDA tensor, got {x.device}")
+    req(x.is_cuda, "bayes_linear kernel needs a CUDA tensor, got {}", x.device)
     tag = common.kernel_dtype(x, "bayes_linear")
     prior = prior_of(mixture, prior_mu)
     req(x.dim() == 3 and mu.dim() == 2, "x must be (S, M, K), mu (K, N)")
     S, M, K = x.shape
     N = mu.shape[1]
-    req(mu.shape[0] == K and tuple(rho.shape) == (K, N),
-        f"mu/rho {tuple(mu.shape)}/{tuple(rho.shape)} do not match K={K}")
+    req(mu.shape[0] == K and rho.shape == mu.shape,
+        "mu/rho {}/{} do not match K={}", tuple(mu.shape), tuple(rho.shape), K)
     req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
         "mu and rho must be float32")
-    if antithetic:
-        req(S % 2 == 0 and tuple(seeds.shape) == (S // 2,),
-            f"antithetic needs an even S and S/2 seeds; S={S}, "
-            f"seeds {tuple(seeds.shape)}")
-    else:
-        req(tuple(seeds.shape) == (S,),
-            f"independent draws need S seeds; S={S}, seeds {tuple(seeds.shape)}")
+    n_draws = S // 2 if antithetic else S
+    req(seeds.shape == (n_draws,) and (S % 2 == 0 or not antithetic),
+        "S={} samples ({}) need ({},) seeds, got {}", S,
+        "antithetic pairs" if antithetic else "independent draws", n_draws,
+        tuple(seeds.shape))
     req(seeds.dtype == torch.int32, "seeds must be int32")
-    tensors = [("x", x), ("mu", mu), ("rho", rho), ("seeds", seeds)]
+    tensors = (x, mu, rho, seeds) if prior_mu is None else (x, mu, rho, seeds, prior_mu)
     if prior_mu is not None:
-        req(tuple(prior_mu.shape) == (K, N) and prior_mu.dtype == torch.float32,
-            f"prior_mu must be ({K}, {N}) float32, got {tuple(prior_mu.shape)} "
-            f"{prior_mu.dtype}")
-        tensors.append(("prior_mu", prior_mu))
-    for name, t in tensors:
-        req(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
-        req(t.is_contiguous(), f"{name} must be contiguous")
-    n_draws = seeds.shape[0]
+        req(prior_mu.shape == mu.shape and prior_mu.dtype == torch.float32,
+            "prior_mu must be ({}, {}) float32, got {} {}", K, N,
+            tuple(prior_mu.shape), prior_mu.dtype)
+    dev = x.device
+    for name, t in zip(("x", "mu", "rho", "seeds", "prior_mu"), tensors):
+        req(t.device == dev, "{} is on {}, x on {}", name, t.device, dev)
+        req(t.is_contiguous(), "{} must be contiguous", name)
     req(1 <= n_draws <= 1024, "between 1 and 1024 draws")
-    lib = _build.library()
-    n_tiles = -(-N // _BN)
-    # the partial sums of each draw and column tile: log_q, then one log_p
-    # per member that has its own (both members of a pair under a prior not
+    h = 2 if antithetic else 1
+    n_tiles, n_groups = draw_layout(K, N)
+    # the partial sums of each draw and block: log_q, then one log_p per
+    # member that has its own (both members of a pair under a prior not
     # centred on mu)
-    n_lp = 2 if antithetic and prior != ON_MU else 1
-    y = torch.empty((S, M, N), dtype=x.dtype, device=x.device)
-    logq = torch.empty((S,), dtype=torch.float32, device=x.device)
-    logp = torch.empty((S,), dtype=torch.float32, device=x.device)
-    partials = torch.empty((n_draws, n_tiles, 1 + n_lp), dtype=torch.float32,
-                           device=x.device)
-    ls_part = torch.empty((n_tiles,), dtype=torch.float32, device=x.device)
-    w = (torch.empty((S, K, N), dtype=x.dtype, device=x.device)
-         if save_weights else None)
-    x_vec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
-    n_el = K * N
-    c_p = 0.0 if prior[0] == "mixture" else n_el * (
-        LOG_SQRT_2PI + math.log(MOPED_PRIOR_SIGMA))
-    pi, s1, s2 = prior[1:] if prior[0] == "mixture" else (0.5, 1.0, 1.0)
-    name = "bft_bayes_linear_anti" if antithetic else "bft_bayes_linear"
-    with torch.cuda.device(x.device):
-        err = getattr(lib, name)(
-            x.data_ptr(), mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
-            None if prior_mu is None else prior_mu.data_ptr(),
-            y.data_ptr(), None if w is None else w.data_ptr(),
-            partials.data_ptr(), ls_part.data_ptr(), logq.data_ptr(),
-            logp.data_ptr(), S, M, K, N, x_vec, int(tag == "f32"),
-            PRIOR_CODE[prior[0]], 1.0 / MOPED_PRIOR_SIGMA,
-            n_el * LOG_SQRT_2PI, c_p, *mixture_constants(pi, s1, s2),
-            common.cuda_stream(x),
-        )
-    _build.check(err, name)
+    n_part = 1 + (2 if antithetic and prior != ON_MU else 1)
+    ldw = common.round_up(N, 16 // x.element_size())
+    per_draw = h * K * ldw * x.element_size()
+    chunk = n_draws if save_weights else max(1, min(n_draws, DRAW_CHUNK_BYTES // per_draw))
+    # log_q, log_p and the partial sums in one f32 buffer: an allocation
+    # costs the host about as much as a small layer's kernels take on the
+    # card (y and W stay apart, so that y does not keep W alive)
+    y = x.new_empty((S, M, N))
+    w = x.new_empty((h * chunk, K, ldw))
+    n_p, n_ls = n_draws * n_tiles * n_groups * n_part, n_tiles * n_groups
+    f32 = mu.new_empty(2 * S + n_p + n_ls + n_draws * n_tiles * n_part)
+    logq, logp = f32[:S], f32[S:2 * S]
+    base = f32.data_ptr() + 8 * S
+    scratch = (base, base + 4 * n_p, base + 4 * (n_p + n_ls))
+    with common.on_device(x):
+        launch_forward(x, mu, rho, seeds, y, w, chunk, pair=antithetic, prior=prior,
+                       prior_mu=prior_mu, scratch=scratch,
+                       part_per_draw=n_tiles * n_groups * n_part, logq=logq, logp=logp)
     (LAUNCHES if antithetic else INDEP_LAUNCHES).add(
         (M, K, N, tag + PRIOR_TAG[prior[0]]))
-    out = (y, logq, logp) + ((w,) if save_weights else ())
-    return out + (partials,) if logprob_partials else out
-
+    out = (y, logq, logp)
+    if save_weights:
+        out += (w if ldw == N else w[..., :N].contiguous(),)
+    if logprob_partials:
+        out += (f32[2 * S + n_p + n_ls:].view(n_draws, n_tiles, n_part),)
+    return out

@@ -43,6 +43,7 @@ GAUSSIAN = ("gaussian",)
 # The kernels' codes of the priors (csrc/prior.cuh::Prior), and the launch
 # counters' tag suffix of each
 PRIOR_CODE = {"gaussian_on_mu": 0, "gaussian": 1, "mixture": 2}
+PRIOR_NONE = 3  # no prior and no log-probs: the split op's sampled matmul
 PRIOR_TAG = {"gaussian_on_mu": "", "gaussian": "/gaussian", "mixture": "/mixture"}
 
 

@@ -22,9 +22,10 @@ stream.
 Kernels (``csrc/``), each launched by its wrapper for a CUDA tensor (a CPU
 tensor, or ``plain=True``, takes the plain version; there is no fallback):
 
-* :func:`sampled_dense_cuda`: ``bft_sampled_dense`` (``csrc/bayes_linear.cu``),
-  the one-sample instance of the forward template with no prior: y only
-  (Pallas #12, ``_fused_kernel``), bf16 or f32 x;
+* :func:`sampled_dense_cuda`: the fused op's two stages with no prior
+  (Pallas #12, ``_fused_kernel``): the draw pass (``bft_draw``,
+  ``csrc/regen.cu``) writes W in x's dtype and the product (``bft_bmm``,
+  ``csrc/bayes_linear.cu``) takes y, bf16 or f32 x;
 * :func:`regen_cuda`: ``bft_regen`` (``csrc/regen.cu``), the (S, K, N) f32 W
   of S seeds (Pallas #13, ``_regen_kernel``, and #10 of the fused op, which
   on one stream compute the same W). :func:`regenerate_weights` counts its
@@ -107,33 +108,35 @@ def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
 
 
 def sampled_dense_cuda(x, mu, rho, seeds) -> torch.Tensor:
-    """Launch ``bft_sampled_dense`` (csrc/bayes_linear.cu) in its instance
-    for x's dtype; y takes x's dtype. The launch counter keys each launch by
-    ``(M, K, N, dtype tag)``."""
+    """Launch the no-prior instance of the forward's draw pass
+    (``bft_draw``, csrc/regen.cu) and the product (``bft_bmm``,
+    csrc/bayes_linear.cu) in their instances for x's dtype; y takes x's
+    dtype. The launch counter keys each call by ``(M, K, N, dtype tag)``."""
     req = common.require
-    req(x.is_cuda, f"sampled_dense kernel needs a CUDA tensor, got {x.device}")
+    req(x.is_cuda, "sampled_dense kernel needs a CUDA tensor, got {}", x.device)
     tag = common.kernel_dtype(x, "sampled_dense")
     req(x.dim() == 3 and mu.dim() == 2, "x must be (S, M, K), mu (K, N)")
     S, M, K = x.shape
     N = mu.shape[1]
-    req(mu.shape[0] == K and tuple(rho.shape) == (K, N),
-        f"mu/rho {tuple(mu.shape)}/{tuple(rho.shape)} do not match K={K}")
+    req(mu.shape[0] == K and rho.shape == mu.shape,
+        "mu/rho {}/{} do not match K={}", tuple(mu.shape), tuple(rho.shape), K)
     req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
         "mu and rho must be float32")
-    req(tuple(seeds.shape) == (S,) and seeds.dtype == torch.int32,
-        f"S={S} samples need (S,) int32 seeds, got {tuple(seeds.shape)} {seeds.dtype}")
+    req(seeds.shape == (S,) and seeds.dtype == torch.int32,
+        "S={} samples need (S,) int32 seeds, got {} {}", S, tuple(seeds.shape), seeds.dtype)
     for name, t in (("x", x), ("mu", mu), ("rho", rho), ("seeds", seeds)):
-        req(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
-        req(t.is_contiguous(), f"{name} must be contiguous")
+        req(t.device == x.device, "{} is on {}, x on {}", name, t.device, x.device)
+        req(t.is_contiguous(), "{} must be contiguous", name)
     req(1 <= S <= 65535, "between 1 and 65535 samples")
-    lib = _build.library()
-    y = torch.empty((S, M, N), dtype=x.dtype, device=x.device)
-    x_vec = int(K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        err = lib.bft_sampled_dense(x.data_ptr(), mu.data_ptr(), rho.data_ptr(),
-                                    seeds.data_ptr(), y.data_ptr(), S, M, K, N, x_vec,
-                                    int(tag == "f32"), common.cuda_stream(x))
-    _build.check(err, "bft_sampled_dense")
+    from bayeformers_tpu_torch.ops import fused_linear  # it imports this module
+
+    ldw = common.round_up(N, 16 // x.element_size())
+    chunk = max(1, min(S, fused_linear.DRAW_CHUNK_BYTES // (K * ldw * x.element_size())))
+    y = x.new_empty((S, M, N))
+    w = x.new_empty((chunk, K, ldw))
+    with common.on_device(x):
+        fused_linear.launch_forward(x, mu, rho, seeds, y, w, chunk, pair=False,
+                                    prior=("none",))
     LAUNCHES.add((M, K, N, tag))
     return y
 

@@ -13,8 +13,9 @@ Phases, each timed, each raising on failure:
    bits, normals within 1e-6), its moments, seed determinism;
 4. ``bayes_linear_anti`` and ``bayes_linear`` (independent draws) against
    their plain versions at every shape of the BERT-base serving path (S=10,
-   B=8, L=128), and on their scalar x path (K % 8 != 0, and x not 16-byte
-   aligned), with bit-identical reruns;
+   B=8, L=128), and where x must be copied into zero-padded rows for the
+   product's TMA loads (K % 8 != 0, and x not 16-byte aligned), with
+   bit-identical reruns;
 5. ``mha_fwd`` against its plain version at the serving shape, with padded
    keys and one fully masked row;
 6. serving, antithetic and then independent draws (the ``Predictor``
@@ -493,18 +494,18 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
             lib_ms))
     if family:
         return rows
-    # the kernel's scalar x path, taken when x's rows are not whole 16-byte
-    # chunks or x is not 16-byte aligned: off the serving path, so checked
-    # here but neither timed nor counted
+    # x copied into zero-padded rows for the product's TMA loads, when its
+    # rows are not whole 16-byte chunks or it is not 16-byte aligned: off
+    # the serving path, so checked here but neither timed nor counted
     per16 = 16 // isz
     for M, K, N, offset in ((100, 300 if dtype == BF16 else 302, 130, 0),
                             (64, 768, 130, 1)):
         x, mu, rho, seeds, kw = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                     offset, dtype, prior)
         check(K % per16 != 0 or x.data_ptr() % 16 != 0,
-              f"{(M, K, N, offset)} does not take the scalar x path")
+              f"{(M, K, N, offset)} does not take the padded x path")
         _, _, summary = compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw)
-        say(f"{name} ({label}) scalar x path M={M} K={K} N={N} "
+        say(f"{name} ({label}) padded x path M={M} K={K} N={N} "
             f"x offset {offset}: {summary}")
     return rows
 
@@ -1460,8 +1461,9 @@ def sampled_dense_faults(sl, x, mu, rho, seeds, ref, dtype, shape) -> str:
 
 
 def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
-    """Kernel #12 (``bft_sampled_dense``) at flipout's shapes (S=10, the
-    serving and training shapes of every converted layer), mu = 0 (flipout's
+    """Kernel #12 (the no-prior draw pass and ``bft_bmm``) at flipout's
+    shapes (S=10, the serving and training shapes of every converted
+    layer), mu = 0 (flipout's
     perturbation) and mu != 0: against its plain version at the gates of
     :data:`Y_GATE` (bf16 1e-2 of |y| + std(y), f32 2e-5 of max |y|), against ``x @
     regenerate_weights`` (the same draw, #13's W, by ``torch.bmm``) at the

@@ -64,26 +64,8 @@ using namespace nvcuda;
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
-// cudaFuncSetAttribute once per kernel and device (it costs a driver call)
-template <auto KERNEL>
-cudaError_t allow_smem(int bytes) {
-  static unsigned done = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
-  return err;
-}
+using bft::allow_smem;
+using bft::sm_count;
 
 // ---------------------------------------------------------------- bf16 ----
 namespace wg {

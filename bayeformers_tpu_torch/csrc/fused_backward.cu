@@ -99,19 +99,7 @@ using bft::to_f32;
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// cudaFuncSetAttribute once per kernel and device (it costs a driver call)
-template <auto KERNEL>
-cudaError_t allow_smem(int bytes) {
-  static unsigned done = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
-  return err;
-}
+using bft::allow_smem;
 
 // The split of T steps into G ranges: block b's first step, and the block
 // whose range holds step j (ops/fused_backward.py::plan_slices).

@@ -1,16 +1,21 @@
 // Hopper (sm_90a) building blocks of the port's bf16 products: mbarriers,
-// TMA tile loads, wgmma descriptors and the m64n128k16 bf16 wgmma, plus the
-// host-side encoding of a TMA tensor map.
+// TMA tile loads, wgmma descriptors (128- and 64-byte swizzles), the bf16
+// wgmma shapes m64n128k16, m64n64k16 and m64n32k16 with both operands in
+// shared memory, m64n64k16 and m64n32k16 with A in registers, named
+// barriers and the proxy fence, plus the host-side encoding of a TMA
+// tensor map and two launch helpers (allow_smem, sm_count).
 //
-// The forward's product (bayes_linear.cu) and the reduce (fused_backward.cu)
-// load their operand tiles by TMA into a ring of shared-memory stages, each
-// with a "full" mbarrier (the TMA's bytes arrived) and an "empty" one (every
-// warp of the consumers finished the wgmmas that read it), and run wgmma on
-// them from shared memory. Every tile is 128 bytes wide (64 bf16) and stored
-// with the 128-byte swizzle, which TMA writes and wgmma reads: chunk c (16
-// bytes) of row r lands at chunk c ^ (r % 8), so the 8 rows of a core matrix
-// fall in distinct banks. A stage's base is 1024-byte aligned (the swizzle
-// repeats every 8 rows of 128 bytes).
+// The forward's product (bayes_linear.cu), the reduce (fused_backward.cu)
+// and the attention kernels (mha.cu, mha_bwd.cu) load their operand tiles
+// by TMA into a ring of shared-memory stages, each with a "full" mbarrier
+// (the TMA's bytes arrived) and an "empty" one (every warp of the consumers
+// finished the wgmmas that read it), and run wgmma on them from shared
+// memory. A tile 128 bytes wide (64 bf16) is stored with the 128-byte
+// swizzle, which TMA writes and wgmma reads: chunk c (16 bytes) of row r
+// lands at chunk c ^ (r % 8), so the 8 rows of a core matrix fall in
+// distinct banks. A stage's base is 1024-byte aligned (the swizzle repeats
+// every 8 rows of 128 bytes). Tiles 64 bytes wide take the 64-byte swizzle
+// (desc_sw64).
 //
 // Descriptors (PTX ISA, "matrix descriptor"; CUTLASS's GmmaDescriptor): the
 // start address, a leading and a stride byte offset (in 16-byte units) and
@@ -28,6 +33,11 @@
 // warpgroup (warp w = i / 32, lane l) holds, for each 8-column block j,
 // d[4j] and d[4j + 1] at row 16 w + l / 4, columns 8 j + 2 (l % 4) and + 1,
 // and d[4j + 2], d[4j + 3] at the same columns of row 16 w + l / 4 + 8.
+// A register A operand (64 x 16 bf16, the *_rs wgmmas) has the same shape
+// for its two 8-column halves: a[0] holds row 16 w + l / 4, columns 2 (l %
+// 4) and + 1, a[1] the same columns of row + 8, a[2] and a[3] columns + 8.
+// So the accumulator's columns 16 k .. 16 k + 15 become the A operand of
+// k step k as a[i] = pack_bf16(d[8 k + 2 i], d[8 k + 2 i + 1]), in registers.
 #pragma once
 
 #include <cuda.h>
@@ -148,6 +158,24 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
   return d;
 }
 
+// The same with the 64-byte swizzle (layout type 2): tiles whose rows are 64
+// bytes (32 bf16, the head width 32). TMA's CU_TENSOR_MAP_SWIZZLE_64B writes
+// it: chunk c (16 bytes) of row r lands at c ^ ((r / 2) % 4), so a
+// swizzle atom is 8 rows of 64 bytes (512 bytes, the stage's base 512-byte
+// aligned). K-major: SBO = 512, the stride of 8-row groups, and the 16 K
+// values of one wgmma start 32 bytes further per step, as with 128 bytes.
+// MN-major (rows along K, 32 contiguous M or N values): SBO = 512, the
+// stride of 8-row groups along K, LBO the stride of 32-wide chunks along M
+// or N; one wgmma's 16 K rows start 1024 bytes further per step.
+__device__ __forceinline__ uint64_t desc_sw64(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (smem_u32(smem) & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
+  d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
 // Hand registers back (dec) or take them (inc) for the calling warpgroup,
 // a multiple of 8 between 24 and 256 a thread.
 template <int R>
@@ -208,7 +236,118 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
 }
 
 
+// d (64 x 64, f32, the accumulator layout) += or = a b, m64n64k16, both
+// bf16 operands from shared memory through their descriptors.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 32, f32, the accumulator layout) += or = a b, m64n32k16, both
+// bf16 operands from shared memory through their descriptors.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 64, f32) += or = a b, m64n64k16, with A (64 x 16 bf16) from
+// registers (wgmma_frag's layout) and B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+// d (64 x 32, f32) += or = a b, m64n32k16, with A (64 x 16 bf16) from
+// registers (wgmma_frag's layout) and B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+// ---- shared memory written by threads, then read by wgmma ----
+// Make the calling thread's shared-memory stores visible to the async proxy
+// (wgmma's operand reads); a barrier among the writers and readers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads,
+// a multiple of 32: the consumer warpgroups synchronise without the producer.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Two floats as the bf16 pair of one 32-bit register (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 }  // namespace sm90
+
+// ---- host: launch helpers ----
+// cudaFuncSetAttribute once per kernel and device (it costs a driver call)
+template <auto KERNEL>
+cudaError_t allow_smem(int bytes) {
+  static unsigned done = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
+
+// The number of streaming multiprocessors of the current device.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
 
 // ---- host: TMA tensor maps ----
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no link
@@ -241,26 +380,35 @@ inline EncodeTiledFn encode_tiled() {
 
 // A 3-D map of a bf16 (batch, rows, cols) tensor whose rows are ``ld``
 // elements apart (a multiple of 8, base 16-byte aligned): boxes of (1,
-// box_rows, 64) elements, 128-byte swizzle, zero outside the tensor. Returns
-// a CUDA error code (0: success).
-inline int make_map_bf16(CUtensorMap* map, const void* base, int batch, int rows,
-                         int cols, int ld, int box_rows) {
+// box_rows, box_cols) elements, box_cols * 2 bytes = the swizzle's width
+// (64 with the 128-byte swizzle, 32 with the 64-byte one), zero outside
+// the tensor. Returns a CUDA error code (0: success).
+inline int make_map_bf16_box(CUtensorMap* map, const void* base, int batch, int rows,
+                             int cols, int ld, int box_rows, int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (ld % 8 || reinterpret_cast<uintptr_t>(base) % 16)
+  if (ld % 8 || reinterpret_cast<uintptr_t>(base) % 16 || (box_cols != 64 && box_cols != 32))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
                                  static_cast<cuuint64_t>(ld) * rows * 2};
-  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1u};
   const cuuint32_t estr[3] = {1u, 1u, 1u};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 128-byte-swizzled map of 64-column boxes (make_map_bf16_box).
+inline int make_map_bf16(CUtensorMap* map, const void* base, int batch, int rows,
+                         int cols, int ld, int box_rows) {
+  return make_map_bf16_box(map, base, batch, rows, cols, ld, box_rows, 64);
 }
 
 }  // namespace bft

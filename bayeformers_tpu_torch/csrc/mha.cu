@@ -5,8 +5,8 @@
 // which computes the same function: the reference takes #4 where Pallas fits
 // but no head group of 2 or more does (attention.py:321-330), which at the
 // shapes this port serves means head width 32 at L around 1024. This kernel
-// already runs one block per (query tile, head, example), so the instance
-// that serves those shapes (the key-tiled one below, at D = 32) is #4's
+// runs one block per (query tile, head, example), so the instance that
+// serves those shapes (the key-tiled one below, at D = 32) is #4's
 // counterpart; the wrapper counts its launches there under #4's name.
 // Same contract as #3: q/k/v/out (N, L, H) bf16 with head h in columns
 // [h*D, (h+1)*D), an additive f32 key bias (N, L); scores = (q_h k_h^T) *
@@ -15,42 +15,63 @@
 // then P cast to bf16 and O = P v_h with f32 accumulation. The head width D
 // is a template parameter, instantiated at 32 and 64.
 //
-// Causal instances (CAUSAL = true, GPT-2): after the bias add and before the
-// row max, score (i, j) with key j > query i becomes NEG_BIG = finfo(f32).min,
-// a select as in the reference's jnp.where (attention.py:106-107), not an
-// add: bias-masked and causal-masked scores then hold the same value, and a
-// row with every key masked stays uniform over all L keys. No key tile above
-// the diagonal is skipped: skipping them would make that row uniform over
-// the causal prefix instead.
+// Causal instances (CAUSAL = true, GPT-2, LLaMA): after the bias add and
+// before the row max, score (i, j) with key j > query i becomes NEG_BIG =
+// finfo(f32).min, a select as in the reference's jnp.where
+// (attention.py:106-107), not an add: bias-masked and causal-masked scores
+// then hold the same value, and a row with every key masked stays uniform
+// over all L keys.
 //
 // Bound on the H100: at BERT's L = 128 the work is 4*N*L*L*H flops over
-// 4*N*L*H*2 bytes, about 32 flops a byte, well below the ~295 at which the
+// 4*N*L*H*2 bytes, about 32 flops a byte, below the ~295 at which the
 // tensor cores rather than the memory would be the limit: the kernel should
-// move each of q, k, v, out once. Design: one block of 4 warps per (query
-// tile of 64 rows, head, example). Heads are sliced on-chip by stride, so no
-// head-split transpose ever reaches device memory. Two designs:
-//  * whole rows (L <= 512): the block keeps its whole score rows in shared
-//    memory (64 x 512 f32 plus the bf16 P, 212 KB at most), so the softmax
-//    is exact rather than online and the P v product needs no rescaling;
-//  * key-tiled (L > 512): two walks over the key tiles of 64. The first
-//    forms each tile's scores and carries the row max m and the row sum l
-//    (the sum of exp(s - m) over the keys, rescaled by exp(m_old - m_new)
-//    when a tile raises the max); the second forms the same scores again,
-//    P = exp(s - m) / l, and accumulates P v. O is normalised once, as in
-//    _mha_xla and #3; only the scalar sum is ever rescaled. Shared memory
-//    no longer grows with L, so no length is refused.
-// QK^T and PV run on the tensor cores through WMMA. All-masked rows (bias
-// = finfo(f32).min everywhere) come out uniform over the keys, as in the
-// plain version.
+// move each of q, k, v, out once; at L = 1024 the causal products take
+// about as long as the bytes.
 //
-// Instances of one template over the operand type T, CAUSAL and D: bf16
-// (above) and f32, where q, k, v and out are f32 and both products are true
-// f32 (3xTF32, mma.cuh), as the reference's kernel takes its dot operands in
-// the stored dtype (bayeformers_tpu/ops/attention.py:83-89). The softmax is
-// f32 in both. In f32, P is the f32 score row itself, so it is written over
-// the scores rather than into a separate tile: at L = 512 the block then needs
-// 163 KB (a separate f32 P tile would need 293 KB, above the 227 KB a block
-// can have); the bf16 instance keeps its layout (212 KB at L = 512).
+// bf16 (wg::mha_fwd_wg): work items of (query tile of 64 rows, head,
+// example), the longest causal rows first, walked by a persistent grid of
+// two blocks an SM. In a block a producer warp loads each item's q tile,
+// one item ahead, and the key tiles of 128 (k, then v) by TMA into a ring
+// of 2 stages (attention.cuh: a 3-D map over (N, L, H), so the head is
+// sliced on the way in and rows past L read as zero); one consumer
+// warpgroup forms S = q k^T on wgmma m64n128k16 from shared memory, applies
+// the scale, the bias and the causal select in registers (keys past L are
+// excluded by their index), and forms O = P v on wgmma m64nDk16 with P as
+// the register A operand. Two designs, two instances:
+//  * whole rows (L <= 128, one key tile: BERT, GPT-2 and LLaMA at L = 128):
+//    the warpgroup's whole score rows sit in the accumulator, so the
+//    softmax is exact and done in registers (row max and sum by quad
+//    shuffles, P normalised and then cast to bf16, as _mha_xla), in one
+//    pass with no rescaling, the reference's order of arithmetic (the
+//    normalisation multiplies by 1 / l, within an f32 ulp of dividing).
+//    L = 256 would hold 128 score and 64 P registers a thread beside O's:
+//    longer rows take the key-tiled walk.
+//  * key-tiled (L > 128): the exact two-walk softmax rather than an online
+//    one with O rescaled. Walk 1 forms each tile's scores and carries the
+//    row max m and the row sum l (rescaled by exp(m_old - m_new) when a
+//    tile raises the max); walk 2 forms the same scores again, P = exp(s -
+//    m) / l, cast to bf16, and O += P v. P is then the reference's
+//    normalised P in bf16, rounded as in the whole-row design, and O is
+//    never rescaled; the cost is the second q k^T, a third more products.
+//    Shared memory does not grow with L, so no length is refused.
+// The causal skip: the tiles of the causal prefix are walked first; a key
+// tile that lies wholly above the diagonal of every row of the query tile
+// is skipped, in both walks, when exp(NEG_BIG - m) is 0.0f in f32 for
+// every row, m the row's max over its prefix: those keys then add exactly
+// zero to l and to O, so no bit of the tile's output changes. A tile
+// holding a row whose whole prefix is masked (m = NEG_BIG) walks all L keys,
+// which keeps that row uniform over all of them. The consumers decide
+// (one mbarrier) and the producer follows.
+//
+// f32: q, k, v and out f32 and both products true f32 (3xTF32, mma.cuh) on
+// WMMA, as the reference's kernel takes its dot operands in the stored
+// dtype (bayeformers_tpu/ops/attention.py:83-89). TF32 wgmma takes only
+// K-major operands from shared memory and P v needs v MN-major; the f32
+// instances keep their design: one block of 4 warps per (query tile of 64,
+// head, example); whole rows (L <= 512) keep the score rows in shared
+// memory, P written over them (163 KB at L = 512); longer rows walk the
+// keys twice in tiles of 64 with the same exact softmax. They skip no
+// tile above the diagonal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -58,6 +79,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention.cuh"
 #include "mma.cuh"
 
 using namespace nvcuda;
@@ -72,29 +94,25 @@ constexpr int MAX_ROWS_L = 512;  // longest L of the whole-row design
 constexpr int TSLD = BKV + 4;    // f32 leading dim of one key tile's scores
 constexpr unsigned NEG_BIG_BITS = 0xff7fffffu;  // finfo(f32).min = -FLT_MAX
 
-// q / k / v tiles in T, leading dim padded by 16 bytes; P in T over its own
-// tile (bf16) or over the f32 score rows (f32).
+// q / k / v tiles in T (f32, the only instance of these templates), leading
+// dim padded by 16 bytes; P written over the f32 score rows.
 template <typename T, int D>
 struct Layout {
   static constexpr int QLD = D + 16 / static_cast<int>(sizeof(T));
   static constexpr int OLD = D + 4;  // f32 leading dim of the output tile
   static constexpr int VEC = bft::Mma<T>::VEC;
-  static constexpr bool P_OVER_S = sizeof(T) == 4;
-  // the key-tiled design: one tile's P in T (bf16), over its scores in f32
-  static constexpr int TPLD = P_OVER_S ? TSLD : BKV + 8;
+  // the key-tiled design: one tile's scores, P over them
   static constexpr size_t TILED_BYTES =
       2 * static_cast<size_t>(BQ) * QLD * sizeof(T) + static_cast<size_t>(BQ) * TSLD * 4 +
-      (P_OVER_S ? 0 : static_cast<size_t>(BQ) * TPLD * sizeof(T)) + 2 * BQ * 4;
+      2 * BQ * 4;
 };
 
 __host__ __device__ constexpr int round64(int l) { return (l + 63) / 64 * 64; }
 __host__ __device__ constexpr int sld(int lk) { return lk + 4; }
-__host__ __device__ constexpr int pld(int lk) { return lk + 8; }
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem_bytes(int lk) {
   return 2 * static_cast<size_t>(BQ) * Layout<T, D>::QLD * sizeof(T) +
-         static_cast<size_t>(BQ) * sld(lk) * 4 +
-         (Layout<T, D>::P_OVER_S ? 0 : static_cast<size_t>(BQ) * pld(lk) * sizeof(T));
+         static_cast<size_t>(BQ) * sld(lk) * 4;
 }
 
 // Rows [row0, row0 + 64) of one head's (L, D) slice into a (64, QLD) tile;
@@ -198,19 +216,17 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const float* __restrict__ bias,
                T* __restrict__ out, int L, int H, float scale) {
   constexpr int QLD = Layout<T, D>::QLD;
-  constexpr bool P_OVER_S = Layout<T, D>::P_OVER_S;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lk = round64(L);
   T* qs = reinterpret_cast<T*>(smem);
   T* kvs = qs + BQ * QLD;
   float* ss = reinterpret_cast<float*>(kvs + BKV * QLD);
-  T* ps = P_OVER_S ? reinterpret_cast<T*>(ss)
-                   : reinterpret_cast<T*>(ss + BQ * sld(lk));
+  T* ps = reinterpret_cast<T*>(ss);  // P over the score rows
   float* os = ss;  // the output tile reuses the score rows once P is used
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int SLD = sld(lk), PLD = P_OVER_S ? sld(lk) : pld(lk);
+  const int SLD = sld(lk), PLD = sld(lk);
 
   load_tile<T, D>(q, qs, n, h, q0, L, H);
 
@@ -272,13 +288,12 @@ mha_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, int L, int H, float scale) {
   using Lay = Layout<T, D>;
-  constexpr int QLD = Lay::QLD, TPLD = Lay::TPLD;
+  constexpr int QLD = Lay::QLD, TPLD = TSLD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* kvs = qs + BQ * QLD;
   float* ts = reinterpret_cast<float*>(kvs + BKV * QLD);  // one tile's scores
-  T* tp = Lay::P_OVER_S ? reinterpret_cast<T*>(ts)
-                        : reinterpret_cast<T*>(ts + BQ * TSLD);
+  T* tp = reinterpret_cast<T*>(ts);  // one tile's P over its scores
   float* row_m = reinterpret_cast<float*>(smem + Lay::TILED_BYTES) - 2 * BQ;
   float* row_l = row_m + BQ;
   float* os = ts;  // the output tile reuses the score tile at the end
@@ -380,22 +395,277 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- bf16 ----
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using namespace bft::sm90;
+using namespace bft::attn;
+
+constexpr int STAGES = 2;                // ring of key tiles
+constexpr int CONSUMERS = 128;           // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int BLOCKS_PER_SM = 2;
+
+template <int D>
+struct Smem {
+  static constexpr int Q = Rows<D>::R64;        // a query tile
+  static constexpr int KV = Rows<D>::R128;      // one key tile of k or of v
+  static constexpr int STAGE = 2 * KV;          // k, then v
+  static constexpr int BYTES = 1024 + 2 * Q + STAGES * STAGE + 256;
+};
+
+// A work item, a (query tile of 64, head, example): the block's i-th is
+// item blockIdx.x + i gridDim.x; the query tile varies slowest, the longest
+// causal rows first.
+struct Item {
+  int q0, h, n, pre, test;
+};
+
+template <bool CAUSAL>
+__device__ __forceinline__ Item item_at(int it, int pairs, int n_heads, int nt, int L) {
+  Item x;
+  const int qt = (L + BM - 1) / BM - 1 - it / pairs, rest = it % pairs;
+  x.h = rest % n_heads;
+  x.n = rest / n_heads;
+  x.q0 = qt * BM;
+  const int last = x.q0 + BM - 1 < L ? x.q0 + BM - 1 : L - 1;
+  x.pre = CAUSAL ? last / BN + 1 : nt;  // the key tiles of the causal prefix
+  x.test = CAUSAL && x.pre < nt;        // a skip to decide
+  return x;
+}
+
+// Persistent: each block walks its items; the module note.
+template <int D, bool CAUSAL, bool ROWS>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias,
+           bf16* __restrict__ out, int L, int H, int n_heads, int n_items, float scale) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qbuf = smem;  // two query tiles: the item's and the next one's
+  unsigned char* ring = smem + 2 * S::Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 2;
+  uint64_t* decide = qempty + 2;
+  int* ok_warp = reinterpret_cast<int*>(decide + 1);  // the skip test, one per warp
+
+  const int nt = ROWS ? 1 : (L + BN - 1) / BN;
+  const int pairs = n_items / ((L + BM - 1) / BM);  // (head, example) pairs
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], CONSUMERS / 32);
+    }
+    mbar_init(decide, CONSUMERS / 32);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // the producer warp: one thread loads each item's q tile (one item
+    // ahead), then walk 1's k tiles and walk 2's k and v tiles into the
+    // ring, in the consumers' order, across items
+    if (threadIdx.x != CONSUMERS) return;
+    int j = 0, tests = 0;
+    for (int i = 0, it = blockIdx.x; it < n_items; ++i, it += gridDim.x) {
+      const Item x = item_at<CAUSAL>(it, pairs, n_heads, nt, L);
+      const int qb = i & 1;
+      if (i >= 2) mbar_wait(&qempty[qb], ((i >> 1) + 1) & 1);
+      mbar_expect_tx(&qfull[qb], S::Q);
+      tma_load_3d(qbuf + qb * S::Q, &map_q, &qfull[qb], x.h * D, x.q0, x.n);
+      auto load = [&](int t, bool with_v) {
+        const int slot = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[slot], ((j / STAGES) + 1) & 1);
+        unsigned char* st = ring + slot * S::STAGE;
+        mbar_expect_tx(&full[slot], with_v ? S::STAGE : S::KV);
+        tma_load_3d(st, &map_k, &full[slot], x.h * D, t * BN, x.n);
+        if (with_v) tma_load_3d(st + S::KV, &map_v, &full[slot], x.h * D, t * BN, x.n);
+        ++j;
+      };
+      int walked = nt;
+      if (!ROWS) {
+        for (int t = 0; t < x.pre; ++t) load(t, false);
+        if (x.test) {
+          mbar_wait(decide, tests & 1);
+          ++tests;
+          if (ok_warp[0] & ok_warp[1] & ok_warp[2] & ok_warp[3]) walked = x.pre;
+        }
+        for (int t = x.pre; t < walked; ++t) load(t, false);
+      }
+      for (int t = 0; t < walked; ++t) load(t, true);
+    }
+    return;
+  }
+
+  // the consumers: no branch on the thread around wgmma work
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3), rw = warp * 16 + (lane >> 2);
+  float s[64], o[D / 2];
+  int j = 0, tests = 0;
+  for (int i = 0, it = blockIdx.x; it < n_items; ++i, it += gridDim.x) {
+    const Item x = item_at<CAUSAL>(it, pairs, n_heads, nt, L);
+    const int qb = i & 1;
+    const unsigned char* qs = qbuf + qb * S::Q;
+    const int qi0 = x.q0 + rw;  // the thread's queries: qi0, qi0 + 8
+    const float* brow = bias + static_cast<size_t>(x.n) * L;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f};
+    mbar_wait(&qfull[qb], (i >> 1) & 1);
+
+    // the masked scores of key tile t from the next stage of the ring;
+    // returns the stage
+    auto scores = [&](int t) -> const unsigned char* {
+      const int slot = j % STAGES;
+      mbar_wait(&full[slot], (j / STAGES) & 1);
+      const unsigned char* st = ring + slot * S::STAGE;
+      fence_acc(s);
+      wgmma_fence();
+      issue_rows_by_keys<D>(s, qs, st);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      mask_scores<CAUSAL>(s, brow, t, c0, qi0, L, scale);
+      return st;
+    };
+
+    int walked = nt;
+    if (!ROWS) {
+      // walk 1: each row's max m and sum l of exp(s - m), the thread's
+      // share of l rescaled by exp(m_old - m_new) when a tile raises the max
+      auto walk1 = [&](int t) {
+        scores(t);
+        mbar_arrive(&empty[j % STAGES], lane == 0);
+        ++j;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float mn = fmaxf(m[hf], quad_max(row_max(s, hf)));
+          float part = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj)
+            part += expf(s[4 * jj + 2 * hf] - mn) + expf(s[4 * jj + 2 * hf + 1] - mn);
+          l[hf] = l[hf] * expf(m[hf] - mn) + part;
+          m[hf] = mn;
+        }
+      };
+      for (int t = 0; t < x.pre; ++t) walk1(t);
+      if (x.test) {
+        // the causal skip (module note); rows past L do not hold it back
+        const bool ok = (qi0 >= L || future_is_zero(m[0])) &&
+                        (qi0 + 8 >= L || future_is_zero(m[1]));
+        ok_warp[warp] = __all_sync(0xffffffffu, ok) ? 1 : 0;
+        __syncwarp();
+        mbar_arrive(decide, lane == 0);
+        mbar_wait(decide, tests & 1);
+        ++tests;
+        walked = (ok_warp[0] & ok_warp[1] & ok_warp[2] & ok_warp[3]) ? x.pre : nt;
+        walked = __shfl_sync(0xffffffffu, walked, 0);
+      }
+      for (int t = x.pre; t < walked; ++t) walk1(t);
+      l[0] = 1.0f / quad_sum(l[0]);
+      l[1] = 1.0f / quad_sum(l[1]);
+    }
+
+    // walk 2: P = exp(s - m) / l in f32, to bf16 in registers, O += P v
+    for (int t = 0; t < walked; ++t) {
+      const unsigned char* st = scores(t);
+      if (ROWS) {
+        // whole rows: the exact row softmax of _mha_xla
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          m[hf] = quad_max(row_max(s, hf));
+          float part = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float e = expf(s[4 * jj + 2 * hf + u] - m[hf]);
+              s[4 * jj + 2 * hf + u] = e;
+              part += e;
+            }
+          }
+          l[hf] = 1.0f / quad_sum(part);
+        }
+#pragma unroll
+        for (int e = 0; e < 64; ++e) s[e] = s[e] * l[(e >> 1) & 1];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) s[e] = expf(s[e] - m[(e >> 1) & 1]) * l[(e >> 1) & 1];
+      }
+      uint32_t a[8][4];
+      to_frags(s, a);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        mma_d_rs<D>(o, a[kk], ndesc<D>(st + S::KV + kk * 16 * Rows<D>::ROW), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      mbar_arrive(&empty[j % STAGES], lane == 0);
+      ++j;
+    }
+    mbar_arrive(&qempty[qb], lane == 0);
+    store_rows<D>(out, o, x.n, x.h, qi0, c0, L, H, 1.0f);
+  }
+}
+
+template <int D, bool CAUSAL, bool ROWS>
+int launch_items(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                 const void* bias, void* out, int N, int L, int H, int n_heads,
+                 cudaStream_t stream) {
+  constexpr int smem = Smem<D>::BYTES;
+  const cudaError_t err = bft::allow_smem<mha_fwd_wg<D, CAUSAL, ROWS>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 1 / sqrt(D) rounded to f32, as the plain version's Python float
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const int n_items = (L + BM - 1) / BM * n_heads * N;
+  const int cap = BLOCKS_PER_SM * bft::sm_count();
+  mha_fwd_wg<D, CAUSAL, ROWS><<<n_items < cap ? n_items : cap, THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<const float*>(bias), static_cast<bf16*>(out), L, H, n_heads,
+      n_items, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int N,
+           int L, int H, int n_heads, void* stream) {
+  CUtensorMap mq, mk, mv;
+  int e = bft::make_map_bf16_box(&mq, q, N, L, H, H, BM, D);
+  if (!e) e = bft::make_map_bf16_box(&mk, k, N, L, H, H, BN, D);
+  if (!e) e = bft::make_map_bf16_box(&mv, v, N, L, H, H, BN, D);
+  if (e) return e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return L <= BN ? launch_items<D, CAUSAL, true>(mq, mk, mv, bias, out, N, L, H, n_heads, st)
+                 : launch_items<D, CAUSAL, false>(mq, mk, mv, bias, out, N, L, H, n_heads, st);
+}
+
+}  // namespace wg
+
 template <int D>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
              int N, int L, int H, int n_heads, int f32, int causal, void* stream) {
   if (f32)
     return causal ? launch<float, D, true>(q, k, v, bias, out, N, L, H, n_heads, stream)
                   : launch<float, D, false>(q, k, v, bias, out, N, L, H, n_heads, stream);
-  return causal
-             ? launch<__nv_bfloat16, D, true>(q, k, v, bias, out, N, L, H, n_heads, stream)
-             : launch<__nv_bfloat16, D, false>(q, k, v, bias, out, N, L, H, n_heads, stream);
+  return causal ? wg::launch<D, true>(q, k, v, bias, out, N, L, H, n_heads, stream)
+                : wg::launch<D, false>(q, k, v, bias, out, N, L, H, n_heads, stream);
 }
 
 }  // namespace
 
 // q / k / v / out (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1), bias (N, L)
 // f32, causal masking when causal = 1; H = n_heads * D with D = 32 or 64;
-// L <= 512 takes the whole-row design, longer L the key-tiled one. Returns
+// whole rows up to L = 128 (bf16) or 512 (f32), key-tiled above. Returns
 // cudaGetLastError().
 extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, int N, int L, int H,

@@ -1,57 +1,69 @@
 // mha_bwd: multi-head self-attention backward in the flat (N, L, H) layout.
 //
 // Replaces bayeformers_tpu/ops/attention.py::_bwd_kernel (Pallas #5). Same
-// arithmetic:
-// recompute the f32 scores s = (q_h k_h^T) * scale + bias (scale = 1 /
-// sqrt(D) rounded to f32, after the product) and their exact f32 softmax P;
-// P goes to bf16 for dV = P^T g; dP = g v_h^T in f32; dS = P * (dP -
-// rowsum(dP * P)) in f32, then bf16 for dQ = dS k_h * scale and dK = dS^T
-// q_h * scale; every product accumulates in f32. q, k, v, g and the outputs
-// are bf16 (N, L, H) with head h in columns [h*D, h*D+D) and are read by
-// stride, as mha_fwd reads them; bias is (N, L) f32. The head width D is a
-// template parameter, instantiated at 32 and 64.
+// arithmetic: recompute the f32 scores s = (q_h k_h^T) * scale + bias
+// (scale = 1 / sqrt(D) rounded to f32, after the product) and their exact
+// f32 softmax P; P goes to bf16 for dV = P^T g; dP = g v_h^T in f32; dS =
+// P * (dP - D) with D = rowsum(dP * P) from the f32 P (not the
+// FlashAttention identity rowsum(g * O), which would read the bf16 forward
+// output), in f32, then bf16 for dQ = dS k_h * scale and dK = dS^T q_h *
+// scale; every product accumulates in f32. q, k, v, g and the outputs are
+// bf16 (N, L, H) with head h in columns [h*D, h*D+D); bias is (N, L) f32.
+// The head width D is a template parameter, instantiated at 32 and 64.
+// Causal instances (CAUSAL = true) set score (i, j) with key j > query i to
+// finfo(f32).min after the bias add, a select as the reference's
+// jnp.where (attention.py:207-209); as in _bwd_kernel, a row with every key
+// masked keeps its uniform P, and its dS reaches every key, future ones
+// included (XLA's autodiff of _mha_xla would give those zero). dK and dV
+// sum over the query rows in a fixed order, with no atomics: reruns are
+// bit-equal.
 //
 // Bound on the H100: 10*N*L*L*H flops (five products) against 7*N*L*H*2
-// bytes; at BERT's L = 128 the bytes bound it, so each operand should be read
-// about once. Design: two passes, so that dK and dV, which sum over all
-// query rows, need no atomics (the gradients are bit-reproducible).
-//  1. A query-tile kernel (32 rows, one head, one example) forms the exact
-//     softmax, D = rowsum(dP * P) from the f32 P (not the FlashAttention
-//     identity rowsum(g * O), which would read the bf16 forward output),
-//     dS, and dQ; it writes the row max, the row sum and D. Two designs:
-//     whole rows (L <= 512) keep the score rows and dP rows in shared memory
-//     (2 x 32 x 512 f32 at most, which is why the tile has 32 rows: 64 would
-//     need 256 KB at L = 512); key-tiled (L > 512) walks the key tiles of 64
-//     three times: the row max and sum (the sum rescaled by exp(m_old -
-//     m_new) when a tile raises the max), then D from P = exp(s - m) / sum
-//     and dP, then dS and dQ.
-//  2. A key-tile kernel (64 keys) walks the query rows in tiles of 32,
-//     recomputes the same scores and dP for its keys with the same
-//     fragment products, rebuilds P = exp(s - max) / sum bit for bit from
-//     pass 1's statistics, and accumulates dV and dK in registers. It takes
-//     any L as it is.
-// A fully masked row (bias finfo(f32).min everywhere) gives equal scores,
-// hence a uniform P, as in the plain version; it stays finite.
+// bytes; at BERT's L = 128 the bytes bound it, so each operand should be
+// read about once.
 //
-// Causal instances (CAUSAL = true, GPT-2): both passes set score (i, j) with
-// key j > query i to finfo(f32).min after the bias add, a select as the
-// reference's jnp.where (attention.py:207-209). They must mask identically:
-// pass 2 rebuilds P from pass 1's row max and sum, so a mask in one pass and
-// not the other gives wrong dK/dV, not a crash; every walk goes through
-// masked_score(). As in _bwd_kernel, a row with every key masked keeps its
-// uniform P, and its dS reaches every key, future ones included (XLA's
-// autodiff of _mha_xla would give those zero). No tile above the diagonal
-// is skipped.
+// bf16 (namespace wg): TMA loads through 3-D maps over (N, L, H)
+// (attention.cuh), products on wgmma, the softmax in registers.
+//  * L <= 128 (the main path; mha_bwd_rows): one block per (head,
+//    example). A producer warp loads q, k, v and g (4 x 128 x D bf16, 64 KB
+//    at D = 64); each of two consumer warpgroups owns 64 query rows and
+//    forms in registers S = q k^T and dP = g v^T (m64n128k16), the exact f32
+//    P, D and dS, then dQ = dS k * scale with dS as the register A operand;
+//    it writes P and dS in bf16 to shared memory (64 KB), and after a
+//    barrier each warpgroup forms dV = P^T g and dK = dS^T q * scale for
+//    its own 64 keys over all query rows, reading P, dS, g and q through
+//    wgmma's transpose bits. Five products, where the two-pass design
+//    needs seven. At L = 256 the tiles and P / dS would need 384 KB.
+//  * L > 128: two passes, each block with two consumer warpgroups and a
+//    producer warpgroup that hands its registers to them. Pass 1
+//    (mha_bwd_dq_wg, 128 query rows, 64 a warpgroup) walks the key tiles
+//    of 128 twice: walk 1 forms S and dP and carries the row max m, the
+//    row sum l of exp(s - m) and dd, the sum of exp(s - m) dP (both
+//    rescaled by exp(m_old - m_new) when a tile raises the max), so that D
+//    = dd / l; walk 2 forms S and dP again, P = exp(s - m) / l, dS and dQ +=
+//    dS k. It writes m, l and D of every row and whether the block's causal
+//    skip held. Pass 2 (mha_bwd_dkv_wg, a key tile of 128) walks the query
+//    rows in steps of 128 (TMA ring of 2), forms S and dP of its keys with
+//    the same products, rebuilds P bit for bit from pass 1's statistics,
+//    writes P and dS in bf16 to shared memory and accumulates dV and dK as
+//    in the L <= 128 design.
+// The causal skip, as in the forward (mha.cu): pass 1 walks its 128 rows'
+// causal prefix first and skips the key tiles wholly above their diagonal
+// when exp(NEG_BIG - m) is 0.0f on every row (those keys' P and dS are then
+// exactly zero); pass 2 skips a step of query rows wholly before its key
+// tile when pass 1 skipped for those rows. Rows holding one whose whole
+// prefix is masked are walked in full.
 //
-// Instances of one template over the operand type T: bf16 (above) and
-// f32, where q, k, v, g and the outputs are f32 and all five products are
-// true f32 (3xTF32, mma.cuh), as the reference's _bwd_kernel takes its dot
-// operands in the stored dtype (bayeformers_tpu/ops/attention.py:188-193);
-// the softmax, D and dS stay f32 in both. In f32 pass 1 writes dS over the
-// dP rows instead of into a separate tile (element c reads dP[c], then
-// writes dS[c]): at L = 512 it needs 163 KB, where a separate f32 dS tile
-// would need 228 KB, just above the 227 KB a block can have. Pass 2 needs
-// 85 KB in f32 (53 KB in bf16).
+// f32: q, k, v, g and the outputs f32, all five products true f32 (3xTF32
+// on WMMA, mma.cuh), as the reference's _bwd_kernel takes its dot operands
+// in the stored dtype (bayeformers_tpu/ops/attention.py:188-193); the
+// softmax, D and dS in f32. TF32 wgmma takes only K-major operands from
+// shared memory and dV = P^T g needs them MN-major; the f32 instances keep
+// their design: two passes with query tiles of 32 rows. Pass 1 forms the
+// statistics, D, dS and dQ, with whole rows (L <= 512: score and dP rows
+// in shared memory, dS written over the dP rows, 163 KB at L = 512) or key
+// tiles of 64 walked three times; pass 2 (a key tile of 64) rebuilds P from
+// pass 1's statistics and accumulates dV and dK. They skip no tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -59,6 +71,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention.cuh"
 #include "mma.cuh"
 
 using namespace nvcuda;
@@ -73,33 +86,30 @@ constexpr int MAX_ROWS_L = 512;  // longest L of pass 1's whole-row design
 constexpr int TSLD = BKV + 4;    // f32 leading dim of a (rows, 64 keys) tile
 constexpr unsigned NEG_BIG_BITS = 0xff7fffffu;  // finfo(f32).min = -FLT_MAX
 
-// Tiles of q / k / v / g in T, leading dim padded by 16 bytes; in f32, dS
-// over the dP rows.
+// Tiles of q / k / v / g in T (f32, the only instance of these templates),
+// leading dim padded by 16 bytes; pass 1's dS over its dP rows.
 template <typename T, int D>
 struct Layout {
   static constexpr int QLD = D + 16 / static_cast<int>(sizeof(T));
   static constexpr int OLD = D + 4;  // f32 leading dim of a (rows, D) output tile
   static constexpr int TPLD = BKV + 16 / static_cast<int>(sizeof(T));  // P, dS in T
   static constexpr int VEC = bft::Mma<T>::VEC;
-  static constexpr bool DS_OVER_DP = sizeof(T) == 4;
   static constexpr size_t TILES1_BYTES = static_cast<size_t>(2 * BQ + BKV) * QLD * sizeof(T);
   static constexpr size_t SMEM2_BYTES =
       static_cast<size_t>(2 * BKV + 2 * BQ) * QLD * sizeof(T) + 2 * BQ * TSLD * 4 +
       2 * BQ * TPLD * sizeof(T) + 3 * BQ * 4;
   // pass 1's key-tiled design: q, g, k, v tiles, scores and dP of one key
-  // tile, dS (bf16) over its own tile, the row max, sum and D
+  // tile (dS over the dP), the row max, sum and D
   static constexpr size_t TILED1_BYTES =
       static_cast<size_t>(2 * BQ + 2 * BKV) * QLD * sizeof(T) + 2 * BQ * TSLD * 4 +
-      (DS_OVER_DP ? 0 : BQ * TPLD * sizeof(T)) + 3 * BQ * 4;
+      3 * BQ * 4;
 };
 
 __host__ __device__ constexpr int round64(int l) { return (l + 63) / 64 * 64; }
 __host__ __device__ constexpr int sld(int lk) { return lk + 4; }
-__host__ __device__ constexpr int dld(int lk) { return lk + 8; }
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem1_bytes(int lk) {
-  return Layout<T, D>::TILES1_BYTES + 2 * static_cast<size_t>(BQ) * sld(lk) * 4 +
-         (Layout<T, D>::DS_OVER_DP ? 0 : static_cast<size_t>(BQ) * dld(lk) * sizeof(T));
+  return Layout<T, D>::TILES1_BYTES + 2 * static_cast<size_t>(BQ) * sld(lk) * 4;
 }
 
 // Rows [row0, row0 + rows) of one head's (L, D) slice into a (rows, QLD)
@@ -221,17 +231,15 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   float* __restrict__ row_max, float* __restrict__ row_sum,
                   float* __restrict__ row_d, int L, int H, int n_heads, float scale) {
   constexpr int QLD = Layout<T, D>::QLD;
-  constexpr bool DS_OVER_DP = Layout<T, D>::DS_OVER_DP;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lk = round64(L), SLD = sld(lk);
-  const int DLD = DS_OVER_DP ? SLD : dld(lk);
+  const int DLD = SLD;
   T* qs = reinterpret_cast<T*>(smem);
   T* gs = qs + BQ * QLD;
   T* kvs = gs + BQ * QLD;
   float* ss = reinterpret_cast<float*>(smem + Layout<T, D>::TILES1_BYTES);
   float* dps = ss + BQ * SLD;
-  T* dsb = DS_OVER_DP ? reinterpret_cast<T*>(dps)
-                      : reinterpret_cast<T*>(dps + BQ * SLD);
+  T* dsb = reinterpret_cast<T*>(dps);  // dS over the dP rows
   float* os = ss;  // the dQ tile reuses the score rows once dS exists
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
@@ -313,7 +321,7 @@ mha_bwd_dq_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float scale) {
   using Lay = Layout<T, D>;
   constexpr int QLD = Lay::QLD;
-  constexpr int DLD = Lay::DS_OVER_DP ? TSLD : Lay::TPLD;
+  constexpr int DLD = TSLD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* gs = qs + BQ * QLD;
@@ -321,8 +329,7 @@ mha_bwd_dq_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* vs = ks + BKV * QLD;
   float* ss = reinterpret_cast<float*>(vs + BKV * QLD);  // one key tile's scores
   float* dps = ss + BQ * TSLD;                             // and its dP
-  T* dsb = Lay::DS_OVER_DP ? reinterpret_cast<T*>(dps)
-                           : reinterpret_cast<T*>(dps + BQ * TSLD);
+  T* dsb = reinterpret_cast<T*>(dps);  // dS over the dP tile
   float* st = reinterpret_cast<float*>(smem + Lay::TILED1_BYTES) - 3 * BQ;
   float* os = ss;  // the dQ tile reuses the score tile at the end
 
@@ -562,6 +569,535 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- bf16 ----
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using namespace bft::sm90;
+using namespace bft::attn;
+
+constexpr int TWO_WG = 256;             // two consumer warpgroups
+constexpr int THREADS2 = TWO_WG + 128;  // and a producer warpgroup, which
+                                        // hands its registers to them
+constexpr int STAGES = 2;
+
+// Issue dq += dS k over the tile's 128 keys, dS from registers, k the
+// (128 keys, D) tile MN-major.
+template <int D>
+__device__ __forceinline__ void issue_ds_k(float (&dq)[D / 2], const uint32_t (&a)[8][4],
+                                           const unsigned char* ks) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) mma_d_rs<D>(dq, a[kk], ndesc<D>(ks + kk * 16 * Rows<D>::ROW), 1);
+}
+
+// Issue dv += P^T g and dk += dS^T q over 128 query rows for the keys of
+// chunk ``c`` of the P and dS tiles; g and q (128 rows, D) MN-major.
+template <int D>
+__device__ __forceinline__ void issue_dkv(float (&dv)[D / 2], float (&dk)[D / 2],
+                                          const unsigned char* ps, const unsigned char* dss,
+                                          const unsigned char* gs, const unsigned char* qs,
+                                          int c) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    mma_d<D, 1, 1>(dv, pdesc(ps, c, kk), ndesc<D>(gs + kk * 16 * Rows<D>::ROW), 1);
+    mma_d<D, 1, 1>(dk, pdesc(dss, c, kk), ndesc<D>(qs + kk * 16 * Rows<D>::ROW), 1);
+  }
+}
+
+// S = q k^T and dP = g v^T for the warpgroup's 64 rows of q and g and the
+// 128 keys of k and v: issued together, then waited for.
+template <int D>
+__device__ __forceinline__ void scores_and_dp(float (&s)[64], float (&dp)[64],
+                                              const unsigned char* q, const unsigned char* g,
+                                              const unsigned char* k, const unsigned char* v) {
+  fence_acc(s);
+  fence_acc(dp);
+  wgmma_fence();
+  issue_rows_by_keys<D>(s, q, k);
+  issue_rows_by_keys<D>(dp, g, v);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_acc(dp);
+}
+
+// ---- L <= 128: one block per (head, example) ----
+template <int D>
+struct RowsSmem {
+  static constexpr int T = Rows<D>::R128;  // q, k, v, g: 128 rows each
+  static constexpr int BYTES = 1024 + 4 * T + 2 * PTILE + 64;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS2, 1)
+mha_bwd_rows(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_g,
+                const float* __restrict__ bias, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int L, int H, float scale) {
+  using S = RowsSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + S::T;
+  unsigned char* vs = ks + S::T;
+  unsigned char* gs = vs + S::T;
+  unsigned char* ps = gs + S::T;  // P, then dS, in bf16 (PTILE layout)
+  unsigned char* dss = ps + PTILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dss + PTILE);
+  const int h = blockIdx.x, n = blockIdx.y;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= TWO_WG) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != TWO_WG) return;
+    mbar_expect_tx(full, 4 * S::T);
+    tma_load_3d(qs, &map_q, full, h * D, 0, n);
+    tma_load_3d(ks, &map_k, full, h * D, 0, n);
+    tma_load_3d(vs, &map_v, full, h * D, 0, n);
+    tma_load_3d(gs, &map_g, full, h * D, 0, n);
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3);
+  const int r0 = wgi * 64 + warp * 16 + (lane >> 2);  // the thread's rows: r0, r0 + 8
+  const float* brow = bias + static_cast<size_t>(n) * L;
+  float s[64], dp[64];
+  mbar_wait(full, 0);
+  scores_and_dp<D>(s, dp, qs + wgi * Rows<D>::R64, gs + wgi * Rows<D>::R64, ks, vs);
+  mask_scores<CAUSAL>(s, brow, 0, c0, r0, L, scale);
+  // the exact row softmax, D = rowsum(dP * P) from the f32 P, dS = P (dP -
+  // D); rows past L get P = dS = 0
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float mx = quad_max(row_max(s, hf));
+    float part = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float e = expf(s[4 * jj + 2 * hf + u] - mx);
+        s[4 * jj + 2 * hf + u] = e;
+        part += e;
+      }
+    }
+    const float sum = quad_sum(part);
+    const bool live = r0 + 8 * hf < L;
+    float dpart = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = 4 * jj + 2 * hf + u;
+        const float p = live ? s[i] / sum : 0.0f;
+        s[i] = p;
+        dpart += dp[i] * p;
+      }
+    }
+    const float dsum = quad_sum(dpart);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = 4 * jj + 2 * hf + u;
+        dp[i] = s[i] * (dp[i] - dsum);
+      }
+  }
+  store_ptile(ps, s, r0, lane);
+  store_ptile(dss, dp, r0, lane);
+  // dQ = dS k * scale
+  {
+    uint32_t a[8][4];
+    to_frags(dp, a);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    fence_acc(acc);
+    wgmma_fence();
+    issue_ds_k<D>(acc, a, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    store_rows<D>(dq, acc, n, h, r0, c0, L, H, scale);
+  }
+  // dV = P^T g and dK = dS^T q * scale for the warpgroup's 64 keys
+  fence_proxy_async();
+  named_barrier(1, TWO_WG);
+  float dva[D / 2], dka[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dva[i] = dka[i] = 0.0f;
+  fence_acc(dva);
+  fence_acc(dka);
+  wgmma_fence();
+  issue_dkv<D>(dva, dka, ps, dss, gs, qs, wgi);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dva);
+  fence_acc(dka);
+  store_rows<D>(dv, dva, n, h, r0, c0, L, H, 1.0f);
+  store_rows<D>(dk, dka, n, h, r0, c0, L, H, scale);
+}
+
+// ---- L > 128, pass 1: one block per (128 query rows, head, example) ----
+template <int D>
+struct Pass1Smem {
+  static constexpr int Q = Rows<D>::R128;    // q, g: 128 rows each
+  static constexpr int KV = Rows<D>::R128;   // k, v: 128 keys each
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int BYTES = 1024 + 2 * Q + STAGES * STAGE + 256;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS2, 1)
+mha_bwd_dq_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_g,
+              const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+              const float* __restrict__ bias, bf16* __restrict__ dq, float* __restrict__ stats,
+              int N, int L, int H, int n_heads, float scale) {
+  using S = Pass1Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;
+  unsigned char* gs = qs + S::Q;
+  unsigned char* ring = gs + S::Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  uint64_t* decide = qbar + 1;
+  int* ok_warp = reinterpret_cast<int*>(decide + 1);
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int q0 = qb * BN, h = blockIdx.y, n = blockIdx.z;
+  const int nt = (L + BN - 1) / BN;
+  const int last = q0 + BN - 1 < L ? q0 + BN - 1 : L - 1;
+  const int pre = CAUSAL ? last / BN + 1 : nt;
+  const bool test = CAUSAL && pre < nt;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TWO_WG / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(decide, TWO_WG / 32);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= TWO_WG) {
+    // the producer warpgroup hands its registers over; one thread loads q
+    // and g, then k and v of every tile of walk 1 and again of walk 2
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != TWO_WG) return;
+    mbar_expect_tx(qbar, 2 * S::Q);
+    tma_load_3d(qs, &map_q, qbar, h * D, q0, n);
+    tma_load_3d(gs, &map_g, qbar, h * D, q0, n);
+    int j = 0;
+    auto load = [&](int t) {
+      const int slot = j % STAGES;
+      if (j >= STAGES) mbar_wait(&empty[slot], ((j / STAGES) + 1) & 1);
+      unsigned char* st = ring + slot * S::STAGE;
+      mbar_expect_tx(&full[slot], S::STAGE);
+      tma_load_3d(st, &map_k, &full[slot], h * D, t * BN, n);
+      tma_load_3d(st + S::KV, &map_v, &full[slot], h * D, t * BN, n);
+      ++j;
+    };
+    for (int t = 0; t < pre; ++t) load(t);
+    int walked = nt;
+    if (test) {
+      mbar_wait(decide, 0);
+      int all = 1;
+      for (int w = 0; w < TWO_WG / 32; ++w) all &= ok_warp[w];
+      if (all) walked = pre;
+    }
+    for (int t = pre; t < walked; ++t) load(t);
+    for (int t = 0; t < walked; ++t) load(t);
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wgi = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3);
+  const int qi0 = q0 + wgi * 64 + (warp & 3) * 16 + (lane >> 2);
+  const unsigned char* qw = qs + wgi * Rows<D>::R64;  // the warpgroup's 64 rows
+  const unsigned char* gw = gs + wgi * Rows<D>::R64;
+  const float* brow = bias + static_cast<size_t>(n) * L;
+  float s[64], dp[64];
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, dd[2] = {0.0f, 0.0f};
+  int j = 0;
+  mbar_wait(qbar, 0);
+
+  auto step = [&](int t) -> const unsigned char* {
+    const int slot = j % STAGES;
+    mbar_wait(&full[slot], (j / STAGES) & 1);
+    const unsigned char* st = ring + slot * S::STAGE;
+    scores_and_dp<D>(s, dp, qw, gw, st, st + S::KV);
+    mask_scores<CAUSAL>(s, brow, t, c0, qi0, L, scale);
+    return st;
+  };
+  // walk 1: each row's max m, sum l of exp(s - m) and sum dd of exp(s -
+  // m) dP, the thread's shares of both rescaled by exp(m_old - m_new) when a
+  // tile raises the max; D = dd / l is rowsum(dP * P) of the exact f32 P
+  auto walk1 = [&](int t) {
+    step(t);
+    mbar_arrive(&empty[j % STAGES], lane == 0);
+    ++j;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float mn = fmaxf(m[hf], quad_max(row_max(s, hf)));
+      float part = 0.0f, dpart = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float e = expf(s[4 * jj + 2 * hf + u] - mn);
+          part += e;
+          dpart += e * dp[4 * jj + 2 * hf + u];
+        }
+      }
+      const float alpha = expf(m[hf] - mn);
+      l[hf] = l[hf] * alpha + part;
+      dd[hf] = dd[hf] * alpha + dpart;
+      m[hf] = mn;
+    }
+  };
+  for (int t = 0; t < pre; ++t) walk1(t);
+  int walked = nt;
+  int skip = 0;
+  if (test) {
+    // the causal skip over the block's 128 rows (both warpgroups)
+    const bool ok = (qi0 >= L || future_is_zero(m[0])) && (qi0 + 8 >= L || future_is_zero(m[1]));
+    ok_warp[warp] = __all_sync(0xffffffffu, ok) ? 1 : 0;
+    __syncwarp();
+    mbar_arrive(decide, lane == 0);
+    mbar_wait(decide, 0);
+    skip = 1;
+#pragma unroll
+    for (int w = 0; w < TWO_WG / 32; ++w) skip &= ok_warp[w];
+    walked = __shfl_sync(0xffffffffu, skip ? pre : nt, 0);
+  }
+  for (int t = pre; t < walked; ++t) walk1(t);
+  float dsum[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] = quad_sum(l[hf]);
+    dsum[hf] = quad_sum(dd[hf]) / l[hf];
+  }
+
+  // walk 2: P = exp(s - m) / l, dS = P (dP - D) in f32, then bf16, dQ += dS k
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < walked; ++t) {
+    const unsigned char* st = step(t);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int hf = (i >> 1) & 1;
+      const float p = expf(s[i] - m[hf]) / l[hf];
+      dp[i] = p * (dp[i] - dsum[hf]);
+    }
+    uint32_t a[8][4];
+    to_frags(dp, a);
+    fence_acc(acc);
+    wgmma_fence();
+    issue_ds_k<D>(acc, a, st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[j % STAGES], lane == 0);
+    ++j;
+  }
+  store_rows<D>(dq, acc, n, h, qi0, c0, L, H, scale);
+  // the row statistics for pass 2, and the block's skip flag
+  const size_t nhl = static_cast<size_t>(N) * n_heads * L;
+  const size_t row0 = (static_cast<size_t>(n) * n_heads + h) * L;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = qi0 + 8 * hf;
+    const bool w = (lane & 3) == 0 && qi < L;
+    float* at = stats + row0 + (qi < L ? qi : 0);
+    st_b32(at, __float_as_uint(m[hf]), w);
+    st_b32(at + nhl, __float_as_uint(l[hf]), w);
+    st_b32(at + 2 * nhl, __float_as_uint(dsum[hf]), w);
+  }
+  int* flags = reinterpret_cast<int*>(stats + 3 * nhl);
+  st_b32(flags + (static_cast<size_t>(n) * n_heads + h) * nt + qb, static_cast<uint32_t>(skip),
+         threadIdx.x == 0);
+}
+
+// ---- L > 128, pass 2: one block per (key tile of 128, head, example) ----
+template <int D>
+struct Pass2Smem {
+  static constexpr int KV = Rows<D>::R128;  // k, v; q and g of a step: 128 rows each
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int BYTES = 1024 + 2 * KV + STAGES * STAGE + 2 * PTILE + 64;
+};
+
+// Whether pass 2 skips the query rows [128 qs, 128 qs + 128) for key tile
+// kt: rows wholly before the tile, on all of which pass 1 found
+// exp(NEG_BIG - m) = 0 (their P and dS there are exactly zero).
+template <bool CAUSAL>
+__device__ __forceinline__ bool skip_rows(const int* __restrict__ flags, int qs, int kt) {
+  return CAUSAL && qs < kt && __ldg(flags + qs) != 0;
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS2, 1)
+mha_bwd_dkv_wg(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_g,
+               const float* __restrict__ bias, const float* __restrict__ stats,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int L, int H, int n_heads,
+               float scale) {
+  using S = Pass2Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + S::KV;
+  unsigned char* ring = vs + S::KV;
+  unsigned char* ps = ring + STAGES * S::STAGE;
+  unsigned char* dss = ps + PTILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dss + PTILE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+
+  const int kt = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
+  const int nqs = (L + BN - 1) / BN;  // steps of 128 query rows
+  const size_t nhl = static_cast<size_t>(N) * n_heads * L;
+  const size_t row0 = (static_cast<size_t>(n) * n_heads + h) * L;
+  const int* flags = reinterpret_cast<const int*>(stats + 3 * nhl) +
+                     (static_cast<size_t>(n) * n_heads + h) * nqs;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TWO_WG / 32);
+    }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= TWO_WG) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != TWO_WG) return;
+    mbar_expect_tx(kvbar, 2 * S::KV);
+    tma_load_3d(ks, &map_k, kvbar, h * D, kt * BN, n);
+    tma_load_3d(vs, &map_v, kvbar, h * D, kt * BN, n);
+    int j = 0;
+    for (int qs = 0; qs < nqs; ++qs) {
+      if (skip_rows<CAUSAL>(flags, qs, kt)) continue;
+      const int slot = j % STAGES;
+      if (j >= STAGES) mbar_wait(&empty[slot], ((j / STAGES) + 1) & 1);
+      unsigned char* st = ring + slot * S::STAGE;
+      mbar_expect_tx(&full[slot], S::STAGE);
+      tma_load_3d(st, &map_q, &full[slot], h * D, qs * BN, n);
+      tma_load_3d(st + S::KV, &map_g, &full[slot], h * D, qs * BN, n);
+      ++j;
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3);
+  const int rl = wgi * 64 + warp * 16 + (lane >> 2);  // the thread's rows in a step: rl, rl + 8
+  const float* brow = bias + static_cast<size_t>(n) * L;
+  float s[64], dp[64], dva[D / 2], dka[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dva[i] = dka[i] = 0.0f;
+  mbar_wait(kvbar, 0);
+  int j = 0;
+  for (int qs = 0; qs < nqs; ++qs) {
+    const int skip = __shfl_sync(0xffffffffu, skip_rows<CAUSAL>(flags, qs, kt) ? 1 : 0, 0);
+    if (skip) continue;
+    const int slot = j % STAGES;
+    mbar_wait(&full[slot], (j / STAGES) & 1);
+    const unsigned char* st = ring + slot * S::STAGE;
+    scores_and_dp<D>(s, dp, st + wgi * Rows<D>::R64, st + S::KV + wgi * Rows<D>::R64, ks, vs);
+    const int qi0 = qs * BN + rl;
+    mask_scores<CAUSAL>(s, brow, kt, c0, qi0, L, scale);
+    // P rebuilt from pass 1's statistics, bit for bit; dS = P (dP - D)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qi = qi0 + 8 * hf;
+      const bool live = qi < L;
+      const size_t at = row0 + (live ? qi : 0);
+      const float mx = __ldg(stats + at), sum = __ldg(stats + nhl + at),
+                  dsum = __ldg(stats + 2 * nhl + at);
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = 4 * jj + 2 * hf + u;
+          const float p = live ? expf(s[i] - mx) / sum : 0.0f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dsum);
+        }
+      }
+    }
+    named_barrier(1, TWO_WG);  // the last step's dV and dK products are done
+    store_ptile(ps, s, rl, lane);
+    store_ptile(dss, dp, rl, lane);
+    fence_proxy_async();
+    named_barrier(1, TWO_WG);
+    fence_acc(dva);
+    fence_acc(dka);
+    wgmma_fence();
+    issue_dkv<D>(dva, dka, ps, dss, st + S::KV, st, wgi);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+    mbar_arrive(&empty[slot], lane == 0);
+    ++j;
+  }
+  const int key0 = kt * BN + rl;
+  store_rows<D>(dv, dva, n, h, key0, c0, L, H, 1.0f);
+  store_rows<D>(dk, dka, n, h, key0, c0, L, H, scale);
+}
+
+template <int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, const void* bias, const void* g,
+           void* dq, void* dk, void* dv, void* stats, int N, int L, int H, int n_heads,
+           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const auto* bb = static_cast<const float*>(bias);
+  CUtensorMap mq, mk, mv, mg;
+  int e = bft::make_map_bf16_box(&mq, q, N, L, H, H, BN, D);
+  if (!e) e = bft::make_map_bf16_box(&mk, k, N, L, H, H, BN, D);
+  if (!e) e = bft::make_map_bf16_box(&mv, v, N, L, H, H, BN, D);
+  if (!e) e = bft::make_map_bf16_box(&mg, g, N, L, H, H, BN, D);
+  if (e) return e;
+  if (L <= BN) {
+    constexpr int smem = RowsSmem<D>::BYTES;
+    cudaError_t err = bft::allow_smem<mha_bwd_rows<D, CAUSAL>>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mha_bwd_rows<D, CAUSAL><<<dim3(n_heads, N), THREADS2, smem, st>>>(
+        mq, mk, mv, mg, bb, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), L, H, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  constexpr int smem1 = Pass1Smem<D>::BYTES, smem2 = Pass2Smem<D>::BYTES;
+  cudaError_t err = bft::allow_smem<mha_bwd_dq_wg<D, CAUSAL>>(smem1);
+  if (err == cudaSuccess) err = bft::allow_smem<mha_bwd_dkv_wg<D, CAUSAL>>(smem2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* sp = static_cast<float*>(stats);
+  mha_bwd_dq_wg<D, CAUSAL><<<dim3((L + BN - 1) / BN, n_heads, N), THREADS2, smem1, st>>>(
+      mq, mg, mk, mv, bb, static_cast<bf16*>(dq), sp, N, L, H, n_heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_bwd_dkv_wg<D, CAUSAL><<<dim3((L + BN - 1) / BN, n_heads, N), THREADS2, smem2, st>>>(
+      mk, mv, mq, mg, bb, sp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, L, H,
+      n_heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 template <int D>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, const void* g,
              void* dq, void* dk, void* dv, void* stats, int N, int L, int H, int n_heads,
@@ -571,18 +1107,21 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, cons
                                            n_heads, stream)
                   : launch<float, D, false>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H,
                                             n_heads, stream);
-  return causal ? launch<__nv_bfloat16, D, true>(q, k, v, bias, g, dq, dk, dv, stats, N,
-                                                 L, H, n_heads, stream)
-                : launch<__nv_bfloat16, D, false>(q, k, v, bias, g, dq, dk, dv, stats, N,
-                                                  L, H, n_heads, stream);
+  return causal ? wg::launch<D, true>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H, n_heads,
+                                      stream)
+                : wg::launch<D, false>(q, k, v, bias, g, dq, dk, dv, stats, N, L, H, n_heads,
+                                       stream);
 }
 
 }  // namespace
 
 // q / k / v / g / dq / dk / dv (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1),
-// bias (N, L) f32, stats (3, N, n_heads, L) f32 scratch, causal masking when
-// causal = 1; H = n_heads * D with D = 32 or 64; L <= 512 takes pass 1's
-// whole-row design, longer L its key-tiled one. Returns cudaGetLastError().
+// bias (N, L) f32, causal masking when causal = 1; H = n_heads * D with D =
+// 32 or 64; stats scratch of 3 N n_heads L f32 (the rows' max, sum and D)
+// and N n_heads ceil(L / 128) int32 (bf16: each 128-row query block's skip
+// flag). bf16: one pass up to L = 128, two above; f32: whole rows in pass 1
+// up to L = 512, key tiles above. Returns cudaGetLastError().
+
 extern "C" int bft_mha_bwd(const void* q, const void* k, const void* v,
                            const void* bias, const void* g, void* dq, void* dk,
                            void* dv, void* stats, int N, int L, int H,

@@ -14,9 +14,13 @@ versions :func:`mha_plain` (the counterpart of ``_mha_xla``) and
 launches ``csrc/mha.cu`` forward and ``csrc/mha_bwd.cu`` backward, or
 raises. Both kernels take bf16 or f32 q/k/v (f32: true f32 products, the
 dot operands in the stored dtype as in the reference), head widths 32 and
-64 (:data:`HEAD_DIMS`; any other raises on a CUDA tensor), and any L: up
-to :data:`ROWS_MAX_LEN` they keep whole score rows on chip, above it they
-walk the keys in tiles with the same exact softmax.
+64 (:data:`HEAD_DIMS`; any other raises on a CUDA tensor), and any L with
+the reference's exact softmax: the bf16 instances (wgmma fed by TMA) keep
+whole score rows in registers up to :data:`KEY_TILE` and walk key tiles of
+that width above it; the f32 instances keep whole rows in shared memory up
+to :data:`ROWS_MAX_LEN`. :func:`mha_tiled_plain` and
+:func:`mha_bwd_tiled_plain` mirror the bf16 kernels' tiles in plain torch
+for the tests; nothing on the card's path uses them.
 
 The launch counters key each launch by ``(N, L, H, dtype, causal)``. The
 reference runs two Pallas forwards of one function, the head-grouped #3
@@ -35,12 +39,16 @@ uniform over all L keys, future keys included, as in the reference. The
 backward follows the reference's ``_bwd_kernel`` (``attention.py:181``):
 such a uniform row's dS reaches every key, future ones too, where XLA's
 autodiff of ``_mha_xla`` (the JAX package's route off the TPU) gives the
-causal-masked keys zero. The kernels mask in every pass and skip no key
-tile above the diagonal (skipping would make the all-masked row uniform
-over the causal prefix instead).
+causal-masked keys zero. The kernels mask in every pass. The bf16
+instances skip a key tile above the diagonal of every row of a query tile
+only where exp(NEG_BIG - m) is 0 in f32 on each of them (m the row's max
+over its causal prefix): the skipped keys would add exactly zero, so no bit
+changes, and a tile holding a row whose prefix is all masked walks all L
+keys (skipping there would make that row uniform over its prefix instead).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,7 +59,8 @@ LAUNCHES = common.LaunchCounter("mha_fwd")
 PER_HEAD_LAUNCHES = common.LaunchCounter("mha_fwd_per_head")
 BWD_LAUNCHES = common.LaunchCounter("mha_bwd")
 HEAD_DIMS = (32, 64)  # the kernels' head widths
-ROWS_MAX_LEN = 512    # the longest L whose whole score rows the kernels keep
+KEY_TILE = 128        # the bf16 kernels' key tile: whole rows up to this L
+ROWS_MAX_LEN = 512    # the f32 kernels' whole rows: up to this L
 NEG_BIG = float(torch.finfo(torch.float32).min)
 
 # the reference's VMEM model of its attention kernels (attention.py:246-314,
@@ -68,6 +77,7 @@ def _fits_nb(L: int, H: int, itemsize: int, n_arrays: int) -> bool:
     return False
 
 
+@functools.lru_cache(maxsize=None)
 def pallas_route(L: int, H: int, n_heads: int, itemsize: int) -> str:
     """The reference's attention forward at a shape (``_mha_pallas_fwd`` and
     ``pallas_fits``, ``bayeformers_tpu/ops/attention.py:246-330``):
@@ -146,6 +156,185 @@ def mha_bwd_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
     return flat(dq), flat(dk), flat(dv)
 
 
+QUERY_TILE = 64  # query rows of a bf16 kernel's warpgroup
+
+
+def _heads(t, n_heads):
+    N, L, H = t.shape
+    return t.reshape(N, L, n_heads, H // n_heads).permute(0, 2, 1, 3).float()
+
+
+def _tile_scores(qh, kh, bias, q0, q1, t, causal):
+    """The masked f32 scores of queries [q0, q1) and key tile ``t`` (keys
+    past L absent), as the kernels form them."""
+    d, L = qh.shape[-1], kh.shape[2]
+    k0, k1 = t * KEY_TILE, min((t + 1) * KEY_TILE, L)
+    s = torch.matmul(qh[:, :, q0:q1], kh[:, :, k0:k1].transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    s = s + bias[:, None, None, k0:k1].float()
+    if causal:
+        above = (torch.arange(k0, k1, device=s.device)[None]
+                 > torch.arange(q0, q1, device=s.device)[:, None])
+        s = torch.where(above, torch.full((), NEG_BIG, device=s.device), s)
+    return s
+
+
+def _future_is_zero(m) -> torch.Tensor:
+    """exp(NEG_BIG - m) == 0 in f32, per row: the keys past a row's causal
+    prefix add exactly zero to it."""
+    return torch.exp(NEG_BIG - m) == 0.0
+
+
+def _prefix_tiles(q0, q1, n_tiles, causal) -> int:
+    return (q1 - 1) // KEY_TILE + 1 if causal else n_tiles
+
+
+def mha_tiled_plain(q, k, v, bias, n_heads: int, causal: bool = False):
+    """The bf16 forward kernel's decomposition in plain torch (nothing on
+    the card's path uses it): query tiles of :data:`QUERY_TILE` rows, key
+    tiles of :data:`KEY_TILE`; one tile of whole rows with the exact row
+    softmax, or the two walks (the row max and sum carried and rescaled,
+    then P = exp(s - m) / l and O += P v), with the causal skip: a query
+    tile walks the tiles of its causal prefix, then skips the tiles past it
+    when exp(NEG_BIG - m) == 0 on every row. Returns ``(out, walked)``,
+    ``walked[n, h, i]`` the key tiles that query tile i of head h of
+    example n walked (in each walk)."""
+    N, L, H = q.shape
+    dt = q.dtype
+    qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
+    nt, nqt = -(-L // KEY_TILE), -(-L // QUERY_TILE)
+    out = torch.empty_like(qh)
+    walked = torch.empty(N, n_heads, nqt, dtype=torch.int64)
+    for i in range(nqt):
+        q0, q1 = i * QUERY_TILE, min((i + 1) * QUERY_TILE, L)
+        pre = _prefix_tiles(q0, q1, nt, causal)
+        live = torch.ones(N, n_heads, 1, 1, dtype=torch.bool, device=q.device)
+
+        def pv(p, t):
+            return torch.matmul(p.to(dt).float(), vh[:, :, t * KEY_TILE:(t + 1) * KEY_TILE])
+
+        if nt == 1:
+            s = _tile_scores(qh, kh, bias, q0, q1, 0, causal)
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            out[:, :, q0:q1] = pv(e * (1.0 / e.sum(-1, keepdim=True)), 0)
+            walked[:, :, i] = 1
+            continue
+        m = torch.full((N, n_heads, q1 - q0, 1), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        for t in range(nt):
+            if t == pre:  # the skip test, after the causal prefix
+                live = ~_future_is_zero(m).all(2, keepdim=True)
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            ln = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
+            m, l = torch.where(live, mn, m), torch.where(live, ln, l)
+        walked[:, :, i] = torch.where(live[..., 0, 0], nt, pre)
+        o = torch.zeros_like(out[:, :, q0:q1])
+        for t in range(nt):
+            p = torch.exp(_tile_scores(qh, kh, bias, q0, q1, t, causal) - m) * (1.0 / l)
+            o = torch.where(live | (t < pre), o + pv(p, t), o)
+        out[:, :, q0:q1] = o
+    return out.permute(0, 2, 1, 3).reshape(N, L, H).to(dt), walked
+
+
+def mha_bwd_tiled_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
+    """The bf16 backward kernels' decomposition in plain torch (nothing on
+    the card's path uses it). Up to L = :data:`KEY_TILE`, one block per
+    head: the exact softmax, D, dS, and the five products. Above, pass 1
+    walks each block of 128 query rows over the key tiles twice (the row
+    max, the sum l of exp(s - m) and the sum dd of exp(s - m) dP carried and
+    rescaled, D = dd / l; then dS and dQ += dS k) with the forward's causal
+    skip over the block's rows, and pass 2 walks each key tile's query rows
+    in steps of 128, rebuilding P from pass 1's statistics, skipping a step
+    wholly before the tile where pass 1 skipped. Returns ``(dq, dk, dv,
+    walked)`` with ``walked["dq"][n, h, b]`` the key tiles block b of query
+    rows walked (in each walk) and ``walked["dkv"][n, h, t]`` the query
+    steps key tile t walked."""
+    N, L, H = q.shape
+    dt, d = q.dtype, H // n_heads
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, gh = (_heads(t, n_heads) for t in (q, k, v, g))
+    nt = -(-L // KEY_TILE)
+    dev = q.device
+
+    def rows(t, a, b):
+        return t[:, :, a:b]
+
+    def keys(t, tile):
+        return t[:, :, tile * KEY_TILE:(tile + 1) * KEY_TILE]
+
+    def flat(t):
+        return t.permute(0, 2, 1, 3).reshape(N, L, H).to(dt)
+
+    if nt == 1:
+        s = _tile_scores(qh, kh, bias, 0, L, 0, causal)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+        ones = torch.ones(N, n_heads, 1, dtype=torch.int64)
+        return flat(dq), flat(dk), flat(dv), {"dq": ones, "dkv": ones}
+
+    # pass 1: per block of 128 query rows, the statistics, D and dQ
+    stat_m, stat_l, stat_d = (torch.empty(N, n_heads, L, 1, device=dev) for _ in range(3))
+    flags = torch.zeros(N, n_heads, nt, dtype=torch.bool)
+    walked_q = torch.empty(N, n_heads, nt, dtype=torch.int64)
+    dq = torch.empty_like(qh)
+    for b in range(nt):
+        q0, q1 = b * KEY_TILE, min((b + 1) * KEY_TILE, L)
+        pre = _prefix_tiles(q0, q1, nt, causal)
+        live = torch.ones(N, n_heads, 1, 1, dtype=torch.bool, device=dev)
+        m = torch.full((N, n_heads, q1 - q0, 1), float("-inf"), device=dev)
+        l, dd = torch.zeros_like(m), torch.zeros_like(m)
+        for t in range(nt):
+            if t == pre:
+                live = ~_future_is_zero(m).all(2, keepdim=True)
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            e, alpha = torch.exp(s - mn), torch.exp(m - mn)
+            ln = l * alpha + e.sum(-1, keepdim=True)
+            ddn = dd * alpha + (e * dp).sum(-1, keepdim=True)
+            m, l, dd = (torch.where(live, a, b) for a, b in ((mn, m), (ln, l), (ddn, dd)))
+        flags[:, :, b] = ~live[..., 0, 0]
+        walked_q[:, :, b] = torch.where(live[..., 0, 0], nt, pre)
+        dsum = dd / l
+        acc = torch.zeros(N, n_heads, q1 - q0, d, device=dev)
+        for t in range(nt):
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
+            ds = (torch.exp(s - m) / l * (dp - dsum)).to(dt).float()
+            acc = torch.where(live | (t < pre), acc + torch.matmul(ds, keys(kh, t)), acc)
+        dq[:, :, q0:q1] = acc * scale
+        stat_m[:, :, q0:q1], stat_l[:, :, q0:q1], stat_d[:, :, q0:q1] = m, l, dsum
+
+    # pass 2: per key tile, dK and dV over the query rows in steps of 128
+    dk, dv = torch.empty_like(kh), torch.empty_like(vh)
+    walked_kv = torch.empty(N, n_heads, nt, dtype=torch.int64)
+    for t in range(nt):
+        k0, k1 = t * KEY_TILE, min((t + 1) * KEY_TILE, L)
+        ak = torch.zeros(N, n_heads, k1 - k0, d, device=dev)
+        av = torch.zeros_like(ak)
+        count = torch.zeros(N, n_heads, dtype=torch.int64)
+        for step in range(nt):
+            q0, q1 = step * KEY_TILE, min((step + 1) * KEY_TILE, L)
+            skip = flags[:, :, step] if causal and step < t else torch.zeros_like(flags[:, :, 0])
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            p = torch.exp(s - rows(stat_m, q0, q1)) / rows(stat_l, q0, q1)
+            dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
+            ds = (p * (dp - rows(stat_d, q0, q1))).to(dt).float()
+            live = ~skip.to(dev)[..., None, None]
+            av = torch.where(live, av + torch.matmul(p.to(dt).float().transpose(-1, -2),
+                                                     rows(gh, q0, q1)), av)
+            ak = torch.where(live, ak + torch.matmul(ds.transpose(-1, -2), rows(qh, q0, q1)), ak)
+            count += ~skip
+        dk[:, :, k0:k1], dv[:, :, k0:k1] = ak * scale, av
+        walked_kv[:, :, t] = count
+    return flat(dq), flat(dk), flat(dv), {"dq": walked_q, "dkv": walked_kv}
+
+
 class MHA(torch.autograd.Function):
     """Attention with the reference's custom backward; ``plain`` runs the
     plain versions of both passes on the tensors' device."""
@@ -177,27 +366,27 @@ def mha(q, k, v, bias, n_heads: int, *, causal: bool = False,
 
 
 def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
-    """Raise on what the kernels do not take; returns q's dtype tag."""
+    """Raise on what the kernels do not take; returns q's dtype tag. The
+    messages are formed only on failure (``common.require``)."""
     req = common.require
-    req(q.is_cuda, f"mha kernel needs a CUDA tensor, got {q.device}")
+    req(q.is_cuda, "mha kernel needs a CUDA tensor, got {}", q.device)
     req(q.dim() == 3, "q/k/v must be (N, L, H)")
     N, L, H = q.shape
     tag = common.kernel_dtype(q, "mha")
     req(n_heads >= 1 and H % n_heads == 0 and H // n_heads in HEAD_DIMS,
-        f"mha kernels take head widths {HEAD_DIMS}; H={H}, heads={n_heads} (wider "
-        "heads: ROADMAP queue 2, the attention kernels' other head widths)")
-    req(N >= 1 and L >= 1, f"mha kernels need N, L >= 1, got {(N, L)}")
+        "mha kernels take head widths {}; H={}, heads={} (wider heads: ROADMAP "
+        "queue 2, the attention kernels' other head widths)", HEAD_DIMS, H, n_heads)
+    req(N >= 1 and L >= 1, "mha kernels need N, L >= 1, got {}", (N, L))
     operands = (("k", k), ("v", v)) + tuple(extra)
     for name, t in operands:
         req(t.shape == q.shape and t.dtype == q.dtype,
-            f"{name} must match q's shape and dtype")
+            "{} must match q's shape and dtype", name)
     req(tuple(bias.shape) == (N, L) and bias.dtype == torch.float32,
-        f"bias must be (N, L) float32, got {tuple(bias.shape)} {bias.dtype}")
+        "bias must be (N, L) float32, got {} {}", tuple(bias.shape), bias.dtype)
     for name, t in (("q", q),) + operands + (("bias", bias),):
-        req(t.device == q.device, f"{name} is on {t.device}, q on {q.device}")
-        req(t.is_contiguous(), f"{name} must be contiguous")
-        if name != "bias":
-            req(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+        req(t.device == q.device, "{} is on {}, q on {}", name, t.device, q.device)
+        req(t.is_contiguous(), "{} must be contiguous", name)
+        req(name == "bias" or t.data_ptr() % 16 == 0, "{} must be 16-byte aligned", name)
     return tag
 
 
@@ -209,7 +398,7 @@ def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
     N, L, H = q.shape
     lib = _build.library()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with common.on_device(q):
         err = lib.bft_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), N, L, H, n_heads, int(tag == "f32"), int(causal),
@@ -221,6 +410,12 @@ def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
     return out
 
 
+def bwd_stats_size(N: int, L: int, n_heads: int) -> int:
+    """The backward's scratch in 4-byte words: each row's max, sum and D
+    (f32), then each 128-row query block's causal-skip flag (int32)."""
+    return 3 * N * n_heads * L + N * n_heads * -(-L // KEY_TILE)
+
+
 def mha_bwd_cuda(q, k, v, bias, g, n_heads: int, causal: bool = False):
     """Launch ``bft_mha_bwd`` (csrc/mha_bwd.cu), the bf16 or the f32
     instance, causal or not: ``(dq, dk, dv)``."""
@@ -228,8 +423,8 @@ def mha_bwd_cuda(q, k, v, bias, g, n_heads: int, causal: bool = False):
     N, L, H = q.shape
     lib = _build.library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((3, N, n_heads, L), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    stats = q.new_empty((bwd_stats_size(N, L, n_heads),), dtype=torch.float32)
+    with common.on_device(q):
         err = lib.bft_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -108,11 +108,15 @@ Phases, each timed, each raising on failure:
     the f32 antithetic step), peak memory; ``workloads/gpt2_lm.train`` for
     3 batches at its default (naive, f32) and antithetic bf16; flipout and
     local on GPT-2 in bf16 through :func:`phase_estimator`.
-16. the LLaMA-architecture families: the head-width-32, key-tiled (L > 512)
-    and #4 instances of ``mha_fwd`` / ``mha_bwd`` against their plain
-    versions (:func:`phase_attention16`: planted faults, a width-128
-    refusal); the forward and reduce kernels at LLaMA's shapes; LLaMA base
-    served under both estimators and trained (antithetic) in bf16 and f32
+16. the LLaMA-architecture families: the head-width-32, key-tiled (L > 128
+    in bf16, L > 512 in f32), one-tile ragged (L = 77) and #4 instances of
+    ``mha_fwd`` / ``mha_bwd`` against their plain versions
+    (:func:`phase_attention16`: planted faults, a width-128 refusal), and a
+    causal L = 1024 query tile that mixes rows whose whole prefix is masked
+    with normal rows, where the causal skip must not fire
+    (:func:`mixed_tile_check`, with a planted fault); the forward and
+    reduce kernels at LLaMA's shapes; LLaMA base served under both
+    estimators and trained (antithetic) in bf16 and f32
     (:func:`phase_serving_gpt2`, :func:`phase_train`); the tiny LLaMA at
     8x128 (head width 32) and at (1, 1024) with 1024 positions (#4's
     path), LLaMA base and GPT-2 base at (1, 1024), Mistral and Gemma base
@@ -2227,7 +2231,9 @@ def phase_workload_gpt2(fl, fb, at, estimator, bf16, model="gpt2") -> dict:
 #  * #4's shape: H = 128, 4 heads, L = 1024 (the tiny LLaMA at
 #    max_position_embeddings=1024, one request, N = S), where the
 #    reference finds no head group and takes its per-head forward.
+#  * L = 77: one key tile, most of it past L (keys excluded by their index).
 ATTN16 = ((80, 128, 128, 4, False, None), (80, 128, 128, 4, True, "llama-tiny"),
+          (6, 77, 768, 12, True, None),
           (8, 520, 768, 12, True, None), (10, 1024, 768, 12, True, "llama-long"),
           (2, 2048, 768, 12, True, None),
           (10, 1024, 128, 4, True, "llama-tiny-long"))
@@ -2239,6 +2245,52 @@ def scaled_plain(at, q, k, v, bias, nh, causal, scale):
     sqrt(64) at head width 32)."""
     d = q.shape[-1] // nh
     return at.mha_plain(q * (scale * math.sqrt(d)), k, v, bias, nh, causal=causal)
+
+
+def mixed_tile_check(at, dtype) -> str:
+    """The causal instances at L = 1024 on a query tile that mixes rows whose
+    whole causal prefix is masked with normal rows: example 1's first three
+    keys are masked, so its queries 0-2 see no live key while queries 3-63
+    of the same 64-row tile do. The kernels skip the key tiles above a
+    tile's diagonal only where exp(NEG_BIG - m) is 0 on every row, so this
+    tile walks all L keys: the forward and backward at the attention gates,
+    rows 0-2 uniform over all L keys, and a planted fault, those rows
+    uniform over their causal prefix only (what skipping the tile would
+    give), must fail the gate."""
+    N, L, H, nh = 4, 1024, 768, 12
+    tag = TAG[dtype]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1031)
+    q, k, v, g = (torch.randn(N, L, H, device=dev, generator=gen).to(dtype)
+                  for _ in range(4))
+    mask = torch.ones(N, L, device=dev)
+    mask[0, L - 300:] = 0
+    mask[1, :3] = 0
+    bias = at.mask_to_bias(mask)
+    out = at.mha_cuda(q, k, v, bias, nh, causal=True)
+    grads = at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True)
+    torch.cuda.synchronize()
+    ref = at.mha_plain(q, k, v, bias, nh, causal=True)
+    gref = at.mha_bwd_plain(q, k, v, bias, g, nh, causal=True)
+    what = f"mha ({tag}) mixed query tile, N={N} L={L} H={H} causal"
+    err, gerrs = max_dist(out, ref), [max_dist(a, r) for a, r in zip(grads, gref)]
+    check(attn_gate_ok(out, ref, dtype), f"{what}: forward differs: max {err}")
+    for name, a, r in zip(("dq", "dk", "dv"), grads, gref):
+        check(attn_gate_ok(a, r, dtype, True), f"{what}: {name} differs: max {gerrs}")
+    vbar = v[1].float().mean(0)
+    uni = max_dist(out[1, :3], vbar.expand(3, H))
+    check(uni <= (1e-4 if dtype == F32 else 2e-2),
+          f"{what}: the rows with a masked prefix are not uniform over L: {uni}")
+    fault = ref.clone()
+    for i in range(3):
+        fault[1, i] = v[1, : i + 1].float().mean(0).to(dtype)
+    check(not attn_gate_ok(out, fault, dtype),
+          f"{what}: the planted fault (rows uniform over their causal prefix) passes the "
+          f"gate: max {max_dist(out, fault)}")
+    return (f"{what}: fwd max|d| {err:.3g}, dq/dk/dv max|d| "
+            + "/".join(f"{e:.3g}" for e in gerrs) + f", rows 0-2 uniform over L within "
+            f"{uni:.3g}; planted fault (uniform over the causal prefix) fails the gate: "
+            f"max|d| {max_dist(out, fault):.3g}")
 
 
 def phase_attention16(at, dtype) -> list[dict]:
@@ -2354,6 +2406,7 @@ def phase_attention16(at, dtype) -> list[dict]:
                             bplain_ms, bb, blib_ms))
         del q, k, v, g, out, again, grads, grads2, ref, gref, faults
         torch.cuda.empty_cache()
+    say(mixed_tile_check(at, dtype))
     # a head width no instance takes raises on the card
     q = torch.zeros(2, 64, 256, device="cuda", dtype=dtype)
     bias = torch.zeros(2, 64, device="cuda")

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
 """Where the port's time goes on the GPU, from ``torch.profiler``: the
-device time of each kernel in ``chip_smoke.py``'s 8x128 serving request or
-its ELBO train step (BERT-base, S=10), antithetic or with independent draws
-(``--estimator fused``), in bf16 or f32 activations (``--dtype``).
+device time of each kernel in ``chip_smoke.py``'s serving request or its
+ELBO train step (S=10), antithetic or with independent draws
+(``--estimator fused``), in bf16 or f32 activations (``--dtype``), for
+BERT-base (the default) or a causal LM at base width (``--family gpt2`` or
+``llama``) at a batch and length (``--shape BxL``, default 8x128).
 
     python3 profile_port.py [--path serving|train] [--n 3] [--time 0]
                             [--estimator antithetic|fused] [--dtype bf16|f32]
-                            [--out trace.json]
+                            [--family bert|gpt2|llama] [--shape 8x128]
+                            [--tree DIR] [--out trace.json]
 
 It runs ``chip_smoke.py``'s predictor and request (``serving``) or its
 converted model, batch and step (``train``), and prints the device's busy
-share over the ``n`` profiled requests or steps and the device time by
-kernel name; with ``--out``, it writes the Chrome trace there. ``--time N``
-first times N requests or steps without the profiler (host clock around
-each synchronised one) and prints their median and quartiles; it uses only
-``chip_smoke.build_predictor`` and ``serving_requests`` for serving, so a
-copy of this script next to an older ``chip_smoke.py`` times that tree.
+share over the ``n`` profiled requests or steps, the device time of the
+attention kernels (``mha`` in their names) and their share, and the device
+time by kernel name; with ``--out``, it writes the Chrome trace there.
+``--time N`` first times N requests or steps without the profiler (host
+clock around each synchronised one) and prints their median and
+quartiles. ``--tree DIR`` profiles the ``bayeformers_tpu_torch`` package
+under DIR (a parent's, unpacked there) with this tree's ``chip_smoke.py``
+helpers: run it in turns with the change, e.g. for the LLaMA base step at
+(1, 1024):
+
+    python3 profile_port.py --path train --family llama --shape 1x1024 --tree .scratch/parent
+    python3 profile_port.py --path train --family llama --shape 1x1024
+
 Needs one CUDA card; exits with code 2 without one.
 """
 from __future__ import annotations
@@ -36,11 +46,16 @@ def main() -> int:
     ap.add_argument("--time", type=int, default=0)
     ap.add_argument("--estimator", choices=("antithetic", "fused"), default="antithetic")
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--family", choices=("bert", "gpt2", "llama"), default="bert")
+    ap.add_argument("--shape", default="8x128")
+    ap.add_argument("--tree", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -52,23 +67,36 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    print(f"package: {os.path.dirname(bt.__file__)}")
     dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
-    if args.path == "serving":
-        # the one-argument call also works with an older chip_smoke.py
-        if args.estimator == "antithetic" and args.dtype == "bf16":
-            pred = chip_smoke.build_predictor(bt)
-        else:
-            pred = chip_smoke.build_predictor(bt, args.estimator == "antithetic", dtype)
+    family = {"bert": chip_smoke.BERT, "gpt2": chip_smoke.GPT2,
+              "llama": chip_smoke.LLAMA}[args.family]
+    B, L = (int(x) for x in args.shape.split("x"))
+    anti = args.estimator == "antithetic"
+    if args.path == "serving" and family == chip_smoke.BERT:
+        pred = chip_smoke.build_predictor(bt, anti, dtype)
         req = chip_smoke.serving_requests(bt)[1]  # fills the (8, 128) bucket
 
         def run(i):
             pred(req, seed=i)
+    elif args.path == "serving":
+        bmodel, _ = chip_smoke.converted_base(bt, dtype, "on_mu", family)
+        pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(B,), seq_lens=(L,),
+                            antithetic=anti, task="causal-lm")
+        vocab = bmodel.model.config.vocab_size
+        req = {"input_ids": np.random.default_rng(L).integers(0, vocab, (B, L)),
+               "attention_mask": np.ones((B, L), np.int64)}
+
+        def run(i):
+            pred(req, seed=i)
     else:
-        bmodel, named = chip_smoke.converted_base(bt, dtype)
-        batch = chip_smoke.train_batch(bt)
+        bmodel, named = chip_smoke.converted_base(bt, dtype, "on_mu", family)
+        vocab = None if family == chip_smoke.BERT else bmodel.model.config.vocab_size
+        batch = chip_smoke.train_batch(bt, B, L, family=family, vocab=vocab)
         tx = bt.training.adamw_with_decay_groups(2e-5, 0.0, bt.training.default_no_decay)
         step = bt.make_elbo_train_step(bmodel, tx.init(named), 10, 256,
-                                       estimator=args.estimator)
+                                       estimator=args.estimator,
+                                       **chip_smoke.loss_keywords(family))
 
         def run(i):
             step(i, batch)
@@ -100,6 +128,9 @@ def main() -> int:
     print(f"profiled {args.n} {unit}s ({args.estimator}, {args.dtype}): wall "
           f"{wall_ms:.3f} ms, device busy "
           f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}% of wall)")
+    attn_us = sum(e.self_device_time_total for e in events if "mha" in e.key)
+    print(f"attention kernels: {attn_us / 1e3 / args.n:.3f} ms a {unit} "
+          f"({100 * attn_us / max(dev_us, 1):.1f}% of the device busy time)")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)
     print(f"{'device ms/' + unit:>18} {'calls/' + unit:>14}  name")
     for e in rows[:30]:

@@ -19,6 +19,8 @@
 // on the absolute-unit stream of eps.cuh, with the product and the sum each
 // rounded on its own (bft::sample_w): for the same seeds the result equals,
 // bit for bit, the plain stream's W (ops/fused_linear.py::sample_weights).
+// bft_regen can also write a bf16 copy of W in the same pass (flipout's VJP
+// takes dx on it and hands the f32 W to the reduce, fused_backward.cu).
 // Independent draws (H = 1) write W[t] = w0; antithetic pairs (H = 2) write
 // W[2t] = w0 and W[2t + 1] = 2 mu - w0, rounded as the plain version
 // rounds it. W is written in the forward's operand type T (bf16 or f32),
@@ -102,14 +104,16 @@ __device__ __forceinline__ void store2(T* dst, float a, float b, bool both, bool
   }
 }
 
-// H members per draw: draw t (seed seeds[t]) writes W[H t .. H t + H - 1].
-template <int H, typename T, int PRIOR>
+// H members per draw: draw t (seed seeds[t]) writes W[H t .. H t + H - 1];
+// LO: also a bf16 copy of each W, w_lo, rows ldw apart (bft_regen's second
+// output).
+template <int H, typename T, int PRIOR, bool LO = false>
 __global__ void __launch_bounds__(THREADS)
 draw_kernel(const float* __restrict__ mu, const float* __restrict__ rho,
             const int32_t* __restrict__ seeds, const float* __restrict__ prior_mu,
             T* __restrict__ w, float* __restrict__ partials,
             float* __restrict__ ls_part, int n_draws, int K, int N, int ldw,
-            float inv_sigma_p, bft::Mixture mix) {
+            float inv_sigma_p, bft::Mixture mix, __nv_bfloat16* __restrict__ w_lo = nullptr) {
   constexpr int N_PART = LogP<H, PRIOR>::N_PART;
   constexpr bool LP = PRIOR != bft::NONE;
   __shared__ float red[THREADS / 32];
@@ -184,6 +188,7 @@ draw_kernel(const float* __restrict__ mu, const float* __restrict__ rho,
       T* dst = w + static_cast<size_t>(H) * t * KN + static_cast<size_t>(k) * ldw + c;
       store2(dst, w0[2 * r], w0[2 * r + 1], both, paired);
       if (H == 2) store2(dst + KN, w1[2 * r], w1[2 * r + 1], both, paired);
+      if constexpr (LO) store2(w_lo + (dst - w), w0[2 * r], w0[2 * r + 1], both, paired);
     }
     if (LP && partials != nullptr) {
       float* part = partials + ((static_cast<size_t>(t) * n_tiles + tile_n) * n_groups + group) * N_PART;
@@ -293,14 +298,22 @@ int launch_draw_prior(int prior, const void* mu, const void* rho, const void* se
 }  // namespace
 
 // mu / rho (K, N) f32, seeds (S,) i32 -> w (S, K, N) f32, the draws of
-// seeds on the unit stream. Returns cudaGetLastError().
+// seeds on the unit stream, and, when w_lo is not null, the same W rounded
+// to bf16 into w_lo (S, K, N) in the same pass (flipout's VJP takes dx = g
+// W^T on it). Returns cudaGetLastError().
 extern "C" int bft_regen(const void* mu, const void* rho, const void* seeds,
-                         void* w, int S, int K, int N, void* stream) {
+                         void* w, void* w_lo, int S, int K, int N, void* stream) {
   if (S < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bft::Mixture none{0.0f, 0.0f, 0.0f, 0.0f};
-  return launch_draw<1, float, bft::NONE>(mu, rho, seeds, nullptr, w, nullptr, nullptr,
-                                          S, K, N, N, 0.0f, none,
-                                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w_lo == nullptr)
+    return launch_draw<1, float, bft::NONE>(mu, rho, seeds, nullptr, w, nullptr, nullptr,
+                                            S, K, N, N, 0.0f, none, st);
+  draw_kernel<1, float, bft::NONE, true><<<draw_grid(K, N), THREADS, 0, st>>>(
+      static_cast<const float*>(mu), static_cast<const float*>(rho),
+      static_cast<const int32_t*>(seeds), nullptr, static_cast<float*>(w), nullptr, nullptr,
+      S, K, N, N, 0.0f, none, static_cast<__nv_bfloat16*>(w_lo));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The forward's draw pass: mu / rho (K, N) f32, seeds (n_draws,) i32 and,

@@ -9,16 +9,17 @@ around a shared Gaussian draw:
 
 The perturbation matmul runs through the split op
 ``ops/sampled_linear.py::sampled_dense`` with ``mu = 0`` (Pallas #12 on the
-card; its VJP rebuilds the draw with #13). Each converted bias is drawn
-with its own signs.
+card; its VJP rebuilds the draw with #13 and hands it to the dmu/drho
+reduce). Each converted bias is drawn with its own signs.
 
 The KL term is analytic (:func:`analytic_leaf_kl`): the closed form
 ``gaussian_kl`` under a MOPED prior (centred on mu itself when mu is
 frozen, on ``prior_mu`` when it trains), and under the scale mixture the
-``kl_draws``-draw MC estimate ``mean(log_q - log_p)``, which for a kernel
-leaf is ``ops/logprob.py::sampled_logprobs`` (Pallas #11 on the card, its
-VJP through #13) and for a bias its plain version, as in
-``nn/fused.py::bias_logprobs``.
+``kl_draws``-draw MC estimate ``mean(log_q - log_p)``: for the kernel
+leaves one ``ops/logprob.py::sampled_logprobs_grouped`` call over all of
+them a forward (one Pallas #11 launch on the card, and one launch of its
+VJP, which rebuilds the draws in registers), for a bias its plain version,
+as in ``nn/fused.py::bias_logprobs``.
 
 Where the JAX package intercepts Flax module calls, the port's model hands
 each converted ``Dense`` or ``Conv1D`` and each attention block to
@@ -94,10 +95,12 @@ def rademacher(seed: int, shape, device, dtype) -> torch.Tensor:
 class AnalyticKLMC(MCBase):
     """What the analytic-KL tiers (flipout, local reparameterization) share:
     the request's seed, each converted leaf's KL collected once per forward
-    (:func:`analytic_leaf_kl`) and the aux. Under the scale mixture each
-    kernel leaf i's KL draws come from the seeds ``derive_seed(seed, i, 1,
-    t)`` and its bias's from ``derive_seed(seed, i, 6, t)``, uploaded once
-    per request; under MOPED the KL is closed-form and nothing is drawn."""
+    (:func:`analytic_leaf_kl`; under the mixture the kernel leaves' in one
+    grouped call, :meth:`deferred_kl`) and the aux. Under the scale mixture
+    each kernel leaf i's KL draws come from the seeds ``derive_seed(seed,
+    i, 1, t)`` and its bias's from ``derive_seed(seed, i, 6, t)``, uploaded
+    once per request; under MOPED the KL is closed-form and nothing is
+    drawn."""
 
     def __init__(self, bmodel, seed: int, n_samples: int, *, kl_draws: int = KL_DRAWS,
                  impl: str = "kernel", eps_hook=None):
@@ -106,6 +109,8 @@ class AnalyticKLMC(MCBase):
         self.kl_draws = kl_draws
         self.needs_draws = not bmodel.spec.moped
         self.kl_terms: list[torch.Tensor] = []
+        # the mixture's kernel leaves: (slot in kl_terms, mu, rho, seeds, eps)
+        self.deferred: list[tuple] = []
         self.kl_seeds, self.bias_kl_eps = None, {}
         if self.needs_draws:
             self.kl_seeds = self.seed_table(((1, kl_draws), (6, kl_draws)))
@@ -138,22 +143,43 @@ class AnalyticKLMC(MCBase):
         return make()
 
     def kernel_kl(self, kpath, i, mu, rho, transposed: bool = False) -> None:
-        """Collect a kernel leaf's KL once per forward (its KL draws: the
-        leaf's seeds, or the hook's ``"kl"``); ``transposed``: ``mu`` and
-        ``rho`` are a ``Conv1D``'s (in, out) copies."""
+        """Collect a kernel leaf's KL once per forward; ``transposed``: ``mu``
+        and ``rho`` are a ``Conv1D``'s (in, out) copies. Under MOPED its
+        closed form now; under the mixture the leaf's ``(mu, rho)`` and KL
+        draws (its seeds, or the hook's ``"kl"``) are recorded in its place
+        among the terms, and :meth:`aux` scores every such leaf in one
+        grouped call."""
         if kpath in self.seen:
             return
         self.seen.add(kpath)
-        seeds = eps = None
-        if self.needs_draws:
-            kd = self.kl_draws
-            if self.eps_hook is not None:
-                eps = self._draw(kpath, "kl", (kd,) + tuple(mu.shape), None)
-            else:
-                seeds = self.kl_seeds[i][:kd]
-        self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, mu, rho, seeds,
-                                              plain=self.plain, eps=eps,
-                                              transposed=transposed))
+        if not self.needs_draws:
+            self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, mu, rho,
+                                                  transposed=transposed))
+            return
+        kd = self.kl_draws
+        eps = seeds = None
+        if self.eps_hook is not None:
+            eps = self._draw(kpath, "kl", (kd,) + tuple(mu.shape), None)
+        else:
+            seeds = self.kl_seeds[i][:kd]
+        self.deferred.append((len(self.kl_terms), mu, rho, seeds, eps))
+        self.kl_terms.append(None)
+
+    def deferred_kl(self) -> None:
+        """Every recorded kernel leaf's mixture KL, ``mean(log_q - log_p)``
+        over its draws, from one ``sampled_logprobs_grouped`` call (one
+        kernel launch on the card, one for its VJP), each put in its leaf's
+        place among the terms."""
+        if not self.deferred:
+            return
+        slots, mus, rhos, seeds, eps = zip(*self.deferred)
+        spec = self.bmodel.spec.prior
+        lq, lp = ops_logprob.sampled_logprobs_grouped(
+            mus, rhos, seeds, mixture=(spec.pi, spec.sigma1, spec.sigma2), plain=self.plain,
+            eps=None if self.eps_hook is None else eps)
+        for j, slot in enumerate(slots):
+            self.kl_terms[slot] = torch.mean(lq[j] - lp[j])
+        self.deferred = []
 
     def bias_kl(self, bpath, bmu, brho) -> None:
         """Collect a bias leaf's KL once per forward, in plain torch."""
@@ -168,6 +194,7 @@ class AnalyticKLMC(MCBase):
 
     def aux(self) -> dict[str, torch.Tensor]:
         self.check_seen(self.kl_terms)
+        self.deferred_kl()
         return kl_aux(torch.stack(self.kl_terms).sum(), self.S)
 
 

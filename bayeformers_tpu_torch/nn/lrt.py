@@ -13,7 +13,8 @@ eps``. No weight is drawn, so the Bayesian linear kernels do not run; the
 matmuls stay ``torch.matmul`` as they stay XLA in the JAX package. The KL
 term is shared with flipout (``nn/flipout.py::analytic_leaf_kl``): the
 closed form under MOPED, and under the scale mixture the ``kl_draws``-draw
-MC estimate through ``sampled_logprobs`` (Pallas #11 on the card).
+MC estimate of all kernel leaves through one ``sampled_logprobs_grouped``
+call a forward (one Pallas #11 launch on the card, one of its VJP).
 
 Draws, per converted kernel leaf i of the request's integer ``seed``: the
 activation noise from a ``torch.Generator`` seeded ``derive_seed(seed, i,

@@ -28,20 +28,24 @@ tensor, or ``plain=True``, takes the plain version; there is no fallback):
   ``csrc/bayes_linear.cu``) takes y, bf16 or f32 x;
 * :func:`regen_cuda`: ``bft_regen`` (``csrc/regen.cu``), the (S, K, N) f32 W
   of S seeds (Pallas #13, ``_regen_kernel``, and #10 of the fused op, which
-  on one stream compute the same W). :func:`regenerate_weights` counts its
-  launches in :data:`REGEN_LAUNCHES`, ``fused_linear.regenerate_weights`` in
-  its own counter.
+  on one stream compute the same W), and on request the same W in bf16,
+  written in the same pass. :func:`regenerate_weights` and the VJP count
+  its launches in :data:`REGEN_LAUNCHES`, ``fused_linear.regenerate_weights``
+  in its own counter.
 
-The VJP rebuilds W with :func:`regenerate_weights` and takes
+The VJP (:func:`sampled_dense_vjp`, the reference's ``_sampled_dense_bwd``)
+rebuilds W and takes
 
-    eps  = (W - mu) / sigma
-    dx   = g @ W^T               (g's dtype, f32 accumulation)
-    dW   = x^T g                 (f32)
-    dmu  = sum_s dW,  drho = sum_s (dW * eps) * sigmoid(rho)
+    dx   = g @ W^T                     (x's dtype, f32 accumulation)
+    dmu  = sum_s x^T g = A
+    drho = sum_s (x^T g) * eps * sigmoid(rho) = B / sigma * sigmoid(rho)
 
-These products are XLA einsums outside any Pallas kernel in the JAX
-package; here they are ``torch.bmm`` (dW on operands cast to f32, which is
-exact, so bf16 activations still give an f32 dW).
+with ``B = sum_s (x^T g)(W - mu)`` and ``eps = (W - mu) / sigma``. dx is an
+XLA einsum outside Pallas in the JAX package and ``torch.bmm`` here; A and
+B are the dmu/drho reduce's (``ops/fused_backward.py::reduce_abuv``,
+``bft_reduce_abuv`` on the card, taking the f32 W with bf16 or f32 x and
+g), turned into dmu and drho by its ``finalize`` with no prior term. No
+(S, K, N) dW is formed.
 """
 from __future__ import annotations
 
@@ -70,9 +74,11 @@ def naive_sampled_dense(x, mu, rho, seeds=None, eps=None) -> torch.Tensor:
     return torch.bmm(x.float(), w.to(x.dtype).float()).to(x.dtype)
 
 
-def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter) -> torch.Tensor:
+def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter, lo_dtype=None):
     """Launch ``bft_regen`` (csrc/regen.cu): the (S, K, N) f32 W of ``seeds``
-    (S,) on the unit stream; ``counter`` takes the launch."""
+    (S,) on the unit stream; ``counter`` takes the launch. ``lo_dtype=
+    torch.bfloat16`` also returns W rounded to bf16, written in the same
+    pass: ``(w, w_bf16)``."""
     req = common.require
     req(mu.is_cuda, f"regen kernel needs a CUDA tensor, got {mu.device}")
     req(mu.dim() == 2 and tuple(rho.shape) == tuple(mu.shape),
@@ -80,6 +86,7 @@ def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter) -> torch.Tensor:
     req(mu.dtype == torch.float32 and rho.dtype == torch.float32,
         "mu and rho must be float32")
     req(seeds.dim() == 1 and seeds.dtype == torch.int32, "seeds must be (S,) int32")
+    req(lo_dtype in (None, torch.bfloat16), f"regen's second W is bf16, got {lo_dtype}")
     for name, t in (("mu", mu), ("rho", rho), ("seeds", seeds)):
         req(t.device == mu.device, f"{name} is on {t.device}, mu on {mu.device}")
         req(t.is_contiguous(), f"{name} must be contiguous")
@@ -88,12 +95,14 @@ def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter) -> torch.Tensor:
     req(S >= 1, "at least one seed")
     lib = _build.library()
     w = torch.empty((S, K, N), dtype=torch.float32, device=mu.device)
-    with torch.cuda.device(mu.device):
-        err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(),
-                            w.data_ptr(), S, K, N, common.cuda_stream(mu))
+    lo = None if lo_dtype is None else torch.empty((S, K, N), dtype=lo_dtype, device=mu.device)
+    with common.on_device(mu):
+        err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(), w.data_ptr(),
+                            None if lo is None else lo.data_ptr(), S, K, N,
+                            common.cuda_stream(mu))
     _build.check(err, "bft_regen")
-    counter.add((S, K, N))
-    return w
+    counter.add((S, K, N) if lo is None else (S, K, N, "bf16"))
+    return w if lo is None else (w, lo)
 
 
 def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
@@ -148,10 +157,45 @@ def _forward(x, mu, rho, seeds, eps, plain: bool) -> torch.Tensor:
     return sampled_dense_cuda(x, mu, rho, seeds)
 
 
+def sampled_dense_vjp(x, mu, rho, seeds, g, *, eps=None, plain: bool = False,
+                      need_x: bool = True):
+    """The reference's VJP (``_sampled_dense_bwd``) of :func:`sampled_dense`
+    at the cotangent g: ``(dx, dmu, drho)``. W is rebuilt once, in f32 and,
+    for dx, in x's dtype (on the card ``bft_regen``, #13, writes both in one
+    pass); ``dx = g @ W^T`` in x's dtype (``torch.bmm``, an einsum outside
+    Pallas in the reference); dmu and drho from the dmu/drho reduce over the
+    f32 W with no prior (``fused_backward.reduce_abuv``: A = sum_s x^T g,
+    B = sum_s (x^T g)(W - mu), on the card ``bft_reduce_abuv``, #9) and
+    ``finalize`` with g_p = g_q = 0: dmu = A, drho = B / sigma
+    sigmoid(rho). A CPU tensor, ``plain=True`` or an injected ``eps`` takes
+    the plain versions of each (``reduce_abuv_plain``). ``need_x=False``
+    skips dx (None)."""
+    from bayeformers_tpu_torch.ops import fused_backward  # it imports this module
+
+    dtype = x.dtype
+    if plain or eps is not None or x.device.type == "cpu":
+        w = naive_weights(mu, rho, seeds, eps)
+        w_x = w.to(dtype)
+        reduce = fused_backward.reduce_abuv_plain
+    elif dtype == torch.float32:
+        w = w_x = regen_cuda(mu, rho, seeds, REGEN_LAUNCHES)
+        reduce = fused_backward.reduce_abuv_cuda
+    else:
+        w, w_x = regen_cuda(mu, rho, seeds, REGEN_LAUNCHES, lo_dtype=dtype)
+        reduce = fused_backward.reduce_abuv_cuda
+    g = g.to(dtype).contiguous()
+    dx = torch.bmm(g, w_x.transpose(1, 2)).to(dtype) if need_x else None
+    zeros = mu.new_zeros((x.shape[0],))
+    a, b, v = reduce(x.contiguous(), g, w, mu, zeros)
+    dmu, drho = fused_backward.finalize(a, b, v, rho, zeros)
+    return dx, dmu, drho
+
+
 class SampledDense(torch.autograd.Function):
-    """:func:`sampled_dense` with the reference's VJP: the forward keeps
-    ``(x, mu, rho, seeds)`` (and an injected ``eps``) and no W; the backward
-    rebuilds W (:func:`regenerate_weights`, kernel #13 on the card)."""
+    """:func:`sampled_dense` with the reference's VJP
+    (:func:`sampled_dense_vjp`): the forward keeps ``(x, mu, rho, seeds)``
+    (and an injected ``eps``) and no W; the backward rebuilds W (#13 on the
+    card) and hands it to the reduce."""
 
     @staticmethod
     def forward(ctx, x, mu, rho, seeds, eps, plain):
@@ -162,18 +206,10 @@ class SampledDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, mu, rho, seeds, eps = ctx.saved_tensors
-        w = (naive_weights(mu, rho, eps=eps) if eps is not None
-             else regenerate_weights(mu, rho, seeds, plain=ctx.plain))
-        dx = dmu = drho = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.bmm(g.to(x.dtype), w.to(x.dtype).transpose(1, 2)).to(x.dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw = torch.bmm(x.float().transpose(1, 2), g.float())
-            dmu = torch.sum(dw, dim=0)
-            if ctx.needs_input_grad[2]:
-                sigma = sigma_from_rho(rho)
-                drho = torch.sum(dw * ((w - mu[None]) / sigma[None]), dim=0) * torch.sigmoid(rho)
-        return (dx, dmu if ctx.needs_input_grad[1] else None, drho, None, None, None)
+        dx, dmu, drho = sampled_dense_vjp(x, mu, rho, seeds, g, eps=eps, plain=ctx.plain,
+                                          need_x=ctx.needs_input_grad[0])
+        return (dx, dmu if ctx.needs_input_grad[1] else None,
+                drho if ctx.needs_input_grad[2] else None, None, None, None)
 
 
 def sampled_dense(x, mu, rho, seeds, *, plain: bool = False, eps=None) -> torch.Tensor:

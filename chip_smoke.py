@@ -77,20 +77,29 @@ Phases, each timed, each raising on failure:
     mixture in bf16 also with each reduce's U, then V, zeroed, which it
     must fail), mu moved and prior_mu bit-identical after one step.
 
-14. the estimators slice: the split ops' kernels at flipout's shapes,
+14. the estimators slice: the split ops' kernels, each with the MUFU count
+    of its compiled code (``cuobjdump -sass``) in its bound: the grouped
+    ``logprob`` (#11, one launch over all of BERT-base's 74 leaves and an
+    odd shape) under both priors, its per-leaf partial sums against plain
+    f64 sums, its log-probs against the plain version a leaf, and a planted
+    fault (the last leaf's last block dropped) that must fail
+    (:func:`phase_logprob`); ``bft_regen`` (#13) at flipout's S = 10, W
+    bit-equal to the plain stream and to ``fused_linear.regenerate_weights``
+    and its bf16 copy to W rounded; the grouped log-prob VJP that replaced
+    #13's W behind the KL (dmu, drho against the plain VJP a leaf, no (S,
+    K, N) tensor allocated, a planted fault: draw S - 1 dropped); flipout's
+    ``sampled_dense`` VJP through #13 and the reduce against its plain
+    route, no f32 ``torch.bmm`` (:func:`phase_split_regen`);
     ``sampled_dense`` (Pallas #12) in bf16 and f32 with mu = 0 and mu != 0
     against its plain version and ``x @ regenerate_weights`` at gates
-    scaled to y, which two planted faults must fail, the split
-    ``regenerate_weights`` (#13) bit-equal to the plain stream and to
-    ``fused_linear.regenerate_weights``, ``logprob`` (#11) under both
-    priors, its partial sums against plain f64 sums and its log-probs
-    against the plain version; then flipout and local reparameterization
-    under the GLUE recipe and random init, and the naive tier under the
-    GLUE recipe, in bf16 and f32: the 8x128 request and the ELBO step
-    against their plain runs (:func:`phase_estimator`), with launch counts
-    (#12 and #13 on every flipout layer, #11 and its VJP's #13 on every
-    layer under the mixture, no Bayesian linear kernel on the local and
-    naive paths); and ``bert_glue --estimator flipout`` and ``local``.
+    scaled to y, which two planted faults must fail; then flipout and local
+    reparameterization under the GLUE recipe and random init, and the naive
+    tier under the GLUE recipe, in bf16 and f32: the 8x128 request and the
+    ELBO step against their plain runs (:func:`phase_estimator`), with
+    launch counts (#12 on every flipout layer a forward, #13 and the reduce
+    a backward; under the mixture one grouped #11 launch a forward and one
+    grouped VJP launch a backward; no Bayesian linear kernel on the local
+    and naive paths); and ``bert_glue --estimator flipout`` and ``local``.
 15. GPT-2 base, the causal LM: the causal instances of ``mha_fwd`` (#3) and
     ``mha_bwd`` (#5) against their plain versions at N = S B = 80, L = 128,
     H = 768 and at L = 512, in bf16 and f32, at the attention gates, with
@@ -135,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -818,7 +828,8 @@ def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err,
 def reset_counters(*modules) -> None:
     """Every launch counter of the given op modules to 0."""
     for m in modules:
-        for name in ("LAUNCHES", "INDEP_LAUNCHES", "BWD_LAUNCHES", "REGEN_LAUNCHES"):
+        for name in ("LAUNCHES", "INDEP_LAUNCHES", "BWD_LAUNCHES", "REGEN_LAUNCHES",
+                     "VJP_LAUNCHES"):
             if hasattr(m, name):
                 getattr(m, name).reset()
 
@@ -913,11 +924,12 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
     return rows
 
 
-def phase_regen(fl, moped_rho) -> list[dict]:
+def phase_regen(fl, moped_rho, mufu, rate) -> list[dict]:
     """Kernel #10 against the plain stream and against the f32 W that each
     forward kernel draws for the same seeds, bit for bit, and a rerun;
     returns the timing row of the f32 recipe's shape (the FFN
-    down-projection's five pairs)."""
+    down-projection's five pairs), its bound counting the MUFU instructions
+    as :func:`regen_mufu` does."""
     S, M = 10, 64
     for K, N in ((768, 768), (768, 3072), (3072, 768), (300, 130)):
         for antithetic in (True, False):
@@ -943,9 +955,11 @@ def phase_regen(fl, moped_rho) -> list[dict]:
     _, mu, rho, seeds, _ = bayes_linear_inputs(S, 8, K, N, moped_rho, n, dtype=F32)
     ms = time_ms(lambda: fl.regenerate_weights(mu, rho, seeds), 50, windows=WINDOWS)
     plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, seeds), 5, 1)
-    b = bound(n * K * N * 4 + 2 * K * N * 4 + n * 4, 0.0, F32)
+    n_mufu = regen_mufu(mufu, "0E", [(K, N)], n)
+    b = bound_mufu(n * K * N * 4 + 2 * K * N * 4 + n * 4, n_mufu, rate)
     say(f"regen S'={n} K={K} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b[0]:.4f} ms ({b[1]}), no library call")
+        f"bound {b[0]:.4f} ms ({b[1]}; MUFU {n_mufu:.4g}, {n_mufu / rate * 1e3:.4f} ms), "
+        "no library call")
     return [row(f"regen[S={n},K={K},N={N}]", "regen", (n, K, N), "train/anti/f32",
                 "bayeformers_tpu_torch/csrc/regen.cu",
                 "bayeformers_tpu/ops/fused_linear.py:1143", 0.0, ms, plain_ms, b, None)]
@@ -1524,52 +1538,300 @@ def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
 
 
 REGEN_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 2))
+# BERT-base's converted kernels in the order flipout and LRT meet them: per
+# layer q, k, v, the attention output, the FFN up and down; the pooler; the
+# classifier (the group of one grouped #11 launch, a forward, under the
+# mixture)
+BERT_LEAVES = (((768, 768),) * 4 + ((768, 3072), (3072, 768))) * 12 + ((768, 768), (768, 2))
+# the groups the grouped kernels are checked on: BERT-base's leaves and an
+# odd shape, the last leaf one with several blocks, whose last block holds
+# elements (the forward's planted fault drops it)
+CHECK_GROUP = ((300, 130), (768, 2)) + BERT_LEAVES[:-1]
 
 
-def phase_split_regen(sl, fl, moped_rho) -> list[dict]:
-    """Kernel #13 (``bft_regen`` through ``sampled_linear.regenerate_weights``)
-    at flipout's (S=10 perturbation draws, mu = 0) and the mixture KL's
-    (``KL_DRAWS`` draws, mu != 0) instance data: W bit-equal to the plain
-    stream and to ``fused_linear.regenerate_weights`` (the one stream), and a
-    bit-equal rerun. Returns the timing rows, each with the path whose
-    backward launches it."""
+def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int]]:
+    """MUFU instructions (the card's special-function unit: exp2, log2,
+    rsqrt, reciprocal, sin, cos) and all instructions in each kernel of the
+    built library, from ``cuobjdump -sass``: two {mangled name: count}."""
+    import re
+
+    from bayeformers_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    mufu, total, name = {}, {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            mufu[name] = total[name] = 0
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            total[name] += 1
+            mufu[name] += bool(re.search(r"\bMUFU\.", line))
+    return mufu, total
+
+
+def mufu_of(counts: dict, *parts) -> int:
+    """The MUFU count of the one kernel whose mangled name holds every one
+    of ``parts``."""
+    hits = [n for n in counts if all(p in n for p in parts)]
+    check(len(hits) == 1, f"kernels named with {parts}: {hits}")
+    return counts[hits[0]]
+
+
+def mufu_rate() -> tuple[float, float]:
+    """The card's MUFU rate (16 a clock per SM x 132 SMs x the SM clock at
+    its maximum, ``nvidia-smi`` ``clocks.max.sm``), and the clock as read
+    now (``clocks.sm``), in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    mx, now = (float(v) for v in out.split(","))
+    return 16 * 132 * mx * 1e6, now
+
+
+def bound_mufu(n_bytes: float, n_mufu: float, rate: float) -> tuple[float, str]:
+    """The least time (ms) for the bytes at the HBM rate and the MUFU
+    instructions at the card's MUFU rate; which of the two is larger."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_mufu / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def regen_mufu(mufu: dict, lo: str, shapes, S: int) -> float:
+    """The MUFU instructions ``bft_regen`` runs for S draws of ``shapes``
+    (its draw kernel's instance with (``lo="1E"``) or without (``"0E"``) the
+    bf16 copy): the kernel's loop body holds one draw, so its static count,
+    plus for each further draw one Philox call's four normals a quad, the
+    per-draw count of the Gaussian grouped kernel (its 8-draw instance's
+    less its 4-draw instance's, over 4)."""
+    normals = (mufu_of(mufu, "logprob_kernelILi1ELi8ELi128E")
+               - mufu_of(mufu, "logprob_kernelILi1ELi4ELi128E")) / 4
+    inst = mufu_of(mufu, "draw_kernelILi1EfLi3ELb" + lo)
+    return group_quads(shapes) * (inst + (S - 1) * normals)
+
+
+def group_quads(shapes) -> int:
+    """The quads (four elements of one Philox call, padded rows included)
+    of a group: the grouped kernels' threads' units of work."""
+    return sum(-(-K // 256) * 128 * (-(-N // 2)) for K, N in shapes)
+
+
+def group_inputs(shapes, S, prior, seed=0):
+    """Random-init leaves on the card (mu ~ U(-0.2, 0.2), rho ~ U(-5, -4),
+    the reference's uniform init; under the Gaussian, prior_mu = mu + 0.05
+    N(0, 1)), and each leaf's S seeds."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mus, rhos, pms, seeds = [], [], [], []
+    for K, N in shapes:
+        mus.append(torch.rand(K, N, device="cuda", generator=gen) * 0.4 - 0.2)
+        rhos.append(torch.rand(K, N, device="cuda", generator=gen) - 5.0)
+        if prior == "gaussian":
+            pms.append(mus[-1] + 0.05 * torch.randn(K, N, device="cuda", generator=gen))
+        seeds.append(torch.randint(0, 2**31 - 1, (S,), device="cuda", generator=gen,
+                                   dtype=torch.int32))
+    return mus, rhos, (pms if prior == "gaussian" else None), seeds
+
+
+def phase_split_regen(sl, lpm, moped_rho, mufu, rate) -> list[dict]:
+    """Kernel #13. (1) ``bft_regen`` at flipout's S = 10 perturbation draws
+    (mu = 0) and every converted layer's (K, N): the f32 W bit-equal to the
+    plain stream and to ``fused_linear.regenerate_weights``, the bf16 copy it
+    writes in the same pass bit-equal to that W rounded, reruns equal.
+    (2) The log-prob VJP that took #13's W (``bft_logprob_vjp``: the draws
+    rebuilt in registers) over :data:`CHECK_GROUP` at ``KL_DRAWS`` under
+    both priors: dmu and drho within 1e-5 of each one's largest entry
+    against the plain VJP a leaf, reruns bit-equal, no (S, K, N) tensor
+    allocated (peak memory), and a planted fault (the cotangents of draw S -
+    1 zeroed: the VJP without that draw) must fail the gate. (3) Flipout's
+    ``sampled_dense`` VJP through #13 and the reduce (bf16: ``bft_reduce_abuv``
+    in its bf16 x / f32 W instance; f32) at M = 1024, S = 10: dx, dmu, drho
+    against the plain route (1e-4 bf16, 1e-5 f32, of each one's largest
+    entry), the reduce launched, no ``torch.bmm`` with an f32 or (S, K, N)
+    output in bf16 nor an (S, K, N) one in f32. Returns the timing rows."""
+    from bayeformers_tpu_torch.ops import fused_backward as fb
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+
     rows = []
-    for n, zero_mu, path in ((10, True, "train/flipout/bf16"),
-                             (KL_DRAWS, False, "train/flipout/bf16/mixture")):
-        for K, N in REGEN_SHAPES + ((300, 130),):
-            _, mu, rho, seeds = sampled_dense_inputs(n, 8, K, N, moped_rho, F32, zero_mu)
-            w = sl.regenerate_weights(mu, rho, seeds)
-            again = sl.regenerate_weights(mu, rho, seeds)
-            wf = fl.regenerate_weights(mu, rho, seeds)
-            torch.cuda.synchronize()
-            plain = sl.naive_weights(mu, rho, seeds)
-            check(torch.equal(w, again), f"split regen reruns differ at {(n, K, N)}")
-            check(torch.equal(w, plain), f"split regen differs from the plain stream at "
-                  f"{(n, K, N)}: max {max_dist(w, plain)}")
-            check(torch.equal(w, wf), f"split regen differs from fused_linear's at "
-                  f"{(n, K, N)}: max {max_dist(w, wf)}")
-            if (K, N) not in REGEN_SHAPES:
-                continue
-            ms = time_ms(lambda: sl.regenerate_weights(mu, rho, seeds), 20, windows=WINDOWS)
+    for K, N in REGEN_SHAPES + ((300, 130),):
+        _, mu, rho, seeds = sampled_dense_inputs(10, 8, K, N, moped_rho, F32, True)
+        w, lo = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
+        w2, lo2 = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
+        w1 = sl.regenerate_weights(mu, rho, seeds)
+        wf = fl.regenerate_weights(mu, rho, seeds)
+        torch.cuda.synchronize()
+        plain = sl.naive_weights(mu, rho, seeds)
+        check(torch.equal(w, w2) and torch.equal(lo, lo2),
+              f"split regen reruns differ at {(K, N)}")
+        check(torch.equal(w, plain) and torch.equal(w1, plain),
+              f"split regen differs from the plain stream at {(K, N)}: "
+              f"max {max_dist(w, plain)}")
+        check(torch.equal(w, wf), f"split regen differs from fused_linear's at {(K, N)}")
+        check(torch.equal(lo, plain.to(BF16)), f"split regen's bf16 W differs from the "
+              f"f32 W rounded at {(K, N)}")
+        if (K, N) not in REGEN_SHAPES:
+            continue
+        for tag in ("bf16", "f32"):
+            lo_dtype = BF16 if tag == "bf16" else None
+            ms = time_ms(lambda: sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype),
+                         20, windows=WINDOWS)
             plain_ms = time_ms(lambda: sl.naive_weights(mu, rho, seeds), 3, 1)
-            b = bound(n * K * N * 4 + 2 * K * N * 4 + n * 4, 0.0, F32)
-            mu_tag = "mu = 0" if zero_mu else "mu != 0"
-            say(f"split regen S={n} ({mu_tag}) K={K} N={N}: W bit-equal to the plain "
-                f"stream and to fused_linear.regenerate_weights, reruns equal; kernel "
+            n_mufu = regen_mufu(mufu, "1E" if tag == "bf16" else "0E", [(K, N)], 10)
+            n_bytes = 10 * K * N * (4 + 2 * (tag == "bf16")) + 2 * K * N * 4 + 40
+            b = bound_mufu(n_bytes, n_mufu, rate)
+            say(f"split regen S=10 (mu = 0, {tag} W{' and f32 W' if tag == 'bf16' else ''}) "
+                f"K={K} N={N}: W bit-equal to the plain stream and to "
+                f"fused_linear.regenerate_weights, bf16 copy equal, reruns equal; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
                 "no library call")
-            rows.append(row(f"sampled_regen[S={n},K={K},N={N}]", "sampled_regen",
-                            (n, K, N), path, "bayeformers_tpu_torch/csrc/regen.cu",
+            shape = (10, K, N, "bf16") if tag == "bf16" else (10, K, N)
+            rows.append(row(f"sampled_regen[S=10,K={K},N={N},{tag}]", "sampled_regen",
+                            shape, f"train/flipout/{tag}", "bayeformers_tpu_torch/csrc/regen.cu",
                             "bayeformers_tpu/ops/sampled_linear.py:205", 0.0, ms, plain_ms,
                             b, None))
+    rows += phase_logprob_vjp(lpm, mufu, rate)
+    for dtype in (BF16, F32):
+        phase_flipout_vjp(sl, fb, moped_rho, dtype)
     return rows
 
 
+def phase_logprob_vjp(lpm, mufu, rate) -> list[dict]:
+    """The grouped log-prob VJP (``bft_logprob_vjp``): see
+    :func:`phase_split_regen`, (2)."""
+    rows = []
+    S = KL_DRAWS
+    for prior in ("mixture", "gaussian"):
+        ptuple = ("mixture",) + MIXTURE if prior == "mixture" else ("gaussian",)
+        mus, rhos, pms, seeds = group_inputs(CHECK_GROUP, S, prior, seed=11)
+        n = len(mus)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        g_q = torch.randn(n, S, device="cuda", generator=gen)
+        g_p = torch.randn(n, S, device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dmu, drho = lpm.logprob_vjp_grouped_cuda(mus, rhos, seeds, ptuple, g_q, g_p, pms)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        n_el = sum(K * N for K, N in CHECK_GROUP)
+        check(extra <= 2 * n_el * 4 + 2**20, f"logprob_vjp ({prior}) allocated {extra} B, "
+              f"its outputs {2 * n_el * 4} B: an (S, K, N) tensor?")
+        dmu2, drho2 = lpm.logprob_vjp_grouped_cuda(mus, rhos, seeds, ptuple, g_q, g_p, pms)
+        g_q0, g_p0 = g_q.clone(), g_p.clone()
+        g_q0[:, -1] = 0
+        g_p0[:, -1] = 0
+        fmu, frho = lpm.logprob_vjp_grouped_cuda(mus, rhos, seeds, ptuple, g_q0, g_p0, pms)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(dmu + drho, dmu2 + drho2)),
+              f"logprob_vjp ({prior}) reruns differ")
+        worst, fault, err = 0.0, float("inf"), 0.0
+        for i in range(n):
+            pm = None if pms is None else pms[i]
+            pmu, prho = lpm.logprob_vjp_plain(mus[i], rhos[i], g_q[i], g_p[i], seeds[i],
+                                              ptuple, pm)
+            for got, bad, want in ((dmu[i], fmu[i], pmu), (drho[i], frho[i], prho)):
+                scale = want.abs().max().item()
+                d = (got - want).abs().max().item()
+                worst = max(worst, d / (1e-5 * scale))
+                err = max(err, d)
+                fault = min(fault, (bad - want).abs().max().item() / (1e-5 * scale))
+        check(worst <= 1.0, f"logprob_vjp ({prior}) differs from the plain VJP by "
+              f"{worst:.3g}x its gate (1e-5 of each one's largest entry)")
+        check(fault > 1.0, f"logprob_vjp ({prior}): the gate passes a VJP without draw "
+              f"S - 1 ({fault:.3g}x the gate)")
+        summary = (f"dmu/drho within {worst:.3g}x their gate of the plain VJP over "
+                   f"{n} leaves, reruns equal, {extra} B allocated (its outputs "
+                   f"{2 * n_el * 4}); planted fault (draw S - 1 dropped): "
+                   f"{fault:.3g}x the gate at least (failed)")
+        # the time at the path's group: BERT-base's 74 leaves, model order
+        mus, rhos, pms, seeds = group_inputs(BERT_LEAVES, S, prior, seed=13)
+        n = len(mus)
+        g_q, g_p = g_q[:n].contiguous(), g_p[:n].contiguous()
+        ms = time_ms(lambda: lpm.logprob_vjp_grouped_cuda(mus, rhos, seeds, ptuple, g_q, g_p,
+                                                          pms), 20, windows=WINDOWS)
+        plain_ms = time_ms(lambda: [lpm.logprob_vjp_plain(
+            mus[i], rhos[i], g_q[i], g_p[i], seeds[i], ptuple, None if pms is None else pms[i])
+            for i in range(n)], 2, 1)
+        n_el = sum(K * N for K, N in BERT_LEAVES)
+        n_bytes = n_el * 4 * (4 + (pms is not None)) + 2 * n * S * 4
+        inst = "ILi2ELi4ELi128E" if prior == "mixture" else "ILi1ELi4ELi128E"
+        n_mufu = group_quads(BERT_LEAVES) * mufu_of(mufu, "logprob_vjp_kernel" + inst)
+        b = bound_mufu(n_bytes, n_mufu, rate)
+        say(f"logprob_vjp ({prior}) S={S}: {summary}; BERT-base's {n} leaves: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (a leaf at a time), bound {b[0]:.4f} ms "
+            f"({b[1]}; bytes {n_bytes / H100_BYTES_PER_S * 1e3:.4f}, MUFU {n_mufu:.4g} at "
+            f"{rate:.4g}/s {n_mufu / rate * 1e3:.4f}), no library call")
+        path = "train/flipout/bf16/mixture" if prior == "mixture" else None
+        rows.append(row(f"logprob_vjp[S={S},leaves={n},{prior}]", "logprob_vjp",
+                        (n, S, prior), path,
+                        "bayeformers_tpu_torch/csrc/logprob.cu",
+                        "bayeformers_tpu/ops/sampled_linear.py:205", err, ms, plain_ms, b, None))
+        del mus, rhos, pms
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bmm_outputs(fn):
+    """``fn()`` and the (dtype, shape) of the output of every ``aten.bmm``
+    it ran (a ``TorchDispatchMode``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is torch.ops.aten.bmm:
+                calls.append((out.dtype, tuple(out.shape)))
+            return out
+
+    with Log():
+        return fn(), calls
+
+
+def phase_flipout_vjp(sl, fb, moped_rho, dtype) -> None:
+    """Flipout's ``sampled_dense`` VJP on the card: see
+    :func:`phase_split_regen`, (3)."""
+    S, M, tag = 10, 1024, TAG[dtype]
+    gate = 1e-4 if dtype == BF16 else 1e-5
+    for K, N in REGEN_SHAPES[:3]:
+        x, mu, rho, seeds = sampled_dense_inputs(S, M, K, N, moped_rho, dtype, True)
+        gen = torch.Generator(device="cuda").manual_seed(K + N)
+        g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(dtype)
+        fb.INDEP_LAUNCHES.reset()
+        got, bmms = bmm_outputs(lambda: sl.sampled_dense_vjp(x, mu, rho, seeds, g))
+        again = sl.sampled_dense_vjp(x, mu, rho, seeds, g)
+        torch.cuda.synchronize()
+        check(fb.INDEP_LAUNCHES.count == 2, f"flipout VJP ({tag}) launched the reduce "
+              f"{fb.INDEP_LAUNCHES.count} times in two calls")
+        bad = [c for c in bmms if c[1] == (S, K, N) or (dtype == BF16 and c[0] == F32)]
+        check(len(bmms) == 1 and not bad, f"flipout VJP ({tag}) ran torch.bmm {bmms}: "
+              "want dx's alone")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flipout VJP ({tag}) reruns differ at {(K, N)}")
+        want = sl.sampled_dense_vjp(x, mu, rho, seeds, g, plain=True)
+        # dx: the same W in x's dtype and the same torch.bmm on both routes
+        check(torch.equal(got[0], want[0]), f"flipout VJP ({tag}) dx differs from the plain "
+              f"route at {(K, N)}")
+        ratios = []
+        for name, a, b in zip(("dmu", "drho"), got[1:], want[1:]):
+            r = (a - b).abs().max().item() / (gate * b.abs().max().item())
+            ratios.append(r)
+            check(r <= 1.0, f"flipout VJP ({tag}) {name} differs from the plain route by "
+                  f"{r:.3g}x its gate ({gate} of its largest entry) at {(K, N)}")
+        ms = time_ms(lambda: sl.sampled_dense_vjp(x, mu, rho, seeds, g), 10, windows=WINDOWS)
+        say(f"flipout sampled_dense VJP ({tag}) S={S} M={M} K={K} N={N}: through bft_regen "
+            f"and bft_reduce_abuv, torch.bmm {bmms} (dx); dx equal to the plain route's, "
+            f"dmu/drho within {ratios[0]:.3g}/{ratios[1]:.3g}x {gate} of its largest entry, "
+            f"reruns equal; {ms:.4f} ms")
+
+
 def plain_logprob_partials(lpm, common, mu, rho, seeds, prior, prior_mu):
-    """``csrc/logprob.cu``'s sums before their constants in f64 from the
-    plain f32 draw, each with its sum of |terms| (the scale of its f32
-    rounding): per draw and block, the sums of -eps^2 / 2 and of log_p's
-    terms; per block, the sum of log sigma."""
+    """One leaf's sums before their constants in ``csrc/logprob.cu`` in f64
+    from the plain f32 draw, each with its sum of |terms| (the scale of its
+    f32 rounding): per draw and block of the leaf, the sums of -eps^2 / 2 and
+    of log_p's terms, (S, n_blocks, 2); per block, the sum of log sigma."""
     from bayeformers_tpu_torch.core.distributions import sigma_from_rho
     from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
     from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
@@ -1597,59 +1859,86 @@ def plain_logprob_partials(lpm, common, mu, rho, seeds, prior, prior_mu):
     return ref, scale, sums(ls)[0], sums(ls.abs())[0]
 
 
-def phase_logprob(lpm, sl, common, moped_rho) -> list[dict]:
-    """Kernel #11 (``bft_logprob``) under both priors at every converted
-    layer's (K, N), ``KL_DRAWS`` seeds: its partial sums before the constants
-    against plain f64 sums within 1e-5 of their sum of |terms| (per draw and
-    block; the sum of log sigma per block), the finalized ``(log_q, log_p)``
-    within 1e-5 relative of the plain version's, and a bit-equal rerun.
-    Returns the timing rows; only the mixture instance lies on a main path
+def phase_logprob(lpm, common, mufu, rate) -> list[dict]:
+    """Kernel #11, grouped (``bft_logprob``: one launch a forward), under
+    both priors over :data:`CHECK_GROUP` (BERT-base's 74 leaves and an odd
+    shape), ``KL_DRAWS`` seeds a leaf: each leaf's partial sums before the
+    constants (its span of the (2 S + 1, blocks) partials) against plain f64
+    sums within 1e-5 of their sum of |terms| (per draw and block; the sum of
+    log sigma per block), each leaf's ``(log_q, log_p)`` within 1e-5
+    relative of the plain version's, a bit-equal rerun, and a planted fault
+    (the last leaf's last block dropped) that must fail the log-prob gate;
+    then timed at the path's group, BERT-base's 74 leaves in model order,
+    its bound counting the 4-draw instance's static MUFU count once a quad
+    (its draws unrolled: the count of S = 4, with the one or two MUFU of
+    slow paths no input here takes). Returns the timing rows; only the
+    mixture instance lies on a main path
     (flipout's and LRT's mixture KL), the Gaussian one is held here."""
     rows = []
+    S = KL_DRAWS
     for prior in ("mixture", "gaussian"):
-        for K, N in REGEN_SHAPES + ((300, 130),):
-            _, mu, rho, seeds, kw = bayes_linear_inputs(KL_DRAWS, 8, K, N, moped_rho,
-                                                        KL_DRAWS, dtype=F32, prior=prior)
-            ptuple = lpm.prior_of(kw.get("mixture"), kw.get("prior_mu"))
-            pm = kw.get("prior_mu")
-            lq, lp, part, ls_part = lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm,
-                                                      partials=True)
-            again = lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm, partials=True)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip((lq, lp, part, ls_part), again)),
-                  f"logprob ({prior}) reruns differ at {(K, N)}")
-            ref, scale, ls_ref, ls_scale = plain_logprob_partials(lpm, common, mu, rho, seeds,
-                                                                  ptuple, pm)
+        ptuple = ("mixture",) + MIXTURE if prior == "mixture" else ("gaussian",)
+        mus, rhos, pms, seeds = group_inputs(CHECK_GROUP, S, prior)
+        lq, lp, part = lpm.logprobs_grouped_cuda(mus, rhos, seeds, ptuple, pms, partials=True)
+        again = lpm.logprobs_grouped_cuda(mus, rhos, seeds, ptuple, pms, partials=True)
+        spans = lpm.grouped_layout(CHECK_GROUP)
+        dropped = spans[:-1] + [spans[-1]._replace(n_blocks=spans[-1].n_blocks - 1)]
+        flq, flp = lpm.logprobs_grouped_cuda(mus, rhos, seeds, ptuple, pms, spans=dropped)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((lq, lp, part), again)),
+              f"logprob ({prior}) reruns differ")
+        ratio = ls_ratio = err = 0.0
+        rel = [0.0, 0.0]
+        for i, sp in enumerate(spans):
+            pm = None if pms is None else pms[i]
+            span = part[:, sp.first_block: sp.first_block + sp.n_blocks]
+            got = torch.stack((span[:S], span[S: 2 * S]), -1).double()
+            ref, scale, ls_ref, ls_scale = plain_logprob_partials(lpm, common, mus[i], rhos[i],
+                                                                  seeds[i], ptuple, pm)
             # blocks past a ragged K hold no element: their sums are 0 on both sides
-            ratio = ((part.double() - ref).abs() / (1e-5 * scale).clamp_min(1e-300)).max().item()
-            ls_ratio = ((ls_part.double() - ls_ref).abs()
-                        / (1e-5 * ls_scale).clamp_min(1e-300)).max().item()
-            check(max(ratio, ls_ratio) <= 1.0, f"logprob ({prior}) partials at {(K, N)} "
-                  f"differ from the plain f64 sums by {ratio:.3g}x / {ls_ratio:.3g}x their "
-                  "gate (1e-5 of the sum of |terms|)")
-            lqp, lpp = lpm.logprobs_plain(mu, rho, seeds, ptuple, pm)
-            errs = [((a - b).abs() / b.abs()).max().item() for a, b in ((lq, lqp), (lp, lpp))]
-            check(max(errs) <= 1e-5, f"logprob ({prior}) log_q/log_p differ from the plain "
-                  f"version at {(K, N)}: rel {errs}")
-            summary = (f"partials within {ratio:.3g}x (log sigma {ls_ratio:.3g}x) their gate, "
-                       f"log_q/log_p rel err {errs[0]:.3g}/{errs[1]:.3g}, reruns equal")
-            if (K, N) not in REGEN_SHAPES:
-                say(f"logprob ({prior}) odd shape K={K} N={N}: {summary}")
-                continue
-            ms = time_ms(lambda: lpm.logprobs_cuda(mu, rho, seeds, ptuple, pm), 20,
-                         windows=WINDOWS)
-            plain_ms = time_ms(lambda: lpm.logprobs_plain(mu, rho, seeds, ptuple, pm), 3, 1)
-            b = bound((2 + (pm is not None)) * K * N * 4 + KL_DRAWS * 12, 0.0, F32)
-            say(f"logprob ({prior}) S={KL_DRAWS} K={K} N={N}: {summary}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), no library call")
-            r = row(f"logprob[S={KL_DRAWS},K={K},N={N},{prior}]", "logprob",
-                    (KL_DRAWS, K, N, prior),
-                    "serve/flipout/bf16/mixture" if prior == "mixture" else None,
-                    "bayeformers_tpu_torch/csrc/logprob.cu",
-                    "bayeformers_tpu/ops/logprob.py:65",
-                    max((a - b).abs().max().item() for a, b in ((lq, lqp), (lp, lpp))),
-                    ms, plain_ms, b, None)
-            rows.append(r)
+            ratio = max(ratio, ((got - ref).abs() / (1e-5 * scale).clamp_min(1e-300)).max().item())
+            ls_ratio = max(ls_ratio, ((span[2 * S].double() - ls_ref).abs()
+                                      / (1e-5 * ls_scale).clamp_min(1e-300)).max().item())
+            lqp, lpp = lpm.logprobs_plain(mus[i], rhos[i], seeds[i], ptuple, pm)
+            for j, (a, b) in enumerate(((lq[i], lqp), (lp[i], lpp))):
+                rel[j] = max(rel[j], ((a - b).abs() / b.abs()).max().item())
+                err = max(err, (a - b).abs().max().item())
+            if i == len(spans) - 1:
+                fault = max(((a - b).abs() / b.abs()).max().item()
+                            for a, b in ((flq[i], lqp), (flp[i], lpp)))
+        check(max(ratio, ls_ratio) <= 1.0, f"logprob ({prior}) partials differ from the "
+              f"plain f64 sums by {ratio:.3g}x / {ls_ratio:.3g}x their gate (1e-5 of the sum "
+              "of |terms|)")
+        check(max(rel) <= 1e-5, f"logprob ({prior}) log_q/log_p differ from the plain "
+              f"version: rel {rel}")
+        check(fault > 1e-5, f"logprob ({prior}): the gate passes a forward without the last "
+              f"leaf's last block (rel {fault:.3g})")
+        summary = (f"{len(spans)} leaves: partials within {ratio:.3g}x (log sigma "
+                   f"{ls_ratio:.3g}x) their gate, log_q/log_p rel err {rel[0]:.3g}/"
+                   f"{rel[1]:.3g}, reruns equal; planted fault (last leaf's last block "
+                   f"dropped) rel {fault:.3g} (failed)")
+        mus, rhos, pms, seeds = group_inputs(BERT_LEAVES, S, prior, seed=1)
+        n = len(mus)
+        ms = time_ms(lambda: lpm.logprobs_grouped_cuda(mus, rhos, seeds, ptuple, pms), 20,
+                     windows=WINDOWS)
+        plain_ms = time_ms(lambda: [lpm.logprobs_plain(
+            mus[i], rhos[i], seeds[i], ptuple, None if pms is None else pms[i])
+            for i in range(n)], 2, 1)
+        n_el = sum(K * N for K, N in BERT_LEAVES)
+        n_bytes = n_el * 4 * (2 + (pms is not None)) + n * S * 12
+        inst = "ILi2ELi4ELi128E" if prior == "mixture" else "ILi1ELi4ELi128E"
+        n_mufu = group_quads(BERT_LEAVES) * mufu_of(mufu, "logprob_kernel" + inst)
+        b = bound_mufu(n_bytes, n_mufu, rate)
+        say(f"logprob ({prior}) S={S}: {summary}; BERT-base's {n} leaves: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (a leaf at a time), bound {b[0]:.4f} ms ({b[1]}; bytes "
+            f"{n_bytes / H100_BYTES_PER_S * 1e3:.4f}, MUFU {n_mufu:.4g} at {rate:.4g}/s "
+            f"{n_mufu / rate * 1e3:.4f}), no library call")
+        rows.append(row(f"logprob[S={S},leaves={n},{prior}]", "logprob", (n, S, prior),
+                        "serve/flipout/bf16/mixture" if prior == "mixture" else None,
+                        "bayeformers_tpu_torch/csrc/logprob.cu",
+                        "bayeformers_tpu/ops/logprob.py:65", err, ms, plain_ms, b, None))
+        del mus, rhos, pms
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1666,27 +1955,26 @@ def estimator_counts(fl, fb, at, sl, lpm) -> dict:
     and attention's)."""
     return {c.name: c.count for c in (fl.LAUNCHES, fl.INDEP_LAUNCHES, fl.REGEN_LAUNCHES,
                                       fb.LAUNCHES, fb.INDEP_LAUNCHES, sl.LAUNCHES,
-                                      sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES,
-                                      at.BWD_LAUNCHES)}
+                                      sl.REGEN_LAUNCHES, lpm.LAUNCHES, lpm.VJP_LAUNCHES,
+                                      at.LAUNCHES, at.BWD_LAUNCHES)}
 
 
 def want_counts(estimator, prior, n_layers, n_attn, backward: int) -> dict:
     """The launches of one request (``backward=0``) or of ``backward``
     steps: flipout runs #12 on every converted layer a forward and, a
-    backward, #13 for its VJP; under the mixture flipout and LRT run #11 on
-    every converted layer a forward and #13 for its VJP; the naive tier and
-    LRT run no Bayesian linear kernel; attention runs mha_fwd (and mha_bwd)
-    in every layer. Every other counter stays 0."""
+    backward, #13 and the reduce (#9's kernel, ``reduce_abuv``) for its VJP;
+    under the mixture flipout and LRT run one grouped #11 launch a forward
+    and one grouped log-prob VJP launch a backward; the naive tier and LRT
+    run no Bayesian linear kernel; attention runs mha_fwd (and mha_bwd) in
+    every layer. Every other counter stays 0."""
     n = max(backward, 1)
     want = {"mha_fwd": n_attn * n, "mha_bwd": n_attn * backward}
-    regen = 0
     if estimator == "flipout":
         want["sampled_dense"] = n_layers * n
-        regen += n_layers * backward
+        want["sampled_regen"] = want["reduce_abuv"] = n_layers * backward
     if prior == "mixture" and estimator != "naive":
-        want["logprob"] = n_layers * n
-        regen += n_layers * backward
-    want["sampled_regen"] = regen
+        want["logprob"] = n
+        want["logprob_vjp"] = backward
     return want
 
 
@@ -1709,7 +1997,8 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     label = (f"{estimator}{' ' + LM_NAME[family] if family else ''} ({tag}"
              + ("" if prior == "on_mu" else f", {prior}") + ")")
     mc_of = lambda m: bt.training.pick_mc(m, estimator)
-    counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lpm.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
+    counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, fb.INDEP_LAUNCHES, lpm.LAUNCHES,
+                lpm.VJP_LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
     bmodel, named = converted_base(bt, dtype, prior, family)
     n_layers, n_attn = len([p for p in bmodel.spec.paths if p.endswith("/kernel")]), 12
     want_layers = sum(LM_LAYERS[family].values()) if family else BERT_BASE_LAYERS
@@ -1861,8 +2150,8 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
 def phase_workload_estimator(fl, fb, at, sl, lpm, estimator) -> float:
     """bert_glue phases A-D with ``--estimator`` at S=10 in bf16, three
     batches an epoch (the GLUE recipe: frozen MOPED): flipout must launch
-    #12 and #13 and nothing of the fused tier or #11; local reparameterization
-    none of #1-#13."""
+    #12, #13 and the reduce behind its VJP, and nothing else of the fused
+    tier or #11; local reparameterization none of #1-#13."""
     from bayeformers_tpu_torch.workloads import bert_glue
 
     reset_counters(fl, fb, at, sl, lpm)
@@ -1873,7 +2162,7 @@ def phase_workload_estimator(fl, fb, at, sl, lpm, estimator) -> float:
     counts = estimator_counts(fl, fb, at, sl, lpm)
     flip = estimator == "flipout"
     bayes = {k: v for k, v in counts.items() if not k.startswith("mha")}
-    ok = all((v > 0) == (flip and k in ("sampled_dense", "sampled_regen"))
+    ok = all((v > 0) == (flip and k in ("sampled_dense", "sampled_regen", "reduce_abuv"))
              for k, v in bayes.items())
     check(ok and counts["mha_fwd"] > 0 and counts["mha_bwd"] > 0,
           f"bert_glue --estimator {estimator} launched {counts}")
@@ -2605,6 +2894,13 @@ def main() -> int:
     lib = _build.library()
     say(f"phase build: {time.perf_counter() - t:.2f} s (nvcc {_build.last_build_seconds:.2f} s)")
     timed("eps", phase_eps, lib, common, _build)
+    mufu, n_sass = sass_mufu(_build.build())
+    rate, clock = mufu_rate()
+    say(f"MUFU / all instructions (cuobjdump -sass) of the draw and split ops' kernels: "
+        + ", ".join(f"{k} {v} / {n_sass[k]}" for k, v in mufu.items()
+                    if "logprob" in k or "draw_kernelILi1EfLi3E" in k)
+        + f"; MUFU rate {rate:.4g}/s (16 a clock per SM, 132 SMs, clocks.max.sm; "
+        f"clocks.sm now {clock:.0f} MHz)")
 
     # rows: one per kernel, instance and shape; paths: the launch counts of
     # each main-path run, by counter and shape
@@ -2615,7 +2911,7 @@ def main() -> int:
         for dtype in (BF16, F32):
             tag = TAG[dtype]
             if dtype == F32:
-                rows += timed("regen (f32)", phase_regen, fl, moped_rho)
+                rows += timed("regen (f32)", phase_regen, fl, moped_rho, mufu, rate)
             for prior in PRIORS:
                 for anti, key, est in ests:
                     rows += timed(f"bayes_linear ({est}, {tag}, {prior})", phase_bayes_linear,
@@ -2647,8 +2943,8 @@ def main() -> int:
     if first <= 14:
         # phase 14: the split ops' kernels (#11-#13), then flipout, local
         # reparameterization and the naive tier
-        rows += timed("logprob", phase_logprob, lpm, sl, common, moped_rho)
-        rows += timed("split regen", phase_split_regen, sl, fl, moped_rho)
+        rows += timed("logprob", phase_logprob, lpm, common, mufu, rate)
+        rows += timed("split regen", phase_split_regen, sl, lpm, moped_rho, mufu, rate)
         for dtype in (BF16, F32):
             rows += timed(f"sampled_dense ({TAG[dtype]})", phase_sampled_dense, sl, fl,
                           moped_rho, dtype)

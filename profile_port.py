@@ -2,12 +2,18 @@
 """Where the port's time goes on the GPU, from ``torch.profiler``: the
 device time of each kernel in ``chip_smoke.py``'s serving request or its
 ELBO train step (S=10), antithetic or with independent draws
-(``--estimator fused``), in bf16 or f32 activations (``--dtype``), for
-BERT-base (the default) or a causal LM at base width (``--family gpt2`` or
-``llama``) at a batch and length (``--shape BxL``, default 8x128).
+(``--estimator fused``), or under flipout or local reparameterization
+(``--estimator flipout|local``), in bf16 or f32 activations (``--dtype``),
+for BERT-base (the default) or a causal LM at base width (``--family gpt2``
+or ``llama``) at a batch and length (``--shape BxL``, default 8x128),
+converted for a prior (``--prior``: frozen MOPED ``on_mu``, the default;
+``gaussian``, MOPED with a trainable mu; ``mixture``, random init under the
+scale mixture, whose KL flipout and LRT score by the grouped #11 and its
+VJP).
 
     python3 profile_port.py [--path serving|train] [--n 3] [--time 0]
-                            [--estimator antithetic|fused] [--dtype bf16|f32]
+                            [--estimator antithetic|fused|flipout|local]
+                            [--prior on_mu|gaussian|mixture] [--dtype bf16|f32]
                             [--family bert|gpt2|llama] [--shape 8x128]
                             [--tree DIR] [--out trace.json]
 
@@ -44,7 +50,9 @@ def main() -> int:
     ap.add_argument("--path", choices=("serving", "train"), default="serving")
     ap.add_argument("--n", type=int, default=3)
     ap.add_argument("--time", type=int, default=0)
-    ap.add_argument("--estimator", choices=("antithetic", "fused"), default="antithetic")
+    ap.add_argument("--estimator", choices=("antithetic", "fused", "flipout", "local"),
+                    default="antithetic")
+    ap.add_argument("--prior", choices=("on_mu", "gaussian", "mixture"), default="on_mu")
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--family", choices=("bert", "gpt2", "llama"), default="bert")
     ap.add_argument("--shape", default="8x128")
@@ -73,14 +81,25 @@ def main() -> int:
               "llama": chip_smoke.LLAMA}[args.family]
     B, L = (int(x) for x in args.shape.split("x"))
     anti = args.estimator == "antithetic"
-    if args.path == "serving" and family == chip_smoke.BERT:
-        pred = chip_smoke.build_predictor(bt, anti, dtype)
+    analytic = args.estimator in ("flipout", "local")
+    if args.path == "serving" and family == chip_smoke.BERT and analytic:
+        bmodel, _ = chip_smoke.converted_base(bt, dtype, args.prior)
+        req = chip_smoke.serving_requests(bt)[1]
+        inputs = tuple(torch.from_numpy(req[k]).to(bmodel.device)
+                       for k in ("input_ids", "attention_mask", "token_type_ids"))
+        mc = bt.training.pick_mc(bmodel, args.estimator)
+
+        def run(i):
+            with torch.inference_mode():
+                mc(i, 10, *inputs)
+    elif args.path == "serving" and family == chip_smoke.BERT:
+        pred = chip_smoke.build_predictor(bt, anti, dtype, args.prior)
         req = chip_smoke.serving_requests(bt)[1]  # fills the (8, 128) bucket
 
         def run(i):
             pred(req, seed=i)
     elif args.path == "serving":
-        bmodel, _ = chip_smoke.converted_base(bt, dtype, "on_mu", family)
+        bmodel, _ = chip_smoke.converted_base(bt, dtype, args.prior, family)
         pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(B,), seq_lens=(L,),
                             antithetic=anti, task="causal-lm")
         vocab = bmodel.model.config.vocab_size
@@ -90,7 +109,7 @@ def main() -> int:
         def run(i):
             pred(req, seed=i)
     else:
-        bmodel, named = chip_smoke.converted_base(bt, dtype, "on_mu", family)
+        bmodel, named = chip_smoke.converted_base(bt, dtype, args.prior, family)
         vocab = None if family == chip_smoke.BERT else bmodel.model.config.vocab_size
         batch = chip_smoke.train_batch(bt, B, L, family=family, vocab=vocab)
         tx = bt.training.adamw_with_decay_groups(2e-5, 0.0, bt.training.default_no_decay)
@@ -125,7 +144,7 @@ def main() -> int:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
     unit = "request" if args.path == "serving" else "step"
-    print(f"profiled {args.n} {unit}s ({args.estimator}, {args.dtype}): wall "
+    print(f"profiled {args.n} {unit}s ({args.estimator}, {args.prior}, {args.dtype}): wall "
           f"{wall_ms:.3f} ms, device busy "
           f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}% of wall)")
     attn_us = sum(e.self_device_time_total for e in events if "mha" in e.key)

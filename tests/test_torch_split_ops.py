@@ -178,14 +178,17 @@ def test_wrappers_take_plain_on_cpu_and_kernels_refuse_it():
     x = torch.randn(2, 3, 16)
     mu, rho = torch.zeros(16, 8), torch.full((16, 8), -3.0)
     seeds = torch.tensor([1, 2], dtype=torch.int32)
-    counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lp.LAUNCHES)
+    counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, lp.LAUNCHES, lp.VJP_LAUNCHES)
     before = [c.count for c in counters]
     sl.sampled_dense(x, mu, rho, seeds)
     sl.regenerate_weights(mu, rho, seeds)
     lp.sampled_logprobs(mu, rho, seeds, mixture=MIXTURE)
+    mixture = ("mixture",) + MIXTURE
+    g = torch.zeros(1, 2)
     for fn, args in ((sl.sampled_dense_cuda, (x, mu, rho, seeds)),
                      (sl.regen_cuda, (mu, rho, seeds, sl.REGEN_LAUNCHES)),
-                     (lp.logprobs_cuda, (mu, rho, seeds, ("mixture",) + MIXTURE))):
+                     (lp.logprobs_grouped_cuda, ([mu], [rho], [seeds], mixture)),
+                     (lp.logprob_vjp_grouped_cuda, ([mu], [rho], [seeds], mixture, g, g))):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(*args)
     assert [c.count for c in counters] == before
@@ -193,12 +196,25 @@ def test_wrappers_take_plain_on_cpu_and_kernels_refuse_it():
 
 @pytest.mark.parametrize("K,N", [(768, 3072), (300, 130), (256, 2)])
 def test_logprob_partials_layout(K, N):
-    """The logprob kernel's blocks (``logprob_block_of``) partition the
-    (K, N) elements into at most ``logprob_blocks`` blocks of at most 8192
-    (2048 Philox calls of four), each element in the block of its call."""
+    """The grouped logprob kernel's blocks: each leaf of a group (here (K,
+    N) between two others) owns the span of ``logprob_blocks`` blocks after
+    the leaf before it, and ``logprob_block_of`` partitions its (K, N)
+    elements into those blocks (past a ragged K a block may hold none), at
+    most 8192 (2048 Philox calls of four) each, each element in the block of
+    its call; the VJP's element offsets
+    follow the leaves in order."""
+    shapes = [(64, 48), (K, N), (256, 2)]
+    spans = lp.grouped_layout(shapes)
+    assert [(sp.K, sp.N) for sp in spans] == shapes
+    assert spans[0].first_block == 0 and spans[0].offset == 0
+    for a, b in zip(spans, spans[1:]):
+        assert b.first_block == a.first_block + a.n_blocks
+        assert b.offset == a.offset + a.K * a.N
+    sp = spans[1]
+    assert sp.n_blocks == lp.logprob_blocks(K, N)
     block = lp.logprob_block_of(K, N)
-    counts = torch.bincount(block.reshape(-1), minlength=lp.logprob_blocks(K, N))
-    assert counts.shape[0] == lp.logprob_blocks(K, N)
+    counts = torch.bincount(block.reshape(-1), minlength=sp.n_blocks)
+    assert counts.shape[0] == sp.n_blocks
     assert int(counts.sum()) == K * N and int(counts.max()) <= 8192
     # rows r and r + 128 of a unit and columns c, c + 1 (c even) share a call
     if K >= 256:

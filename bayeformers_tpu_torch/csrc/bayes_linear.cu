@@ -367,8 +367,8 @@ extern "C" int bft_bmm(const void* x, const void* w, void* y, int S, int M, int 
 extern "C" int bft_draw(const void* mu, const void* rho, const void* seeds,
                         const void* prior_mu, void* w, void* partials, void* ls_part,
                         int n_draws, int K, int N, int ldw, int pair, int w_f32, int prior,
-                        float inv_sigma_p, float mix_c1, float mix_c2, float mix_inv_s1,
-                        float mix_inv_s2, void* stream);
+                        int k_unit0, int n_unit0, float inv_sigma_p, float mix_c1,
+                        float mix_c2, float mix_inv_s1, float mix_inv_s2, void* stream);
 extern "C" int bft_draw_finalize(const void* partials, const void* ls_part, void* tile_part,
                                  void* logq, void* logp, int n_draws, int K, int N, int pair,
                                  int n_lp, float c_q, float c_p, void* stream);
@@ -378,8 +378,9 @@ extern "C" int bft_draw_finalize(const void* partials, const void* ls_part, void
 // bft_bmm), mu / rho (K, N) f32, seeds (S / H,) i32 (H = 2 for pairs),
 // prior_mu (K, N) f32 under GAUSSIAN -> y (S, M, N) in x's type, w (H *
 // chunk, K, ldw) in x's type (the draws of each chunk of ``chunk`` draws
-// in turn: the whole W when chunk = S / H), and under a prior (not NONE)
-// partials (part_per_draw floats a draw) / ls_part / tile_part (bft_draw,
+// in turn: the whole W when chunk = S / H), drawn at the unit offsets
+// (k_unit0, n_unit0) of a shard, and under a prior (not NONE) partials
+// (part_per_draw floats a draw) / ls_part / tile_part (bft_draw,
 // bft_draw_finalize) and logq / logp (S,) f32. Returns the first CUDA
 // error.
 extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
@@ -387,8 +388,7 @@ extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
                                 void* partials, void* ls_part, void* tile_part, void* logq,
                                 void* logp, int S, int M, int K, int N, int ldx, int ldw,
                                 int chunk, int part_per_draw, int pair, int x_f32, int x_vec,
-                                int prior,
-                                float inv_sigma_p, float c_q, float c_p, float mix_c1,
+                                int prior, int k_unit0, int n_unit0, float inv_sigma_p, float c_q, float c_p, float mix_c1,
                                 float mix_c2, float mix_inv_s1, float mix_inv_s2,
                                 void* stream) {
   const int h = pair ? 2 : 1, n_draws = S / h;
@@ -401,7 +401,8 @@ extern "C" int bft_bayes_linear(const void* x, const void* mu, const void* rho,
                        lp ? static_cast<float*>(partials) + static_cast<size_t>(t0) * part_per_draw
                           : nullptr,
                        lp && t0 == 0 ? ls_part : nullptr, n, K, N, ldw, pair, x_f32, prior,
-                       inv_sigma_p, mix_c1, mix_c2, mix_inv_s1, mix_inv_s2, stream);
+                       k_unit0, n_unit0, inv_sigma_p, mix_c1, mix_c2, mix_inv_s1, mix_inv_s2,
+                       stream);
     if (err) return err;
     err = bft_bmm(static_cast<const char*>(x) + static_cast<size_t>(h) * t0 * M * ldx * isz, w,
                   static_cast<char*>(y) + static_cast<size_t>(h) * t0 * M * N * isz, h * n, M,

@@ -1,5 +1,6 @@
-// unit_eps: the device eps stream written out, for checking it against the
-// plain-torch stream (bayeformers_tpu_torch/ops/common.py::unit_eps). No TPU
+// unit_eps: the device eps stream written out, and its parts over every
+// uniform it can form, for checking them against the plain-torch stream
+// (bayeformers_tpu_torch/ops/common.py::unit_eps). No TPU
 // kernel of its own: the stream lives inside the bayes_linear kernel, as
 // ops/common.py::unit_eps lives inside the Pallas kernels.
 #include <cuda_runtime.h>
@@ -9,6 +10,8 @@
 #include "eps.cuh"
 
 namespace {
+
+constexpr uint32_t STREAM_UNIFORMS = 1u << 24;
 
 // One thread per (draw, half-unit row pair, column pair): writes the four
 // normals of one Philox call and their words, for the (K, N) block whose
@@ -52,7 +55,27 @@ __global__ void unit_eps_kernel(const int32_t* __restrict__ seeds, int S, int K,
   }
 }
 
+// One thread per uniform the stream can form: u = uniform_from_bits(i << 8)
+// for i < 2^24, its radius and the cos and sin of its angle.
+__global__ void stream_parts_kernel(float* __restrict__ u, float* __restrict__ r,
+                                    float* __restrict__ c, float* __restrict__ s) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= STREAM_UNIFORMS) return;
+  u[i] = bft::uniform_from_bits(i << 8);
+  r[i] = bft::box_muller_radius(u[i]);
+  bft::box_muller_angle(u[i], &c[i], &s[i]);
+}
+
 }  // namespace
+
+// The stream's parts over all its uniforms: u, r, c, s (2^24,) f32 (see
+// stream_parts_kernel). Returns cudaGetLastError().
+extern "C" int bft_stream_parts(void* u, void* r, void* c, void* s, void* stream) {
+  stream_parts_kernel<<<STREAM_UNIFORMS / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(u), static_cast<float*>(r), static_cast<float*>(c),
+      static_cast<float*>(s));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // seeds (S,) i32 -> eps (S, K, N) f32 and bits (S, K, N, 2) u32 (the two
 // Philox words each element's Box-Muller pair used). Returns cudaGetLastError().

@@ -7,10 +7,15 @@
 // r + 128 share one Box-Muller pair (cos / sin branch) and columns c, c + 1
 // (c even) share one Philox call, counter ((r * 128 + c) >> 1, 0, 0, 0).
 //
-// Built without --use_fast_math: logf / sinf / cosf / sqrtf are the precise
+// Built without --use_fast_math: logf / sincosf / sqrtf are the precise
 // versions, and the uniform is formed with explicit round-to-nearest
 // intrinsics, so the bits equal the plain-torch stream's and the normals agree
-// to a few ulps.
+// to a few ulps. sincosf shares one range reduction between the two branches
+// and one fma forms the uniform (its product is exact, so it rounds once, as
+// the plain stream's multiply and add do). eps.cu's bft_stream_parts writes
+// the uniform, the radius and both branches' cos and sin for every one of
+// the 2^24 uniforms the stream can form; chip_smoke.py holds them bit for
+// bit against the plain stream's torch ops on the card.
 #pragma once
 
 #include <cstdint>
@@ -49,19 +54,27 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
 
 __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
   // (bits >> 8) * 2^-24 is exact in f32, so fused or not the sum rounds once.
-  return __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f),
-                   0.5f / 16777216.0f);
+  return __fmaf_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f, 0.5f / 16777216.0f);
+}
+
+// The Box-Muller radius sqrt(-2 log u1).
+__device__ __forceinline__ float box_muller_radius(float u1) {
+  return sqrtf(__fmul_rn(-2.0f, logf(u1)));
+}
+
+// cos and sin of the Box-Muller angle 2 pi u2.
+__device__ __forceinline__ void box_muller_angle(float u2, float* cs, float* sn) {
+  sincosf(__fmul_rn(6.28318530717958647692f, u2), sn, cs);
 }
 
 // Both Box-Muller branches from one pair of words.
 __device__ __forceinline__ void box_muller_pair(uint32_t b1, uint32_t b2,
                                                 float* z_cos, float* z_sin) {
-  const float u1 = uniform_from_bits(b1);
-  const float u2 = uniform_from_bits(b2);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  const float theta = __fmul_rn(6.28318530717958647692f, u2);
-  *z_cos = __fmul_rn(r, cosf(theta));
-  *z_sin = __fmul_rn(r, sinf(theta));
+  const float r = box_muller_radius(uniform_from_bits(b1));
+  float cs, sn;
+  box_muller_angle(uniform_from_bits(b2), &cs, &sn);
+  *z_cos = __fmul_rn(r, cs);
+  *z_sin = __fmul_rn(r, sn);
 }
 
 // The four normals of one Philox call: elements (r, c), (r, c + 1) of the cos

@@ -42,15 +42,16 @@ _D = ctypes.c_double
 # c_void_p, ints as c_int, floats as c_float, doubles as c_double); every
 # one returns cudaGetLastError().
 SIGNATURES = {
-    "bft_bayes_linear": [_P] * 12 + [_I] * 12 + [_F] * 7 + [_P],
+    "bft_bayes_linear": [_P] * 12 + [_I] * 14 + [_F] * 7 + [_P],
     "bft_mha_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "bft_mha_bwd": [_P] * 9 + [_I] * 6 + [_P],
     "bft_reduce_abuv": [_P] * 10 + [_I] * 12 + [_F] * 4 + [_P],
     "bft_reduce_abuv_anti": [_P] * 10 + [_I] * 12 + [_F] * 4 + [_P],
     "bft_logprob": [_P] + [_I] * 4 + [_P] * 3 + [_F, _D] + [_F] * 4 + [_P],
     "bft_logprob_vjp": [_P] + [_I] * 4 + [_P] * 4 + [_F] * 5 + [_P],
-    "bft_regen": [_P] * 5 + [_I] * 3 + [_P],
+    "bft_regen": [_P] * 5 + [_I] * 6 + [_P],
     "bft_unit_eps": [_P] + [_I] * 5 + [_P] * 3,
+    "bft_stream_parts": [_P] * 5,
 }
 
 _lock = threading.Lock()

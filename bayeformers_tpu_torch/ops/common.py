@@ -106,6 +106,21 @@ def philox_bits(seeds: torch.Tensor, k_idx: torch.Tensor, n_idx: torch.Tensor):
     return bits1, bits2, (k % UNIT_K) >= half
 
 
+def unit_offsets(offsets) -> tuple[int, int]:
+    """The element offsets ``(k0, n0)`` of a weight shard within its whole
+    layer (the reference's ``unit_offsets``), as two ints; None is (0, 0).
+    They must be non-negative multiples of (UNIT_K, UNIT_N): the kernels draw
+    by whole units, so only there does a shard draw exactly the slice of the
+    whole layer's noise on every path. Anything else raises ValueError."""
+    if offsets is None:
+        return 0, 0
+    k0, n0 = (int(v) for v in (offsets.tolist() if hasattr(offsets, "tolist") else offsets))
+    if k0 < 0 or n0 < 0 or k0 % UNIT_K or n0 % UNIT_N:
+        raise ValueError(f"unit_offsets {(k0, n0)} must be non-negative multiples of "
+                         f"the eps units ({UNIT_K}, {UNIT_N})")
+    return k0, n0
+
+
 def unit_eps(seeds: torch.Tensor, shape: tuple[int, int],
              offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """(S, K, N) float32 standard normals of the unit stream for a weight

@@ -34,6 +34,12 @@ bf16 W residual.
 An independent sample s with seed ``seeds[s]`` draws exactly what
 antithetic pair t draws from ``seeds[t]``.
 
+``unit_offsets=(k0, n0)`` (the reference's keyword, for tensor
+parallelism): the (K, N) weight is the shard at element offsets (k0, n0)
+of a larger layer, multiples of (256, 128), and draws exactly that slice of
+the whole layer's noise, on every path and in the regenerating backward
+too. An injected ``eps`` ignores them.
+
 :func:`bayes_linear` is the wrapper: a CPU tensor takes the plain version
 :func:`bayes_linear_plain`; a CUDA tensor launches the hand-written kernels
 or raises. On the card the op runs in two stages (:func:`bayes_linear_cuda`):
@@ -52,13 +58,15 @@ Under autograd there are the reference's two custom VJPs:
 * ``save_weights=False``: :class:`BayesLinearRegen` (``_fwd`` / ``_bwd`` and
   ``_fwd_anti`` / ``_bwd_anti``). The forward writes no W and keeps
   ``(x, mu, rho, seeds)``; the backward rebuilds the f32 W from the seeds
-  with :func:`regenerate_weights` (``csrc/regen.cu``, the counterpart of
-  ``_fullk_regen_kernel``), interleaved as ``(w, 2 mu - w)`` for pairs.
+  in one launch of ``csrc/regen.cu`` (the counterpart of
+  ``_fullk_regen_kernel``; :func:`regenerate_weights`): pairs already
+  interleaved as ``(w, 2 mu - w)``, and for bf16 x with W's bf16 copy for
+  dx written in the same pass.
 
 Both backwards then compute
 
     dx         = g_y @ W^T               (a batched matmul in x's dtype, as
-                                          XLA's einsum)
+                                          XLA's einsum, on W in x's dtype)
     (A, B[, U], V) = reduce_abuv[_anti](x, g_y, W, mu, g_p, mixture,
                                         want_u)  (ops/fused_backward)
     dmu, drho  = finalize(A, B, V, rho, g_q, U, prior, mu, prior_mu, g_p)
@@ -112,33 +120,40 @@ def naive_from_w(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                                    dim=(1, 2))
 
 
-def sample_weights(mu, rho, seeds=None, eps=None, *, antithetic: bool = False
-                   ) -> torch.Tensor:
-    """The (S, K, N) f32 weights of ``seeds`` on the unit stream, or of an
-    explicit ``eps``: one draw per sample, or (``antithetic``) one per pair,
-    interleaved as ``(w, 2 mu - w)``. The plain version of the forward
-    kernel's W and of :func:`regenerate_weights`: ``mu + sigma * eps`` with
-    the product and the sum each rounded, as the kernels round them."""
-    w = sampled_linear.naive_weights(mu, rho, seeds, eps)
+def sample_weights(mu, rho, seeds=None, eps=None, *, antithetic: bool = False,
+                   offsets=None) -> torch.Tensor:
+    """The (S, K, N) f32 weights of ``seeds`` on the unit stream at a
+    shard's ``offsets`` (k0, n0), or of an explicit ``eps``: one draw per
+    sample, or (``antithetic``) one per pair, interleaved as ``(w, 2 mu -
+    w)``. The plain version of the forward kernel's W and of
+    :func:`regenerate_weights`: ``mu + sigma * eps`` with the product and
+    the sum each rounded, as the kernels round them."""
+    w = sampled_linear.naive_weights(mu, rho, seeds, eps, offsets)
     return interleave_antithetic(w, mu) if antithetic else w
 
 
-def regenerate_weights(mu, rho, seeds, *, plain: bool = False) -> torch.Tensor:
-    """(S', K, N) f32 weights of ``seeds`` (S',) on the unit stream: exactly
-    the W that the forward drew for those seeds (the reference's
-    ``regenerate_weights`` / ``_regen``). A CPU tensor, or ``plain=True``,
-    takes the plain version (:func:`sample_weights`); a CUDA tensor launches
+def regenerate_weights(mu, rho, seeds, *, antithetic: bool = False, offsets=None,
+                       plain: bool = False) -> torch.Tensor:
+    """(S, K, N) f32 weights of ``seeds`` (S',) on the unit stream at a
+    shard's ``offsets``: exactly the W that the forward drew for those
+    seeds (the reference's ``regenerate_weights`` / ``_regen``), S = S'
+    draws, or with ``antithetic`` S = 2 S' members, the pairs interleaved
+    (``_regen_anti``). A CPU tensor, or ``plain=True``, takes the plain
+    version (:func:`sample_weights`); a CUDA tensor launches
     ``csrc/regen.cu`` (``bft_regen``, Pallas #10) or raises."""
     if plain or mu.device.type == "cpu":
-        return sample_weights(mu, rho, seeds)
-    return regenerate_weights_cuda(mu, rho, seeds)
+        return sample_weights(mu, rho, seeds, antithetic=antithetic, offsets=offsets)
+    return regenerate_weights_cuda(mu, rho, seeds, antithetic=antithetic, offsets=offsets)
 
 
-def regenerate_weights_cuda(mu, rho, seeds) -> torch.Tensor:
+def regenerate_weights_cuda(mu, rho, seeds, *, antithetic: bool = False, offsets=None,
+                            lo_dtype=None):
     """Launch ``bft_regen`` (csrc/regen.cu, shared with the split ops'
-    ``sampled_linear.regenerate_weights``), counted in
-    :data:`REGEN_LAUNCHES`."""
-    return sampled_linear.regen_cuda(mu, rho, seeds, REGEN_LAUNCHES)
+    ``sampled_linear.regenerate_weights``) in its pair instance when
+    ``antithetic``, counted in :data:`REGEN_LAUNCHES`; ``lo_dtype=
+    torch.bfloat16`` also returns W's bf16 copy, ``(w, w_bf16)``."""
+    return sampled_linear.regen_cuda(mu, rho, seeds, REGEN_LAUNCHES, lo_dtype,
+                                     pair=antithetic, offsets=offsets)
 
 
 class SampledWeights(torch.autograd.Function):
@@ -173,16 +188,17 @@ def sampled_weights(mu, rho, seeds, *, plain: bool = False, eps=None):
 
 def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,
                        eps=None, w=None, save_weights: bool = False,
-                       mixture=None, prior_mu=None):
+                       mixture=None, prior_mu=None, unit_offsets=None):
     """Plain-torch version. The draw is, in order of precedence: an explicit
     (S, K, N) ``w``, an explicit ``eps`` (one per draw: (S, K, N), or
-    (S/2, K, N) when ``antithetic``), or the unit stream of ``seeds``;
-    ``eps``/``w`` are the injection points for parity tests. The prior is
-    ``mixture``, ``prior_mu`` or, with neither, the one centred on mu.
-    Returns ``(y, log_q, log_p)``, plus W in x's dtype when
+    (S/2, K, N) when ``antithetic``), or the unit stream of ``seeds`` at
+    ``unit_offsets``; ``eps``/``w`` are the injection points for parity
+    tests. The prior is ``mixture``, ``prior_mu`` or, with neither, the one
+    centred on mu. Returns ``(y, log_q, log_p)``, plus W in x's dtype when
     ``save_weights``."""
     if w is None:
-        w = sample_weights(mu, rho, seeds, eps, antithetic=antithetic)
+        w = sample_weights(mu, rho, seeds, eps, antithetic=antithetic,
+                           offsets=unit_offsets)
     y, lq, lp = naive_from_w(x, w, mu, rho, prior_of(mixture, prior_mu), prior_mu)
     if save_weights:
         return y, lq, lp, w.to(x.dtype)
@@ -190,27 +206,30 @@ def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,
 
 
 def _forward(x, mu, rho, seeds, eps, antithetic: bool, plain: bool, save_w: bool,
-             prior: tuple, prior_mu):
+             prior: tuple, prior_mu, offsets):
     mixture = prior[1:] if prior[0] == "mixture" else None
     if plain or x.device.type == "cpu":
         return bayes_linear_plain(x, mu, rho, seeds, antithetic=antithetic,
                                   eps=eps, save_weights=save_w, mixture=mixture,
-                                  prior_mu=prior_mu)
+                                  prior_mu=prior_mu, unit_offsets=offsets)
     common.require(eps is None, "an injected eps runs the plain version only")
     return bayes_linear_cuda(x, mu, rho, seeds, antithetic=antithetic,
                              save_weights=save_w, mixture=mixture,
-                             prior_mu=prior_mu)
+                             prior_mu=prior_mu, unit_offsets=offsets)
 
 
-def _backward(ctx, x, mu, rho, w, prior_mu, g_y, g_q, g_p):
+def _backward(ctx, x, mu, rho, w, prior_mu, g_y, g_q, g_p, w_x=None):
     """The gradients of ``(x, mu, rho, seeds, eps, antithetic, plain, prior,
-    prior_mu)`` from the (S, K, N) sampled W, the reference's ``_bwd_common``
-    and ``_bwd_common_anti``: dx in x's dtype (W cast to it), the reduce on
-    W as given (x's dtype when saved, f32 when regenerated), then
-    ``finalize``; no gradient for ``prior_mu``."""
+    prior_mu, offsets)`` from the (S, K, N) sampled W, the reference's
+    ``_bwd_common`` and ``_bwd_common_anti``: dx in x's dtype on ``w_x``
+    (W in x's dtype; W cast to it when not given), the reduce on W as given
+    (x's dtype when saved, f32 when regenerated), then ``finalize``; no
+    gradient for ``prior_mu``."""
     dx = dmu = drho = None
     if ctx.needs_input_grad[0]:
-        dx = torch.bmm(g_y.to(x.dtype), w.to(x.dtype).transpose(1, 2)).to(x.dtype)
+        if w_x is None:
+            w_x = w.to(x.dtype)
+        dx = torch.bmm(g_y.to(x.dtype), w_x.transpose(1, 2)).to(x.dtype)
     if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
         prior = ctx.prior
         if ctx.antithetic:
@@ -223,7 +242,7 @@ def _backward(ctx, x, mu, rho, w, prior_mu, g_y, g_q, g_p):
         dmu, drho = bwd.finalize(acc[0], acc[1], acc[-1], rho, g_q, u, prior=prior,
                                  mu=mu, prior_mu=prior_mu, g_p=g_p)
     return (dx, dmu if ctx.needs_input_grad[1] else None,
-            drho if ctx.needs_input_grad[2] else None) + (None,) * 6
+            drho if ctx.needs_input_grad[2] else None) + (None,) * 7
 
 
 class BayesLinear(torch.autograd.Function):
@@ -233,9 +252,9 @@ class BayesLinear(torch.autograd.Function):
     kernels)."""
 
     @staticmethod
-    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu):
+    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu, offsets):
         y, lq, lp, w = _forward(x, mu, rho, seeds, eps, antithetic, plain,
-                                True, prior, prior_mu)
+                                True, prior, prior_mu, offsets)
         ctx.save_for_backward(x, mu, rho, w, prior_mu)
         ctx.antithetic = antithetic
         ctx.plain = plain
@@ -251,31 +270,39 @@ class BayesLinear(torch.autograd.Function):
 class BayesLinearRegen(torch.autograd.Function):
     """``(y, log_q, log_p)`` with the regenerating backward: the forward
     writes no W and keeps ``(x, mu, rho, seeds, prior_mu)`` (and an injected
-    ``eps``); the backward rebuilds the f32 W of the seeds
-    (:func:`regenerate_weights`, kernel #10 on the card) and interleaves
-    the pairs, as the reference's ``_bwd`` / ``_bwd_anti`` do; ``plain`` as
-    in :class:`BayesLinear`."""
+    ``eps``) and the offsets; the backward rebuilds the f32 W of the seeds
+    at those offsets, the pairs interleaved, as the reference's ``_bwd`` /
+    ``_bwd_anti`` do: on the card in one launch of kernel #10
+    (:func:`regenerate_weights_cuda`), which for bf16 x also writes the
+    bf16 copy that dx takes; ``plain`` as in :class:`BayesLinear`."""
 
     @staticmethod
-    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu):
+    def forward(ctx, x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu, offsets):
         y, lq, lp = _forward(x, mu, rho, seeds, eps, antithetic, plain,
-                             False, prior, prior_mu)
+                             False, prior, prior_mu, offsets)
         ctx.save_for_backward(x, mu, rho, seeds, eps, prior_mu)
         ctx.antithetic = antithetic
         ctx.plain = plain
         ctx.prior = prior
+        ctx.offsets = offsets
         return y, lq, lp
 
     @staticmethod
     def backward(ctx, g_y, g_q, g_p):
         x, mu, rho, seeds, eps, prior_mu = ctx.saved_tensors
+        w_x = None
         if eps is not None:
             w = sample_weights(mu, rho, eps=eps, antithetic=ctx.antithetic)
+        elif ctx.plain or mu.device.type == "cpu":
+            w = regenerate_weights(mu, rho, seeds, antithetic=ctx.antithetic,
+                                   offsets=ctx.offsets, plain=True)
         else:
-            w = regenerate_weights(mu, rho, seeds, plain=ctx.plain)
-            if ctx.antithetic:
-                w = interleave_antithetic(w, mu)
-        return _backward(ctx, x, mu, rho, w, prior_mu, g_y, g_q, g_p)
+            w = regenerate_weights_cuda(
+                mu, rho, seeds, antithetic=ctx.antithetic, offsets=ctx.offsets,
+                lo_dtype=None if x.dtype == torch.float32 else x.dtype)
+            if x.dtype != torch.float32:
+                w, w_x = w
+        return _backward(ctx, x, mu, rho, w, prior_mu, g_y, g_q, g_p, w_x)
 
 
 def takes_regen_vjp(x, antithetic: bool, save_weights: bool) -> bool:
@@ -298,7 +325,8 @@ def takes_regen_vjp(x, antithetic: bool, save_weights: bool) -> bool:
 
 def bayes_linear(x, mu, rho, seeds, *, mixture=None, prior_mu=None,
                  prior_on_mu: bool = False, save_weights: bool = True,
-                 antithetic: bool = False, plain: bool = False, eps=None):
+                 antithetic: bool = False, unit_offsets=None, plain: bool = False,
+                 eps=None):
     """``(y, log_q, log_p)`` for x (S, M, K), mu/rho (K, N) and ``seeds``
     (S,), or (S/2,) when ``antithetic``; log-probs of shape (S,).
 
@@ -310,34 +338,42 @@ def bayes_linear(x, mu, rho, seeds, *, mixture=None, prior_mu=None,
     :class:`BayesLinearRegen`, which writes no W and regenerates it in the
     backward; antithetic f32 layers with a padded K above 2048 take the
     latter either way (:func:`takes_regen_vjp`). Without gradients
-    (inference) no W is written. Port keywords: ``plain=True`` runs the
-    plain versions on the tensors' device (a CPU tensor always does);
-    ``eps`` injects the draw into the plain version (tests)."""
+    (inference) no W is written. ``unit_offsets`` (k0, n0): the element
+    offsets of this weight shard within the whole layer, multiples of (256,
+    128), else ValueError; the shard draws exactly that slice of the whole
+    layer's noise (the reference's tensor-parallel keyword). Port keywords:
+    ``plain=True`` runs the plain versions on the tensors' device (a CPU
+    tensor always does); ``eps`` injects the draw into the plain version
+    (tests), which then ignores the offsets."""
     prior = prior_of(mixture, prior_mu, prior_on_mu)
+    offsets = common.unit_offsets(unit_offsets)
     if torch.is_grad_enabled() and (x.requires_grad or mu.requires_grad
                                     or rho.requires_grad):
         fn = (BayesLinearRegen if takes_regen_vjp(x, antithetic, save_weights)
               else BayesLinear)
-        return fn.apply(x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu)
+        return fn.apply(x, mu, rho, seeds, eps, antithetic, plain, prior, prior_mu,
+                        offsets)
     return _forward(x, mu, rho, seeds, eps, antithetic, plain, False, prior,
-                    prior_mu)
+                    prior_mu, offsets)
 
 
 def bayes_linear_with_w(x, mu, rho, seeds, *, antithetic: bool = False,
                         plain: bool = False, eps=None, mixture=None,
-                        prior_mu=None):
+                        prior_mu=None, unit_offsets=None):
     """``(y, log_q, log_p, W)`` without gradients, for checks of the draw:
     :func:`bayes_linear`'s forward under the prior ``mixture``,
-    ``prior_mu`` or (neither) the one centred on mu, together with the
-    sampled W (S, K, N) in x's dtype, as its saved-residual forward writes
-    it."""
+    ``prior_mu`` or (neither) the one centred on mu, at ``unit_offsets``,
+    together with the sampled W (S, K, N) in x's dtype, as its
+    saved-residual forward writes it."""
     with torch.no_grad():
         return _forward(x, mu, rho, seeds, eps, antithetic, plain, True,
-                        prior_of(mixture, prior_mu), prior_mu)
+                        prior_of(mixture, prior_mu), prior_mu,
+                        common.unit_offsets(unit_offsets))
 
 
-# The draw pass's blocks (csrc/regen.cu): a column tile of 64 and a row
-# group of 8 unit rows (16 weight rows), 16 groups to a 256-row unit.
+# The draw pass's log-prob partials (csrc/regen.cu): a column tile of 64 (a
+# half warp's columns) and a row group of 8 unit rows (16 weight rows), 16
+# groups to a 256-row unit.
 DRAW_TILE_N = 64
 DRAW_GROUP_ROWS = 8
 # Serving writes W only for the product: a W of more bytes than this is
@@ -365,18 +401,19 @@ def _block_rows(K: int) -> torch.Tensor:
 
 
 def draw_plain(mu, rho, seeds=None, *, antithetic: bool = False, eps=None,
-               dtype=torch.float32, mixture=None, prior_mu=None):
-    """Plain mirror of the draw pass (``bft_draw``): ``(W, partials,
-    ls_part)`` with W (S, K, N) in ``dtype`` (pairs interleaved), partials
-    (n_draws, n_tiles, n_groups, 1 + n_lp) f32 the per-block sums of
-    ``-eps^2 / 2`` and of each member's log-prior terms (both members of a
-    pair under a prior not centred on mu), and ls_part (n_tiles, n_groups)
-    the sums of log sigma, each block a 64-column tile of a row group
-    (:func:`draw_layout`). Sums in f32 in torch's order, not the kernel's."""
+               dtype=torch.float32, mixture=None, prior_mu=None, offsets=None):
+    """Plain mirror of the draw pass (``bft_draw``) at a shard's unit
+    ``offsets``: ``(W, partials, ls_part)`` with W (S, K, N) in ``dtype``
+    (pairs interleaved), partials (n_draws, n_tiles, n_groups, 1 + n_lp)
+    f32 the per-block sums of ``-eps^2 / 2`` and of each member's log-prior
+    terms (both members of a pair under a prior not centred on mu), and
+    ls_part (n_tiles, n_groups) the sums of log sigma, each block a
+    64-column tile of a row group (:func:`draw_layout`). Sums in f32 in
+    torch's order, not the kernel's."""
     prior = prior_of(mixture, prior_mu)
     K, N = mu.shape
     if eps is None:
-        eps = common.unit_eps(seeds, (K, N))
+        eps = common.unit_eps(seeds, (K, N), common.unit_offsets(offsets))
     sigma = sigma_from_rho(rho)
     se = sigma[None] * eps
     w0 = mu[None] + se
@@ -452,14 +489,16 @@ def _constants(K: int, N: int, prior: tuple) -> tuple[float, float]:
 
 def launch_forward(x, mu, rho, seeds, y, w, chunk: int, *, pair: bool, prior: tuple,
                    prior_mu=None, scratch=None, part_per_draw: int = 0, logq=None,
-                   logp=None) -> None:
+                   logp=None, offsets=None) -> None:
     """Launch ``bft_bayes_linear`` (csrc/bayes_linear.cu): the draw pass
-    (``bft_draw``, csrc/regen.cu) and the product (``bft_bmm``) for each
-    chunk of ``chunk`` draws in turn into ``w`` (H chunk, K, ldw), y in
-    place, then, under a prior, the log-probs' finalize from ``scratch`` =
-    the device addresses of (partials, ``part_per_draw`` floats a draw,
-    ls_part, tile_part) into ``logq`` / ``logp``. A prior of ``("none",)``
-    draws and multiplies only."""
+    (``bft_draw``, csrc/regen.cu) at a shard's unit ``offsets`` and the
+    product (``bft_bmm``) for each chunk of ``chunk`` draws in turn into
+    ``w`` (H chunk, K, ldw), y in place, then, under a prior, the
+    log-probs' finalize from ``scratch`` = the device addresses of
+    (partials, ``part_per_draw`` floats a draw, ls_part, tile_part) into
+    ``logq`` / ``logp``. A prior of ``("none",)`` draws and multiplies
+    only."""
+    k0, n0 = common.unit_offsets(offsets)
     S, M, K = x.shape
     N = mu.shape[1]
     if x.dtype == torch.bfloat16:
@@ -477,20 +516,21 @@ def launch_forward(x, mu, rho, seeds, y, w, chunk: int, *, pair: bool, prior: tu
         None if logp is None else logp.data_ptr(), S, M, K, N, ldx, w.shape[-1], chunk,
         part_per_draw, int(pair),
         int(x.dtype == torch.float32), x_vec, PRIOR_CODE.get(prior[0], PRIOR_NONE),
-        1.0 / MOPED_PRIOR_SIGMA, c_q, c_p, *mixture_constants(pi, s1, s2),
-        common.cuda_stream(x))
+        k0 // common.UNIT_K, n0 // common.UNIT_N, 1.0 / MOPED_PRIOR_SIGMA, c_q, c_p,
+        *mixture_constants(pi, s1, s2), common.cuda_stream(x))
     _build.check(err, "bft_bayes_linear")
 
 
 def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
                       save_weights: bool = False, mixture=None, prior_mu=None,
-                      logprob_partials: bool = False):
+                      logprob_partials: bool = False, unit_offsets=None):
     """Launch the draw pass, the product and the log-probs' finalize on the
     card (independent draws, ``seeds`` (S,), or pairs, ``seeds`` (S/2,)),
     each in its instance for x's dtype and the prior (``mixture``,
-    ``prior_mu`` or, with neither, the one centred on mu); y and W take x's
-    dtype. The launch counters key each call by ``(M, K, N, tag)``, the tag
-    naming the dtype and any prior but the one on mu (``"bf16/mixture"``).
+    ``prior_mu`` or, with neither, the one centred on mu), drawing at the
+    shard's ``unit_offsets``; y and W take x's dtype. The launch counters
+    key each call by ``(M, K, N, tag)``, the tag naming the dtype and any
+    prior but the one on mu (``"bf16/mixture"``).
     Without ``save_weights`` a W of more than :data:`DRAW_CHUNK_BYTES` is
     drawn and multiplied in chunks of draws. ``logprob_partials`` also
     returns the log-prob partial sums before their constants,
@@ -547,7 +587,8 @@ def bayes_linear_cuda(x, mu, rho, seeds, *, antithetic: bool = False,
     with common.on_device(x):
         launch_forward(x, mu, rho, seeds, y, w, chunk, pair=antithetic, prior=prior,
                        prior_mu=prior_mu, scratch=scratch,
-                       part_per_draw=n_tiles * n_groups * n_part, logq=logq, logp=logp)
+                       part_per_draw=n_tiles * n_groups * n_part, logq=logq, logp=logp,
+                       offsets=unit_offsets)
     (LAUNCHES if antithetic else INDEP_LAUNCHES).add(
         (M, K, N, tag + PRIOR_TAG[prior[0]]))
     out = (y, logq, logp)

@@ -28,10 +28,11 @@ tensor, or ``plain=True``, takes the plain version; there is no fallback):
   ``csrc/bayes_linear.cu``) takes y, bf16 or f32 x;
 * :func:`regen_cuda`: ``bft_regen`` (``csrc/regen.cu``), the (S, K, N) f32 W
   of S seeds (Pallas #13, ``_regen_kernel``, and #10 of the fused op, which
-  on one stream compute the same W), and on request the same W in bf16,
-  written in the same pass. :func:`regenerate_weights` and the VJP count
-  its launches in :data:`REGEN_LAUNCHES`, ``fused_linear.regenerate_weights``
-  in its own counter.
+  on one stream compute the same W), or of S / 2 antithetic pairs (#10's
+  pair instance), and on request the same W in bf16, written in the same
+  pass. :func:`regenerate_weights` and the VJP count its launches in
+  :data:`REGEN_LAUNCHES`, ``fused_linear.regenerate_weights`` in its own
+  counter.
 
 The VJP (:func:`sampled_dense_vjp`, the reference's ``_sampled_dense_bwd``)
 rebuilds W and takes
@@ -58,12 +59,15 @@ LAUNCHES = common.LaunchCounter("sampled_dense")
 REGEN_LAUNCHES = common.LaunchCounter("sampled_regen")
 
 
-def naive_weights(mu, rho, seeds=None, eps=None) -> torch.Tensor:
+def naive_weights(mu, rho, seeds=None, eps=None, offsets=None) -> torch.Tensor:
     """The plain (S, K, N) f32 weights ``mu + softplus(rho) * eps`` of
     ``seeds`` on the unit stream, or of an explicit ``eps`` (S, K, N): the
-    product and the sum each rounded, as the kernels round them."""
+    product and the sum each rounded, as the kernels round them.
+    ``offsets`` (k0, n0): the element offsets of this shard in its whole
+    layer, multiples of (256, 128) (:func:`common.unit_offsets`); an
+    injected ``eps`` ignores them."""
     if eps is None:
-        eps = common.unit_eps(seeds, tuple(mu.shape))
+        eps = common.unit_eps(seeds, tuple(mu.shape), common.unit_offsets(offsets))
     return mu[None] + sigma_from_rho(rho)[None] * eps
 
 
@@ -74,11 +78,15 @@ def naive_sampled_dense(x, mu, rho, seeds=None, eps=None) -> torch.Tensor:
     return torch.bmm(x.float(), w.to(x.dtype).float()).to(x.dtype)
 
 
-def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter, lo_dtype=None):
+def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter, lo_dtype=None, *,
+               pair: bool = False, offsets=None):
     """Launch ``bft_regen`` (csrc/regen.cu): the (S, K, N) f32 W of ``seeds``
-    (S,) on the unit stream; ``counter`` takes the launch. ``lo_dtype=
-    torch.bfloat16`` also returns W rounded to bf16, written in the same
-    pass: ``(w, w_bf16)``."""
+    (S,) on the unit stream, or with ``pair`` the (2S, K, N) antithetic
+    pairs ``(w, 2 mu - w)`` interleaved; ``offsets`` (k0, n0) a shard's unit
+    offsets (:func:`common.unit_offsets`). ``counter`` takes the launch,
+    keyed by ``(S, K, N)`` and a tag naming the pair instance and the bf16
+    copy. ``lo_dtype=torch.bfloat16`` also returns W rounded to bf16,
+    written in the same pass: ``(w, w_bf16)``."""
     req = common.require
     req(mu.is_cuda, f"regen kernel needs a CUDA tensor, got {mu.device}")
     req(mu.dim() == 2 and tuple(rho.shape) == tuple(mu.shape),
@@ -90,18 +98,21 @@ def regen_cuda(mu, rho, seeds, counter: common.LaunchCounter, lo_dtype=None):
     for name, t in (("mu", mu), ("rho", rho), ("seeds", seeds)):
         req(t.device == mu.device, f"{name} is on {t.device}, mu on {mu.device}")
         req(t.is_contiguous(), f"{name} must be contiguous")
+    k0, n0 = common.unit_offsets(offsets)
     K, N = mu.shape
     S = seeds.shape[0]
     req(S >= 1, "at least one seed")
     lib = _build.library()
-    w = torch.empty((S, K, N), dtype=torch.float32, device=mu.device)
-    lo = None if lo_dtype is None else torch.empty((S, K, N), dtype=lo_dtype, device=mu.device)
+    shape = ((2 if pair else 1) * S, K, N)
+    w = torch.empty(shape, dtype=torch.float32, device=mu.device)
+    lo = None if lo_dtype is None else torch.empty(shape, dtype=lo_dtype, device=mu.device)
     with common.on_device(mu):
         err = lib.bft_regen(mu.data_ptr(), rho.data_ptr(), seeds.data_ptr(), w.data_ptr(),
-                            None if lo is None else lo.data_ptr(), S, K, N,
-                            common.cuda_stream(mu))
+                            None if lo is None else lo.data_ptr(), S, K, N, int(pair),
+                            k0 // common.UNIT_K, n0 // common.UNIT_N, common.cuda_stream(mu))
     _build.check(err, "bft_regen")
-    counter.add((S, K, N) if lo is None else (S, K, N, "bf16"))
+    tags = ("pair",) * pair + ("bf16",) * (lo is not None)
+    counter.add((S, K, N) + (("/".join(tags),) if tags else ()))
     return w if lo is None else (w, lo)
 
 

@@ -10,7 +10,9 @@ Phases, each timed, each raising on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. the kernel build (one ``nvcc`` call);
 3. the eps stream: the device stream against the plain-torch stream (equal
-   bits, normals within 1e-6), its moments, seed determinism;
+   bits, normals within 1e-6; the uniform, the Box-Muller radius and the
+   angle's cos and sin over all 2^24 uniforms it can form bit-equal), its
+   moments, seed determinism;
 4. ``bayes_linear_anti`` and ``bayes_linear`` (independent draws) against
    their plain versions at every shape of the BERT-base serving path (S=10,
    B=8, L=128), and where x must be copied into zero-padded rows for the
@@ -43,20 +45,30 @@ Phases, each timed, each raising on failure:
     S=3 (the default pick for an odd S: independent draws), in bf16;
 12. f32, the recipe's default activations (every f32 phase after the
     check that torch's f32 matmuls run in full f32, no TF32, so that the
-    plain versions are a true-f32 yardstick): ``regen`` (Pallas #10)
-    against the plain stream and against the f32 W of both forward
-    kernels, bit for bit; the f32 forward instances at the serving shapes
-    (y within 2e-5 of max |y|, log-probs 1e-5 relative, W bit-equal); the
-    f32 and the (bf16 x, f32 W) reduces (A/B/V within 1e-5 of each one's
-    largest entry); f32 ``mha_fwd`` / ``mha_bwd`` (1e-4 absolute plus 1e-4
-    relative); f32 serving under both estimators (logits within 1e-4 of
-    the plain path); the f32 ELBO step of each estimator against the plain
-    f32 step (loss 1e-6 relative, every gradient group 1e-3 relative L2,
-    reruns bit-equal, #10 launched 12 times a step antithetic and never
-    ``fused``); in bf16, each estimator's step with ``save_weights=False``
-    (the regenerating backward, #10 on all 74 layers) against its plain
-    regenerating step under the bf16 step's gates; the workload at its f32
-    default at S=10, which must launch #10;
+    plain versions are a true-f32 yardstick): ``regen`` (Pallas #10), its
+    independent and pair instances (one launch writes the interleaved
+    pairs ``(w, 2 mu - w)``), each with and without the bf16 copy, against
+    the plain stream and against the f32 and bf16 W of both forward
+    kernels, bit for bit; the unit offsets of every draw instance (shards
+    of a 1024 x 512 layer at (256, 0), (0, 128), (512, 256): ``bft_regen``
+    and the forward's draw pass, W bit-equal to the whole layer's slice, y
+    and log-probs within their gates, and a planted fault, each launch with
+    its offsets zeroed, that must fail; :func:`phase_offsets`); the
+    regenerating backward's one launch and no interleave, stack or cast of
+    W in torch (:func:`regen_vjp_check`); the f32 forward instances at the
+    serving shapes (y within 2e-5 of max |y|, log-probs 1e-5 relative, W
+    bit-equal); the f32 and the (bf16 x, f32 W) reduces (A/B/V within 1e-5
+    of each one's largest entry); f32 ``mha_fwd`` / ``mha_bwd`` (1e-4
+    absolute plus 1e-4 relative); f32 serving under both estimators (logits
+    within 1e-4 of the plain path); the f32 ELBO step of each estimator
+    against the plain f32 step (loss 1e-6 relative, every gradient group
+    1e-3 relative L2, reruns bit-equal, #10's pair instance launched 12
+    times a step antithetic and #10 never ``fused``); in bf16, each
+    estimator's step with ``save_weights=False`` (the regenerating
+    backward, #10 on all 74 layers, in its instance with the bf16 copy,
+    pairs for antithetic draws) against its plain regenerating step under
+    the bf16 step's gates; the workload at its f32 default at S=10, which
+    must launch #10;
 13. the other two priors, in each dtype beside the phases above, whose
     instances the forward and reduce templates carry: MOPED with a
     trainable mu (the Gaussian prior on a separate prior_mu; mu moved off
@@ -247,6 +259,23 @@ def phase_eps(lib, common, _build) -> None:
         err = (eps - common.unit_eps(seeds, (K, N), (k0, n0))).abs().max().item()
         check(err <= 1e-6, f"device eps differs by {err} at {(K, N, k0, n0)}")
         say(f"eps K={K} N={N} offsets=({k0},{n0}): bits equal, max |d eps| = {err}")
+    # every uniform the stream can form, its radius and its angle's cos and
+    # sin (sincosf, the uniform by one fma) against the plain stream's torch
+    # ops on the card, bit for bit
+    n = 1 << 24
+    parts = torch.empty((4, n), dtype=torch.float32, device=dev)
+    _build.check(lib.bft_stream_parts(*(p.data_ptr() for p in parts),
+                                      common.cuda_stream(parts)), "bft_stream_parts")
+    u = common.uniform_from_bits(torch.arange(n, dtype=torch.int64, device=dev) << 8)
+    theta = torch.tensor(common.TWO_PI, dtype=torch.float32, device=dev) * u
+    want = torch.stack([u, torch.sqrt(-2.0 * torch.log(u)), torch.cos(theta),
+                        torch.sin(theta)])
+    differ = (parts.view(torch.int32) != want.view(torch.int32)).sum(dim=1).tolist()
+    check(sum(differ) == 0, f"the device stream's uniform, radius, cos, sin differ from the "
+          f"plain stream's at {differ} of its {n} uniforms")
+    say(f"eps parts over all {n} uniforms: uniform, radius, cos, sin bit-equal to the plain "
+        f"stream's ({differ} differ)")
+    del parts, u, theta, want
     draw = common.unit_eps(torch.tensor([42], dtype=torch.int32, device=dev), (768, 768))
     again = common.unit_eps(torch.tensor([42], dtype=torch.int32, device=dev), (768, 768))
     other = common.unit_eps(torch.tensor([43], dtype=torch.int32, device=dev), (768, 768))
@@ -924,45 +953,234 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
     return rows
 
 
-def phase_regen(fl, moped_rho, mufu, rate) -> list[dict]:
-    """Kernel #10 against the plain stream and against the f32 W that each
-    forward kernel draws for the same seeds, bit for bit, and a rerun;
-    returns the timing row of the f32 recipe's shape (the FFN
-    down-projection's five pairs), its bound counting the MUFU instructions
-    as :func:`regen_mufu` does."""
+# A whole layer and its shards for the unit offsets' checks: (shard K, N,
+# its offsets (k0, n0)) in a 1024 x 512 layer
+OFFSET_LAYER = (1024, 512)
+OFFSET_SHARDS = ((512, 256, 256, 0), (512, 256, 0, 128), (512, 256, 512, 256),
+                 (300, 130, 512, 256))
+
+
+def regen_bytes(S: int, K: int, N: int, pair: bool, lo: bool) -> int:
+    """The bytes ``bft_regen`` must move: W of every member written once (and
+    its bf16 copy), mu and rho read once, the seeds."""
+    return (2 if pair else 1) * S * K * N * (4 + 2 * lo) + 2 * K * N * 4 + 4 * S
+
+
+def offsets_ok(w, whole, k0, n0) -> bool:
+    """Whether a shard's W at offsets (k0, n0) is the whole layer's W there,
+    bit for bit."""
+    K, N = w.shape[-2:]
+    return torch.equal(w, whole[:, k0:k0 + K, n0:n0 + N])
+
+
+def phase_offsets(fl) -> str:
+    """The unit offsets (``unit_offsets``, the reference's off_ref) of every
+    draw-kernel instance: shards of a 1024 x 512 layer at offsets (256, 0),
+    (0, 128), (512, 256) (and a ragged 300 x 130 shard at (512, 256)).
+    ``bft_regen`` (pair and independent, f32 W and with its bf16 copy) and
+    the forward's draw pass through ``bayes_linear_with_w`` (pair and
+    independent, x f32 and bf16, all three priors): W bit-equal to the
+    slice of the whole layer's W (the whole layer's own W bit-equal to the
+    plain stream), y within the y gate of ``x_shard @ W_slice``, and the
+    log-probs within their gate (1e-5 relative) of the plain version at the
+    same offsets. A planted fault, each launch again with the offsets
+    zeroed, must fail the W check."""
+    S, M = 10, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    KL, NL = OFFSET_LAYER
+    mu = torch.randn(KL, NL, device=dev, generator=gen) * 0.02
+    rho = torch.rand(KL, NL, device=dev, generator=gen) - 5.0
+    prior_mu = mu + torch.nn.functional.softplus(rho) * torch.randn(
+        KL, NL, device=dev, generator=gen)
+    seeds = torch.randint(0, 2**31 - 1, (S,), device=dev, generator=gen, dtype=torch.int32)
+    n_checks = n_faults = 0
+    for pair in (True, False):
+        sd = seeds[:S // 2] if pair else seeds
+        whole = fl.regenerate_weights(mu, rho, sd, antithetic=pair)
+        check(torch.equal(whole, fl.sample_weights(mu, rho, sd, antithetic=pair)),
+              f"regen ({'pair' if pair else 'independent'}) differs from the plain stream "
+              f"at {OFFSET_LAYER}")
+        for K, N, k0, n0 in OFFSET_SHARDS:
+            rows, cols = slice(k0, k0 + K), slice(n0, n0 + N)
+            mu_s, rho_s = mu[rows, cols].contiguous(), rho[rows, cols].contiguous()
+            where = f"{'pair' if pair else 'independent'} {K}x{N} at ({k0}, {n0})"
+            for lo in (None, BF16):
+                out = fl.regenerate_weights_cuda(mu_s, rho_s, sd, antithetic=pair,
+                                                 offsets=(k0, n0), lo_dtype=lo)
+                w, w_lo = out if lo else (out, None)
+                check(offsets_ok(w, whole, k0, n0), f"regen {where}: W is not the whole "
+                      f"layer's slice")
+                check(w_lo is None or offsets_ok(w_lo, whole.to(BF16), k0, n0),
+                      f"regen {where}: the bf16 copy is not the whole layer's slice rounded")
+                zeroed = fl.regenerate_weights_cuda(mu_s, rho_s, sd, antithetic=pair,
+                                                    offsets=(0, 0), lo_dtype=lo)
+                check(not offsets_ok(zeroed[0] if lo else zeroed, whole, k0, n0),
+                      f"regen {where}: the planted fault (offsets zeroed) passed")
+                n_checks, n_faults = n_checks + 1, n_faults + 1
+            for dtype in (F32, BF16):
+                x = torch.randn(S, M, K, device=dev, generator=gen).to(dtype)
+                for prior in PRIORS:
+                    kw = ({"prior_mu": prior_mu[rows, cols].contiguous()} if prior == "gaussian"
+                          else {"mixture": MIXTURE} if prior == "mixture" else {})
+                    y, lq, lp, w = fl.bayes_linear_with_w(x, mu_s, rho_s, sd, antithetic=pair,
+                                                          unit_offsets=(k0, n0), **kw)
+                    torch.cuda.synchronize()
+                    label = f"bayes_linear ({TAG[dtype]}, {prior}) {where}"
+                    check(offsets_ok(w, whole.to(dtype), k0, n0),
+                          f"{label}: W is not the whole layer's slice")
+                    yp = fl.bmm_plain(x, whole[:, rows, cols])
+                    if dtype == F32:
+                        err = (y - yp).abs().max().item()
+                        check(err <= 2e-5 * yp.abs().max().item(), f"{label}: y off by {err}")
+                    else:
+                        check(torch.allclose(y.float(), yp.float(), rtol=2e-2, atol=2e-2),
+                              f"{label}: y off by {max_dist(y, yp)}")
+                    _, lqp, lpp = fl.bayes_linear_plain(x, mu_s, rho_s, sd, antithetic=pair,
+                                                        unit_offsets=(k0, n0), **kw)
+                    check(torch.allclose(lq, lqp, rtol=1e-5, atol=0.0)
+                          and torch.allclose(lp, lpp, rtol=1e-5, atol=0.0),
+                          f"{label}: log-probs {lq} {lp} vs plain {lqp} {lpp}")
+                    n_checks += 1
+                    if prior == "on_mu":
+                        w0 = fl.bayes_linear_with_w(x, mu_s, rho_s, sd, antithetic=pair,
+                                                    unit_offsets=(0, 0), **kw)[3]
+                        check(not offsets_ok(w0, whole.to(dtype), k0, n0),
+                              f"{label}: the planted fault (offsets zeroed) passed")
+                        n_faults += 1
+    return (f"{n_checks} shard checks bit-equal to the whole layer's W at offsets "
+            f"{[s_[2:] for s_ in OFFSET_SHARDS]}, y and log-probs within their gates; "
+            f"{n_faults} planted faults (offsets zeroed) failed the W check")
+
+
+def regen_vjp_check(fl, moped_rho) -> str:
+    """``BayesLinearRegen.backward`` on the card, one layer at 3072 -> 768,
+    S = 10: antithetic f32 and bf16 x, independent bf16 x. One ``bft_regen``
+    launch in its instance (the pair, the bf16 copy for bf16 x) and no
+    ``aten.stack``, ``aten.cat`` or copy of an (S, K, N) tensor (a
+    ``TorchDispatchMode``): no interleave and no cast of W in torch; dx
+    bit-equal to the plain regenerating backward's (the same W in x's
+    dtype, the same ``torch.bmm``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    S, M, K, N = 10, 1024, 3072, 768
+    copies = {torch.ops.aten.stack, torch.ops.aten.cat, torch.ops.aten._to_copy,
+              torch.ops.aten.copy_, torch.ops.aten.clone}
+    seen, bmms = [], []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is torch.ops.aten.bmm:
+                bmms.append(tuple(out.shape))
+            elif func.overloadpacket in copies and isinstance(out, torch.Tensor) \
+                    and out.dim() == 3 and tuple(out.shape[1:]) == (K, N):
+                seen.append((str(func.overloadpacket), tuple(out.shape), out.dtype))
+            return out
+
+    said = []
+    for pair, dtype in ((True, F32), (True, BF16), (False, BF16)):
+        x, mu, rho, seeds, _ = bayes_linear_inputs(S, M, K, N, moped_rho,
+                                                   S // 2 if pair else S, dtype=dtype)
+        g = torch.randn(S, M, N, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(3)).to(dtype)
+
+        def dx(plain):
+            xg, mug, rhog = (t.detach().clone().requires_grad_() for t in (x, mu, rho))
+            y, _, _ = fl.bayes_linear(xg, mug, rhog, seeds, prior_on_mu=True,
+                                      antithetic=pair, save_weights=False, plain=plain)
+            with Log():
+                y.backward(g)
+            return xg.grad
+
+        fl.REGEN_LAUNCHES.reset()
+        seen.clear()
+        bmms.clear()
+        got = dx(False)
+        want_key = (S // 2 if pair else S, K, N) + (
+            ("/".join(("pair",) * pair + ("bf16",) * (dtype == BF16)),)
+            if pair or dtype == BF16 else ())
+        label = f"regenerating backward ({'pair' if pair else 'independent'}, {TAG[dtype]} x)"
+        check(fl.REGEN_LAUNCHES.by_shape == {want_key: 1},
+              f"{label}: regen launches {fl.REGEN_LAUNCHES.by_shape}, want {{{want_key}: 1}}")
+        check(bmms == [(S, M, K)], f"{label}: torch.bmm {bmms} seen in the backward, want "
+              "dx's alone")
+        check(not seen, f"{label}: torch copied or stacked a W: {seen}")
+        check(torch.equal(got, dx(True)), f"{label}: dx differs from the plain backward's")
+        said.append(f"{label}: one launch {want_key}, no W stacked or cast in torch, dx "
+                    "bit-equal to the plain backward's")
+    return "; ".join(said)
+
+
+def phase_regen(fl, moped_rho, sass, rate) -> list[dict]:
+    """Kernel #10, its independent and pair instances, each with and
+    without the bf16 copy, against the plain stream (pairs: interleaved by
+    ``interleave_antithetic``) and against the W that each forward kernel
+    draws for the same seeds, f32 and bf16, bit for bit, and a rerun; the
+    unit offsets (:func:`phase_offsets`); the regenerating backward's one
+    launch (:func:`regen_vjp_check`). Returns the timing rows at the f32
+    recipe's shape (the FFN down-projection, five pairs or draws), each
+    bound counting the MUFU instructions as :func:`regen_instructions`
+    does, with the issue time of all its instructions beside it."""
     S, M = 10, 64
     for K, N in ((768, 768), (768, 3072), (3072, 768), (300, 130)):
-        for antithetic in (True, False):
-            n_draws = S // 2 if antithetic else S
+        for pair in (True, False):
+            n_draws = S // 2 if pair else S
             x, mu, rho, seeds, _ = bayes_linear_inputs(S, M, K, N, moped_rho, n_draws,
                                                        dtype=F32)
-            w = fl.regenerate_weights(mu, rho, seeds)
-            again = fl.regenerate_weights(mu, rho, seeds)
+            w = fl.regenerate_weights(mu, rho, seeds, antithetic=pair)
+            again = fl.regenerate_weights(mu, rho, seeds, antithetic=pair)
+            w_lo = fl.regenerate_weights_cuda(mu, rho, seeds, antithetic=pair,
+                                              lo_dtype=BF16)
             torch.cuda.synchronize()
             plain = fl.sample_weights(mu, rho, seeds)
-            w_fwd = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic)[3]
-            pair = fl.interleave_antithetic(w, mu) if antithetic else w
-            check(torch.equal(w, again), f"regen reruns differ at {(n_draws, K, N)}")
+            if pair:
+                plain = fl.interleave_antithetic(plain, mu)
+            where = f"{'pair' if pair else 'independent'} {(n_draws, K, N)}"
+            check(torch.equal(w, again), f"regen reruns differ at {where}")
             check(torch.equal(w, plain), f"regen differs from the plain stream at "
-                  f"{(n_draws, K, N)}: max {(w - plain).abs().max().item()}")
-            check(torch.equal(pair, w_fwd), "regen differs from the "
-                  f"{'pair' if antithetic else 'independent'} forward kernel's f32 W "
-                  f"at {(n_draws, K, N)}: max {(pair - w_fwd).abs().max().item()}")
-    say("regen: W bit-equal to the plain stream and to both forward kernels' f32 W "
-        "at (S', K, N) = (5|10, 768, 768), (5|10, 768, 3072), (5|10, 3072, 768), "
-        "(5|10, 300, 130); reruns equal")
+                  f"{where}: max {(w - plain).abs().max().item()}")
+            check(torch.equal(w_lo[0], plain) and torch.equal(w_lo[1], plain.to(BF16)),
+                  f"regen with its bf16 copy differs from the plain stream at {where}")
+            for dtype in (F32, BF16):
+                w_fwd = fl.bayes_linear_with_w(x.to(dtype), mu, rho, seeds,
+                                               antithetic=pair)[3]
+                got = w if dtype == F32 else w_lo[1]
+                check(torch.equal(got, w_fwd), f"regen differs from the {TAG[dtype]} forward "
+                      f"kernel's W at {where}: max {max_dist(got, w_fwd)}")
+    say("regen: W, pairs and independent draws, with and without the bf16 copy, bit-equal "
+        "to the plain stream and to both forward kernels' f32 and bf16 W at (S', K, N) = "
+        "(5|10, 768, 768), (5|10, 768, 3072), (5|10, 3072, 768), (5|10, 300, 130); reruns "
+        "equal")
+    say(f"regen offsets: {phase_offsets(fl)}")
+    say(regen_vjp_check(fl, moped_rho))
     n, K, N = 5, 3072, 768
     _, mu, rho, seeds, _ = bayes_linear_inputs(S, 8, K, N, moped_rho, n, dtype=F32)
-    ms = time_ms(lambda: fl.regenerate_weights(mu, rho, seeds), 50, windows=WINDOWS)
-    plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, seeds), 5, 1)
-    n_mufu = regen_mufu(mufu, "0E", [(K, N)], n)
-    b = bound_mufu(n * K * N * 4 + 2 * K * N * 4 + n * 4, n_mufu, rate)
-    say(f"regen S'={n} K={K} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b[0]:.4f} ms ({b[1]}; MUFU {n_mufu:.4g}, {n_mufu / rate * 1e3:.4f} ms), "
-        "no library call")
-    return [row(f"regen[S={n},K={K},N={N}]", "regen", (n, K, N), "train/anti/f32",
-                "bayeformers_tpu_torch/csrc/regen.cu",
-                "bayeformers_tpu/ops/fused_linear.py:1143", 0.0, ms, plain_ms, b, None)]
+    _, _, _, seeds10, _ = bayes_linear_inputs(S, 8, K, N, moped_rho, 10, dtype=F32)
+    rows = []
+    # (name, draws, pair, bf16 copy, path and counter shape of its launches)
+    for name, sd, pair, lo, path in (
+            ("regen_pair", seeds, True, False, "train/anti/f32"),
+            ("regen_pair", seeds, True, True, "regen/anti/bf16"),
+            ("regen", seeds, False, False, None),
+            ("regen", seeds10, False, True, "regen/indep/bf16")):
+        S_ = sd.shape[0]
+        ms = time_ms(lambda: fl.regenerate_weights_cuda(
+            mu, rho, sd, antithetic=pair, lo_dtype=BF16 if lo else None), 50, windows=WINDOWS)
+        plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, sd, antithetic=pair), 5, 1)
+        n_mufu, n_all = regen_instructions(sass, pair, lo, [(K, N)], S_)
+        b = bound_mufu(regen_bytes(S_, K, N, pair, lo), n_mufu, rate)
+        tag = "/".join(("pair",) * pair + ("bf16",) * lo)
+        say(f"{name} S'={S_} K={K} N={N}{', bf16 copy' if lo else ''}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; MUFU {n_mufu:.4g}, "
+            f"{n_mufu / rate * 1e3:.4f} ms; issue, {n_all:.4g} instructions, "
+            f"{issue_ms(n_all, rate):.4f} ms), no library call")
+        rows.append(row(f"{name}[S={S_},K={K},N={N}{',bf16' if lo else ''}]", "regen",
+                        (S_, K, N) + ((tag,) if tag else ()), path,
+                        "bayeformers_tpu_torch/csrc/regen.cu",
+                        "bayeformers_tpu/ops/fused_linear.py:1143", 0.0, ms, plain_ms, b,
+                        None))
+    return rows
 
 
 def mha_bwd_inputs(at, N, L, H, seed, dtype=BF16):
@@ -1253,8 +1471,8 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
                               family=family)
     n_regen = dict(fl.REGEN_LAUNCHES.by_shape)
     # (the LLaMA families' widest K, 2048, pads to no more than 2048: none)
-    want = ({(S // 2, 3072, 768): 12} if anti and dtype == F32 and family in (BERT, GPT2)
-            else {})
+    want = ({(S // 2, 3072, 768, "pair"): 12}
+            if anti and dtype == F32 and family in (BERT, GPT2) else {})
     check(n_regen == want, f"{label}: regen launched {n_regen}, want {want}")
     loss_k2, _, gk2 = grads_of(bt, bmodel, named, 123, batch, "kernel", estimator,
                                family=family)
@@ -1291,6 +1509,12 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
                         red.name: dict(red.by_shape)}
         check(fl.REGEN_LAUNCHES.count == BERT_BASE_LAYERS,
               f"{rlabel}: regen launched {fl.REGEN_LAUNCHES.count} times, want {BERT_BASE_LAYERS}")
+        # one launch a layer writes what the backward reads: the pairs (for
+        # antithetic draws) and their bf16 copy for dx
+        inst = "pair/bf16" if anti else "bf16"
+        check(all(k[3:] == (inst,) for k in fl.REGEN_LAUNCHES.by_shape),
+              f"{rlabel}: regen launched {fl.REGEN_LAUNCHES.by_shape}, want the {inst} "
+              "instance alone")
         check(sum(n for s_, n in red.by_shape.items() if s_[3] == "bf16x-f32w" + sfx)
               == BERT_BASE_LAYERS,
               f"{rlabel}: the (bf16 x, f32 W) reduce did not serve every layer: "
@@ -1549,10 +1773,17 @@ BERT_LEAVES = (((768, 768),) * 4 + ((768, 3072), (3072, 768))) * 12 + ((768, 768
 CHECK_GROUP = ((300, 130), (768, 2)) + BERT_LEAVES[:-1]
 
 
-def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int]]:
+def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int], dict[str, tuple]]:
     """MUFU instructions (the card's special-function unit: exp2, log2,
     rsqrt, reciprocal, sin, cos) and all instructions in each kernel of the
-    built library, from ``cuobjdump -sass``: two {mangled name: count}."""
+    built library, from ``cuobjdump -sass``: two {mangled name: count}; and
+    per kernel with a loop, its widest loop (from the target of its widest
+    backward branch to the branch; in the draw kernel one draw of its loop
+    over draws): (MUFU, all, fast path, before), where the fast path leaves
+    out each stretch that a forward branch skips and that holds a loop of
+    its own (the precise sin / cos's reduction of large arguments, which
+    the stream's angles below 2 pi never take), and ``before`` counts the
+    instructions ahead of the loop."""
     import re
 
     from bayeformers_tpu_torch.ops import _build
@@ -1560,20 +1791,39 @@ def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int]]:
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    mufu, total, name = {}, {}, None
+    code, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            mufu[name] = total[name] = 0
-        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
-            total[name] += 1
-            mufu[name] += bool(re.search(r"\bMUFU\.", line))
-    return mufu, total
+            code[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(\S.*)", line)
+            if m:
+                code[name].append((int(m.group(1), 16), m.group(2)))
+    is_mufu = re.compile(r"\bMUFU\.")
+    mufu = {n: sum(bool(is_mufu.search(t)) for _, t in c) for n, c in code.items()}
+    total = {n: len(c) for n, c in code.items()}
+    loop = {}
+    for n, c in code.items():
+        branches = [(a, int(m.group(1), 16)) for a, t in c
+                    for m in [re.search(r"\bBRA(?:\.\S+)?\s+`?\(?(0x[0-9a-f]+)", t)] if m]
+        back = [(a, b) for a, b in branches if b < a]
+        if not back:
+            continue
+        hi, lo = max(back, key=lambda ab: ab[0] - ab[1])
+        body = [(a, t) for a, t in c if lo <= a <= hi]
+        slow = [(a, b) for a, b in branches if lo <= a < b <= hi
+                and any(a < x and y < b for x, y in back if (x, y) != (hi, lo))]
+        fast = [t for a, t in body if not any(x < a < y for x, y in slow)]
+        loop[n] = (sum(bool(is_mufu.search(t)) for _, t in body), len(body), len(fast),
+                   sum(1 for a, _ in c if a < lo))
+    return mufu, total, loop
 
 
-def mufu_of(counts: dict, *parts) -> int:
-    """The MUFU count of the one kernel whose mangled name holds every one
+def mufu_of(counts: dict, *parts):
+    """The entry (a MUFU count, or any other per-kernel entry of
+    :func:`sass_mufu`) of the one kernel whose mangled name holds every one
     of ``parts``."""
     hits = [n for n in counts if all(p in n for p in parts)]
     check(len(hits) == 1, f"kernels named with {parts}: {hits}")
@@ -1599,17 +1849,40 @@ def bound_mufu(n_bytes: float, n_mufu: float, rate: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def regen_mufu(mufu: dict, lo: str, shapes, S: int) -> float:
-    """The MUFU instructions ``bft_regen`` runs for S draws of ``shapes``
-    (its draw kernel's instance with (``lo="1E"``) or without (``"0E"``) the
-    bf16 copy): the kernel's loop body holds one draw, so its static count,
-    plus for each further draw one Philox call's four normals a quad, the
-    per-draw count of the Gaussian grouped kernel (its 8-draw instance's
-    less its 4-draw instance's, over 4)."""
-    normals = (mufu_of(mufu, "logprob_kernelILi1ELi8ELi128E")
-               - mufu_of(mufu, "logprob_kernelILi1ELi4ELi128E")) / 4
-    inst = mufu_of(mufu, "draw_kernelILi1EfLi3ELb" + lo)
-    return group_quads(shapes) * (inst + (S - 1) * normals)
+def regen_instance(pair: bool, lo: bool) -> str:
+    """The part of ``bft_regen``'s draw kernel's mangled name that names its
+    instance: pairs (H = 2) or not, with the bf16 copy or not."""
+    return f"draw_kernelILi{2 if pair else 1}EfLi3ELb{int(lo)}E"
+
+
+def regen_threads(shapes) -> int:
+    """The draw kernel's threads for ``shapes``: one per (unit row of 128,
+    four columns), padded rows included."""
+    return sum(-(-K // 256) * 128 * (-(-N // 4)) for K, N in shapes)
+
+
+def regen_instructions(sass: tuple, pair: bool, lo: bool, shapes, S: int
+                       ) -> tuple[float, float]:
+    """The MUFU instructions and all instructions that the threads of the
+    draw kernel's instance issue for S draws of ``shapes``, from its code
+    (:func:`sass_mufu`): per thread the MUFU of the whole kernel with the
+    draw loop's taken S times, and the instructions ahead of the loop plus
+    S times the loop's fast path. Counted from the code, not traced: a
+    branch that skips part of the fast path on some data (a ragged edge)
+    is counted as taken."""
+    mufu, total, loop = sass
+    inst = regen_instance(pair, lo)
+    lm, _, fast, before = mufu_of(loop, inst)
+    n = regen_threads(shapes)
+    return n * (mufu_of(mufu, inst) + (S - 1) * lm), n * (before + S * fast)
+
+
+def issue_ms(n_instr: float, rate: float) -> float:
+    """The least time (ms) for ``n_instr`` thread instructions at one warp
+    instruction a clock on each of the 4 schedulers of 132 SMs at the
+    card's maximum SM clock: a quarter of the MUFU ``rate``
+    (:func:`mufu_rate`, 16 a clock per SM) in warp instructions."""
+    return n_instr / 32 / (rate / 4) * 1e3
 
 
 def group_quads(shapes) -> int:
@@ -1634,7 +1907,7 @@ def group_inputs(shapes, S, prior, seed=0):
     return mus, rhos, (pms if prior == "gaussian" else None), seeds
 
 
-def phase_split_regen(sl, lpm, moped_rho, mufu, rate) -> list[dict]:
+def phase_split_regen(sl, lpm, moped_rho, sass, rate) -> list[dict]:
     """Kernel #13. (1) ``bft_regen`` at flipout's S = 10 perturbation draws
     (mu = 0) and every converted layer's (K, N): the f32 W bit-equal to the
     plain stream and to ``fused_linear.regenerate_weights``, the bf16 copy it
@@ -1677,20 +1950,20 @@ def phase_split_regen(sl, lpm, moped_rho, mufu, rate) -> list[dict]:
             ms = time_ms(lambda: sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype),
                          20, windows=WINDOWS)
             plain_ms = time_ms(lambda: sl.naive_weights(mu, rho, seeds), 3, 1)
-            n_mufu = regen_mufu(mufu, "1E" if tag == "bf16" else "0E", [(K, N)], 10)
+            n_mufu, n_all = regen_instructions(sass, False, tag == "bf16", [(K, N)], 10)
             n_bytes = 10 * K * N * (4 + 2 * (tag == "bf16")) + 2 * K * N * 4 + 40
             b = bound_mufu(n_bytes, n_mufu, rate)
             say(f"split regen S=10 (mu = 0, {tag} W{' and f32 W' if tag == 'bf16' else ''}) "
                 f"K={K} N={N}: W bit-equal to the plain stream and to "
                 f"fused_linear.regenerate_weights, bf16 copy equal, reruns equal; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
-                "no library call")
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; issue "
+                f"{issue_ms(n_all, rate):.4f} ms), no library call")
             shape = (10, K, N, "bf16") if tag == "bf16" else (10, K, N)
             rows.append(row(f"sampled_regen[S=10,K={K},N={N},{tag}]", "sampled_regen",
                             shape, f"train/flipout/{tag}", "bayeformers_tpu_torch/csrc/regen.cu",
                             "bayeformers_tpu/ops/sampled_linear.py:205", 0.0, ms, plain_ms,
                             b, None))
-    rows += phase_logprob_vjp(lpm, mufu, rate)
+    rows += phase_logprob_vjp(lpm, sass[0], rate)
     for dtype in (BF16, F32):
         phase_flipout_vjp(sl, fb, moped_rho, dtype)
     return rows
@@ -2894,11 +3167,15 @@ def main() -> int:
     lib = _build.library()
     say(f"phase build: {time.perf_counter() - t:.2f} s (nvcc {_build.last_build_seconds:.2f} s)")
     timed("eps", phase_eps, lib, common, _build)
-    mufu, n_sass = sass_mufu(_build.build())
+    sass = sass_mufu(_build.build())
+    mufu, n_sass, loops = sass
     rate, clock = mufu_rate()
-    say(f"MUFU / all instructions (cuobjdump -sass) of the draw and split ops' kernels: "
-        + ", ".join(f"{k} {v} / {n_sass[k]}" for k, v in mufu.items()
-                    if "logprob" in k or "draw_kernelILi1EfLi3E" in k)
+    say(f"MUFU / all instructions (cuobjdump -sass) of the draw and split ops' kernels "
+        "(and of the draw kernels' loop over draws, one draw): "
+        + ", ".join(f"{k} {v} / {n_sass[k]}"
+                    + (" (draw loop: {} / {}, fast path {}; {} ahead of it)".format(*loops[k])
+                       if "draw_kernel" in k and k in loops else "")
+                    for k, v in mufu.items() if "logprob" in k or "draw_kernelIL" in k)
         + f"; MUFU rate {rate:.4g}/s (16 a clock per SM, 132 SMs, clocks.max.sm; "
         f"clocks.sm now {clock:.0f} MHz)")
 
@@ -2911,7 +3188,7 @@ def main() -> int:
         for dtype in (BF16, F32):
             tag = TAG[dtype]
             if dtype == F32:
-                rows += timed("regen (f32)", phase_regen, fl, moped_rho, mufu, rate)
+                rows += timed("regen (f32)", phase_regen, fl, moped_rho, sass, rate)
             for prior in PRIORS:
                 for anti, key, est in ests:
                     rows += timed(f"bayes_linear ({est}, {tag}, {prior})", phase_bayes_linear,
@@ -2944,7 +3221,7 @@ def main() -> int:
         # phase 14: the split ops' kernels (#11-#13), then flipout, local
         # reparameterization and the naive tier
         rows += timed("logprob", phase_logprob, lpm, common, mufu, rate)
-        rows += timed("split regen", phase_split_regen, sl, lpm, moped_rho, mufu, rate)
+        rows += timed("split regen", phase_split_regen, sl, lpm, moped_rho, sass, rate)
         for dtype in (BF16, F32):
             rows += timed(f"sampled_dense ({TAG[dtype]})", phase_sampled_dense, sl, fl,
                           moped_rho, dtype)

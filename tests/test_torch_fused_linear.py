@@ -115,7 +115,8 @@ def test_other_estimators_raise():
     time: none, or two, raise, as in the reference; the mixture and a
     separate ``prior_mu`` run (their log-priors differ from the one on mu).
     The regenerating backward (``save_weights=False`` under autograd) runs
-    ``BayesLinearRegen``; the tensor-parallel unit offsets are not taken."""
+    ``BayesLinearRegen``; the tensor-parallel unit offsets (0, 0) are the
+    whole layer's draw."""
     x, mu, rho, _ = _inputs(2, 4, 8, 8)
     t = torch.from_numpy
     seeds = torch.tensor([1, 2], dtype=torch.int32)
@@ -123,10 +124,10 @@ def test_other_estimators_raise():
         fl.bayes_linear(t(x), t(mu), t(rho), seeds)  # the reference's default
     with pytest.raises(ValueError, match="exactly one"):
         fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu), prior_on_mu=True)
-    with pytest.raises(TypeError):
-        fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_on_mu=True,
-                        unit_offsets=(0, 0))
     on_mu = fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_on_mu=True)
+    at_zero = fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_on_mu=True,
+                              unit_offsets=(0, 0))
+    assert all(torch.equal(a, b) for a, b in zip(at_zero, on_mu))
     mix = fl.bayes_linear(t(x), t(mu), t(rho), seeds, mixture=(0.5, 1.0, 0.0025))
     moved = fl.bayes_linear(t(x), t(mu), t(rho), seeds, prior_mu=t(mu) + 0.5)
     for out in (mix, moved):
@@ -170,12 +171,12 @@ def test_independent_plain_matches_jax_naive_from_w(S, M, K, N):
 
 
 def test_signature_matches_reference():
-    """``bayes_linear`` keeps the reference's parameters, order and defaults
-    (the reference's tensor-parallel ``unit_offsets`` is not ported); the
-    port adds only ``plain`` and ``eps``."""
+    """``bayes_linear`` keeps the reference's parameters, order and defaults,
+    the tensor-parallel ``unit_offsets`` included; the port adds only
+    ``plain`` and ``eps``."""
     ref = inspect.signature(jfl.bayes_linear).parameters
     got = inspect.signature(fl.bayes_linear).parameters
-    names = [n for n in ref if n != "unit_offsets"]
+    names = list(ref)
     assert list(got)[:len(names)] == names
     for n in names:
         assert got[n].default == ref[n].default, n

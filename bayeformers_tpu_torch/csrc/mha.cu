@@ -13,7 +13,7 @@
 // scale + bias in f32, scale = 1 / sqrt(D) rounded to f32 and applied to the
 // f32 scores after the product (attention.py:104), a row softmax in f32,
 // then P cast to bf16 and O = P v_h with f32 accumulation. The head width D
-// is a template parameter, instantiated at 32 and 64.
+// is a template parameter, instantiated at 32, 64, 128 and 256.
 //
 // Causal instances (CAUSAL = true, GPT-2, LLaMA): after the bias add and
 // before the row max, score (i, j) with key j > query i becomes NEG_BIG =
@@ -54,6 +54,13 @@
 //    normalised P in bf16, rounded as in the whole-row design, and O is
 //    never rescaled; the cost is the second q k^T, a third more products.
 //    Shared memory does not grow with L, so no length is refused.
+//  * wide heads (D = 128, 256): the q, k and v tiles arrive as 64-column
+//    boxes (attention.cuh) and O = P v runs on m64n128k16 or m64n256k16
+//    with P in registers. A block holds O at 64 or 128 registers a thread
+//    and two stages of k and v that fill most of an SM's shared memory, so
+//    one block runs an SM; at D = 256 the key tile narrows to 64 keys (32
+//    score registers beside O's 128, two stages of 64 KB), and every L
+//    takes the key-tiled walk.
 // The causal skip: the tiles of the causal prefix are walked first; a key
 // tile that lies wholly above the diagonal of every row of the query tile
 // is skipped, in both walks, when exp(NEG_BIG - m) is 0.0f in f32 for
@@ -69,9 +76,13 @@
 // K-major operands from shared memory and P v needs v MN-major; the f32
 // instances keep their design: one block of 4 warps per (query tile of 64,
 // head, example); whole rows (L <= 512) keep the score rows in shared
-// memory, P written over them (163 KB at L = 512); longer rows walk the
+// memory, P written over them (163 KB at L = 512; whole rows up to L = 256
+// at D = 256, where the q and k tiles take 133 KB); longer rows walk the
 // keys twice in tiles of 64 with the same exact softmax. They skip no
-// tile above the diagonal.
+// tile above the diagonal. At D >= 128 both products sum in steps of fresh
+// fragments added by FADD (mma.cuh's add_into): one chain in the tensor
+// cores' accumulator over D = 256 drifted by 1e-5 of the scores on the
+// H100; the instances at 32 and 64 keep their one chain.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -90,7 +101,12 @@ namespace {
 constexpr int BQ = 64;       // query rows per block
 constexpr int BKV = 64;      // keys per staged block
 constexpr int THREADS = 128; // 4 warps, 16 query rows each
-constexpr int MAX_ROWS_L = 512;  // longest L of the whole-row design
+// The longest L of the whole-row design: 512, or 256 at D = 256, whose q and
+// k tiles (2 x 64 x 260 f32) leave room for score rows of 256 keys only.
+template <int D>
+__host__ __device__ constexpr int max_rows_len() {
+  return D >= 256 ? 256 : 512;
+}
 constexpr int TSLD = BKV + 4;    // f32 leading dim of one key tile's scores
 constexpr unsigned NEG_BIG_BITS = 0xff7fffffu;  // finfo(f32).min = -FLT_MAX
 
@@ -133,25 +149,42 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, T* dst,
 }
 
 // Warp w's 16 query rows by the 64 keys of the staged tile, (q_h k_h^T)
-// unscaled in f32, into ``out`` (leading dim ld) at the warp's rows.
+// unscaled in f32, into ``out`` (leading dim ld) at the warp's rows. At
+// D >= 128 each 32-deep step of the contraction starts a fresh fragment,
+// added to the scores by FADD (bft::add_into): the accumulator's drift over
+// D = 256 read 1e-5 of the scores on the H100; the instances at 32 and 64
+// keep their one chain over D, bit for bit.
 template <typename T, int D>
 __device__ __forceinline__ void warp_scores(const T* qs, const T* kvs, float* out,
                                             int ld) {
   constexpr int QLD = Layout<T, D>::QLD, KD = bft::Mma<T>::KDEPTH;
+  constexpr int STEP = D >= 128 ? 32 : D;  // the depth of one accumulator chain
   const int warp = threadIdx.x >> 5;
-  bft::Acc<T> sc[4];
+  bft::Acc<T> sc[4], part[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(sc[j], 0.0f);
 #pragma unroll
-  for (int kk = 0; kk < D; kk += KD) {
-    bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
-    a.load(qs + warp * 16 * QLD + kk, QLD);
+  for (int k0 = 0; k0 < D; k0 += STEP) {
+    bft::Acc<T>(&chain)[4] = STEP < D ? part : sc;
+    if (STEP < D) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // k^T as a col-major (d, key) operand straight from the (key, d) tile
-      bft::Operand<T, wmma::matrix_b, wmma::col_major> b;
-      b.load(kvs + j * 16 * QLD + kk, QLD);
-      bft::mma(sc[j], a, b);
+      for (int j = 0; j < 4; ++j) wmma::fill_fragment(part[j], 0.0f);
+    }
+#pragma unroll
+    for (int kk = k0; kk < k0 + STEP; kk += KD) {
+      bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
+      a.load(qs + warp * 16 * QLD + kk, QLD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // k^T as a col-major (d, key) operand straight from the (key, d) tile
+        bft::Operand<T, wmma::matrix_b, wmma::col_major> b;
+        b.load(kvs + j * 16 * QLD + kk, QLD);
+        bft::mma(chain[j], a, b);
+      }
+    }
+    if (STEP < D) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bft::add_into(sc[j], part[j]);
     }
   }
 #pragma unroll
@@ -168,12 +201,20 @@ __device__ __forceinline__ float masked_score(float acc, float scale, float bias
 }
 
 // o[j] += P (warp w's 16 rows of a 64-key tile, leading dim pld) v (the
-// staged (64 keys, D) tile)
+// staged (64 keys, D) tile). At D >= 128 the tile's products go into a
+// fresh fragment that is added to O by FADD, as in warp_scores; below, O
+// carries them in its one chain over all L keys.
 template <typename T, int D>
 __device__ __forceinline__ void warp_pv(bft::Acc<T> (&o)[D / 16], const T* ps, int pld,
                                         const T* kvs) {
   constexpr int QLD = Layout<T, D>::QLD, KD = bft::Mma<T>::KDEPTH;
+  constexpr bool FRESH = D >= 128;
   const int warp = threadIdx.x >> 5;
+  bft::Acc<T> part[FRESH ? D / 16 : 1];
+  if (FRESH) {
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(part[FRESH ? j : 0], 0.0f);
+  }
 #pragma unroll
   for (int kk = 0; kk < BKV; kk += KD) {
     bft::Operand<T, wmma::matrix_a, wmma::row_major> a;
@@ -182,8 +223,12 @@ __device__ __forceinline__ void warp_pv(bft::Acc<T> (&o)[D / 16], const T* ps, i
     for (int j = 0; j < D / 16; ++j) {
       bft::Operand<T, wmma::matrix_b, wmma::row_major> b;
       b.load(kvs + kk * QLD + j * 16, QLD);
-      bft::mma(o[j], a, b);
+      bft::mma(FRESH ? part[FRESH ? j : 0] : o[j], a, b);
     }
+  }
+  if (FRESH) {
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) bft::add_into(o[j], part[FRESH ? j : 0]);
   }
 }
 
@@ -209,7 +254,7 @@ __device__ __forceinline__ void store_out(bft::Acc<T> (&o)[D / 16], float* os,
   }
 }
 
-// The whole-row design (L <= 512).
+// The whole-row design (L <= max_rows_len).
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -222,7 +267,9 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* kvs = qs + BQ * QLD;
   float* ss = reinterpret_cast<float*>(kvs + BKV * QLD);
   T* ps = reinterpret_cast<T*>(ss);  // P over the score rows
-  float* os = ss;  // the output tile reuses the score rows once P is used
+  // the output tile reuses the score rows once P is used; at D >= 128 it
+  // outgrows them and takes the q and k tiles' room instead
+  float* os = D >= 128 ? reinterpret_cast<float*>(smem) : ss;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -280,7 +327,7 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out<T, D>(o, os, out, n, h, q0, L, H);
 }
 
-// The key-tiled design (L > 512): the same scores and softmax, walked one
+// The key-tiled design (L > max_rows_len): the same scores and softmax, walked one
 // key tile of 64 at a time.
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
@@ -296,7 +343,9 @@ mha_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* tp = reinterpret_cast<T*>(ts);  // one tile's P over its scores
   float* row_m = reinterpret_cast<float*>(smem + Lay::TILED_BYTES) - 2 * BQ;
   float* row_l = row_m + BQ;
-  float* os = ts;  // the output tile reuses the score tile at the end
+  // the output tile reuses the score tile at the end (D >= 128: the q and
+  // k tiles')
+  float* os = D >= 128 ? reinterpret_cast<float*>(smem) : ts;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -380,7 +429,7 @@ mha_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int N, int L, int H, int n_heads, void* stream) {
-  const bool tiled = L > MAX_ROWS_L;
+  const bool tiled = L > max_rows_len<D>();
   const size_t smem = tiled ? Layout<T, D>::TILED_BYTES : smem_bytes<T, D>(round64(L));
   auto kernel = tiled ? mha_fwd_tiled_kernel<T, D, CAUSAL> : mha_fwd_kernel<T, D, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -405,12 +454,21 @@ using namespace bft::attn;
 constexpr int STAGES = 2;                // ring of key tiles
 constexpr int CONSUMERS = 128;           // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int BLOCKS_PER_SM = 2;
+
+// Two blocks an SM up to D = 64; one at D = 128 and 256, whose stages
+// (two of 2 x 128 x 256 or 2 x 64 x 512 bytes) fill most of an SM's shared
+// memory and whose O accumulator (64 or 128 registers a thread) needs the
+// registers of a block alone.
+template <int D>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return D >= 128 ? 1 : 2;
+}
 
 template <int D>
 struct Smem {
+  static constexpr int NK = key_tile<D>();      // keys of a tile
   static constexpr int Q = Rows<D>::R64;        // a query tile
-  static constexpr int KV = Rows<D>::R128;      // one key tile of k or of v
+  static constexpr int KV = NK * Rows<D>::ROW;  // one key tile of k or of v
   static constexpr int STAGE = 2 * KV;          // k, then v
   static constexpr int BYTES = 1024 + 2 * Q + STAGES * STAGE + 256;
 };
@@ -422,7 +480,7 @@ struct Item {
   int q0, h, n, pre, test;
 };
 
-template <bool CAUSAL>
+template <bool CAUSAL, int NK>
 __device__ __forceinline__ Item item_at(int it, int pairs, int n_heads, int nt, int L) {
   Item x;
   const int qt = (L + BM - 1) / BM - 1 - it / pairs, rest = it % pairs;
@@ -430,18 +488,19 @@ __device__ __forceinline__ Item item_at(int it, int pairs, int n_heads, int nt, 
   x.n = rest / n_heads;
   x.q0 = qt * BM;
   const int last = x.q0 + BM - 1 < L ? x.q0 + BM - 1 : L - 1;
-  x.pre = CAUSAL ? last / BN + 1 : nt;  // the key tiles of the causal prefix
+  x.pre = CAUSAL ? last / NK + 1 : nt;  // the key tiles of the causal prefix
   x.test = CAUSAL && x.pre < nt;        // a skip to decide
   return x;
 }
 
 // Persistent: each block walks its items; the module note.
 template <int D, bool CAUSAL, bool ROWS>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, blocks_per_sm<D>())
 mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias,
            bf16* __restrict__ out, int L, int H, int n_heads, int n_items, float scale) {
   using S = Smem<D>;
+  constexpr int NK = S::NK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -454,7 +513,7 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
   uint64_t* decide = qempty + 2;
   int* ok_warp = reinterpret_cast<int*>(decide + 1);  // the skip test, one per warp
 
-  const int nt = ROWS ? 1 : (L + BN - 1) / BN;
+  const int nt = ROWS ? 1 : (L + NK - 1) / NK;
   const int pairs = n_items / ((L + BM - 1) / BM);  // (head, example) pairs
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -477,18 +536,18 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
     if (threadIdx.x != CONSUMERS) return;
     int j = 0, tests = 0;
     for (int i = 0, it = blockIdx.x; it < n_items; ++i, it += gridDim.x) {
-      const Item x = item_at<CAUSAL>(it, pairs, n_heads, nt, L);
+      const Item x = item_at<CAUSAL, NK>(it, pairs, n_heads, nt, L);
       const int qb = i & 1;
       if (i >= 2) mbar_wait(&qempty[qb], ((i >> 1) + 1) & 1);
       mbar_expect_tx(&qfull[qb], S::Q);
-      tma_load_3d(qbuf + qb * S::Q, &map_q, &qfull[qb], x.h * D, x.q0, x.n);
+      tma_tile<D, BM>(qbuf + qb * S::Q, &map_q, &qfull[qb], x.h * D, x.q0, x.n);
       auto load = [&](int t, bool with_v) {
         const int slot = j % STAGES;
         if (j >= STAGES) mbar_wait(&empty[slot], ((j / STAGES) + 1) & 1);
         unsigned char* st = ring + slot * S::STAGE;
         mbar_expect_tx(&full[slot], with_v ? S::STAGE : S::KV);
-        tma_load_3d(st, &map_k, &full[slot], x.h * D, t * BN, x.n);
-        if (with_v) tma_load_3d(st + S::KV, &map_v, &full[slot], x.h * D, t * BN, x.n);
+        tma_tile<D, NK>(st, &map_k, &full[slot], x.h * D, t * NK, x.n);
+        if (with_v) tma_tile<D, NK>(st + S::KV, &map_v, &full[slot], x.h * D, t * NK, x.n);
         ++j;
       };
       int walked = nt;
@@ -509,10 +568,10 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
   // the consumers: no branch on the thread around wgmma work
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c0 = 2 * (lane & 3), rw = warp * 16 + (lane >> 2);
-  float s[64], o[D / 2];
+  float s[NK / 2], o[D / 2];
   int j = 0, tests = 0;
   for (int i = 0, it = blockIdx.x; it < n_items; ++i, it += gridDim.x) {
-    const Item x = item_at<CAUSAL>(it, pairs, n_heads, nt, L);
+    const Item x = item_at<CAUSAL, NK>(it, pairs, n_heads, nt, L);
     const int qb = i & 1;
     const unsigned char* qs = qbuf + qb * S::Q;
     const int qi0 = x.q0 + rw;  // the thread's queries: qi0, qi0 + 8
@@ -530,7 +589,7 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
       const unsigned char* st = ring + slot * S::STAGE;
       fence_acc(s);
       wgmma_fence();
-      issue_rows_by_keys<D>(s, qs, st);
+      issue_rows_by_keys<D, BM>(s, qs, st);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(s);
@@ -551,7 +610,7 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
           const float mn = fmaxf(m[hf], quad_max(row_max(s, hf)));
           float part = 0.0f;
 #pragma unroll
-          for (int jj = 0; jj < 16; ++jj)
+          for (int jj = 0; jj < NK / 8; ++jj)
             part += expf(s[4 * jj + 2 * hf] - mn) + expf(s[4 * jj + 2 * hf + 1] - mn);
           l[hf] = l[hf] * expf(m[hf] - mn) + part;
           m[hf] = mn;
@@ -585,7 +644,7 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
           m[hf] = quad_max(row_max(s, hf));
           float part = 0.0f;
 #pragma unroll
-          for (int jj = 0; jj < 16; ++jj) {
+          for (int jj = 0; jj < NK / 8; ++jj) {
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const float e = expf(s[4 * jj + 2 * hf + u] - m[hf]);
@@ -596,18 +655,18 @@ mha_fwd_wg(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
           l[hf] = 1.0f / quad_sum(part);
         }
 #pragma unroll
-        for (int e = 0; e < 64; ++e) s[e] = s[e] * l[(e >> 1) & 1];
+        for (int e = 0; e < NK / 2; ++e) s[e] = s[e] * l[(e >> 1) & 1];
       } else {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) s[e] = expf(s[e] - m[(e >> 1) & 1]) * l[(e >> 1) & 1];
+        for (int e = 0; e < NK / 2; ++e) s[e] = expf(s[e] - m[(e >> 1) & 1]) * l[(e >> 1) & 1];
       }
-      uint32_t a[8][4];
+      uint32_t a[NK / 16][4];
       to_frags(s, a);
       fence_acc(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        mma_d_rs<D>(o, a[kk], ndesc<D>(st + S::KV + kk * 16 * Rows<D>::ROW), 1);
+      for (int kk = 0; kk < NK / 16; ++kk)
+        mma_d_rs<D>(o, a[kk], ndesc<D, NK>(st + S::KV + kk * 16 * Rows<D>::ROWB), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(o);
@@ -629,7 +688,7 @@ int launch_items(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap
   // 1 / sqrt(D) rounded to f32, as the plain version's Python float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int n_items = (L + BM - 1) / BM * n_heads * N;
-  const int cap = BLOCKS_PER_SM * bft::sm_count();
+  const int cap = blocks_per_sm<D>() * bft::sm_count();
   mha_fwd_wg<D, CAUSAL, ROWS><<<n_items < cap ? n_items : cap, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<const float*>(bias), static_cast<bf16*>(out), L, H, n_heads,
       n_items, scale);
@@ -639,14 +698,19 @@ int launch_items(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap
 template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int N,
            int L, int H, int n_heads, void* stream) {
+  constexpr int NK = key_tile<D>(), BOX = Rows<D>::BOX;
   CUtensorMap mq, mk, mv;
-  int e = bft::make_map_bf16_box(&mq, q, N, L, H, H, BM, D);
-  if (!e) e = bft::make_map_bf16_box(&mk, k, N, L, H, H, BN, D);
-  if (!e) e = bft::make_map_bf16_box(&mv, v, N, L, H, H, BN, D);
+  int e = bft::make_map_bf16_box(&mq, q, N, L, H, H, BM, BOX);
+  if (!e) e = bft::make_map_bf16_box(&mk, k, N, L, H, H, NK, BOX);
+  if (!e) e = bft::make_map_bf16_box(&mv, v, N, L, H, H, NK, BOX);
   if (e) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return L <= BN ? launch_items<D, CAUSAL, true>(mq, mk, mv, bias, out, N, L, H, n_heads, st)
-                 : launch_items<D, CAUSAL, false>(mq, mk, mv, bias, out, N, L, H, n_heads, st);
+  // whole rows up to L = 128 at widths up to 128; D = 256 walks at every L
+  if constexpr (D <= 128) {
+    if (L <= BN)
+      return launch_items<D, CAUSAL, true>(mq, mk, mv, bias, out, N, L, H, n_heads, st);
+  }
+  return launch_items<D, CAUSAL, false>(mq, mk, mv, bias, out, N, L, H, n_heads, st);
 }
 
 }  // namespace wg
@@ -664,9 +728,31 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
 }  // namespace
 
 // q / k / v / out (N, L, H) bf16 (f32 = 0) or f32 (f32 = 1), bias (N, L)
-// f32, causal masking when causal = 1; H = n_heads * D with D = 32 or 64;
-// whole rows up to L = 128 (bf16) or 512 (f32), key-tiled above. Returns
+// f32, causal masking when causal = 1; H = n_heads * D with D = 32, 64, 128
+// or 256; whole rows up to L = 128 (bf16, D <= 128) or 512 (f32; 256 at D =
+// 256), key-tiled above (and at every L for bf16 at D = 256). Returns
 // cudaGetLastError().
+// Each of the widths 128 and 256 compiles in a translation unit of its own
+// (mha_128.cu and mha_256.cu include this file with BFT_MHA_WIDTH
+// defined), so that the build's parallel nvcc processes share the work;
+// each unit instantiates only the templates its entry point dispatches to.
+#define BFT_PASTE2(a, b) a##b
+#define BFT_PASTE(a, b) BFT_PASTE2(a, b)
+#ifdef BFT_MHA_WIDTH
+extern "C" int BFT_PASTE(bft_mha_fwd_d, BFT_MHA_WIDTH)(
+    const void* q, const void* k, const void* v, const void* bias,
+    void* out, int N, int L, int H, int n_heads, int f32,
+    int causal, void* stream) {
+  return dispatch<BFT_MHA_WIDTH>(q, k, v, bias, out, N, L, H, n_heads, f32, causal, stream);
+}
+#else
+extern "C" int bft_mha_fwd_d128(const void* q, const void* k, const void* v,
+                                const void* bias, void* out, int N, int L, int H,
+                                int n_heads, int f32, int causal, void* stream);
+extern "C" int bft_mha_fwd_d256(const void* q, const void* k, const void* v,
+                                const void* bias, void* out, int N, int L, int H,
+                                int n_heads, int f32, int causal, void* stream);
+
 extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, int N, int L, int H,
                            int n_heads, int f32, int causal, void* stream) {
@@ -677,7 +763,12 @@ extern "C" int bft_mha_fwd(const void* q, const void* k, const void* v,
       return dispatch<32>(q, k, v, bias, out, N, L, H, n_heads, f32, causal, stream);
     case 64:
       return dispatch<64>(q, k, v, bias, out, N, L, H, n_heads, f32, causal, stream);
+    case 128:
+      return bft_mha_fwd_d128(q, k, v, bias, out, N, L, H, n_heads, f32, causal, stream);
+    case 256:
+      return bft_mha_fwd_d256(q, k, v, bias, out, N, L, H, n_heads, f32, causal, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif

@@ -1,0 +1,5 @@
+// The instances of mha.cu at head width 128, in a translation unit of
+// their own so that they compile in parallel with the others (mha.cu's
+// closing note).
+#define BFT_MHA_WIDTH 128
+#include "mha.cu"

@@ -95,4 +95,14 @@ __device__ __forceinline__ void mma(Acc<float>& acc,
   wmma::mma_sync(acc, a.hi, b.hi, acc);
 }
 
+// acc += part element by element, rounded to nearest (FADD): a long f32
+// product whose steps each start a fresh fragment, so that no chain in the
+// tensor cores' accumulator, which does not round to nearest, is longer
+// than one step.
+template <typename Fragment>
+__device__ __forceinline__ void add_into(Fragment& acc, const Fragment& part) {
+#pragma unroll
+  for (int e = 0; e < acc.num_elements; ++e) acc.x[e] = __fadd_rn(acc.x[e], part.x[e]);
+}
+
 }  // namespace bft

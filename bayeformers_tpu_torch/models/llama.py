@@ -82,6 +82,22 @@ FAMILY_KWARGS = {
               "tiny": dict(_COMMON_TINY, head_dim=32)},
 }
 FAMILIES = tuple(FAMILY_KWARGS)
+# Published models at their widths, as ``build_llama_family(family, "base",
+# **overrides)`` takes them, from each model's public ``config.json``; the
+# depth is the caller's. Both keep the presets' max_position_embeddings
+# (1024; published 8192 and 32768), and Gemma the presets' untied lm_head.
+PUBLISHED = {
+    # google/gemma-2b: 8 heads of 256 over one kv head
+    "gemma-2b-w256": ("gemma", dict(
+        vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+        num_attention_heads=8, num_key_value_heads=1, head_dim=256, rms_norm_eps=1e-6)),
+    # mistralai/Mistral-7B-v0.1: 32 heads of 128 over 8 kv heads; its
+    # 4096-key window never bites within 1024 positions
+    "mistral-7b-w128": ("mistral", dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        sliding_window=4096)),
+}
 ACTIVATIONS = {"llama": "silu", "mistral": "silu", "gemma": "gelu_pytorch_tanh"}
 
 

@@ -87,14 +87,19 @@ def source_hash() -> str:
 
 
 def _run(cmd: list[str]) -> subprocess.CompletedProcess:
-    return subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    """``cmd``'s completed process, with its wall seconds as ``.seconds``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    proc.seconds = time.perf_counter() - t0
+    return proc
 
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libbft_<hash>.so`` unless that
     file exists; returns its path. The sources compile in parallel, one
     ``nvcc`` each; the compiler's ``-Xptxas -v`` report (registers, shared
-    memory, spills of every kernel) goes to ``_build/nvcc.log``."""
+    memory, spills of every kernel) goes to ``_build/nvcc.log``, each
+    command with its seconds."""
     global last_build_seconds
     out = BUILD_DIR / f"libbft_{source_hash()}.so"
     if out.exists():
@@ -114,7 +119,7 @@ def build() -> Path:
         if all(p.returncode == 0 for p in procs):
             procs.append(_run(link))
             cmds.append(link)
-        log = "".join(f"$ {' '.join(c)}\n{p.stdout}{p.stderr}"
+        log = "".join(f"$ {' '.join(c)}  # {p.seconds:.1f} s\n{p.stdout}{p.stderr}"
                       for c, p in zip(cmds, procs))
         (BUILD_DIR / "nvcc.log").write_text(log)
         if any(p.returncode != 0 for p in procs):

@@ -13,12 +13,13 @@ versions :func:`mha_plain` (the counterpart of ``_mha_xla``) and
 :func:`mha_bwd_plain` (the arithmetic of ``_bwd_kernel``); a CUDA tensor
 launches ``csrc/mha.cu`` forward and ``csrc/mha_bwd.cu`` backward, or
 raises. Both kernels take bf16 or f32 q/k/v (f32: true f32 products, the
-dot operands in the stored dtype as in the reference), head widths 32 and
-64 (:data:`HEAD_DIMS`; any other raises on a CUDA tensor), and any L with
-the reference's exact softmax: the bf16 instances (wgmma fed by TMA) keep
-whole score rows in registers up to :data:`KEY_TILE` and walk key tiles of
-that width above it; the f32 instances keep whole rows in shared memory up
-to :data:`ROWS_MAX_LEN`. :func:`mha_tiled_plain` and
+dot operands in the stored dtype as in the reference), head widths 32, 64,
+128 and 256 (:data:`HEAD_DIMS`; any other raises on a CUDA tensor), and
+any L with the reference's exact softmax: the bf16 instances (wgmma fed by
+TMA) keep whole score rows in registers up to L = 128 at widths up to 128
+and walk key tiles of :func:`key_tile` keys above it (and at every L at
+width 256); the f32 instances keep whole rows in shared memory up to
+:func:`rows_max_len`. :func:`mha_tiled_plain` and
 :func:`mha_bwd_tiled_plain` mirror the bf16 kernels' tiles in plain torch
 for the tests; nothing on the card's path uses them.
 
@@ -58,10 +59,39 @@ from bayeformers_tpu_torch.ops import _build, common
 LAUNCHES = common.LaunchCounter("mha_fwd")
 PER_HEAD_LAUNCHES = common.LaunchCounter("mha_fwd_per_head")
 BWD_LAUNCHES = common.LaunchCounter("mha_bwd")
-HEAD_DIMS = (32, 64)  # the kernels' head widths
-KEY_TILE = 128        # the bf16 kernels' key tile: whole rows up to this L
-ROWS_MAX_LEN = 512    # the f32 kernels' whole rows: up to this L
+HEAD_DIMS = (32, 64, 128, 256)  # the kernels' head widths
+KEY_TILE = 128      # the bf16 kernels' key tile up to width 128: whole rows up to this L
+ROWS_MAX_LEN = 512  # the f32 kernels' whole rows up to width 128: up to this L
+BWD_QUERY_BLOCK = 128  # the bf16 backward's blocks (pass 1) and steps (pass 2) of query rows
 NEG_BIG = float(torch.finfo(torch.float32).min)
+
+
+def key_tile(d: int) -> int:
+    """The bf16 kernels' key tile at head width ``d`` (``csrc/attention.cuh::
+    key_tile``): 128, or 64 at 256, where O's and dQ's accumulators leave
+    registers for the scores of 64 keys only."""
+    return 64 if d >= 256 else KEY_TILE
+
+
+def rows_max_len(d: int) -> int:
+    """The longest L of the f32 kernels' whole-row design at head width
+    ``d``: 512, or 256 at 256, where the q and k tiles take 133 KB of shared
+    memory."""
+    return 256 if d >= 256 else ROWS_MAX_LEN
+
+
+def whole_rows(d: int, L: int) -> bool:
+    """Whether the bf16 kernels hold whole score rows (one key tile, the
+    backward in one pass) at head width ``d`` and length ``L``: up to L =
+    128 at widths up to 128; width 256 walks the key tiles at every L."""
+    return d <= 128 and L <= KEY_TILE
+
+
+def dkv_tile(d: int) -> int:
+    """The keys of a block of the bf16 backward's pass 2 at head width
+    ``d``: 128, or 64 at widths 128 and 256, whose two warpgroups split the
+    D columns of dV and dK (``csrc/mha_bwd.cu::mha_bwd_dkv_split``)."""
+    return 64 if d >= 128 else KEY_TILE
 
 # the reference's VMEM model of its attention kernels (attention.py:246-314,
 # its default limit, no BAYEFORMERS_VMEM_LIMIT_MB)
@@ -164,11 +194,11 @@ def _heads(t, n_heads):
     return t.reshape(N, L, n_heads, H // n_heads).permute(0, 2, 1, 3).float()
 
 
-def _tile_scores(qh, kh, bias, q0, q1, t, causal):
-    """The masked f32 scores of queries [q0, q1) and key tile ``t`` (keys
-    past L absent), as the kernels form them."""
+def _tile_scores(qh, kh, bias, q0, q1, t, causal, kt=KEY_TILE):
+    """The masked f32 scores of queries [q0, q1) and key tile ``t`` of
+    ``kt`` keys (keys past L absent), as the kernels form them."""
     d, L = qh.shape[-1], kh.shape[2]
-    k0, k1 = t * KEY_TILE, min((t + 1) * KEY_TILE, L)
+    k0, k1 = t * kt, min((t + 1) * kt, L)
     s = torch.matmul(qh[:, :, q0:q1], kh[:, :, k0:k1].transpose(-1, -2)) * (1.0 / math.sqrt(d))
     s = s + bias[:, None, None, k0:k1].float()
     if causal:
@@ -184,35 +214,36 @@ def _future_is_zero(m) -> torch.Tensor:
     return torch.exp(NEG_BIG - m) == 0.0
 
 
-def _prefix_tiles(q0, q1, n_tiles, causal) -> int:
-    return (q1 - 1) // KEY_TILE + 1 if causal else n_tiles
+def _prefix_tiles(q0, q1, n_tiles, causal, kt=KEY_TILE) -> int:
+    return (q1 - 1) // kt + 1 if causal else n_tiles
 
 
 def mha_tiled_plain(q, k, v, bias, n_heads: int, causal: bool = False):
     """The bf16 forward kernel's decomposition in plain torch (nothing on
     the card's path uses it): query tiles of :data:`QUERY_TILE` rows, key
-    tiles of :data:`KEY_TILE`; one tile of whole rows with the exact row
-    softmax, or the two walks (the row max and sum carried and rescaled,
+    tiles of :func:`key_tile` keys; one tile of whole rows with the exact row
+    softmax (:func:`whole_rows`), or the two walks (the row max and sum carried and rescaled,
     then P = exp(s - m) / l and O += P v), with the causal skip: a query
     tile walks the tiles of its causal prefix, then skips the tiles past it
     when exp(NEG_BIG - m) == 0 on every row. Returns ``(out, walked)``,
     ``walked[n, h, i]`` the key tiles that query tile i of head h of
     example n walked (in each walk)."""
     N, L, H = q.shape
-    dt = q.dtype
+    dt, d = q.dtype, H // n_heads
+    kt = key_tile(d)
     qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
-    nt, nqt = -(-L // KEY_TILE), -(-L // QUERY_TILE)
+    nt, nqt = -(-L // kt), -(-L // QUERY_TILE)
     out = torch.empty_like(qh)
     walked = torch.empty(N, n_heads, nqt, dtype=torch.int64)
     for i in range(nqt):
         q0, q1 = i * QUERY_TILE, min((i + 1) * QUERY_TILE, L)
-        pre = _prefix_tiles(q0, q1, nt, causal)
+        pre = _prefix_tiles(q0, q1, nt, causal, kt)
         live = torch.ones(N, n_heads, 1, 1, dtype=torch.bool, device=q.device)
 
         def pv(p, t):
-            return torch.matmul(p.to(dt).float(), vh[:, :, t * KEY_TILE:(t + 1) * KEY_TILE])
+            return torch.matmul(p.to(dt).float(), vh[:, :, t * kt:(t + 1) * kt])
 
-        if nt == 1:
+        if whole_rows(d, L):
             s = _tile_scores(qh, kh, bias, q0, q1, 0, causal)
             e = torch.exp(s - s.amax(-1, keepdim=True))
             out[:, :, q0:q1] = pv(e * (1.0 / e.sum(-1, keepdim=True)), 0)
@@ -223,14 +254,14 @@ def mha_tiled_plain(q, k, v, bias, n_heads: int, causal: bool = False):
         for t in range(nt):
             if t == pre:  # the skip test, after the causal prefix
                 live = ~_future_is_zero(m).all(2, keepdim=True)
-            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal, kt)
             mn = torch.maximum(m, s.amax(-1, keepdim=True))
             ln = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
             m, l = torch.where(live, mn, m), torch.where(live, ln, l)
         walked[:, :, i] = torch.where(live[..., 0, 0], nt, pre)
         o = torch.zeros_like(out[:, :, q0:q1])
         for t in range(nt):
-            p = torch.exp(_tile_scores(qh, kh, bias, q0, q1, t, causal) - m) * (1.0 / l)
+            p = torch.exp(_tile_scores(qh, kh, bias, q0, q1, t, causal, kt) - m) * (1.0 / l)
             o = torch.where(live | (t < pre), o + pv(p, t), o)
         out[:, :, q0:q1] = o
     return out.permute(0, 2, 1, 3).reshape(N, L, H).to(dt), walked
@@ -238,34 +269,36 @@ def mha_tiled_plain(q, k, v, bias, n_heads: int, causal: bool = False):
 
 def mha_bwd_tiled_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
     """The bf16 backward kernels' decomposition in plain torch (nothing on
-    the card's path uses it). Up to L = :data:`KEY_TILE`, one block per
-    head: the exact softmax, D, dS, and the five products. Above, pass 1
-    walks each block of 128 query rows over the key tiles twice (the row
-    max, the sum l of exp(s - m) and the sum dd of exp(s - m) dP carried and
-    rescaled, D = dd / l; then dS and dQ += dS k) with the forward's causal
-    skip over the block's rows, and pass 2 walks each key tile's query rows
-    in steps of 128, rebuilding P from pass 1's statistics, skipping a step
-    wholly before the tile where pass 1 skipped. Returns ``(dq, dk, dv,
-    walked)`` with ``walked["dq"][n, h, b]`` the key tiles block b of query
-    rows walked (in each walk) and ``walked["dkv"][n, h, t]`` the query
-    steps key tile t walked."""
+    the card's path uses it). Where :func:`whole_rows` holds, one block per
+    head: the exact softmax, D, dS, and the five products. Otherwise pass 1
+    walks each block of :data:`BWD_QUERY_BLOCK` query rows over the key
+    tiles of :func:`key_tile` keys twice (the row max, the sum l of exp(s -
+    m) and the sum dd of exp(s - m) dP carried and rescaled, D = dd / l;
+    then dS and dQ += dS k) with the forward's causal skip over the block's
+    rows, and pass 2 walks each key tile of :func:`dkv_tile` keys over the
+    query rows in steps of :data:`BWD_QUERY_BLOCK`, rebuilding P from pass
+    1's statistics, skipping a step wholly before the tile where pass 1
+    skipped. Returns ``(dq, dk, dv, walked)`` with ``walked["dq"][n, h, b]``
+    the key tiles block b of query rows walked (in each walk) and
+    ``walked["dkv"][n, h, t]`` the query steps key tile t walked."""
     N, L, H = q.shape
     dt, d = q.dtype, H // n_heads
     scale = 1.0 / math.sqrt(d)
     qh, kh, vh, gh = (_heads(t, n_heads) for t in (q, k, v, g))
-    nt = -(-L // KEY_TILE)
+    kt, kt2, qb = key_tile(d), dkv_tile(d), BWD_QUERY_BLOCK
+    nt, nqb = -(-L // kt), -(-L // qb)
     dev = q.device
 
     def rows(t, a, b):
         return t[:, :, a:b]
 
-    def keys(t, tile):
-        return t[:, :, tile * KEY_TILE:(tile + 1) * KEY_TILE]
+    def keys(t, tile, width=kt):
+        return t[:, :, tile * width:(tile + 1) * width]
 
     def flat(t):
         return t.permute(0, 2, 1, 3).reshape(N, L, H).to(dt)
 
-    if nt == 1:
+    if whole_rows(d, L):
         s = _tile_scores(qh, kh, bias, 0, L, 0, causal)
         e = torch.exp(s - s.amax(-1, keepdim=True))
         p = e / e.sum(-1, keepdim=True)
@@ -277,21 +310,21 @@ def mha_bwd_tiled_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
         ones = torch.ones(N, n_heads, 1, dtype=torch.int64)
         return flat(dq), flat(dk), flat(dv), {"dq": ones, "dkv": ones}
 
-    # pass 1: per block of 128 query rows, the statistics, D and dQ
+    # pass 1: per block of query rows, the statistics, D and dQ
     stat_m, stat_l, stat_d = (torch.empty(N, n_heads, L, 1, device=dev) for _ in range(3))
-    flags = torch.zeros(N, n_heads, nt, dtype=torch.bool)
-    walked_q = torch.empty(N, n_heads, nt, dtype=torch.int64)
+    flags = torch.zeros(N, n_heads, nqb, dtype=torch.bool)
+    walked_q = torch.empty(N, n_heads, nqb, dtype=torch.int64)
     dq = torch.empty_like(qh)
-    for b in range(nt):
-        q0, q1 = b * KEY_TILE, min((b + 1) * KEY_TILE, L)
-        pre = _prefix_tiles(q0, q1, nt, causal)
+    for b in range(nqb):
+        q0, q1 = b * qb, min((b + 1) * qb, L)
+        pre = _prefix_tiles(q0, q1, nt, causal, kt)
         live = torch.ones(N, n_heads, 1, 1, dtype=torch.bool, device=dev)
         m = torch.full((N, n_heads, q1 - q0, 1), float("-inf"), device=dev)
         l, dd = torch.zeros_like(m), torch.zeros_like(m)
         for t in range(nt):
             if t == pre:
                 live = ~_future_is_zero(m).all(2, keepdim=True)
-            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal, kt)
             dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
             mn = torch.maximum(m, s.amax(-1, keepdim=True))
             e, alpha = torch.exp(s - mn), torch.exp(m - mn)
@@ -303,27 +336,29 @@ def mha_bwd_tiled_plain(q, k, v, bias, g, n_heads: int, causal: bool = False):
         dsum = dd / l
         acc = torch.zeros(N, n_heads, q1 - q0, d, device=dev)
         for t in range(nt):
-            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal, kt)
             dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
             ds = (torch.exp(s - m) / l * (dp - dsum)).to(dt).float()
             acc = torch.where(live | (t < pre), acc + torch.matmul(ds, keys(kh, t)), acc)
         dq[:, :, q0:q1] = acc * scale
         stat_m[:, :, q0:q1], stat_l[:, :, q0:q1], stat_d[:, :, q0:q1] = m, l, dsum
 
-    # pass 2: per key tile, dK and dV over the query rows in steps of 128
+    # pass 2: per key tile, dK and dV over the query rows in steps
+    nt2 = -(-L // kt2)
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
-    walked_kv = torch.empty(N, n_heads, nt, dtype=torch.int64)
-    for t in range(nt):
-        k0, k1 = t * KEY_TILE, min((t + 1) * KEY_TILE, L)
+    walked_kv = torch.empty(N, n_heads, nt2, dtype=torch.int64)
+    for t in range(nt2):
+        k0, k1 = t * kt2, min((t + 1) * kt2, L)
         ak = torch.zeros(N, n_heads, k1 - k0, d, device=dev)
         av = torch.zeros_like(ak)
         count = torch.zeros(N, n_heads, dtype=torch.int64)
-        for step in range(nt):
-            q0, q1 = step * KEY_TILE, min((step + 1) * KEY_TILE, L)
-            skip = flags[:, :, step] if causal and step < t else torch.zeros_like(flags[:, :, 0])
-            s = _tile_scores(qh, kh, bias, q0, q1, t, causal)
+        for step in range(nqb):
+            q0, q1 = step * qb, min((step + 1) * qb, L)
+            before = causal and (step + 1) * qb <= k0  # rows wholly before the tile
+            skip = flags[:, :, step] if before else torch.zeros_like(flags[:, :, 0])
+            s = _tile_scores(qh, kh, bias, q0, q1, t, causal, kt2)
             p = torch.exp(s - rows(stat_m, q0, q1)) / rows(stat_l, q0, q1)
-            dp = torch.matmul(rows(gh, q0, q1), keys(vh, t).transpose(-1, -2))
+            dp = torch.matmul(rows(gh, q0, q1), keys(vh, t, kt2).transpose(-1, -2))
             ds = (p * (dp - rows(stat_d, q0, q1))).to(dt).float()
             live = ~skip.to(dev)[..., None, None]
             av = torch.where(live, av + torch.matmul(p.to(dt).float().transpose(-1, -2),
@@ -369,13 +404,14 @@ def _check_inputs(q, k, v, bias, n_heads: int, extra=()) -> str:
     """Raise on what the kernels do not take; returns q's dtype tag. The
     messages are formed only on failure (``common.require``)."""
     req = common.require
-    req(q.is_cuda, "mha kernel needs a CUDA tensor, got {}", q.device)
     req(q.dim() == 3, "q/k/v must be (N, L, H)")
     N, L, H = q.shape
-    tag = common.kernel_dtype(q, "mha")
     req(n_heads >= 1 and H % n_heads == 0 and H // n_heads in HEAD_DIMS,
-        "mha kernels take head widths {}; H={}, heads={} (wider heads: ROADMAP "
-        "queue 2, the attention kernels' other head widths)", HEAD_DIMS, H, n_heads)
+        "mha kernels take head widths {}; H={}, heads={}: the other multiples of 8 "
+        "that the reference takes (80, 96, ...) are not ported yet (ROADMAP queue 2, "
+        "the attention kernels' other head widths)", HEAD_DIMS, H, n_heads)
+    req(q.is_cuda, "mha kernel needs a CUDA tensor, got {}", q.device)
+    tag = common.kernel_dtype(q, "mha")
     req(N >= 1 and L >= 1, "mha kernels need N, L >= 1, got {}", (N, L))
     operands = (("k", k), ("v", v)) + tuple(extra)
     for name, t in operands:
@@ -412,8 +448,9 @@ def mha_cuda(q, k, v, bias, n_heads: int, causal: bool = False) -> torch.Tensor:
 
 def bwd_stats_size(N: int, L: int, n_heads: int) -> int:
     """The backward's scratch in 4-byte words: each row's max, sum and D
-    (f32), then each 128-row query block's causal-skip flag (int32)."""
-    return 3 * N * n_heads * L + N * n_heads * -(-L // KEY_TILE)
+    (f32), then each query block's causal-skip flag (int32), a block of
+    :data:`BWD_QUERY_BLOCK` rows at every head width."""
+    return 3 * N * n_heads * L + N * n_heads * -(-L // BWD_QUERY_BLOCK)
 
 
 def mha_bwd_cuda(q, k, v, bias, g, n_heads: int, causal: bool = False):

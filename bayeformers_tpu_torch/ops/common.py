@@ -121,21 +121,51 @@ def unit_offsets(offsets) -> tuple[int, int]:
     return k0, n0
 
 
+# The plain versions' working set: they take a weight of more elements than
+# this in chunks (of rows, of draws), so that the plain Philox stream's
+# int64 words and an f32 W stay a few GB at the published models' lm_heads
+# (Gemma-2B: 10 draws of 2048 x 256000). Each element's arithmetic is the
+# same in any chunk.
+PLAIN_CHUNK_ELEMS = 1 << 27
+
+
+def chunk_len(n: int, per_item: int) -> int:
+    """How many of ``n`` items of ``per_item`` elements a plain version
+    takes at once (:data:`PLAIN_CHUNK_ELEMS`), at least one."""
+    return max(1, min(n, PLAIN_CHUNK_ELEMS // max(1, per_item)))
+
+
+def chunk_cols(K: int, N: int, members: int) -> int:
+    """The columns of a (K, N) weight that a plain version takes at once for
+    ``members`` draws: all N within :data:`PLAIN_CHUNK_ELEMS`, else whole
+    eps units of :data:`UNIT_N` columns (so that a column block draws its
+    slice of the layer's noise at its unit offsets)."""
+    if members * K * N <= PLAIN_CHUNK_ELEMS:
+        return N
+    return max(UNIT_N, PLAIN_CHUNK_ELEMS // (members * K) // UNIT_N * UNIT_N)
+
+
 def unit_eps(seeds: torch.Tensor, shape: tuple[int, int],
              offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """(S, K, N) float32 standard normals of the unit stream for a weight
-    block whose [0, 0] corner sits at absolute element ``offsets`` (k0, n0).
+    block whose [0, 0] corner sits at absolute element ``offsets`` (k0, n0),
+    formed in chunks of rows (:func:`chunk_len`).
 
     Runs on ``seeds.device``; the bits are equal to ``csrc/eps.cuh``'s.
     """
     K, N = shape
     dev = seeds.device
-    k_idx = torch.arange(K, dtype=torch.int64, device=dev) + int(offsets[0])
     n_idx = torch.arange(N, dtype=torch.int64, device=dev) + int(offsets[1])
-    bits1, bits2, is_sin = philox_bits(seeds, k_idx, n_idx)
-    z_cos, z_sin = box_muller_pair(uniform_from_bits(bits1),
-                                   uniform_from_bits(bits2))
-    return torch.where(is_sin[None], z_sin, z_cos)
+    out = torch.empty((seeds.shape[0], K, N), dtype=torch.float32, device=dev)
+    rows = chunk_len(K, seeds.shape[0] * N)
+    for r0 in range(0, K, rows):
+        r1 = min(K, r0 + rows)
+        k_idx = torch.arange(r0, r1, dtype=torch.int64, device=dev) + int(offsets[0])
+        bits1, bits2, is_sin = philox_bits(seeds, k_idx, n_idx)
+        z_cos, z_sin = box_muller_pair(uniform_from_bits(bits1),
+                                       uniform_from_bits(bits2))
+        out[:, r0:r1] = torch.where(is_sin[None], z_sin, z_cos)
+    return out
 
 
 class LaunchCounter:

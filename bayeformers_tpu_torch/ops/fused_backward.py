@@ -66,11 +66,31 @@ def _results(a, b, u, v, want_u: bool):
     return (a, b, u, v) if want_u else (a, b, v)
 
 
+def _chunked(reduce, c: int, h: int, x, g, w, mu, g_p, mixture, want_u):
+    """``reduce`` over chunks of ``c`` draws of ``h`` members each, and of
+    columns where one draw alone is large (:func:`common.chunk_cols`); the
+    chunks' accumulators added in order."""
+    K, N = mu.shape
+    nc = common.chunk_cols(K, N, h)
+    total = None
+    for i in range(0, x.shape[0], h * c):
+        j = i + h * c
+        part = [reduce(x[i:j], g[i:j, :, n:n + nc], w[i:j, :, n:n + nc], mu[:, n:n + nc],
+                       g_p[i:j], mixture, want_u) for n in range(0, N, nc)]
+        part = tuple(torch.cat(t, dim=1) for t in zip(*part))
+        total = part if total is None else tuple(a + b for a, b in zip(total, part))
+    return total
+
+
 def reduce_abuv_plain(x, g, w, mu, g_p, mixture=None, want_u: bool = False):
     """Plain version (``_xla_reduce``): the per-sample products in f32 from
     the operands as given, W minus mu in f32. Returns ``(A, B, V)``, or
-    ``(A, B, U, V)`` with ``want_u``, (K, N) f32 each."""
+    ``(A, B, U, V)`` with ``want_u``, (K, N) f32 each; a W of many elements
+    in chunks of draws and columns (:func:`_chunked`)."""
     reduce_prior(mixture, want_u)
+    c = common.chunk_len(x.shape[0], w[0].numel())
+    if c < x.shape[0] or common.chunk_cols(*mu.shape, 1) < mu.shape[1]:
+        return _chunked(reduce_abuv_plain, c, 1, x, g, w, mu, g_p, mixture, want_u)
     dw = torch.bmm(x.float().transpose(1, 2), g.float())
     wc = w.float() - mu[None]
     a = torch.sum(dw, dim=0)
@@ -100,8 +120,12 @@ def reduce_abuv(x, g, w, mu, g_p, mixture=None, want_u: bool = False):
 def reduce_abuv_anti_plain(x, g, w, mu, g_p, mixture=None, want_u: bool = False):
     """Plain version (``_xla_reduce_anti``): the per-pair products in f32
     from the operands as given, W's even members minus mu in f32. Returns
-    ``(A, B, V)``, or ``(A, B, U, V)`` with ``want_u``, (K, N) f32 each."""
+    ``(A, B, V)``, or ``(A, B, U, V)`` with ``want_u``, (K, N) f32 each; a W
+    of many elements in chunks of pairs and columns (:func:`_chunked`)."""
     reduce_prior(mixture, want_u)
+    c = common.chunk_len(x.shape[0] // 2, 2 * w[0].numel())
+    if c < x.shape[0] // 2 or common.chunk_cols(*mu.shape, 2) < mu.shape[1]:
+        return _chunked(reduce_abuv_anti_plain, c, 2, x, g, w, mu, g_p, mixture, want_u)
     S, M, K = x.shape
     N = mu.shape[1]
     x2 = x.reshape(S // 2, 2, M, K).float()

@@ -195,7 +195,38 @@ def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,
     ``unit_offsets``; ``eps``/``w`` are the injection points for parity
     tests. The prior is ``mixture``, ``prior_mu`` or, with neither, the one
     centred on mu. Returns ``(y, log_q, log_p)``, plus W in x's dtype when
-    ``save_weights``."""
+    ``save_weights``. A drawn W of many elements is drawn and used in
+    chunks of draws and of columns (:func:`common.chunk_len`,
+    :func:`common.chunk_cols`), each as the whole is, the log-probs summed
+    over the column blocks."""
+    if w is None and eps is None:
+        h = 2 if antithetic else 1
+        K, N = mu.shape
+        c = common.chunk_len(len(seeds), h * mu.numel())
+        nc = common.chunk_cols(K, N, h)  # one draw's columns, where it alone is over
+        if c < len(seeds) or nc < N:
+            k0, n0 = common.unit_offsets(unit_offsets)
+            y = lq = lp = wx = None  # each output whole, filled a chunk at a time
+            for i in range(0, len(seeds), c):
+                rows = slice(h * i, h * (i + c))
+                for j in range(0, N, nc):
+                    cols = slice(j, j + nc)
+                    part = bayes_linear_plain(
+                        x[rows], mu[:, cols], rho[:, cols], seeds[i:i + c],
+                        antithetic=antithetic, save_weights=save_weights, mixture=mixture,
+                        prior_mu=None if prior_mu is None else prior_mu[:, cols],
+                        unit_offsets=(k0, n0 + j))
+                    if y is None:
+                        y = part[0].new_empty(x.shape[:2] + (N,))
+                        lq, lp = (t.new_zeros((x.shape[0],)) for t in part[1:3])
+                        wx = part[3].new_empty((x.shape[0], K, N)) if save_weights else None
+                    y[rows, :, cols] = part[0]
+                    lq[rows] += part[1]  # the log-probs sum over the column blocks
+                    lp[rows] += part[2]
+                    if save_weights:
+                        wx[rows, :, cols] = part[3]
+                    del part
+            return (y, lq, lp) + ((wx,) if save_weights else ())
     if w is None:
         w = sample_weights(mu, rho, seeds, eps, antithetic=antithetic,
                            offsets=unit_offsets)

@@ -48,20 +48,24 @@ def regression_loss(out, batch):
                  "mse_std": torch.std(per_sample_mse, unbiased=False)}
 
 
-def pick_mc(bmodel, estimator: str = "antithetic", save_weights: bool = True):
-    """The MC forward of an estimator, the reference's table: ``"fused"``
-    (the fused forward with independent draws, ``mc_apply_fused``),
-    ``"antithetic"`` (the fused forward with +- paired draws, the
-    reference's default for even S), ``"naive"`` (per-sample weights,
-    ``mc_apply``), ``"flipout"`` (per-example sign-flipped perturbations,
-    ``mc_apply_flipout``) and ``"local"`` / ``"lrt"`` (local
-    reparameterization, ``mc_apply_lrt``). ``save_weights`` goes to the
-    fused tier's two entries (keep W for the backward, or regenerate it);
-    the other tiers keep no weights."""
-    fused = functools.partial(bmodel.mc_apply_fused, save_weights=save_weights)
+def pick_mc(bmodel, fused: bool, estimator: Optional[str] = None,
+            save_weights: bool = True):
+    """The MC forward of an estimator, the reference's table and signature
+    (``bayeformers_tpu/training.py::pick_mc``): ``"fused"`` (the fused
+    forward with independent draws, ``mc_apply_fused``), ``"antithetic"``
+    (the fused forward with +- paired draws; needs an even S), ``"naive"``
+    (per-sample weights, ``mc_apply``), ``"flipout"`` (per-example
+    sign-flipped perturbations, ``mc_apply_flipout``) and ``"local"`` /
+    ``"lrt"`` (local reparameterization, ``mc_apply_lrt``). ``estimator=
+    None`` takes ``"fused"``, or ``"naive"`` with ``fused=False``.
+    ``save_weights`` goes to the fused tier's two entries (keep W for the
+    backward, or regenerate it); the other tiers keep no weights."""
+    if estimator is None:
+        estimator = "fused" if fused else "naive"
+    apply_fused = functools.partial(bmodel.mc_apply_fused, save_weights=save_weights)
     table = {
-        "fused": functools.partial(fused, antithetic=False),
-        "antithetic": functools.partial(fused, antithetic=True),
+        "fused": functools.partial(apply_fused, antithetic=False),
+        "antithetic": functools.partial(apply_fused, antithetic=True),
         "naive": bmodel.mc_apply,
         "flipout": bmodel.mc_apply_flipout,
         "local": bmodel.mc_apply_lrt,
@@ -93,14 +97,17 @@ def elbo_objective(mc, seed: int, n_samples: int, batch: dict, n_batches: int,
 
 def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
                          n_batches: int, loss_fn: Callable = classification_loss,
+                         fused: bool = True,
                          input_keys: tuple[str, ...] = INPUT_KEYS,
-                         estimator: str = "antithetic",
+                         estimator: Optional[str] = None,
                          mc_chunk: Optional[int] = None,
                          eps_hook: Optional[Callable] = None):
     """Returns ``step(seed, batch) -> metrics`` (detached 0-d tensors:
     loss, nll, acc/acc_std or mse/mse_std, log_prior,
     log_variational_posterior), which updates the trainable tensors of
     ``bmodel`` in place through ``optimizer`` (``utils.optim.masked_optimizer``).
+    ``fused`` and ``estimator`` pick the MC forward as :func:`pick_mc` does:
+    by default the fused tier's independent draws, as in the reference.
 
     ``mc_chunk``: run the S samples in chunks of this size with gradient
     accumulation (fresh draws per chunk, seeds ``derive_seed(seed, c)``);
@@ -110,7 +117,7 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
     ``(path, n_draws, shape)``, flipout's and LRT's ``(path, what, shape)``,
     the naive tier's ``(path, shape)``). An antithetic chunk must be even;
     the others may be odd."""
-    mc = pick_mc(bmodel, estimator)
+    mc = pick_mc(bmodel, fused, estimator)
     n_chunks, chunk = 1, n_samples
     if mc_chunk is not None and mc_chunk < n_samples:
         if n_samples % mc_chunk:
@@ -142,11 +149,13 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
 
 def make_elbo_eval_step(bmodel, n_samples: int,
                         loss_fn: Callable = classification_loss,
+                        fused: bool = True,
                         input_keys: tuple[str, ...] = INPUT_KEYS,
-                        estimator: str = "antithetic"):
+                        estimator: Optional[str] = None):
     """Returns ``eval_step(seed, batch) -> (out, metrics)``, run under
-    ``torch.inference_mode()`` (the fused tier without weight residuals)."""
-    mc = pick_mc(bmodel, estimator, save_weights=False)
+    ``torch.inference_mode()`` (the fused tier without weight residuals);
+    ``fused`` and ``estimator`` as in :func:`pick_mc`."""
+    mc = pick_mc(bmodel, fused, estimator, save_weights=False)
 
     @torch.inference_mode()
     def eval_step(seed: int, batch: dict):

@@ -236,7 +236,7 @@ def train(
     bmodel = to_bayesian(net, delta=delta, freeze=True)
 
     # ---------------- Phase 3 & 4: Bayesian eval + ELBO train --------------
-    eval_mc = training.pick_mc(bmodel, estimator, save_weights=False)
+    eval_mc = training.pick_mc(bmodel, True, estimator, save_weights=False)
     draws = itertools.count()  # the key stream: seed + 1, split per use
 
     def next_seed() -> int:

@@ -132,7 +132,7 @@ Phases, each timed, each raising on failure:
 16. the LLaMA-architecture families: the head-width-32, key-tiled (L > 128
     in bf16, L > 512 in f32), one-tile ragged (L = 77) and #4 instances of
     ``mha_fwd`` / ``mha_bwd`` against their plain versions
-    (:func:`phase_attention16`: planted faults, a width-128 refusal), and a
+    (:func:`phase_attention16`: planted faults, a width-96 refusal), and a
     causal L = 1024 query tile that mixes rows whose whole prefix is masked
     with normal rows, where the causal skip must not fire
     (:func:`mixed_tile_check`, with a planted fault); the forward and
@@ -144,9 +144,28 @@ Phases, each timed, each raising on failure:
     (:func:`phase_lm_once`); ``gpt2_lm --model llama``; flipout and local
     requests. bf16 logits of these paths are held against an f32 plain run
     (:func:`f32_logits_gate`).
+17. wide heads: #3, #4's instance and #5 at head widths 128 and 256
+    (:func:`phase_attention17`) in bf16 and f32 against their plain versions
+    at the attention gates, causal and not, with right-padded keys, a fully
+    masked row and a first-key-masked row, bit-equal reruns, and planted
+    faults that must fail (the score scale of the other width, the plain
+    mask one column off, the non-causal instance); at Gemma-2B's (N = 80, L
+    = 128, H = 2048, 8 heads; f32 N = 20) and Mistral-7B's (80, 128, 4096,
+    32 heads) request and step, the key-tiled walk at L = 1024, and #4's
+    shapes (H = 256 in heads of 128 and 256, L = 1024, counted in
+    ``mha_fwd_per_head``); width 96 raises. The forward and reduce kernels
+    at the published models' FFN and lm_head shapes. Gemma-2B and
+    Mistral-7B at their published widths (``models/llama.py::PUBLISHED``,
+    two layers, random weights from seed 0, MOPED 0.05 frozen) served and
+    trained through ``Predictor(task="causal-lm")`` and
+    ``make_elbo_train_step`` (:func:`phase_lm_once`: 15 Bayesian linear and
+    2 causal ``mha_fwd`` launches a request, 2 ``mha_bwd`` a step) in bf16
+    at 8x128 and in f32 at 8x128 (Gemma 2x128, one step), the logits and the
+    step against the plain path, peak memory; their 1x1024 requests, and
+    the tiny models at #4's shapes.
 
-``python3 chip_smoke.py --from 16`` runs the build, the eps stream and the
-phases from 16 on only. The line before the last is a JSON object with one entry per kernel,
+``python3 chip_smoke.py --from 16`` (or ``--from 17``) runs the build, the
+eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -336,25 +355,33 @@ def plain_partials(common, mu, rho, seeds, antithetic, kw):
     from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
 
     K, N = mu.shape
-    eps = common.unit_eps(seeds, (K, N))
-    se = sigma_from_rho(rho)[None] * eps  # f32, as the kernel rounds it
-    w0 = mu[None] + se
-    members = [w0, 2.0 * mu[None] - w0] if antithetic and kw else [w0]
-    terms = [-0.5 * eps.double() ** 2]
-    for w in members:
-        if "mixture" in kw:
-            terms.append(mixture_log_pdf(w.double(), *kw["mixture"]))
-        else:
-            d = w.double() - kw["prior_mu"].double() if kw else se.double()
-            terms.append(-0.5 * (d / MOPED_PRIOR_SIGMA) ** 2)
     n_tiles = -(-N // 64)
 
     def tile_sums(t):
         t = torch.nn.functional.pad(t, (0, n_tiles * 64 - N))
-        return t.view(t.shape[0], K, n_tiles, 64).sum(dim=(1, 3))
+        return t.view(t.shape[0], t.shape[1], n_tiles, 64).sum(dim=(1, 3))
 
-    ref = torch.stack([tile_sums(t) for t in terms], -1)
-    scale = torch.stack([tile_sums(t.abs()) for t in terms], -1)
+    # in chunks of whole eps units of rows, at a wide layer (an lm_head)
+    unit = common.UNIT_K
+    step = max(1, common.PLAIN_CHUNK_ELEMS // (len(seeds) * N * unit)) * unit
+    ref = scale = 0.0
+    for r0 in range(0, K, step):
+        rows = slice(r0, min(K, r0 + step))
+        m = mu[rows]
+        eps = common.unit_eps(seeds, tuple(m.shape), (r0, 0))
+        se = sigma_from_rho(rho[rows])[None] * eps  # f32, as the kernel rounds it
+        w0 = m[None] + se
+        members = [w0, 2.0 * m[None] - w0] if antithetic and kw else [w0]
+        terms = [-0.5 * eps.double() ** 2]
+        for w in members:
+            if "mixture" in kw:
+                terms.append(mixture_log_pdf(w.double(), *kw["mixture"]))
+            else:
+                d = w.double() - kw["prior_mu"][rows].double() if kw else se.double()
+                terms.append(-0.5 * (d / MOPED_PRIOR_SIGMA) ** 2)
+        ref = ref + torch.stack([tile_sums(t) for t in terms], -1)
+        scale = scale + torch.stack([tile_sums(t.abs()) for t in terms], -1)
+        del eps, se, w0, members, terms
     return ref, scale
 
 
@@ -437,11 +464,12 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
     y, lq, lp, w = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic, **kw)
     again = fl.bayes_linear_with_w(x, mu, rho, seeds, antithetic=antithetic, **kw)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((y, lq, lp, w), again))
+    del again  # an lm_head's y and W are GBs: compared a draw at a time below
     yp, lqp, lpp, wp = fl.bayes_linear_plain(x, mu, rho, seeds, antithetic=antithetic,
                                              save_weights=True, **kw)
-    check(all(torch.equal(a, b) for a, b in zip((y, lq, lp, w), again)),
-          f"{name} reruns differ at {shape}")
-    err = (y.float() - yp.float()).abs().max().item()
+    check(same, f"{name} reruns differ at {shape}")
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(y, yp))
     if x.dtype == F32:
         # true f32 products: 2e-5 of max |y| (one TF32 product would miss
         # it by about ten times)
@@ -449,8 +477,8 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
         check(err <= 2e-5 * scale, f"{name} y differs at {shape}: max {err}, "
               f"{err / scale:.3g} of max |y|")
     else:
-        check(torch.allclose(y.float(), yp.float(), rtol=2e-2, atol=2e-2),
-              f"{name} y differs at {shape}: max {err}")
+        check(all(torch.allclose(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+                  for a, b in zip(y, yp)), f"{name} y differs at {shape}: max {err}")
     # log_q, and log_p of every member (a pair's two under the priors not
     # centred on mu): 1e-5 relative
     for tag, a, b in (("log_q", lq, lqp), ("log_p", lp, lpp)):
@@ -462,11 +490,12 @@ def compare_bayes_linear(fl, x, mu, rho, seeds, antithetic, kw=None):
     # W = mu + softplus(rho) eps in x's dtype (and 2 mu - w for a pair's
     # second member), each step rounded as the plain version rounds it, from
     # the same normals (phase eps): equal to the plain W
-    w_err = (w.float() - wp.float()).abs().max().item()
+    w_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(w, wp))
     check(torch.equal(w, wp), f"{name} W differs at {shape}: max {w_err}")
+    equal = sum((a == b).sum().item() for a, b in zip(w, wp)) / w.numel()
     return err, w, (
         f"y max|d| {err:.3g}, W max|d| {w_err:.3g} "
-        f"({(w == wp).float().mean().item():.6f} equal), "
+        f"({equal:.6f} equal), "
         f"log_q {lq[0].item():.6g} vs {lqp[0].item():.6g}, log_p rel err {lp_err:.3g}, "
         f"{lp_check}, reruns equal")
 
@@ -495,6 +524,13 @@ FAMILY_SHAPES = {GPT2: ((1024, 768, 2304),),
                          (1024, 768, 32000))}
 
 
+def plain_iters(K: int, N: int) -> tuple[int, int]:
+    """The calls and warm-up calls that time a linear kernel's plain
+    version: (3, 1), or (1, 0) at a layer of more than 2^24 weights (the
+    published models' FFNs and lm_heads, whose plain draws take seconds)."""
+    return (3, 1) if K * N <= 1 << 24 else (1, 0)
+
+
 def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
                        family=BERT) -> list[dict]:
     """A forward kernel's instance for ``dtype`` and ``prior`` against its
@@ -513,7 +549,7 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
         ms = time_ms(lambda: fl.bayes_linear(x, mu, rho, seeds, antithetic=antithetic,
                                              prior_on_mu=not kw, **kw), 20, windows=WINDOWS)
         plain_ms = time_ms(lambda: fl.bayes_linear_plain(
-            x, mu, rho, seeds, antithetic=antithetic, **kw), 3, 1)
+            x, mu, rho, seeds, antithetic=antithetic, **kw), *plain_iters(K, N))
         lib_ms = time_ms(lambda: torch.bmm(x, w), 20, windows=WINDOWS)
         # x, mu, rho (and prior_mu) read, y written, the log-probs and seeds
         n_bytes = (S * M * K * isz + (2 + ("prior_mu" in kw)) * K * N * 4
@@ -930,7 +966,7 @@ def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
             say(f"{name} ({label}) odd shape M={M} K={K} N={N}: {summary}, reruns equal")
             continue
         ms = time_ms(lambda: fn(x, g, w, mu, g_p, **pkw), 20, windows=WINDOWS)
-        plain_ms = time_ms(lambda: plain(x, g, w, mu, g_p, **pkw), 3, 1)
+        plain_ms = time_ms(lambda: plain(x, g, w, mu, g_p, **pkw), *plain_iters(K, N))
         xt = x.transpose(1, 2)
         lib_ms = time_ms(lambda: torch.bmm(xt, g), 20, windows=WINDOWS)
         # the pair reduce reads the even half of W, the independent one all
@@ -1279,7 +1315,7 @@ def grads_of(bt, bmodel, named, seed, batch, impl, estimator, save_weights=True,
     for _, t, _ in named:
         t.grad = None
     loss, m = bt.training.elbo_objective(
-        bt.training.pick_mc(bmodel, estimator, save_weights), seed, 10, batch, 256,
+        bt.training.pick_mc(bmodel, True, estimator, save_weights), seed, 10, batch, 256,
         impl=impl, **loss_keywords(family))
     loss.backward()
     return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
@@ -1312,7 +1348,7 @@ def prior_grads(bt, bmodel, named, batch, impl, estimator, save_weights=True) ->
     for _, t, _ in named:
         t.grad = None
     _, m = bt.training.elbo_objective(
-        bt.training.pick_mc(bmodel, estimator, save_weights), 123, 10, batch, 256,
+        bt.training.pick_mc(bmodel, True, estimator, save_weights), 123, 10, batch, 256,
         impl=impl)
     (m["log_variational_posterior"] - m["log_prior"]).backward()
     return {n: t.grad.clone() for n, t, _ in named if t.grad is not None}
@@ -2269,7 +2305,7 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     tag, sfx = TAG[dtype], prior_suffix(prior)
     label = (f"{estimator}{' ' + LM_NAME[family] if family else ''} ({tag}"
              + ("" if prior == "on_mu" else f", {prior}") + ")")
-    mc_of = lambda m: bt.training.pick_mc(m, estimator)
+    mc_of = lambda m: bt.training.pick_mc(m, True, estimator)
     counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, fb.INDEP_LAUNCHES, lpm.LAUNCHES,
                 lpm.VJP_LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
     bmodel, named = converted_base(bt, dtype, prior, family)
@@ -2799,6 +2835,9 @@ ATTN16 = ((80, 128, 128, 4, False, None), (80, 128, 128, 4, True, "llama-tiny"),
           (8, 520, 768, 12, True, None), (10, 1024, 768, 12, True, "llama-long"),
           (2, 2048, 768, 12, True, None),
           (10, 1024, 128, 4, True, "llama-tiny-long"))
+# the planted fault of a width's instance: the score scale of the other
+# width of its pair
+OTHER_WIDTH = {32: 64, 128: 256, 256: 128}
 
 
 def scaled_plain(at, q, k, v, bias, nh, causal, scale):
@@ -2855,20 +2894,22 @@ def mixed_tile_check(at, dtype) -> str:
             f"max|d| {max_dist(out, fault):.3g}")
 
 
-def phase_attention16(at, dtype) -> list[dict]:
-    """The head-width-32, key-tiled and #4 instances of ``mha_fwd`` and
-    ``mha_bwd`` against their plain versions at :data:`ATTN16`, in
-    ``dtype``: the attention gates, the fully masked rows finite and
-    uniform over all L keys, bit-equal reruns, and planted faults that must
-    fail the gates (at d = 32 the score scale of d = 64; causal: the
-    non-causal instance and the plain mask one column off; key-tiled: the
-    keys past the whole-row design's 512 dropped); an unsupported head
-    width raises on the card. Returns the timing rows of the shapes a
-    phase-16 path serves."""
+def attention_checks(at, dtype, shapes, trained=None) -> list[dict]:
+    """The instances of ``mha_fwd`` and ``mha_bwd`` at ``shapes`` ((N, L, H,
+    heads, causal, the rows' paths)) against their plain versions, in
+    ``dtype``: the attention gates, the fully masked rows finite and uniform
+    over all L keys, bit-equal reruns, and planted faults that must fail
+    the gates (the score scale of the other width of a pair, 32 and 64 or
+    128 and 256; causal: the non-causal instance and the plain mask one
+    column off; beyond the f32 whole rows: the keys past them dropped).
+    Each launch counts in #4's counter where the reference would take its
+    per-head forward. Returns the timing rows of the shapes a path serves
+    (the backward's only where the path is in ``trained``; None: every
+    path trains)."""
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     tol = 1e-4 if dtype == F32 else 2e-2
     rows = []
-    for N, L, H, nh, causal, path in ATTN16:
+    for N, L, H, nh, causal, path in shapes:
         d = H // nh
         q, k, v, g, bias = causal_inputs(at, N, L, H, L + H + 1, dtype)
         counter = at.PER_HEAD_LAUNCHES if at.pallas_route(L, H, nh, isz) == "per_head" \
@@ -2900,19 +2941,20 @@ def phase_attention16(at, dtype) -> list[dict]:
         check(bool(torch.isfinite(out.float()).all()) and uni <= tol,
               f"{what}: the all-masked rows are not uniform over L: {uni}")
         faults = {}
-        if d == 32:
-            faults["scale of d = 64"] = (out, scaled_plain(at, q, k, v, bias, nh, causal,
-                                                           0.125))
+        if d in OTHER_WIDTH:
+            faults[f"scale of d = {OTHER_WIDTH[d]}"] = (out, scaled_plain(
+                at, q, k, v, bias, nh, causal, 1.0 / math.sqrt(OTHER_WIDTH[d])))
         if causal:
             faults["non-causal instance"] = (at.mha_cuda(q, k, v, bias, nh), ref)
             with shifted_causal_mask(at):
                 faults["mask one column off"] = (out, at.mha_plain(q, k, v, bias, nh,
                                                                    causal=True))
-        if L > at.ROWS_MAX_LEN:
+        rows_len = at.rows_max_len(d)
+        if L > rows_len:
             cut = bias.clone()
-            cut[:, at.ROWS_MAX_LEN:] = at.NEG_BIG
-            faults["keys past 512 dropped"] = (out, at.mha_plain(q, k, v, cut, nh,
-                                                                 causal=causal))
+            cut[:, rows_len:] = at.NEG_BIG
+            faults[f"keys past {rows_len} dropped"] = (out, at.mha_plain(q, k, v, cut, nh,
+                                                                         causal=causal))
         check(all(not attn_gate_ok(a, b, dtype) for a, b in faults.values()),
               f"{what}: a planted fault passes the gates: "
               + str({f: max_dist(a, b) for f, (a, b) in faults.items()}))
@@ -2925,14 +2967,15 @@ def phase_attention16(at, dtype) -> list[dict]:
         if path is None:
             say(f"{what}: {summary}")
             continue
-        ms = time_ms(lambda: at.mha_cuda(q, k, v, bias, nh, causal=True), 20,
+        ms = time_ms(lambda: at.mha_cuda(q, k, v, bias, nh, causal=causal), 20,
                      windows=WINDOWS)
-        plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh, causal=True), 3, 1)
-        bms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=True), 10,
+        plain_ms = time_ms(lambda: at.mha_plain(q, k, v, bias, nh, causal=causal), 3, 1)
+        bms = time_ms(lambda: at.mha_bwd_cuda(q, k, v, bias, g, nh, causal=causal), 10,
                       windows=WINDOWS)
-        bplain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh, causal=True),
+        bplain_ms = time_ms(lambda: at.mha_bwd_plain(q, k, v, bias, g, nh, causal=causal),
                             2, 1)
-        mask4 = causal_sdpa_mask(at, bias, dtype)
+        mask4 = causal_sdpa_mask(at, bias, dtype) if causal else \
+            bias.clamp_min(torch.finfo(dtype).min).to(dtype)[:, None, None, :]
         heads = [t.view(N, L, nh, d).transpose(1, 2).detach().requires_grad_()
                  for t in (q, k, v)]
 
@@ -2945,38 +2988,60 @@ def phase_attention16(at, dtype) -> list[dict]:
         blib_ms = time_ms(lambda: torch.autograd.grad(o, heads, go, retain_graph=True), 10,
                           windows=WINDOWS)
         del o, heads, mask4
-        # the products the causal function needs: key <= query, L (L + 1) / 2 a head
-        pairs = N * L * (L + 1) / 2
+        # the products the function needs: causal, key <= query, L (L + 1) /
+        # 2 a head; else L^2
+        pairs = N * L * (L + 1) / 2 if causal else N * L * L
         b = bound(4 * N * L * H * isz + N * L * 4, 4.0 * pairs * H, dtype)
         bb = bound(7 * N * L * H * isz + N * L * 4, 10.0 * pairs * H, dtype)
         say(f"{what}: {summary}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa (combined mask) {lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); backward "
-            f"kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, sdpa backward {blib_ms:.4f} "
-            f"ms, bound {bb[0]:.4f} ms ({bb[1]})")
-        suffix = ("" if dtype == BF16 else f",{tag}") + f",d={d},causal"
+            f"sdpa ({'combined' if causal else 'key'} mask) {lib_ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}); backward kernel {bms:.4f} ms, plain {bplain_ms:.4f} "
+            f"ms, sdpa backward {blib_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+        suffix = ("" if dtype == BF16 else f",{tag}") + f",d={d}" + (",causal" if causal else "")
         per_head = counter is at.PER_HEAD_LAUNCHES
         rows.append(row(f"mha_fwd{'_per_head' if per_head else ''}[N={N},L={L},H={H}{suffix}]",
-                        counter.name, (N, L, H, tag, True), f"serve/{path}/{tag}",
+                        counter.name, (N, L, H, tag, causal), f"serve/{path}/{tag}",
                         "bayeformers_tpu_torch/csrc/mha.cu",
                         "bayeformers_tpu/ops/attention.py:" + ("78" if per_head else "119"),
                         err, ms, plain_ms, b, lib_ms))
         if not per_head:  # #4's shape is a forward-only request
+            trains = trained is None or path in trained
             rows.append(row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd",
-                            (N, L, H, tag, True), f"train/{path}/{tag}",
+                            (N, L, H, tag, causal), f"train/{path}/{tag}" if trains else None,
                             "bayeformers_tpu_torch/csrc/mha_bwd.cu",
                             "bayeformers_tpu/ops/attention.py:181", max(gerrs), bms,
                             bplain_ms, bb, blib_ms))
         del q, k, v, g, out, again, grads, grads2, ref, gref, faults
         torch.cuda.empty_cache()
-    say(mixed_tile_check(at, dtype))
-    # a head width no instance takes raises on the card
-    q = torch.zeros(2, 64, 256, device="cuda", dtype=dtype)
+    return rows
+
+
+def unported_width_raises(at, dtype) -> None:
+    """A head width that no instance takes (96, which the reference takes)
+    raises on the card, naming the ported widths."""
+    q = torch.zeros(2, 64, 192, device="cuda", dtype=dtype)
     bias = torch.zeros(2, 64, device="cuda")
-    try:
-        at.mha_cuda(q, q, q, bias, 2, causal=True)
-        check(False, "mha at head width 128 did not raise")
-    except ValueError as e:
-        say(f"mha ({tag}) at head width 128 raises: {e}")
+    msg = ""
+    for fn, args in ((at.mha_cuda, (q, q, q, bias, 2)),
+                     (at.mha_bwd_cuda, (q, q, q, bias, q, 2))):
+        try:
+            fn(*args, causal=True)
+            check(False, f"{fn.__name__} at head width 96 did not raise")
+        except ValueError as e:
+            msg = str(e)
+            check("128, 256" in msg, f"{fn.__name__} at width 96: {msg}")
+    say(f"mha ({TAG[dtype]}) at head width 96 raises: {msg}")
+
+
+def phase_attention16(at, dtype) -> list[dict]:
+    """The head-width-32, key-tiled and #4 instances of ``mha_fwd`` and
+    ``mha_bwd`` against their plain versions at :data:`ATTN16`, in
+    ``dtype`` (:func:`attention_checks`), the mixed causal tile, and an
+    unported head width's refusal. Returns the timing rows of the shapes a
+    phase-16 path serves."""
+    rows = attention_checks(at, dtype, ATTN16)
+    say(mixed_tile_check(at, dtype))
+    unported_width_raises(at, dtype)
     return rows
 
 
@@ -2994,26 +3059,35 @@ def lm_want(bmodel, B, L, H, layers, tag, n_req=0, n_steps=0, per_head=False) ->
     forward kernel (and the reduce a step) once a converted kernel at M = B
     L, on its (in, out) view, the causal attention forward (and backward a
     step) once a block, under #4's name where the reference would take its
-    per-head forward."""
+    per-head forward; in an f32 step, #10's pair instance once a layer whose
+    K rounds up above 2048 (``fused_linear.takes_regen_vjp``, the
+    reference's route)."""
+    from bayeformers_tpu_torch.ops import common
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+
     n = n_req + n_steps
-    by_kn = {}
+    by_kn, regen = {}, {}
     for p in bmodel.spec.paths:
         if p.endswith("/kernel"):
             K, N = bmodel.rho[p].shape
             if "/c_" in p:  # a GPT-2 Conv1D, stored (out, in)
                 K, N = N, K
             by_kn[(B * L, K, N, tag)] = by_kn.get((B * L, K, N, tag), 0) + n
+            if tag == "f32" and common.round_up(K, common.UNIT_K) > fl.ANTI_F32_SAVED_MAX_KP:
+                regen[(5, K, N, "pair")] = regen.get((5, K, N, "pair"), 0) + n_steps
     key = (10 * B, L, H, tag, True)
     want = {"bayes_linear_anti": by_kn,
             "mha_fwd_per_head" if per_head else "mha_fwd": {key: layers * n}}
     if n_steps:
         want["reduce_abuv_anti"] = dict(by_kn)
         want["mha_bwd"] = {key: layers * n_steps}
+        if regen:
+            want["regen"] = regen
     return want
 
 
 def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
-                  step=True, **overrides) -> tuple[dict, float, dict, float]:
+                  step=True, n_steps=3, **overrides) -> tuple[dict, float, dict, float]:
     """One causal LM of phase 16 at (B, L), S = 10, antithetic, frozen MOPED
     0.05: a ``Predictor(task="causal-lm")`` request (a warm-up, then three,
     launch counts read around exactly them), its logits against the plain
@@ -3022,8 +3096,9 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     ``step``, the ELBO step with the LM loss through the kernels against the
     plain step at the same draw (bf16: loss 1e-2 relative, rho gradients 5e-2
     relative L2 and cosine 0.999; f32: loss 1e-6, every group 1e-3 relative
-    L2), then three timed steps with their launch counts. Returns (request
-    launches, request ms, step launches, step ms)."""
+    L2), then ``n_steps`` timed steps with their launch counts; the peak
+    memory of the requests and of the steps. Returns (request launches,
+    request ms, step launches, step ms)."""
     tag = TAG[dtype]
     name = f"{LM_NAME[family]} {size}" + (f" {overrides}" if overrides else "")
     label = f"{name} at ({B}, {L}) ({tag})"
@@ -3046,6 +3121,7 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     torch.cuda.synchronize()
     reset_counters(fl, fb, at)
     at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
     lat = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -3054,6 +3130,7 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     serve = lm_counts(fl, fb, at)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
     want = lm_want(bmodel, B, L, H, layers, tag, n_req=3, per_head=per_head)
     check(serve == want, f"{label}: launches over 3 requests {serve}, want {want}")
     check(all(np.isfinite(v).all() for v in out.values()), f"{label}: non-finite output")
@@ -3073,7 +3150,8 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     del lk, lp
     serve_ms = float(np.median(lat))
     say(f"{label}: request launches {serve}; {note}; request latency (S=10) median "
-        f"{serve_ms:.3f} ms of 3: {[round(v, 3) for v in lat]}")
+        f"{serve_ms:.3f} ms of 3: {[round(v, 3) for v in lat]}; peak memory "
+        f"{serve_peak:.2f} GiB")
     del pred
     if not step:
         del named, bmodel
@@ -3082,6 +3160,7 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     batch = train_batch(bt, B, L, family=family, vocab=cfg.vocab_size)
     loss_k, mk, gk = grads_of(bt, bmodel, named, 123, batch, "kernel", "antithetic",
                               family=family)
+    torch.cuda.empty_cache()  # the kernel step's blocks, before the plain step's
     loss_p, mp, gp = grads_of(bt, bmodel, named, 123, batch, "plain", "antithetic",
                               family=family)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -3110,7 +3189,7 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     at.PER_HEAD_LAUNCHES.reset()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(3):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = stepf(1000 + i, batch)
@@ -3118,10 +3197,11 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
         times.append((time.perf_counter() - t) * 1e3)
         check(bool(torch.isfinite(m["loss"])), f"{label}: step {i} loss {m['loss']}")
     steps = lm_counts(fl, fb, at)
-    want = lm_want(bmodel, B, L, H, layers, tag, n_steps=3, per_head=per_head)
-    check(steps == want, f"{label}: launches over 3 steps {steps}, want {want}")
+    want = lm_want(bmodel, B, L, H, layers, tag, n_steps=n_steps, per_head=per_head)
+    check(steps == want, f"{label}: launches over {n_steps} steps {steps}, want {want}")
     step_ms = float(np.median(times))
-    say(f"{label}: step launches {steps}; ELBO step (S=10) median {step_ms:.3f} ms of 3: "
+    say(f"{label}: step launches {steps}; ELBO step (S=10) median {step_ms:.3f} ms of "
+        f"{n_steps}: "
         f"{[round(v, 3) for v in times]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del opt, stepf, named, bmodel
@@ -3129,13 +3209,126 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
     return serve, serve_ms, steps, step_ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: wide heads. #3, #4's instance and #5 at head widths 128 and 256,
+# and the published models at those widths, Gemma-2B and Mistral-7B (two
+# layers each), served and trained
+# ---------------------------------------------------------------------------
+
+# the published models (``models/llama.py::PUBLISHED``) by their launch
+# paths' prefix: (name, family, batch of the f32 runs). Gemma's f32 runs
+# take B = 2: its lm_head's ten f32 draws alone are 21 GB, and at B = 8 the
+# f32 logits, log-softmax and their gradient another 10 GB each
+WIDE = {"gemma-2b-w256/": ("gemma-2b-w256", GEMMA, 2),
+        "mistral-7b-w128/": ("mistral-7b-w128", MISTRAL, 8)}
+WIDE_LAYERS = 2
+# the Bayesian linear kernels' new shapes: each model's FFN and lm_head at
+# the 8x128 bucket
+FAMILY_SHAPES["gemma-2b-w256/"] = ((1024, 2048, 16384), (1024, 16384, 2048),
+                                   (1024, 2048, 256000))
+FAMILY_SHAPES["mistral-7b-w128/"] = ((1024, 4096, 14336), (1024, 14336, 4096),
+                                     (1024, 4096, 32000))
+# the attention shapes of phase 17 by dtype: (N, L, H, heads, causal, the
+# rows' paths)
+#  * the published models' request and step at L = 128, N = S B (Gemma's f32
+#    runs at B = 2), causal, and the non-causal instances there;
+#  * the key-tiled walk at each width: the long-context request (B = 1, N =
+#    S) at L = 1024 (at D = 256 every L walks);
+#  * #4's shapes: H = 256 in 2 heads of 128 or 1 of 256 at L = 1024 (tiny
+#    models with 1024 positions, one request), where the reference finds no
+#    head group and takes its per-head forward (in bf16; in f32 XLA).
+ATTN17 = {
+    BF16: ((80, 128, 2048, 8, True, "gemma-2b-w256/anti"),
+           (80, 128, 4096, 32, True, "mistral-7b-w128/anti"),
+           (80, 128, 2048, 8, False, None), (80, 128, 4096, 32, False, None),
+           (10, 1024, 2048, 8, True, "gemma-2b-w256-long"),
+           (10, 1024, 4096, 32, True, "mistral-7b-w128-long"),
+           (10, 1024, 256, 2, True, "w128-tiny-long"), (10, 1024, 256, 1, True, "w256-tiny-long")),
+    F32: ((20, 128, 2048, 8, True, "gemma-2b-w256/anti"),
+          (80, 128, 4096, 32, True, "mistral-7b-w128/anti"),
+          (20, 128, 2048, 8, False, None), (80, 128, 4096, 32, False, None),
+          (10, 1024, 2048, 8, True, None), (10, 1024, 4096, 32, True, None),
+          (10, 1024, 256, 2, True, None), (10, 1024, 256, 1, True, None)),
+}
+# the paths of phase 17 that train (the others serve a request only)
+TRAINED17 = ("gemma-2b-w256/anti", "mistral-7b-w128/anti")
+# the tiny models at #4's shapes: H = 256 in heads of 128 (Mistral's tiny
+# preset at hidden 256) and of 256 (Gemma's, one head), 1024 positions
+TINY_LONG17 = {"w128-tiny-long": (MISTRAL, dict(hidden_size=256, num_attention_heads=2,
+                                                num_key_value_heads=2,
+                                                max_position_embeddings=1024,
+                                                sliding_window=1024)),
+               "w256-tiny-long": (GEMMA, dict(num_attention_heads=1, num_key_value_heads=1,
+                                              head_dim=256, max_position_embeddings=1024))}
+
+
+def published(bt, name) -> dict:
+    """A published model's config overrides at :data:`WIDE_LAYERS` layers."""
+    return dict(bt.models.llama.PUBLISHED[name][1], num_hidden_layers=WIDE_LAYERS)
+
+
+def phase_attention17(at, dtype) -> list[dict]:
+    """#3, #4's instance and #5 at head widths 128 and 256 against their
+    plain versions at :data:`ATTN17` (:func:`attention_checks`: the gates,
+    bit-equal reruns, the planted faults, the score scale of the other
+    width among them), and width 96's refusal. Returns the timing rows."""
+    for N, L, H, nh, causal, path in ATTN17[dtype]:
+        if path and "tiny-long" in path:
+            check(at.pallas_route(L, H, nh, 2) == "per_head", f"{path}: not #4's shape")
+    rows = attention_checks(at, dtype, ATTN17[dtype], TRAINED17)
+    unported_width_raises(at, dtype)
+    return rows
+
+
+def phase17(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
+    """Phase 17 (module note): the wide attention instances, the linear
+    kernels at the published models' new shapes (bf16, antithetic), and
+    the published models served and trained in bf16 (8x128) and f32 (8x128;
+    Gemma 2x128, one step), their long-context requests (1x1024, bf16) and
+    #4's tiny models. Fills ``paths``; returns the rows and the request and
+    step medians."""
+    rows, ms = [], {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase 17 {label}: {time.perf_counter() - t:.2f} s")
+        return out
+
+    for dtype in (BF16, F32):
+        rows += timed(f"attention ({TAG[dtype]})", phase_attention17, at, dtype)
+    for fam, (name, _, _) in WIDE.items():
+        rows += timed(f"bayes_linear {name}", phase_bayes_linear, fl, moped_rho, True, BF16,
+                      "on_mu", fam)
+        rows += timed(f"reduce {name}", phase_reduce, fl, fb, moped_rho, True, "bf16",
+                      "on_mu", fam)
+    for dtype in (BF16, F32):
+        tag = TAG[dtype]
+        for fam, (name, family, b32) in WIDE.items():
+            B = 8 if dtype == BF16 else b32
+            (paths[f"serve/{fam}anti/{tag}"], ms["request", name, tag],
+             paths[f"train/{fam}anti/{tag}"], ms["step", name, tag]) = timed(
+                f"{name} ({tag}, {B}x128)", phase_lm_once, bt, fl, fb, at, family, dtype,
+                "base", B, 128, True, 1 if B == 2 else 3, **published(bt, name))
+    for fam, (name, family, _) in WIDE.items():
+        paths[f"serve/{name}-long/bf16"], ms["request", name + "-long", "bf16"], _, _ = timed(
+            f"{name} (bf16, 1x1024)", phase_lm_once, bt, fl, fb, at, family, BF16, "base", 1,
+            1024, False, **published(bt, name))
+    for where, (family, kw) in TINY_LONG17.items():
+        paths[f"serve/{where}/bf16"], ms["request", where, "bf16"], _, _ = timed(
+            f"{where} (bf16)", phase_lm_once, bt, fl, fb, at, family, BF16, "tiny", 1, 1024,
+            False, **kw)
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
-    # ``--from 16`` runs only the phases from 16 on, after the build and the
-    # eps stream (a quicker check of a later slice); no arguments run all
+    # ``--from 16`` (or 17) runs only the phases from there on, after the
+    # build and the eps stream (a quicker check of a later slice); no
+    # arguments run all
     first = int(sys.argv[sys.argv.index("--from") + 1]) if "--from" in sys.argv else 0
     import bayeformers_tpu_torch as bt
     from bayeformers_tpu_torch.core.init import moped_rho
@@ -3302,6 +3495,15 @@ def main() -> int:
                 f"estimator LLaMA ({est}, bf16)", phase_estimator, bt, fl, fb, at, sl, lpm, est,
                 BF16, "on_mu", LLAMA, False)
 
+    wide_ms = {}
+    if first <= 17:
+        # phase 17: the attention kernels' head widths 128 and 256, and
+        # Gemma-2B and Mistral-7B at their published widths
+        t17 = time.perf_counter()
+        rows17, wide_ms = phase17(bt, fl, fb, at, moped_rho, paths)
+        rows += rows17
+        say(f"phase 17 (wide heads): {time.perf_counter() - t17:.2f} s")
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
@@ -3336,9 +3538,14 @@ def main() -> int:
             + "; ".join(f"{est} ({tag}) {gpt2_ms['request', est, tag]:.3f} / "
                         f"{gpt2_ms['step', est, tag]:.3f} ms"
                         for (what, est, tag) in gpt2_ms if what == "request"))
-    say(f"{smi}; phase 16 (frozen MOPED, antithetic unless named), request / ELBO step, "
-        "S=10: " + "; ".join(f"{what} {est} ({tag}) {v:.3f} ms"
-                             for (what, est, tag), v in llama_ms.items() if v is not None)
+    if first <= 16:
+        say(f"{smi}; phase 16 (frozen MOPED, antithetic unless named), request / ELBO "
+            "step, S=10: " + "; ".join(f"{what} {est} ({tag}) {v:.3f} ms"
+                                       for (what, est, tag), v in llama_ms.items()
+                                       if v is not None))
+    say(f"{smi}; phase 17 (frozen MOPED, antithetic, {WIDE_LAYERS} layers), request / ELBO "
+        "step, S=10: " + "; ".join(f"{what} {name} ({tag}) {v:.3f} ms"
+                                   for (what, name, tag), v in wide_ms.items() if v is not None)
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ long-context request). The trees run in turns, one process each: parent,
 change, change, parent. The change's first run holds its outputs against the
 parent's first at ``chip_smoke.py``'s attention gates (bf16: forward 2e-2
 absolute, backward 2e-2 absolute plus 2e-2 relative; f32: 1e-4 absolute
-plus 1e-4 relative), not bit for bit. Each run times every instance twice:
+plus 1e-4 relative) and counts the instances whose outputs are bit-equal
+to the parent's (a forward: out; a backward: dq, dk and dv), 48 in all: a
+change that leaves these widths' arithmetic alone keeps all 48. Each run times every instance twice:
 the call as ``chip_smoke.py`` times it (CUDA events around back-to-back
 calls, the median of 5 windows: the host's time where the calls outrun the
 card), and the card's time in the kernels the call launched
@@ -137,10 +139,11 @@ def gate_ok(a: torch.Tensor, b: torch.Tensor, f32: bool, backward: bool) -> bool
     return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
 
 
-def compare(got: dict, want: dict) -> list[str]:
+def compare(got: dict, want: dict) -> tuple[list[str], int, int]:
     """The change's outputs against the parent's at the attention gates;
-    returns the failures."""
-    bad = []
+    returns the failures, and how many of the instances (each key's
+    forward and backward) are bit-equal, of how many."""
+    bad, equal = [], 0
     for key, o in want.items():
         c = got[key]
         f32 = key.startswith("f32")
@@ -148,10 +151,11 @@ def compare(got: dict, want: dict) -> list[str]:
         for n in o:
             if not gate_ok(c[n], o[n], f32, n != "out"):
                 bad.append(f"{key}: {n} max|d| {errs[n]:.3g}")
+        same = {n: torch.equal(c[n], o[n]) for n in o}
+        equal += same["out"] + all(same[n] for n in ("dq", "dk", "dv"))
         print(f"{key}: max|d| " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-              + ("" if all(torch.equal(c[n], o[n]) for n in o) else " (not bit-equal)"),
-              flush=True)
-    return bad
+              + ("" if all(same.values()) else " (not bit-equal)"), flush=True)
+    return bad, equal, 2 * len(want)
 
 
 def main() -> int:
@@ -163,11 +167,12 @@ def main() -> int:
         got, times = run(tree)
         torch.save({"out": got, "times": times}, path)
         if len(sys.argv) > 4:
-            bad = compare(got, torch.load(sys.argv[4])["out"])
+            bad, equal, total = compare(got, torch.load(sys.argv[4])["out"])
             for b in bad:
                 print("FAIL", b)
             print(f"outputs within chip_smoke.py's attention gates of the parent's: "
-                  f"{'all' if not bad else f'{len(bad)} failures'}")
+                  f"{'all' if not bad else f'{len(bad)} failures'}; bit-equal to the "
+                  f"parent's: {equal} of {total} instances")
             return 1 if bad else 0
         return 0
     parent = sys.argv[1]

@@ -87,7 +87,7 @@ def main() -> int:
         req = chip_smoke.serving_requests(bt)[1]
         inputs = tuple(torch.from_numpy(req[k]).to(bmodel.device)
                        for k in ("input_ids", "attention_mask", "token_type_ids"))
-        mc = bt.training.pick_mc(bmodel, args.estimator)
+        mc = bt.training.pick_mc(bmodel, True, args.estimator)
 
         def run(i):
             with torch.inference_mode():

@@ -178,7 +178,7 @@ def test_other_recipes_raise():
     # the other estimators run too: each serves the S samples, finite
     for est in ("naive", "flipout", "local"):
         with torch.no_grad():
-            out, aux = training.pick_mc(bmodel, est)(0, 2, ids)
+            out, aux = training.pick_mc(bmodel, True, est)(0, 2, ids)
         assert out.shape == (2, 2, 2) and torch.isfinite(aux["log_prior"]).all(), est
     with pytest.raises(ValueError):
         bmodel.mc_apply_fused(0, 3, ids, antithetic=True)
@@ -192,7 +192,7 @@ def test_unported_recipes_name_their_slice(pair):
     with pytest.raises(ValueError, match="generator") as e:
         bt.to_bayesian(port.model, delta=None)
     assert "items 2 and 3" not in str(e.value)
-    assert training.pick_mc(port, "naive") == port.mc_apply
+    assert training.pick_mc(port, True, "naive") == port.mc_apply
     flat = flatten_dict(bp.params, sep="/")
     prior_mu = {p: np.asarray(m) for p, m in bp.prior_mu.items()}
     path = "classifier/kernel"

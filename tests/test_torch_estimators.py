@@ -169,7 +169,7 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2)):
                                          jnp.asarray(weights))
     named = port.trainable_parameters()
     t = {k: torch.from_numpy(v).long() for k, v in batch.items()}
-    out, aux = training.pick_mc(port, estimator)(
+    out, aux = training.pick_mc(port, True, estimator)(
         0, S, **t, eps_hook=_hook(bmodel, key, estimator))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=1e-4)
     if estimator == "naive":
@@ -257,7 +257,7 @@ def test_estimator_law_matches_naive_tier(estimator):
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(16, 12)).astype(np.float32))
     n = 300
     with torch.no_grad():
-        out, aux = training.pick_mc(bmodel, estimator)(1, n, x)
+        out, aux = training.pick_mc(bmodel, True, estimator)(1, n, x)
         ref, _ = (bmodel.mc_apply_fused(2, n, x) if estimator == "naive"
                   else bmodel.mc_apply(2, n, x))
     std_ref = ref.std(0)
@@ -286,19 +286,64 @@ def test_flipout_decorrelates_examples():
 def test_pick_mc_table_matches_reference():
     """The reference's six names; an unknown one raises."""
     bmodel = bt.to_bayesian(_Net(), delta=0.05, freeze=True)
-    assert training.pick_mc(bmodel, "naive") == bmodel.mc_apply
-    assert training.pick_mc(bmodel, "flipout") == bmodel.mc_apply_flipout
-    assert training.pick_mc(bmodel, "local") == bmodel.mc_apply_lrt
-    assert training.pick_mc(bmodel, "lrt") == bmodel.mc_apply_lrt
+    assert training.pick_mc(bmodel, True, "naive") == bmodel.mc_apply
+    assert training.pick_mc(bmodel, True, "flipout") == bmodel.mc_apply_flipout
+    assert training.pick_mc(bmodel, True, "local") == bmodel.mc_apply_lrt
+    assert training.pick_mc(bmodel, True, "lrt") == bmodel.mc_apply_lrt
     for est, anti in (("fused", False), ("antithetic", True)):
         for save in (True, False):
-            fn = training.pick_mc(bmodel, est, save_weights=save)
+            fn = training.pick_mc(bmodel, True, est, save_weights=save)
             assert fn.func == bmodel.mc_apply_fused
             assert fn.keywords == {"antithetic": anti, "save_weights": save}
-    assert training.pick_mc(bmodel, "fused").keywords["save_weights"] is True
-    assert training.pick_mc(bmodel, "naive", save_weights=False) == bmodel.mc_apply
+    assert training.pick_mc(bmodel, True, "fused").keywords["save_weights"] is True
+    assert training.pick_mc(bmodel, True, "naive", save_weights=False) == bmodel.mc_apply
     with pytest.raises(ValueError, match="unknown estimator"):
-        training.pick_mc(bmodel, "bbb")
+        training.pick_mc(bmodel, True, "bbb")
+
+
+def test_step_factories_take_reference_defaults():
+    """``pick_mc``, ``make_elbo_train_step`` and ``make_elbo_eval_step`` take
+    the reference's parameters in its order (its optax ``tx`` is the port's
+    optimizer) with its defaults: ``estimator=None`` is the fused tier's
+    independent draws, or the naive tier with ``fused=False``; both train
+    and evaluate at an odd S, where antithetic pairs would raise."""
+    import inspect
+
+    from bayeformers_tpu import training as jtraining
+    from bayeformers_tpu_torch.utils import optim
+
+    for ours, ref in ((training.pick_mc, jtraining.pick_mc),
+                      (training.make_elbo_train_step, jtraining.make_elbo_train_step),
+                      (training.make_elbo_eval_step, jtraining.make_elbo_eval_step)):
+        ours = list(inspect.signature(ours).parameters.values())
+        ref = list(inspect.signature(ref).parameters.values())
+        assert ([p.name for p in ours[:len(ref)]]
+                == [{"tx": "optimizer"}.get(p.name, p.name) for p in ref])
+        for p, r in zip(ours, ref):
+            if r.name in ("fused", "estimator"):
+                assert p.default == r.default, (p, r)
+    bmodel = bt.to_bayesian(_Net(), delta=0.3)
+    fn = training.pick_mc(bmodel, True)
+    assert fn.func == bmodel.mc_apply_fused
+    assert fn.keywords == {"antithetic": False, "save_weights": True}
+    assert training.pick_mc(bmodel, False) == bmodel.mc_apply
+    assert training.pick_mc(bmodel, False, "antithetic").keywords["antithetic"]
+    rng = np.random.default_rng(3)
+    batch = {"input_ids": torch.from_numpy(rng.normal(size=(4, 12)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 5, 4))}
+    tx = training.adamw_with_decay_groups(1e-3, 0.0, training.default_no_decay)
+    for fused in (True, False):
+        step = training.make_elbo_train_step(bmodel, optim.masked_optimizer(tx, bmodel), 3,
+                                             10, fused=fused, input_keys=("input_ids",))
+        m = step(7, batch)
+        assert torch.isfinite(m["loss"])
+        out, metrics = training.make_elbo_eval_step(
+            bmodel, 3, fused=fused, input_keys=("input_ids",))(8, batch)
+        assert out.shape == (3, 4, 5) and torch.isfinite(metrics["nll"])
+    with pytest.raises(ValueError):
+        training.make_elbo_train_step(bmodel, optim.masked_optimizer(tx, bmodel), 3, 10,
+                                      estimator="antithetic",
+                                      input_keys=("input_ids",))(7, batch)
 
 
 def test_naive_tier_sample_and_apply():

@@ -75,7 +75,7 @@ def test_lm_objective_gradients_match_jax(jax_model):
     named = port.trainable_parameters()
     hook = _hook(bmodel, [[key]])
     loss, m = training.elbo_objective(
-        training.pick_mc(port), 0, S, {"input_ids": torch.from_numpy(ids).long()},
+        training.pick_mc(port, True, "antithetic"), 0, S, {"input_ids": torch.from_numpy(ids).long()},
         N_BATCHES, gpt2_lm.lm_loss, ("input_ids",), eps_hook=lambda *a: hook(0, *a))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=2e-5)
@@ -109,7 +109,7 @@ def test_two_lm_steps_match_jax(jax_model):
     opt = gpt2_lm.adamw(port.trainable_parameters(), LR)
     keys_of_step = [None]
     step = training.make_elbo_train_step(port, opt, S, N_BATCHES, loss_fn=gpt2_lm.lm_loss,
-                                         input_keys=("input_ids",),
+                                         input_keys=("input_ids",), estimator="antithetic",
                                          eps_hook=_hook(bmodel, keys_of_step))
     jbp, jstate = bp, jtx.init(bp)
     def close(got, want, path, n_steps):

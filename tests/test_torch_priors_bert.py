@@ -160,7 +160,7 @@ def test_two_steps_train_mu_and_keep_prior_mu():
     assert all(mask["params"][p] for p in port.spec.paths)
     keys = [None]
     hook = _hook(bmodel, keys)
-    step = training.make_elbo_train_step(port, opt, S, N_BATCHES,
+    step = training.make_elbo_train_step(port, opt, S, N_BATCHES, estimator="antithetic",
                                          eps_hook=lambda c, *a: hook(*a))
     jbp, jstate = bp, jtx.init(bp)
     for i, key in enumerate((jax.random.key(21), jax.random.key(22))):

@@ -114,7 +114,7 @@ def test_gradients_match_jax(jax_model):
     named = port.trainable_parameters()
     hook = _hook(bmodel, [[key]])
     loss, _ = training.elbo_objective(
-        training.pick_mc(port), 0, S, _port_batch(batch), N_BATCHES,
+        training.pick_mc(port, True, "antithetic"), 0, S, _port_batch(batch), N_BATCHES,
         eps_hook=lambda *a: hook(0, *a))
     loss.backward()
     # the loss is dominated by the KL term (~1e5 summed over ~3e5 weights);
@@ -160,8 +160,8 @@ def test_two_steps_match_jax(jax_model, mc_chunk):
         eps=1e-8, clip_norm=1.0)
     opt = optim.masked_optimizer(tx, port)
     keys_of_step = [None]
-    step = training.make_elbo_train_step(port, opt, S, N_BATCHES, mc_chunk=mc_chunk,
-                                         eps_hook=_hook(bmodel, keys_of_step))
+    step = training.make_elbo_train_step(port, opt, S, N_BATCHES, estimator="antithetic",
+                                         mc_chunk=mc_chunk, eps_hook=_hook(bmodel, keys_of_step))
     jbp, jstate = bp, jtx.init(bp)
     n_chunks = S // mc_chunk if mc_chunk else 1
     for i, key in enumerate((jax.random.key(21), jax.random.key(22))):
@@ -273,11 +273,12 @@ def test_other_estimators_raise(jax_model):
     port = _port(jax_model[1])
     # every estimator of the reference's table now resolves; only an
     # unknown name raises
-    assert training.pick_mc(port, "naive") == port.mc_apply
-    assert training.pick_mc(port, "flipout") == port.mc_apply_flipout
-    assert training.pick_mc(port, "local") == training.pick_mc(port, "lrt") == port.mc_apply_lrt
+    assert training.pick_mc(port, True, "naive") == port.mc_apply
+    assert training.pick_mc(port, True, "flipout") == port.mc_apply_flipout
+    assert (training.pick_mc(port, True, "local") == training.pick_mc(port, True, "lrt")
+            == port.mc_apply_lrt)
     with pytest.raises(ValueError):
-        training.pick_mc(port, "nope")
+        training.pick_mc(port, True, "nope")
     # a forward without W residuals now has a backward: it regenerates W
     named = port.trainable_parameters()
     ids = torch.ones((2, 8), dtype=torch.long)
@@ -358,7 +359,8 @@ def test_training_imports_and_runs_without_jax():
         bmodel = bt.to_bayesian(bt.build_bert(size="tiny", device="cpu"),
                                 delta=0.05, freeze=True)
         tx = bt.training.adamw_with_decay_groups(1e-3, 0.0, bt.training.default_no_decay)
-        step = bt.make_elbo_train_step(bmodel, masked_optimizer(tx, bmodel), 2, 10)
+        step = bt.make_elbo_train_step(bmodel, masked_optimizer(tx, bmodel), 2, 10,
+                                       estimator="antithetic")
         ids = torch.arange(1, 13).reshape(2, 6)
         m = step(0, {"input_ids": ids, "labels": torch.tensor([0, 1])})
         assert torch.isfinite(m["loss"])

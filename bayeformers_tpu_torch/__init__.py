@@ -1,14 +1,17 @@
 """BayeFormers on PyTorch and CUDA: the port of ``bayeformers_tpu`` to one
 NVIDIA H100.
 
-Bayes-by-Backprop over the port's own BERT, GPT-2 and LLaMA-architecture
-causal LMs (LLaMA, Mistral, Gemma): ``to_bayesian``
+Bayes-by-Backprop over the port's own encoders (BERT and its sibling
+families DistilBERT, RoBERTa/CamemBERT, Electra and ALBERT, with
+classification or span heads: ``build_model``) and LLaMA-architecture
+and GPT-2 causal LMs (LLaMA, Mistral, Gemma): ``to_bayesian``
 converts every Linear (GPT-2's Conv1D among them) into a Gaussian
 variational pair, ``training.make_elbo_train_step`` fine-tunes it by the
 Monte-Carlo ELBO (``workloads/bert_glue.py`` runs the four-phase GLUE
-recipe, ``workloads/gpt2_lm.py`` the causal-LM one), and ``Predictor``
-serves posterior-predictive summaries (classification, or next-token
-``task="causal-lm"``). The fused S-sample
+recipe, ``workloads/bert_squad.py`` the SQuAD one, ``workloads/gpt2_lm.py``
+the causal-LM one), and ``Predictor`` serves posterior-predictive
+summaries (classification, span ``task="qa"`` with n-best answers, or
+next-token ``task="causal-lm"``). The fused S-sample
 forward and its backward run the Bayesian linear layers, their dmu/drho
 reduce and attention on hand-written Hopper kernels (``csrc/``, built with
 ``nvcc`` at first use). Entry points run on
@@ -25,6 +28,7 @@ from bayeformers_tpu_torch.models.bert import (
     BERT_TINY_KWARGS,
     build_bert,
 )
+from bayeformers_tpu_torch.models.families import build_model
 from bayeformers_tpu_torch.models.gpt2 import (
     GPT2_BASE_KWARGS,
     GPT2_TINY_KWARGS,
@@ -48,6 +52,7 @@ __all__ = [
     "build_bert",
     "build_gpt2",
     "build_llama_family",
+    "build_model",
     "from_jax_params",
     "make_elbo_train_step",
     "to_bayesian",

@@ -6,12 +6,16 @@ takes the fields of the JAX package's ``BayesParams`` (the Flax parameter
 tree, nested dicts or a flat ``{'/'-joined path: array}``, and the ``rho``
 and ``prior_mu`` dicts), as numpy arrays, and the facts of its
 ``ConversionSpec`` (the mixture prior, ``moped``, ``frozen``), and builds
-the port's model, picked from the tree (``bert/...``: the port's
-:class:`~models.bert.BertForSequenceClassification`; ``transformer/...``:
+the port's model, picked from the tree (``bert/...``, ``distilbert/...``,
+``roberta/...``, ``electra/...``, ``albert/...``: that encoder family of
+``models/families.py``, with a classification head or, where the tree
+has ``qa_outputs``, the span head; ``transformer/...``:
 its :class:`~models.gpt2.GPT2LMHeadModel`; ``model/...``: its
 :class:`~models.llama.LlamaForCausalLM`, whose family and rotary table the
 tree cannot tell, so the caller passes ``config``, a
-:class:`~models.llama.LlamaConfig`), and the
+:class:`~models.llama.LlamaConfig`; nor ALBERT's depth, whose one
+shared layer is called ``num_hidden_layers`` times, so an ALBERT tree
+needs ``config``, a :class:`~models.bert.BertConfig`), and the
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
 same function. This is how a conversion made by the JAX package, random
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from bayeformers_tpu_torch.core.prior import DEFAULT_SCALE_MIXTURE, ScaleMixturePrior
-from bayeformers_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
+from bayeformers_tpu_torch.models.bert import FAMILIES, BertConfig
+from bayeformers_tpu_torch.models.families import MODEL_CLASSES
 from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from bayeformers_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
@@ -69,23 +74,49 @@ def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None
     if "transformer/wte/embedding" in flat:
         return GPT2LMHeadModel(_gpt2_config_from(flat, n_heads), dtype=dtype,
                                device=device)
-    return BertForSequenceClassification(_config_from(flat, n_heads), dtype=dtype,
-                                         device=device)
+    tops = {p.split(SEP)[0] for p in flat}
+    found = [f for f in FAMILIES if f in tops]
+    if len(found) != 1:
+        raise ValueError(f"params hold no encoder family the port knows: {sorted(tops)}")
+    family = found[0]
+    task = "qa" if "qa_outputs/kernel" in flat else "classification"
+    if config is None:
+        config = _config_from(flat, n_heads, family)
+    elif not isinstance(config, BertConfig) or config.family != family:
+        raise ValueError(f"a {family} tree needs config=BertConfig(family={family!r}, ...)")
+    return MODEL_CLASSES[family](config, dtype=dtype, device=device, task=task)
 
 
-def _config_from(flat: dict[str, np.ndarray], n_heads) -> BertConfig:
-    word = flat["bert/embeddings/word_embeddings/embedding"]
-    hidden = word.shape[1]
-    n_layers = _layers(flat, "bert/encoder/layer/")
+def _config_from(flat: dict[str, np.ndarray], n_heads, family: str) -> BertConfig:
+    """An encoder's config from its tree; RoBERTa's pad id is HF's (1)."""
+    if family == "albert":
+        raise ValueError("an ALBERT tree needs config=BertConfig(family='albert', ...): "
+                         "its one shared layer does not tell the depth")
+    emb = f"{family}/embeddings/"
+    word = flat[emb + "word_embeddings/embedding"]
+    head = flat.get("classifier/kernel", flat.get("classifier/out_proj/kernel",
+                                                  flat.get("qa_outputs/kernel")))
+    if family == "distilbert":
+        layers = f"{family}/transformer/layer/"
+        inter = flat[layers + "0/ffn/lin1/kernel"]
+        hidden, types = word.shape[1], 0
+    else:
+        layers = f"{family}/encoder/layer/"
+        inter = flat[layers + "0/intermediate/dense/kernel"]
+        hidden = inter.shape[0]
+        types = flat[emb + "token_type_embeddings/embedding"].shape[0]
     return BertConfig(
         vocab_size=word.shape[0],
         hidden_size=hidden,
-        num_hidden_layers=n_layers,
+        num_hidden_layers=_layers(flat, layers),
         num_attention_heads=n_heads or hidden // 64,
-        intermediate_size=flat["bert/encoder/layer/0/intermediate/dense/kernel"].shape[1],
-        max_position_embeddings=flat["bert/embeddings/position_embeddings/embedding"].shape[0],
-        type_vocab_size=flat["bert/embeddings/token_type_embeddings/embedding"].shape[0],
-        num_labels=flat["classifier/kernel"].shape[1],
+        intermediate_size=inter.shape[1],
+        max_position_embeddings=flat[emb + "position_embeddings/embedding"].shape[0],
+        type_vocab_size=types,
+        num_labels=head.shape[1],
+        family=family,
+        embedding_size=word.shape[1] if family == "electra" else None,
+        pad_token_id=1 if family == "roberta" else 0,
     )
 
 
@@ -106,7 +137,8 @@ def from_jax_params(params, rho, prior_mu=None, *,
     conversion under ``prior``, the scale mixture (a ``ScaleMixturePrior``
     or ``(pi, sigma1, sigma2)``). ``num_attention_heads`` defaults to
     64-wide heads (BERT's and GPT-2's); a LLaMA-architecture tree takes its
-    whole configuration from ``config`` (a ``LlamaConfig``)."""
+    whole configuration from ``config`` (a ``LlamaConfig``), an encoder's
+    may (a ``BertConfig`` of its family; ALBERT's must)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params(device='cuda'): no CUDA device")

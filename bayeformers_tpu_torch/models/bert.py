@@ -1,11 +1,15 @@
-"""A plain-torch BERT encoder with a sequence-classification head.
+"""A plain-torch BERT encoder with a sequence-classification or a span
+(question-answering) head, and the pieces its sibling families share
+(``models/families.py``: DistilBERT, RoBERTa/CamemBERT, Electra, ALBERT).
 
 Written for the port so that it needs no ``transformers``. The computation
 is that of HF's BERT as the JAX package builds it
-(``bayeformers_tpu/models/bert.py``, FlaxBertForSequenceClassification):
-word + token-type + position embeddings, LayerNorm (eps 1e-12), post-LN
-encoder layers with exact GELU, a tanh pooler on the first token, and a
-linear classifier. Dropout is omitted: the port runs deterministic forwards.
+(``bayeformers_tpu/models/bert.py``, FlaxBertForSequenceClassification and
+FlaxBertForQuestionAnswering): word + token-type + position embeddings,
+LayerNorm (eps 1e-12), post-LN encoder layers with exact GELU, a tanh
+pooler on the first token, and a linear classifier; the QA head is
+``qa_outputs`` (H -> 2) on every position, with no pooler. Dropout is
+omitted: the port runs deterministic forwards.
 
 Parameter names follow the Flax tree: ``Dense`` (``nn/dense.py``) holds
 ``kernel`` (in, out) and ``bias``, ``LayerNorm`` holds ``scale`` and
@@ -19,6 +23,7 @@ given, converted ``Dense`` layers and self-attention blocks dispatch to it.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +42,18 @@ BERT_TINY_KWARGS = dict(
 )
 
 
+FAMILIES = ("bert", "distilbert", "roberta", "electra", "albert")
+TASKS = ("classification", "qa")
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
+    """The configuration of every encoder family (``family``): BERT's
+    fields, plus ``embedding_size`` (Electra's and ALBERT's embedding
+    width; None: ``hidden_size``), ``hidden_act`` (``"gelu"`` exact,
+    ``"gelu_new"`` tanh: ALBERT's) and ``pad_token_id`` (RoBERTa's
+    position ids skip it)."""
+
     vocab_size: int
     hidden_size: int
     num_hidden_layers: int
@@ -49,6 +64,49 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     num_labels: int = 2
     initializer_range: float = 0.02
+    family: str = "bert"
+    embedding_size: Optional[int] = None
+    hidden_act: str = "gelu"
+    pad_token_id: int = 0
+
+    @property
+    def embedding_width(self) -> int:
+        return self.embedding_size or self.hidden_size
+
+    @classmethod
+    def from_hf(cls, family: str, d: dict) -> "BertConfig":
+        """The port's config from an HF config's ``to_dict()`` of
+        ``family`` (DistilBERT's ``dim``, ``n_layers``, ``n_heads``,
+        ``hidden_dim`` and ``activation`` under their BERT names)."""
+        if family not in FAMILIES:
+            raise ValueError(f"unknown encoder family {family!r}")
+        if family == "distilbert":
+            d = dict(hidden_size=d["dim"], num_hidden_layers=d["n_layers"],
+                     num_attention_heads=d["n_heads"], intermediate_size=d["hidden_dim"],
+                     hidden_act=d["activation"], vocab_size=d["vocab_size"],
+                     max_position_embeddings=d["max_position_embeddings"],
+                     type_vocab_size=0, num_labels=d.get("num_labels", 2),
+                     initializer_range=d.get("initializer_range", 0.02))
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        if family not in ("electra", "albert"):
+            kw.pop("embedding_size", None)
+        return cls(**dict(kw, family=family))
+
+
+def activation(y: torch.Tensor, act: str) -> torch.Tensor:
+    """HF's ``ACT2FN`` in f32, back in ``y``'s dtype: ``"gelu"`` exact
+    (erf), ``"gelu_new"`` the tanh form, ``"relu"``."""
+    yf = y.float()
+    if act == "gelu":
+        out = F.gelu(yf)
+    elif act == "gelu_new":
+        out = F.gelu(yf, approximate="tanh")
+    elif act == "relu":
+        out = torch.relu(yf)
+    else:
+        raise ValueError(f"unsupported activation {act!r}")
+    return out.to(y.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -110,23 +168,31 @@ class Embed(nn.Module):
 
 
 class BertEmbeddings(nn.Module):
+    """Word + token-type + position embeddings and their LayerNorm, at the
+    config's embedding width. BERT and RoBERTa (Flax's ``nn.Embed(dtype=
+    ...)``) take each lookup in the activation dtype and sum in it;
+    DistilBERT (no token types), Electra and ALBERT sum f32 lookups and
+    cast after the LayerNorm."""
+
     def __init__(self, cfg: BertConfig, dtype, device=None):
         super().__init__()
-        h = cfg.hidden_size
-        self.word_embeddings = Embed(cfg.vocab_size, h, device=device)
-        self.position_embeddings = Embed(cfg.max_position_embeddings, h, device=device)
-        self.token_type_embeddings = Embed(cfg.type_vocab_size, h, device=device)
-        self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        e = cfg.embedding_width
+        self.word_embeddings = Embed(cfg.vocab_size, e, device=device)
+        self.position_embeddings = Embed(cfg.max_position_embeddings, e, device=device)
+        if cfg.family != "distilbert":
+            self.token_type_embeddings = Embed(cfg.type_vocab_size, e, device=device)
+        self.LayerNorm = LayerNorm(e, cfg.layer_norm_eps, device=device)
         self.dtype = dtype
+        self.cast_lookups = cfg.family in ("bert", "roberta")
 
     def forward(self, input_ids, token_type_ids, position_ids):
-        # as HF's FlaxBertEmbeddings: each lookup in the activation dtype,
-        # summed in it, in this order
-        dt = self.dtype
-        x = (self.word_embeddings(input_ids).to(dt)
-             + self.token_type_embeddings(token_type_ids).to(dt)
-             + self.position_embeddings(position_ids).to(dt))
-        return self.LayerNorm(x)
+        # as HF's Flax embeddings: word, token type, position, in this order
+        dt = self.dtype if self.cast_lookups else torch.float32
+        x = self.word_embeddings(input_ids).to(dt)
+        if hasattr(self, "token_type_embeddings"):
+            x = x + self.token_type_embeddings(token_type_ids).to(dt)
+        x = x + self.position_embeddings(position_ids).to(dt)
+        return self.LayerNorm(x).to(self.dtype)
 
 
 class BertSelfAttention(nn.Module):
@@ -171,10 +237,10 @@ class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.dense = Dense(cfg.hidden_size, cfg.intermediate_size, device=device)
+        self.act = cfg.hidden_act
 
     def forward(self, hidden, mc=None):
-        y = self.dense(hidden, mc)
-        return F.gelu(y.float()).to(y.dtype)  # exact (erf) GELU
+        return activation(self.dense(hidden, mc), self.act)
 
 
 class BertOutput(nn.Module):
@@ -223,23 +289,53 @@ class BertPooler(nn.Module):
 
 
 class BertModule(nn.Module):
-    def __init__(self, cfg: BertConfig, dtype, device=None):
+    """BERT's backbone; RoBERTa's (pad-aware positions, no pooler) and
+    Electra's (an ``embeddings_project`` where the embedding width is not
+    the hidden width) share it."""
+
+    def __init__(self, cfg: BertConfig, dtype, device=None, *, pooler=True):
         super().__init__()
         self.embeddings = BertEmbeddings(cfg, dtype, device)
+        if cfg.embedding_width != cfg.hidden_size:
+            self.embeddings_project = Dense(cfg.embedding_width, cfg.hidden_size,
+                                            device=device)
         self.encoder = BertEncoder(cfg, device)
-        self.pooler = BertPooler(cfg, device)
+        if pooler:
+            self.pooler = BertPooler(cfg, device)
+
+    def forward(self, input_ids, bias, token_type_ids, position_ids, mc=None):
+        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        if hasattr(self, "embeddings_project"):
+            hidden = self.embeddings_project(hidden, mc)
+        return self.encoder(hidden, bias, mc)
 
 
-class BertForSequenceClassification(nn.Module):
-    """``forward(input_ids, attention_mask, token_type_ids, mc=None)`` ->
-    logits (N, num_labels) in the activation dtype."""
+class EncoderModel(nn.Module):
+    """An encoder family with the head of ``task``: ``"classification"``
+    (``forward`` -> logits (N, num_labels)) or ``"qa"`` (HF's
+    ``*ForQuestionAnswering``: ``qa_outputs`` over every position, no
+    pooler; ``forward`` -> ``(start_logits, end_logits)``, each (N, L)).
+    Activations are in ``dtype``; parameters stay f32. A subclass builds
+    its backbone in :meth:`build` and runs it in :meth:`encode`; its
+    classification head is :meth:`classify`."""
 
-    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None):
+    family = "bert"
+    uses_token_type_ids = True
+
+    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None,
+                 task: str = "classification"):
         super().__init__()
+        if task not in TASKS:
+            raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+        if cfg.family != self.family:
+            raise ValueError(f"{type(self).__name__} takes a {self.family!r} config, "
+                             f"got {cfg.family!r}")
         self.config = cfg
         self.dtype = dtype
-        self.bert = BertModule(cfg, dtype, device)
-        self.classifier = Dense(cfg.hidden_size, cfg.num_labels, device=device)
+        self.task = task
+        self.build(cfg, dtype, device)
+        if task == "qa":
+            self.qa_outputs = Dense(cfg.hidden_size, cfg.num_labels, device=device)
         assign_paths(self)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
@@ -248,18 +344,38 @@ class BertForSequenceClassification(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        hidden = self.encode(input_ids, attention_mask, token_type_ids, mc)
+        if self.task == "qa":
+            y = self.qa_outputs(hidden, mc)
+            return y[..., 0].contiguous(), y[..., 1].contiguous()
+        return self.classify(hidden, mc)
+
+    def positions(self, input_ids):
         L = input_ids.shape[-1]
-        position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
+        return torch.arange(L, device=input_ids.device).expand_as(input_ids)
+
+
+class BertForSequenceClassification(EncoderModel):
+    """BERT: ``forward(input_ids, attention_mask, token_type_ids, mc=None)``
+    -> logits (N, num_labels) in the activation dtype, or with
+    ``task="qa"`` the start and end logits."""
+
+    def build(self, cfg, dtype, device):
+        self.bert = BertModule(cfg, dtype, device, pooler=self.task == "classification")
+        if self.task == "classification":
+            self.classifier = Dense(cfg.hidden_size, cfg.num_labels, device=device)
+
+    def encode(self, input_ids, attention_mask, token_type_ids, mc):
         bias = ops_attention.mask_to_bias(attention_mask)
-        b = self.bert
-        hidden = b.embeddings(input_ids, token_type_ids, position_ids)
-        hidden = b.encoder(hidden, bias, mc)
-        return self.classifier(b.pooler(hidden, mc), mc)
+        return self.bert(input_ids, bias, token_type_ids, self.positions(input_ids), mc)
+
+    def classify(self, hidden, mc):
+        return self.classifier(self.bert.pooler(hidden, mc), mc)
 
 
 @torch.no_grad()
-def init_weights(model: BertForSequenceClassification, seed: int) -> None:
-    """HF's BERT init from a seed: N(0, initializer_range) kernels and
+def init_weights(model: nn.Module, seed: int) -> None:
+    """HF's init from a seed: N(0, initializer_range) kernels and
     embedding tables, zero biases, unit LayerNorm scales."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -274,17 +390,19 @@ def init_weights(model: BertForSequenceClassification, seed: int) -> None:
             p.zero_()
 
 
+def check_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; raises for ``cuda`` without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device='cuda'): no CUDA device")
+    return device
+
+
 def build_bert(size: str = "base", n_labels: int = 2, seed: int = 0,
                dtype=torch.bfloat16, device="cuda") -> BertForSequenceClassification:
     """BERT for sequence classification at ``BERT_BASE_KWARGS`` (``size=
     "base"``) or ``BERT_TINY_KWARGS`` (``"tiny"``), initialised from
-    ``seed``. ``dtype`` is the activation dtype; parameters stay f32."""
-    kwargs = BERT_BASE_KWARGS if size == "base" else BERT_TINY_KWARGS
-    cfg = BertConfig(num_labels=n_labels, **kwargs)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_bert(device='cuda'): no CUDA device")
-    model = BertForSequenceClassification(cfg, dtype=dtype, device=device)
-    init_weights(model, seed)
-    model.requires_grad_(False)
-    return model
+    ``seed``: ``families.build_family("bert", ...)``."""
+    from bayeformers_tpu_torch.models.families import build_family
+
+    return build_family("bert", "classification", n_labels, size, seed, dtype, device)

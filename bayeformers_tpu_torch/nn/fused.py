@@ -73,8 +73,11 @@ def tile_samples(x: torch.Tensor, n_samples: int) -> torch.Tensor:
     )
 
 
-def untile_samples(x: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Inverse of :func:`tile_samples`: (S*B, ...) -> (S, B, ...)."""
+def untile_samples(x, n_samples: int):
+    """Inverse of :func:`tile_samples`: (S*B, ...) -> (S, B, ...), mapped
+    over a tuple of outputs (the QA heads' start and end logits)."""
+    if isinstance(x, tuple):
+        return tuple(untile_samples(t, n_samples) for t in x)
     return x.reshape((n_samples, x.shape[0] // n_samples) + tuple(x.shape[1:]))
 
 
@@ -165,6 +168,28 @@ class MCBase:
         v = self.dense(mod.value, hidden)
         return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
 
+    def albert_attention(self, mod, hidden, bias):
+        """ALBERT's attention block (``handle_albert_attention``): q/k/v and
+        the output ``dense`` through :meth:`dense`, the flat-layout mha op,
+        then the module's own LayerNorm over ``proj + hidden``. ALBERT's one
+        layer is called once a repetition: each call draws the same W (the
+        leaf's seeds) and the leaf's log-probs count once (``seen``)."""
+        q = self.dense(mod.query, hidden)
+        k = self.dense(mod.key, hidden)
+        v = self.dense(mod.value, hidden)
+        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+        return mod.LayerNorm(self.dense(mod.dense, ctx) + hidden)
+
+    def distilbert_attention(self, mod, hidden, bias):
+        """DistilBERT's attention block (``handle_distilbert_attention``):
+        q/k/v and ``out_lin`` through :meth:`dense`, the flat-layout mha op
+        with DistilBERT's f32 bias ``-1e30 * (1 - mask)`` as it is."""
+        q = self.dense(mod.q_lin, hidden)
+        k = self.dense(mod.k_lin, hidden)
+        v = self.dense(mod.v_lin, hidden)
+        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+        return self.dense(mod.out_lin, ctx)
+
     def gpt2_attention(self, mod, hidden, bias):
         """GPT-2's attention block (``handle_gpt2_attention``): the packed
         ``c_attn`` and ``c_proj`` through :meth:`dense`, attention through
@@ -187,7 +212,9 @@ class MCBase:
 def run_mc(mc: MCBase, n_samples: int, input_ids, attention_mask=None,
            token_type_ids=None):
     """Run the converted model once over the S-major tiled inputs with the
-    tier state ``mc``; returns ``(outputs (S, B, ...), mc.aux())``."""
+    tier state ``mc``; returns ``(outputs (S, B, ...), mc.aux())``, the
+    outputs a tuple of such where the model returns one (a QA head's start
+    and end logits)."""
     tiled = [None if a is None else tile_samples(a, n_samples)
              for a in (input_ids, attention_mask, token_type_ids)]
     out = mc.bmodel.model(*tiled, mc=mc)

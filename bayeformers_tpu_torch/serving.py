@@ -8,7 +8,11 @@ returns posterior-predictive summaries: mean probabilities, epistemic std,
 predictive entropy and the BALD mutual information. ``task="causal-lm"``
 (GPT-2) summarises the next token after each row's last live position:
 its ``top_k`` ids, their mean probabilities and epistemic std, the
-entropy and the mutual information.
+entropy and the mutual information. ``task="qa"`` (a span head) gives
+the same summaries of the start and of the end position over the
+sequence (``start_*``, ``end_*``), each draw's log-probabilities
+(``start_logp_draws`` / ``end_logp_draws``, (n, S, L)) and each row's
+``n_best`` answer spans (``spans``).
 
 Deterministic serving: a request's draws derive from the caller's seed and
 its bucket, so identical (inputs, seed) give identical outputs on the same
@@ -23,14 +27,14 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
-
-INPUT_KEYS = ("input_ids", "attention_mask", "token_type_ids")
+from bayeformers_tpu_torch.utils import squad as squad_lib
 
 
 def _trim_pad_columns(batch: dict) -> dict:
@@ -48,6 +52,23 @@ def _bucket(value: int, sizes: tuple[int, ...], kind: str) -> int:
         f"{kind}={value} exceeds the largest configured bucket {max(sizes)}; "
         f"raise Predictor({kind}s=...) or shard the request"
     )
+
+
+def summarize_qa(start: torch.Tensor, end: torch.Tensor,
+                 attention_mask: torch.Tensor) -> dict[str, torch.Tensor]:
+    """(S, B, L) start and end logits -> the summaries of each over the
+    sequence (reference ``serving.py:102-128``): padded positions (the
+    bucket's among them) take ``finfo(f32).min`` first, so no probability
+    reaches them; ``start_*`` / ``end_*`` as :func:`summarize` gives them,
+    and each draw's log-probabilities, (B, S, L)."""
+    neg = torch.finfo(torch.float32).min
+    live = attention_mask[None] > 0
+    out = {}
+    for tag, logits in (("start", start), ("end", end)):
+        masked = torch.where(live, logits.float(), torch.full((), neg, device=logits.device))
+        out.update({f"{tag}_{k}": v for k, v in summarize(masked).items()})
+        out[f"{tag}_logp_draws"] = torch.log_softmax(masked, dim=-1).transpose(0, 1)
+    return out
 
 
 def summarize(logits: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -105,36 +126,54 @@ class Predictor:
 
     ``antithetic=False`` (the default, as in the reference) draws every
     sample's weights independently; ``antithetic=True`` pairs the draws and
-    needs an even ``n_samples``. ``task`` is ``"classification"`` or
+    needs an even ``n_samples``. ``task`` is ``"classification"``,
+    ``"qa"`` (a span head: :func:`summarize_qa` and the ``n_best`` spans of
+    at most ``max_answer_len`` tokens, :meth:`_decode_spans`) or
     ``"causal-lm"`` (a decoder such as GPT-2: next-token summaries at each
     row's last live position, :func:`summarize_causal_lm`, ``top_k``
-    candidates); ``"qa"`` comes with the SQuAD slice (ROADMAP queue 1,
-    SQuAD).
+    candidates). ``input_keys`` are the model's inputs and ``pad_id`` fills
+    the bucket's padded ids; left as None they come from the model
+    (``models.families.input_keys``: DistilBERT and RoBERTa take no token
+    types; the config's ``pad_token_id``, RoBERTa's 1, else 0).
     """
 
     bmodel: Any
     n_samples: int = 10
     batch_sizes: tuple[int, ...] = (1, 8, 32)
     seq_lens: tuple[int, ...] = (128,)
-    pad_id: int = 0
+    pad_id: Optional[int] = None
     antithetic: bool = False
     task: str = "classification"
+    max_answer_len: int = 30  # qa: span-length cap (HF's default)
+    n_best: int = 5           # qa: spans returned a row
     top_k: int = 50  # causal-lm: next-token candidates returned
+    input_keys: Optional[tuple[str, ...]] = None
 
     def __post_init__(self):
+        model = self.bmodel.model
+        if self.input_keys is None:
+            self.input_keys = families.input_keys(model)
+        if self.pad_id is None:
+            self.pad_id = getattr(getattr(model, "config", None), "pad_token_id", None) or 0
         if self.antithetic and self.n_samples % 2:
             raise ValueError("antithetic serving needs an even n_samples")
-        if self.task == "qa":
-            raise NotImplementedError(
-                "Predictor(task='qa') comes with the SQuAD slice of the port "
-                "(ROADMAP queue 1, SQuAD)")
-        if self.task not in ("classification", "causal-lm"):
+        if self.task not in ("classification", "qa", "causal-lm"):
             raise ValueError(f"unknown task {self.task!r}")
+        head = getattr(model, "task", None)  # an encoder's head
+        if (self.task == "qa") != (head == "qa") and self.task != "causal-lm":
+            raise ValueError(f"Predictor(task={self.task!r}) over a model whose head is "
+                             f"{head!r}: task='qa' needs a span head (task='qa') and "
+                             "a span head serves task='qa'")
 
-    def __call__(self, batch: dict, seed: int = 0) -> dict[str, np.ndarray]:
+    def __call__(self, batch: dict, seed: int = 0, features: list | None = None,
+                 contexts: list | None = None) -> dict:
         """Run one request batch; returns numpy arrays with the padded rows
-        dropped (causal-lm summaries are per row: no position to depad)."""
-        inputs = {k: np.asarray(batch[k]) for k in INPUT_KEYS if k in batch}
+        dropped (causal-lm summaries are per row: no position to depad; qa's
+        per-position arrays drop the padded positions too, and ``spans``
+        holds each row's n-best ``{"start", "end", "score", "text"}``, the
+        text decoded where ``features`` and ``contexts``, ``featurize``'s
+        features and their context strings, one a row, are given)."""
+        inputs = {k: np.asarray(batch[k]) for k in self.input_keys if k in batch}
         n, L = inputs["input_ids"].shape
         if "attention_mask" not in inputs:
             # bucket padding must be masked even when the caller omits the
@@ -158,12 +197,54 @@ class Predictor:
             )
             if self.task == "causal-lm":
                 out = summarize_causal_lm(logits, padded["attention_mask"], self.top_k)
+            elif self.task == "qa":
+                out = summarize_qa(*logits, padded["attention_mask"])
             else:
                 out = summarize(logits)
-            return {k: v[:n].cpu().numpy() for k, v in out.items()}
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        if self.task != "qa":
+            return {k: v[:n] for k, v in out.items()}
+        result = {}
+        for k, v in out.items():
+            if k.endswith("_logp_draws"):  # (B, S, L): draws, not rows
+                result[k] = v[:n, :, :L]
+            elif v.ndim >= 2:
+                result[k] = v[:n, :L]
+            else:
+                result[k] = v[:n]
+        result["spans"] = self._decode_spans(result, n, features, contexts)
+        return result
 
-    def predict_featurized(self, batch: dict, seed: int = 0) -> dict[str, np.ndarray]:
+    def _decode_spans(self, result, n, features, contexts):
+        """Each row's ``n_best`` spans by descending ``log p(start) + log
+        p(end)`` under the S-mean distributions (reference ``serving.py:
+        391-417``), with the answer text where the row's feature and context
+        are given."""
+        log_start = np.log(np.clip(result["start_probs"], 1e-12, None))
+        log_end = np.log(np.clip(result["end_probs"], 1e-12, None))
+        spans = []
+        for i in range(n):
+            feat = features[i] if features else None
+            offset = feat["context_offset"] if feat else 0
+            best = squad_lib.n_best_spans(log_start[i], log_end[i], offset,
+                                          max_answer_len=self.max_answer_len,
+                                          n_best=self.n_best)
+            spans.append([
+                {"start": s, "end": e, "score": score,
+                 "text": (squad_lib.decode_span(feat, contexts[i], s, e)
+                          if feat is not None and contexts is not None else None)}
+                for s, e, score in best])
+        return spans
+
+    def predict_texts(self, texts: list, *, tokenizer, seed: int = 0) -> dict:
+        """Raw-string serving needs the native tokenizer, which the port
+        does not bind yet."""
+        raise NotImplementedError(
+            "Predictor.predict_texts needs the native WordPiece/BPE tokenizer "
+            "(ROADMAP queue 1 item 2, the native tokenizer binding)")
+
+    def predict_featurized(self, batch: dict, seed: int = 0, **kwargs) -> dict:
         """Serve a batch a featurizer padded to its own maximum length: the
         trailing all-pad columns go first, so it lands in the smallest
-        sequence bucket that fits."""
-        return self(_trim_pad_columns(batch), seed=seed)
+        sequence bucket that fits (``kwargs``: qa's features and contexts)."""
+        return self(_trim_pad_columns(batch), seed=seed, **kwargs)

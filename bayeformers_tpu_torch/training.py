@@ -48,6 +48,21 @@ def regression_loss(out, batch):
                  "mse_std": torch.std(per_sample_mse, unbiased=False)}
 
 
+def qa_span_loss(out, batch):
+    """SQuAD span loss (reference ``training.py:45-58``): the mean of the
+    start and end CE on S-averaged logits, each sum-reduced over the batch,
+    with the mean of their accuracy metrics. ``out`` is ``(start_logits,
+    end_logits)``, each (S, B, L)."""
+    start_logits, end_logits = out
+    nll = 0.5 * (
+        elbo.cross_entropy_sum(elbo.mc_logits_mean(start_logits), batch["start_positions"])
+        + elbo.cross_entropy_sum(elbo.mc_logits_mean(end_logits), batch["end_positions"]))
+    start_acc, start_std = elbo.accuracy_and_std(start_logits, batch["start_positions"])
+    end_acc, end_std = elbo.accuracy_and_std(end_logits, batch["end_positions"])
+    return nll, {"acc": 0.5 * (start_acc + end_acc),
+                 "acc_std": 0.5 * (start_std + end_std)}
+
+
 def pick_mc(bmodel, fused: bool, estimator: Optional[str] = None,
             save_weights: bool = True):
     """The MC forward of an estimator, the reference's table and signature

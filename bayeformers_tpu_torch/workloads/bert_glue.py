@@ -1,5 +1,9 @@
 """BERT GLUE fine-tune workload on one GPU (counterpart of
-``bayeformers_tpu/workloads/bert_glue.py``).
+``bayeformers_tpu/workloads/bert_glue.py``). ``--model`` dispatches by the
+reference's order (``models/families.py::build_model``): DistilBERT,
+RoBERTa or CamemBERT (RoBERTa's builder), Electra, ALBERT, else BERT, each
+with its classification head, and the inputs are pruned per family
+(DistilBERT and RoBERTa take no token types).
 
 Four phases, as in the reference recipe:
   A. frequentist fine-tune (AdamW lr=2e-5 eps=1e-8, CE-sum, global-norm
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from bayeformers_tpu_torch import elbo, training
-from bayeformers_tpu_torch.models.bert import build_bert
+from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
 from bayeformers_tpu_torch.utils import glue as glue_lib
@@ -155,15 +159,9 @@ def train(
     device: str = "cuda",
 ) -> float:
     """Run phases A-D; returns the task's headline dev score after phase D."""
-    if "gpt2" in model_name.lower():
-        raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; GPT-2 "
-                         "runs in workloads/gpt2_lm.py")
-    if "bert" not in model_name.lower():
-        raise _later(f"model {model_name!r}", "model families")
-    # the reference's build_model sends these to their own build functions
-    # (bayeformers_tpu/models/bert.py:286-295): CamemBERT to RoBERTa's
-    if any(f in model_name.lower() for f in ("distilbert", "roberta", "camembert", "albert")):
-        raise _later(f"model {model_name!r}", "BERT's sibling families")
+    if any(f in model_name.lower() for f in ("gpt2", "gpt-2", "llama", "mistral", "gemma")):
+        raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; the causal "
+                         "LMs run in workloads/gpt2_lm.py")
     if pretrained:
         raise _later("loading pretrained weights", "checkpoint")
     if save_dir or resume:
@@ -182,9 +180,11 @@ def train(
     spec = glue_lib.task_spec(task)
     regression = spec.regression
     loss_fn = training.regression_loss if regression else training.classification_loss
-    model = build_bert(size=size, n_labels=spec.n_labels, seed=seed,
-                       dtype=torch.bfloat16 if bf16 else torch.float32,
-                       device=dev)
+    model = families.build_model(model_name, n_labels=spec.n_labels, size=size, seed=seed,
+                                 dtype=torch.bfloat16 if bf16 else torch.float32,
+                                 device=dev)
+    # model-family input pruning (reference ``bert_glue.py:229-232``)
+    input_keys = families.input_keys(model)
     train_data, dev_data, synthetic = load_glue(
         data, model.config.vocab_size, seed, n_labels=spec.n_labels,
         regression=regression)
@@ -225,7 +225,7 @@ def train(
 
     def f_step(batch):
         opt.zero_grad()
-        logits = model(*(batch[k] for k in INPUT_KEYS))
+        logits = model(**{k: batch[k] for k in input_keys})
         loss = frequentist_nll(logits, batch["labels"])
         loss.backward()
         opt.step()
@@ -236,7 +236,7 @@ def train(
         report = Report("nll", "n")
         preds, labels = [], []
         for batch in batches(dev_data):
-            logits = model(*(batch[k] for k in INPUT_KEYS))
+            logits = model(**{k: batch[k] for k in input_keys})
             nll = frequentist_nll(logits, batch["labels"])
             report.update(nll=float(nll), n=len(batch["labels"]))
             p = logits[..., 0].float() if regression else torch.argmax(logits, -1)
@@ -262,7 +262,7 @@ def train(
     # ---------------- Phase B: conversion ----------------------------------
     bmodel = to_bayesian(model, delta=delta, freeze=True)
     eval_step = training.make_elbo_eval_step(
-        bmodel, samples, loss_fn=loss_fn, input_keys=INPUT_KEYS,
+        bmodel, samples, loss_fn=loss_fn, input_keys=input_keys,
         estimator=estimator)
     sample_keys = ("mse", "mse_std") if regression else ("acc", "acc_std")
     draws = itertools.count()  # the step key stream: seed + 1, split per use
@@ -317,7 +317,7 @@ def train(
     b_opt = masked_optimizer(btx, bmodel)
     b_step = training.make_elbo_train_step(
         bmodel, b_opt, samples, n_batches, loss_fn=loss_fn,
-        input_keys=INPUT_KEYS, estimator=estimator, mc_chunk=mc_chunk)
+        input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk)
     with dumper.section("bayesian_train"):
         for epoch in range(b_epochs):
             for batch in batches(train_data, seed + 100 + epoch, limit_batches):

@@ -164,8 +164,37 @@ Phases, each timed, each raising on failure:
     step against the plain path, peak memory; their 1x1024 requests, and
     the tiny models at #4's shapes.
 
-``python3 chip_smoke.py --from 16`` (or ``--from 17``) runs the build, the
-eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
+18. BERT's sibling families and the SQuAD QA path at base width
+    (:func:`phase18`): #3 and #5 at SQuAD's shapes (N = S B = 130, L = 384,
+    H = 768, 12 heads, non-causal; f32 also at the chunked step's N = 26)
+    against their plain versions at the attention gates, with right-padded
+    keys, fully masked rows, bit-equal reruns, and ragged right padding
+    (rows of 1-3 live keys, two whole key tiles masked) under both the
+    ``finfo.min`` bias and DistilBERT's ``-1e30 * (1 - mask)``, where the
+    plain mask one column off must fail (:func:`squad_mask_checks`); the
+    forward and reduce kernels at the QA head's 768 -> 2 (M = 13 x 384,
+    both estimators) and ALBERT's 128 -> 768; BERT-base with its span head
+    (seed 0, frozen MOPED 0.05) served by ``Predictor(task="qa",
+    seq_lens=(384,))`` under both estimators (three ragged requests, 73
+    Bayesian linear and 12 ``mha_fwd`` launches a request; the start and
+    end logits against the plain path, :func:`encoder_logits_gate`, and the
+    best spans against the plain path's, :func:`spans_check`), its
+    ``qa_span_loss`` ELBO step at S = 10, B = 13, L = 384 against the plain
+    step (antithetic bf16; 12 ``mha_bwd`` a step), one independent-draw
+    step, and the f32 antithetic step at ``mc_chunk=2`` against its plain
+    step and the plain step in f64 (each leaf within 1e-3 of the f64
+    gradient plus twice the plain f32 step's distance from it:
+    :func:`check_f32_leaves`; :func:`train_encoder`, peak memory);
+    DistilBERT-base (6 layers),
+    ALBERT-base (its layer 12 times: 12 launches a forward of each shared
+    leaf), RoBERTa-base and Electra-base at full depth, an 8x128
+    classification request and an ELBO step each against the plain path
+    (:func:`serve_encoder`, :func:`train_encoder`); and
+    ``workloads/bert_squad.train`` and ``bert_glue --model
+    distilbert-base-uncased`` for three batches an epoch in bf16.
+
+``python3 chip_smoke.py --from 16`` (or ``--from 17``, ``--from 18``) runs
+the build, the eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -1403,11 +1432,12 @@ def worst_agreement(a: dict, b: dict, names) -> tuple[float, float, str]:
 
 def param_groups(names) -> dict[str, list[str]]:
     """The trainable unconverted parameters by group: the norms' scales and
-    biases (BERT's LayerNorm, GPT-2's ln_1, ln_2 and ln_f), the LLaMA
+    biases (BERT's LayerNorm, GPT-2's ln_1, ln_2 and ln_f, DistilBERT's
+    sa_layer_norm and output_layer_norm, ALBERT's full_layer_layer_norm), the LLaMA
     families' RMSNorm weights, and the embeddings (GPT-2's wte is its tied
     head too); the groups a model has."""
     params = [n for n in names if n.startswith("params/")]
-    norm = [n for n in params if "LayerNorm/" in n or "/ln_" in n]
+    norm = [n for n in params if "LayerNorm/" in n or "/ln_" in n or "layer_norm/" in n]
     groups = {"LayerNorm/scale": [n for n in norm if n.endswith("/scale")],
               "LayerNorm/bias": [n for n in norm if n.endswith("/bias")],
               "RMSNorm/weight": [n for n in params if n.endswith("norm/weight")],
@@ -3321,6 +3351,568 @@ def phase17(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: BERT's sibling families (DistilBERT, RoBERTa, Electra, ALBERT)
+# and the SQuAD QA path at base width
+# ---------------------------------------------------------------------------
+
+# SQuAD's recipe: batch 13 of 384 tokens, S = 10; the f32 step in chunks of 2
+SQUAD_B, SQUAD_L, SQUAD_CHUNK = 13, 384, 2
+SQUAD_M = SQUAD_B * SQUAD_L
+# the linear kernels' new shapes: the QA head (768 -> 2) at SQuAD's M, and
+# ALBERT's 128 -> 768 embedding mapping at the 8x128 bucket
+FAMILY_SHAPES["squad/"] = ((SQUAD_M, 768, 2),)
+FAMILY_SHAPES["albert/"] = ((1024, 128, 768),)
+# the encoders of phase 18, served (8x128) and trained at base width and
+# full depth: DistilBERT's 6 layers, ALBERT's one layer 12 times, RoBERTa's
+# and Electra's 12
+ENCODERS18 = ("distilbert", "albert", "roberta", "electra")
+
+
+def encoder_base(bt, family, task, dtype):
+    """An encoder of ``family`` at its base preset from seed 0 for ``task``,
+    frozen MOPED 0.05 (``to_bayesian(delta=0.05, freeze=True)``), in
+    ``dtype`` activations, and its trainable tensors."""
+    from bayeformers_tpu_torch.models import families
+
+    model = families.build_family(family, task, size="base", seed=0, dtype=dtype,
+                                  device="cuda")
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
+    return bmodel, bmodel.trainable_parameters()
+
+
+def encoder_inputs(cfg, task, B, L, seed, lengths=None) -> dict:
+    """A seeded batch of the encoder's vocabulary: ids past the special ones,
+    right padding (``pad_token_id`` ids, mask 0) in half the rows unless
+    ``lengths`` gives each row's live length, with labels (classification)
+    or start and end positions inside each row's live tokens (qa)."""
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = np.where(np.arange(B) < B // 2, L, L - L // 4)
+    ids = rng.integers(4, cfg.vocab_size, (B, L))
+    mask = (np.arange(L)[None] < np.asarray(lengths)[:, None]).astype(np.int64)
+    ids = np.where(mask > 0, ids, cfg.pad_token_id)
+    out = {"input_ids": ids, "attention_mask": mask,
+           "token_type_ids": np.zeros((B, L), np.int64)}
+    if task == "classification":
+        out["labels"] = rng.integers(0, 2, (B,))
+    else:
+        live = np.maximum(np.asarray(lengths), 2)
+        start = (rng.random(B) * (live - 1)).astype(np.int64)
+        out["start_positions"] = start
+        out["end_positions"] = np.minimum(start + rng.integers(0, 8, (B,)), live - 1)
+    return out
+
+
+def encoder_requests(cfg, task) -> list[dict]:
+    """Three ragged requests of the encoder's bucket: for classification
+    3x77, 8x128 and 5x20 tokens; for qa 13x384 (rows of 384, 300 and 90
+    live tokens), 5x250 and 9x384."""
+    if task == "classification":
+        shapes = ((3, 77, None), (8, 128, None), (5, 20, None))
+    else:
+        shapes = ((SQUAD_B, SQUAD_L, [384, 300, 90] * 4 + [384]), (5, 250, None),
+                  (9, 384, None))
+    return [{k: v for k, v in encoder_inputs(cfg, task, B, L, 20 + i, lens).items()
+             if k in ("input_ids", "attention_mask", "token_type_ids")}
+            for i, (B, L, lens) in enumerate(shapes)]
+
+
+def encoder_want(bmodel, B, L, tag, anti, n_req=0, n_steps=0, chunk=None) -> dict:
+    """The launches of ``n_req`` requests (S = 10) or ``n_steps`` steps (in
+    chunks of ``chunk`` samples) of a converted encoder at (B, L): the
+    forward kernel (and the reduce a step) once a call of a converted
+    kernel, at M = B L, or M = B on the first token (poolers and
+    classification heads), ALBERT's shared leaves once a repetition; mha
+    once a layer (a repetition) a forward, and its backward a step; #10's
+    pair instance in an f32 antithetic step once a call of a layer whose K
+    rounds up above 2048 (``fused_linear.takes_regen_vjp``)."""
+    from bayeformers_tpu_torch.ops import common
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+
+    cfg = bmodel.model.config
+    S = 10
+    n_chunks, Sc = (1, S) if chunk is None else (S // chunk, chunk)
+    n = n_req + n_steps * n_chunks
+    fwd, red, regen = {}, {}, {}
+    for p in bmodel.spec.paths:
+        if not p.endswith("/kernel"):
+            continue
+        K, N = bmodel.rho[p].shape
+        calls = cfg.num_hidden_layers if "albert_layer_groups" in p else 1
+        first = p.startswith(("classifier", "pre_classifier")) or "pooler" in p
+        key = (B if first else B * L, K, N, tag)
+        fwd[key] = fwd.get(key, 0) + calls * n
+        if n_steps:
+            red[key] = red.get(key, 0) + calls * n_steps * n_chunks
+            if tag == "f32" and anti and common.round_up(K, common.UNIT_K) > \
+                    fl.ANTI_F32_SAVED_MAX_KP:
+                rk = (Sc // 2, K, N, "pair")
+                regen[rk] = regen.get(rk, 0) + calls * n_steps * n_chunks
+    akey = ((Sc if n_steps else S) * B, L, cfg.hidden_size, tag, False)
+    want = {"bayes_linear_anti" if anti else "bayes_linear": fwd,
+            "mha_fwd": {akey: cfg.num_hidden_layers * n}}
+    if n_steps:
+        want["reduce_abuv_anti" if anti else "reduce_abuv"] = red
+        want["mha_bwd"] = {akey: cfg.num_hidden_layers * n_steps * n_chunks}
+        if regen:
+            want["regen"] = regen
+    return want
+
+
+def encoder_forward(bmodel, anti, args, impl="kernel"):
+    """The fused forward's outputs at a fixed seed, the start and end logits
+    of a span head concatenated."""
+    with torch.inference_mode():
+        out, _ = bmodel.mc_apply_fused(12345, 10, **args, antithetic=anti, impl=impl)
+    return torch.cat(out, dim=-1) if isinstance(out, tuple) else out
+
+
+def encoder_logits_gate(bt, family, task, anti, args, lk, lp) -> str:
+    """bf16 logits through the kernels no farther from the f32 plain run
+    (the same weights and draws) than 1.5x the bf16 plain path's, in max
+    |d| and in relative L2 (:func:`f32_logits_gate`'s rule)."""
+    m32, _ = encoder_base(bt, family, task, F32)
+    l32 = encoder_forward(m32, anti, args, "plain").float()
+    del m32
+
+    def dist(a):
+        d = a.float() - l32
+        return d.abs().max().item(), (d.norm() / l32.norm()).item()
+
+    (kd, kr), (pd, pr) = dist(lk), dist(lp)
+    check(kd <= 1.5 * pd and kr <= 1.5 * pr,
+          f"{family} {task} bf16 logits: the kernels are farther from the f32 plain run "
+          f"(max|d| {kd}, rel L2 {kr}) than 1.5x the bf16 plain path (max|d| {pd}, rel L2 "
+          f"{pr})")
+    torch.cuda.empty_cache()
+    return (f"logits against the f32 plain run: kernels max|d| {kd:.4g} rel L2 {kr:.4g}, "
+            f"bf16 plain max|d| {pd:.4g} rel L2 {pr:.4g} (gate 1.5x); kernels vs bf16 "
+            f"plain max|d| {max_dist(lk, lp):.4g}")
+
+
+def spans_check(pred, lk, lp, mask, n) -> str:
+    """The n-best spans decoded from the kernels' start and end logits
+    against the plain path's: each row's best span scores, under the plain
+    path's probabilities, within 0.05 nats of the plain path's own best."""
+    from bayeformers_tpu_torch.serving import summarize_qa
+
+    L = mask.shape[1]
+    res = []
+    for logits in (lk, lp):
+        out = summarize_qa(logits[..., :L].float(), logits[..., L:].float(), mask)
+        out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
+        res.append((out, pred._decode_spans(out, n, None, None)))
+    (_, sk), (op, sp) = res
+    ls = np.log(np.clip(op["start_probs"], 1e-12, None))
+    le = np.log(np.clip(op["end_probs"], 1e-12, None))
+    worst, same = 0.0, 0
+    for i in range(n):
+        best_k, best_p = sk[i][0], sp[i][0]
+        check(np.isfinite(best_k["score"]), f"row {i}: span score {best_k['score']}")
+        got = ls[i, best_k["start"]] + le[i, best_k["end"]]
+        worst = max(worst, best_p["score"] - got)
+        same += (best_k["start"], best_k["end"]) == (best_p["start"], best_p["end"])
+    check(worst <= 0.05, f"a row's best span through the kernels scores {worst} nats "
+          "below the plain path's best under the plain probabilities")
+    return (f"best spans: {same} of {n} rows the plain path's span, the others within "
+            f"{worst:.3g} nats of its score")
+
+
+def serve_encoder(bt, fl, fb, at, family, task, anti, dtype=BF16):
+    """A converted encoder of ``family`` at base width served by
+    ``Predictor(task=task)``: a warm-up, then three ragged requests with the
+    launch counts read around exactly them (:func:`encoder_want`), the
+    summaries finite (qa: each row's n-best spans), the logits through the
+    kernels against the plain path's (:func:`encoder_logits_gate`; qa: the
+    spans too, :func:`spans_check`), the latency and the peak memory.
+    Returns (launches, median ms)."""
+    bmodel, named = encoder_base(bt, family, task, dtype)
+    del named
+    cfg = bmodel.model.config
+    B, L = (SQUAD_B, SQUAD_L) if task == "qa" else (8, 128)
+    label = f"{family}-base {task} ({'antithetic' if anti else 'independent'}, {TAG[dtype]})"
+    pred = bt.Predictor(bmodel, n_samples=10, batch_sizes=(B,), seq_lens=(L,),
+                        antithetic=anti, task=task)
+    reqs = encoder_requests(cfg, task)
+    pred(reqs[0], seed=1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    torch.cuda.reset_peak_memory_stats()
+    lat, outs = [], []
+    for i, r in enumerate(reqs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(pred(r, seed=10 + i))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    counts = lm_counts(fl, fb, at)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = encoder_want(bmodel, B, L, TAG[dtype], anti, n_req=3)
+    check(counts == want, f"{label}: launches over 3 requests {counts}, want {want}")
+    for r, o in zip(reqs, outs):
+        n, Lr = r["input_ids"].shape
+        for k, v in o.items():
+            if k != "spans":
+                check(np.isfinite(v).all(), f"{label}: {k} not finite")
+        if task == "qa":
+            check(o["start_probs"].shape == (n, Lr) and o["end_logp_draws"].shape ==
+                  (n, 10, Lr) and len(o["spans"]) == n, f"{label}: shapes")
+            check(all(len(sp) == pred.n_best for sp in o["spans"]), f"{label}: n-best")
+    dev = bmodel.device
+    keys = pred.input_keys
+    req = reqs[0]
+    args = {k: torch.from_numpy(np.pad(req[k], ((0, B - req[k].shape[0]),
+                                                (0, L - req[k].shape[1])))).to(dev)
+            for k in keys}
+    lk = encoder_forward(bmodel, anti, args)
+    lp = encoder_forward(bmodel, anti, args, "plain")
+    note = encoder_logits_gate(bt, family, task, anti, args, lk, lp)
+    if task == "qa":
+        note += "; " + spans_check(pred, lk, lp, args["attention_mask"],
+                                   req["input_ids"].shape[0])
+    ms = float(np.median(lat))
+    say(f"{label}: launches over 3 requests {counts}; {note}; request latency (S=10, "
+        f"{B}x{L}) median {ms:.3f} ms of 3: {[round(v, 3) for v in lat]}; peak memory "
+        f"{peak:.2f} GiB")
+    del pred, bmodel, lk, lp
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def vanishing_leaf(bmodel):
+    """The trainable leaf whose gradient a span head makes vanish: the last
+    layer's output LayerNorm bias shifts every position's start (and end)
+    logit alike, and the CE's softmax over positions ignores a shift, so
+    its gradient sums terms that cancel to 0. None for a classification
+    head, and for ALBERT, whose one LayerNorm serves every repetition."""
+    model = bmodel.model
+    n = model.config.num_hidden_layers - 1
+    fam = model.family
+    if model.task != "qa" or fam == "albert":
+        return None
+    if fam == "distilbert":
+        return f"params/distilbert/transformer/layer/{n}/output_layer_norm/bias"
+    return f"params/{fam}/encoder/layer/{n}/output/LayerNorm/bias"
+
+
+def chunked_grads(bt, bmodel, named, seed, batch, impl, estimator, chunk, task, keys):
+    """Loss and gradients of the ELBO objective as ``make_elbo_train_step``
+    accumulates it in chunks of ``chunk`` samples (None: all S = 10), at
+    the draws of ``seed``."""
+    from bayeformers_tpu_torch.nn.fused import derive_seed
+
+    loss_fn = (bt.training.qa_span_loss if task == "qa"
+               else bt.training.classification_loss)
+    n_chunks, Sc = (1, 10) if chunk is None else (10 // chunk, chunk)
+    mc = bt.training.pick_mc(bmodel, True, estimator)
+    for _, t, _ in named:
+        t.grad = None
+    total = 0.0
+    for c in range(n_chunks):
+        loss, _ = bt.training.elbo_objective(
+            mc, seed if n_chunks == 1 else derive_seed(seed, c), Sc, batch, 256, loss_fn,
+            keys, impl=impl)
+        loss.backward()
+        total += loss.item()
+    return total / n_chunks, {n: t.grad.clone() / n_chunks for n, t, _ in named}
+
+
+@contextlib.contextmanager
+def in_f64(bmodel):
+    """``bmodel``'s model, rho and prior means in f64, and ``Tensor.float()``
+    a no-op on f64 tensors, so that the plain path's f32 casts keep f64
+    (its eps stream stays the f32 one: the same draws); ``float`` is
+    restored on exit, the model stays in f64."""
+    bmodel.model.double()
+    for m in bmodel.model.modules():
+        if getattr(m, "dtype", None) == F32:
+            m.dtype = torch.float64
+    for d in (bmodel.rho, bmodel.prior_mu):
+        for t in d.values():
+            t.data = t.data.double()
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else orig(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def check_f32_leaves(label, group, gk, gp, exact, names, top, notes) -> list[str]:
+    """An f32 step's gradients through the kernels (``gk``) against the
+    plain f32 step's (``gp``) and the plain step's in f64 at the same
+    draws (``exact``): each leaf within 1e-3 of the f64 gradient's norm
+    plus twice the plain f32 step's own distance from it (L2), so a leaf
+    whose sum cancels, where f32 rounding on any path is larger, is
+    allowed what the plain path's rounding shows and no more. Adds the
+    distances of leaves past 5e-4 or with a plain distance past 1e-4 to
+    ``notes`` (norms as shares of the group's largest, ``top``); returns
+    the failures."""
+    failed = []
+    for n in names:
+        x, y, z = gk[n].double(), gp[n].double(), exact[n]
+        norm = z.norm().item()
+        ek, ep = (x - z).norm().item(), (y - z).norm().item()
+        bound = 1e-3 * norm + 2 * ep
+        if ek > 5e-4 * norm or ep > 1e-4 * norm:
+            notes.append(f"{n}: norm {norm / top:.3g} of its group's largest; from the f64 "
+                         f"step kernels {ek / max(norm, 1e-300):.3g}, plain "
+                         f"{ep / max(norm, 1e-300):.3g}, kernels vs plain "
+                         f"{(x - y).norm().item() / y.norm().item():.3g}")
+        if ek > bound:
+            failed.append(f"{label}: {group} gradient of {n} is {ek} from the f64 plain step, "
+                          f"over its bound {bound} (1e-3 of its norm {norm} and twice the "
+                          f"plain f32 step's {ep})")
+    return failed
+
+
+def train_encoder(bt, fl, fb, at, family, task, dtype, estimator="antithetic", chunk=None,
+                  n_steps=2, compare=True):
+    """The ELBO step of a converted encoder at base width (qa: S = 10, B =
+    13, L = 384 with ``qa_span_loss``; classification: 8x128): with
+    ``compare``, its loss and gradients through the kernels against the
+    plain step's at the same draws (bf16: loss 1e-2 relative, rho 5e-2
+    relative L2 and cosine 0.999; f32: loss 1e-6, each leaf against the
+    plain step's in f64 by :func:`check_f32_leaves`), then
+    ``n_steps`` timed steps with the launch counts read around exactly them
+    and the peak memory. Returns (launches, median ms, peak GiB)."""
+    from bayeformers_tpu_torch.models import families
+
+    bmodel, named = encoder_base(bt, family, task, dtype)
+    cfg = bmodel.model.config
+    anti = estimator == "antithetic"
+    tag = TAG[dtype]
+    B, L = (SQUAD_B, SQUAD_L) if task == "qa" else (8, 128)
+    label = (f"{family}-base {task} step ({estimator}, {tag}"
+             + (f", mc_chunk={chunk}" if chunk else "") + ")")
+    keys = families.input_keys(bmodel.model)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in encoder_inputs(cfg, task, B, L, 7).items()}
+    notes = []
+    if compare:
+        loss_k, gk = chunked_grads(bt, bmodel, named, 123, batch, "kernel", estimator, chunk,
+                                   task, keys)
+        torch.cuda.empty_cache()
+        loss_p, gp = chunked_grads(bt, bmodel, named, 123, batch, "plain", estimator, chunk,
+                                   task, keys)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        check(np.isfinite(loss_k) and loss_rel <= (1e-6 if dtype == F32 else 1e-2),
+              f"{label}: loss kernels {loss_k} vs plain {loss_p}")
+        exact, failed = None, []
+        if dtype == F32:
+            # the plain step in f64 at the same draws: the sums that both
+            # f32 paths round
+            torch.cuda.empty_cache()
+            b64, _ = encoder_base(bt, family, task, F32)
+            with in_f64(b64):
+                _, exact = chunked_grads(bt, b64, b64.trainable_parameters(), 123, batch,
+                                         "plain", estimator, chunk, task, keys)
+            del b64
+        for group, names in grad_groups(list(gk)).items():
+            # a span head's logits move with the last LayerNorm's bias alike
+            # at every position, which the CE's softmax over positions
+            # ignores: that gradient is 0 in exact arithmetic, and each step
+            # holds only its own roundoff of the cancelling sum (read; in
+            # f32 held to twice the plain step's roundoff)
+            quiet = [n for n in names if n == vanishing_leaf(bmodel)]
+            top = max(gp[m].double().norm().item() for m in names)
+            for n in quiet:
+                rk, rp, r64 = (g[n].double().norm().item() / top
+                               for g in (gk, gp, exact if exact else gp))
+                notes.append(f"{n} (0 in exact arithmetic): norm {rk:.3g} (kernels), "
+                             f"{rp:.3g} (plain)" + (f", {r64:.3g} (f64)" if exact else "")
+                             + " of its group's largest")
+            names = [n for n in names if n not in quiet]
+            if dtype == F32:
+                failed += check_f32_leaves(label, group, gk, gp, exact, quiet, top, [])
+                failed += check_f32_leaves(label, group, gk, gp, exact, names, top, notes)
+            rel, cos, at_ = worst_agreement(gk, gp, names)
+            notes.append(f"{group} rel L2 {rel:.4g} (worst leaf, {at_}), cosine {cos:.7f}")
+            if group == "rho" and dtype != F32:
+                check(rel <= 5e-2 and cos >= 0.999, f"{label}: rho gradients differ from "
+                      f"the plain step: rel L2 {rel}, cosine {cos}")
+        say(f"{label}: loss kernels {loss_k:.9g} vs plain {loss_p:.9g} (rel {loss_rel:.3g}); "
+            "gradients kernels vs plain: " + "; ".join(notes))
+        check(not failed, "; ".join(failed))
+        del gk, gp, exact
+        torch.cuda.empty_cache()
+    opt = bt.training.adamw_with_decay_groups(
+        2e-5, 0.0, bt.training.default_no_decay).init(named)
+    loss_fn = (bt.training.qa_span_loss if task == "qa"
+               else bt.training.classification_loss)
+    stepf = bt.training.make_elbo_train_step(bmodel, opt, 10, 256, loss_fn=loss_fn,
+                                             input_keys=keys, estimator=estimator,
+                                             mc_chunk=chunk)
+    stepf(55, batch)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = stepf(1000 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"{label}: step {i} loss {m['loss']}")
+    counts = lm_counts(fl, fb, at)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = encoder_want(bmodel, B, L, tag, anti, n_steps=n_steps, chunk=chunk)
+    check(counts == want, f"{label}: launches over {n_steps} steps {counts}, want {want}")
+    ms = float(np.median(times))
+    say(f"{label}: launches over {n_steps} steps {counts}; ELBO step median {ms:.3f} ms of "
+        f"{n_steps}: {[round(v, 3) for v in times]}; peak memory {peak:.2f} GiB")
+    del opt, stepf, named, bmodel
+    torch.cuda.empty_cache()
+    return counts, ms, peak
+
+
+def ragged_mask(N, L, seed):
+    """(N, L) right-padded keep-mask with each row's live length drawn from
+    [1, L]: rows of 1, 2 and 3 live keys, one of 100 (two whole 128-key
+    tiles masked at L = 384), one fully masked row (a bucket's padded
+    row), the last."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, N)
+    lengths[:4] = (1, 2, 3, 100)
+    lengths[N - 1] = 0
+    mask = np.arange(L)[None] < lengths[:, None]
+    return torch.from_numpy(mask.astype(np.float32)).cuda()
+
+
+def squad_mask_checks(at, dtype, N=130, L=SQUAD_L, H=768, nh=12) -> str:
+    """#3 and #5 at SQuAD's shape under ragged right padding
+    (:func:`ragged_mask`) with the key bias of ``mask_to_bias``
+    (``finfo.min``) and with DistilBERT's ``-1e30 * (1 - mask)``: the
+    attention gates against the plain versions on the same bias, the fully
+    masked row finite and uniform over all L keys, bit-equal reruns, and a
+    planted fault that must fail the gates (the plain version's mask one
+    column off: each row one more live key)."""
+    from bayeformers_tpu_torch.models.families import distilbert_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, g = (torch.randn(N, L, H, device="cuda", generator=gen).to(dtype)
+                  for _ in range(4))
+    mask = ragged_mask(N, L, 18)
+    shifted = mask.clone()
+    shifted[:, 1:] = torch.maximum(mask[:, 1:], mask[:, :-1])
+    shifted[N - 1] = 0
+    tol = 1e-4 if dtype == F32 else 2e-2
+    notes = []
+    for name, fn in (("finfo.min", at.mask_to_bias), ("-1e30", distilbert_bias)):
+        bias = fn(mask).contiguous()
+        out = at.mha_cuda(q, k, v, bias, nh)
+        again = at.mha_cuda(q, k, v, bias, nh)
+        grads = at.mha_bwd_cuda(q, k, v, bias, g, nh)
+        grads2 = at.mha_bwd_cuda(q, k, v, bias, g, nh)
+        ref = at.mha_plain(q, k, v, bias, nh)
+        gref = at.mha_bwd_plain(q, k, v, bias, g, nh)
+        what = f"mha ({TAG[dtype]}) N={N} L={L} ragged keys, bias {name}"
+        check(attn_gate_ok(out, ref, dtype), f"{what}: forward max|d| {max_dist(out, ref)}")
+        for gn, a, r in zip(("dq", "dk", "dv"), grads, gref):
+            check(bool(torch.isfinite(a.float()).all()) and attn_gate_ok(a, r, dtype, True),
+                  f"{what}: {gn} max|d| {max_dist(a, r)}")
+        check(torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"{what}: reruns differ")
+        uni = max_dist(out[N - 1], v.float().mean(1)[N - 1].expand(L, H))
+        check(bool(torch.isfinite(out.float()).all()) and uni <= tol,
+              f"{what}: the fully masked row is not uniform over L: {uni}")
+        fault = at.mha_plain(q, k, v, fn(shifted).contiguous(), nh)
+        check(not attn_gate_ok(out, fault, dtype), f"{what}: the plain mask one column off "
+              f"passes the gate: max|d| {max_dist(out, fault)}")
+        notes.append(f"bias {name}: fwd max|d| {max_dist(out, ref):.3g}, dq/dk/dv max|d| "
+                     + "/".join(f"{max_dist(a, r):.3g}" for a, r in zip(grads, gref))
+                     + f", masked row uniform within {uni:.3g}, reruns equal, mask one "
+                     f"column off max|d| {max_dist(out, fault):.3g} (fails)")
+        del out, again, grads, grads2, ref, gref, fault
+    torch.cuda.empty_cache()
+    return f"mha ({TAG[dtype]}) N={N} L={L} ragged right padding: " + "; ".join(notes)
+
+
+def phase_workload18(fl, fb, at) -> str:
+    """``workloads/bert_squad.train`` (BERT-base QA, synthetic SQuAD, S =
+    10, batch 13 of 384) and ``bert_glue --model distilbert-base-uncased``,
+    phases A-D for three batches an epoch in bf16: finite scores, and each
+    launched the antithetic forward, the reduce and both attention
+    kernels."""
+    from bayeformers_tpu_torch.workloads import bert_glue, bert_squad
+
+    notes = []
+    for name, run in (
+            ("bert_squad", lambda logs: bert_squad.train(
+                size="base", limit_batches=3, epochs=1, b_epochs=1, bf16=True, logs=logs,
+                samples=10)),
+            ("bert_glue distilbert-base-uncased", lambda logs: bert_glue.train(
+                model_name="distilbert-base-uncased", size="base", limit_batches=3,
+                epochs=1, b_epochs=1, bf16=True, logs=logs, samples=10))):
+        reset_counters(fl, fb, at)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as logs:
+            score = run(logs)
+        counts = {c.name: c.count for c in (fl.LAUNCHES, fb.LAUNCHES, at.LAUNCHES,
+                                             at.BWD_LAUNCHES)}
+        check(np.isfinite(score) and all(counts.values()),
+              f"{name}: score {score}, launches {counts}")
+        notes.append(f"{name}: score {score:.4f}, launches {counts}, "
+                     f"{time.perf_counter() - t:.1f} s")
+    return "workloads (bf16, S=10, 3 batches an epoch): " + "; ".join(notes)
+
+
+def phase18(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
+    """Phase 18 (module note): SQuAD's attention, the linear kernels at the
+    new shapes, BERT-base QA served and trained, the four sibling families
+    at base width, and the two workloads. Fills ``paths``; returns the
+    rows and the request and step medians (with peaks)."""
+    rows, ms = [], {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase 18 {label}: {time.perf_counter() - t:.2f} s")
+        return out
+
+    rows += timed("attention (bf16)", attention_checks, at, BF16,
+                  ((SQUAD_B * 10, SQUAD_L, 768, 12, False, "squad/anti"),))
+    rows += timed("attention (f32)", attention_checks, at, F32,
+                  ((SQUAD_B * 10, SQUAD_L, 768, 12, False, None),
+                   (SQUAD_B * SQUAD_CHUNK, SQUAD_L, 768, 12, False, "squad/chunk2")))
+    for dtype in (BF16, F32):
+        say(timed(f"ragged masks ({TAG[dtype]})", squad_mask_checks, at, dtype))
+    for anti in (True, False):
+        rows += timed(f"bayes_linear squad ({anti})", phase_bayes_linear, fl, moped_rho,
+                      anti, BF16, "on_mu", "squad/")
+        rows += timed(f"reduce squad ({anti})", phase_reduce, fl, fb, moped_rho, anti,
+                      "bf16", "on_mu", "squad/")
+    rows += timed("bayes_linear albert", phase_bayes_linear, fl, moped_rho, True, BF16,
+                  "on_mu", "albert/")
+    rows += timed("reduce albert", phase_reduce, fl, fb, moped_rho, True, "bf16", "on_mu",
+                  "albert/")
+    # BERT-base QA: requests under both estimators, the antithetic bf16 step,
+    # the independent one, and the f32 step in chunks of two
+    for anti, key in ((True, "anti"), (False, "indep")):
+        paths[f"serve/squad/{key}/bf16"], ms["request", "bert-qa", key] = timed(
+            f"serve bert qa ({key})", serve_encoder, bt, fl, fb, at, "bert", "qa", anti)
+    counts, step_ms, peak = timed("train bert qa (antithetic, bf16)", train_encoder, bt,
+                                  fl, fb, at, "bert", "qa", BF16)
+    paths["train/squad/anti/bf16"], ms["step", "bert-qa", "anti"] = counts, step_ms
+    ms["peak", "bert-qa", "bf16"] = peak
+    paths["train/squad/indep/bf16"], ms["step", "bert-qa", "indep"], _ = timed(
+        "train bert qa (independent, bf16)", train_encoder, bt, fl, fb, at, "bert", "qa",
+        BF16, "fused", None, 1, False)
+    counts, step_ms, peak = timed("train bert qa (antithetic, f32, mc_chunk=2)",
+                                  train_encoder, bt, fl, fb, at, "bert", "qa", F32,
+                                  "antithetic", SQUAD_CHUNK, 1)
+    paths["serve/squad/chunk2/f32"] = paths["train/squad/chunk2/f32"] = counts
+    ms["step", "bert-qa", "f32-chunk2"], ms["peak", "bert-qa", "f32"] = step_ms, peak
+    for fam in ENCODERS18:
+        paths[f"serve/{fam}/anti/bf16"], ms["request", fam, "anti"] = timed(
+            f"serve {fam}", serve_encoder, bt, fl, fb, at, fam, "classification", True)
+        paths[f"train/{fam}/anti/bf16"], ms["step", fam, "anti"], _ = timed(
+            f"train {fam}", train_encoder, bt, fl, fb, at, fam, "classification", BF16)
+    say(timed("workloads", phase_workload18, fl, fb, at))
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -3504,6 +4096,14 @@ def main() -> int:
         rows += rows17
         say(f"phase 17 (wide heads): {time.perf_counter() - t17:.2f} s")
 
+    enc_ms = {}
+    if first <= 18:
+        # phase 18: BERT's sibling families and the SQuAD QA path
+        t18 = time.perf_counter()
+        rows18, enc_ms = phase18(bt, fl, fb, at, moped_rho, paths)
+        rows += rows18
+        say(f"phase 18 (encoder families, SQuAD): {time.perf_counter() - t18:.2f} s")
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
@@ -3543,9 +4143,14 @@ def main() -> int:
             "step, S=10: " + "; ".join(f"{what} {est} ({tag}) {v:.3f} ms"
                                        for (what, est, tag), v in llama_ms.items()
                                        if v is not None))
-    say(f"{smi}; phase 17 (frozen MOPED, antithetic, {WIDE_LAYERS} layers), request / ELBO "
-        "step, S=10: " + "; ".join(f"{what} {name} ({tag}) {v:.3f} ms"
-                                   for (what, name, tag), v in wide_ms.items() if v is not None)
+    if first <= 17:
+        say(f"{smi}; phase 17 (frozen MOPED, antithetic, {WIDE_LAYERS} layers), request / "
+            "ELBO step, S=10: " + "; ".join(f"{what} {name} ({tag}) {v:.3f} ms"
+                                            for (what, name, tag), v in wide_ms.items()
+                                            if v is not None))
+    say(f"{smi}; phase 18 (frozen MOPED, base width, S=10; QA 13x384, classification "
+        "8x128), request / ELBO step (ms) and peak (GiB): "
+        + "; ".join(f"{what} {name} ({key}) {v:.3f}" for (what, name, key), v in enc_ms.items())
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

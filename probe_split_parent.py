@@ -123,7 +123,7 @@ def steps(bt, cs, times):
         dev = bmodel.device
         args = tuple(torch.from_numpy(req[k]).to(dev)
                      for k in ("input_ids", "attention_mask", "token_type_ids"))
-        mc = bt.training.pick_mc(bmodel, est)
+        mc = bt.training.pick_mc(bmodel, True, est)
 
         def serve(i):
             with torch.inference_mode():

@@ -273,12 +273,13 @@ def test_predictor_rejects(predictor):
         predictor(_request(2, 17))  # > largest sequence bucket
     with pytest.raises(ValueError):
         bt.Predictor(predictor.bmodel, n_samples=3, antithetic=True)
-    # a decoder's next-token serving is a task now (tests/test_torch_gpt2.py);
-    # an unknown task raises, and qa names the slice that brings it
+    # a decoder's next-token serving is a task now (tests/test_torch_gpt2.py),
+    # and qa too (tests/test_torch_squad.py); an unknown task raises, and qa
+    # over a classification head names the span head it needs
     assert bt.Predictor(predictor.bmodel, task="causal-lm").task == "causal-lm"
     with pytest.raises(ValueError, match="unknown task"):
         bt.Predictor(predictor.bmodel, task="translation")
-    with pytest.raises(NotImplementedError, match="SQuAD"):
+    with pytest.raises(ValueError, match="span head"):
         bt.Predictor(predictor.bmodel, task="qa")
 
 

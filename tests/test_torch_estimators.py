@@ -152,7 +152,7 @@ def _jax_grad(grads, name):
     return np.asarray(flatten_dict(grads.params, sep="/")[path])
 
 
-def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2)):
+def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small=None):
     """Logits within 1e-4, the KL (flipout, LRT) or both log-probs (naive)
     within 2e-5 relative, and the gradients of the logits' part and of the
     KL part, each trained leaf (rho; mu where it trains; LayerNorm and
@@ -160,7 +160,10 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2)):
     port's flipout and LRT score each kernel leaf's KL through
     ``sampled_logprobs`` and its closed-form VJP. ``batch`` (default: this
     module's BERT batch) holds the model's inputs, ``out_shape`` the shape
-    of one sample's output."""
+    of one sample's output. ``small``, a pair ``(share, bound)``: a leaf
+    whose largest entry is below ``share`` of the part's largest is held
+    within ``bound`` of its own largest entry instead (a caller states
+    the readings it takes the pair from)."""
     name, bmodel, bp, port = conversion
     key = jax.random.key(11)
     batch = _batch() if batch is None else batch
@@ -216,7 +219,10 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2)):
                 # sides: each within 1e-6 of the part's largest gradient
                 assert np.abs(g).max() <= 1e-6 * top, what
                 continue
-            tol = 1e-4 * max(np.abs(w).max(), 1e-30) + noise
+            rel = 1e-4
+            if small is not None and np.abs(w).max() < small[0] * top:
+                rel = small[1]
+            tol = rel * max(np.abs(w).max(), 1e-30) + noise
             assert np.all(np.abs(g - w) <= tol), (
                 f"{what}: max |d| {np.abs(g - w).max()}, worst over its bound "
                 f"{(np.abs(g - w) / tol).max()}")

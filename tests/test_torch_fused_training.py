@@ -126,7 +126,7 @@ def test_bert_glue_refuses_f32_on_cuda(tmp_path, monkeypatch):
         built.append((kwargs["dtype"], torch.device(kwargs["device"]).type))
         raise Built
 
-    monkeypatch.setattr(bert_glue, "build_bert", spy)
+    monkeypatch.setattr(bert_glue.families, "build_model", spy)  # the family dispatch
     with pytest.raises(Built):
         bert_glue.train(size="tiny", device=torch.device("cuda"), logs=str(tmp_path))
     monkeypatch.setattr(sys, "argv", ["bert_glue", "--size", "tiny", "--logs",

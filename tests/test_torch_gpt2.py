@@ -328,7 +328,7 @@ def test_predictor_causal_lm(served):
     # one request row in a bucket of two: the all-pad bucket row is dropped
     one = pred({"input_ids": ids[:1], "attention_mask": mask[:1]}, seed=3)
     assert one["topk_ids"].shape == (1, 8)
-    with pytest.raises(NotImplementedError, match="SQuAD"):
+    with pytest.raises(ValueError, match="span head"):  # a decoder has none
         Predictor(port, task="qa")
     with pytest.raises(ValueError, match="unknown task"):
         Predictor(port, task="translation")

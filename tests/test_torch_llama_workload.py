@@ -193,10 +193,24 @@ def test_a_tensor_without_grad_moves_as_optax_masked_adamw():
     np.testing.assert_array_equal(tensors["frozen"].numpy(), init["frozen"])
 
 
-def test_bert_glue_refuses_camembert(tmp_path):
+def test_bert_glue_refuses_camembert(tmp_path, monkeypatch):
     """The reference's ``build_model`` sends a CamemBERT name to
-    ``build_roberta`` (``bayeformers_tpu/models/bert.py:291``): the port
-    refuses it with the other BERT siblings, naming their ROADMAP item."""
+    ``build_roberta`` (``bayeformers_tpu/models/bert.py:291``): the port's
+    ``bert_glue`` no longer refuses it or the other BERT siblings; it hands
+    each name to ``families.build_model``, which builds RoBERTa for
+    CamemBERT."""
+    from bayeformers_tpu_torch.models import families
+
+    assert type(families.build_model("camembert-base", size="tiny", device="cpu")) is \
+        families.RobertaForSequenceClassification
+    asked = []
+
+    def stop(name, **kw):
+        asked.append(name)
+        raise RuntimeError("built")
+
+    monkeypatch.setattr(families, "build_model", stop)
     for name in ("camembert-base", "roberta-base", "distilbert-base-uncased"):
-        with pytest.raises(NotImplementedError, match="BERT's sibling families"):
+        with pytest.raises(RuntimeError, match="built"):
             bert_glue.train(model_name=name, size="tiny", device="cpu", logs=str(tmp_path))
+    assert asked == ["camembert-base", "roberta-base", "distilbert-base-uncased"]

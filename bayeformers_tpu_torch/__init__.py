@@ -11,7 +11,14 @@ Monte-Carlo ELBO (``workloads/bert_glue.py`` runs the four-phase GLUE
 recipe, ``workloads/bert_squad.py`` the SQuAD one, ``workloads/gpt2_lm.py``
 the causal-LM one), and ``Predictor`` serves posterior-predictive
 summaries (classification, span ``task="qa"`` with n-best answers, or
-next-token ``task="causal-lm"``). The fused S-sample
+next-token ``task="causal-lm"``; raw strings through ``predict_texts`` and
+the native tokenizers of ``native/``). The recipes read their own files:
+GLUE TSVs, SQuAD JSON, MNIST idx files and text corpora (``utils/``),
+local Hugging Face checkpoints (``pretrained.py``) and their own
+checkpoints (``utils/checkpoint.py``). Hand-built Bayesian models compose
+``nn.BayesLinear`` (``nn.bayes_apply``, ``nn.collect_kl``);
+``workloads/mlp_mnist.py`` converts the reference MLP (``models/mlp.py``)
+instead. The fused S-sample
 forward and its backward run the Bayesian linear layers, their dmu/drho
 reduce and attention on hand-written Hopper kernels (``csrc/``, built with
 ``nvcc`` at first use). Entry points run on
@@ -35,13 +42,17 @@ from bayeformers_tpu_torch.models.gpt2 import (
     build_gpt2,
 )
 from bayeformers_tpu_torch.models.llama import LlamaConfig, build_llama_family
+from bayeformers_tpu_torch.models.mlp import build_mlp
+from bayeformers_tpu_torch.nn.layers import BayesLinear, bayes_apply, collect_kl
 from bayeformers_tpu_torch.nn.surgery import BayesianModel, to_bayesian
+from bayeformers_tpu_torch.pretrained import load_pretrained
 from bayeformers_tpu_torch.serving import Predictor
 from bayeformers_tpu_torch.training import make_elbo_train_step
 
 __all__ = [
     "BERT_BASE_KWARGS",
     "BERT_TINY_KWARGS",
+    "BayesLinear",
     "BayesianModel",
     "GPT2_BASE_KWARGS",
     "GPT2_TINY_KWARGS",
@@ -49,11 +60,15 @@ __all__ = [
     "MOPED_PRIOR_SIGMA",
     "Predictor",
     "ScaleMixturePrior",
+    "bayes_apply",
     "build_bert",
     "build_gpt2",
     "build_llama_family",
     "build_model",
+    "build_mlp",
+    "collect_kl",
     "from_jax_params",
+    "load_pretrained",
     "make_elbo_train_step",
     "to_bayesian",
     "training",

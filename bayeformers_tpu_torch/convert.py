@@ -9,7 +9,8 @@ and ``prior_mu`` dicts), as numpy arrays, and the facts of its
 the port's model, picked from the tree (``bert/...``, ``distilbert/...``,
 ``roberta/...``, ``electra/...``, ``albert/...``: that encoder family of
 ``models/families.py``, with a classification head or, where the tree
-has ``qa_outputs``, the span head; ``transformer/...``:
+has ``qa_outputs``, the span head; ``fc1/...``, ``fc2/...``, ``head/...``:
+the reference MNIST MLP of ``models/mlp.py``; ``transformer/...``:
 its :class:`~models.gpt2.GPT2LMHeadModel`; ``model/...``: its
 :class:`~models.llama.LlamaForCausalLM`, whose family and rotary table the
 tree cannot tell, so the caller passes ``config``, a
@@ -32,6 +33,7 @@ from bayeformers_tpu_torch.models.bert import FAMILIES, BertConfig
 from bayeformers_tpu_torch.models.families import MODEL_CLASSES
 from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from bayeformers_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from bayeformers_tpu_torch.models.mlp import MLP
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
 
@@ -71,6 +73,9 @@ def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None
             raise ValueError("a LLaMA-architecture tree needs config=LlamaConfig(...): "
                              "the tree does not tell the family or the positions")
         return LlamaForCausalLM(config, dtype=dtype, device=device)
+    if {"fc1/kernel", "fc2/kernel", "head/kernel"} <= set(flat):
+        fc1, head = flat["fc1/kernel"], flat["head/kernel"]
+        return MLP(fc1.shape[0], fc1.shape[1], head.shape[1], device=device)
     if "transformer/wte/embedding" in flat:
         return GPT2LMHeadModel(_gpt2_config_from(flat, n_heads), dtype=dtype,
                                device=device)

@@ -214,7 +214,8 @@ def run_mc(mc: MCBase, n_samples: int, input_ids, attention_mask=None,
     """Run the converted model once over the S-major tiled inputs with the
     tier state ``mc``; returns ``(outputs (S, B, ...), mc.aux())``, the
     outputs a tuple of such where the model returns one (a QA head's start
-    and end logits)."""
+    and end logits). The first input is whatever the model takes first:
+    token ids, or the MNIST MLP's float images (``models/mlp.py``)."""
     tiled = [None if a is None else tile_samples(a, n_samples)
              for a in (input_ids, attention_mask, token_type_ids)]
     out = mc.bmodel.model(*tiled, mc=mc)

@@ -18,11 +18,19 @@ Deterministic serving: a request's draws derive from the caller's seed and
 its bucket, so identical (inputs, seed) give identical outputs on the same
 hardware (the kernels sum in a fixed order; nothing uses float atomics).
 
+Raw strings go through :meth:`Predictor.predict_texts` and the native
+tokenizers (``bayeformers_tpu_torch/native``): sentence pairs featurized
+as GLUE is, (question, context) pairs in SQuAD's ``doc_stride`` windows
+whose spans compete per question, or text encoded by a BPE or Unigram
+tokenizer for a causal LM. :meth:`Predictor.warmup` runs every (batch,
+sequence) bucket once ahead of traffic.
+
 Usage::
 
     predictor = Predictor(bmodel, n_samples=10, batch_sizes=(8,),
                           seq_lens=(128,))
     out = predictor(batch, seed=123)      # dict of numpy arrays, depadded
+    out = predictor.predict_texts([("a sentence", "its pair")], tokenizer=wp)
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 
 from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
+from bayeformers_tpu_torch.utils import glue as glue_lib
 from bayeformers_tpu_torch.utils import squad as squad_lib
 
 
@@ -146,6 +155,7 @@ class Predictor:
     task: str = "classification"
     max_answer_len: int = 30  # qa: span-length cap (HF's default)
     n_best: int = 5           # qa: spans returned a row
+    doc_stride: int = 128     # qa: window advance over a long context
     top_k: int = 50  # causal-lm: next-token candidates returned
     input_keys: Optional[tuple[str, ...]] = None
 
@@ -164,6 +174,18 @@ class Predictor:
             raise ValueError(f"Predictor(task={self.task!r}) over a model whose head is "
                              f"{head!r}: task='qa' needs a span head (task='qa') and "
                              "a span head serves task='qa'")
+
+    def warmup(self, seed: int = 0) -> int:
+        """Run every (batch, sequence) bucket once ahead of traffic (an
+        all-pad request each); returns the number of buckets run."""
+        n = 0
+        for b in self.batch_sizes:
+            for L in self.seq_lens:
+                self({"input_ids": np.full((b, L), self.pad_id, np.int64),
+                      "attention_mask": np.zeros((b, L), np.int64),
+                      "token_type_ids": np.zeros((b, L), np.int64)}, seed=seed)
+                n += 1
+        return n
 
     def __call__(self, batch: dict, seed: int = 0, features: list | None = None,
                  contexts: list | None = None) -> dict:
@@ -237,11 +259,111 @@ class Predictor:
         return spans
 
     def predict_texts(self, texts: list, *, tokenizer, seed: int = 0) -> dict:
-        """Raw-string serving needs the native tokenizer, which the port
-        does not bind yet."""
-        raise NotImplementedError(
-            "Predictor.predict_texts needs the native WordPiece/BPE tokenizer "
-            "(ROADMAP queue 1 item 2, the native tokenizer binding)")
+        """Serve raw strings through a native tokenizer (the JAX package's
+        ``serving.py:242-380``). ``texts`` by task:
+
+        - ``classification``: strings or (sentence_a, sentence_b) pairs,
+          encoded ``[CLS] a [SEP] (b [SEP])`` by ``glue.featurize_pairs``
+          with a :class:`~bayeformers_tpu_torch.native.WordPieceTokenizer`;
+        - ``qa``: (question, context) pairs featurized into SQuAD's
+          ``doc_stride`` windows (``squad.featurize`` with the tokenizer's
+          subword offsets), every window run (in chunks of the largest
+          batch bucket) and each question's n-best spans gathered across its
+          windows by descending score; the per-position arrays are per
+          window (``feature_qid`` maps each to its question), with each
+          draw's best answer a question (``draw_answers``) and the share of
+          draws that agree with the most common one (``span_agreement``);
+        - ``causal-lm``: strings encoded by a BPE or Unigram tokenizer and
+          cut to their last ``max(seq_lens)`` tokens; ``topk_tokens`` holds
+          the decoded candidates.
+        """
+        if tokenizer is None:
+            raise ValueError("predict_texts needs a tokenizer (bayeformers_tpu_torch."
+                             "native: WordPiece for the encoders, BPE or Unigram for "
+                             "a causal LM)")
+        max_seq = max(self.seq_lens)
+        if self.task == "causal-lm":
+            rows = [tokenizer.encode(t)[-max_seq:] for t in texts]
+            L = max(1, max((len(r) for r in rows), default=1))
+            ids = np.full((len(rows), L), self.pad_id, np.int64)
+            mask = np.zeros((len(rows), L), np.int64)
+            for i, r in enumerate(rows):
+                ids[i, :len(r)] = r
+                mask[i, :len(r)] = 1
+            out = self({"input_ids": ids, "attention_mask": mask}, seed=seed)
+            out["topk_tokens"] = [[tokenizer.decode([int(t)]) for t in row]
+                                  for row in out["topk_ids"]]
+            return out
+        cls_id, sep_id = tokenizer.special_id("cls"), tokenizer.special_id("sep")
+        if self.task == "qa":
+            return self._predict_qa(texts, tokenizer, cls_id, sep_id, max_seq, seed)
+        pairs = [t if isinstance(t, tuple) else (t, None) for t in texts]
+        batch = glue_lib.featurize_pairs(pairs, [0] * len(pairs), tokenizer.tokenize,
+                                         max_seq=max_seq, cls_id=cls_id, sep_id=sep_id,
+                                         pad_id=self.pad_id)
+        batch.pop("labels")
+        return self(_trim_pad_columns(batch), seed=seed)
+
+    def _predict_qa(self, texts, tokenizer, cls_id, sep_id, max_seq, seed) -> dict:
+        """:meth:`predict_texts` for span heads: every window of every
+        question, the n-best spans and each draw's answer per question."""
+        examples = [{"qid": str(i), "question": q, "context": c, "answers": []}
+                    for i, (q, c) in enumerate(texts)]
+        feats = squad_lib.featurize(
+            examples, tokenizer.tokenize, max_seq=max_seq, doc_stride=self.doc_stride,
+            cls_id=cls_id, sep_id=sep_id, pad_id=self.pad_id, is_training=False,
+            offsets_fn=getattr(tokenizer, "tokenize_with_offsets", None))
+        nmax = max(self.batch_sizes)
+        parts = []
+        for lo in range(0, len(feats), nmax):
+            chunk = feats[lo:lo + nmax]
+            batch = {k: np.asarray([f[k] for f in chunk], np.int64)
+                     for k in ("input_ids", "attention_mask", "token_type_ids")}
+            parts.append(self(_trim_pad_columns(batch), seed=seed, features=chunk,
+                              contexts=[texts[int(f["qid"])][1] for f in chunk]))
+        # the chunks may trim to different lengths: per-position arrays are
+        # padded to the widest, log-probs with -1e30 so that no span starts
+        # in the padding
+        widest = max(p["start_probs"].shape[1] for p in parts)
+        out: dict = {}
+        for k in parts[0]:
+            if k == "spans":
+                continue
+            rows = [np.asarray(p[k]) for p in parts]
+            if k.endswith("_logp_draws"):
+                rows = [np.pad(r, [(0, 0), (0, 0), (0, widest - r.shape[2])],
+                               constant_values=-1e30) for r in rows]
+            elif rows[0].ndim >= 2:
+                rows = [np.pad(r, [(0, 0), (0, widest - r.shape[1])]
+                               + [(0, 0)] * (r.ndim - 2)) for r in rows]
+            out[k] = np.concatenate(rows, axis=0)
+        out["feature_qid"] = np.asarray([int(f["qid"]) for f in feats], np.int32)
+        per_q: list[list] = [[] for _ in texts]
+        for f, spans in zip(feats, [s for p in parts for s in p["spans"]]):
+            per_q[int(f["qid"])].extend(spans)
+        out["spans"] = [sorted(sp, key=lambda d: -d["score"])[:self.n_best]
+                        for sp in per_q]
+        # each draw decodes its own answer a question (its windows compete)
+        n_draws = out["start_logp_draws"].shape[1]
+        best_dq: list[list] = [[None] * n_draws for _ in texts]
+        for fi, f in enumerate(feats):
+            qi = int(f["qid"])
+            for d in range(n_draws):
+                (s, e), score = squad_lib.best_span(
+                    out["start_logp_draws"][fi, d], out["end_logp_draws"][fi, d],
+                    f["context_offset"], max_answer_len=self.max_answer_len)
+                prev = best_dq[qi][d]
+                if prev is None or score > prev[0]:
+                    best_dq[qi][d] = (score, squad_lib.decode_span(f, texts[qi][1], s, e))
+        out["draw_answers"] = [[t for _, t in per_d] for per_d in best_dq]
+        agreement = []
+        for answers in out["draw_answers"]:
+            counts: dict[str, int] = {}
+            for a in answers:
+                counts[a] = counts.get(a, 0) + 1
+            agreement.append(max(counts.values()) / n_draws)
+        out["span_agreement"] = np.asarray(agreement, np.float32)
+        return out
 
     def predict_featurized(self, batch: dict, seed: int = 0, **kwargs) -> dict:
         """Serve a batch a featurizer padded to its own maximum length: the

@@ -1,12 +1,16 @@
-"""The GLUE task registry (counterpart of ``bayeformers_tpu/utils/glue.py``'s
-``TaskSpec`` and ``task_spec``): TSV layout, label semantics and the
-official metric of each task. Featurising raw TSVs needs the native
-WordPiece tokenizer and comes with the tokenizer slice.
+"""GLUE from raw TSVs (counterpart of ``bayeformers_tpu/utils/glue.py``): the
+task registry (TSV layout, label semantics and the official metric of each
+task), the TSV reader, the ``[CLS] a [SEP] (b [SEP])`` featurizer and the
+loader of a task directory, whose features are cached next to the TSVs.
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
-from typing import Optional
+import os
+from typing import Callable, Optional
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,3 +64,80 @@ def task_spec(task: str) -> TaskSpec:
     if name not in TASKS:
         raise ValueError(f"unknown GLUE task {task!r}; known: {sorted(TASKS)}")
     return TASKS[name]
+
+
+def read_tsv(path: str, has_header: bool) -> list[list[str]]:
+    with open(path, encoding="utf-8") as fh:
+        rows = list(csv.reader(fh, delimiter="\t", quoting=csv.QUOTE_NONE))
+    return rows[1:] if has_header else rows
+
+
+def featurize_pairs(pairs: list[tuple[str, Optional[str]]], labels: list,
+                    tokenize: Callable[[str], list[int]], *, max_seq: int = 128,
+                    cls_id: int = 101, sep_id: int = 102, pad_id: int = 0,
+                    regression: bool = False) -> dict[str, np.ndarray]:
+    """``[CLS] a [SEP] (b [SEP])`` with 0/1 token types, truncated longest
+    first to fit the specials (the reference tokenizer's policy) and padded
+    to ``max_seq``; int32 arrays, labels float32 for a regression task."""
+    n = len(pairs)
+    input_ids = np.full((n, max_seq), pad_id, np.int32)
+    attention = np.zeros((n, max_seq), np.int32)
+    type_ids = np.zeros((n, max_seq), np.int32)
+    for i, (a, b) in enumerate(pairs):
+        ids_a = tokenize(a)
+        ids_b = tokenize(b) if b else []
+        budget = max_seq - (3 if ids_b else 2)
+        while len(ids_a) + len(ids_b) > budget:
+            if len(ids_a) >= len(ids_b):
+                ids_a.pop()
+            else:
+                ids_b.pop()
+        ids = [cls_id] + ids_a + [sep_id]
+        types = [0] * len(ids)
+        if ids_b:
+            ids += ids_b + [sep_id]
+            types += [1] * (len(ids_b) + 1)
+        input_ids[i, :len(ids)] = ids
+        attention[i, :len(ids)] = 1
+        type_ids[i, :len(types)] = types
+    return {
+        "input_ids": input_ids,
+        "attention_mask": attention,
+        "token_type_ids": type_ids,
+        "labels": np.asarray(labels, np.float32 if regression else np.int32),
+    }
+
+
+FEATURE_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels")
+
+
+def load_glue_task(data_dir: str, task: str, tokenize: Callable[[str], list[int]], *,
+                   max_seq: int = 128, train_file: str = "train.tsv",
+                   dev_file: str | None = None, cache: bool = True, cls_id: int = 101,
+                   sep_id: int = 102, pad_id: int = 0) -> tuple[dict, dict]:
+    """``(train, dev)`` dicts of numpy arrays for a GLUE task directory, the
+    features cached in ``features_<task>_<max_seq>.npz`` there (read back
+    on the next call). The special ids default to BERT's vocabulary's, as
+    in the JAX package; a caller with a tokenizer passes its own."""
+    spec = task_spec(task)
+    dev_file = dev_file or spec.dev_file
+    cache_path = os.path.join(data_dir, f"features_{task.lower()}_{max_seq}.npz")
+    if cache and os.path.exists(cache_path):
+        z = np.load(cache_path)
+        return ({k: z[f"train_{k}"] for k in FEATURE_KEYS},
+                {k: z[f"dev_{k}"] for k in FEATURE_KEYS})
+
+    def build(path):
+        rows = read_tsv(path, spec.header)
+        pairs = [(r[spec.text_a], r[spec.text_b] if spec.text_b is not None else None)
+                 for r in rows]
+        labels = [spec.parse_label(r[spec.label]) for r in rows]
+        return featurize_pairs(pairs, labels, tokenize, max_seq=max_seq, cls_id=cls_id,
+                               sep_id=sep_id, pad_id=pad_id, regression=spec.regression)
+
+    train = build(os.path.join(data_dir, train_file))
+    dev = build(os.path.join(data_dir, dev_file))
+    if cache:
+        np.savez(cache_path, **{f"train_{k}": v for k, v in train.items()},
+                 **{f"dev_{k}": v for k, v in dev.items()})
+    return train, dev

@@ -2,8 +2,8 @@
 ``bayeformers_tpu/utils/metrics.py``): the ``Report`` accumulator, the
 JSON-lines scalar writer (one ``{"step", "tag", "value", "wall"}`` object
 per line), run naming, the official GLUE metrics and the expected
-calibration error. TensorBoard event files come with the port of
-``utils/tb.py``.
+calibration error; with ``tensorboard=True`` the writer also writes
+TensorBoard event files (``utils/tb.py``).
 """
 from __future__ import annotations
 
@@ -39,24 +39,28 @@ class Report:
 
 class MetricsWriter:
     """Append-only JSONL scalar writer, one file per run
-    (``logdir/<run_name>.jsonl``)."""
+    (``logdir/<run_name>.jsonl``). ``tensorboard=True`` also writes
+    TensorBoard event files under ``logdir/<run_name>/`` (``utils/tb.py``:
+    the reference's tensorboardX scalars without the dependency)."""
 
     def __init__(self, logdir: str, run_name: str, tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError(
-                "MetricsWriter(tensorboard=True): TensorBoard event files come "
-                "with the port of utils/tb.py"
-            )
         os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, f"{run_name}.jsonl")
         self._fh = open(self.path, "a", buffering=1)
         self._t0 = time.time()
+        self._tb = None
+        if tensorboard:
+            from bayeformers_tpu_torch.utils.tb import EventWriter
+
+            self._tb = EventWriter(logdir, run_name)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         self._fh.write(json.dumps({
             "step": step, "tag": tag, "value": float(value),
             "wall": round(time.time() - self._t0, 3),
         }) + "\n")
+        if self._tb is not None:
+            self._tb.scalar(tag, float(value), step)
 
     def scalars(self, prefix: str, values: dict[str, float], step: int) -> None:
         for tag, v in values.items():
@@ -64,6 +68,8 @@ class MetricsWriter:
 
     def close(self) -> None:
         self._fh.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def run_name(exp: str, **qualifiers) -> str:

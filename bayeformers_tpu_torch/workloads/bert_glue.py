@@ -13,12 +13,20 @@ Four phases, as in the reference recipe:
   D. Bayesian ELBO fine-tune (fresh AdamW over rho, embeddings and
      LayerNorm; mu frozen).
 
-Data: ``--data`` names an .npz with arrays
+Data, in the JAX package's order: ``--data`` names an .npz with arrays
 ``{train,dev}_{input_ids,attention_mask,token_type_ids,labels}`` (tokenized
-GLUE, any task); otherwise the reference's synthetic stand-in is generated
-from the seed, bit for bit. Raw TSVs need the native tokenizer, and the
-mesh, checkpoint and hypersearch options come with later slices: each of
-them raises here. The estimator is antithetic pairs when S (and
+GLUE, any task); or a GLUE task directory of raw TSVs (``train.tsv`` and
+the task's dev file) with ``--vocab`` a ``vocab.txt``, featurized by the
+native WordPiece tokenizer (``utils/glue.py::load_glue_task``, cached next
+to the TSVs); otherwise the reference's synthetic stand-in is generated
+from the seed, bit for bit. ``--pretrained DIR`` starts from a local
+Hugging Face checkpoint (``pretrained.py``); ``--save-dir`` writes the
+variational state after each Bayesian epoch (``utils/checkpoint.py``) and
+``--resume`` continues phase D from the latest one (a resume past the last
+epoch evaluates the restored state); ``--hypersearch N`` runs N trials of
+the reference's random search over ``delta`` and ``weight_decay``
+(``utils/hypersearch.py``). The dp/tp/sp mesh raises (ROADMAP queue 1 item
+6). The estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws (``fused``) otherwise, as in
 the reference, or ``--estimator`` (any of the reference's five:
 ``fused``, ``naive``, ``flipout``, ``antithetic``, ``local``), under which
@@ -29,6 +37,8 @@ the backward, as the reference routes them.
 
     python -m bayeformers_tpu_torch.workloads.bert_glue --limit-batches 3
     python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --samples 9
+    python -m bayeformers_tpu_torch.workloads.bert_glue --data glue/MRPC \
+        --vocab bert/vocab.txt --bf16 --save-dir ckpt
 """
 from __future__ import annotations
 
@@ -44,8 +54,11 @@ from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.pretrained import load_pretrained
+from bayeformers_tpu_torch.utils import checkpoint as ckpt_lib
 from bayeformers_tpu_torch.utils import glue as glue_lib
 from bayeformers_tpu_torch.utils import metrics as metrics_lib
+from bayeformers_tpu_torch.utils.hypersearch import search_delta_weight_decay
 from bayeformers_tpu_torch.utils.dumper import Dumper
 from bayeformers_tpu_torch.utils.metrics import MetricsWriter, Report, run_name
 from bayeformers_tpu_torch.utils.optim import masked_optimizer
@@ -62,9 +75,12 @@ INPUT_KEYS = training.INPUT_KEYS
 
 
 def load_glue(data_path: str | None, vocab_size: int, seed: int = 0,
-              n_labels: int = 2, regression: bool = False):
+              n_labels: int = 2, regression: bool = False, task: str = "mrpc",
+              vocab: str | None = None):
     """``(train, dev, synthetic)``: dicts of numpy arrays (int32 inputs,
-    int32 or float32 labels) from a pre-tokenized .npz, or the reference's
+    int32 or float32 labels) from a pre-tokenized .npz; from a GLUE task
+    directory holding ``train.tsv`` with ``vocab`` a ``vocab.txt``,
+    featurized by the native WordPiece tokenizer; else the reference's
     synthetic stand-in, which plants a label-dependent token block and 12%
     ambiguous template rows."""
     label_dtype = np.float32 if regression else np.int32
@@ -79,12 +95,20 @@ def load_glue(data_path: str | None, vocab_size: int, seed: int = 0,
                 "labels": np.asarray(z[f"{prefix}_labels"], label_dtype),
             }
         return split("train"), split("dev"), False
-    if data_path and os.path.isdir(data_path):
-        raise NotImplementedError(
-            "load_glue: featurising raw GLUE TSVs needs the native WordPiece "
-            "tokenizer, which comes with the tokenizer slice; pass a "
-            "pre-tokenized .npz"
-        )
+    if (data_path and os.path.isdir(data_path)
+            and os.path.exists(os.path.join(data_path, "train.tsv"))
+            and vocab and os.path.exists(vocab)):
+        from bayeformers_tpu_torch.native import WordPieceTokenizer
+
+        tok = WordPieceTokenizer(vocab)
+        train, dev = glue_lib.load_glue_task(
+            data_path, task, tok.tokenize, max_seq=MAX_SEQ, cls_id=tok.special_id("cls"),
+            sep_id=tok.special_id("sep"), pad_id=tok.special_id("pad"))
+
+        def typed(d):
+            return {k: np.asarray(v, label_dtype if k == "labels" else np.int32)
+                    for k, v in d.items()}
+        return typed(train), typed(dev), False
     rng = np.random.default_rng(seed)
 
     def make(n):
@@ -124,11 +148,6 @@ def batch_iter(data: dict, batch_size: int, seed: int | None = None):
         yield {k: v[sel] for k, v in data.items()}
 
 
-def _later(option: str, slice_name: str):
-    return NotImplementedError(
-        f"bert_glue: {option} comes with the {slice_name} slice of the port")
-
-
 def train(
     exp: str = "bert_glue",
     model_name: str = "bert-base-uncased",
@@ -137,6 +156,7 @@ def train(
     *,
     data: str | None = None,
     task: str = "mrpc",
+    vocab: str | None = None,
     logs: str = "logs",
     epochs: int = EPOCHS,
     b_epochs: int = EPOCHS,
@@ -162,12 +182,9 @@ def train(
     if any(f in model_name.lower() for f in ("gpt2", "gpt-2", "llama", "mistral", "gemma")):
         raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; the causal "
                          "LMs run in workloads/gpt2_lm.py")
-    if pretrained:
-        raise _later("loading pretrained weights", "checkpoint")
-    if save_dir or resume:
-        raise _later("checkpoint save/resume", "checkpoint")
     if (dp, tp, sp) != (1, 1, 1):
-        raise _later("the dp/tp/sp mesh", "parallel tiers")
+        raise NotImplementedError("bert_glue: the dp/tp/sp mesh comes with the parallel "
+                                  "tiers (ROADMAP queue 1 item 6)")
     if estimator is None:
         anti_ok = samples % 2 == 0 and (mc_chunk is None or mc_chunk % 2 == 0)
         estimator = "antithetic" if anti_ok else "fused"
@@ -180,14 +197,17 @@ def train(
     spec = glue_lib.task_spec(task)
     regression = spec.regression
     loss_fn = training.regression_loss if regression else training.classification_loss
-    model = families.build_model(model_name, n_labels=spec.n_labels, size=size, seed=seed,
-                                 dtype=torch.bfloat16 if bf16 else torch.float32,
-                                 device=dev)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if pretrained:
+        model = load_pretrained(pretrained, "classification", spec.n_labels, seed, dtype, dev)
+    else:
+        model = families.build_model(model_name, n_labels=spec.n_labels, size=size,
+                                     seed=seed, dtype=dtype, device=dev)
     # model-family input pruning (reference ``bert_glue.py:229-232``)
     input_keys = families.input_keys(model)
     train_data, dev_data, synthetic = load_glue(
         data, model.config.vocab_size, seed, n_labels=spec.n_labels,
-        regression=regression)
+        regression=regression, task=task, vocab=vocab)
     if synthetic:
         print("[bert_glue] no dataset found; using synthetic stand-in")
     n_batches = len(train_data["labels"]) // batch_size
@@ -261,6 +281,8 @@ def train(
 
     # ---------------- Phase B: conversion ----------------------------------
     bmodel = to_bayesian(model, delta=delta, freeze=True)
+    # --resume (the reference only saves): phase D continues from the latest step
+    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_glue")
     eval_step = training.make_elbo_eval_step(
         bmodel, samples, loss_fn=loss_fn, input_keys=input_keys,
         estimator=estimator)
@@ -319,7 +341,7 @@ def train(
         bmodel, b_opt, samples, n_batches, loss_fn=loss_fn,
         input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk)
     with dumper.section("bayesian_train"):
-        for epoch in range(b_epochs):
+        for epoch in range(start_epoch, b_epochs):
             for batch in batches(train_data, seed + 100 + epoch, limit_batches):
                 m = b_step(next_seed(), batch)
             metrics = eval_bayesian()
@@ -328,6 +350,13 @@ def train(
             print(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
                   f"nll={metrics['nll']:.4f} {spec.metric}={metrics['score']:.4f} "
                   f"{sample_keys[1]}={metrics[sample_keys[1]]:.4f}")
+            ckpt_lib.save_epoch(save_dir, bmodel, epoch, {
+                "delta": delta, "weight_decay": weight_decay, **metrics})
+    if start_epoch >= b_epochs and start_epoch > 0:
+        # resumed past the end of the Bayesian phase: the loop never ran, so
+        # evaluate the restored state, not return phase C's score
+        metrics = eval_bayesian()
+        writer.scalars("bayesian_test", metrics, start_epoch)
     writer.close()
     dumper.flush()
     return float(metrics["score"])
@@ -337,8 +366,15 @@ def main():
     parser = argparse.ArgumentParser(description="Bayesian BERT on GLUE (one GPU)")
     parser.add_argument("--exp", default="bert_glue")
     parser.add_argument("--model", default="bert-base-uncased")
-    parser.add_argument("--data", default=None, help=".npz of tokenized GLUE")
-    parser.add_argument("--task", default="mrpc")
+    parser.add_argument("--data", default=None,
+                        help=".npz of tokenized GLUE, or a task directory of raw TSVs")
+    parser.add_argument("--task", default="mrpc",
+                        help="GLUE task name for raw-TSV featurization")
+    parser.add_argument("--vocab", default=None,
+                        help="vocab.txt of the native WordPiece tokenizer (raw TSVs)")
+    parser.add_argument("--pretrained", default=None,
+                        help="local Hugging Face model directory (config.json and "
+                             "model.safetensors or pytorch_model.bin)")
     parser.add_argument("--size", default="base", choices=["base", "tiny"])
     parser.add_argument("--logs", default="logs")
     parser.add_argument("--epochs", type=int, default=EPOCHS)
@@ -362,23 +398,32 @@ def main():
                         help="bf16 activations (variational numerics stay f32)")
     parser.add_argument("--warmup", type=float, default=0.0,
                         help="linear-warmup fraction of total steps")
+    parser.add_argument("--save-dir", default=None,
+                        help="write the variational state after each Bayesian epoch")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue the Bayesian phase from --save-dir")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--hypersearch", type=int, default=0,
-                        help="random-search trials (comes with a later slice)")
+                        help="run N random-search trials over delta/weight_decay")
     args = parser.parse_args()
-    if args.hypersearch:
-        raise _later("the hypersearch", "auxiliary utilities")
-    t0 = time.time()
-    score = train(
-        exp=args.exp, model_name=args.model, delta=args.delta,
-        weight_decay=args.weight_decay, data=args.data, task=args.task,
-        logs=args.logs, epochs=args.epochs, b_epochs=args.b_epochs,
+    kwargs = dict(
+        exp=args.exp, model_name=args.model, data=args.data, task=args.task,
+        vocab=args.vocab, logs=args.logs, epochs=args.epochs, b_epochs=args.b_epochs,
         samples=args.samples, batch_size=args.batch_size, lr=args.lr,
-        size=args.size, bf16=args.bf16, seed=args.seed,
-        limit_batches=args.limit_batches, estimator=args.estimator,
-        mc_chunk=args.mc_chunk, warmup=args.warmup, device=args.device,
+        size=args.size, bf16=args.bf16, pretrained=args.pretrained, seed=args.seed,
+        limit_batches=args.limit_batches, save_dir=args.save_dir, resume=args.resume,
+        estimator=args.estimator, mc_chunk=args.mc_chunk, warmup=args.warmup,
+        device=args.device,
     )
-    print(f"final score={score:.4f}")
+    t0 = time.time()
+    if args.hypersearch:
+        # the reference script: delta log-uniform over (1e-2, 1e-1), weight
+        # decay uniform over [0, 1e-3] (``examples/bert_glue.py:324-331``)
+        best = search_delta_weight_decay(train, args.hypersearch, args.seed, **kwargs)
+        print(f"best score={best.value:.4f} with {best.hyperparameters}")
+    else:
+        score = train(delta=args.delta, weight_decay=args.weight_decay, **kwargs)
+        print(f"final score={score:.4f}")
     print(f"done in {time.time() - t0:.1f}s")
 
 

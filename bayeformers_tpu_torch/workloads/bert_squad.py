@@ -20,11 +20,18 @@ batch 13, lr 5e-5, clip 1.0):
 ``--model`` dispatches through ``models/families.py::build_model``
 (DistilBERT, RoBERTa/CamemBERT, Electra, ALBERT or BERT, each with its QA
 head) and prunes the inputs per family. Data: ``--data-dir`` with
-``{train,dev}-v1.1.json`` is read when ``train()`` is also given a
-``tokenize`` callable (text -> ids; the native WordPiece binding that a
-vocab file needs comes with a later slice), with the features cached next
-to the JSON; otherwise the reference's synthetic stand-in is generated
-from the seed. The estimator is antithetic pairs when S (and
+``{train,dev}-v1.1.json`` is read with ``--tokenizer``, a ``vocab.txt`` or
+a directory holding one (the native WordPiece tokenizer, its subword-exact
+offsets mapping the answer spans), or, from Python, a ``tokenize``
+callable (text -> ids), the features cached next to the JSON; otherwise
+the reference's synthetic stand-in is generated from the seed. A tokenizer
+directory without ``vocab.txt`` raises: the JAX package reads it with
+``transformers``' ``BertTokenizerFast``, which the card does not have.
+``--pretrained DIR`` starts from a local Hugging Face checkpoint,
+``--save-dir`` / ``--resume`` write and continue the Bayesian phase and
+``--hypersearch N`` runs the reference's random search, as in
+``bert_glue``; the dp/tp/sp mesh raises (ROADMAP queue 1 item 6). The
+estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws otherwise, or
 ``--estimator``. Activations are f32 by default and bf16 with ``--bf16``.
 
@@ -47,8 +54,11 @@ from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.pretrained import load_pretrained
+from bayeformers_tpu_torch.utils import checkpoint as ckpt_lib
 from bayeformers_tpu_torch.utils import squad as squad_lib
 from bayeformers_tpu_torch.utils.dumper import Dumper
+from bayeformers_tpu_torch.utils.hypersearch import search_delta_weight_decay
 from bayeformers_tpu_torch.utils.metrics import MetricsWriter, Report, run_name
 from bayeformers_tpu_torch.utils.optim import masked_optimizer
 
@@ -76,7 +86,8 @@ def _features_to_arrays(features, is_training=True) -> dict:
 
 def load_squad(data_dir: Optional[str], tokenize: Optional[Callable], vocab_size: int,
                max_seq: int, seed: int = 0, doc_stride: int = DOC_STRIDE,
-               offsets_fn: Optional[Callable] = None, pad_id: int = 0):
+               offsets_fn: Optional[Callable] = None, pad_id: int = 0, cls_id: int = 101,
+               sep_id: int = 102):
     """``(train, dev, dev_features, dev_examples, synthetic)``: dicts of
     numpy int32 arrays. Real data needs ``{train,dev}-v1.1.json`` in
     ``data_dir`` and a ``tokenize`` callable; its features are cached in
@@ -93,7 +104,7 @@ def load_squad(data_dir: Optional[str], tokenize: Optional[Callable], vocab_size
                 train_arrays, dev_arrays, dev_feats, dev_examples = pickle.load(fh)
             return train_arrays, dev_arrays, dev_feats, dev_examples, False
         kw = dict(max_seq=max_seq, doc_stride=doc_stride, offsets_fn=offsets_fn,
-                  pad_id=pad_id)
+                  pad_id=pad_id, cls_id=cls_id, sep_id=sep_id)
         train_feats = squad_lib.featurize(squad_lib.load_squad_json(train_json), tokenize,
                                           is_training=True, **kw)
         dev_examples = squad_lib.load_squad_json(dev_json)
@@ -129,10 +140,18 @@ def batch_iter(data: dict, batch_size: int, seed: Optional[int] = None):
         yield {k: v[sel] for k, v in data.items()}
 
 
-def _later(option: str, item: str):
-    return NotImplementedError(
-        f"bert_squad: {option} comes with a later slice of the port (ROADMAP queue 1 "
-        f"{item})")
+def wordpiece_vocab(tokenizer: str) -> str:
+    """The ``vocab.txt`` of ``--tokenizer``: the file itself, or the one in
+    the directory it names. Raises otherwise: the JAX package reads such a
+    directory with ``transformers``, which the port does not use."""
+    if os.path.isfile(tokenizer):
+        return tokenizer
+    vocab = os.path.join(tokenizer, "vocab.txt")
+    if os.path.isfile(vocab):
+        return vocab
+    raise ValueError(f"bert_squad: --tokenizer {tokenizer!r} is neither a vocab.txt nor "
+                     "a directory holding one; the port reads WordPiece vocabularies "
+                     "with its native tokenizer (no transformers tokenizers)")
 
 
 def train(
@@ -171,14 +190,16 @@ def train(
 ) -> float:
     """Run phases A-D; returns the dev F1 after phase D on real data, or the
     span accuracy on the synthetic stand-in."""
-    if tokenizer:
-        raise _later("a tokenizer from a vocab file", "item 2, the native tokenizer binding")
-    if pretrained:
-        raise _later("loading pretrained weights", "item 2, checkpoints")
-    if save_dir or resume:
-        raise _later("checkpoint save/resume", "item 2, checkpoints")
     if (dp, tp, sp) != (1, 1, 1) or independent_draws:
-        raise _later("the dp/tp/sp mesh", "item 6, the parallel tiers")
+        raise NotImplementedError("bert_squad: the dp/tp/sp mesh comes with a later slice "
+                                  "of the port (ROADMAP queue 1 item 6, the parallel tiers)")
+    special = {}
+    if tokenizer:
+        from bayeformers_tpu_torch.native import WordPieceTokenizer
+
+        wp = WordPieceTokenizer(wordpiece_vocab(tokenizer))
+        tokenize, offsets_fn = wp.tokenize, wp.tokenize_with_offsets
+        special = {"cls_id": wp.special_id("cls"), "sep_id": wp.special_id("sep")}
     if estimator is None:
         anti_ok = samples % 2 == 0 and (mc_chunk is None or mc_chunk % 2 == 0)
         estimator = ("antithetic" if anti_ok else "fused") if fused else "naive"
@@ -188,15 +209,18 @@ def train(
     dumper = Dumper(os.path.join(logs, name + ".results"))
     dev = torch.device(device)
 
-    net = families.build_model(
-        model, task="qa", size=size, seed=seed,
-        dtype=torch.bfloat16 if bf16 else torch.float32, device=dev,
-        **({} if size == "base" else {"max_position_embeddings": max_seq + 8}))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if pretrained:
+        net = load_pretrained(pretrained, "qa", seed=seed, dtype=dtype, device=dev)
+    else:
+        net = families.build_model(
+            model, task="qa", size=size, seed=seed, dtype=dtype, device=dev,
+            **({} if size == "base" else {"max_position_embeddings": max_seq + 8}))
     # model-family input pruning (reference ``bert_squad.py:184-185``)
     input_keys = families.input_keys(net)
     train_data, dev_data, dev_feats, dev_examples, synthetic = load_squad(
         data_dir, tokenize, net.config.vocab_size, max_seq, seed, doc_stride, offsets_fn,
-        net.config.pad_token_id)
+        net.config.pad_token_id, **special)
     if synthetic:
         print("[bert_squad] no dataset/tokenizer found; synthetic stand-in")
     n_batches = train_data["input_ids"].shape[0] // batch_size
@@ -293,6 +317,8 @@ def train(
 
     # ---------------- Phase B: conversion ----------------------------------
     bmodel = to_bayesian(net, delta=delta, freeze=True)
+    # --resume (the reference only saves): phase D continues from the latest step
+    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_squad")
     eval_step = training.make_elbo_eval_step(
         bmodel, samples, loss_fn=training.qa_span_loss, fused=fused,
         input_keys=input_keys, estimator=estimator)
@@ -341,7 +367,7 @@ def train(
         bmodel, b_opt, samples, n_batches, loss_fn=training.qa_span_loss, fused=fused,
         input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk)
     with dumper.section("bayesian_train"):
-        for epoch in range(b_epochs):
+        for epoch in range(start_epoch, b_epochs):
             for batch in batches(train_data, seed + 100 + epoch, limit_batches):
                 m = b_step(next_seed(), batch)
             metrics = eval_bayesian()
@@ -349,6 +375,12 @@ def train(
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
             print(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
                   f"acc={float(m['acc']):.4f} {metrics}")
+            ckpt_lib.save_epoch(save_dir, bmodel, epoch, {
+                "delta": delta, "weight_decay": weight_decay, **metrics})
+    if start_epoch >= b_epochs and start_epoch > 0:
+        # resumed past the end: evaluate the restored state
+        metrics = eval_bayesian()
+        writer.scalars("bayesian_test", metrics, start_epoch)
     writer.close()
     dumper.flush()
     return float(metrics.get("f1", metrics.get("acc", 0.0)))
@@ -362,8 +394,10 @@ def main():
                              "electra / albert (drives input pruning)")
     parser.add_argument("--data-dir", default="dataset/squadv1")
     parser.add_argument("--tokenizer", default=None,
-                        help="vocab file of the native tokenizer (a later slice)")
-    parser.add_argument("--pretrained", default=None)
+                        help="vocab.txt of the native WordPiece tokenizer, or a "
+                             "directory holding one")
+    parser.add_argument("--pretrained", default=None,
+                        help="local Hugging Face model directory")
     parser.add_argument("--size", default="base", choices=["base", "tiny"])
     parser.add_argument("--logs", default="logs")
     parser.add_argument("--epochs", type=int, default=EPOCHS)
@@ -386,30 +420,31 @@ def main():
                              "S=10, batch 13, seq 384, runs at --mc-chunk 2)")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 activations (variational numerics stay f32)")
-    parser.add_argument("--save-dir", default=None)
-    parser.add_argument("--resume", action="store_true")
-    parser.add_argument("--dp", type=int, default=1)
-    parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--sp", type=int, default=1)
+    parser.add_argument("--save-dir", default=None,
+                        help="write the variational state after each Bayesian epoch")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue the Bayesian phase from --save-dir")
     parser.add_argument("--independent-draws", action="store_true")
     parser.add_argument("--hypersearch", type=int, default=0,
-                        help="random-search trials (comes with a later slice)")
+                        help="run N random-search trials over delta/weight_decay")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    if args.hypersearch:
-        raise _later("the hypersearch", "item 2, the hypersearch")
-    t0 = time.time()
-    score = train(
-        exp=args.exp, delta=args.delta, weight_decay=args.weight_decay, model=args.model,
-        data_dir=args.data_dir, tokenizer=args.tokenizer, logs=args.logs,
+    kwargs = dict(
+        exp=args.exp, model=args.model, data_dir=args.data_dir, tokenizer=args.tokenizer,
+        logs=args.logs,
         epochs=args.epochs, b_epochs=args.b_epochs, samples=args.samples,
         batch_size=args.batch_size, max_seq=args.max_seq, lr=args.lr, size=args.size,
         bf16=args.bf16, pretrained=args.pretrained, seed=args.seed,
         limit_batches=args.limit_batches, fused=not args.no_fused,
         estimator=args.estimator, mc_chunk=args.mc_chunk, save_dir=args.save_dir,
-        resume=args.resume, dp=args.dp, tp=args.tp, sp=args.sp,
-        independent_draws=args.independent_draws, device=args.device)
-    print(f"final score={score:.4f}")
+        resume=args.resume, independent_draws=args.independent_draws, device=args.device)
+    t0 = time.time()
+    if args.hypersearch:
+        best = search_delta_weight_decay(train, args.hypersearch, args.seed, **kwargs)
+        print(f"best score={best.value:.4f} with {best.hyperparameters}")
+    else:
+        score = train(delta=args.delta, weight_decay=args.weight_decay, **kwargs)
+        print(f"final score={score:.4f}")
     print(f"done in {time.time() - t0:.1f}s")
 
 

@@ -10,7 +10,12 @@ accuracies, the mean predictive entropy and the ECE) and (4) the ELBO
 fine-tune (AdamW over the trainable leaves, rho included, as optax's
 ``adamw`` behind the trainable mask decays them). Data is the JAX package's
 synthetic Markov language (``models/gpt2.py::synthetic_lm_batch``, the same
-numpy draws), so the Bayes-optimal accuracy is known.
+numpy draws), so the Bayes-optimal accuracy is known; ``--corpus PATH`` (a
+``.txt`` file or a directory of them) trains on real text instead, packed
+into ``seq``-token windows by the native BPE tokenizer (``vocab.json`` and
+``merges.txt`` next to the corpus) or the Unigram one (``tokenizer.json``)
+(``utils/data.py::load_lm_corpus``), the model's vocabulary sized to the
+tokenizer's.
 
 The defaults are the JAX workload's: the naive estimator, f32 activations,
 S=10, B=8, L=128; ``--estimator`` takes the reference's five, ``--bf16``
@@ -20,8 +25,7 @@ and sum exactly what the JAX workload takes over the whole set at once
 base). ``train(**config_overrides)`` go to the model's build function, as
 in the JAX workload (``max_position_embeddings=1024``,
 ``sliding_window=...``); ``--seq`` may go up to the model's maximum
-position. ``--corpus`` (the native BPE tokenizer) and the dp/tp mesh
-raise, naming their ROADMAP items.
+position. The dp/tp mesh raises, naming its ROADMAP item.
 
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --limit-batches 3
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --estimator antithetic --bf16
@@ -42,6 +46,7 @@ from bayeformers_tpu_torch.models.gpt2 import build_gpt2, synthetic_lm_batch
 from bayeformers_tpu_torch.models.llama import FAMILIES, build_llama_family
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.utils.data import load_lm_corpus
 from bayeformers_tpu_torch.utils.dumper import Dumper
 from bayeformers_tpu_torch.utils.metrics import (MetricsWriter, Report,
                                                  ece_from_confidence, run_name)
@@ -166,25 +171,38 @@ def train(
     **config_overrides,
 ) -> dict[str, float]:
     """Run phases 1-4; returns the frequentist, MOPED and final Bayesian
-    next-token accuracies, the last ``acc_std`` and the Bayes rate."""
-    if corpus is not None:
-        raise _later("--corpus", "the auxiliary utilities (the native BPE tokenizer)")
+    next-token accuracies, the last ``acc_std`` and, on the synthetic
+    language, the Bayes rate."""
     if (dp, tp) != (1, 1) or independent_draws:
-        raise _later("the dp/tp mesh", "the parallel tiers")
+        raise _later("the dp/tp mesh", "item 6, the parallel tiers")
     if estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator {estimator!r}")
     exp = exp or f"{model}_lm"
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
+    corpus_split = None
+    if corpus is not None:
+        corpus_split = load_lm_corpus(corpus, seq, seed=seed)
+        # the embedding and LM head must cover the tokenizer's ids
+        config_overrides.setdefault("vocab_size", corpus_split[2])
     net, vocab, max_pos = build_lm(model, size, seed,
                                    torch.bfloat16 if bf16 else torch.float32, dev,
                                    **config_overrides)
     if not 2 <= seq <= max_pos:
         raise ValueError(f"seq={seq} must be in [2, {max_pos}], the model's maximum "
                          "position")
-    train_ids = synthetic_lm_batch(rng, n_train, seq, vocab, order_frac)["input_ids"]
-    test_ids = synthetic_lm_batch(rng, n_test, seq, vocab, order_frac)["input_ids"]
-    bayes_rate = order_frac + (1 - order_frac) / vocab
+    if corpus_split is not None:
+        tr, te, tok_vocab, _ = corpus_split
+        if tok_vocab > vocab:
+            raise ValueError(f"tokenizer vocab {tok_vocab} exceeds model vocab {vocab}")
+        train_ids = tr[:n_train] if n_train else tr
+        test_ids = te[:n_test] if n_test else te
+        n_train, n_test = len(train_ids), len(test_ids)
+        bayes_rate = None  # unknown for real text
+    else:
+        train_ids = synthetic_lm_batch(rng, n_train, seq, vocab, order_frac)["input_ids"]
+        test_ids = synthetic_lm_batch(rng, n_test, seq, vocab, order_frac)["input_ids"]
+        bayes_rate = order_frac + (1 - order_frac) / vocab
     n_batches = max(1, n_train // batch_size)
     if limit_batches:
         n_batches = min(n_batches, limit_batches)
@@ -213,7 +231,8 @@ def train(
             logits = net(ids)
             nll += float(lm_nll_sum(logits, ids))
             correct += float((torch.argmax(logits[:, :-1], -1) == ids[:, 1:]).sum())
-        return {"nll": nll / n_tok, "acc": correct / n_tok, "bayes_rate": bayes_rate}
+        return {"nll": nll / n_tok, "acc": correct / n_tok,
+                **({"bayes_rate": bayes_rate} if bayes_rate is not None else {})}
 
     with dumper.section("frequentist_train"):
         for epoch in range(epochs):
@@ -227,8 +246,9 @@ def train(
             metrics = f_eval()
             writer.scalars("frequentist", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
-            print(f"[freq {epoch}] nll/tok={metrics['nll']:.4f} acc={metrics['acc']:.4f} "
-                  f"(bayes rate {bayes_rate:.4f})")
+            ceiling = f" (bayes rate {bayes_rate:.4f})" if bayes_rate is not None else ""
+            print(f"[freq {epoch}] nll/tok={metrics['nll']:.4f} acc={metrics['acc']:.4f}"
+                  f"{ceiling}")
     opt.zero_grad()
     freq_acc = metrics["acc"]
 
@@ -294,7 +314,8 @@ def train(
     writer.close()
     dumper.flush()
     return {"freq_acc": freq_acc, "moped_acc": moped_acc, "bayesian_acc": metrics["acc"],
-            "acc_std": metrics["acc_std"], "bayes_rate": bayes_rate}
+            "acc_std": metrics["acc_std"],
+            **({"bayes_rate": bayes_rate} if bayes_rate is not None else {})}
 
 
 def main():
@@ -323,7 +344,8 @@ def main():
     parser.add_argument("--mc-chunk", type=int, default=None)
     parser.add_argument("--independent-draws", action="store_true")
     parser.add_argument("--corpus", default=None,
-                        help="real-text corpus (comes with the native BPE tokenizer)")
+                        help="real-text corpus (.txt file or directory); needs "
+                             "vocab.json + merges.txt (or tokenizer.json) next to it")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     t0 = time.time()

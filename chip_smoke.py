@@ -193,8 +193,23 @@ Phases, each timed, each raising on failure:
     ``workloads/bert_squad.train`` and ``bert_glue --model
     distilbert-base-uncased`` for three batches an epoch in bf16.
 
-``python3 chip_smoke.py --from 16`` (or ``--from 17``, ``--from 18``) runs
-the build, the eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
+19. the recipes' file front end and the hand-built ``BayesLinear`` on files
+    it writes into a temporary directory (:func:`phase19`): #7 and #9 at the
+    MNIST MLP's shapes (784 -> 512, 512 -> 512, 512 -> 10 at M = 64, S = 10;
+    the mixture instance, bf16 and f32) against their plain versions at the
+    gates of the rows above; the hand-built BayesLinear MLP's forward and
+    ELBO step against their plain runs (:func:`phase_bayes_mlp`); (a)
+    ``bert_glue`` at BERT-base from MRPC TSVs and a ``vocab.txt`` (the
+    native WordPiece tokenizer) with ``--save-dir``, then ``--resume``, the
+    restored leaves bit-equal to the saved; (b) ``Predictor.warmup``, then
+    ``predict_texts`` on 8 raw sentence pairs, equal to ``__call__`` on the
+    same features bit for bit; (d) ``mlp_mnist --estimator fused
+    --limit-batches 3`` on MNIST idx files.
+
+The timed requests and steps of phases 13-16 are three each
+(:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``,
+``--from 18``, ``--from 19``) runs the build, the eps stream and the phases
+from there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -232,6 +247,9 @@ MIXTURE = (0.5, 1.0, math.exp(-6.0))
 WINDOWS = 5
 # converted kernels of BERT-base: 12 x 6, the pooler, the classifier
 BERT_BASE_LAYERS = 74
+# the timed requests and steps of phases 13-16 (each phase's launch counts
+# are read around exactly these): the median of three
+TIMED = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -561,10 +579,11 @@ def plain_iters(K: int, N: int) -> tuple[int, int]:
 
 
 def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
-                       family=BERT) -> list[dict]:
+                       family=BERT, path=None) -> list[dict]:
     """A forward kernel's instance for ``dtype`` and ``prior`` against its
     plain version, at the shapes of ``family``'s serving path that the
-    rows do not hold yet; returns the timing rows."""
+    rows do not hold yet; returns the timing rows, whose launches come from
+    the run of ``path`` (default: the family's requests)."""
     S = 10
     n_draws = S // 2 if antithetic else S
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
@@ -596,7 +615,8 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
         rows.append(row(
             f"{name}[M={M},K={K},N={N}{suffix}]", name,
             (M, K, N, tag + prior_suffix(prior)),
-            f"serve/{family}{'anti' if antithetic else 'indep'}/{tag}{prior_suffix(prior)}",
+            path or f"serve/{family}{'anti' if antithetic else 'indep'}/{tag}"
+                    f"{prior_suffix(prior)}",
             "bayeformers_tpu_torch/csrc/bayes_linear.cu",
             f"bayeformers_tpu/ops/fused_linear.py:{line}", err, ms, plain_ms, b,
             lib_ms))
@@ -859,7 +879,7 @@ def phase_serving(bt, fl, at, antithetic, dtype=BF16, prior="on_mu") -> tuple[di
         f"{auxk['log_prior'][0].item():.7g} vs {auxp['log_prior'][0].item():.7g}")
 
     lat = []
-    for i in range(10):
+    for i in range(TIMED):
         torch.cuda.synchronize()
         t = time.perf_counter()
         pred(requests[1], seed=200 + i)
@@ -867,7 +887,7 @@ def phase_serving(bt, fl, at, antithetic, dtype=BF16, prior="on_mu") -> tuple[di
         lat.append((time.perf_counter() - t) * 1e3)
     latency = float(np.median(lat))
     say(f"serving ({tag}): 8x128 request latency (S=10) median {latency:.3f} ms "
-        f"over 10: {[round(v, 3) for v in lat]}")
+        f"over {TIMED}: {[round(v, 3) for v in lat]}")
     del pred, bmodel
     torch.cuda.empty_cache()
     return launches, latency
@@ -946,17 +966,18 @@ REDUCE_INSTANCES = {  # tag: (x's and g's type, W's type, path of its launches)
 
 
 def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
-                 family=BERT) -> list[dict]:
+                 family=BERT, path=None) -> list[dict]:
     """A reduce kernel's instance against its plain version, on the W the
     forward kernel wrote (saved residuals: bf16, f32) or on the regenerated
     f32 W (``bf16x-f32w``), under ``prior`` (the priors not centred on mu
     add U, the mixture's taken of its score); returns the timing rows of
-    the training shapes. A/B/(U/)V within 1e-4 (bf16) or 1e-5 (an f32
-    operand: x or W) of each one's largest entry."""
+    the training shapes, whose launches come from the run of ``path``
+    (default: the family's steps). A/B/(U/)V within 1e-4 (bf16) or 1e-5
+    (an f32 operand: x or W) of each one's largest entry."""
     S = 10
     n_draws = S // 2 if antithetic else S
-    xdt, wdt, path = REDUCE_INSTANCES[tag]
-    path = path + prior_suffix(prior)
+    xdt, wdt, instance_path = REDUCE_INSTANCES[tag]
+    path = path or instance_path + prior_suffix(prior)
     est = family + ("anti" if antithetic else "indep")
     label = tag + ("" if prior == "on_mu" else f", {prior}")
     if antithetic:
@@ -1647,7 +1668,7 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
     reset_counters(fl, at, fb)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(10):
+    for i in range(TIMED):
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = step(1000 + i, batch)
@@ -1666,20 +1687,20 @@ def phase_train(bt, fl, at, fb, estimator, dtype=BF16, prior="on_mu", family=BER
     check(all(sum(v.values()) > 0 for v in launches.values()),
           f"the train steps launched no kernel of some kind: {launches}")
     launches["regen"] = dict(fl.REGEN_LAUNCHES.by_shape)
-    check(fl.REGEN_LAUNCHES.count == 10 * sum(want.values()),
-          f"{label}: regen launched {fl.REGEN_LAUNCHES.count} times in 10 steps")
+    check(fl.REGEN_LAUNCHES.count == TIMED * sum(want.values()),
+          f"{label}: regen launched {fl.REGEN_LAUNCHES.count} times in {TIMED} steps")
     if family:
         # a step: each converted shape's reduce once a layer, the causal
         # attention backward once a layer
         per_step = {(1024, k, n, tag): c for (k, n), c in LM_LAYERS[family].items()}
-        got = {k: v / 10 for k, v in red.by_shape.items()}
+        got = {k: v / TIMED for k, v in red.by_shape.items()}
         check(got == per_step, f"{label}: reduce launches a step {got}, want {per_step}")
-        check(at.BWD_LAUNCHES.by_shape == {(80, 128, 768, tag, True): 120},
-              f"{label}: mha_bwd launches {at.BWD_LAUNCHES.by_shape} in 10 steps, "
+        check(at.BWD_LAUNCHES.by_shape == {(80, 128, 768, tag, True): 12 * TIMED},
+              f"{label}: mha_bwd launches {at.BWD_LAUNCHES.by_shape} in {TIMED} steps, "
               "want 12 causal a step")
     step_ms = float(np.median(times))
-    say(f"{label}: launches over 10 steps: {launches}")
-    say(f"{label}: ELBO step (S=10, B=8, L=128, {tag}) median {step_ms:.3f} ms over 10: "
+    say(f"{label}: launches over {TIMED} steps: {launches}")
+    say(f"{label}: ELBO step (S=10, B=8, L=128, {tag}) median {step_ms:.3f} ms over {TIMED}: "
         f"{[round(v, 3) for v in times]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del opt, step, named, bmodel
@@ -2398,14 +2419,14 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     say(f"serving {label}: launches in one request {got}; {note}; {kl_note}; reruns "
         "equal, another seed differs")
     lat = []
-    for i in range(10):
+    for i in range(TIMED):
         torch.cuda.synchronize()
         t = time.perf_counter()
         serve(bmodel, 200 + i)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     serve_ms = float(np.median(lat))
-    say(f"serving {label}: 8x128 request (S=10) median {serve_ms:.3f} ms over 10: "
+    say(f"serving {label}: 8x128 request (S=10) median {serve_ms:.3f} ms over {TIMED}: "
         f"{[round(v, 3) for v in lat]}")
     if not with_step:
         del named, bmodel
@@ -2465,7 +2486,7 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     reset_counters(fl, fb, at, sl, lpm)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(10):
+    for i in range(TIMED):
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = step(1000 + i, batch)
@@ -2473,13 +2494,13 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
         times.append((time.perf_counter() - t) * 1e3)
         check(bool(torch.isfinite(m["loss"])), f"{step_label}: step {i} loss {m['loss']}")
     got = estimator_counts(fl, fb, at, sl, lpm)
-    want = want_counts(estimator, prior, n_layers, n_attn, 10)
+    want = want_counts(estimator, prior, n_layers, n_attn, TIMED)
     check(all(got[k] == want.get(k, 0) for k in got),
-          f"{step_label}: 10 steps launched {got}, want {want} (0 elsewhere)")
+          f"{step_label}: {TIMED} steps launched {got}, want {want} (0 elsewhere)")
     step_launches = {c.name: dict(c.by_shape) for c in counters}
     step_ms = float(np.median(times))
-    say(f"{step_label}: launches over 10 steps {got}; ELBO step (S=10, B=8, L=128) median "
-        f"{step_ms:.3f} ms over 10: {[round(v, 3) for v in times]}; peak memory "
+    say(f"{step_label}: launches over {TIMED} steps {got}; ELBO step (S=10, B=8, L=128) "
+        f"median {step_ms:.3f} ms over {TIMED}: {[round(v, 3) for v in times]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del opt, step, named, bmodel
     torch.cuda.empty_cache()
@@ -2801,14 +2822,14 @@ def phase_serving_gpt2(bt, fl, at, antithetic, dtype, family=GPT2) -> tuple[dict
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lat = []
-    for i in range(10):
+    for i in range(TIMED):
         torch.cuda.synchronize()
         t = time.perf_counter()
         pred(requests[1], seed=200 + i)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     latency = float(np.median(lat))
-    say(f"{label}: 8x128 request latency (S=10) median {latency:.3f} ms over 10: "
+    say(f"{label}: 8x128 request latency (S=10) median {latency:.3f} ms over {TIMED}: "
         f"{[round(v, 3) for v in lat]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pred, bmodel
@@ -3913,6 +3934,345 @@ def phase18(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the recipes' file front end (tokenizers, GLUE TSVs, checkpoints,
+# predict_texts) and the hand-built BayesLinear MLP
+# ---------------------------------------------------------------------------
+
+# the reference MNIST MLP's layers at batch 64 (M = 64 a draw, S = 10), and
+# at its evaluation, which takes the whole test set (MNIST's 10000 images)
+# in one call
+MLP, MLP_EVAL = "mlp/", "mlp-eval/"
+MLP_WIDTHS = (784, 512, 512, 10)
+MNIST_TEST = 10000
+FAMILY_SHAPES[MLP] = tuple((64, k, n) for k, n in zip(MLP_WIDTHS[:-1], MLP_WIDTHS[1:]))
+FAMILY_SHAPES[MLP_EVAL] = tuple((MNIST_TEST, k, n) for _, k, n in FAMILY_SHAPES[MLP])
+WORDS19 = ("the", "a", "cat", "dog", "sat", "on", "mat", "ran", "fast", "slow", "book",
+           "was", "written", "by", "in", "london", "paris", "today", "said", "went",
+           "home", "it", "is", "not", ".", ",", "##s", "##ed")
+
+
+def write_glue_files(root) -> tuple[str, str]:
+    """An MRPC-style task directory (``train.tsv``, ``dev.tsv``: quality, two
+    ids, two sentences) and a ``vocab.txt`` laid out as BERT's ([PAD] 0,
+    [UNK] 100, [CLS] 101, [SEP] 102), from a seed."""
+    rng = np.random.default_rng(19)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as fh:
+        fh.write("\n".join(["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+                           + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(WORDS19)))
+    words = [w for w in WORDS19 if not w.startswith("#")] + ["zebra", "cats", "walked"]
+    data = os.path.join(root, "mrpc")
+    os.makedirs(data)
+    for name, n in (("train.tsv", 64), ("dev.tsv", 16)):
+        rows = ["Quality\t#1 ID\t#2 ID\t#1 String\t#2 String"]
+        for i in range(n):
+            a, b = (" ".join(rng.choice(words, size=rng.integers(4, 30)).tolist())
+                    for _ in range(2))
+            rows.append(f"{rng.integers(0, 2)}\t{i}\t{i + n}\t{a}\t{b}")
+        with open(os.path.join(data, name), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+    return data, vocab
+
+
+def write_mnist_files(root, n_train=256, n_test=MNIST_TEST) -> str:
+    """The four MNIST idx files (uint8 images and labels) from a seed."""
+    rng = np.random.default_rng(19)
+    for stem, n in (("train", n_train), ("t10k", n_test)):
+        for kind, arr in (("images-idx3", rng.integers(0, 256, (n, 28, 28))),
+                          ("labels-idx1", rng.integers(0, 10, n))):
+            arr = arr.astype(np.uint8)
+            with open(os.path.join(root, f"{stem}-{kind}-ubyte"), "wb") as fh:
+                fh.write(bytes([0, 0, 0x08, arr.ndim]))
+                fh.write(np.asarray(arr.shape, ">u4").tobytes())
+                fh.write(arr.tobytes())
+    return root
+
+
+def leaves(bmodel) -> dict:
+    """A converted model's parameters, rho and prior_mu on the CPU, keyed as
+    the checkpoint's files key them."""
+    out = {("params", n.replace(".", "/")): p.detach().cpu().clone()
+           for n, p in bmodel.model.named_parameters()}
+    out.update({("rho", k): v.detach().cpu().clone() for k, v in bmodel.rho.items()})
+    out.update({("prior_mu", k): v.detach().cpu().clone()
+                for k, v in bmodel.prior_mu.items()})
+    return out
+
+
+def phase_glue_files(bt, fl, fb, at, root) -> dict:
+    """(a) ``bert_glue`` at BERT-base from MRPC TSVs and a vocab.txt
+    (frozen MOPED 0.05, S=10 antithetic, bf16, 8x128, three batches an
+    epoch) with ``--save-dir``, whose file must hold the state the run
+    trained, bit for bit; then ``--resume``: the resumed run lands past the
+    last epoch, and the leaves it restores must equal the saved ones bit
+    for bit. Returns the first run's launches (the slice's main
+    path: the antithetic forward, reduce and attention kernels)."""
+    from bayeformers_tpu_torch.utils import checkpoint as ckpt
+    from bayeformers_tpu_torch.workloads import bert_glue
+
+    data, vocab = write_glue_files(root)
+    kw = dict(data=data, vocab=vocab, task="mrpc", size="base", bf16=True, samples=10,
+              epochs=1, b_epochs=1, limit_batches=3, logs=os.path.join(root, "logs"),
+              save_dir=os.path.join(root, "ckpt"))
+    saves, save = [], ckpt.save_checkpoint
+
+    def capture_save(directory, bmodel, **kw):
+        saves.append((bmodel, leaves(bmodel)))
+        return save(directory, bmodel, **kw)
+
+    ckpt.save_checkpoint = capture_save
+    reset_counters(fl, fb, at)
+    try:
+        score = bert_glue.train(**kw)
+    finally:
+        ckpt.save_checkpoint = save
+    counts = {c.name: dict(c.by_shape) for c in (fl.LAUNCHES, fb.LAUNCHES, at.LAUNCHES,
+                                                  at.BWD_LAUNCHES)}
+    check(np.isfinite(score) and all(counts.values()),
+          f"bert_glue from TSVs: score {score}, launches {counts}")
+    check(ckpt.latest_step(kw["save_dir"]) == 1, "bert_glue --save-dir wrote no step_1")
+    saved = {(part, k): v for part in ckpt.PARTS for k, v in torch.load(
+        os.path.join(kw["save_dir"], "step_1", f"{part}.pt"), weights_only=True).items()}
+    # the file holds the state the run handed to the save and ended with
+    # (its epoch's steps taken), bit for bit
+    check(len(saves) == 1, f"bert_glue --save-dir saved {len(saves)} times, want 1")
+    at_save, final = saves[0][1], leaves(saves[0][0])
+    check(set(at_save) == set(final) == set(saved)
+          and all(torch.equal(at_save[k], v) and torch.equal(final[k], v)
+                  for k, v in saved.items()),
+          "bert_glue --save-dir: step_1 differs from the state the run trained")
+    restored = []
+    load = ckpt.load_checkpoint
+
+    def capture(directory, bmodel, step=0):
+        out = load(directory, bmodel, step=step)
+        restored.append(leaves(bmodel))
+        return out
+
+    ckpt.load_checkpoint = capture
+    try:
+        resumed = bert_glue.train(resume=True, **kw)
+    finally:
+        ckpt.load_checkpoint = load
+    check(len(restored) == 1 and set(restored[0]) == set(saved),
+          "bert_glue --resume restored another set of leaves")
+    differ = [k for k, v in saved.items() if not torch.equal(restored[0][k], v)]
+    check(not differ, f"bert_glue --resume: restored leaves differ from the saved: {differ[:5]}")
+    check(np.isfinite(resumed), f"bert_glue --resume score {resumed}")
+    n_rows = {"train": 64, "dev": 16}
+    say(f"phase 19 (a): bert_glue at BERT-base from MRPC TSVs ({n_rows}) and a vocab.txt, "
+        f"S=10 antithetic bf16, 3 batches: score {score:.4f}; step_1 equal to the trained "
+        f"state; --resume past the last epoch: "
+        f"{len(saved)} leaves restored bit-equal, score {resumed:.4f}; launches "
+        f"{ {k: sum(v.values()) for k, v in counts.items()} }")
+    return counts
+
+
+def phase_texts(bt, fl, at, vocab) -> dict:
+    """(b) ``Predictor.warmup`` on BERT-base (frozen MOPED, S=10 antithetic,
+    bf16, the (8, 128) bucket), then ``predict_texts`` on 8 raw sentence
+    pairs through the native WordPiece tokenizer: its probabilities must
+    equal ``Predictor.__call__`` on the same features at the same seed, bit
+    for bit. Returns the launches of the one ``predict_texts`` request."""
+    from bayeformers_tpu_torch.native import WordPieceTokenizer
+    from bayeformers_tpu_torch.utils import glue
+
+    pred = build_predictor(bt)
+    check(pred.warmup() == 1, "warmup ran another number of buckets")
+    tok = WordPieceTokenizer(vocab)
+    rng = np.random.default_rng(8)
+    words = [w for w in WORDS19 if not w.startswith("#")]
+    pairs = [tuple(" ".join(rng.choice(words, size=rng.integers(3, 40)).tolist())
+                   for _ in range(2)) for _ in range(8)]
+    reset_counters(fl, at)
+    out = pred.predict_texts(pairs, tokenizer=tok, seed=7)
+    torch.cuda.synchronize()
+    counts = {"bayes_linear_anti": dict(fl.LAUNCHES.by_shape),
+              "mha_fwd": dict(at.LAUNCHES.by_shape)}
+    check(fl.LAUNCHES.count == BERT_BASE_LAYERS and at.LAUNCHES.count == 12,
+          f"predict_texts launched {counts}")
+    feats = glue.featurize_pairs(pairs, [0] * 8, tok.tokenize, max_seq=128,
+                                 cls_id=tok.special_id("cls"), sep_id=tok.special_id("sep"))
+    feats.pop("labels")
+    want = pred.predict_featurized(feats, seed=7)
+    check(set(out) == set(want) and all(np.array_equal(out[k], want[k]) for k in want),
+          "predict_texts differs from __call__ on the same features")
+    check(np.isfinite(out["probs"]).all() and np.allclose(out["probs"].sum(-1), 1.0),
+          f"predict_texts probabilities {out['probs']}")
+    say(f"phase 19 (b): warmup 1 bucket; predict_texts on 8 raw pairs (trimmed to "
+        f"{int(feats['attention_mask'].sum(-1).max())} tokens) equal to __call__ bit for "
+        f"bit; probs[0] {np.round(out['probs'][0], 4).tolist()}; launches "
+        f"{ {k: sum(v.values()) for k, v in counts.items()} }")
+    return counts
+
+
+class HandMLP(torch.nn.Module):
+    """The reference README's hand-built Bayesian model at the MNIST MLP's
+    widths: BayesLinear 784 -> 512 -> 512 -> 10 with ReLU and log-softmax,
+    a leading sample axis (S draws in one launch a layer)."""
+
+    def __init__(self, bt):
+        super().__init__()
+        w = MLP_WIDTHS
+        self.layers = torch.nn.ModuleList(
+            bt.BayesLinear(k, n, sample_axis=True, generator=i, device="cuda")
+            for i, (k, n) in enumerate(zip(w[:-1], w[1:])))
+
+    def forward(self, x, plain=False):
+        for i, layer in enumerate(self.layers):
+            x = layer(x, plain=plain)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return torch.log_softmax(x.float(), dim=-1)
+
+
+def mlp_step(bt, model, x, y, seed, plain=False):
+    """The ELBO (n_batches 100) of one forward at ``seed`` and its gradients
+    by parameter name."""
+    from bayeformers_tpu_torch import elbo
+
+    for p in model.parameters():
+        p.grad = None
+    out, aux = bt.bayes_apply(model, seed, x, plain=plain)
+    nll = elbo.nll_sum_from_log_probs(elbo.mc_logits_mean(out), y)
+    loss = elbo.elbo_loss(nll, aux["log_prior"], aux["log_variational_posterior"], 100)
+    loss.backward()
+    return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def phase_bayes_mlp(bt, fl, fb, dtype) -> tuple[dict, dict]:
+    """(c) the hand-built BayesLinear MLP on the card at S=10, B=64, in
+    ``dtype``: one forward (``bayes_apply``) against the same layers' plain
+    run at the same draws (log-probs 1e-5 relative; log-softmax outputs
+    within #7's y gates, 2e-2 in bf16, 2e-5 of the largest in f32), and one
+    ELBO step whose gradients stand within 1e-3 (f32) or 5e-2 (bf16)
+    relative L2 of the plain step's, leaf by leaf. The forward launches #7
+    once a layer at its shape (mixture instance), the step #7 and #9 once a
+    layer; returns the launches of the forward and of the step, each
+    counted from 0 around exactly that run."""
+    tag = TAG[dtype]
+    model = HandMLP(bt)
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.rand(64, 784, device="cuda", generator=gen).to(dtype)
+    x = x[None].expand(10, 64, 784).contiguous()  # one batch, S = 10 draws
+    y = torch.randint(0, 10, (64,), device="cuda", generator=gen)
+
+    def launches():
+        torch.cuda.synchronize()
+        check(fl.LAUNCHES.count == fb.LAUNCHES.count == 0,
+              f"the hand-built MLP ({tag}) launched an antithetic kernel")
+        return {"bayes_linear": dict(fl.INDEP_LAUNCHES.by_shape),
+                "reduce_abuv": dict(fb.INDEP_LAUNCHES.by_shape)}
+
+    reset_counters(fl, fb)
+    with torch.no_grad():
+        out, aux = bt.bayes_apply(model, 5, x)
+    serve = launches()
+    reset_counters(fl, fb)
+    loss, grads = mlp_step(bt, model, x, y, 6)
+    train = launches()
+    once = {(64, k, n, f"{tag}/mixture"): 1 for (_, k, n) in FAMILY_SHAPES[MLP]}
+    check(serve == {"bayes_linear": once, "reduce_abuv": {}},
+          f"the hand-built MLP's forward ({tag}) launched {serve}, want #7 {once}")
+    check(train == {"bayes_linear": once, "reduce_abuv": once},
+          f"the hand-built MLP's step ({tag}) launched {train}, want #7 and #9 {once}")
+    with torch.no_grad():
+        ref, raux = bt.bayes_apply(model, 5, x, plain=True)
+    err = (out - ref).abs().max().item()
+    if dtype == F32:
+        check(err <= 2e-5 * ref.abs().max().item(), f"MLP ({tag}) log-probs differ: {err}")
+    else:
+        check(torch.allclose(out, ref, rtol=2e-2, atol=2e-2), f"MLP ({tag}) differs: {err}")
+    for k in aux:
+        check(torch.allclose(aux[k], raux[k], rtol=1e-5, atol=0.0),
+              f"MLP ({tag}) {k}: {aux[k]} vs plain {raux[k]}")
+    ploss, pgrads = mlp_step(bt, model, x, y, 6, plain=True)
+    gate = 1e-3 if dtype == F32 else 5e-2
+    rel = {n: (grads[n] - pgrads[n]).norm().item() / pgrads[n].norm().clamp_min(1e-30).item()
+           for n in grads}
+    worst = max(rel, key=rel.get)
+    check(all(torch.isfinite(g).all() for g in grads.values()) and rel[worst] <= gate,
+          f"MLP ({tag}) step gradients: worst {worst} rel L2 {rel[worst]:.3g} (gate {gate})")
+    check(abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item()),
+          f"MLP ({tag}) ELBO {loss.item()} vs plain {ploss.item()}")
+    say(f"phase 19 (c): hand-built BayesLinear MLP ({tag}, S=10, B=64): log-probs max|d| "
+        f"{err:.3g} from plain, log_q {aux['log_variational_posterior'][0].item():.7g} vs "
+        f"{raux['log_variational_posterior'][0].item():.7g}; ELBO {loss.item():.6g} vs "
+        f"plain {ploss.item():.6g}; step gradients worst rel L2 {rel[worst]:.3g} ({worst}); "
+        f"launches: forward {serve}, step {train}")
+    del model
+    return serve, train
+
+
+def phase_mlp_mnist(fl, fb, root) -> dict:
+    """(d) ``mlp_mnist --estimator fused --limit-batches 3`` on idx files
+    (256 train images, MNIST's 10000 test images): the MOPED (trainable mu)
+    MLP through the independent-draw kernels, Gaussian instance, and no
+    antithetic one: #7 once a layer in each of the two evaluations (M =
+    10000) and in each of the three steps (M = 64), #9 once a layer a step.
+    The rows of that instance at these shapes hold the kernels against
+    their plain versions (:func:`phase19`)."""
+    from bayeformers_tpu_torch.workloads import mlp_mnist
+
+    data = write_mnist_files(root)
+    reset_counters(fl, fb)
+    res = mlp_mnist.train(data_dir=data, logs=os.path.join(root, "logs"), limit_batches=3,
+                          estimator="fused")
+    torch.cuda.synchronize()
+    counts = {"bayes_linear": dict(fl.INDEP_LAUNCHES.by_shape),
+              "reduce_abuv": dict(fb.INDEP_LAUNCHES.by_shape)}
+    check(all(np.isfinite(v) for v in res.values()), f"mlp_mnist results {res}")
+    step = {(64, k, n, "f32/gaussian"): 3 for (_, k, n) in FAMILY_SHAPES[MLP]}
+    evals = {(M, k, n, "f32/gaussian"): 2 for (M, k, n) in FAMILY_SHAPES[MLP_EVAL]}
+    check(counts == {"bayes_linear": {**step, **evals}, "reduce_abuv": step}
+          and fl.LAUNCHES.count == fb.LAUNCHES.count == 0,
+          f"mlp_mnist --estimator fused launched {counts}, want #7 {step} and {evals}, "
+          f"#9 {step}")
+    say(f"phase 19 (d): mlp_mnist --estimator fused, 3 batches on idx files: {res}; "
+        f"launches {counts}")
+    return counts
+
+
+def phase19(bt, fl, fb, at, moped_rho, paths) -> list[dict]:
+    """Phase 19: the kernels at the MLP's shapes against their plain
+    versions (#7 and #9: the hand-built MLP's mixture instance in bf16 and
+    f32; ``mlp_mnist``'s Gaussian instance in f32, #7 also at its
+    evaluation's M), then (a)-(d), each timed; their launches into
+    ``paths``."""
+    rows = []
+    for dtype in (BF16, F32):
+        tag = TAG[dtype]
+        t = time.perf_counter()
+        rows += phase_bayes_linear(fl, moped_rho, False, dtype, "mixture", MLP)
+        rows += phase_reduce(fl, fb, moped_rho, False, tag, "mixture", MLP)
+        say(f"phase 19 kernels at the MLP's shapes ({tag}): {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        paths[f"serve/{MLP}indep/{tag}/mixture"], paths[f"train/{MLP}indep/{tag}/mixture"] = (
+            phase_bayes_mlp(bt, fl, fb, dtype))
+        say(f"phase 19 (c) ({tag}): {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    for family in (MLP, MLP_EVAL):
+        rows += phase_bayes_linear(fl, moped_rho, False, F32, "gaussian", family,
+                                   path="mlp_mnist/fused/f32")
+    rows += phase_reduce(fl, fb, moped_rho, False, "f32", "gaussian", MLP,
+                         path="mlp_mnist/fused/f32")
+    say(f"phase 19 kernels at mlp_mnist's shapes (f32, gaussian): "
+        f"{time.perf_counter() - t:.2f} s")
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        paths["glue_files/anti/bf16"] = phase_glue_files(bt, fl, fb, at, root)
+        say(f"phase 19 (a): {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        paths["texts/anti/bf16"] = phase_texts(bt, fl, at, os.path.join(root, "vocab.txt"))
+        say(f"phase 19 (b): {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        os.makedirs(os.path.join(root, "mnist"))
+        paths["mlp_mnist/fused/f32"] = phase_mlp_mnist(fl, fb, os.path.join(root, "mnist"))
+        say(f"phase 19 (d): {time.perf_counter() - t:.2f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -4103,6 +4463,12 @@ def main() -> int:
         rows18, enc_ms = phase18(bt, fl, fb, at, moped_rho, paths)
         rows += rows18
         say(f"phase 18 (encoder families, SQuAD): {time.perf_counter() - t18:.2f} s")
+
+    if first <= 19:
+        # phase 19: the recipes' file front end and the hand-built BayesLinear MLP
+        t19 = time.perf_counter()
+        rows += phase19(bt, fl, fb, at, moped_rho, paths)
+        say(f"phase 19 (file front end, BayesLinear MLP): {time.perf_counter() - t19:.2f} s")
 
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'

@@ -174,14 +174,16 @@ def test_gpt2_lm_runs_on_cpu(tmp_path, estimator):
 
 
 def test_what_still_raises(tmp_path):
-    """The corpus and the mesh name their ROADMAP items; a sequence longer
-    than the model's maximum position raises; ``bert_glue`` sends GPT-2 to
-    this workload."""
+    """The mesh names its ROADMAP item; a corpus without its tokenizer's
+    files raises, naming them; a sequence longer than the model's maximum
+    position raises; ``bert_glue`` sends GPT-2 to this workload."""
     kw = dict(size="tiny", device="cpu", logs=str(tmp_path))
-    for bad, item in (({"corpus": "x.txt"}, "native BPE tokenizer"),
-                      ({"dp": 2}, "parallel tiers"), ({"tp": 2}, "parallel tiers")):
+    for bad, item in (({"dp": 2}, "parallel tiers"), ({"tp": 2}, "parallel tiers")):
         with pytest.raises(NotImplementedError, match=item):
             gpt2_lm.train(**bad, **kw)
+    (tmp_path / "x.txt").write_text("some text")
+    with pytest.raises(FileNotFoundError, match="vocab.json"):
+        gpt2_lm.train(corpus=str(tmp_path / "x.txt"), **kw)
     for model in ("gpt2", "llama"):
         with pytest.raises(ValueError, match="maximum position"):
             gpt2_lm.train(model=model, seq=129, **kw)

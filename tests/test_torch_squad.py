@@ -123,7 +123,7 @@ def test_predictor_qa_matches_jax(monkeypatch):
         assert [(d["start"], d["end"]) for d in gs] == [(d["start"], d["end"]) for d in ws]
         np.testing.assert_allclose([d["score"] for d in gs], [d["score"] for d in ws],
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(ValueError, match="needs a tokenizer"):
         pred.predict_texts([("q", "c")], tokenizer=None)
     with pytest.raises(ValueError, match="span head"):
         bt.Predictor(port, task="classification")

@@ -49,11 +49,12 @@ def test_bert_squad_json_gives_em_f1(tmp_path, capsys):
 
 
 def test_bert_squad_refusals_name_their_items(tmp_path):
-    for kw, item in (({"resume": True, "save_dir": str(tmp_path)}, "item 2, checkpoints"),
-                     ({"tokenizer": "vocab.txt"}, "item 2, the native tokenizer"),
-                     ({"dp": 2}, "item 6, the parallel tiers")):
-        with pytest.raises(NotImplementedError, match=item):
-            bert_squad.train(logs=str(tmp_path), **dict(TINY, **kw))
+    """The mesh names its ROADMAP item; a ``--tokenizer`` that is neither a
+    vocab.txt nor a directory holding one names what it needs."""
+    with pytest.raises(NotImplementedError, match="item 6, the parallel tiers"):
+        bert_squad.train(logs=str(tmp_path), **dict(TINY, dp=2))
+    with pytest.raises(ValueError, match="vocab.txt"):
+        bert_squad.train(logs=str(tmp_path), **dict(TINY, tokenizer=str(tmp_path)))
 
 
 def test_bert_glue_runs_a_sibling_family(tmp_path):

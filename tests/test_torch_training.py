@@ -325,22 +325,22 @@ def test_npz_glue_matches_jax(tmp_path):
         for k in split_got:
             assert split_got[k].dtype == np.asarray(split_want[k]).dtype
             np.testing.assert_array_equal(split_got[k], np.asarray(split_want[k]))
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        bert_glue.load_glue(str(tmp_path), 1024)
+    # a directory without train.tsv and a vocab.txt: the synthetic stand-in,
+    # as in the JAX package
+    assert bert_glue.load_glue(str(tmp_path), 1024)[2]
+    assert jglue.load_glue(str(tmp_path), 1024)[2]
 
 
 def test_bert_glue_runs_on_cpu(tmp_path):
     score = bert_glue.train(size="tiny", limit_batches=2, epochs=1, b_epochs=1,
                             samples=2, batch_size=32, device="cpu",
-                            logs=str(tmp_path))
+                            logs=str(tmp_path), save_dir=str(tmp_path / "ckpt"))
     assert 0.0 <= score <= 1.0
     lines = (tmp_path / "bert_glue.DELTA_0.05.WEIGHT_DECAY_0.0.jsonl").read_text()
     assert "bayesian_test/ece" in lines
+    assert (tmp_path / "ckpt" / "step_1" / "rho.pt").exists()
     with pytest.raises(NotImplementedError, match="parallel tiers"):
         bert_glue.train(size="tiny", dp=2, device="cpu", logs=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        bert_glue.train(size="tiny", save_dir=str(tmp_path), device="cpu",
-                        logs=str(tmp_path))
 
 
 def test_training_imports_and_runs_without_jax():

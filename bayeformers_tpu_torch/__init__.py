@@ -3,10 +3,13 @@ NVIDIA H100.
 
 Bayes-by-Backprop over the port's own encoders (BERT and its sibling
 families DistilBERT, RoBERTa/CamemBERT, Electra and ALBERT, with
-classification or span heads: ``build_model``) and LLaMA-architecture
-and GPT-2 causal LMs (LLaMA, Mistral, Gemma): ``to_bayesian``
-converts every Linear (GPT-2's Conv1D among them) into a Gaussian
-variational pair, ``training.make_elbo_train_step`` fine-tunes it by the
+classification or span heads: ``build_model``), LLaMA-architecture
+and GPT-2 causal LMs (LLaMA, Mistral, Gemma), the ViT image classifier
+(``build_vit``) and the CLIP dual encoder (``build_clip``):
+``to_bayesian`` converts every Linear (GPT-2's Conv1D among them) into a
+Gaussian variational pair, and with ``rules=(*DEFAULT_RULES, CONV_RULE,
+EMBEDDING_RULE)`` the convolutions and embedding tables too;
+``training.make_elbo_train_step`` fine-tunes it by the
 Monte-Carlo ELBO (``workloads/bert_glue.py`` runs the four-phase GLUE
 recipe, ``workloads/bert_squad.py`` the SQuAD one, ``workloads/gpt2_lm.py``
 the causal-LM one), and ``Predictor`` serves posterior-predictive
@@ -35,6 +38,7 @@ from bayeformers_tpu_torch.models.bert import (
     BERT_TINY_KWARGS,
     build_bert,
 )
+from bayeformers_tpu_torch.models.clip import CLIP_TINY_KWARGS, build_clip
 from bayeformers_tpu_torch.models.families import build_model
 from bayeformers_tpu_torch.models.gpt2 import (
     GPT2_BASE_KWARGS,
@@ -43,8 +47,18 @@ from bayeformers_tpu_torch.models.gpt2 import (
 )
 from bayeformers_tpu_torch.models.llama import LlamaConfig, build_llama_family
 from bayeformers_tpu_torch.models.mlp import build_mlp
+from bayeformers_tpu_torch.models.vit import VIT_BASE_KWARGS, VIT_TINY_KWARGS, build_vit
 from bayeformers_tpu_torch.nn.layers import BayesLinear, bayes_apply, collect_kl
-from bayeformers_tpu_torch.nn.surgery import BayesianModel, to_bayesian
+from bayeformers_tpu_torch.nn.surgery import (
+    CONV_RULE,
+    DEFAULT_RULES,
+    EMBEDDING_RULE,
+    LINEAR_RULE,
+    BayesianModel,
+    ConversionRule,
+    find_convertible_paths,
+    to_bayesian,
+)
 from bayeformers_tpu_torch.pretrained import load_pretrained
 from bayeformers_tpu_torch.serving import Predictor
 from bayeformers_tpu_torch.training import make_elbo_train_step
@@ -54,19 +68,30 @@ __all__ = [
     "BERT_TINY_KWARGS",
     "BayesLinear",
     "BayesianModel",
+    "CLIP_TINY_KWARGS",
+    "CONV_RULE",
+    "ConversionRule",
+    "DEFAULT_RULES",
+    "EMBEDDING_RULE",
     "GPT2_BASE_KWARGS",
     "GPT2_TINY_KWARGS",
+    "LINEAR_RULE",
     "LlamaConfig",
     "MOPED_PRIOR_SIGMA",
     "Predictor",
+    "VIT_BASE_KWARGS",
+    "VIT_TINY_KWARGS",
     "ScaleMixturePrior",
     "bayes_apply",
     "build_bert",
+    "build_clip",
     "build_gpt2",
     "build_llama_family",
     "build_model",
     "build_mlp",
+    "build_vit",
     "collect_kl",
+    "find_convertible_paths",
     "from_jax_params",
     "load_pretrained",
     "make_elbo_train_step",

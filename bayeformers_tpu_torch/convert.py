@@ -1,5 +1,5 @@
-"""Carry the JAX package's converted BERT, GPT-2 or LLaMA-architecture model
-over to the port.
+"""Carry the JAX package's converted BERT, GPT-2, LLaMA-architecture, ViT or
+CLIP model over to the port.
 
 ``from_jax_params(params, rho, prior_mu=None, *, prior, moped, frozen)``
 takes the fields of the JAX package's ``BayesParams`` (the Flax parameter
@@ -16,12 +16,20 @@ its :class:`~models.gpt2.GPT2LMHeadModel`; ``model/...``: its
 tree cannot tell, so the caller passes ``config``, a
 :class:`~models.llama.LlamaConfig`; nor ALBERT's depth, whose one
 shared layer is called ``num_hidden_layers`` times, so an ALBERT tree
-needs ``config``, a :class:`~models.bert.BertConfig`), and the
+needs ``config``, a :class:`~models.bert.BertConfig`; ``vit/...``: its
+:class:`~models.vit.ViTForImageClassification`, the widths read from the
+Flax conv kernel ``(kh, kw, cin, cout)``, ``cls_token`` and
+``position_embeddings``; ``text_model/...`` with ``vision_model/...``:
+its :class:`~models.clip.CLIPModel`, whose heads the tree cannot tell
+(64-wide unless ``config``, a :class:`~models.clip.CLIPConfig`, says),
+``class_embedding`` and ``logit_scale`` included), and the
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
 same function. This is how a conversion made by the JAX package, random
-init included, is held against the port. The JAX package is never
-imported: callers pass arrays.
+init included, is held against the port; a converted conv kernel or
+embedding table (``CONV_RULE``, ``EMBEDDING_RULE``) carries its ``rho``
+and ``prior_mu`` in the leaf's own shape like any other. The JAX package
+is never imported: callers pass arrays.
 """
 from __future__ import annotations
 
@@ -30,10 +38,12 @@ import torch
 
 from bayeformers_tpu_torch.core.prior import DEFAULT_SCALE_MIXTURE, ScaleMixturePrior
 from bayeformers_tpu_torch.models.bert import FAMILIES, BertConfig
+from bayeformers_tpu_torch.models.clip import CLIPConfig, CLIPModel
 from bayeformers_tpu_torch.models.families import MODEL_CLASSES
 from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from bayeformers_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from bayeformers_tpu_torch.models.mlp import MLP
+from bayeformers_tpu_torch.models.vit import ViTConfig, ViTForImageClassification
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
 
@@ -79,6 +89,16 @@ def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None
     if "transformer/wte/embedding" in flat:
         return GPT2LMHeadModel(_gpt2_config_from(flat, n_heads), dtype=dtype,
                                device=device)
+    if "vit/embeddings/cls_token" in flat:
+        if config is None:
+            config = _vit_config_from(flat, n_heads)
+        return ViTForImageClassification(config, dtype=dtype, device=device)
+    if "text_model/embeddings/token_embedding/embedding" in flat:
+        if config is None:
+            config = _clip_config_from(flat, n_heads)
+        elif not isinstance(config, CLIPConfig):
+            raise ValueError("a CLIP tree takes config=CLIPConfig(...)")
+        return CLIPModel(config, dtype=dtype, device=device)
     tops = {p.split(SEP)[0] for p in flat}
     found = [f for f in FAMILIES if f in tops]
     if len(found) != 1:
@@ -90,6 +110,43 @@ def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None
     elif not isinstance(config, BertConfig) or config.family != family:
         raise ValueError(f"a {family} tree needs config=BertConfig(family={family!r}, ...)")
     return MODEL_CLASSES[family](config, dtype=dtype, device=device, task=task)
+
+
+def _vit_config_from(flat: dict[str, np.ndarray], n_heads) -> ViTConfig:
+    """ViT's config from its tree: the patch from the conv kernel (kh, kw,
+    cin, cout), the image from the position table's P + 1 rows."""
+    kernel = flat["vit/embeddings/patch_embeddings/projection/kernel"]
+    hidden = kernel.shape[-1]
+    side = round((flat["vit/embeddings/position_embeddings"].shape[1] - 1) ** 0.5)
+    layers = "vit/encoder/layer/"
+    return ViTConfig(
+        hidden_size=hidden, num_hidden_layers=_layers(flat, layers),
+        num_attention_heads=n_heads or hidden // 64,
+        intermediate_size=flat[layers + "0/intermediate/dense/kernel"].shape[1],
+        image_size=side * kernel.shape[0], patch_size=kernel.shape[0],
+        num_channels=kernel.shape[2], num_labels=flat["classifier/kernel"].shape[1])
+
+
+def _clip_config_from(flat: dict[str, np.ndarray], n_heads) -> CLIPConfig:
+    """CLIP's config from its tree, heads 64 wide unless ``n_heads``; the
+    rest HF's defaults."""
+    def tower(prefix):
+        layers = f"{prefix}/encoder/layers/"
+        fc1 = flat[layers + "0/mlp/fc1/kernel"]
+        return dict(hidden_size=fc1.shape[0], intermediate_size=fc1.shape[1],
+                    num_hidden_layers=_layers(flat, layers),
+                    num_attention_heads=n_heads or fc1.shape[0] // 64)
+
+    tok = flat["text_model/embeddings/token_embedding/embedding"]
+    kernel = flat["vision_model/embeddings/patch_embedding/kernel"]
+    side = round((flat["vision_model/embeddings/position_embedding/embedding"].shape[0]
+                  - 1) ** 0.5)
+    text = dict(tower("text_model"), vocab_size=tok.shape[0], max_position_embeddings=flat[
+        "text_model/embeddings/position_embedding/embedding"].shape[0])
+    vision = dict(tower("vision_model"), num_channels=kernel.shape[2],
+                  patch_size=kernel.shape[0], image_size=side * kernel.shape[0])
+    return CLIPConfig.from_hf(dict(text_config=text, vision_config=vision,
+                                   projection_dim=flat["text_projection/kernel"].shape[1]))
 
 
 def _config_from(flat: dict[str, np.ndarray], n_heads, family: str) -> BertConfig:
@@ -130,7 +187,7 @@ def from_jax_params(params, rho, prior_mu=None, *,
                     prior=DEFAULT_SCALE_MIXTURE, moped: bool = True,
                     frozen: bool = True,
                     num_attention_heads=None, config=None, dtype=torch.float32,
-                    device="cuda") -> BayesianModel:
+                    device="cuda", model=None) -> BayesianModel:
     """A :class:`BayesianModel` holding the JAX package's mu (``params``),
     ``rho`` and, under MOPED, ``prior_mu``, on ``device`` (the card unless
     the caller passes ``"cpu"``).
@@ -143,7 +200,10 @@ def from_jax_params(params, rho, prior_mu=None, *,
     or ``(pi, sigma1, sigma2)``). ``num_attention_heads`` defaults to
     64-wide heads (BERT's and GPT-2's); a LLaMA-architecture tree takes its
     whole configuration from ``config`` (a ``LlamaConfig``), an encoder's
-    may (a ``BertConfig`` of its family; ALBERT's must)."""
+    may (a ``BertConfig`` of its family; ALBERT's must); a CLIP tree takes a
+    ``CLIPConfig``. ``model``: a port module of the caller's own (built of
+    ``Dense``, ``Conv`` and ``Embed`` under the tree's names) to fill in
+    place of the one picked from the tree."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params(device='cuda'): no CUDA device")
@@ -159,7 +219,8 @@ def from_jax_params(params, rho, prior_mu=None, *,
                          "converted leaf")
     if not isinstance(prior, ScaleMixturePrior):
         prior = ScaleMixturePrior(*prior)
-    model = _model_from(flat, num_attention_heads, dtype, dev, config)
+    if model is None:
+        model = _model_from(flat, num_attention_heads, dtype, dev, config)
     names = {n.replace(".", SEP) for n, _ in model.named_parameters()}
     if names != set(flat):
         raise ValueError(

@@ -158,13 +158,25 @@ class _Lookup(torch.autograd.Function):
         return out, None
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with the fixed-order backward of :class:`_Lookup`."""
+    return _Lookup.apply(table, ids)
+
+
 class Embed(nn.Module):
+    """Flax's ``nn.Embed``: ``embedding`` (n, d), looked up in f32. A
+    converted table (``EMBEDDING_RULE``) hands itself to the tier of the
+    call (``mc.embed(self, ids)``), as a ``Dense`` does."""
+
     def __init__(self, n: int, d: int, *, device=None):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(n, d, device=device))
+        self.path = ""  # the Flax path of this module, set by assign_paths
 
-    def forward(self, ids):
-        return _Lookup.apply(self.embedding, ids)
+    def forward(self, ids, mc=None):
+        if mc is not None:
+            return mc.embed(self, ids)
+        return lookup(self.embedding, ids)
 
 
 class BertEmbeddings(nn.Module):
@@ -185,13 +197,13 @@ class BertEmbeddings(nn.Module):
         self.dtype = dtype
         self.cast_lookups = cfg.family in ("bert", "roberta")
 
-    def forward(self, input_ids, token_type_ids, position_ids):
+    def forward(self, input_ids, token_type_ids, position_ids, mc=None):
         # as HF's Flax embeddings: word, token type, position, in this order
         dt = self.dtype if self.cast_lookups else torch.float32
-        x = self.word_embeddings(input_ids).to(dt)
+        x = self.word_embeddings(input_ids, mc).to(dt)
         if hasattr(self, "token_type_embeddings"):
-            x = x + self.token_type_embeddings(token_type_ids).to(dt)
-        x = x + self.position_embeddings(position_ids).to(dt)
+            x = x + self.token_type_embeddings(token_type_ids, mc).to(dt)
+        x = x + self.position_embeddings(position_ids, mc).to(dt)
         return self.LayerNorm(x).to(self.dtype)
 
 
@@ -304,7 +316,7 @@ class BertModule(nn.Module):
             self.pooler = BertPooler(cfg, device)
 
     def forward(self, input_ids, bias, token_type_ids, position_ids, mc=None):
-        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, position_ids, mc)
         if hasattr(self, "embeddings_project"):
             hidden = self.embeddings_project(hidden, mc)
         return self.encoder(hidden, bias, mc)

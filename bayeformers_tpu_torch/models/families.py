@@ -178,7 +178,7 @@ class DistilBertForSequenceClassification(EncoderModel):
 
     def encode(self, input_ids, attention_mask, token_type_ids, mc):
         d = self.distilbert
-        hidden = d.embeddings(input_ids, None, self.positions(input_ids))
+        hidden = d.embeddings(input_ids, None, self.positions(input_ids), mc)
         return d.transformer(hidden, distilbert_bias(attention_mask), mc)
 
     def classify(self, hidden, mc):
@@ -343,7 +343,7 @@ class AlbertForSequenceClassification(EncoderModel):
 
     def encode(self, input_ids, attention_mask, token_type_ids, mc):
         a = self.albert
-        hidden = a.embeddings(input_ids, token_type_ids, self.positions(input_ids))
+        hidden = a.embeddings(input_ids, token_type_ids, self.positions(input_ids), mc)
         return a.encoder(hidden, ops_attention.mask_to_bias(attention_mask), mc)
 
     def classify(self, hidden, mc):
@@ -398,10 +398,10 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
                 size: str = "base", seed: int = 0, dtype=torch.bfloat16,
                 device="cuda", **overrides) -> nn.Module:
     """Family dispatch by model name, in the reference's order
-    (``bayeformers_tpu/models/bert.py:261-297``): GPT-2 and the LLaMA
-    families (causal LMs: ``task="causal-lm"``), then the encoders
-    (:func:`family_of`). T5 and ViT raise, naming the ROADMAP item that
-    brings them."""
+    (``bayeformers_tpu/models/bert.py:261-297``): GPT-2, T5, the LLaMA
+    families (causal LMs: ``task="causal-lm"``), ViT (image
+    classification), then the encoders (:func:`family_of`). T5 raises,
+    naming the ROADMAP item that brings it."""
     name = model_name.lower()
     causal = task in ("causal-lm", None)
     if "gpt2" in name or "gpt-2" in name:
@@ -410,10 +410,10 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
         from bayeformers_tpu_torch.models.gpt2 import build_gpt2
 
         return build_gpt2(size, seed=seed, dtype=dtype, device=device, **overrides)
-    if "t5" in name or "vit" in name:
+    if "t5" in name:
         raise NotImplementedError(
-            f"build_model({model_name!r}): T5 and ViT come with the other model "
-            "families (ROADMAP queue 1, the other model families and their handlers)")
+            f"build_model({model_name!r}): T5 comes with the decoder families "
+            "(ROADMAP queue 1, the other model families and their handlers: T5, Whisper)")
     for fam in ("llama", "mistral", "gemma"):
         if fam in name:
             if not causal:
@@ -422,6 +422,11 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
 
             return build_llama_family(fam, size, seed=seed, dtype=dtype, device=device,
                                       **overrides)
+    if "vit" in name:
+        from bayeformers_tpu_torch.models.vit import build_vit
+
+        return build_vit(task or "classification", n_labels, size, seed, dtype, device,
+                         **overrides)
     return build_family(family_of(name), task or "classification", n_labels, size, seed,
                         dtype, device, **overrides)
 
@@ -432,7 +437,11 @@ def uses_token_type_ids(model: nn.Module) -> bool:
 
 
 def input_keys(model: nn.Module) -> tuple[str, ...]:
-    """The model's inputs, pruned per family as the reference prunes them."""
+    """The model's inputs, pruned per family as the reference prunes them
+    (ViT's pixels, CLIP's ids, pixels and mask: the model's own
+    ``input_keys``)."""
+    if hasattr(model, "input_keys"):
+        return model.input_keys
     keys = ("input_ids", "attention_mask")
     return keys + (("token_type_ids",) if uses_token_type_ids(model) else ())
 

@@ -121,8 +121,8 @@ class GPT2Module(nn.Module):
 
     def forward(self, input_ids, position_ids, bias, mc=None):
         # as HF's FlaxGPT2Module: both lookups in the activation dtype, summed in it
-        hidden = (self.wte(input_ids).to(self.dtype)
-                  + self.wpe(position_ids).to(self.dtype))
+        hidden = (self.wte(input_ids, mc).to(self.dtype)
+                  + self.wpe(position_ids, mc).to(self.dtype))
         for block in self.h:
             hidden = block(hidden, bias, mc)
         return self.ln_f(hidden)

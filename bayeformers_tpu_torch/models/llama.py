@@ -314,7 +314,7 @@ class LlamaModule(nn.Module):
                             else None)
 
     def forward(self, input_ids, position_ids, bias, mc=None):
-        hidden = self.embed_tokens(input_ids).to(self.dtype)
+        hidden = self.embed_tokens(input_ids, mc).to(self.dtype)
         if self.embed_scale is not None:
             # Gemma: sqrt(hidden) as a scalar of the activation dtype
             hidden = hidden * torch.tensor(self.embed_scale, dtype=self.dtype,

@@ -52,8 +52,10 @@ class Conv1D(Dense):
 
 
 def assign_paths(model: nn.Module) -> None:
-    """Give every ``Dense`` and ``Conv1D`` its Flax path
-    (``bert/pooler/dense``, ``transformer/h/0/attn/c_attn``, ...)."""
+    """Give every layer that the tiers dispatch (each module with a
+    ``path``: ``Dense``, ``Conv1D``, ``nn/conv.py::Conv``,
+    ``models/bert.py::Embed``) its Flax path (``bert/pooler/dense``,
+    ``transformer/h/0/attn/c_attn``, ...)."""
     for name, mod in model.named_modules():
-        if isinstance(mod, Dense):
+        if hasattr(mod, "path"):
             mod.path = name.replace(".", "/")

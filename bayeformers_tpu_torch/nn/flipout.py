@@ -39,9 +39,17 @@ The JAX package's draws differ (another stream); tests inject them through
 ``eps_hook(path, what, shape)``, ``what`` one of ``"r"``, ``"s"``,
 ``"eps"`` (the perturbation's (S, K, N)), ``"kl"`` (the KL's
 (kl_draws, K, N)), ``"bias_eps"``, ``"bias_s"`` and ``"bias_kl"``; (K, N)
-is the (in, out) view for a ``Conv1D`` too. The conv branch
-(``handle_conv``) is not ported (ROADMAP queue 1: the other model families
-and their handlers).
+is the (in, out) view for a ``Conv1D`` too.
+
+A converted ``Conv`` (``CONV_RULE``; the reference's ``handle_conv``,
+``nn/flipout.py:174-192``) runs the same perturbation on its im2col
+patches (``nn/conv.py::lower_conv``) with mu and rho in the channel-major
+(K, cout) view (``reorder``), which the ``"eps"`` draw's shape names, and
+scores its KL on the stored ``(*kernel_size, cin, cout)`` leaf, whose
+shape the ``"kl"`` draw takes (the sums do not depend on the layout). As
+in the reference there is no embedding handler: a converted ``Embed``
+runs at mu, is never marked seen, and the forward raises
+(``nn/fused.py::check_converted_paths_seen``).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA
+from bayeformers_tpu_torch.nn import conv as conv_lib
 from bayeformers_tpu_torch.nn.fused import (
     SEP, MCBase, bias_logprobs, derive_seed, run_mc, transposed_view, unit_bias_eps)
 from bayeformers_tpu_torch.ops import logprob as ops_logprob
@@ -142,24 +151,31 @@ class AnalyticKLMC(MCBase):
             return self.eps_hook(path, what, shape).to(self.bmodel.device)
         return make()
 
-    def kernel_kl(self, kpath, i, mu, rho, transposed: bool = False) -> None:
+    def kernel_kl(self, kpath, i, mu, rho, transposed: bool = False, stored=None) -> None:
         """Collect a kernel leaf's KL once per forward; ``transposed``: ``mu``
-        and ``rho`` are a ``Conv1D``'s (in, out) copies. Under MOPED its
-        closed form now; under the mixture the leaf's ``(mu, rho)`` and KL
-        draws (its seeds, or the hook's ``"kl"``) are recorded in its place
-        among the terms, and :meth:`aux` scores every such leaf in one
-        grouped call."""
+        and ``rho`` are a ``Conv1D``'s (in, out) copies; ``stored``: a
+        ``Conv``'s (mu, rho) in their stored shape, of which ``mu`` and
+        ``rho`` are the (K, N) views. Under MOPED its closed form now (on
+        the stored leaf); under the mixture the leaf's (K, N) ``(mu, rho)``
+        and KL draws (its seeds, or the hook's ``"kl"``, drawn in the stored
+        shape and viewed as (K, N)) are recorded in its place among the
+        terms, and :meth:`aux` scores every such leaf in one grouped
+        call."""
         if kpath in self.seen:
             return
         self.seen.add(kpath)
         if not self.needs_draws:
-            self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, mu, rho,
+            m, r = (mu, rho) if stored is None else stored
+            self.kl_terms.append(analytic_leaf_kl(self.bmodel, kpath, m, r,
                                                   transposed=transposed))
             return
         kd = self.kl_draws
         eps = seeds = None
         if self.eps_hook is not None:
-            eps = self._draw(kpath, "kl", (kd,) + tuple(mu.shape), None)
+            shape = tuple((mu if stored is None else stored[0]).shape)
+            eps = self._draw(kpath, "kl", (kd,) + shape, None)
+            if stored is not None:
+                eps = conv_lib.reorder(eps, lead=1)
         else:
             seeds = self.kl_seeds[i][:kd]
         self.deferred.append((len(self.kl_terms), mu, rho, seeds, eps))
@@ -215,6 +231,25 @@ class FlipoutMC(AnalyticKLMC):
         return self._draw(path, what, shape, lambda: rademacher(
             derive_seed(self.seed, i, stream), shape, self.bmodel.device, dtype)).to(dtype)
 
+    def _flip_core(self, kpath, i, mu, rho, xs):
+        """The flipout product over ``xs`` (S, M, K) of a kernel whose (K,
+        N) ``mu`` and ``rho`` define the perturbation's draw (the
+        reference's ``_flip_core``), then the layer's bias."""
+        S, M, K = xs.shape
+        N = mu.shape[1]
+        r = self._signs(kpath, "r", i, 2, (S, M, K), xs.dtype)
+        s_out = self._signs(kpath, "s", i, 3, (S, M, N), xs.dtype)
+        eps = None if self.eps_hook is None else self._draw(kpath, "eps", (S, K, N), None)
+        pert = ops_linear.sampled_dense((xs * r).contiguous(), torch.zeros_like(mu), rho,
+                                        self.seeds[i][:S], plain=self.plain, eps=eps)
+        return torch.matmul(xs, mu.to(xs.dtype)) + pert * s_out
+
+    def _bias(self, y, mod, i, M):
+        bpath = mod.path + SEP + "bias"
+        if bpath in self.bmodel.rho:
+            return self._add_bias(y, mod, bpath, i, M)
+        return mod.add_bias(y)
+
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
         """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
         input."""
@@ -222,25 +257,29 @@ class FlipoutMC(AnalyticKLMC):
         if kpath not in self.bmodel.rho:
             return mod(x)
         i = self.path_index[kpath]
-        S = self.S
         mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
-        lead, K = tuple(x.shape[:-1]), x.shape[-1]
-        N = mu.shape[1]
-        xs = x.reshape(S, -1, K)
-        M = xs.shape[1]
-        r = self._signs(kpath, "r", i, 2, (S, M, K), xs.dtype)
-        s_out = self._signs(kpath, "s", i, 3, (S, M, N), xs.dtype)
-        eps = None if self.eps_hook is None else self._draw(kpath, "eps", (S, K, N), None)
-        pert = ops_linear.sampled_dense((xs * r).contiguous(), torch.zeros_like(mu), rho,
-                                        self.seeds[i][:S], plain=self.plain, eps=eps)
-        y = torch.matmul(xs, mu.to(xs.dtype)) + pert * s_out
+        lead = tuple(x.shape[:-1])
+        xs = x.reshape(self.S, -1, x.shape[-1])
+        y = self._flip_core(kpath, i, mu, rho, xs)
         self.kernel_kl(kpath, i, mu, rho, mod.transposed)
-        bpath = mod.path + SEP + "bias"
-        if bpath in self.bmodel.rho:
-            y = self._add_bias(y, mod, bpath, i, M)
-        else:
-            y = mod.add_bias(y)
-        return y.reshape(lead + (N,))
+        return self._bias(y, mod, i, xs.shape[1]).reshape(lead + (mu.shape[1],))
+
+    def conv(self, mod, x: torch.Tensor) -> torch.Tensor:
+        """A converted ``Conv`` over an S-major (S*B, *spatial, cin) input:
+        the perturbation on its im2col patches, the KL on the stored
+        leaf."""
+        kpath = mod.path + SEP + "kernel"
+        if kpath not in self.bmodel.rho:
+            return mod(x)
+        kpath, patches, out_spatial = conv_lib.lower_conv(mod, x)
+        i = self.path_index[kpath]
+        mu4, rho4 = mod.kernel, self.bmodel.rho[kpath]
+        mu, rho = conv_lib.reorder(mu4), conv_lib.reorder(rho4)
+        xs = patches.reshape(self.S, -1, patches.shape[-1])
+        y = self._flip_core(kpath, i, mu, rho, xs)
+        self.kernel_kl(kpath, i, mu, rho, stored=(mu4, rho4))
+        y = self._bias(y, mod, i, xs.shape[1])
+        return y.reshape((x.shape[0],) + out_spatial + (mu.shape[1],))
 
     def _add_bias(self, y, mod, bpath, i, M):
         bmu, brho = mod.bias, self.bmodel.rho[bpath]
@@ -263,13 +302,14 @@ def kl_aux(kl: torch.Tensor, n_samples: int) -> dict[str, torch.Tensor]:
                                                      device=kl.device)}
 
 
-def flipout_mc_apply(bmodel, seed: int, n_samples: int, input_ids, attention_mask=None,
-                     token_type_ids=None, *, kl_draws: int = KL_DRAWS,
-                     impl: str = "kernel", eps_hook=None):
-    """S flipout forwards as one S-major super-batched pass. Returns
-    ``(outputs (S, B, ...), aux)`` with aux ``kl`` (the analytic KL summed
-    over the converted leaves) and ``log_prior`` / ``log_variational_posterior``
-    ``(-kl, 0)`` of shape (S,)."""
+def flipout_mc_apply(bmodel, seed: int, n_samples: int, *args, kl_draws: int = KL_DRAWS,
+                     impl: str = "kernel", eps_hook=None, untile_axes: tuple[int, ...] = (),
+                     **inputs):
+    """S flipout forwards as one S-major super-batched pass over the model's
+    inputs (``nn/fused.py::run_mc``). Returns ``(outputs (S, B, ...), aux)``
+    with aux ``kl`` (the analytic KL summed over the converted leaves) and
+    ``log_prior`` / ``log_variational_posterior`` ``(-kl, 0)`` of shape
+    (S,)."""
     mc = FlipoutMC(bmodel, seed, n_samples, kl_draws=kl_draws, impl=impl,
                    eps_hook=eps_hook)
-    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)
+    return run_mc(mc, n_samples, *args, untile_axes=untile_axes, **inputs)

@@ -39,8 +39,10 @@ from __future__ import annotations
 import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.models.bert import lookup
 from bayeformers_tpu_torch.models.gpt2 import causal_attention
 from bayeformers_tpu_torch.models.llama import gqa_attention
+from bayeformers_tpu_torch.nn import conv as conv_lib
 from bayeformers_tpu_torch.ops import attention as ops_attention
 from bayeformers_tpu_torch.ops import common as ops_common
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
@@ -48,6 +50,8 @@ from bayeformers_tpu_torch.ops.logprob import ON_MU, prior_log_prob, prior_of
 
 SEP = "/"
 _M64 = (1 << 64) - 1
+# the text models' inputs, in the order their forwards take them
+TEXT_INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 
 
 def _splitmix64(z: int) -> int:
@@ -73,12 +77,28 @@ def tile_samples(x: torch.Tensor, n_samples: int) -> torch.Tensor:
     )
 
 
-def untile_samples(x, n_samples: int):
+def untile_samples(x, n_samples: int, extra_axes: tuple[int, ...] = ()):
     """Inverse of :func:`tile_samples`: (S*B, ...) -> (S, B, ...), mapped
-    over a tuple of outputs (the QA heads' start and end logits)."""
+    over a tuple of outputs (the QA heads' start and end logits).
+
+    ``extra_axes`` (axes of the model's untiled output, each > 0) are
+    further S-tiled axes of an output that couples two tiled batches, as
+    CLIP's ``logits_per_image`` (B_img, B_txt) is (S*B_img, S*B_txt) on
+    tiled inputs (pass ``(1,)``): of each such axis only the sample's own
+    block is kept, so that axis k of size S*Bk becomes Bk, the entries whose
+    sample index matches the leading sample axis (the reference's
+    ``untile_samples``, ``nn/fused.py:51-83``)."""
     if isinstance(x, tuple):
-        return tuple(untile_samples(t, n_samples) for t in x)
-    return x.reshape((n_samples, x.shape[0] // n_samples) + tuple(x.shape[1:]))
+        return tuple(untile_samples(t, n_samples, extra_axes) for t in x)
+    S = n_samples
+    a = x.reshape((S, x.shape[0] // S) + tuple(x.shape[1:]))
+    # axis k of the natural output sits at k + 1 after the sample axis
+    for ax in sorted(ax + 1 for ax in extra_axes):
+        a = a.reshape(tuple(a.shape[:ax]) + (S, a.shape[ax] // S) + tuple(a.shape[ax + 1:]))
+        idx = torch.arange(S, device=a.device).reshape((S,) + (1,) * (a.dim() - 1))
+        idx = idx.expand(tuple(a.shape[:ax]) + (1,) + tuple(a.shape[ax + 1:]))
+        a = torch.gather(a, ax, idx).squeeze(ax)
+    return a
 
 
 def check_converted_paths_seen(paths, seen: set, tier: str) -> None:
@@ -203,23 +223,39 @@ class MCBase:
         banded attention where Mistral's window bites)."""
         return gqa_attention(mod, hidden, bias, position_ids, self.dense, plain=self.plain)
 
+    def embed(self, mod, ids):
+        """A tier with no embedding handler (flipout, as in the reference)
+        runs the lookup at mu and does not mark the table seen, so that
+        :meth:`check_seen` raises for a converted one."""
+        return mod(ids)
+
     def check_seen(self, collected) -> None:
         if not collected:
             raise ValueError(f"{self.tier}_mc_apply dispatched no converted layers")
         check_converted_paths_seen(self.paths, self.seen, self.tier)
 
 
-def run_mc(mc: MCBase, n_samples: int, input_ids, attention_mask=None,
-           token_type_ids=None):
+def run_mc(mc: MCBase, n_samples: int, *args, untile_axes: tuple[int, ...] = (),
+           **inputs):
     """Run the converted model once over the S-major tiled inputs with the
     tier state ``mc``; returns ``(outputs (S, B, ...), mc.aux())``, the
     outputs a tuple of such where the model returns one (a QA head's start
-    and end logits). The first input is whatever the model takes first:
-    token ids, or the MNIST MLP's float images (``models/mlp.py``)."""
-    tiled = [None if a is None else tile_samples(a, n_samples)
-             for a in (input_ids, attention_mask, token_type_ids)]
-    out = mc.bmodel.model(*tiled, mc=mc)
-    return untile_samples(out, n_samples), mc.aux()
+    and end logits). ``args`` and ``inputs`` go to the model's forward as
+    given, each tensor tiled (None passes): ViT's pixels, CLIP's ids,
+    pixels and mask by name; the text models' inputs (only
+    :data:`TEXT_INPUTS` by name) by position, in that order, so that a
+    model's first input, whatever its name (the MNIST MLP's float images,
+    ``models/mlp.py``), rides ``input_ids``. ``untile_axes`` as in
+    :func:`untile_samples`."""
+    def tile(a):
+        return a if a is None else tile_samples(a, n_samples)
+
+    if not args and set(inputs) <= set(TEXT_INPUTS):
+        args, inputs = tuple(inputs.get(k) for k in TEXT_INPUTS), {}
+
+    out = mc.bmodel.model(*(tile(a) for a in args),
+                          **{k: tile(v) for k, v in inputs.items()}, mc=mc)
+    return untile_samples(out, n_samples, untile_axes), mc.aux()
 
 
 class FusedMC(MCBase):
@@ -263,21 +299,27 @@ class FusedMC(MCBase):
             (-1,) + tuple(a_half.shape[1:])
         )
 
-    def _prior_kwargs(self, path, transposed: bool = False) -> dict:
+    def _prior_kwargs(self, path, view=None) -> dict:
         """The prior keyword of :func:`ops.fused_linear.bayes_linear` for a
         converted leaf: frozen MOPED's prior sits on mu itself, so the
         kernel streams no third array; MOPED with a trainable mu centres it
-        on ``prior_mu`` (transposed with a ``Conv1D`` kernel); random init
-        takes the mixture."""
+        on ``prior_mu`` (through ``view``, the map that gives the leaf's
+        (K, N) orientation: a ``Conv1D``'s transpose, a ``Conv``'s
+        :func:`nn.conv.reorder`); random init takes the mixture."""
         spec = self.bmodel.spec
         if spec.moped and spec.frozen:
             return {"prior_on_mu": True}
         if spec.moped:
             pm = self.bmodel.prior_mu[path]
-            return {"prior_mu": pm.t().contiguous() if transposed else pm}
+            return {"prior_mu": pm if view is None else view(pm)}
         return {"mixture": self.mixture}
 
-    def _route_matmul(self, kpath, mu, rho, xs, transposed=False):
+    def _route_matmul(self, kpath, mu, rho, xs, view=None):
+        """The Bayesian linear op of a converted kernel in its (K, N)
+        orientation (``mu``, ``rho``; ``view`` as in :meth:`_prior_kwargs`)
+        over ``xs`` (S, M, K), shared by :meth:`dense` and :meth:`conv`; the
+        leaf's log-probs are collected once a forward. Returns ``(y,
+        new_leaf)``."""
         seeds = self.seeds[self.path_index[kpath]]
         eps = None
         if self.eps_hook is not None:
@@ -285,7 +327,7 @@ class FusedMC(MCBase):
         y, lq, lp = ops_fused.bayes_linear(
             xs, mu, rho, seeds, save_weights=self.save_weights,
             antithetic=self.antithetic, plain=self.plain, eps=eps,
-            **self._prior_kwargs(kpath, transposed))
+            **self._prior_kwargs(kpath, view))
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
@@ -305,13 +347,63 @@ class FusedMC(MCBase):
         lead, K = tuple(x.shape[:-1]), x.shape[-1]
         xs = x.reshape(self.S, -1, K).contiguous()
         mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
-        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, mod.transposed)
+        view = (lambda a: a.t().contiguous()) if mod.transposed else None
+        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, view)
+        return self._bias(y, mod, new_leaf).reshape(lead + (y.shape[-1],))
+
+    def _bias(self, y, mod, new_leaf):
+        """A converted layer's bias: sampled where it is converted, else
+        the frequentist one."""
         bpath = mod.path + SEP + "bias"
         if bpath in self.bmodel.rho:
-            y = self._add_bias(y, mod, bpath, new_leaf)
-        else:
-            y = mod.add_bias(y)
-        return y.reshape(lead + (y.shape[-1],))
+            return self._add_bias(y, mod, bpath, new_leaf)
+        return mod.add_bias(y)
+
+    def conv(self, mod, x: torch.Tensor) -> torch.Tensor:
+        """A converted ``Conv`` (``CONV_RULE``; the reference's
+        ``handle_conv``, ``nn/fused.py:422-440``) over an S-major (S*B,
+        *spatial, cin) input: its im2col patches (``nn/conv.py::lower_conv``)
+        through the same Bayesian linear op as a ``Dense``, the draw defined
+        on the channel-major (K, cout) view of mu and rho (``reorder``), then
+        the bias. Unsupported configurations raise (``lower_conv``)."""
+        kpath = mod.path + SEP + "kernel"
+        if kpath not in self.bmodel.rho:
+            return mod(x)
+        kpath, patches, out_spatial = conv_lib.lower_conv(mod, x)
+        mu, rho = conv_lib.reorder(mod.kernel), conv_lib.reorder(self.bmodel.rho[kpath])
+        xs = patches.reshape(self.S, -1, patches.shape[-1]).contiguous()
+        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, conv_lib.reorder)
+        y = self._bias(y, mod, new_leaf)
+        return y.reshape((x.shape[0],) + out_spatial + (y.shape[-1],))
+
+    def embed(self, mod, ids: torch.Tensor) -> torch.Tensor:
+        """A converted ``Embed`` (``EMBEDDING_RULE``; the reference's
+        ``handle_embed``, ``nn/fused.py:477-512``) over S-major (S*B, ...)
+        ids: the S sampled (V, D) tables of ``ops/fused_linear.py::
+        sampled_weights`` (kernel #10 on the card, its pair instance for
+        antithetic draws), each sample's ids looked up in its own table,
+        and the log-probs evaluated at those tables in plain torch (the
+        reference's XLA), so that they score the draw the forward used."""
+        epath = mod.path + SEP + "embedding"
+        if epath not in self.bmodel.rho:
+            return mod(ids)
+        mu, rho = mod.embedding, self.bmodel.rho[epath]
+        V, D = mu.shape
+        eps = None
+        if self.eps_hook is not None:
+            eps = self.eps_hook(epath, self.n_draws, (V, D))
+        tables = ops_fused.sampled_weights(
+            mu, rho, self.seeds[self.path_index[epath]], antithetic=self.antithetic,
+            plain=self.plain, eps=eps)  # (S, V, D)
+        ids_s = ids.reshape(self.S, -1)
+        offset = torch.arange(self.S, device=ids.device)[:, None] * V
+        out = lookup(tables.reshape(self.S * V, D), ids_s + offset)
+        if epath not in self.seen:
+            self.seen.add(epath)
+            dims = (1, 2)
+            lq = dist.gaussian_log_prob(tables, mu, dist.sigma_from_rho(rho), dim=dims)
+            self.collected.append((lq, self.bmodel.prior_log_prob(epath, tables, dim=dims)))
+        return out.reshape(tuple(ids.shape) + (D,))
 
     def _add_bias(self, y, mod, bpath, new_leaf):
         bmu = mod.bias
@@ -342,16 +434,18 @@ class FusedMC(MCBase):
         }
 
 
-def fused_mc_apply(bmodel, seed: int, n_samples: int, input_ids,
-                   attention_mask=None, token_type_ids=None, *,
+def fused_mc_apply(bmodel, seed: int, n_samples: int, *args,
                    save_weights: bool = True, antithetic: bool = False,
-                   impl: str = "kernel", eps_hook=None):
-    """S-sample fused forward of a converted model. Returns ``(outputs,
-    aux)``: outputs (S, B, ...) and aux ``log_prior`` /
+                   impl: str = "kernel", eps_hook=None, untile_axes: tuple[int, ...] = (),
+                   **inputs):
+    """S-sample fused forward of a converted model over its inputs (``args``
+    and ``inputs``, as the model takes them: :func:`run_mc`). Returns
+    ``(outputs, aux)``: outputs (S, B, ...) and aux ``log_prior`` /
     ``log_variational_posterior`` of shape (S,). ``antithetic=True`` pairs
     the draws (even ``n_samples``). ``save_weights=False`` writes no W
     residuals; a backward through such a forward regenerates each layer's
-    W from its seeds (``ops/fused_linear.py::BayesLinearRegen``)."""
+    W from its seeds (``ops/fused_linear.py::BayesLinearRegen``).
+    ``untile_axes``: :func:`untile_samples`."""
     mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic,
                  save_weights=save_weights, impl=impl, eps_hook=eps_hook)
-    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)
+    return run_mc(mc, n_samples, *args, untile_axes=untile_axes, **inputs)

@@ -6,13 +6,18 @@ per-sample (S, K, N) weights, which computes what the reference's vmap of
 ``sample_gaussian`` from a ``torch.Generator`` seeded ``derive_seed(seed,
 i)`` and scores them in plain torch (``BayesianModel.prior_log_prob``); the
 products are ``torch.bmm``, as they are XLA in the JAX package, so no
-Bayesian linear kernel runs, and attention runs its kernels.
+Bayesian linear kernel runs, and attention runs its kernels. A converted
+``Conv`` or ``Embed`` draws its leaf in the stored orientation too
+(``(*kernel_size, cin, cout)``, ``(V, D)``): the eps hook names those
+shapes.
 """
 from __future__ import annotations
 
 import torch
 
 from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.models.bert import lookup
+from bayeformers_tpu_torch.nn import conv as conv_lib
 from bayeformers_tpu_torch.nn.fused import SEP, MCBase, derive_seed, run_mc
 
 
@@ -70,6 +75,38 @@ class NaiveMC(MCBase):
             y = mod.add_bias(y)
         return y.reshape(lead + (y.shape[-1],))
 
+    def conv(self, mod, x: torch.Tensor) -> torch.Tensor:
+        """A converted ``Conv`` over an S-major (S*B, *spatial, cin) input:
+        its (S, *kernel_size, cin, cout) weights drawn in the stored
+        orientation, as ``bmodel.sample`` draws every leaf, and each
+        sample's im2col patches times its own ``reorder``-ed kernel."""
+        kpath = mod.path + SEP + "kernel"
+        if kpath not in self.bmodel.rho:
+            return mod(x)
+        kpath, patches, out_spatial = conv_lib.lower_conv(mod, x)
+        w = self._leaf(kpath, mod.kernel, self.bmodel.rho[kpath]).to(x.dtype).float()
+        xs = patches.reshape(self.S, -1, patches.shape[-1])
+        y = torch.bmm(xs.float(), conv_lib.reorder(w, lead=1)).to(x.dtype)
+        bpath = mod.path + SEP + "bias"
+        if bpath in self.bmodel.rho:
+            y = y + self._leaf(bpath, mod.bias, self.bmodel.rho[bpath])[:, None, :].to(x.dtype)
+        else:
+            y = mod.add_bias(y)
+        return y.reshape((x.shape[0],) + out_spatial + (y.shape[-1],))
+
+    def embed(self, mod, ids: torch.Tensor) -> torch.Tensor:
+        """A converted ``Embed`` over S-major (S*B, ...) ids: its (S, V, D)
+        tables drawn whole, each sample's ids looked up in its own."""
+        epath = mod.path + SEP + "embedding"
+        if epath not in self.bmodel.rho:
+            return mod(ids)
+        tables = self._leaf(epath, mod.embedding, self.bmodel.rho[epath])
+        V, D = mod.embedding.shape
+        ids_s = ids.reshape(self.S, -1)
+        offset = torch.arange(self.S, device=ids.device)[:, None] * V
+        out = lookup(tables.reshape(self.S * V, D), ids_s + offset)
+        return out.reshape(tuple(ids.shape) + (D,))
+
     def aux(self) -> dict[str, torch.Tensor]:
         self.check_seen(self.collected)
         return {"log_prior": torch.stack([lp for _, lp in self.collected]).sum(0),
@@ -77,10 +114,11 @@ class NaiveMC(MCBase):
                     [lq for lq, _ in self.collected]).sum(0)}
 
 
-def naive_mc_apply(bmodel, seed: int, n_samples: int, input_ids, attention_mask=None,
-                   token_type_ids=None, *, impl: str = "kernel", eps_hook=None):
-    """S naive-tier forwards as one S-major super-batched pass. Returns
-    ``(outputs (S, B, ...), aux)`` with aux's ``log_prior`` /
-    ``log_variational_posterior`` of shape (S,)."""
+def naive_mc_apply(bmodel, seed: int, n_samples: int, *args, impl: str = "kernel",
+                   eps_hook=None, untile_axes: tuple[int, ...] = (), **inputs):
+    """S naive-tier forwards as one S-major super-batched pass over the
+    model's inputs (``nn/fused.py::run_mc``). Returns ``(outputs (S, B,
+    ...), aux)`` with aux's ``log_prior`` / ``log_variational_posterior`` of
+    shape (S,)."""
     mc = NaiveMC(bmodel, seed, n_samples, impl=impl, eps_hook=eps_hook)
-    return run_mc(mc, n_samples, input_ids, attention_mask, token_type_ids)
+    return run_mc(mc, n_samples, *args, untile_axes=untile_axes, **inputs)

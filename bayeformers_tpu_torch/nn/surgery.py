@@ -1,14 +1,24 @@
 """``to_bayesian`` over the port's own modules.
 
-Counterpart of ``bayeformers_tpu/nn/surgery.py``. Every ``Dense``
-(``nn/dense.py``, the port's ``nn.Dense``) and ``Conv1D`` (GPT-2's
-projections, stored (out, in)) kernel and bias (``DEFAULT_RULES``, the
-reference's ``{nn.Linear: Linear}`` scope, which the JAX package's
-``_match_linear`` reads as any 2-D kernel with a 1-D bias, FlaxConv1D's
-included) becomes a variational pair: ``mu`` is the module's own parameter, ``rho``
-lives in :attr:`BayesianModel.rho` under the leaf's Flax path. The
-reference's conversions (``to_bayesian(model, initialization, prior,
-delta, freeze)``):
+Counterpart of ``bayeformers_tpu/nn/surgery.py``. A conversion rule
+classifies parameter leaves, as the JAX package's rules classify the leaves
+of a Flax tree: ``match(path, group)`` sees a leaf's path (a tuple of str)
+and the parameters its module holds directly, ``{leaf name: tensor}``, the
+Flax sibling group. The rules are the reference's (``:64-95``):
+
+- ``LINEAR_RULE`` (``DEFAULT_RULES``, the reference's ``{nn.Linear:
+  Linear}`` scope): a 2-D ``kernel`` with an optional 1-D ``bias``, so every
+  ``Dense`` (``nn/dense.py``, the port's ``nn.Dense``) and ``Conv1D``
+  (GPT-2's projections, stored (out, in));
+- ``CONV_RULE`` (opt in): a ``(*kernel_size, cin, cout)`` kernel of 1-3
+  spatial dims with an optional 1-D bias, the port's ``Conv``
+  (``nn/conv.py``, Flax's ``nn.Conv``);
+- ``EMBEDDING_RULE`` (opt in): a 2-D ``embedding``, the port's ``Embed``.
+
+A matched leaf becomes a variational pair: ``mu`` is the module's own
+parameter, ``rho`` lives in :attr:`BayesianModel.rho` under the leaf's Flax
+path. The reference's conversions (``to_bayesian(model, initialization,
+prior, delta, freeze)``):
 
 - ``delta=None`` (the default): random init of mu and rho from
   ``initialization`` under the scale-mixture ``prior``; mu trains;
@@ -26,7 +36,7 @@ its ``wte`` and stays frequentist):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,19 +44,56 @@ from torch import nn
 from bayeformers_tpu_torch.core import distributions as dist
 from bayeformers_tpu_torch.core import init as init_lib
 from bayeformers_tpu_torch.core import prior as prior_lib
-from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
+from bayeformers_tpu_torch.nn.dense import assign_paths
 from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
 
 SEP = "/"
 
 
-def _match_linear(name: str, mod: nn.Module) -> bool:
-    """``Dense`` and its subclass ``Conv1D``."""
-    return isinstance(mod, Dense)
+@dataclasses.dataclass(frozen=True)
+class ConversionRule:
+    """Classifies parameter leaves as convertible: ``match(path, group)``
+    receives the leaf's path (tuple of str) and its module's direct
+    parameters ``{leaf name: tensor}``, and returns True if the leaf should
+    become a Gaussian variational parameter."""
+
+    name: str
+    match: Callable[[tuple[str, ...], Mapping[str, Any]], bool]
 
 
-# leaf-owner predicates; a matching module converts its kernel and bias
-DEFAULT_RULES: tuple[Callable[[str, nn.Module], bool], ...] = (_match_linear,)
+def _is_dense_group(group: Mapping[str, Any]) -> bool:
+    # a Dense group: 2-D ``kernel``, optional 1-D ``bias``
+    if "kernel" not in group or group["kernel"].ndim != 2:
+        return False
+    if "bias" in group and group["bias"].ndim != 1:
+        return False
+    return set(group) <= {"kernel", "bias"}
+
+
+def _match_linear(path: tuple[str, ...], group: Mapping[str, Any]) -> bool:
+    return path[-1] in ("kernel", "bias") and _is_dense_group(group)
+
+
+def _match_embedding(path: tuple[str, ...], group: Mapping[str, Any]) -> bool:
+    return path[-1] == "embedding" and group["embedding"].ndim == 2
+
+
+def _match_conv(path: tuple[str, ...], group: Mapping[str, Any]) -> bool:
+    # a Conv group: (*kernel_size, cin, cout) ``kernel`` with 1-3 spatial
+    # dims, optional 1-D ``bias``
+    if path[-1] not in ("kernel", "bias") or "kernel" not in group:
+        return False
+    if group["kernel"].ndim not in (3, 4, 5):
+        return False
+    if "bias" in group and group["bias"].ndim != 1:
+        return False
+    return set(group) <= {"kernel", "bias"}
+
+
+LINEAR_RULE = ConversionRule("linear", _match_linear)
+EMBEDDING_RULE = ConversionRule("embedding", _match_embedding)
+CONV_RULE = ConversionRule("conv", _match_conv)
+DEFAULT_RULES: tuple[ConversionRule, ...] = (LINEAR_RULE,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,15 +107,20 @@ class ConversionSpec:
     delta: Optional[float]
 
 
-def find_convertible_paths(model: nn.Module) -> tuple[str, ...]:
-    """'/'-joined leaf paths of every converted parameter, in the order of
-    the JAX package (sorted by path components)."""
+def find_convertible_paths(model: nn.Module,
+                           rules: Sequence[ConversionRule] = DEFAULT_RULES
+                           ) -> tuple[str, ...]:
+    """'/'-joined paths of every leaf that a rule matches, in the JAX
+    package's order (sorted by path components)."""
     assign_paths(model)
     out = []
     for name, mod in model.named_modules():
-        if any(rule(name, mod) for rule in DEFAULT_RULES):
-            for leaf, _ in mod.named_parameters(recurse=False):
-                out.append(tuple(name.split(".")) + (leaf,))
+        group = dict(mod.named_parameters(recurse=False))
+        prefix = tuple(name.split(".")) if name else ()
+        for leaf_name in group:
+            path = prefix + (leaf_name,)
+            if any(rule.match(path, group) for rule in rules):
+                out.append(path)
     return tuple(SEP.join(p) for p in sorted(out))
 
 
@@ -94,12 +146,16 @@ class BayesianModel:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def mc_apply_fused(self, seed: int, n_samples: int, input_ids,
-                       attention_mask=None, token_type_ids=None, *,
+    def mc_apply_fused(self, seed: int, n_samples: int, *args,
                        save_weights: bool = True, antithetic: bool = False,
-                       impl: str = "kernel", eps_hook=None):
+                       impl: str = "kernel", eps_hook=None,
+                       untile_axes: tuple[int, ...] = (), **inputs):
         """S Monte-Carlo forwards as one S-major super-batch through the
-        fused tier. Returns ``(logits (S, B, ...), aux)`` with aux's
+        fused tier, of the model's inputs (``args`` and ``inputs``, as the
+        model's forward takes them: ``input_ids, attention_mask,
+        token_type_ids`` for the text models, ``pixel_values`` for ViT,
+        ``input_ids, pixel_values, attention_mask`` for CLIP). Returns
+        ``(logits (S, B, ...), aux)`` with aux's
         ``log_prior`` / ``log_variational_posterior`` of shape (S,).
         ``antithetic=False`` (the default, as in the reference) draws each
         sample's weights independently; ``antithetic=True`` draws one eps
@@ -114,14 +170,16 @@ class BayesianModel:
         (:func:`nn.fused.derive_seed`). ``impl="plain"`` runs every op's
         plain version on the tensors' device (the reference for the kernels
         on the card); ``eps_hook(path, n_draws, shape)`` supplies each
-        leaf's draw (tests only; implies the plain versions)."""
+        leaf's draw (tests only; implies the plain versions).
+        ``untile_axes``: the output's other S-tiled axes, of which each
+        sample's diagonal block is kept (CLIP's similarity: ``(1,)``;
+        ``nn.fused.untile_samples``)."""
         from bayeformers_tpu_torch.nn import fused as fused_lib
 
         return fused_lib.fused_mc_apply(
-            self, seed, n_samples, input_ids, attention_mask, token_type_ids,
-            save_weights=save_weights, antithetic=antithetic, impl=impl,
-            eps_hook=eps_hook,
-        )
+            self, seed, n_samples, *args, save_weights=save_weights,
+            antithetic=antithetic, impl=impl, eps_hook=eps_hook,
+            untile_axes=untile_axes, **inputs)
 
     def sample(self, generator: torch.Generator):
         """Draw one concrete set of converted leaves with ``generator`` (the
@@ -149,19 +207,17 @@ class BayesianModel:
         p = self.spec.prior
         return torch.sum(mixture_log_pdf(w, p.pi, p.sigma1, p.sigma2), dim=dim)
 
-    def apply(self, generator: torch.Generator, input_ids, attention_mask=None,
-              token_type_ids=None):
-        """One stochastic forward: the model run on the leaves of
-        :meth:`sample`. Returns ``(output, aux)`` with aux's ``log_prior``
-        and ``log_variational_posterior`` scalars."""
+    def apply(self, generator: torch.Generator, *args, **inputs):
+        """One stochastic forward of the model's inputs: the model run on
+        the leaves of :meth:`sample`. Returns ``(output, aux)`` with aux's
+        ``log_prior`` and ``log_variational_posterior`` scalars."""
         params, log_p, log_q = self.sample(generator)
         out = torch.func.functional_call(
-            self.model, {p.replace(SEP, "."): w for p, w in params.items()},
-            (input_ids, attention_mask, token_type_ids))
+            self.model, {p.replace(SEP, "."): w for p, w in params.items()}, args, inputs)
         return out, {"log_prior": log_p, "log_variational_posterior": log_q}
 
-    def mc_apply(self, seed: int, n_samples: int, input_ids, attention_mask=None,
-                 token_type_ids=None, *, impl: str = "kernel", eps_hook=None):
+    def mc_apply(self, seed: int, n_samples: int, *args, impl: str = "kernel",
+                 eps_hook=None, untile_axes: tuple[int, ...] = (), **inputs):
         """The naive tier: S Monte-Carlo forwards, each on its own draw of
         every converted leaf, as one S-major super-batch with per-sample
         (S, K, N) weights, which computes what the reference's vmap of
@@ -172,32 +228,30 @@ class BayesianModel:
         runs its kernels. Returns ``(logits (S, B, ...), aux)`` with aux's
         ``log_prior`` / ``log_variational_posterior`` of shape (S,).
         ``eps_hook(path, shape)`` supplies each leaf's (S, *shape) eps (tests
-        only; implies ``impl="plain"``)."""
+        only; implies ``impl="plain"``). Inputs and ``untile_axes`` as in
+        :meth:`mc_apply_fused`."""
         from bayeformers_tpu_torch.nn import naive as naive_lib
 
-        return naive_lib.naive_mc_apply(self, seed, n_samples, input_ids, attention_mask,
-                                        token_type_ids, impl=impl, eps_hook=eps_hook)
+        return naive_lib.naive_mc_apply(self, seed, n_samples, *args, impl=impl,
+                                        eps_hook=eps_hook, untile_axes=untile_axes,
+                                        **inputs)
 
-    def mc_apply_flipout(self, seed: int, n_samples: int, input_ids, attention_mask=None,
-                         token_type_ids=None, **kwargs):
+    def mc_apply_flipout(self, seed: int, n_samples: int, *args, **kwargs):
         """The flipout estimator (``nn/flipout.py``): per-example
         decorrelated perturbations around shared weight draws and the
         analytic KL. Same return contract as :meth:`mc_apply`, with the KL
         in aux's ``kl``."""
         from bayeformers_tpu_torch.nn import flipout as flipout_lib
 
-        return flipout_lib.flipout_mc_apply(self, seed, n_samples, input_ids,
-                                            attention_mask, token_type_ids, **kwargs)
+        return flipout_lib.flipout_mc_apply(self, seed, n_samples, *args, **kwargs)
 
-    def mc_apply_lrt(self, seed: int, n_samples: int, input_ids, attention_mask=None,
-                     token_type_ids=None, **kwargs):
+    def mc_apply_lrt(self, seed: int, n_samples: int, *args, **kwargs):
         """The local reparameterization estimator (``nn/lrt.py``):
         activations drawn from their exact Gaussian marginals and the
         analytic KL. Same return contract as :meth:`mc_apply_flipout`."""
         from bayeformers_tpu_torch.nn import lrt as lrt_lib
 
-        return lrt_lib.lrt_mc_apply(self, seed, n_samples, input_ids, attention_mask,
-                                    token_type_ids, **kwargs)
+        return lrt_lib.lrt_mc_apply(self, seed, n_samples, *args, **kwargs)
 
     # -- trainability -------------------------------------------------------
     def trainable_mask(self) -> dict[str, dict[str, bool]]:
@@ -242,7 +296,8 @@ def to_bayesian(model: nn.Module, *,
                 initialization: init_lib.UniformInit = init_lib.DEFAULT_UNIFORM,
                 prior: prior_lib.ScaleMixturePrior = prior_lib.DEFAULT_SCALE_MIXTURE,
                 delta: Optional[float] = None, freeze: bool = False,
-                generator: Optional[torch.Generator] = None) -> BayesianModel:
+                generator: Optional[torch.Generator] = None,
+                rules: Sequence[ConversionRule] = DEFAULT_RULES) -> BayesianModel:
     """Convert a port model into a Bayesian one, in place, with the
     reference's signature and defaults (``bayeformers/__init__.py:19-24``;
     the JAX package's ``rng`` is ``generator`` here):
@@ -256,8 +311,11 @@ def to_bayesian(model: nn.Module, *,
       copy of w (``prior_mu``); ``freeze`` keeps ``mu`` fixed (and the prior
       then sits on mu itself, with no copy).
 
-    ``freeze`` applies to MOPED only, as in the reference."""
-    paths = find_convertible_paths(model)
+    ``freeze`` applies to MOPED only, as in the reference. ``rules`` picks
+    the converted leaves (:data:`DEFAULT_RULES`: the Dense layers; add
+    :data:`CONV_RULE` and :data:`EMBEDDING_RULE` for convolutions and
+    embedding tables)."""
+    paths = find_convertible_paths(model, rules)
     rho, prior_mu = {}, {}
     frozen = freeze and delta is not None
     with torch.no_grad():

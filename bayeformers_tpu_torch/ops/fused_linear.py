@@ -158,14 +158,17 @@ def regenerate_weights_cuda(mu, rho, seeds, *, antithetic: bool = False, offsets
 
 class SampledWeights(torch.autograd.Function):
     """The reference's ``sampled_weights`` custom VJP: W from
-    :func:`regenerate_weights` (or from an injected ``eps``), and the
+    :func:`regenerate_weights` (or from an injected ``eps``), pairs
+    interleaved as ``(w, 2 mu - w)`` when antithetic, and the
     reparametrisation backward ``dmu = sum_s g``, ``drho = sum_s g eps
-    sigmoid(rho)`` with ``eps = (W - mu) / sigma`` read back from W."""
+    sigmoid(rho)`` with each member's ``eps = (W - mu) / sigma`` read back
+    from W (a pair's second member reads ``-eps``, the gradient that the
+    reference's ``interleave_antithetic`` of the first members carries)."""
 
     @staticmethod
-    def forward(ctx, mu, rho, seeds, eps, plain):
-        w = (sample_weights(mu, rho, eps=eps) if eps is not None
-             else regenerate_weights(mu, rho, seeds, plain=plain))
+    def forward(ctx, mu, rho, seeds, eps, antithetic, plain):
+        w = (sample_weights(mu, rho, eps=eps, antithetic=antithetic) if eps is not None
+             else regenerate_weights(mu, rho, seeds, antithetic=antithetic, plain=plain))
         ctx.save_for_backward(mu, rho, w)
         return w
 
@@ -176,14 +179,19 @@ class SampledWeights(torch.autograd.Function):
         eps = (w - mu[None]) / sigma[None]
         dmu = torch.sum(g, dim=0)
         drho = torch.sum(g * eps, dim=0) * torch.sigmoid(rho)
-        return dmu, drho, None, None, None
+        return dmu, drho, None, None, None, None
 
 
-def sampled_weights(mu, rho, seeds, *, plain: bool = False, eps=None):
+def sampled_weights(mu, rho, seeds, *, antithetic: bool = False, plain: bool = False,
+                    eps=None):
     """Differentiable (S, K, N) sampled weights with :func:`bayes_linear`'s
     eps stream (the reference's ``sampled_weights``), for weights that flow
-    into the loss themselves. ``eps`` (S, K, N) injects the draw (tests)."""
-    return SampledWeights.apply(mu, rho, seeds, eps, plain)
+    into the loss themselves (a converted embedding table): one draw per
+    seed, or with ``antithetic`` the pairs of ``seeds`` (S/2,) interleaved,
+    which the reference forms by ``interleave_antithetic`` of its draws and
+    the card writes in one launch of #10's pair instance. ``eps`` (one a
+    draw, (S or S/2, K, N)) injects the draw (tests)."""
+    return SampledWeights.apply(mu, rho, seeds, eps, antithetic, plain)
 
 
 def bayes_linear_plain(x, mu, rho, seeds=None, *, antithetic: bool = False,

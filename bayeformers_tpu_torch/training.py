@@ -11,6 +11,13 @@ it through ``nn.fused.derive_seed``).
 Every estimator of the reference runs (:func:`pick_mc`): the fused tier's
 independent draws (``fused``) and antithetic pairs (``antithetic``), the
 naive tier, flipout and local reparameterization.
+
+``input_keys`` names the batch's model inputs, passed to the forward by
+name: the text models' ``("input_ids", "attention_mask",
+"token_type_ids")`` (the default), ViT's ``("pixel_values",)``, CLIP's
+``("input_ids", "pixel_values", "attention_mask")``, whose similarity
+couples the two tiled batches and takes ``untile_axes=(1,)``
+(``nn/fused.py::untile_samples``).
 """
 from __future__ import annotations
 
@@ -116,7 +123,8 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
                          input_keys: tuple[str, ...] = INPUT_KEYS,
                          estimator: Optional[str] = None,
                          mc_chunk: Optional[int] = None,
-                         eps_hook: Optional[Callable] = None):
+                         eps_hook: Optional[Callable] = None,
+                         untile_axes: tuple[int, ...] = ()):
     """Returns ``step(seed, batch) -> metrics`` (detached 0-d tensors:
     loss, nll, acc/acc_std or mse/mse_std, log_prior,
     log_variational_posterior), which updates the trainable tensors of
@@ -131,7 +139,8 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
     estimator's forward calls its hook with ``args`` (the fused tier's
     ``(path, n_draws, shape)``, flipout's and LRT's ``(path, what, shape)``,
     the naive tier's ``(path, shape)``). An antithetic chunk must be even;
-    the others may be odd."""
+    the others may be odd. ``untile_axes`` goes to the forward (CLIP:
+    ``(1,)``)."""
     mc = pick_mc(bmodel, fused, estimator)
     n_chunks, chunk = 1, n_samples
     if mc_chunk is not None and mc_chunk < n_samples:
@@ -146,7 +155,7 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
             hook = None if eps_hook is None else functools.partial(eps_hook, c)
             loss, metrics = elbo_objective(
                 mc, seed if n_chunks == 1 else derive_seed(seed, c), chunk, batch,
-                n_batches, loss_fn, input_keys, eps_hook=hook)
+                n_batches, loss_fn, input_keys, eps_hook=hook, untile_axes=untile_axes)
             loss.backward()
             for k, v in metrics.items():
                 v = torch.as_tensor(v).detach()
@@ -166,16 +175,18 @@ def make_elbo_eval_step(bmodel, n_samples: int,
                         loss_fn: Callable = classification_loss,
                         fused: bool = True,
                         input_keys: tuple[str, ...] = INPUT_KEYS,
-                        estimator: Optional[str] = None):
+                        estimator: Optional[str] = None,
+                        untile_axes: tuple[int, ...] = ()):
     """Returns ``eval_step(seed, batch) -> (out, metrics)``, run under
     ``torch.inference_mode()`` (the fused tier without weight residuals);
-    ``fused`` and ``estimator`` as in :func:`pick_mc`."""
+    ``fused`` and ``estimator`` as in :func:`pick_mc`, ``untile_axes`` as in
+    :func:`make_elbo_train_step`."""
     mc = pick_mc(bmodel, fused, estimator, save_weights=False)
 
     @torch.inference_mode()
     def eval_step(seed: int, batch: dict):
         inputs = {k: batch[k] for k in input_keys if k in batch}
-        out, aux = mc(seed, n_samples, **inputs)
+        out, aux = mc(seed, n_samples, **inputs, untile_axes=untile_axes)
         nll, metrics = loss_fn(out, batch)
         metrics = dict(
             metrics, nll=nll, log_prior=torch.mean(aux["log_prior"]),

@@ -206,10 +206,36 @@ Phases, each timed, each raising on failure:
     same features bit for bit; (d) ``mlp_mnist --estimator fused
     --limit-batches 3`` on MNIST idx files.
 
+20. the vision families, convolutions and embedding tables
+    (:func:`phase20`): (a) #3 and #5 at ViT's shapes (N = S B = 80, L =
+    197, H = 768, 12 heads; f32 also N = 20; ViT-tiny's L = 17, 2 heads)
+    at the attention gates, and a planted fault that must fail them, the
+    plain version with each query also seeing one key of the next sequence
+    (:func:`attention20`); (b) the forward and reduce kernels at ViT's
+    shapes (the patch conv's im2col, 768 -> 768 at M = 8 x 196; the
+    encoder at M = 8 x 197; the 1000-way head), CLIP's bias-free patch
+    conv (3072 -> 768 at M = 8 x 49) and TinyCNN's K = 27 and K = 16 convs,
+    both estimators; (c) #10 at BERT-base's tables (30522, 512 and 2 rows
+    of 768), pair and independent instances, and the ``sampled_weights``
+    VJP, bit-equal to the plain versions (:func:`embed_regen20`); (d)
+    ViT-base/16 at its published widths (seed 0, frozen MOPED 0.05 under
+    ``(*DEFAULT_RULES, CONV_RULE)``: the patch conv Bayesian) served at S =
+    10, B = 8 under both estimators (outputs and the posterior summary
+    against the plain path, :func:`serve_vision`) and trained (bf16 steps
+    against the plain step, an independent-draw step, an f32 request and
+    step at B = 2; :func:`train_vision`), flipout and LRT (a forward and a
+    step each) and the naive tier (a forward at B = 2), launches counted
+    around each; (e) CLIP at ViT-B/32's widths with ``CONV_RULE``, its
+    fused forward untiled by ``untile_axes=(1,)`` and one contrastive ELBO
+    step against the plain path; TinyCNN served and trained; (f) BERT-base
+    with ``EMBEDDING_RULE``: an antithetic request (#10's pair instance a
+    table) and an independent-draw step against the plain path, an LRT
+    request, and flipout raising as the reference does.
+
 The timed requests and steps of phases 13-16 are three each
 (:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``,
-``--from 18``, ``--from 19``) runs the build, the eps stream and the phases
-from there on only. The line before the last is a JSON object with one entry per kernel,
+``--from 18``, ``--from 19``, ``--from 20``) runs the build, the eps stream
+and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -4273,6 +4299,586 @@ def phase19(bt, fl, fb, at, moped_rho, paths) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the vision families (ViT, CLIP), convolutions (CONV_RULE) and
+# embedding tables (EMBEDDING_RULE)
+# ---------------------------------------------------------------------------
+
+# the main paths of phase 20 by their launch paths' prefix: ViT-base/16 at
+# its published widths (google/vit-base-patch16-224), CLIP at
+# openai/clip-vit-base-patch32's widths, the reference's TinyCNN, and
+# BERT-base with its embedding tables converted
+VIT, CLIP, CNN, EMB = "vit/", "clip/", "cnn/", "bert-emb/"
+VIT_B, VIT_L = 8, 197
+CLIP_L, CLIP_EOS = 77, 49407
+CLIP_B32 = dict(
+    text_config=dict(vocab_size=49408, hidden_size=512, intermediate_size=2048,
+                     num_hidden_layers=12, num_attention_heads=8,
+                     max_position_embeddings=CLIP_L),
+    vision_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                       num_attention_heads=12, image_size=224, patch_size=32),
+    projection_dim=512)
+# the linear kernels' new shapes (M a draw, B = 8): ViT's patch conv as an
+# im2col product (196 patches, K = 3 x 16 x 16 = 768), its encoder at L = 197
+# and its 1000-way head; CLIP's bias-free patch conv (49 patches, K = 3 x 32
+# x 32 = 3072); TinyCNN's convs, K = 3 x 3 x 3 = 27 and K = 2 x 2 x 4 = 16
+# (x rows of 54 and 32 bytes in bf16, which the product copies into 16-byte
+# rows)
+FAMILY_SHAPES[VIT] = ((VIT_B * 196, 768, 768), (VIT_B * VIT_L, 768, 768),
+                      (VIT_B * VIT_L, 768, 3072), (VIT_B * VIT_L, 3072, 768),
+                      (VIT_B, 768, 1000))
+FAMILY_SHAPES[CLIP] = ((VIT_B * 49, 3072, 768),)
+FAMILY_SHAPES[CNN] = ((VIT_B * 16, 27, 4), (VIT_B * 4, 16, 4))
+# BERT-base's tables (words, positions, token types), #10's new shapes
+EMB_TABLES = ((30522, 768), (512, 768), (2, 768))
+
+
+class TinyCNN(torch.nn.Module):
+    """The JAX package's test net (``tests/test_conv.py:22-35``) from the
+    port's ``Conv`` and ``Dense``: (N, 8, 8, 3) images through a strided
+    SAME conv, ReLU, a dilated VALID conv, and a 5-way head; weights
+    0.3 N(0, 1) from seed 20."""
+
+    input_keys = ("x",)
+
+    def __init__(self, dtype):
+        from bayeformers_tpu_torch.nn.conv import Conv
+        from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
+
+        super().__init__()
+        self.c0 = Conv(3, 4, (3, 3), strides=(2, 2), padding="SAME", device="cuda")
+        self.c1 = Conv(4, 4, (2, 2), padding="VALID", kernel_dilation=(2, 2), device="cuda")
+        self.head = Dense(16, 5, device="cuda")
+        self.dtype = dtype
+        assign_paths(self)
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(0.3 * torch.randn(p.shape, device="cuda", generator=gen))
+        self.requires_grad_(False)
+
+    def forward(self, x, mc=None):
+        x = self.c1(torch.relu(self.c0(x.to(self.dtype), mc)), mc)
+        return self.head(x.reshape(x.shape[0], -1), mc)
+
+
+def vision_base(bt, which, dtype):
+    """The converted model of a phase-20 path in ``dtype`` activations, from
+    seed 0, frozen MOPED 0.05: ViT-base/16 (1000 labels), CLIP B/32 and
+    TinyCNN under ``(*DEFAULT_RULES, CONV_RULE)``, their zero leaves at 0.01
+    first (MOPED would give a zero weight sigma = softplus(0) = 0.69, as for
+    GPT-2); BERT-base under ``(*DEFAULT_RULES, EMBEDDING_RULE)``, as the
+    other phases build it. Returns it and its trainable tensors."""
+    rules = (*bt.DEFAULT_RULES, bt.EMBEDDING_RULE if which == EMB else bt.CONV_RULE)
+    if which == VIT:
+        model = bt.build_vit(size="base", n_labels=1000, seed=0, dtype=dtype, device="cuda")
+    elif which == CLIP:
+        model = bt.build_clip(seed=0, dtype=dtype, device="cuda", **CLIP_B32)
+    elif which == CNN:
+        model = TinyCNN(dtype)
+    else:
+        model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
+    if which != EMB:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.masked_fill_(p == 0, 0.01)
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True, rules=rules)
+    return bmodel, bmodel.trainable_parameters()
+
+
+def vision_inputs(bt, which, B, seed=7) -> dict:
+    """A seeded batch of a phase-20 path on the card: ViT's 224-pixel
+    separable images of 1000 classes; CLIP's paired images and 77-id
+    captions, EOS-terminated, half of them ending at position 60 with the
+    rest padded; TinyCNN's 8x8 images; BERT's 8x128 batch."""
+    from bayeformers_tpu_torch.models import clip, vit
+
+    rng = np.random.default_rng(seed)
+    if which == VIT:
+        d = vit.synthetic_image_batch(rng, B, 224, n_labels=1000)
+    elif which == CLIP:
+        d = clip.synthetic_clip_batch(rng, B, CLIP_L, 224, 49408, eos_token_id=CLIP_EOS)
+        ids, mask = d["input_ids"].astype(np.int64), np.ones((B, CLIP_L), np.int64)
+        ids[B // 2:, 60], ids[B // 2:, 61:], mask[B // 2:, 61:] = CLIP_EOS, 0, 0
+        d.update(input_ids=ids, attention_mask=mask)
+    elif which == CNN:
+        d = {"x": rng.normal(size=(B, 8, 8, 3)).astype(np.float32),
+             "labels": rng.integers(0, 5, B)}
+    else:
+        return train_batch(bt, B)
+    return {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in d.items()}
+
+
+def vision_keys(bmodel) -> tuple[str, ...]:
+    from bayeformers_tpu_torch.models import families
+
+    return families.input_keys(bmodel.model)
+
+
+UNTILE = {CLIP: (1,)}
+
+
+def vision_loss(bt, which):
+    """The ELBO objective's task loss: CLIP's summed contrastive loss of the
+    S-averaged similarity; classification elsewhere."""
+    if which != CLIP:
+        return bt.training.classification_loss
+    from bayeformers_tpu_torch.models.clip import clip_contrastive_loss
+
+    return lambda out, batch: (clip_contrastive_loss(out.float().mean(0)), {})
+
+
+def vision_forward(bt, bmodel, which, estimator, inputs, seed=12345, impl="kernel"):
+    """One S = 10 forward of the path's model through ``estimator``'s tier
+    without gradients (the fused tier writes no W): (outputs, aux)."""
+    mc = bt.training.pick_mc(bmodel, True, estimator, save_weights=False)
+    args = {k: inputs[k] for k in vision_keys(bmodel) if k in inputs}
+    with torch.inference_mode():
+        return mc(seed, 10, **args, impl=impl, untile_axes=UNTILE.get(which, ()))
+
+
+def vision_rows(which, path, B) -> int:
+    """M a draw of a converted kernel: its layer's rows at batch B."""
+    if which == VIT:
+        return (B * 196 if "patch_embeddings" in path
+                else B if path.startswith("classifier") else B * VIT_L)
+    if which == CLIP:
+        if "patch_embedding" in path:
+            return B * 49
+        return B if "projection" in path else B * (50 if path.startswith("vision") else CLIP_L)
+    if which == CNN:
+        return {"c0": B * 16, "c1": B * 4, "head": B}[path.split("/")[0]]
+    return B if path.startswith("classifier") or "pooler" in path else B * 128
+
+
+def vision_want(bmodel, which, B, tag, anti, n_req=0, n_steps=0) -> dict:
+    """The fused tier's launches over ``n_req`` requests or ``n_steps``
+    steps (S = 10) of a phase-20 path: the forward kernel (the reduce a
+    step) once a converted kernel, at its (K, N) view (a conv's
+    channel-major (cin kh kw, cout)), M its layer's rows; #10 once a
+    converted table a forward, its pair instance for antithetic draws; in
+    an f32 antithetic step #10's pair instance once a layer whose K rounds
+    up above 2048 (the reference's route); attention (ViT, BERT) once a
+    layer a forward (its backward a step), none in CLIP, whose attention
+    is plain torch as in the reference."""
+    from bayeformers_tpu_torch.ops import common
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+
+    n = n_req + n_steps
+    fwd, red, regen = {}, {}, {}
+
+    def add(d, key, k):
+        d[key] = d.get(key, 0) + k
+
+    for p in bmodel.spec.paths:
+        shape = tuple(bmodel.rho[p].shape)
+        if p.endswith("/embedding"):
+            add(regen, (5,) + shape + ("pair",) if anti else (10,) + shape, n)
+            continue
+        if not p.endswith("/kernel"):
+            continue
+        K, N = math.prod(shape[:-1]), shape[-1]
+        key = (vision_rows(which, p, B), K, N, tag)
+        add(fwd, key, n)
+        if n_steps:
+            add(red, key, n_steps)
+            if tag == "f32" and anti and common.round_up(K, common.UNIT_K) > \
+                    fl.ANTI_F32_SAVED_MAX_KP:
+                add(regen, (5, K, N, "pair"), n_steps)
+    want = {"bayes_linear_anti" if anti else "bayes_linear": fwd}
+    if n_steps:
+        want["reduce_abuv_anti" if anti else "reduce_abuv"] = red
+    if regen:
+        want["regen"] = regen
+    if which in (VIT, EMB):
+        akey = (10 * B, VIT_L if which == VIT else 128, 768, tag, False)
+        want["mha_fwd"] = {akey: 12 * n}
+        if n_steps:
+            want["mha_bwd"] = {akey: 12 * n_steps}
+    return want
+
+
+NAMES20 = {VIT: "ViT-base/16", CLIP: "CLIP ViT-B/32", CNN: "TinyCNN", EMB: "BERT-base tables"}
+
+
+def f32_gate20(bt, which, estimator, inputs, lk, lp) -> str:
+    """bf16 outputs through the kernels no farther from the f32 plain run's
+    (the same weights and draws) than 1.5x the bf16 plain path's, in max
+    |d| and relative L2 (:func:`f32_logits_gate`'s rule)."""
+    m32, _ = vision_base(bt, which, F32)
+    l32 = vision_forward(bt, m32, which, estimator, inputs, impl="plain")[0].float()
+    del m32
+
+    def dist(a):
+        d = a.float() - l32
+        return d.abs().max().item(), (d.norm() / l32.norm()).item()
+
+    (kd, kr), (pd, pr) = dist(lk), dist(lp)
+    check(kd <= 1.5 * pd and kr <= 1.5 * pr,
+          f"{NAMES20[which]} {estimator} bf16 outputs: the kernels are farther from the f32 "
+          f"plain run (max|d| {kd}, rel L2 {kr}) than 1.5x the bf16 plain path (max|d| "
+          f"{pd}, rel L2 {pr})")
+    torch.cuda.empty_cache()
+    return (f"outputs against the f32 plain run: kernels max|d| {kd:.4g} rel L2 {kr:.4g}, "
+            f"bf16 plain max|d| {pd:.4g} rel L2 {pr:.4g} (gate 1.5x); kernels vs bf16 "
+            f"plain max|d| {max_dist(lk, lp):.4g}")
+
+
+def summary20(bt, which, out, inputs) -> str:
+    """The posterior summary of a forward: the MC-mean logits' accuracy and
+    the per-draw accuracy std (classification), or the contrastive loss of
+    the S-averaged similarity (CLIP); finite."""
+    if which == CLIP:
+        loss = vision_loss(bt, CLIP)(out, inputs)[0].item()
+        check(np.isfinite(loss), f"CLIP contrastive loss {loss}")
+        return f"contrastive loss of the mean similarity {loss:.6g}"
+    mean = bt.elbo.mc_logits_mean(out)
+    acc, std = bt.elbo.accuracy_and_std(out, inputs["labels"])
+    check(bool(torch.isfinite(mean.float()).all()) and np.isfinite(float(acc))
+          and np.isfinite(float(std)), "summary not finite")
+    return f"mc_logits_mean accuracy {float(acc):.4f}, per-draw std {float(std):.4f}"
+
+
+def serve_vision(bt, fl, fb, at, which, anti, dtype=BF16, B=VIT_B) -> tuple[dict, float]:
+    """A phase-20 model's fused forward (S = 10) at batch B: a warm-up, then
+    :data:`TIMED` requests with the launches read around exactly them
+    (:func:`vision_want`), the log-probs against the plain path (1e-5
+    relative), the outputs against it (bf16: :func:`f32_gate20`; f32: 1e-4
+    absolute), the posterior summary of both, the latency and the peak
+    memory. Returns (launches, median ms)."""
+    bmodel, named = vision_base(bt, which, dtype)
+    del named
+    est, tag = ("antithetic" if anti else "fused"), TAG[dtype]
+    label = f"{NAMES20[which]} request ({est}, {tag}, {B} a batch)"
+    inputs = vision_inputs(bt, which, B)
+    vision_forward(bt, bmodel, which, est, inputs, 1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for i in range(TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vision_forward(bt, bmodel, which, est, inputs, 10 + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    counts = lm_counts(fl, fb, at)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = vision_want(bmodel, which, B, tag, anti, n_req=TIMED)
+    check(counts == want, f"{label}: launches over {TIMED} requests {counts}, want {want}")
+    lk, auxk = vision_forward(bt, bmodel, which, est, inputs)
+    lp, auxp = vision_forward(bt, bmodel, which, est, inputs, impl="plain")
+    check(bool(torch.isfinite(lk.float()).all()), f"{label}: outputs not finite")
+    for k in auxk:
+        check(torch.allclose(auxk[k], auxp[k], rtol=1e-5, atol=0.0),
+              f"{label}: {k} {auxk[k]} vs plain {auxp[k]}")
+    if dtype == BF16:
+        note = f32_gate20(bt, which, est, inputs, lk, lp)
+    else:
+        err = max_dist(lk, lp)
+        check(err <= 1e-4, f"{label}: outputs differ from the plain path by {err}")
+        note = f"outputs kernels vs plain max|d| {err:.4g} (gate 1e-4)"
+    note += f"; {summary20(bt, which, lk, inputs)} (plain: {summary20(bt, which, lp, inputs)})"
+    ms = float(np.median(lat))
+    say(f"{label}: launches over {TIMED} requests {counts}; {note}; log-probs within 1e-5 "
+        f"of the plain path; latency median {ms:.3f} ms of {TIMED}: "
+        f"{[round(v, 3) for v in lat]}; peak memory {peak:.2f} GiB")
+    del bmodel, lk, lp
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def grads20(bt, bmodel, named, which, batch, impl, estimator):
+    """Loss and gradients of one ELBO objective (S = 10, 256 batches) at the
+    draws of seed 123."""
+    for _, t, _ in named:
+        t.grad = None
+    mc = bt.training.pick_mc(bmodel, True, estimator)
+    loss, _ = bt.training.elbo_objective(
+        mc, 123, 10, batch, 256, vision_loss(bt, which), vision_keys(bmodel), impl=impl,
+        untile_axes=UNTILE.get(which, ()))
+    loss.backward()
+    return loss.item(), {n: t.grad.clone() for n, t, _ in named}
+
+
+def train_vision(bt, fl, fb, at, sl, lpm, which, estimator, dtype=BF16, B=VIT_B, n_steps=2,
+                 compare=True) -> tuple[dict, float]:
+    """A phase-20 model's ELBO step (S = 10) at batch B: with ``compare``,
+    its loss and gradients through the kernels against the plain step at
+    the same draws (bf16: loss 1e-2 relative, rho 5e-2 relative L2 and
+    cosine 0.999, the other groups read; f32: loss 1e-6, every group 1e-3
+    relative L2), then ``n_steps`` timed steps with the launches read
+    around exactly them (the fused tier: :func:`vision_want`; flipout,
+    LRT: :func:`want_counts`) and the peak memory. Returns (launches,
+    median ms)."""
+    bmodel, named = vision_base(bt, which, dtype)
+    tag = TAG[dtype]
+    label = f"{NAMES20[which]} step ({estimator}, {tag}, {B} a batch)"
+    batch = vision_inputs(bt, which, B)
+    if compare:
+        loss_k, gk = grads20(bt, bmodel, named, which, batch, "kernel", estimator)
+        torch.cuda.empty_cache()
+        loss_p, gp = grads20(bt, bmodel, named, which, batch, "plain", estimator)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        check(np.isfinite(loss_k) and loss_rel <= (1e-6 if dtype == F32 else 1e-2),
+              f"{label}: loss kernels {loss_k} vs plain {loss_p}")
+        notes = []
+        for group, names in grad_groups(list(gk)).items():
+            rel, cos, at_ = worst_agreement(gk, gp, names)
+            notes.append(f"{group} rel L2 {rel:.4g} (worst leaf, {at_}), cosine {cos:.7f}")
+            if dtype == F32:
+                check(rel <= 1e-3, f"{label}: {group} gradients differ from the plain f32 "
+                      f"step: rel L2 {rel} at {at_}")
+            elif group == "rho":
+                check(rel <= 5e-2 and cos >= 0.999, f"{label}: rho gradients differ from "
+                      f"the plain step: rel L2 {rel}, cosine {cos}")
+        say(f"{label}: loss kernels {loss_k:.9g} vs plain {loss_p:.9g} (rel {loss_rel:.3g}); "
+            "gradients kernels vs plain: " + "; ".join(notes))
+        del gk, gp
+        torch.cuda.empty_cache()
+    opt = bt.training.adamw_with_decay_groups(2e-5, 0.0, bt.training.default_no_decay).init(
+        named)
+    stepf = bt.training.make_elbo_train_step(
+        bmodel, opt, 10, 256, loss_fn=vision_loss(bt, which), input_keys=vision_keys(bmodel),
+        estimator=estimator, untile_axes=UNTILE.get(which, ()))
+    stepf(55, batch)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = stepf(1000 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"{label}: step {i} loss {m['loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if estimator in ("antithetic", "fused"):
+        counts = lm_counts(fl, fb, at)
+        want = vision_want(bmodel, which, B, tag, estimator == "antithetic", n_steps=n_steps)
+        check(counts == want, f"{label}: launches over {n_steps} steps {counts}, want {want}")
+    else:
+        counts = estimator_counts(fl, fb, at, sl, lpm)
+        n_layers = len([p for p in bmodel.spec.paths if p.endswith("/kernel")])
+        want = want_counts(estimator, "on_mu", n_layers, 12 if which == VIT else 0, n_steps)
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"{label}: {n_steps} steps launched {counts}, want {want} (0 elsewhere)")
+    ms = float(np.median(times))
+    say(f"{label}: launches over {n_steps} steps {counts}; ELBO step median {ms:.3f} ms of "
+        f"{n_steps}: {[round(v, 3) for v in times]}; peak memory {peak:.2f} GiB")
+    del opt, stepf, named, bmodel
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def tier_vision(bt, fl, fb, at, sl, lpm, which, estimator, B=VIT_B) -> tuple[dict, float]:
+    """A forward of flipout, LRT or the naive tier (bf16, S = 10) at batch
+    B: the launches of one request (:func:`want_counts`), the outputs
+    against the tier's plain run (5e-2, the gate of phase 14's bf16
+    estimators), the KL or log-probs within 1e-5, reruns bit-equal, the
+    latency. Returns (launches, ms)."""
+    bmodel, named = vision_base(bt, which, BF16)
+    del named
+    label = f"{NAMES20[which]} request ({estimator}, bf16, {B} a batch)"
+    inputs = vision_inputs(bt, which, B)
+    vision_forward(bt, bmodel, which, estimator, inputs, 1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    t = time.perf_counter()
+    lk, auxk = vision_forward(bt, bmodel, which, estimator, inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = estimator_counts(fl, fb, at, sl, lpm)
+    n_layers = len([p for p in bmodel.spec.paths if p.endswith("/kernel")])
+    want = want_counts(estimator, "on_mu", n_layers, 12 if which in (VIT, EMB) else 0, 0)
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{label}: one request launched {counts}, want {want} (0 elsewhere)")
+    again, _ = vision_forward(bt, bmodel, which, estimator, inputs)
+    lp, auxp = vision_forward(bt, bmodel, which, estimator, inputs, impl="plain")
+    err = max_dist(lk, lp)
+    check(torch.equal(lk, again), f"{label}: reruns differ")
+    check(bool(torch.isfinite(lk.float()).all()) and err <= 5e-2,
+          f"{label}: outputs differ from the plain path by {err} (gate 5e-2)")
+    for k in auxk:
+        check(torch.allclose(auxk[k], auxp[k], rtol=1e-5, atol=0.0),
+              f"{label}: {k} {auxk[k]} vs plain {auxp[k]}")
+    say(f"{label}: launches {counts}; outputs kernels vs plain max|d| {err:.4g} (gate 5e-2); "
+        f"KL / log-probs within 1e-5; reruns equal; latency {ms:.3f} ms")
+    del bmodel, lk, lp, again
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def leaky_plain(q, k, v, bias, nh):
+    """A planted fault: plain attention in which each sequence's queries
+    also see the first key of the next sequence (a key tile that runs past
+    the end of its sequence in the flat (N L, H) layout)."""
+    N, L, H = q.shape
+    d = H // nh
+    k2 = torch.cat([k, k.roll(-1, 0)[:, :1]], 1).float().view(N, L + 1, nh, d)
+    v2 = torch.cat([v, v.roll(-1, 0)[:, :1]], 1).float().view(N, L + 1, nh, d)
+    b2 = torch.cat([bias, bias.roll(-1, 0)[:, :1]], 1)
+    s = torch.einsum("nqhd,nkhd->nhqk", q.float().view(N, L, nh, d), k2) / math.sqrt(d)
+    p = torch.softmax(s + b2[:, None, None, :], dim=-1)
+    return torch.einsum("nhqk,nkhd->nqhd", p, v2).reshape(N, L, H).to(q.dtype)
+
+
+def attention20(at, dtype) -> list[dict]:
+    """#3 and #5 at ViT's shapes (:func:`attention_checks`: ViT-base's N =
+    S B = 80, L = 197, H = 768, 12 heads, and in f32 the B = 2 step's N =
+    20; ViT-tiny's L = 17, 2 heads of 64), and a planted fault that must
+    fail the forward gate: the plain version with each query also seeing
+    one key of the next sequence (:func:`leaky_plain`)."""
+    shapes = ((80, VIT_L, 768, 12, False, "vit/anti" if dtype == BF16 else None),
+              (40, 17, 128, 2, False, None))
+    if dtype == F32:
+        shapes += ((20, VIT_L, 768, 12, False, "vit/anti"),)
+    rows = attention_checks(at, dtype, shapes)
+    for N, L, H, nh in ((80, VIT_L, 768, 12), (40, 17, 128, 2)):
+        gen = torch.Generator(device="cuda").manual_seed(L)
+        q, k, v = (torch.randn(N, L, H, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        bias = torch.zeros(N, L, device="cuda")
+        out = at.mha_cuda(q, k, v, bias, nh)
+        ref, fault = at.mha_plain(q, k, v, bias, nh), leaky_plain(q, k, v, bias, nh)
+        check(attn_gate_ok(out, ref, dtype) and not attn_gate_ok(out, fault, dtype),
+              f"mha ({TAG[dtype]}) N={N} L={L}: plain max|d| {max_dist(out, ref)}, the "
+              f"next-sequence key fault {max_dist(out, fault)} (must fail)")
+        say(f"mha ({TAG[dtype]}) N={N} L={L} H={H}, no mask: kernel vs plain max|d| "
+            f"{max_dist(out, ref):.3g}; a query seeing one key of the next sequence max|d| "
+            f"{max_dist(out, fault):.3g} (fails the gate)")
+    return rows
+
+
+def embed_regen20(fl, sass, rate) -> list[dict]:
+    """#10 at BERT-base's tables (30522, 512 and 2 rows of 768), its pair
+    (five pairs) and independent (ten draws) instances: W bit-equal to the
+    plain stream and a rerun, the ``sampled_weights`` VJP (dmu, drho of a
+    random cotangent) bit-equal to the plain one on the same W; each timed
+    against its plain version, the bound as :func:`phase_regen` counts it.
+    Rows: the pair instance's launches from the antithetic request of
+    BERT-base with its tables converted, the independent one's from its
+    independent-draw step."""
+    from bayeformers_tpu_torch.core.init import moped_rho
+
+    rows = []
+    for V, D in EMB_TABLES:
+        gen = torch.Generator(device="cuda").manual_seed(V)
+        mu = 0.02 * torch.randn(V, D, device="cuda", generator=gen)
+        rho = moped_rho(mu, 0.05)
+        for pair in (True, False):
+            S_ = 5 if pair else 10
+            seeds = torch.randint(0, 2**31 - 1, (S_,), device="cuda", generator=gen,
+                                  dtype=torch.int32)
+            w = fl.regenerate_weights(mu, rho, seeds, antithetic=pair)
+            again = fl.regenerate_weights(mu, rho, seeds, antithetic=pair)
+            plain = fl.regenerate_weights(mu, rho, seeds, antithetic=pair, plain=True)
+            where = f"regen {'pair' if pair else 'independent'} ({S_}, {V}, {D})"
+            check(torch.equal(w, again) and torch.equal(w, plain),
+                  f"{where}: differs from the plain stream or a rerun: max "
+                  f"{max_dist(w, plain)}")
+            g = torch.randn(w.shape, device="cuda", generator=gen)
+            grads = []
+            for plain_ in (False, True):
+                m, r = mu.clone().requires_grad_(), rho.clone().requires_grad_()
+                out = fl.sampled_weights(m, r, seeds, antithetic=pair, plain=plain_)
+                grads.append(torch.autograd.grad(out, (m, r), g))
+            check(all(torch.equal(a, b) for a, b in zip(*grads)),
+                  f"{where}: the sampled_weights VJP differs from the plain one")
+            del w, again, plain, g, grads, out
+            ms = time_ms(lambda: fl.regenerate_weights_cuda(mu, rho, seeds, antithetic=pair),
+                         10, windows=WINDOWS)
+            plain_ms = time_ms(lambda: fl.sample_weights(mu, rho, seeds, antithetic=pair), 2, 1)
+            n_mufu, n_all = regen_instructions(sass, pair, False, [(V, D)], S_)
+            b = bound_mufu(regen_bytes(S_, V, D, pair, False), n_mufu, rate)
+            say(f"{where}: W bit-equal to the plain stream and a rerun, the sampled_weights "
+                f"VJP bit-equal to the plain one; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]}; issue {issue_ms(n_all, rate):.4f} ms), no "
+                "library call")
+            rows.append(row(
+                f"{'regen_pair' if pair else 'regen'}[S={S_},K={V},N={D}]", "regen",
+                (S_, V, D) + (("pair",) if pair else ()),
+                f"serve/{EMB}anti/bf16" if pair else f"train/{EMB}indep/bf16",
+                "bayeformers_tpu_torch/csrc/regen.cu",
+                "bayeformers_tpu/ops/fused_linear.py:1143", 0.0, ms, plain_ms, b, None))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def flipout_refuses_tables(bt) -> str:
+    """Flipout has no embedding handler, as in the reference: BERT-base with
+    its tables converted raises on the card, naming them."""
+    bmodel, _ = vision_base(bt, EMB, BF16)
+    batch = vision_inputs(bt, EMB, 2)
+    try:
+        vision_forward(bt, bmodel, EMB, "flipout", batch)
+    except NotImplementedError as e:
+        check("word_embeddings" in str(e), f"flipout's refusal names no table: {e}")
+        return f"flipout with converted tables raises: {str(e)[:120]}..."
+    finally:
+        del bmodel
+        torch.cuda.empty_cache()
+    raise RuntimeError("chip_smoke: flipout ran a converted embedding table")
+
+
+def phase20(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate) -> tuple[list[dict], dict]:
+    """Phase 20 (module note): ViT's attention shapes, the linear kernels at
+    the conv shapes, #10 at BERT-base's tables, ViT-base/16 served and
+    trained under every tier, CLIP B/32, TinyCNN, and BERT-base with its
+    tables converted. Fills ``paths``; returns the rows and the request and
+    step medians."""
+    rows, ms = [], {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase 20 {label}: {time.perf_counter() - t:.2f} s")
+        return out
+
+    for dtype in (BF16, F32):
+        rows += timed(f"(a) attention ({TAG[dtype]})", attention20, at, dtype)
+    for anti in (True, False):
+        for fam in (VIT, CNN) + ((CLIP,) if anti else ()):
+            rows += timed(f"(b) bayes_linear {fam} ({anti})", phase_bayes_linear, fl,
+                          moped_rho, anti, BF16, "on_mu", fam)
+            rows += timed(f"(b) reduce {fam} ({anti})", phase_reduce, fl, fb, moped_rho, anti,
+                          "bf16", "on_mu", fam)
+    rows += timed("(c) regen at the tables", embed_regen20, fl, sass, rate)
+    # (d) ViT-base/16; (e) CLIP; TinyCNN; (f) BERT-base's tables
+    for which, ests in ((VIT, ("anti", "indep")), (CNN, ("anti", "indep")), (CLIP, ("anti",)),
+                        (EMB, ("anti",))):
+        for key in ests:
+            paths[f"serve/{which}{key}/bf16"], ms["request", which, key] = timed(
+                f"serve {which} ({key})", serve_vision, bt, fl, fb, at, which, key == "anti")
+    for which, est, n_steps, compare in ((VIT, "antithetic", 2, True), (VIT, "fused", 1, False),
+                                         (CNN, "antithetic", 1, True), (CNN, "fused", 1, True),
+                                         (CLIP, "antithetic", 1, True),
+                                         (EMB, "fused", 1, True)):
+        key = "anti" if est == "antithetic" else "indep"
+        paths[f"train/{which}{key}/bf16"], ms["step", which, key] = timed(
+            f"train {which} ({est})", train_vision, bt, fl, fb, at, sl, lpm, which, est,
+            BF16, VIT_B, n_steps, compare)
+    paths[f"serve/{VIT}anti/f32"], ms["request", VIT, "f32"] = timed(
+        "serve vit (f32, B=2)", serve_vision, bt, fl, fb, at, VIT, True, F32, 2)
+    paths[f"train/{VIT}anti/f32"], ms["step", VIT, "f32"] = timed(
+        "train vit (f32, B=2)", train_vision, bt, fl, fb, at, sl, lpm, VIT, "antithetic", F32,
+        2, 1)
+    for est in ("flipout", "local"):
+        _, ms["request", VIT, est] = timed(f"serve vit ({est})", tier_vision, bt, fl, fb, at,
+                                           sl, lpm, VIT, est)
+        _, ms["step", VIT, est] = timed(f"train vit ({est})", train_vision, bt, fl, fb, at, sl,
+                                        lpm, VIT, est, BF16, VIT_B, 1)
+    _, ms["request", VIT, "naive"] = timed("serve vit (naive, B=2)", tier_vision, bt, fl, fb,
+                                           at, sl, lpm, VIT, "naive", 2)
+    _, ms["request", EMB, "local"] = timed("serve bert tables (local)", tier_vision, bt, fl,
+                                           fb, at, sl, lpm, EMB, "local")
+    say(timed("flipout refuses tables", flipout_refuses_tables, bt))
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -4470,6 +5076,14 @@ def main() -> int:
         rows += phase19(bt, fl, fb, at, moped_rho, paths)
         say(f"phase 19 (file front end, BayesLinear MLP): {time.perf_counter() - t19:.2f} s")
 
+    vis_ms = {}
+    if first <= 20:
+        # phase 20: the vision families, convolutions and embedding tables
+        t20 = time.perf_counter()
+        rows20, vis_ms = phase20(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate)
+        rows += rows20
+        say(f"phase 20 (ViT, CLIP, convs, tables): {time.perf_counter() - t20:.2f} s")
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
@@ -4514,9 +5128,14 @@ def main() -> int:
             "ELBO step, S=10: " + "; ".join(f"{what} {name} ({tag}) {v:.3f} ms"
                                             for (what, name, tag), v in wide_ms.items()
                                             if v is not None))
-    say(f"{smi}; phase 18 (frozen MOPED, base width, S=10; QA 13x384, classification "
-        "8x128), request / ELBO step (ms) and peak (GiB): "
-        + "; ".join(f"{what} {name} ({key}) {v:.3f}" for (what, name, key), v in enc_ms.items())
+    if first <= 18:
+        say(f"{smi}; phase 18 (frozen MOPED, base width, S=10; QA 13x384, classification "
+            "8x128), request / ELBO step (ms) and peak (GiB): "
+            + "; ".join(f"{what} {name} ({key}) {v:.3f}"
+                        for (what, name, key), v in enc_ms.items()))
+    say(f"{smi}; phase 20 (frozen MOPED, S=10, B=8 unless named), request / ELBO step (ms): "
+        + "; ".join(f"{what} {NAMES20[which]} ({key}) {v:.3f}"
+                    for (what, which, key), v in vis_ms.items())
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

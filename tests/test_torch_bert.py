@@ -331,7 +331,8 @@ def test_no_fallback_without_a_card(monkeypatch):
 
 def test_port_imports_and_serves_without_jax():
     """The port needs none of jax, flax, optax, transformers or the JAX
-    package: with their imports blocked it imports and serves a request."""
+    package: with their imports blocked it imports, runs the tiny ViT and
+    CLIP with every rule, and serves a request."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "transformers",
@@ -341,6 +342,16 @@ def test_port_imports_and_serves_without_jax():
         import bayeformers_tpu_torch as bt
         import bayeformers_tpu_torch.convert, bayeformers_tpu_torch.elbo
         import bayeformers_tpu_torch.ops._build
+        import bayeformers_tpu_torch.nn.conv, bayeformers_tpu_torch.nn.naive
+        import bayeformers_tpu_torch.nn.flipout, bayeformers_tpu_torch.nn.lrt
+        from bayeformers_tpu_torch.models import clip, vit
+        rules = (*bt.DEFAULT_RULES, bt.CONV_RULE, bt.EMBEDDING_RULE)
+        px = torch.zeros(2, 32, 32, 3)
+        vm = bt.to_bayesian(vit.build_vit(size="tiny", device="cpu"), delta=0.05, rules=rules)
+        assert vm.mc_apply_fused(0, 2, px)[0].shape == (2, 2, 2)
+        cm = bt.to_bayesian(clip.build_clip(device="cpu"), delta=0.05, rules=rules)
+        ids = torch.ones(2, 8, dtype=torch.long)
+        assert cm.mc_apply_fused(0, 2, ids, px, untile_axes=(1,))[0].shape == (2, 2, 2)
         model = bt.build_bert(size="tiny", device="cpu", dtype=torch.bfloat16)
         bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
         for anti, s in ((False, 3), (True, 2)):

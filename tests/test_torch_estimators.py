@@ -15,6 +15,8 @@ entry); here flipout, and local reparameterization and the naive tier in
 against the naive tier's at S=300 on a small net, the decorrelation of
 examples, ``pick_mc``'s table, and the naive tier's ``sample`` / ``apply``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from flax.traverse_util import flatten_dict
 import bayeformers_tpu as bf
 import bayeformers_tpu_torch as bt
 from bayeformers_tpu.models import bert as jbert
+from bayeformers_tpu.nn import fused as jfused
 from bayeformers_tpu.ops import common as jcommon
 from bayeformers_tpu.ops import sampled_linear as jsl
 from bayeformers_tpu_torch import training
@@ -80,15 +83,26 @@ def _normals(key, n, shape):
         jax.random.split(key, n))
 
 
-def _hook(bmodel, key, estimator):
+def _hook(bmodel, key, estimator, n_samples=S):
     """The JAX package's draws of ``estimator`` under ``key``, in the port's
     hook signature: the naive tier's ``(path, shape)`` (each sample's key
     folded with the leaf's index), flipout's and LRT's ``(path, what,
-    shape)`` (the kernel leaf's layer key ``fold_in(key, i)`` folded with
-    0-7 as ``nn/flipout.py`` and ``nn/lrt.py`` fold it)."""
+    shape)`` (the kernel or embedding leaf's layer key ``fold_in(key, i)``
+    folded with 0-7 as ``nn/flipout.py`` and ``nn/lrt.py`` fold it, a
+    bias's its kernel's), the fused tier's ``(path, n_draws, shape)``
+    (``nn/fused.py``'s ``layer_seeds``: ``naive_eps`` for a kernel or
+    table, ``_unit_bias_eps`` for a bias)."""
     index = {p: i for i, p in enumerate(bmodel.spec.paths)}
+    if estimator in ("fused", "antithetic"):
+        def fused(path, n_draws, shape):
+            lkey = jax.random.fold_in(key, index[path])
+            if path.endswith("/bias"):
+                return _np(jfused._unit_bias_eps(lkey, n_draws, shape[0], None))
+            seeds = jcommon.seed_from_key(jax.random.split(lkey, n_draws))
+            return _np(jsl.naive_eps(seeds, shape))
+        return fused
     if estimator == "naive":
-        keys = jax.random.split(key, S)
+        keys = jax.random.split(key, n_samples)
 
         def naive(path, shape):
             return _np(jnp.stack([jax.random.normal(jax.random.fold_in(k, index[path]),
@@ -96,7 +110,8 @@ def _hook(bmodel, key, estimator):
         return naive
 
     def hook(path, what, shape):
-        k = jax.random.fold_in(key, index[path.rsplit("/", 1)[0] + "/kernel"])
+        owner = path.rsplit("/", 1)[0] + "/kernel" if path.endswith("/bias") else path
+        k = jax.random.fold_in(key, index[owner])
         fold = lambda n: jax.random.fold_in(k, n)
         if what in ("r", "s", "bias_s"):
             n = {"r": 2, "s": 3, "bias_s": 5}[what]
@@ -116,16 +131,18 @@ def _hook(bmodel, key, estimator):
     return hook
 
 
-def _jax_run(bmodel, bp, key, estimator, batch, weights):
+def _jax_run(bmodel, bp, key, estimator, batch, weights, n_samples=S, **mc_kwargs):
     """Logits, aux and the gradients of ``sum(logits * weights)`` and of the
     KL part (flipout and LRT: ``aux["kl"]``; naive: ``mean(log_q -
     log_p)``), from one jitted forward and two VJPs."""
     fn = {"flipout": bmodel.mc_apply_flipout, "local": bmodel.mc_apply_lrt,
-          "naive": bmodel.mc_apply}[estimator]
+          "naive": bmodel.mc_apply,
+          "fused": functools.partial(bmodel.mc_apply_fused, antithetic=False),
+          "antithetic": functools.partial(bmodel.mc_apply_fused, antithetic=True)}[estimator]
     inputs = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def parts(p):
-        out, aux = fn(p, key, S, **inputs)
+        out, aux = fn(p, key, n_samples, **inputs, **mc_kwargs)
         kl = aux.get("kl", jnp.mean(aux["log_variational_posterior"] - aux["log_prior"]))
         return (jnp.sum(out * weights), kl), (out, aux)
 
@@ -152,9 +169,10 @@ def _jax_grad(grads, name):
     return np.asarray(flatten_dict(grads.params, sep="/")[path])
 
 
-def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small=None):
-    """Logits within 1e-4, the KL (flipout, LRT) or both log-probs (naive)
-    within 2e-5 relative, and the gradients of the logits' part and of the
+def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small=None,
+                      n_samples=S, untile_axes=()):
+    """Logits within 1e-4, the KL (flipout, LRT) or both log-probs (naive,
+    and the fused tier: ``"fused"``, ``"antithetic"``) within 2e-5 relative, and the gradients of the logits' part and of the
     KL part, each trained leaf (rho; mu where it trains; LayerNorm and
     embeddings) within 1e-4 of its largest entry. Under the mixture the
     port's flipout and LRT score each kernel leaf's KL through
@@ -163,19 +181,25 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small
     of one sample's output. ``small``, a pair ``(share, bound)``: a leaf
     whose largest entry is below ``share`` of the part's largest is held
     within ``bound`` of its own largest entry instead (a caller states
-    the readings it takes the pair from)."""
+    the readings it takes the pair from). ``n_samples``: S (even for
+    ``"antithetic"``). ``untile_axes``: the output's other tiled axes
+    (CLIP's ``(1,)``), for the port's tiers and the JAX package's tiled
+    ones (its naive tier vmaps and needs none)."""
     name, bmodel, bp, port = conversion
+    Sn = n_samples
     key = jax.random.key(11)
     batch = _batch() if batch is None else batch
-    weights = np.random.default_rng(3).normal(size=(S,) + tuple(out_shape)).astype(np.float32)
+    weights = np.random.default_rng(3).normal(size=(Sn,) + tuple(out_shape)).astype(np.float32)
+    jkw = {"untile_axes": untile_axes} if untile_axes and estimator != "naive" else {}
     jout, jaux, jg_out, jg_kl = _jax_run(bmodel, bp, key, estimator, batch,
-                                         jnp.asarray(weights))
+                                         jnp.asarray(weights), Sn, **jkw)
     named = port.trainable_parameters()
-    t = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    t = {k: torch.from_numpy(v).long() if np.issubdtype(v.dtype, np.integer)
+         else torch.from_numpy(v) for k, v in batch.items()}
     out, aux = training.pick_mc(port, True, estimator)(
-        0, S, **t, eps_hook=_hook(bmodel, key, estimator))
+        0, Sn, **t, eps_hook=_hook(bmodel, key, estimator, Sn), untile_axes=untile_axes)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=1e-4)
-    if estimator == "naive":
+    if estimator in ("naive", "fused", "antithetic"):
         for k in ("log_prior", "log_variational_posterior"):
             np.testing.assert_allclose(aux[k].detach().numpy(), np.asarray(jaux[k]),
                                        rtol=2e-5, err_msg=k)
@@ -184,15 +208,15 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small
         kl = aux["kl"]
         np.testing.assert_allclose(kl.item(), float(jaux["kl"]), rtol=2e-5)
         np.testing.assert_allclose(aux["log_prior"].detach().numpy(),
-                                   -np.full(S, float(jaux["kl"])), rtol=2e-5)
-        assert torch.equal(aux["log_variational_posterior"], torch.zeros(S))
+                                   -np.full(Sn, float(jaux["kl"])), rtol=2e-5)
+        assert torch.equal(aux["log_variational_posterior"], torch.zeros(Sn))
     g_out = _port_grads(port, named, torch.sum(out * torch.from_numpy(weights)))
     g_kl = _port_grads(port, named, kl)
     trained = [n for n, _, _ in named]
     assert any(n.startswith("rho/") for n in trained)
     if name != "frozen-moped":
         assert all(f"params/{p}" in trained for p in port.spec.paths)
-    hook = _hook(bmodel, key, estimator)
+    hook = _hook(bmodel, key, estimator, Sn)
     for part, got, want in (("logits", g_out, jg_out), ("kl", g_kl, jg_kl)):
         grads = {n: (got[n].numpy() if n in got else np.zeros_like(_jax_grad(want, n)),
                      _jax_grad(want, n)) for n in trained}
@@ -200,17 +224,27 @@ def check_against_jax(conversion, estimator, batch=None, out_shape=(B, 2), small
         for n, (g, w) in grads.items():
             what = f"{name} {estimator} {part} part: {n}"
             noise = 0.0
-            if (estimator == "naive" and part == "kl" and n.startswith("params/")
-                    and n.split("/", 1)[1] in port.rho):
+            path = n.split("/", 1)[1]
+            if (part == "kl" and n.startswith("params/") and path in port.rho
+                    and (estimator == "naive" or path.endswith("/embedding")
+                         and estimator in ("fused", "antithetic"))):
                 # the naive tier's log_q, sum(log N(w; mu, sigma)) at w = mu +
                 # sigma eps, has a mu-gradient that cancels exactly, -(w - mu)
                 # / sigma^2 through w against +(w - mu) / sigma^2 through mu;
                 # in f32 both sides keep the rounding of w in each of the
                 # two, 2^-23 |w| / sigma^2 apiece, averaged over the samples
-                path = n.split("/", 1)[1]
+                # (so has the fused tier's, for a table it scores at its
+                # sampled w)
                 mu = leaf(port.model, path).detach().numpy()
                 sig = dist.sigma_from_rho(port.rho[path].detach()).numpy()
-                w_s = np.abs(mu[None] + sig[None] * hook(path, mu.shape).numpy())
+                if estimator == "naive":
+                    eps = hook(path, mu.shape).numpy()
+                else:
+                    eps = hook(path, Sn // 2 if estimator == "antithetic" else Sn,
+                               mu.shape).numpy()
+                    if estimator == "antithetic":
+                        eps = np.concatenate([eps, -eps])
+                w_s = np.abs(mu[None] + sig[None] * eps)
                 noise = 2.0 ** -22 * w_s.mean(0) / sig ** 2
             if np.abs(w).max() <= 1e-6 * top:
                 # a gradient that vanishes (the key biases' where every

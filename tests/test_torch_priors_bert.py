@@ -188,14 +188,15 @@ def test_two_steps_train_mu_and_keep_prior_mu():
 
 def test_to_bayesian_signature_matches_reference():
     """The reference's keywords, order and defaults (``initialization``,
-    ``prior``, ``delta``, ``freeze``); the JAX package's ``rng`` is the
-    port's ``generator``, and its ``rules`` is not ported (the port
-    converts its ``Dense`` layers)."""
+    ``prior``, ``delta``, ``freeze``, ``rules``); the JAX package's ``rng``
+    is the port's ``generator``, and ``rules`` defaults to the linear rule
+    alone, as there."""
     ref = inspect.signature(bf.to_bayesian).parameters
     got = inspect.signature(bt.to_bayesian).parameters
-    shared = ["initialization", "prior", "delta", "freeze"]
+    shared = ["initialization", "prior", "delta", "freeze", "rules"]
     assert [n for n in ref if n in shared] == [n for n in got if n in shared] == shared
-    assert list(got) == ["model"] + shared + ["generator"]
+    assert list(got) == ["model"] + shared[:-1] + ["generator", "rules"]
+    assert [r.name for r in got["rules"].default] == [r.name for r in ref["rules"].default]
     for n in ("delta", "freeze"):
         assert got[n].default == ref[n].default, n
     ji, pi = ref["initialization"].default, got["initialization"].default

@@ -47,7 +47,13 @@ from bayeformers_tpu_torch.models.gpt2 import (
 )
 from bayeformers_tpu_torch.models.llama import LlamaConfig, build_llama_family
 from bayeformers_tpu_torch.models.mlp import build_mlp
+from bayeformers_tpu_torch.models.t5 import T5_SMALL_KWARGS, T5_TINY_KWARGS, build_t5
 from bayeformers_tpu_torch.models.vit import VIT_BASE_KWARGS, VIT_TINY_KWARGS, build_vit
+from bayeformers_tpu_torch.models.whisper import (
+    WHISPER_BASE_KWARGS,
+    WHISPER_TINY_KWARGS,
+    build_whisper,
+)
 from bayeformers_tpu_torch.nn.layers import BayesLinear, bayes_apply, collect_kl
 from bayeformers_tpu_torch.nn.surgery import (
     CONV_RULE,
@@ -79,8 +85,12 @@ __all__ = [
     "LlamaConfig",
     "MOPED_PRIOR_SIGMA",
     "Predictor",
+    "T5_SMALL_KWARGS",
+    "T5_TINY_KWARGS",
     "VIT_BASE_KWARGS",
     "VIT_TINY_KWARGS",
+    "WHISPER_BASE_KWARGS",
+    "WHISPER_TINY_KWARGS",
     "ScaleMixturePrior",
     "bayes_apply",
     "build_bert",
@@ -89,7 +99,9 @@ __all__ = [
     "build_llama_family",
     "build_model",
     "build_mlp",
+    "build_t5",
     "build_vit",
+    "build_whisper",
     "collect_kl",
     "find_convertible_paths",
     "from_jax_params",

@@ -1,5 +1,5 @@
-"""Carry the JAX package's converted BERT, GPT-2, LLaMA-architecture, ViT or
-CLIP model over to the port.
+"""Carry the JAX package's converted BERT, GPT-2, LLaMA-architecture, ViT,
+CLIP, T5 or Whisper model over to the port.
 
 ``from_jax_params(params, rho, prior_mu=None, *, prior, moped, frozen)``
 takes the fields of the JAX package's ``BayesParams`` (the Flax parameter
@@ -22,7 +22,12 @@ Flax conv kernel ``(kh, kw, cin, cout)``, ``cls_token`` and
 ``position_embeddings``; ``text_model/...`` with ``vision_model/...``:
 its :class:`~models.clip.CLIPModel`, whose heads the tree cannot tell
 (64-wide unless ``config``, a :class:`~models.clip.CLIPConfig`, says),
-``class_embedding`` and ``logit_scale`` included), and the
+``class_embedding`` and ``logit_scale`` included; ``shared/...`` with
+``encoder/block/...``: its :class:`~models.t5.T5ForConditionalGeneration`,
+the FFN's kind, heads and buckets read from the tree (``config``, a
+:class:`~models.t5.T5Config`, for the token ids); ``model/encoder/conv1/...``:
+its :class:`~models.whisper.WhisperForConditionalGeneration`, 64-wide heads
+unless ``config``, a :class:`~models.whisper.WhisperConfig`, says), and the
 :class:`~nn.surgery.BayesianModel` over them. The port's parameter names
 are the Flax paths, so the mapping is one to one; both then compute the
 same function. This is how a conversion made by the JAX package, random
@@ -43,7 +48,9 @@ from bayeformers_tpu_torch.models.families import MODEL_CLASSES
 from bayeformers_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from bayeformers_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from bayeformers_tpu_torch.models.mlp import MLP
+from bayeformers_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
 from bayeformers_tpu_torch.models.vit import ViTConfig, ViTForImageClassification
+from bayeformers_tpu_torch.models.whisper import WhisperConfig, WhisperForConditionalGeneration
 from bayeformers_tpu_torch.nn.surgery import SEP, BayesianModel, ConversionSpec, leaf
 
 
@@ -99,6 +106,18 @@ def _model_from(flat: dict[str, np.ndarray], n_heads, dtype, device, config=None
         elif not isinstance(config, CLIPConfig):
             raise ValueError("a CLIP tree takes config=CLIPConfig(...)")
         return CLIPModel(config, dtype=dtype, device=device)
+    if "shared/embedding" in flat and "encoder/final_layer_norm/weight" in flat:
+        if config is None:
+            config = _t5_config_from(flat)
+        elif not isinstance(config, T5Config):
+            raise ValueError("a T5 tree takes config=T5Config(...)")
+        return T5ForConditionalGeneration(config, dtype=dtype, device=device)
+    if "model/encoder/conv1/kernel" in flat:
+        if config is None:
+            config = _whisper_config_from(flat, n_heads)
+        elif not isinstance(config, WhisperConfig):
+            raise ValueError("a Whisper tree takes config=WhisperConfig(...)")
+        return WhisperForConditionalGeneration(config, dtype=dtype, device=device)
     tops = {p.split(SEP)[0] for p in flat}
     found = [f for f in FAMILIES if f in tops]
     if len(found) != 1:
@@ -147,6 +166,47 @@ def _clip_config_from(flat: dict[str, np.ndarray], n_heads) -> CLIPConfig:
                   patch_size=kernel.shape[0], image_size=side * kernel.shape[0])
     return CLIPConfig.from_hf(dict(text_config=text, vision_config=vision,
                                    projection_dim=flat["text_projection/kernel"].shape[1]))
+
+
+def _t5_config_from(flat: dict[str, np.ndarray]) -> T5Config:
+    """T5's config from its tree: the heads and buckets from block 0's bias
+    table, the FFN's kind from ``wi_0`` (gated) or ``wi``, tied unless the
+    tree holds ``lm_head``; the token ids HF's defaults."""
+    shared = flat["shared/embedding"]
+    att = "encoder/block/0/layer/0/SelfAttention/"
+    buckets, heads = flat[att + "relative_attention_bias/embedding"].shape
+    ff = "encoder/block/0/layer/1/DenseReluDense/"
+    gated = ff + "wi_0/kernel" in flat
+    return T5Config(
+        vocab_size=shared.shape[0], d_model=shared.shape[1],
+        d_kv=flat[att + "q/kernel"].shape[1] // heads,
+        d_ff=flat[ff + ("wi_0/kernel" if gated else "wi/kernel")].shape[1],
+        num_layers=_layers(flat, "encoder/block/"),
+        num_decoder_layers=_layers(flat, "decoder/block/"), num_heads=heads,
+        relative_attention_num_buckets=buckets,
+        feed_forward_proj="gated-gelu" if gated else "relu",
+        tie_word_embeddings="lm_head/kernel" not in flat)
+
+
+def _whisper_config_from(flat: dict[str, np.ndarray], n_heads) -> WhisperConfig:
+    """Whisper's config from its tree (conv1's (3, mels, d) kernel, the
+    tables' rows), heads 64 wide unless ``n_heads``; tied unless the tree
+    holds ``lm_head``."""
+    conv1 = flat["model/encoder/conv1/kernel"]
+    d = conv1.shape[2]
+    heads = n_heads or d // 64
+    return WhisperConfig(
+        vocab_size=flat["model/decoder/embed_tokens/embedding"].shape[0],
+        num_mel_bins=conv1.shape[1], d_model=d,
+        encoder_layers=_layers(flat, "model/encoder/layers/"),
+        encoder_attention_heads=heads,
+        encoder_ffn_dim=flat["model/encoder/layers/0/fc1/kernel"].shape[1],
+        decoder_layers=_layers(flat, "model/decoder/layers/"),
+        decoder_attention_heads=heads,
+        decoder_ffn_dim=flat["model/decoder/layers/0/fc1/kernel"].shape[1],
+        max_source_positions=flat["model/encoder/embed_positions/embedding"].shape[0],
+        max_target_positions=flat["model/decoder/embed_positions/embedding"].shape[0],
+        tie_word_embeddings="lm_head/kernel" not in flat)
 
 
 def _config_from(flat: dict[str, np.ndarray], n_heads, family: str) -> BertConfig:
@@ -201,7 +261,8 @@ def from_jax_params(params, rho, prior_mu=None, *,
     64-wide heads (BERT's and GPT-2's); a LLaMA-architecture tree takes its
     whole configuration from ``config`` (a ``LlamaConfig``), an encoder's
     may (a ``BertConfig`` of its family; ALBERT's must); a CLIP tree takes a
-    ``CLIPConfig``. ``model``: a port module of the caller's own (built of
+    ``CLIPConfig``, a T5 tree a ``T5Config``, a Whisper tree a
+    ``WhisperConfig``. ``model``: a port module of the caller's own (built of
     ``Dense``, ``Conv`` and ``Embed`` under the tree's names) to fill in
     place of the one picked from the tree."""
     dev = torch.device(device)

@@ -178,6 +178,15 @@ class Embed(nn.Module):
             return mc.embed(self, ids)
         return lookup(self.embedding, ids)
 
+    def lookup_shared(self, ids, mc=None):
+        """A lookup of ids that are not batch-shaped, shared by every
+        example of an S-major batch (T5's (Lq, Lk) buckets, Whisper's
+        encoder positions): (G, *ids.shape, D), G = 1 but where the tier
+        draws a whole table per sample (``mc.embed_unbatched``)."""
+        if mc is not None:
+            return mc.embed_unbatched(self, ids)
+        return lookup(self.embedding, ids)[None]
+
 
 class BertEmbeddings(nn.Module):
     """Word + token-type + position embeddings and their LayerNorm, at the

@@ -19,7 +19,8 @@ self_attn/q_proj/kernel``, ``vision_model/embeddings/class_embedding``,
 towers and both projections; the patch conv converts under ``CONV_RULE``,
 the two towers' tables under ``EMBEDDING_RULE``; the class embedding,
 LayerNorms and ``logit_scale`` stay frequentist. The attention is plain
-torch (each Dense still reaches the tier), because the reference's fused
+torch (``ops/attention.py::plain_attention``; each Dense still reaches the
+tier), because the reference's fused
 tier does not intercept ``FlaxCLIPAttention``: scores in f32 with the mask
 as a ``finfo.min`` bias, softmax in f32, probabilities in the activation
 dtype.
@@ -31,7 +32,6 @@ A tiled tier sees ``(S*B_img, S*B_txt)`` similarities: call it with
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -41,6 +41,7 @@ from torch import nn
 from bayeformers_tpu_torch.models.bert import Embed, LayerNorm, check_device
 from bayeformers_tpu_torch.nn.conv import Conv
 from bayeformers_tpu_torch.nn.dense import Dense, assign_paths
+from bayeformers_tpu_torch.ops.attention import plain_attention
 
 CLIP_TINY_KWARGS = dict(
     text_config=dict(
@@ -138,16 +139,9 @@ class CLIPAttention(nn.Module):
     def forward(self, hidden, bias, mc=None):
         """``bias`` (N or 1, L, L) f32, 0 where a query sees a key and
         ``finfo.min`` where it does not, or None."""
-        N, L, H = hidden.shape
-        nh, d = self.n_heads, H // self.n_heads
-        q, k, v = (p(hidden, mc).view(N, L, nh, d) for p in (self.q_proj, self.k_proj,
-                                                               self.v_proj))
-        scores = torch.einsum("nqhd,nkhd->nhqk", q.float() * (1.0 / math.sqrt(d)), k.float())
-        if bias is not None:
-            scores = scores + bias[:, None]
-        probs = torch.softmax(scores, dim=-1).to(hidden.dtype)
-        ctx = torch.einsum("nhqk,nkhd->nqhd", probs.float(), v.float()).to(hidden.dtype)
-        return self.out_proj(ctx.reshape(N, L, H), mc)
+        q, k, v = (p(hidden, mc) for p in (self.q_proj, self.k_proj, self.v_proj))
+        ctx = plain_attention(q, k, v, None if bias is None else bias[:, None], self.n_heads)
+        return self.out_proj(ctx, mc)
 
 
 class CLIPMLP(nn.Module):
@@ -314,13 +308,18 @@ def init_clip(model: CLIPModel, seed: int) -> None:
 
 
 def build_clip(size: str = "tiny", seed: int = 0, dtype=torch.bfloat16, device="cuda",
-               **config_overrides) -> CLIPModel:
+               pretrained: Optional[str] = None, **config_overrides) -> CLIPModel:
     """CLIP at ``CLIP_TINY_KWARGS`` with ``config_overrides`` over it (a
     tower's dict replaces that tower's, whose fields then default to HF's:
-    ViT-B/32's widths), initialised from ``seed``, on ``device`` (the card
-    unless the caller passes ``"cpu"``); the reference's offline build
+    ViT-B/32's widths), initialised from ``seed``, or from a local HF
+    directory with ``pretrained`` (``pretrained.py``), on ``device`` (the
+    card unless the caller passes ``"cpu"``); the reference's offline build
     takes ``size="tiny"`` only. ``dtype`` is the activation dtype;
     parameters stay f32."""
+    if pretrained is not None:
+        from bayeformers_tpu_torch.pretrained import load_pretrained
+
+        return load_pretrained(pretrained, seed=seed, dtype=dtype, device=device)
     if size != "tiny":
         raise ValueError("the offline build takes size='tiny' (with config_overrides "
                          "for other widths)")

@@ -400,8 +400,9 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
     """Family dispatch by model name, in the reference's order
     (``bayeformers_tpu/models/bert.py:261-297``): GPT-2, T5, the LLaMA
     families (causal LMs: ``task="causal-lm"``), ViT (image
-    classification), then the encoders (:func:`family_of`). T5 raises,
-    naming the ROADMAP item that brings it."""
+    classification), then the encoders (:func:`family_of`). T5 is the
+    seq2seq LM at ``size="small"`` (the default ``"base"`` reads as the
+    reference's default, t5-small) or ``"tiny"``."""
     name = model_name.lower()
     causal = task in ("causal-lm", None)
     if "gpt2" in name or "gpt-2" in name:
@@ -411,9 +412,11 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
 
         return build_gpt2(size, seed=seed, dtype=dtype, device=device, **overrides)
     if "t5" in name:
-        raise NotImplementedError(
-            f"build_model({model_name!r}): T5 comes with the decoder families "
-            "(ROADMAP queue 1, the other model families and their handlers: T5, Whisper)")
+        from bayeformers_tpu_torch.models.t5 import build_t5
+
+        # the reference's build_t5 defaults to t5-small; any task is ignored
+        return build_t5("small" if size == "base" else size, seed=seed, dtype=dtype,
+                        device=device, **overrides)
     for fam in ("llama", "mistral", "gemma"):
         if fam in name:
             if not causal:

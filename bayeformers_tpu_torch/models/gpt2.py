@@ -55,17 +55,25 @@ class GPT2Config:
     n_inner: Optional[int] = None  # 4 * n_embd
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    eos_token_id: Optional[int] = 50256
+    pad_token_id: Optional[int] = None
 
 
-def causal_attention(mod, hidden, bias, dense, plain: bool = False):
+def causal_attention(mod, hidden, bias, dense, plain: bool = False, cache=None):
     """GPT-2's attention block (the JAX package's ``handle_gpt2_attention``,
     ``nn/fused.py:771-775``): the packed ``c_attn`` through ``dense``, a
     three-way split, ``mha(causal=True)`` and ``c_proj``. The split's
     q/k/v are column slices of the packed (.., 3H) output: each is copied
-    contiguous, since the attention kernels read (N, L, H) rows."""
-    qkv = dense(mod.c_attn, hidden)
-    q, k, v = (t.contiguous() for t in torch.chunk(qkv, 3, dim=-1))
-    ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, causal=True, plain=plain)
+    contiguous, since the attention kernels read (N, L, H) rows. With a
+    decode's ``cache`` (K, V, start), k and v go into it and q attends to
+    its keys in plain torch, ``bias`` being ``ops_attention.cache_bias``'s."""
+    q, k, v = torch.chunk(dense(mod.c_attn, hidden), 3, dim=-1)
+    if cache is not None:
+        ctx = ops_attention.plain_attention(q, *ops_attention.cache_kv(cache, k, v), bias,
+                                            mod.n_heads)
+    else:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, causal=True, plain=plain)
     return dense(mod.c_proj, ctx)
 
 
@@ -77,10 +85,10 @@ class GPT2Attention(nn.Module):
         self.c_proj = Conv1D(e, e, device=device)
         self.n_heads = cfg.n_head
 
-    def forward(self, hidden, bias, mc=None):
+    def forward(self, hidden, bias, mc=None, cache=None):
         if mc is not None:
             return mc.gpt2_attention(self, hidden, bias)
-        return causal_attention(self, hidden, bias, lambda m, x: m(x))
+        return causal_attention(self, hidden, bias, lambda m, x: m(x), cache=cache)
 
 
 class GPT2MLP(nn.Module):
@@ -105,8 +113,8 @@ class GPT2Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, eps, device=device)
         self.mlp = GPT2MLP(cfg, device)
 
-    def forward(self, hidden, bias, mc=None):
-        hidden = self.attn(self.ln_1(hidden), bias, mc) + hidden
+    def forward(self, hidden, bias, mc=None, cache=None):
+        hidden = self.attn(self.ln_1(hidden), bias, mc, cache) + hidden
         return hidden + self.mlp(self.ln_2(hidden), mc)
 
 
@@ -119,21 +127,23 @@ class GPT2Module(nn.Module):
         self.ln_f = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, device=device)
         self.dtype = dtype
 
-    def forward(self, input_ids, position_ids, bias, mc=None):
+    def forward(self, input_ids, position_ids, bias, mc=None, cache=None, start=0):
+        """``cache``: a decode's per-block (K, V), written from cache
+        position ``start`` on (:meth:`GPT2LMHeadModel.decode_step`)."""
         # as HF's FlaxGPT2Module: both lookups in the activation dtype, summed in it
         hidden = (self.wte(input_ids, mc).to(self.dtype)
                   + self.wpe(position_ids, mc).to(self.dtype))
-        for block in self.h:
-            hidden = block(hidden, bias, mc)
+        for i, block in enumerate(self.h):
+            hidden = block(hidden, bias, mc, None if cache is None else (*cache[i], start))
         return self.ln_f(hidden)
 
 
 class GPT2LMHeadModel(nn.Module):
     """``forward(input_ids, attention_mask=None, token_type_ids=None,
-    mc=None)`` -> next-token logits (N, L, vocab) in the activation dtype.
-    Positions are ``arange(L)`` (the JAX package's ``apply_fn`` default);
-    GPT-2 has no token types, so ``token_type_ids`` is ignored, as that
-    ``apply_fn`` ignores it."""
+    mc=None, position_ids=None)`` -> next-token logits (N, L, vocab) in the
+    activation dtype. Positions default to ``arange(L)`` (the JAX package's
+    ``apply_fn`` default); GPT-2 has no token types, so ``token_type_ids``
+    is ignored, as that ``apply_fn`` ignores it."""
 
     def __init__(self, cfg: GPT2Config, dtype=torch.float32, device=None):
         super().__init__()
@@ -142,16 +152,42 @@ class GPT2LMHeadModel(nn.Module):
         self.transformer = GPT2Module(cfg, dtype, device)
         assign_paths(self)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None, mc=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, mc=None,
+                position_ids=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        L = input_ids.shape[-1]
-        position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
+        if position_ids is None:
+            L = input_ids.shape[-1]
+            position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
         bias = ops_attention.mask_to_bias(attention_mask)
         hidden = self.transformer(input_ids, position_ids, bias, mc)
-        # the head tied to wte, in the activation dtype (HF's lm_head Dense)
+        return self.head(hidden)
+
+    def head(self, hidden):
+        """The head tied to wte, in the activation dtype (HF's lm_head
+        Dense)."""
         wte = self.transformer.wte.embedding
         return torch.matmul(hidden, wte.to(hidden.dtype).t())
+
+    # -- decoding with a KV cache ---------------------------------------------
+    generation = "causal"
+
+    def init_cache(self, batch: int, max_len: int) -> list:
+        """Per block, zero K and V of (batch, max_len, n_embd)."""
+        t = self.transformer
+        z = lambda: torch.zeros(batch, max_len, self.config.n_embd,  # noqa: E731
+                                dtype=self.dtype, device=t.wte.embedding.device)
+        return [(z(), z()) for _ in t.h]
+
+    def decode_step(self, ids, position_ids, key_mask, start: int, cache: list):
+        """Ids (B, l) at cache positions ``[start, start + l)`` with their
+        position ids: the blocks' forward with their K and V written into
+        ``cache``, each query attending to the real cached keys up to itself
+        (``key_mask`` (B, max_len)); returns the logits (B, l, vocab). A
+        prompt is one call from ``start=0``, each new token one call of
+        l = 1."""
+        bias = ops_attention.cache_bias(key_mask, start, ids.shape[1])
+        return self.head(self.transformer(ids, position_ids, bias, cache=cache, start=start))
 
 
 @torch.no_grad()

@@ -118,6 +118,10 @@ class LlamaConfig:
     sliding_window: Optional[int] = None  # Mistral's
     rms_norm_eps: float = 1e-6
     initializer_range: float = 0.02
+    # None: the stock config's (LLaMA and Mistral: eos 2, no pad; Gemma:
+    # eos 1, pad 0), set in __post_init__
+    eos_token_id: Optional[int] = None
+    pad_token_id: Optional[int] = None
 
     def __post_init__(self):
         if self.family not in FAMILY_KWARGS:
@@ -125,6 +129,11 @@ class LlamaConfig:
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("num_attention_heads must be a multiple of "
                              "num_key_value_heads")
+        gemma = self.family == "gemma"
+        if self.eos_token_id is None:
+            object.__setattr__(self, "eos_token_id", 1 if gemma else 2)
+        if self.pad_token_id is None and gemma:
+            object.__setattr__(self, "pad_token_id", 0)
 
     @property
     def attn_head_dim(self) -> int:
@@ -226,26 +235,36 @@ def banded_attention(q, k, v, bias, n_heads: int, window: int) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(N, L, H).to(q.dtype)
 
 
-def gqa_attention(mod, hidden, bias, position_ids, dense, plain: bool = False):
+def gqa_attention(mod, hidden, bias, position_ids, dense, plain: bool = False, cache=None):
     """The LLaMA-architecture attention block (the JAX package's
     ``handle_gqa_attention``, ``nn/fused.py:778-873``): q/k/v through
     ``dense``, rotary, k/v repeated to the full head count, ``mha(causal=
     True)`` (or :func:`banded_attention` where Mistral's window bites) and
-    ``o_proj``."""
+    ``o_proj``. With a decode's ``cache`` (K, V, start), the rotated k and v
+    (the shared kv heads) go into it and q attends to its keys in plain
+    torch, ``bias`` being ``cache_bias``'s (Mistral's band in it)."""
     N, L = hidden.shape[:2]
     nh, nkv, d = mod.n_heads, mod.n_kv_heads, mod.head_dim
     qh = dense(mod.q_proj, hidden).reshape(N, L, nh, d)
     kh = dense(mod.k_proj, hidden).reshape(N, L, nkv, d)
     vh = dense(mod.v_proj, hidden).reshape(N, L, nkv, d)
     kh, qh = mod.rotary_emb(kh, qh, position_ids)
+    if cache is not None:
+        kh, vh = ops_attention.cache_kv(cache, kh, vh)
+    Lk = kh.shape[1]
     if nh > nkv:
         kh = torch.repeat_interleave(kh, nh // nkv, dim=2)
         vh = torch.repeat_interleave(vh, nh // nkv, dim=2)
-    q, k, v = (t.reshape(N, L, nh * d).contiguous() for t in (qh, kh, vh))
-    if mod.sliding_window and L > mod.sliding_window:
-        ctx = banded_attention(q, k, v, bias, nh, mod.sliding_window)
+    q = qh.reshape(N, L, nh * d)
+    k, v = (t.reshape(N, Lk, nh * d) for t in (kh, vh))
+    if cache is not None:
+        ctx = ops_attention.plain_attention(q, k, v, bias, nh)
     else:
-        ctx = ops_attention.mha(q, k, v, bias, nh, causal=True, plain=plain)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        if mod.sliding_window and L > mod.sliding_window:
+            ctx = banded_attention(q, k, v, bias, nh, mod.sliding_window)
+        else:
+            ctx = ops_attention.mha(q, k, v, bias, nh, causal=True, plain=plain)
     return dense(mod.o_proj, ctx)
 
 
@@ -263,10 +282,10 @@ class LlamaAttention(nn.Module):
         self.n_heads, self.n_kv_heads, self.head_dim = nh, nkv, d
         self.sliding_window = cfg.sliding_window
 
-    def forward(self, hidden, bias, position_ids, mc=None):
+    def forward(self, hidden, bias, position_ids, mc=None, cache=None):
         if mc is not None:
             return mc.gqa_attention(self, hidden, bias, position_ids)
-        return gqa_attention(self, hidden, bias, position_ids, lambda m, x: m(x))
+        return gqa_attention(self, hidden, bias, position_ids, lambda m, x: m(x), cache=cache)
 
 
 class LlamaMLP(nn.Module):
@@ -296,9 +315,9 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg, dtype, device)
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, hidden, bias, position_ids, mc=None):
+    def forward(self, hidden, bias, position_ids, mc=None, cache=None):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden), bias, position_ids,
-                                         mc)
+                                         mc, cache)
         return hidden + self.mlp(self.post_attention_layernorm(hidden), mc)
 
 
@@ -313,22 +332,30 @@ class LlamaModule(nn.Module):
         self.embed_scale = (math.sqrt(cfg.hidden_size) if cfg.family == "gemma"
                             else None)
 
-    def forward(self, input_ids, position_ids, bias, mc=None):
+    def embed(self, input_ids, mc=None):
         hidden = self.embed_tokens(input_ids, mc).to(self.dtype)
         if self.embed_scale is not None:
             # Gemma: sqrt(hidden) as a scalar of the activation dtype
             hidden = hidden * torch.tensor(self.embed_scale, dtype=self.dtype,
                                            device=hidden.device)
-        for layer in self.layers:
-            hidden = layer(hidden, bias, position_ids, mc)
+        return hidden
+
+    def forward(self, input_ids, position_ids, bias, mc=None, cache=None, start=0):
+        """``cache``: a decode's per-layer (K, V), written from cache
+        position ``start`` on (:meth:`LlamaForCausalLM.decode_step`)."""
+        hidden = self.embed(input_ids, mc)
+        for i, layer in enumerate(self.layers):
+            hidden = layer(hidden, bias, position_ids, mc,
+                           None if cache is None else (*cache[i], start))
         return self.norm(hidden)
 
 
 class LlamaForCausalLM(nn.Module):
     """``forward(input_ids, attention_mask=None, token_type_ids=None,
-    mc=None)`` -> next-token logits (N, L, vocab) in the activation dtype.
-    Positions are ``arange(L)`` (the JAX package's ``apply_fn`` default);
-    ``token_type_ids`` is ignored, as that ``apply_fn`` ignores it."""
+    mc=None, position_ids=None)`` -> next-token logits (N, L, vocab) in the
+    activation dtype. Positions default to ``arange(L)`` (the JAX package's
+    ``apply_fn`` default); ``token_type_ids`` is ignored, as that
+    ``apply_fn`` ignores it."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -339,17 +366,42 @@ class LlamaForCausalLM(nn.Module):
                              device=device)
         assign_paths(self)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None, mc=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, mc=None,
+                position_ids=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         L = input_ids.shape[-1]
         if L > self.config.max_position_embeddings:
             raise ValueError(f"sequence length {L} exceeds max_position_embeddings="
                              f"{self.config.max_position_embeddings}")
-        position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
+        if position_ids is None:
+            position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
         bias = ops_attention.mask_to_bias(attention_mask)
         hidden = self.model(input_ids, position_ids, bias, mc)
         return self.lm_head(hidden, mc)
+
+    # -- decoding with a KV cache ---------------------------------------------
+    generation = "causal"
+
+    def init_cache(self, batch: int, max_len: int) -> list:
+        """Per layer, zero K (after rotary) and V of (batch, max_len,
+        kv_heads, head_dim): GQA caches the shared kv heads only."""
+        cfg = self.config
+        shape = (batch, max_len, cfg.num_key_value_heads, cfg.attn_head_dim)
+        dev = self.lm_head.kernel.device
+        return [(torch.zeros(shape, dtype=self.dtype, device=dev),
+                 torch.zeros(shape, dtype=self.dtype, device=dev)) for _ in self.model.layers]
+
+    def decode_step(self, ids, position_ids, key_mask, start: int, cache: list):
+        """Ids (B, l) at cache positions ``[start, start + l)``, rotary at
+        ``position_ids``: the layers' forward with their K and V written
+        into ``cache``, each query attending to the real cached keys up to
+        itself (``key_mask`` (B, max_len)); Gemma's embedding scale applies;
+        Mistral's band is kept (at the presets' lengths it never binds).
+        Returns the logits (B, l, vocab)."""
+        bias = ops_attention.cache_bias(key_mask, start, ids.shape[1],
+                                        self.config.sliding_window)
+        return self.lm_head(self.model(ids, position_ids, bias, cache=cache, start=start))
 
 
 @torch.no_grad()

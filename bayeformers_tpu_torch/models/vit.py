@@ -28,6 +28,7 @@ bf16 branch are f32); parameters stay f32. Dropout is omitted.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -214,14 +215,22 @@ def init_vit(model: nn.Module, seed: int) -> None:
 
 def build_vit(task: str = "classification", n_labels: int = 2, size: str = "base",
               seed: int = 0, dtype=torch.bfloat16, device="cuda",
+              pretrained: Optional[str] = None,
               **config_overrides) -> ViTForImageClassification:
     """The ViT image classifier at ``VIT_BASE_KWARGS`` (``size="base"``,
     google/vit-base-patch16-224's widths) or ``VIT_TINY_KWARGS``
     (``"tiny"``), fields overridden by ``config_overrides``, initialised from
-    ``seed``, on ``device`` (the card unless the caller passes ``"cpu"``).
-    ``dtype`` is the activation dtype; parameters stay f32."""
+    ``seed`` (or, with ``pretrained``, a local HF directory's weights and a
+    classifier of ``n_labels`` where it has none: ``pretrained.py``), on
+    ``device`` (the card unless the caller passes ``"cpu"``). ``dtype`` is
+    the activation dtype; parameters stay f32."""
     if task != "classification":
         raise ValueError(f"vit supports task='classification'; got {task!r}")
+    if pretrained is not None:
+        from bayeformers_tpu_torch.pretrained import load_pretrained
+
+        return load_pretrained(pretrained, n_labels=n_labels, seed=seed, dtype=dtype,
+                               device=device)
     kwargs = dict(VIT_BASE_KWARGS if size == "base" else VIT_TINY_KWARGS)
     kwargs.update(config_overrides)
     cfg = ViTConfig(num_labels=n_labels, **kwargs)

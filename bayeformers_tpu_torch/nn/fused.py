@@ -229,6 +229,28 @@ class MCBase:
         :meth:`check_seen` raises for a converted one."""
         return mod(ids)
 
+    def embed_unbatched(self, mod, ids):
+        """A lookup shared by every example (``Embed.lookup_shared``), (1,
+        *ids.shape, D). A converted table goes through the tier's
+        :meth:`embed`, which splits the ids across the S draws
+        (``ids.reshape(S, -1)``, one chunk a draw), as the reference's
+        ``handle_embed`` does with such ids: every sample sees the same mix
+        of draws, and S must divide the ids (the reference raises
+        otherwise)."""
+        epath = mod.path + SEP + "embedding"
+        if epath in self.bmodel.rho and ids.numel() % self.S:
+            raise ValueError(
+                f"{self.tier} tier: converted table {epath} is looked up with {ids.numel()} "
+                f"ids shared by every example, which the reference's handler splits "
+                f"across the draws: S={self.S} must divide them")
+        return self.embed(mod, ids)[None]
+
+    def tied_table(self, mod):
+        """The table a tied output head reads (T5's ``shared``, Whisper's
+        token table): mu, as the reference's interception tiers read the
+        module's parameter."""
+        return mod.embedding
+
     def check_seen(self, collected) -> None:
         if not collected:
             raise ValueError(f"{self.tier}_mc_apply dispatched no converted layers")

@@ -107,6 +107,27 @@ class NaiveMC(MCBase):
         out = lookup(tables.reshape(self.S * V, D), ids_s + offset)
         return out.reshape(tuple(ids.shape) + (D,))
 
+    def embed_unbatched(self, mod, ids: torch.Tensor) -> torch.Tensor:
+        """A lookup shared by every example (``Embed.lookup_shared``): each
+        sample's ids in its own (V, D) table, (S, *ids.shape, D), as the
+        reference's vmap over whole draws looks them up."""
+        epath = mod.path + SEP + "embedding"
+        if epath not in self.bmodel.rho:
+            return mod(ids)[None]
+        tables = self._leaf(epath, mod.embedding, self.bmodel.rho[epath])
+        V, D = mod.embedding.shape
+        offset = torch.arange(self.S, device=ids.device).reshape((self.S,) + (1,) * ids.dim())
+        return lookup(tables.reshape(self.S * V, D), ids[None] + offset * V)
+
+    def tied_table(self, mod):
+        """The table a tied head reads: each sample's (V, D) draw of a
+        converted table, (S, V, D) (the reference's vmap reads the drawn
+        parameter), else mu."""
+        epath = mod.path + SEP + "embedding"
+        if epath not in self.bmodel.rho:
+            return mod.embedding
+        return self._leaf(epath, mod.embedding, self.bmodel.rho[epath])
+
     def aux(self) -> dict[str, torch.Tensor]:
         self.check_seen(self.collected)
         return {"log_prior": torch.stack([lp for _, lp in self.collected]).sum(0),

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -122,6 +123,54 @@ def pallas_route(L: int, H: int, n_heads: int, itemsize: int) -> str:
                 return "stacked"
             nb //= 2
     return "per_head"
+
+
+def plain_attention(q, k, v, bias, n_heads: int, scale: bool = True) -> torch.Tensor:
+    """Attention of (N, Lq, H) q over (N, Lk, H) k and v in plain torch,
+    where the reference leaves attention to XLA (T5's, Whisper's, the
+    KV-cache decode's): f32 scores, q scaled by ``d ** -0.5`` first unless
+    ``scale=False`` (T5's unscaled logits), an additive f32 ``bias``
+    broadcastable to (N, heads, Lq, Lk) or None, the softmax in f32, the
+    probabilities in q's dtype, the product accumulated in f32."""
+    N, Lq, H = q.shape
+    d = H // n_heads
+    qh = q.reshape(N, Lq, n_heads, d).float()
+    if scale:
+        qh = qh / math.sqrt(d)
+    s = torch.einsum("nqhd,nkhd->nhqk", qh, k.reshape(N, k.shape[1], n_heads, d).float())
+    if bias is not None:
+        s = s + bias
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    ctx = torch.einsum("nhqk,nkhd->nqhd", p.float(), v.reshape(N, v.shape[1], n_heads, d).float())
+    return ctx.reshape(N, Lq, H).to(q.dtype)
+
+
+def cache_kv(cache, k, v):
+    """A decode's KV cache ``(K, V, start)`` (each (B, max_len, ...)) with
+    ``k`` and ``v`` (B, l, ...) written at positions ``[start, start + l)``:
+    returns its keys and values up to ``start + l``."""
+    kc, vc, start = cache
+    end = start + k.shape[1]
+    kc[:, start:end] = k
+    vc[:, start:end] = v
+    return kc[:, :end], vc[:, :end]
+
+
+def cache_bias(key_mask: torch.Tensor, start: int, n_new: int,
+               window: Optional[int] = None) -> torch.Tensor:
+    """The f32 bias of ``n_new`` queries at cache positions ``[start,
+    start + n_new)`` over the cache's first ``start + n_new`` keys: 0 where
+    a key is real (``key_mask`` (B, >= start + n_new)), at or before the
+    query and, with ``window``, no more than ``window`` before it; finfo.min
+    elsewhere. (B, 1, n_new, start + n_new)."""
+    end = start + n_new
+    q = torch.arange(start, end, device=key_mask.device)[:, None]
+    k = torch.arange(end, device=key_mask.device)[None, :]
+    keep = k <= q
+    if window is not None:
+        keep = keep & (k >= q - window)
+    keep = keep[None] & (key_mask[:, None, :end] > 0)
+    return mask_to_bias(keep)[:, None]
 
 
 def mask_to_bias(attention_mask: torch.Tensor) -> torch.Tensor:

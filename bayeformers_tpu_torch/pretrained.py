@@ -1,5 +1,7 @@
-"""Load a local Hugging Face encoder checkpoint into the port's model
-(``--pretrained DIR``; the JAX package's ``build_model(pretrained=...)``).
+"""Load a local Hugging Face checkpoint into the port's model (``--pretrained
+DIR``; the JAX package's ``build_model(pretrained=...)`` and the
+``pretrained=`` of its ``build_t5``, ``build_whisper``, ``build_vit`` and
+``build_clip``).
 
 ``DIR`` holds ``config.json`` and the PyTorch weights, ``model.safetensors``
 or ``pytorch_model.bin``. The safetensors file is parsed here (an 8-byte
@@ -23,9 +25,16 @@ HF initialises a new head, and the other heads' tensors are dropped, as HF's
 ``from_pretrained`` does, with the head of the other task and a pooler
 that the task model has none of (the span heads', RoBERTa's). Any other missing or unexpected tensor, or
 one of another shape, raises, naming it.
+
+T5, Whisper, ViT and CLIP (``model_type`` ``t5``, ``whisper``, ``vit``,
+``clip``) map the same way (:func:`load_family`), a convolution's (out, in,
+*k) weight to Flax's (*k, in, out) kernel; T5's stacks' copies of
+``shared`` and a tied ``lm_head`` (Whisper's ``proj_out``) are the table
+itself, and an untied one is the port's ``lm_head``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -95,39 +104,138 @@ def hf_family(config: dict) -> str:
     return family
 
 
-def port_name(hf: str, ours: set[str], family: str) -> tuple[str, bool]:
-    """The port's parameter name of an HF tensor and whether it is
-    transposed: a linear ``weight`` to ``kernel`` (transposed), an
-    embedding's to ``embedding``, a LayerNorm's (or ``gamma``) to
-    ``scale``, ``beta`` to ``bias``; a base-model file's names gain the
-    family's prefix."""
+def port_name(hf: str, ours, family: str) -> tuple[str, str]:
+    """The port's parameter name of an encoder checkpoint's tensor and its
+    kind (:func:`leaf_name`): a base-model file's names gain the family's
+    prefix, and older files' LayerNorm ``gamma`` / ``beta`` are ``weight``
+    / ``bias``."""
     if not hf.startswith(family + ".") and not any(
             hf.startswith(h) for h in TASK_HEADS + OTHER_HEADS):
         hf = f"{family}.{hf}"
     head, _, leaf = hf.rpartition(".")
     if leaf in ("gamma", "beta"):
-        leaf = "weight" if leaf == "gamma" else "bias"
-    if leaf != "weight":
-        return f"{head}.{leaf}", False
-    for name, transposed in ((f"{head}.kernel", True), (f"{head}.embedding", False),
-                             (f"{head}.scale", False)):
-        if name in ours:
-            return name, transposed
-    return f"{head}.weight", False
+        hf = f"{head}.{'weight' if leaf == 'gamma' else 'bias'}"
+    return leaf_name(hf, ours)
+
+
+# the families that are not encoders, by ``model_type``
+OTHER_FAMILIES = ("t5", "whisper", "vit", "clip")
+
+
+def convert_leaf(tensor: torch.Tensor, kind: str) -> torch.Tensor:
+    """An HF PyTorch tensor in the port's (Flax) layout: a linear weight
+    (out, in) transposed to the kernel (in, out), a convolution's (out, in,
+    *k) to (*k, in, out)."""
+    if kind != "kernel":
+        return tensor
+    if tensor.dim() == 2:
+        return tensor.t()
+    return tensor.permute(*range(2, tensor.dim()), 1, 0)
+
+
+def leaf_name(hf: str, params) -> tuple[str, str]:
+    """The port's name of an HF tensor and its kind: ``<m>.weight`` is the
+    port's ``<m>.kernel`` where it has one (``"kernel"``), else its
+    ``.embedding``, its LayerNorm's ``.scale`` or its ``.weight``; any other
+    leaf keeps its name."""
+    head, _, leaf = hf.rpartition(".")
+    if leaf == "weight":
+        for cand, kind in ((f"{head}.kernel", "kernel"), (f"{head}.embedding", ""),
+                           (f"{head}.scale", "")):
+            if cand in params:
+                return cand, kind
+    return hf, ""
+
+
+@torch.no_grad()
+def load_family(directory: str, config: dict, n_labels: int, seed: int, dtype, device):
+    """T5, Whisper, ViT or CLIP of a local HF directory (the JAX package's
+    ``build_t5``, ``build_whisper``, ``build_vit``, ``build_clip`` with
+    ``pretrained=``): the port's model of the config, its weights from the
+    checkpoint (tied copies of a table and the position-id buffers
+    skipped; ViT's classifier of ``n_labels`` from ``seed`` where the
+    checkpoint has none, as Flax's ``from_pretrained(num_labels=...)``
+    initialises it); any other missing or unexpected tensor, or one of
+    another shape, raises, naming it."""
+    from bayeformers_tpu_torch.models import clip, t5, vit, whisper
+
+    mtype = config["model_type"]
+    fresh = ()
+    if mtype == "t5":
+        cfg = t5.T5Config.from_hf(config)
+        model = t5.T5ForConditionalGeneration(cfg, dtype=dtype, device=device)
+        t5.init_t5(model, seed)
+        skip = ("encoder.embed_tokens.", "decoder.embed_tokens.") + (
+            ("lm_head.",) if cfg.tie_word_embeddings else ())
+        renames = {}
+    elif mtype == "whisper":
+        cfg = whisper.WhisperConfig.from_hf(config)
+        model = whisper.WhisperForConditionalGeneration(cfg, dtype=dtype, device=device)
+        whisper.init_whisper(model, seed)
+        skip = ("proj_out.",) if cfg.tie_word_embeddings else ()
+        renames = {"proj_out.": "lm_head."}
+    elif mtype == "vit":
+        names = {f.name for f in dataclasses.fields(vit.ViTConfig)} - {"num_labels"}
+        cfg = vit.ViTConfig(num_labels=n_labels,
+                            **{k: v for k, v in config.items() if k in names})
+        model = vit.ViTForImageClassification(cfg, dtype=dtype, device=device)
+        vit.init_vit(model, seed)
+        skip, renames, fresh = ("pooler.", "vit.pooler."), {}, ("classifier.",)
+    else:
+        cfg = clip.CLIPConfig.from_hf(config)
+        model = clip.CLIPModel(cfg, dtype=dtype, device=device)
+        clip.init_clip(model, seed)
+        skip, renames = (), {}
+    params = dict(model.named_parameters())
+    loaded, unexpected = set(), []
+    for hf, tensor in read_state_dict(directory).items():
+        if hf.endswith("position_ids") or hf.startswith(skip):
+            continue
+        for old, new in renames.items():
+            if hf.startswith(old):
+                hf = new + hf[len(old):]
+        if mtype == "vit" and not hf.startswith(("vit.", "classifier.")):
+            hf = "vit." + hf  # a ViTModel checkpoint: the base model's names
+        name, kind = leaf_name(hf, params)
+        if name not in params:
+            unexpected.append(hf)
+            continue
+        value = convert_leaf(tensor, kind)
+        if tuple(value.shape) != tuple(params[name].shape):
+            if name.startswith(fresh):
+                continue  # another head size: a new head, as from_pretrained makes it
+            raise ValueError(f"{directory}: {hf} has shape {tuple(tensor.shape)}, the "
+                             f"port's {name} {tuple(params[name].shape)}")
+        params[name].copy_(value.float())
+        loaded.add(name)
+    if unexpected:
+        raise ValueError(f"{directory}: unexpected tensors {sorted(unexpected)}")
+    missing = sorted(n for n in params if n not in loaded and not n.startswith(fresh))
+    if missing:
+        raise ValueError(f"{directory}: missing tensors for {missing}")
+    new = sorted(n for n in params if n not in loaded)
+    if new:
+        print(f"[pretrained] {directory}: new head from seed {seed}: {new}")
+    model.requires_grad_(False)
+    return model
 
 
 @torch.no_grad()
 def load_pretrained(directory: str, task: str = "classification", n_labels: int = 2,
                     seed: int = 0, dtype=torch.float32, device="cuda"):
-    """The port's encoder of ``directory``'s family for ``task`` (a
-    ``*ForSequenceClassification`` with ``n_labels`` outputs, or the span
-    head with ``task="qa"``), its weights from the checkpoint; a task head
-    the checkpoint lacks is initialised from ``seed``. Activations in
-    ``dtype``, parameters f32, on ``device`` (the card unless the caller
-    passes ``"cpu"``); every parameter frozen, as ``build_model`` leaves
-    them."""
+    """The port's model of ``directory``'s family, its weights from the
+    checkpoint: an encoder for ``task`` (a ``*ForSequenceClassification``
+    with ``n_labels`` outputs, or the span head with ``task="qa"``), whose
+    task head, where the checkpoint lacks it, is initialised from ``seed``;
+    or, by ``model_type``, T5, Whisper, ViT (``n_labels`` classes) or CLIP
+    (:func:`load_family`). Activations in ``dtype``, parameters f32, on
+    ``device`` (the card unless the caller passes ``"cpu"``); every
+    parameter frozen, as ``build_model`` leaves them."""
     with open(os.path.join(directory, "config.json")) as fh:
         config = json.load(fh)
+    if config.get("model_type") in OTHER_FAMILIES:
+        return load_family(directory, config, n_labels, seed, dtype,
+                           check_device(device, "load_pretrained"))
     family = hf_family(config)
     cfg = BertConfig.from_hf(family, dict(config, num_labels=2 if task == "qa" else n_labels))
     device = check_device(device, "load_pretrained")
@@ -141,12 +249,12 @@ def load_pretrained(directory: str, task: str = "classification", n_labels: int 
         if (hf.endswith("position_ids") or any(h in hf for h in OTHER_HEADS)
                 or (".pooler." in f".{hf}" and not pooled)):
             continue  # buffers, and heads of other tasks
-        name, transposed = port_name(hf, set(params), family)
+        name, kind = port_name(hf, params, family)
         if name not in params:
             if not hf.startswith(TASK_HEADS):  # else the head of another task
                 unexpected.append(hf)
             continue
-        value = tensor.t() if transposed else tensor
+        value = convert_leaf(tensor, kind)
         if tuple(value.shape) != tuple(params[name].shape):
             raise ValueError(f"{directory}: {hf} has shape {tuple(tensor.shape)}, the "
                              f"port's {name} {tuple(params[name].shape)}")

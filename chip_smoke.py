@@ -156,10 +156,10 @@ Phases, each timed, each raising on failure:
     ``mha_fwd_per_head``); width 96 raises. The forward and reduce kernels
     at the published models' FFN and lm_head shapes. Gemma-2B and
     Mistral-7B at their published widths (``models/llama.py::PUBLISHED``,
-    two layers, random weights from seed 0, MOPED 0.05 frozen) served and
-    trained through ``Predictor(task="causal-lm")`` and
-    ``make_elbo_train_step`` (:func:`phase_lm_once`: 15 Bayesian linear and
-    2 causal ``mha_fwd`` launches a request, 2 ``mha_bwd`` a step) in bf16
+    one layer (:data:`WIDE_LAYERS`), random weights from seed 0, MOPED 0.05
+    frozen) served and trained through ``Predictor(task="causal-lm")`` and
+    ``make_elbo_train_step`` (:func:`phase_lm_once`: 8 Bayesian linear and
+    1 causal ``mha_fwd`` launch a request, 1 ``mha_bwd`` a step) in bf16
     at 8x128 and in f32 at 8x128 (Gemma 2x128, one step), the logits and the
     step against the plain path, peak memory; their 1x1024 requests, and
     the tiny models at #4's shapes.
@@ -232,10 +232,39 @@ Phases, each timed, each raising on failure:
     table) and an independent-draw step against the plain path, an LRT
     request, and flipout raising as the reference does.
 
+21. the encoder-decoder families and posterior-predictive generation
+    (:func:`phase21`): (a) the forward and reduce kernels at T5-small's
+    bias-free shapes (512 -> 512, 512 -> 2048, 2048 -> 512 at the source's
+    8 x 256 rows and the target's 8 x 64; both estimators) and
+    Whisper-base's (its conv stems as im2col products, 240 -> 512 at 2 x
+    3000 frames and 1536 -> 512 at 2 x 1500, and the three at its encoder's
+    2 x 1500 and decoder's 2 x 64 rows; antithetic), and flipout's #12,
+    #13 and VJP at T5-small's (:func:`flipout21`); (b) T5-small at
+    ``T5_SMALL_KWARGS`` (t5-small's published config, seed 0, frozen MOPED
+    0.05) served (three requests through ``mc_apply_fused`` and the mean
+    logits, S = 10, B = 8, 256 source and 64 target ids, bf16) and trained
+    (three ELBO steps through ``make_elbo_train_step`` with the
+    teacher-forced token CE as ``loss_fn``) under both estimators, and
+    Whisper-base at openai/whisper-base's widths (``WHISPER_BASE_KWARGS``,
+    ``CONV_RULE``: the stems through the kernels; features (2, 80, 3000),
+    64 decoder ids) antithetic: launches counted around exactly the timed
+    requests and steps, reruns bit-equal, the log-probs and gradients
+    against the plain path, the bf16 logits against an f32 plain run, the
+    ELBO falling on one batch and draw (:func:`serve21`, :func:`train21`);
+    T5-small's regenerating objective (``save_weights=False``: #10's pair
+    instance and the (bf16 x, f32 W) reduce once a kernel,
+    :func:`regen21`) and its flipout and LRT request and step, their ELBO
+    objective's gradients against the plain path (:func:`tier21`);
+    (c) ``mc_generate`` on GPT-2 base and T5-small (S = 4, B = 2,
+    ``max_new_tokens=16``, greedy, f32): delta -> 0 draws' logits against
+    the frequentist greedy decode's, the KV cache against a decode that
+    recomputes the prefix, and the wall time a step of each, in turns
+    (:func:`generate21`).
+
 The timed requests and steps of phases 13-16 are three each
 (:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``,
-``--from 18``, ``--from 19``, ``--from 20``) runs the build, the eps stream
-and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
+``--from 18``, ``--from 19``, ``--from 20``, ``--from 21``) runs the build,
+the eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -1815,7 +1844,8 @@ def sampled_dense_faults(sl, x, mu, rho, seeds, ref, dtype, shape) -> str:
     return "; ".join(out)
 
 
-def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
+def phase_sampled_dense(sl, fl, moped_rho, dtype, shapes=SERVING_SHAPES,
+                        path="serve/flipout") -> list[dict]:
     """Kernel #12 (the no-prior draw pass and ``bft_bmm``) at flipout's
     shapes (S=10, the serving and training shapes of every converted
     layer), mu = 0 (flipout's
@@ -1824,10 +1854,11 @@ def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
     regenerate_weights`` (the same draw, #13's W, by ``torch.bmm``) at the
     same gates, and a bit-equal rerun; at mu = 0 and M = 1024 the gate must
     fail two planted faults (:func:`sampled_dense_faults`). Returns the
-    timing rows (mu = 0)."""
+    timing rows (mu = 0), each of the launches of ``path``/dtype, at the
+    (M, K, N) of ``shapes``."""
     S, tag, isz = 10, TAG[dtype], torch.finfo(dtype).bits // 8
     rows = []
-    for M, K, N in SERVING_SHAPES:
+    for M, K, N in shapes:
         for zero_mu in (True, False):
             x, mu, rho, seeds = sampled_dense_inputs(S, M, K, N, moped_rho, dtype, zero_mu)
             y = sl.sampled_dense(x, mu, rho, seeds)
@@ -1867,7 +1898,7 @@ def phase_sampled_dense(sl, fl, moped_rho, dtype) -> list[dict]:
                 f"bound {b[0]:.4f} ms ({b[1]})")
             suffix = "" if dtype == BF16 else f",{tag}"
             rows.append(row(f"sampled_dense[M={M},K={K},N={N}{suffix}]", "sampled_dense",
-                            (M, K, N, tag), f"serve/flipout/{tag}",
+                            (M, K, N, tag), f"{path}/{tag}",
                             "bayeformers_tpu_torch/csrc/bayes_linear.cu",
                             "bayeformers_tpu/ops/sampled_linear.py:117", errs[0], ms,
                             plain_ms, b, lib_ms))
@@ -2020,6 +2051,50 @@ def group_inputs(shapes, S, prior, seed=0):
     return mus, rhos, (pms if prior == "gaussian" else None), seeds
 
 
+def split_regen_rows(sl, moped_rho, sass, rate, shapes, tags, path) -> list[dict]:
+    """(1) of :func:`phase_split_regen` at each (K, N) of ``shapes``, timed
+    in each of ``tags`` (``"bf16"``: with the bf16 copy) as a row of the
+    launches of ``path``/tag. Returns the rows."""
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+
+    rows = []
+    for K, N in shapes:
+        _, mu, rho, seeds = sampled_dense_inputs(10, 8, K, N, moped_rho, F32, True)
+        w, lo = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
+        w2, lo2 = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
+        w1 = sl.regenerate_weights(mu, rho, seeds)
+        wf = fl.regenerate_weights(mu, rho, seeds)
+        torch.cuda.synchronize()
+        plain = sl.naive_weights(mu, rho, seeds)
+        check(torch.equal(w, w2) and torch.equal(lo, lo2),
+              f"split regen reruns differ at {(K, N)}")
+        check(torch.equal(w, plain) and torch.equal(w1, plain),
+              f"split regen differs from the plain stream at {(K, N)}: "
+              f"max {max_dist(w, plain)}")
+        check(torch.equal(w, wf), f"split regen differs from fused_linear's at {(K, N)}")
+        check(torch.equal(lo, plain.to(BF16)), f"split regen's bf16 W differs from the "
+              f"f32 W rounded at {(K, N)}")
+        for tag in tags:
+            lo_dtype = BF16 if tag == "bf16" else None
+            ms = time_ms(lambda: sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype),
+                         20, windows=WINDOWS)
+            plain_ms = time_ms(lambda: sl.naive_weights(mu, rho, seeds), 3, 1)
+            n_mufu, n_all = regen_instructions(sass, False, tag == "bf16", [(K, N)], 10)
+            n_bytes = 10 * K * N * (4 + 2 * (tag == "bf16")) + 2 * K * N * 4 + 40
+            b = bound_mufu(n_bytes, n_mufu, rate)
+            say(f"split regen S=10 (mu = 0, {tag} W{' and f32 W' if tag == 'bf16' else ''}) "
+                f"K={K} N={N}: W bit-equal to the plain stream and to "
+                f"fused_linear.regenerate_weights, bf16 copy equal, reruns equal; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; issue "
+                f"{issue_ms(n_all, rate):.4f} ms), no library call")
+            shape = (10, K, N, "bf16") if tag == "bf16" else (10, K, N)
+            rows.append(row(f"sampled_regen[S=10,K={K},N={N},{tag}]", "sampled_regen",
+                            shape, f"{path}/{tag}", "bayeformers_tpu_torch/csrc/regen.cu",
+                            "bayeformers_tpu/ops/sampled_linear.py:205", 0.0, ms, plain_ms,
+                            b, None))
+    return rows
+
+
 def phase_split_regen(sl, lpm, moped_rho, sass, rate) -> list[dict]:
     """Kernel #13. (1) ``bft_regen`` at flipout's S = 10 perturbation draws
     (mu = 0) and every converted layer's (K, N): the f32 W bit-equal to the
@@ -2037,45 +2112,10 @@ def phase_split_regen(sl, lpm, moped_rho, sass, rate) -> list[dict]:
     entry), the reduce launched, no ``torch.bmm`` with an f32 or (S, K, N)
     output in bf16 nor an (S, K, N) one in f32. Returns the timing rows."""
     from bayeformers_tpu_torch.ops import fused_backward as fb
-    from bayeformers_tpu_torch.ops import fused_linear as fl
 
-    rows = []
-    for K, N in REGEN_SHAPES + ((300, 130),):
-        _, mu, rho, seeds = sampled_dense_inputs(10, 8, K, N, moped_rho, F32, True)
-        w, lo = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
-        w2, lo2 = sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype=BF16)
-        w1 = sl.regenerate_weights(mu, rho, seeds)
-        wf = fl.regenerate_weights(mu, rho, seeds)
-        torch.cuda.synchronize()
-        plain = sl.naive_weights(mu, rho, seeds)
-        check(torch.equal(w, w2) and torch.equal(lo, lo2),
-              f"split regen reruns differ at {(K, N)}")
-        check(torch.equal(w, plain) and torch.equal(w1, plain),
-              f"split regen differs from the plain stream at {(K, N)}: "
-              f"max {max_dist(w, plain)}")
-        check(torch.equal(w, wf), f"split regen differs from fused_linear's at {(K, N)}")
-        check(torch.equal(lo, plain.to(BF16)), f"split regen's bf16 W differs from the "
-              f"f32 W rounded at {(K, N)}")
-        if (K, N) not in REGEN_SHAPES:
-            continue
-        for tag in ("bf16", "f32"):
-            lo_dtype = BF16 if tag == "bf16" else None
-            ms = time_ms(lambda: sl.regen_cuda(mu, rho, seeds, sl.REGEN_LAUNCHES, lo_dtype),
-                         20, windows=WINDOWS)
-            plain_ms = time_ms(lambda: sl.naive_weights(mu, rho, seeds), 3, 1)
-            n_mufu, n_all = regen_instructions(sass, False, tag == "bf16", [(K, N)], 10)
-            n_bytes = 10 * K * N * (4 + 2 * (tag == "bf16")) + 2 * K * N * 4 + 40
-            b = bound_mufu(n_bytes, n_mufu, rate)
-            say(f"split regen S=10 (mu = 0, {tag} W{' and f32 W' if tag == 'bf16' else ''}) "
-                f"K={K} N={N}: W bit-equal to the plain stream and to "
-                f"fused_linear.regenerate_weights, bf16 copy equal, reruns equal; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; issue "
-                f"{issue_ms(n_all, rate):.4f} ms), no library call")
-            shape = (10, K, N, "bf16") if tag == "bf16" else (10, K, N)
-            rows.append(row(f"sampled_regen[S=10,K={K},N={N},{tag}]", "sampled_regen",
-                            shape, f"train/flipout/{tag}", "bayeformers_tpu_torch/csrc/regen.cu",
-                            "bayeformers_tpu/ops/sampled_linear.py:205", 0.0, ms, plain_ms,
-                            b, None))
+    rows = split_regen_rows(sl, moped_rho, sass, rate, REGEN_SHAPES, ("bf16", "f32"),
+                            "train/flipout")
+    split_regen_rows(sl, moped_rho, sass, rate, ((300, 130),), (), "train/flipout")
     rows += phase_logprob_vjp(lpm, sass[0], rate)
     for dtype in (BF16, F32):
         phase_flipout_vjp(sl, fb, moped_rho, dtype)
@@ -2176,12 +2216,13 @@ def bmm_outputs(fn):
         return fn(), calls
 
 
-def phase_flipout_vjp(sl, fb, moped_rho, dtype) -> None:
+def phase_flipout_vjp(sl, fb, moped_rho, dtype, shapes=REGEN_SHAPES[:3], M=1024) -> None:
     """Flipout's ``sampled_dense`` VJP on the card: see
-    :func:`phase_split_regen`, (3)."""
-    S, M, tag = 10, 1024, TAG[dtype]
+    :func:`phase_split_regen`, (3); at each (K, N) of ``shapes`` and M
+    rows."""
+    S, tag = 10, TAG[dtype]
     gate = 1e-4 if dtype == BF16 else 1e-5
-    for K, N in REGEN_SHAPES[:3]:
+    for K, N in shapes:
         x, mu, rho, seeds = sampled_dense_inputs(S, M, K, N, moped_rho, dtype, True)
         gen = torch.Generator(device="cuda").manual_seed(K + N)
         g = (torch.randn(S, M, N, device="cuda", generator=gen) * 0.01).to(dtype)
@@ -2191,9 +2232,11 @@ def phase_flipout_vjp(sl, fb, moped_rho, dtype) -> None:
         torch.cuda.synchronize()
         check(fb.INDEP_LAUNCHES.count == 2, f"flipout VJP ({tag}) launched the reduce "
               f"{fb.INDEP_LAUNCHES.count} times in two calls")
-        bad = [c for c in bmms if c[1] == (S, K, N) or (dtype == BF16 and c[0] == F32)]
-        check(len(bmms) == 1 and not bad, f"flipout VJP ({tag}) ran torch.bmm {bmms}: "
-              "want dx's alone")
+        # dx's product alone, (S, M, K) in x's dtype: no f32 or (S, K, N)
+        # product (where M = K = N the two shapes meet: the dtype and the
+        # count still tell dx's apart)
+        check(bmms == [(dtype, (S, M, K))], f"flipout VJP ({tag}) ran torch.bmm {bmms}: "
+              f"want dx's alone, {(dtype, (S, M, K))}")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flipout VJP ({tag}) reruns differ at {(K, N)}")
         want = sl.sampled_dense_vjp(x, mu, rho, seeds, g, plain=True)
@@ -3298,7 +3341,9 @@ def phase_lm_once(bt, fl, fb, at, family, dtype, size="base", B=8, L=128,
 # f32 logits, log-softmax and their gradient another 10 GB each
 WIDE = {"gemma-2b-w256/": ("gemma-2b-w256", GEMMA, 2),
         "mistral-7b-w128/": ("mistral-7b-w128", MISTRAL, 8)}
-WIDE_LAYERS = 2
+# one layer each (two until the script's time limit had to hold phase 21):
+# every kernel instance and shape of the path runs at one layer as at two
+WIDE_LAYERS = 1
 # the Bayesian linear kernels' new shapes: each model's FFN and lm_head at
 # the 8x128 bucket
 FAMILY_SHAPES["gemma-2b-w256/"] = ((1024, 2048, 16384), (1024, 16384, 2048),
@@ -4879,6 +4924,592 @@ def phase20(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate) -> tuple[list
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the encoder-decoder families (T5, Whisper) and posterior-predictive
+# generation (mc_generate with a KV-cache decode)
+# ---------------------------------------------------------------------------
+
+# the main paths of phase 21 by their launch paths' prefix: T5-small at its
+# published config (t5-small) and Whisper-base at openai/whisper-base's
+# widths, both at full depth (6 + 6 layers)
+T5S, WHB = "t5/", "whisper/"
+T5_B, T5_SRC, T5_TGT = 8, 256, 64
+WH_B, WH_TGT = 2, 64
+NAMES21 = {T5S: "T5-small", WHB: "Whisper-base"}
+# the linear kernels' new shapes (M a draw): T5-small's bias-free 512 -> 512
+# (q/k/v/o), 512 -> 2048 (wi) and 2048 -> 512 (wo) at the source's 8 x 256
+# rows (the encoder, the cross-attention's k and v) and the target's 8 x 64;
+# Whisper-base's conv stems as im2col products (K = 3 x 80 at 2 x 3000
+# frames, K = 3 x 512 at 2 x 1500), the same three at its 2 x 1500 encoder
+# rows and its 2 x 64 decoder rows
+FAMILY_SHAPES[T5S] = tuple((m, k, n) for m in (T5_B * T5_SRC, T5_B * T5_TGT)
+                           for k, n in ((512, 512), (512, 2048), (2048, 512)))
+FAMILY_SHAPES[WHB] = ((WH_B * 3000, 240, 512), (WH_B * 1500, 1536, 512)) + tuple(
+    (m, k, n) for m in (WH_B * 1500, WH_B * WH_TGT)
+    for k, n in ((512, 512), (512, 2048), (2048, 512)))
+
+
+def seq2seq_base(bt, which, dtype):
+    """The converted model of a phase-21 path in ``dtype`` activations from
+    seed 0, its zero leaves at 0.01 first, frozen MOPED 0.05: T5-small
+    (``T5_SMALL_KWARGS``) under the default rules, Whisper-base
+    (``WHISPER_BASE_KWARGS``) under ``(*DEFAULT_RULES, CONV_RULE)``, its conv
+    stems Bayesian. Returns it and its trainable tensors."""
+    if which == T5S:
+        model = bt.build_t5("small", seed=0, dtype=dtype, device="cuda")
+        rules = bt.DEFAULT_RULES
+    else:
+        model = bt.build_whisper(seed=0, dtype=dtype, device="cuda", **bt.WHISPER_BASE_KWARGS)
+        rules = (*bt.DEFAULT_RULES, bt.CONV_RULE)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.masked_fill_(p == 0, 0.01)
+    bmodel = bt.to_bayesian(model, delta=0.05, freeze=True, rules=rules)
+    return bmodel, bmodel.trainable_parameters()
+
+
+def seq2seq_inputs(which, seed=7) -> dict:
+    """A seeded batch on the card: T5's copy task (8 sources of 256 ids,
+    half of them padded from 200 on; 64 target ids), Whisper's synthetic
+    speech (2 x 80 mels x 3000 frames, 64 decoder ids)."""
+    from bayeformers_tpu_torch.models import t5, whisper
+
+    rng = np.random.default_rng(seed)
+    if which == T5S:
+        d = t5.synthetic_seq2seq_batch(rng, T5_B, T5_SRC, T5_TGT, 32128)
+        d["attention_mask"][T5_B // 2:, 200:] = 0
+    else:
+        cfg = whisper.WhisperConfig(**whisper.WHISPER_BASE_KWARGS)
+        d = whisper.synthetic_speech_batch(rng, WH_B, cfg)
+        d["decoder_input_ids"] = d["decoder_input_ids"][:, :WH_TGT]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            if v.dtype.kind == "f" else torch.from_numpy(v.astype(np.int64)).cuda()
+            for k, v in d.items()}
+
+
+def seq2seq_loss(which):
+    """The teacher-forced token CE of the S-averaged logits, sum-reduced:
+    T5's against its labels, Whisper's next decoder id."""
+    from bayeformers_tpu_torch.models import t5, whisper
+
+    return t5.seq2seq_loss if which == T5S else whisper.teacher_forced_loss
+
+
+def seq2seq_keys(bmodel, inputs) -> dict:
+    return {k: inputs[k] for k in bmodel.model.input_keys if k in inputs}
+
+
+def forward21(bt, bmodel, inputs, est, seed, impl="kernel"):
+    """One S = 10 request through the fused tier without W residuals:
+    (outputs (S, B, L, V), aux)."""
+    mc = bt.training.pick_mc(bmodel, True, est, save_weights=False)
+    with torch.inference_mode():
+        return mc(seed, 10, **seq2seq_keys(bmodel, inputs), impl=impl)
+
+
+def seq2seq_rows(which, path) -> int:
+    """M a draw of a converted kernel: the source's rows (T5's encoder and
+    cross-attention k/v; Whisper's conv stems, encoder and cross k/v) or the
+    target's."""
+    if which == T5S:
+        src = path.startswith("encoder/") or "EncDecAttention/k/" in path or \
+            "EncDecAttention/v/" in path
+        return T5_B * (T5_SRC if src else T5_TGT)
+    if "conv1" in path:
+        return WH_B * 3000
+    if path.startswith("model/encoder/") or "encoder_attn/k_proj" in path or \
+            "encoder_attn/v_proj" in path:
+        return WH_B * 1500
+    return WH_B * WH_TGT
+
+
+def seq2seq_want(bmodel, which, anti, n_req=0, n_steps=0) -> dict:
+    """The fused tier's launches over ``n_req`` requests or ``n_steps``
+    steps (bf16, S = 10): the forward kernel (the reduce a step) once a
+    converted kernel at its (K, N) view (a conv's (cin kw, cout)), M its
+    rows; no attention kernel (T5's and Whisper's attention is plain torch,
+    as the reference leaves it to XLA) and no #10 (bf16)."""
+    fwd, red = {}, {}
+    for p in bmodel.spec.paths:
+        if not p.endswith("/kernel"):
+            continue
+        shape = tuple(bmodel.rho[p].shape)
+        key = (seq2seq_rows(which, p), math.prod(shape[:-1]), shape[-1], "bf16")
+        fwd[key] = fwd.get(key, 0) + n_req + n_steps
+        if n_steps:
+            red[key] = red.get(key, 0) + n_steps
+    want = {"bayes_linear_anti" if anti else "bayes_linear": fwd}
+    if n_steps:
+        want["reduce_abuv_anti" if anti else "reduce_abuv"] = red
+    return want
+
+
+def summary21(which, out, inputs) -> str:
+    """The MC-mean logits' teacher-forced token accuracy, finite."""
+    loss, m = seq2seq_loss(which)(out, inputs)
+    check(np.isfinite(loss.item()), f"{NAMES21[which]}: loss {loss.item()}")
+    return f"token CE of the mean logits {loss.item():.6g}, accuracy {float(m['acc']):.4f}"
+
+
+def f32_gate21(bt, which, est, inputs, lk, lp, label) -> str:
+    """bf16 logits through the kernels no farther from the f32 plain run's
+    (the same weights and draws) than 1.5x the bf16 plain path's, in max
+    |d| and relative L2 (:func:`f32_logits_gate`'s rule: T5's random logits
+    reach ~10, where one bf16 step is 0.0625, so no fixed absolute gate
+    fits them)."""
+    m32, _ = seq2seq_base(bt, which, F32)
+    l32 = forward21(bt, m32, inputs, est, 12345, impl="plain")[0].float()
+    del m32
+
+    def dist(a):
+        d = a.float() - l32
+        return d.abs().max().item(), (d.norm() / l32.norm()).item()
+
+    (kd, kr), (pd, pr) = dist(lk), dist(lp)
+    check(kd <= 1.5 * pd and kr <= 1.5 * pr,
+          f"{label}: the kernels' logits are farther from the f32 plain run (max|d| {kd}, "
+          f"rel L2 {kr}) than 1.5x the bf16 plain path (max|d| {pd}, rel L2 {pr})")
+    del l32
+    torch.cuda.empty_cache()
+    return (f"logits against the f32 plain run: kernels max|d| {kd:.4g} rel L2 {kr:.4g}, "
+            f"bf16 plain max|d| {pd:.4g} rel L2 {pr:.4g} (gate 1.5x); kernels vs bf16 plain "
+            f"max|d| {max_dist(lk, lp):.4g}")
+
+
+def serve21(bt, fl, fb, at, which, anti=True) -> tuple[dict, float]:
+    """A phase-21 model's request (S = 10, ``mc_apply_fused`` and the mean
+    logits): a warm-up, :data:`TIMED` requests with the launches read around
+    exactly them (:func:`seq2seq_want`), a rerun bit-equal, the log-probs
+    against the plain path (1e-5 relative), the bf16 logits against the f32
+    plain run no farther than 1.5x the bf16 plain path
+    (:func:`f32_logits_gate`'s rule), the summary of both, latency and peak
+    memory. Returns (launches, median ms)."""
+    bmodel, named = seq2seq_base(bt, which, BF16)
+    del named
+    est = "antithetic" if anti else "fused"
+    label = f"{NAMES21[which]} request ({est}, bf16)"
+    inputs = seq2seq_inputs(which)
+    forward21(bt, bmodel, inputs, est, 1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for i in range(TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, _ = forward21(bt, bmodel, inputs, est, 10 + i)
+        mean = bt.elbo.mc_logits_mean(out)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(mean.float()).all()), f"{label}: mean logits not finite")
+    counts = lm_counts(fl, fb, at)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = seq2seq_want(bmodel, which, anti, n_req=TIMED)
+    check(counts == want, f"{label}: launches over {TIMED} requests {counts}, want {want}")
+    del out, mean
+    lk, auxk = forward21(bt, bmodel, inputs, est, 12345)
+    again, _ = forward21(bt, bmodel, inputs, est, 12345)
+    check(torch.equal(lk, again), f"{label}: reruns differ")
+    del again
+    lp, auxp = forward21(bt, bmodel, inputs, est, 12345, impl="plain")
+    for k in auxk:
+        check(torch.allclose(auxk[k], auxp[k], rtol=1e-5, atol=0.0),
+              f"{label}: {k} {auxk[k]} vs plain {auxp[k]}")
+    note = f"{summary21(which, lk, inputs)} (plain: {summary21(which, lp, inputs)})"
+    gate = f32_gate21(bt, which, est, inputs, lk, lp, label)
+    ms = float(np.median(lat))
+    say(f"{label}: launches over {TIMED} requests {counts}; reruns bit-equal; log-probs "
+        f"within 1e-5 of the plain path; {gate}; {note}; latency median {ms:.3f} ms of "
+        f"{TIMED}: {[round(v, 3) for v in lat]}; peak memory {peak:.2f} GiB")
+    del bmodel, lk, lp
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def grads21(bt, bmodel, named, which, batch, impl, est):
+    """Loss and gradients of one ELBO objective (S = 10, 256 batches) at the
+    draws of seed 123."""
+    for _, t, _ in named:
+        t.grad = None
+    mc = bt.training.pick_mc(bmodel, True, est)
+    loss, _ = bt.training.elbo_objective(mc, 123, 10, batch, 256, seq2seq_loss(which),
+                                         bmodel.model.input_keys, impl=impl)
+    loss.backward()
+    # Whisper's encoder positions are under stop_gradient: no gradient
+    return loss.item(), {n: t.grad.clone() for n, t, _ in named if t.grad is not None}
+
+
+def against_plain21(bt, bmodel, named, which, batch, est, label, loss_k, gk) -> str:
+    """The ELBO objective's loss and gradients through the kernels
+    (``loss_k``, ``gk``: :func:`grads21`) against the plain path's at the
+    same draws: loss 1e-2 relative, rho 5e-2 relative L2 and cosine 0.999
+    (the other groups read). Returns the note."""
+    loss_p, gp = grads21(bt, bmodel, named, which, batch, "plain", est)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(np.isfinite(loss_k) and loss_rel <= 1e-2,
+          f"{label}: loss kernels {loss_k} vs plain {loss_p}")
+    notes = []
+    for group, names in grad_groups(list(gk)).items():
+        rel, cos, at_ = worst_agreement(gk, gp, names)
+        notes.append(f"{group} rel L2 {rel:.4g} (worst leaf, {at_}), cosine {cos:.7f}")
+        if group == "rho":
+            check(rel <= 5e-2 and cos >= 0.999, f"{label}: rho gradients differ from the "
+                  f"plain step: rel L2 {rel}, cosine {cos}")
+    del gp
+    torch.cuda.empty_cache()
+    return (f"loss kernels {loss_k:.9g} vs plain {loss_p:.9g} (rel {loss_rel:.3g}); "
+            "gradients kernels vs plain: " + "; ".join(notes))
+
+
+def train21(bt, fl, fb, at, which, anti=True) -> tuple[dict, float]:
+    """A phase-21 model's ELBO step (S = 10, bf16, the teacher-forced token
+    CE as ``loss_fn``): the loss and gradients through the kernels against
+    the plain step at the same draws (loss 1e-2 relative, rho 5e-2 relative
+    L2 and cosine 0.999, the other groups read) and a rerun bit-equal; then
+    :data:`TIMED` steps on one batch and one draw (seed 55) with the
+    launches read around exactly them, the ELBO falling. Returns
+    (launches, median ms)."""
+    bmodel, named = seq2seq_base(bt, which, BF16)
+    est = "antithetic" if anti else "fused"
+    label = f"{NAMES21[which]} step ({est}, bf16)"
+    batch = seq2seq_inputs(which)
+    loss_k, gk = grads21(bt, bmodel, named, which, batch, "kernel", est)
+    loss_k2, gk2 = grads21(bt, bmodel, named, which, batch, "kernel", est)
+    check(loss_k == loss_k2 and all(torch.equal(gk[n], gk2[n]) for n in gk),
+          f"{label}: reruns differ")
+    del gk2
+    torch.cuda.empty_cache()
+    say(f"{label}: reruns bit-equal; "
+        + against_plain21(bt, bmodel, named, which, batch, est, label, loss_k, gk))
+    del gk
+    torch.cuda.empty_cache()
+    opt = bt.training.adamw_with_decay_groups(1e-4, 0.0, bt.training.default_no_decay).init(
+        named)
+    stepf = bt.training.make_elbo_train_step(
+        bmodel, opt, 10, 256, loss_fn=seq2seq_loss(which),
+        input_keys=bmodel.model.input_keys, estimator=est)
+    losses = [stepf(55, batch)["loss"].item()]
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    at.PER_HEAD_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = stepf(55, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = lm_counts(fl, fb, at)
+    want = seq2seq_want(bmodel, which, anti, n_steps=TIMED)
+    check(counts == want, f"{label}: launches over {TIMED} steps {counts}, want {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the ELBO did not fall on one batch and draw: {losses}")
+    ms = float(np.median(times))
+    say(f"{label}: launches over {TIMED} steps {counts}; loss over {TIMED + 1} steps at one "
+        f"batch and draw {losses}; ELBO step median {ms:.3f} ms of {TIMED}: "
+        f"{[round(v, 3) for v in times]}; peak memory {peak:.2f} GiB")
+    del opt, stepf, named, bmodel
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def regen21(bt, fl, fb, at) -> str:
+    """T5-small's antithetic ELBO objective with ``save_weights=False`` (the
+    regenerating backward): #10's pair instance with its bf16 copy once a
+    converted kernel and the (bf16 x, f32 W) reduce once a kernel, counted
+    around exactly one objective, its gradients against the plain
+    regenerating run (rho 5e-2 relative L2, cosine 0.999)."""
+    bmodel, named = seq2seq_base(bt, T5S, BF16)
+    batch = seq2seq_inputs(T5S)
+    n = len(bmodel.spec.paths)
+
+    def grads(impl):
+        for _, t, _ in named:
+            t.grad = None
+        mc = bt.training.pick_mc(bmodel, True, "antithetic", save_weights=False)
+        loss, _ = bt.training.elbo_objective(mc, 123, 10, batch, 256, seq2seq_loss(T5S),
+                                             bmodel.model.input_keys, impl=impl)
+        loss.backward()
+        return loss.item(), {m: t.grad.clone() for m, t, _ in named if t.grad is not None}
+
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at)
+    loss_k, gk = grads("kernel")
+    regen = dict(fl.REGEN_LAUNCHES.by_shape)
+    check(fl.REGEN_LAUNCHES.count == n and all(k[3:] == ("pair/bf16",) for k in regen),
+          f"T5-small save_weights=False: regen launched {regen}, want the pair/bf16 "
+          f"instance once for each of {n} kernels")
+    check(sum(v for k, v in fb.LAUNCHES.by_shape.items() if k[3] == "bf16x-f32w") == n,
+          f"T5-small save_weights=False: the (bf16 x, f32 W) reduce did not serve every "
+          f"kernel: {fb.LAUNCHES.by_shape}")
+    loss_p, gp = grads("plain")
+    rel, cos, at_ = worst_agreement(gk, gp, [m for m in gk if m.startswith("rho/")])
+    check(abs(loss_k - loss_p) <= 1e-2 * abs(loss_p) and rel <= 5e-2 and cos >= 0.999,
+          f"T5-small save_weights=False: loss {loss_k} vs plain {loss_p}, rho rel L2 {rel}, "
+          f"cosine {cos}")
+    del bmodel, named, gk, gp
+    torch.cuda.empty_cache()
+    return (f"T5-small ELBO objective, save_weights=False (antithetic, bf16): regen {n} "
+            f"launches, the pair/bf16 instance; (bf16 x, f32 W) reduce on every kernel; loss "
+            f"kernels {loss_k:.9g} vs plain {loss_p:.9g}; rho rel L2 {rel:.4g} (worst leaf, "
+            f"{at_}), cosine {cos:.7f}")
+
+
+def split_shape_counts(sl, fb) -> dict:
+    """Flipout's split kernels' launches by name and shape: #12, #13 and
+    the reduce of its VJP."""
+    return {c.name: dict(c.by_shape) for c in (sl.LAUNCHES, sl.REGEN_LAUNCHES,
+                                               fb.INDEP_LAUNCHES) if c.count}
+
+
+def tier21(bt, fl, fb, at, sl, lpm, estimator) -> tuple[dict, float, dict, float]:
+    """T5-small under flipout or LRT (bf16, S = 10): one request and one
+    ELBO step, the launches counted around each (:func:`want_counts`: #12
+    on every kernel a flipout forward, #13 and the reduce a backward; no
+    Bayesian linear kernel in LRT), the bf16 outputs against the tier's f32
+    plain run (:func:`f32_gate21`), the KL within 1e-5, reruns bit-equal;
+    the ELBO objective's loss and gradients against the plain path's at the
+    same draws (:func:`against_plain21`: under flipout #12's forward and
+    #13's W through the reduce at T5-small's shapes). Returns the request's
+    launches by shape (:func:`split_shape_counts`) and ms, the step's."""
+    bmodel, named = seq2seq_base(bt, T5S, BF16)
+    batch = seq2seq_inputs(T5S)
+    label = f"T5-small {estimator} (bf16)"
+    n = len(bmodel.spec.paths)
+    forward21(bt, bmodel, batch, estimator, 1)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    t = time.perf_counter()
+    lk, auxk = forward21(bt, bmodel, batch, estimator, 12345)
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t) * 1e3
+    req_counts = estimator_counts(fl, fb, at, sl, lpm)
+    req_shapes = split_shape_counts(sl, fb)
+    want = want_counts(estimator, "on_mu", n, 0, 0)
+    check(all(req_counts[k] == want.get(k, 0) for k in req_counts),
+          f"{label}: one request launched {req_counts}, want {want} (0 elsewhere)")
+    again, _ = forward21(bt, bmodel, batch, estimator, 12345)
+    lp, auxp = forward21(bt, bmodel, batch, estimator, 12345, impl="plain")
+    check(torch.equal(lk, again) and bool(torch.isfinite(lk.float()).all()),
+          f"{label}: reruns differ or outputs not finite")
+    gate = f32_gate21(bt, T5S, estimator, batch, lk, lp, label)
+    for k in auxk:
+        check(torch.allclose(auxk[k], auxp[k], rtol=1e-5, atol=0.0),
+              f"{label}: {k} {auxk[k]} vs plain {auxp[k]}")
+    del lk, lp, again
+    loss_k, gk = grads21(bt, bmodel, named, T5S, batch, "kernel", estimator)
+    grads = against_plain21(bt, bmodel, named, T5S, batch, estimator, label, loss_k, gk)
+    del gk
+    opt = bt.training.adamw_with_decay_groups(1e-4, 0.0, bt.training.default_no_decay).init(
+        named)
+    stepf = bt.training.make_elbo_train_step(
+        bmodel, opt, 10, 256, loss_fn=seq2seq_loss(T5S), input_keys=bmodel.model.input_keys,
+        estimator=estimator)
+    stepf(55, batch)
+    torch.cuda.synchronize()
+    reset_counters(fl, fb, at, sl, lpm)
+    t = time.perf_counter()
+    m = stepf(56, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    counts = estimator_counts(fl, fb, at, sl, lpm)
+    step_shapes = split_shape_counts(sl, fb)
+    want = want_counts(estimator, "on_mu", n, 0, 1)
+    check(bool(torch.isfinite(m["loss"])) and all(counts[k] == want.get(k, 0) for k in counts),
+          f"{label}: one step launched {counts}, want {want} (0 elsewhere); loss {m['loss']}")
+    say(f"{label}: request launches {req_counts}, {gate}, KL within 1e-5, reruns equal, "
+        f"latency {req_ms:.3f} ms; ELBO objective {grads}; step launches {counts}, "
+        f"{step_ms:.3f} ms")
+    del bmodel, named, opt, stepf
+    torch.cuda.empty_cache()
+    return req_shapes, req_ms, step_shapes, step_ms
+
+
+def flipout21(sl, fl, fb, moped_rho, sass, rate) -> list[dict]:
+    """Flipout's split kernels at T5-small's shapes (bf16, S = 10): #12
+    (``sampled_dense``) against its plain version and x @ W
+    (:func:`phase_sampled_dense`), #13's W and bf16 copy bit-equal to the
+    plain stream (:func:`split_regen_rows`), and the VJP through #13 and
+    the reduce against the plain route at the source's and the target's
+    rows (:func:`phase_flipout_vjp`). Returns the rows, each of the
+    launches of T5-small's flipout request or step."""
+    kn = ((512, 512), (512, 2048), (2048, 512))
+    rows = phase_sampled_dense(sl, fl, moped_rho, BF16, FAMILY_SHAPES[T5S],
+                               f"serve/{T5S}flipout")
+    rows += split_regen_rows(sl, moped_rho, sass, rate, kn, ("bf16",), f"train/{T5S}flipout")
+    for M in (T5_B * T5_SRC, T5_B * T5_TGT):
+        phase_flipout_vjp(sl, fb, moped_rho, BF16, kn, M)
+    return rows
+
+
+GEN_REPS = 7  # timed decodes of each kind a model, in turns
+
+
+def decode_times21(generation, model, bmodel, ids, steps) -> dict:
+    """The wall time a step (one token for each of the B rows) of one
+    draw's greedy decode (``generation.decode_draw``, no scores, no eos),
+    the weights drawn once outside the clock: one warm-up of each, then
+    :data:`GEN_REPS` decodes of each in turns (cache, recompute, recompute,
+    cache, ...). Returns {use_cache: [ms a step, ...]}."""
+    cfg = model.config
+    params, _, _ = bmodel.sample(torch.Generator(device="cuda").manual_seed(5))
+    ids = torch.as_tensor(ids, device="cuda").long()
+    mask = torch.ones_like(ids)
+    pad = cfg.pad_token_id or cfg.eos_token_id or 0
+
+    def run(cache):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generation.decode_draw(model, params, ids, mask, ids.shape[1] + 16,
+                               lambda z: torch.argmax(z, dim=-1), pad, -1, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    run(True)
+    run(False)
+    times = {True: [], False: []}
+    for i in range(GEN_REPS):
+        for cache in ((True, False) if i % 2 == 0 else (False, True)):
+            times[cache].append(run(cache))
+    del params
+    return times
+
+
+def generate21(bt, which) -> dict:
+    """``mc_generate`` at S = 4, B = 2, ``max_new_tokens=16``, greedy, f32,
+    no eos (every step decodes: GPT-2 16 steps, T5-small 31, its decoder
+    side running to the prompt's length plus 16): GPT-2 base or T5-small
+    (seed 0, zero leaves at 0.01) from a 16-id prompt. The frequentist greedy
+    decode (every rho at -200: the draws are mu exactly) reruns bit-equal.
+    At delta -> 0 (frozen MOPED 1e-7) each draw's logits stand within 1e-5
+    of the largest |logit| of that decode's at every step up to the first
+    where its tokens leave it, if any (there the gap of the decode's top
+    two logits is at most twice that difference, which is what lets a draw
+    leave it). The KV-cache decode's tokens equal the decode that
+    recomputes the whole prefix, its logits within 1e-4 of the largest.
+    Then :func:`decode_times21`. Returns {use_cache: median ms a step}."""
+    from bayeformers_tpu_torch import generation
+
+    if which == GPT2:
+        model = bt.build_gpt2("base", seed=0, dtype=F32, device="cuda")
+        vocab, name, first = 50257, "GPT-2 base", 16
+    else:
+        model = bt.build_t5("small", seed=0, dtype=F32, device="cuda")
+        vocab, name, first = 32128, "T5-small", 1
+    # MOPED gives an exactly-zero weight rho = 0 (sigma = softplus(0) =
+    # 0.69) at every delta, as the reference does; delta -> 0 holds only
+    # for the others, so zero leaves go to 0.01 first, as the reference's
+    # test has them (GPT-2's zero biases; T5-small's seed-0 init holds a
+    # few exact zeros, the card's normal_ drawing 0)
+    with torch.no_grad():
+        zeros = sum(int((p == 0).sum()) for p in model.parameters())
+        for p in model.parameters():
+            p.masked_fill_(p == 0, 0.01)
+    ids = np.random.default_rng(21).integers(2, vocab, (2, 16))
+    kw = dict(max_new_tokens=16, eos_token_id=-1, output_scores=True)
+    fixed = bt.to_bayesian(model, delta=0.05, freeze=True)
+    for r in fixed.rho.values():
+        r.fill_(-200.0)
+    ffull = generation.mc_generate(model, fixed, 1, ids, **kw)
+    frerun = generation.mc_generate(model, fixed, 1, ids, **kw)
+    check(np.array_equal(ffull["sequences"], frerun["sequences"])
+          and np.array_equal(ffull["scores"], frerun["scores"]),
+          f"{name}: the frequentist decode's rerun differs (logits max|d| "
+          f"{np.abs(ffull['scores'] - frerun['scores']).max()})")
+    freq, fs = ffull["sequences"][0], ffull["scores"][0]
+    steps = fs.shape[1]
+    top = float(np.abs(fs).max())
+    bmodel = bt.to_bayesian(model, delta=1e-7, freeze=True)
+    cached = generation.mc_generate(model, bmodel, 4, ids, **kw)
+    out = generation.mc_generate(model, bmodel, 4, ids, use_cache=False, **kw)
+    seqs = cached["sequences"]
+    worst, flips = 0.0, []
+    for s in range(4):
+        for b in range(2):
+            diff = np.nonzero(seqs[s, b] != freq[b])[0]
+            last = int(diff[0]) - first if diff.size else steps - 1
+            d = float(np.abs(cached["scores"][s, b, :last + 1] - fs[b, :last + 1]).max())
+            worst = max(worst, d)
+            if diff.size:
+                top2 = np.sort(fs[b, last])[-2:]
+                flips.append((s, b, int(diff[0]), float(top2[1] - top2[0]), d))
+    check(worst <= 1e-5 * top,
+          f"{name}: delta -> 0 draws' logits stand {worst} from the frequentist greedy "
+          f"decode's (max |logit| {top}, gate 1e-5 of it) before they leave it; (draw, "
+          f"row, position, top-2 gap there, max|d| up to it): {flips}")
+    check(np.array_equal(seqs, out["sequences"]),
+          f"{name}: the KV cache's tokens differ from the recomputing decode's")
+    err = float(np.abs(cached["scores"] - out["scores"]).max())
+    top_c = float(np.abs(out["scores"]).max())
+    check(err <= 1e-4 * top_c, f"{name}: cache logits differ by {err} (max |logit| {top_c})")
+    del fixed, ffull, frerun, cached, out
+    times = decode_times21(generation, model, bmodel, ids, steps)
+    med = {c: float(np.median(v)) for c, v in times.items()}
+    say(f"mc_generate {name} (S=4, B=2, max_new_tokens=16: {steps} steps, greedy, f32; "
+        f"{zeros} zero leaves at 0.01): the "
+        f"frequentist decode reruns bit-equal; delta -> 0 draws' logits within {worst:.4g} "
+        f"of its (max |logit| {top:.4g}, gate 1e-5 relative) up to where they leave it; "
+        + (f"{len(flips)} of 8 draw rows leave it, (draw, row, position, top-2 gap there, "
+           f"max|d| up to it) {flips}" if flips else "every draw equals it")
+        + f"; KV-cache tokens equal the recomputing decode's, logits max|d| {err:.4g} of "
+        f"max |logit| {top_c:.4g} (gate 1e-4 relative); one draw's decode (weights drawn "
+        f"once, no scores), ms a step (B=2 tokens), median of {GEN_REPS} in turns after a "
+        f"warm-up [min, max]: cache {med[True]:.3f} [{min(times[True]):.3f}, "
+        f"{max(times[True]):.3f}], recompute {med[False]:.3f} [{min(times[False]):.3f}, "
+        f"{max(times[False]):.3f}]; all: {[round(v, 3) for v in times[True]]} / "
+        f"{[round(v, 3) for v in times[False]]}")
+    del model, bmodel
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase21(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate
+            ) -> tuple[list[dict], dict]:
+    """Phase 21 (module note): the linear kernels at T5-small's and
+    Whisper-base's shapes (flipout's #12, #13 and VJP at T5-small's), both
+    models served and trained (antithetic; T5 also with independent draws,
+    with ``save_weights=False``, and under flipout and LRT), and
+    ``mc_generate`` on GPT-2 base and T5-small. Fills ``paths``; returns
+    the rows and the request, step and per-token times."""
+    rows, ms = [], {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase 21 {label}: {time.perf_counter() - t:.2f} s")
+        return out
+
+    for fam, antis in ((T5S, (True, False)), (WHB, (True,))):
+        for anti in antis:
+            rows += timed(f"(a) bayes_linear {fam} ({anti})", phase_bayes_linear, fl,
+                          moped_rho, anti, BF16, "on_mu", fam)
+            rows += timed(f"(a) reduce {fam} ({anti})", phase_reduce, fl, fb, moped_rho, anti,
+                          "bf16", "on_mu", fam)
+    rows += timed(f"(a) flipout's split kernels {T5S}", flipout21, sl, fl, fb, moped_rho, sass,
+                  rate)
+    for which, antis in ((T5S, (True, False)), (WHB, (True,))):
+        for anti in antis:
+            key = "anti" if anti else "indep"
+            paths[f"serve/{which}{key}/bf16"], ms["request", which, key] = timed(
+                f"serve {which} ({key})", serve21, bt, fl, fb, at, which, anti)
+            paths[f"train/{which}{key}/bf16"], ms["step", which, key] = timed(
+                f"train {which} ({key})", train21, bt, fl, fb, at, which, anti)
+    say(timed("regenerating step t5/", regen21, bt, fl, fb, at))
+    for est in ("flipout", "local"):
+        (paths[f"serve/{T5S}{est}/bf16"], ms["request", T5S, est],
+         paths[f"train/{T5S}{est}/bf16"], ms["step", T5S, est]) = timed(
+            f"{est} t5/", tier21, bt, fl, fb, at, sl, lpm, est)
+    for which in (GPT2, T5S):
+        t = timed(f"mc_generate {which}", generate21, bt, which)
+        ms["token", which, "cache"] = t[True] / 2
+        ms["token", which, "recompute"] = t[False] / 2
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -5084,6 +5715,12 @@ def main() -> int:
         rows += rows20
         say(f"phase 20 (ViT, CLIP, convs, tables): {time.perf_counter() - t20:.2f} s")
 
+    # phase 21: T5, Whisper and mc_generate
+    t21 = time.perf_counter()
+    rows21, s2s_ms = phase21(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate)
+    rows += rows21
+    say(f"phase 21 (T5, Whisper, mc_generate): {time.perf_counter() - t21:.2f} s")
+
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
     # and regen's the train steps', each estimator's and dtype's its own,
@@ -5133,9 +5770,16 @@ def main() -> int:
             "8x128), request / ELBO step (ms) and peak (GiB): "
             + "; ".join(f"{what} {name} ({key}) {v:.3f}"
                         for (what, name, key), v in enc_ms.items()))
-    say(f"{smi}; phase 20 (frozen MOPED, S=10, B=8 unless named), request / ELBO step (ms): "
-        + "; ".join(f"{what} {NAMES20[which]} ({key}) {v:.3f}"
-                    for (what, which, key), v in vis_ms.items())
+    if first <= 20:
+        say(f"{smi}; phase 20 (frozen MOPED, S=10, B=8 unless named), request / ELBO step "
+            "(ms): " + "; ".join(f"{what} {NAMES20[which]} ({key}) {v:.3f}"
+                                 for (what, which, key), v in vis_ms.items()))
+    names = dict(NAMES21, **{"gpt2/": "GPT-2 base"})
+    say(f"{smi}; phase 21 (frozen MOPED 0.05, S=10, bf16; T5-small 8 x 256 -> 64, "
+        "Whisper-base 2 x 3000 frames -> 64), request / ELBO step (ms), mc_generate (S=4, "
+        "B=2, f32) ms a generated token: "
+        + "; ".join(f"{what} {names[which]} ({key}) {v:.3f}"
+                    for (what, which, key), v in s2s_ms.items())
         + f"; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -331,8 +331,9 @@ def test_no_fallback_without_a_card(monkeypatch):
 
 def test_port_imports_and_serves_without_jax():
     """The port needs none of jax, flax, optax, transformers or the JAX
-    package: with their imports blocked it imports, runs the tiny ViT and
-    CLIP with every rule, and serves a request."""
+    package: with their imports blocked it imports, runs the tiny ViT,
+    CLIP, T5 and Whisper with every rule, decodes with ``mc_generate``, and
+    serves a request."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "transformers",
@@ -352,6 +353,17 @@ def test_port_imports_and_serves_without_jax():
         cm = bt.to_bayesian(clip.build_clip(device="cpu"), delta=0.05, rules=rules)
         ids = torch.ones(2, 8, dtype=torch.long)
         assert cm.mc_apply_fused(0, 2, ids, px, untile_axes=(1,))[0].shape == (2, 2, 2)
+        from bayeformers_tpu_torch import generation, pretrained
+        from bayeformers_tpu_torch.models import t5, whisper
+        tm = bt.to_bayesian(t5.build_t5("tiny", device="cpu"), delta=0.05, rules=rules)
+        out = tm.mc_apply_fused(0, 2, input_ids=ids, labels=ids[:, :4])[0]
+        assert out.shape == (2, 2, 4, 512)
+        wm = bt.to_bayesian(whisper.build_whisper(device="cpu"), delta=0.05, rules=rules)
+        out = wm.mc_apply_fused(0, 2, input_features=torch.zeros(2, 16, 48),
+                                decoder_input_ids=ids[:, :4])[0]
+        assert out.shape == (2, 2, 4, 128)
+        seqs = generation.mc_generate(tm.model, tm, 2, np.ones((2, 3)), max_new_tokens=2)
+        assert seqs["sequences"].shape == (2, 2, 5)
         model = bt.build_bert(size="tiny", device="cpu", dtype=torch.bfloat16)
         bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
         for anti, s in ((False, 3), (True, 2)):

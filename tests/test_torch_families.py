@@ -193,8 +193,9 @@ def test_family_dispatch_and_pruning():
         pruned = families.prune_inputs(model, inputs)
         assert ("token_type_ids" in pruned) is expect_tt, name
         assert families.input_keys(model) == tuple(pruned), name
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        families.build_model("t5-small", device="cpu")
+    t5 = families.build_model("t5-small", size="tiny", device="cpu", dtype=torch.float32)
+    assert t5.family == "t5" and "decoder_input_ids" in families.input_keys(t5)
+    assert not families.uses_token_type_ids(t5)
     vit = families.build_model("google/vit-base-patch16-224", size="tiny", device="cpu",
                                dtype=torch.float32)
     assert families.input_keys(vit) == ("pixel_values",)

@@ -21,7 +21,9 @@ local Hugging Face checkpoints (``pretrained.py``) and their own
 checkpoints (``utils/checkpoint.py``). Hand-built Bayesian models compose
 ``nn.BayesLinear`` (``nn.bayes_apply``, ``nn.collect_kl``);
 ``workloads/mlp_mnist.py`` converts the reference MLP (``models/mlp.py``)
-instead. The fused S-sample
+instead. The stacked hand-built tiers (``parallel/``: ``BlockStack`` and its
+microbatch schedule, ``BayesMoE``, ``TransformerStack`` and its causal LM)
+run on one device, and ``workloads/stack_lm.py`` trains them. The fused S-sample
 forward and its backward run the Bayesian linear layers, their dmu/drho
 reduce and attention on hand-written Hopper kernels (``csrc/``, built with
 ``nvcc`` at first use). Entry points run on
@@ -31,7 +33,7 @@ wrapper takes its plain-torch version.
 This package imports torch, numpy and the standard library only.
 """
 from bayeformers_tpu_torch import training
-from bayeformers_tpu_torch.convert import from_jax_params
+from bayeformers_tpu_torch.convert import from_jax_params, from_jax_stack
 from bayeformers_tpu_torch.core.prior import MOPED_PRIOR_SIGMA, ScaleMixturePrior
 from bayeformers_tpu_torch.models.bert import (
     BERT_BASE_KWARGS,
@@ -105,6 +107,7 @@ __all__ = [
     "collect_kl",
     "find_convertible_paths",
     "from_jax_params",
+    "from_jax_stack",
     "load_pretrained",
     "make_elbo_train_step",
     "to_bayesian",

@@ -311,3 +311,30 @@ def from_jax_params(params, rho, prior_mu=None, *,
     spec = ConversionSpec(paths=paths, prior=prior, moped=moped, frozen=frozen,
                           delta=None)
     return BayesianModel(model, spec, rho_t, pmu_t)
+
+
+@torch.no_grad()
+def from_jax_stack(tree, stack: torch.nn.Module, device="cuda") -> torch.nn.Module:
+    """The JAX package's stacked parameter tree (numpy arrays) in the port's
+    stacked module ``stack``, moved to ``device`` (the card unless the
+    caller passes ``"cpu"``) and returned: a ``BlockStack``'s or
+    ``BayesMoE``'s leaves (the router included), or an LM's ``stack``
+    (its ``moe`` subtree included), ``embed`` and ``pos``
+    (``parallel/transformer.py::TransformerLM``). The port holds each leaf
+    under the reference's name and (L, ...) / (L, E, ...) shape; a missing,
+    unexpected or misshaped leaf raises, naming it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("from_jax_stack(device='cuda'): no CUDA device")
+    flat = flatten(tree)
+    params = {n.replace(".", SEP): p for n, p in stack.named_parameters()}
+    if set(params) != set(flat):
+        raise ValueError(
+            f"the tree does not match the port's {type(stack).__name__}: missing "
+            f"{sorted(set(params) - set(flat))}, unexpected {sorted(set(flat) - set(params))}")
+    for path, arr in flat.items():
+        if tuple(arr.shape) != tuple(params[path].shape):
+            raise ValueError(f"{path} has shape {tuple(arr.shape)}, the port's "
+                             f"{tuple(params[path].shape)}")
+        params[path].copy_(torch.from_numpy(np.array(arr, np.float32)))
+    return stack.to(dev)

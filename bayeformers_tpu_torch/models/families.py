@@ -31,6 +31,8 @@ DistilBERT's, Electra's and ALBERT's embeddings sum f32 lookups (their
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -379,11 +381,18 @@ def family_of(model_name: str) -> str:
 
 def build_family(family: str, task: str = "classification", n_labels: int = 2,
                  size: str = "base", seed: int = 0, dtype=torch.bfloat16,
-                 device="cuda", **overrides) -> EncoderModel:
+                 device="cuda", pretrained: Optional[str] = None,
+                 **overrides) -> EncoderModel:
     """An encoder of ``family`` for ``task`` at its ``base`` or ``tiny``
     preset (config fields overridden by ``overrides``), initialised from
-    ``seed`` as HF initialises it. ``dtype`` is the activation dtype;
-    parameters stay f32."""
+    ``seed`` as HF initialises it, or with ``pretrained`` a local HF
+    directory's config and weights (a task head it lacks from ``seed``:
+    ``pretrained.py``). ``dtype`` is the activation dtype; parameters stay
+    f32."""
+    if pretrained is not None:
+        from bayeformers_tpu_torch.pretrained import load_pretrained
+
+        return load_pretrained(pretrained, task, n_labels, seed, dtype, device)
     base, tiny = PRESETS[family]
     cfg = BertConfig(num_labels=n_labels, family=family,
                      **dict(base if size == "base" else tiny, **overrides))
@@ -396,13 +405,15 @@ def build_family(family: str, task: str = "classification", n_labels: int = 2,
 
 def build_model(model_name: str, task: str = "classification", n_labels: int = 2,
                 size: str = "base", seed: int = 0, dtype=torch.bfloat16,
-                device="cuda", **overrides) -> nn.Module:
+                device="cuda", pretrained: Optional[str] = None,
+                **overrides) -> nn.Module:
     """Family dispatch by model name, in the reference's order
     (``bayeformers_tpu/models/bert.py:261-297``): GPT-2, T5, the LLaMA
     families (causal LMs: ``task="causal-lm"``), ViT (image
     classification), then the encoders (:func:`family_of`). T5 is the
     seq2seq LM at ``size="small"`` (the default ``"base"`` reads as the
-    reference's default, t5-small) or ``"tiny"``."""
+    reference's default, t5-small) or ``"tiny"``. ``pretrained``, a local
+    HF directory, goes to the family's build function, as in the reference."""
     name = model_name.lower()
     causal = task in ("causal-lm", None)
     if "gpt2" in name or "gpt-2" in name:
@@ -410,13 +421,14 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
             raise ValueError(f"gpt2 supports task='causal-lm'; got {task!r}")
         from bayeformers_tpu_torch.models.gpt2 import build_gpt2
 
-        return build_gpt2(size, seed=seed, dtype=dtype, device=device, **overrides)
+        return build_gpt2(size, seed=seed, dtype=dtype, device=device, pretrained=pretrained,
+                          **overrides)
     if "t5" in name:
         from bayeformers_tpu_torch.models.t5 import build_t5
 
         # the reference's build_t5 defaults to t5-small; any task is ignored
         return build_t5("small" if size == "base" else size, seed=seed, dtype=dtype,
-                        device=device, **overrides)
+                        device=device, pretrained=pretrained, **overrides)
     for fam in ("llama", "mistral", "gemma"):
         if fam in name:
             if not causal:
@@ -424,14 +436,14 @@ def build_model(model_name: str, task: str = "classification", n_labels: int = 2
             from bayeformers_tpu_torch.models.llama import build_llama_family
 
             return build_llama_family(fam, size, seed=seed, dtype=dtype, device=device,
-                                      **overrides)
+                                      pretrained=pretrained, **overrides)
     if "vit" in name:
         from bayeformers_tpu_torch.models.vit import build_vit
 
         return build_vit(task or "classification", n_labels, size, seed, dtype, device,
-                         **overrides)
+                         pretrained, **overrides)
     return build_family(family_of(name), task or "classification", n_labels, size, seed,
-                        dtype, device, **overrides)
+                        dtype, device, pretrained, **overrides)
 
 
 def uses_token_type_ids(model: nn.Module) -> bool:

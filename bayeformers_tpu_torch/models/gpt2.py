@@ -208,11 +208,17 @@ def init_weights(model: GPT2LMHeadModel, seed: int) -> None:
 
 
 def build_gpt2(size: str = "base", seed: int = 0, dtype=torch.float32,
-               device="cuda", **overrides) -> GPT2LMHeadModel:
+               device="cuda", pretrained: Optional[str] = None,
+               **overrides) -> GPT2LMHeadModel:
     """GPT-2 LM at ``GPT2_BASE_KWARGS`` (``size="base"``) or
     ``GPT2_TINY_KWARGS`` (``"tiny"``), with config ``overrides``, initialised
-    from ``seed``. ``dtype`` is the activation dtype (f32 by default, as in
-    the JAX package); parameters stay f32."""
+    from ``seed`` (or, with ``pretrained``, a local HF directory's config
+    and weights: ``pretrained.py``). ``dtype`` is the activation dtype (f32
+    by default, as in the JAX package); parameters stay f32."""
+    if pretrained is not None:
+        from bayeformers_tpu_torch.pretrained import load_causal_lm
+
+        return load_causal_lm(pretrained, "gpt2", dtype=dtype, device=device)
     kwargs = dict(GPT2_BASE_KWARGS if size == "base" else GPT2_TINY_KWARGS)
     kwargs.update(overrides)
     device = torch.device(device)

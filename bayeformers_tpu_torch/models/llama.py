@@ -8,8 +8,9 @@ is that of HF's ``FlaxLlamaForCausalLM``, ``FlaxMistralForCausalLM`` and
 (transformers 4.57): a token embedding in the activation dtype, pre-norm
 decoder layers (RMSNorm, grouped-query causal self-attention with rotary
 position embeddings, a gated MLP ``down(up(x) * act(gate(x)))``), a final
-RMSNorm and an untied ``lm_head``. Every projection is a bias-free
-``Dense``. Dropout is omitted: the port runs deterministic forwards.
+RMSNorm and an ``lm_head`` (untied at the presets; with
+``tie_word_embeddings``, stock Gemma's default, the token table). Every
+projection is a bias-free ``Dense``. Dropout is omitted: the port runs deterministic forwards.
 
 The stock numerics, family by family:
 
@@ -118,6 +119,9 @@ class LlamaConfig:
     sliding_window: Optional[int] = None  # Mistral's
     rms_norm_eps: float = 1e-6
     initializer_range: float = 0.02
+    # the head reads the token table (stock Gemma's default; the presets
+    # untie it, as the JAX package's do)
+    tie_word_embeddings: bool = False
     # None: the stock config's (LLaMA and Mistral: eos 2, no pad; Gemma:
     # eos 1, pad 0), set in __post_init__
     eos_token_id: Optional[int] = None
@@ -362,8 +366,9 @@ class LlamaForCausalLM(nn.Module):
         self.config = cfg
         self.dtype = dtype
         self.model = LlamaModule(cfg, dtype, device)
-        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
-                             device=device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
+                                 device=device)
         assign_paths(self)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, mc=None,
@@ -378,6 +383,15 @@ class LlamaForCausalLM(nn.Module):
             position_ids = torch.arange(L, device=input_ids.device).expand_as(input_ids)
         bias = ops_attention.mask_to_bias(attention_mask)
         hidden = self.model(input_ids, position_ids, bias, mc)
+        return self.head(hidden, mc)
+
+    def head(self, hidden, mc=None):
+        """The ``lm_head``, or with ``tie_word_embeddings`` the token table's
+        transpose in the activation dtype (stock Flax's tied ``Dense``, which
+        no tier converts: it holds no leaf of its own)."""
+        if self.config.tie_word_embeddings:
+            table = self.model.embed_tokens.embedding
+            return torch.matmul(hidden, table.to(hidden.dtype).t())
         return self.lm_head(hidden, mc)
 
     # -- decoding with a KV cache ---------------------------------------------
@@ -388,7 +402,7 @@ class LlamaForCausalLM(nn.Module):
         kv_heads, head_dim): GQA caches the shared kv heads only."""
         cfg = self.config
         shape = (batch, max_len, cfg.num_key_value_heads, cfg.attn_head_dim)
-        dev = self.lm_head.kernel.device
+        dev = self.model.embed_tokens.embedding.device
         return [(torch.zeros(shape, dtype=self.dtype, device=dev),
                  torch.zeros(shape, dtype=self.dtype, device=dev)) for _ in self.model.layers]
 
@@ -401,7 +415,7 @@ class LlamaForCausalLM(nn.Module):
         Returns the logits (B, l, vocab)."""
         bias = ops_attention.cache_bias(key_mask, start, ids.shape[1],
                                         self.config.sliding_window)
-        return self.lm_head(self.model(ids, position_ids, bias, cache=cache, start=start))
+        return self.head(self.model(ids, position_ids, bias, cache=cache, start=start))
 
 
 @torch.no_grad()
@@ -426,12 +440,19 @@ def init_weights(model: LlamaForCausalLM, seed: int) -> None:
 
 
 def build_llama_family(family: str, size: str = "base", seed: int = 0,
-                       dtype=torch.float32, device="cuda", **overrides
+                       dtype=torch.float32, device="cuda",
+                       pretrained: Optional[str] = None, **overrides
                        ) -> LlamaForCausalLM:
     """A LLaMA, Mistral or Gemma causal LM at the JAX package's ``base`` or
     ``tiny`` preset (:data:`FAMILY_KWARGS`), with config ``overrides``,
-    initialised from ``seed``. ``dtype`` is the activation dtype (f32 by
-    default, as in the JAX package); parameters stay f32."""
+    initialised from ``seed`` (or, with ``pretrained``, a local HF
+    directory's config and weights: ``pretrained.py``). ``dtype`` is the
+    activation dtype (f32 by default, as in the JAX package); parameters
+    stay f32."""
+    if pretrained is not None:
+        from bayeformers_tpu_torch.pretrained import load_causal_lm
+
+        return load_causal_lm(pretrained, family, dtype=dtype, device=device)
     cfg = llama_config(family, size, **overrides)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

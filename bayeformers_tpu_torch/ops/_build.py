@@ -94,15 +94,23 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return proc
 
 
+def objects_dir() -> Path:
+    """Where :func:`build` keeps each source's object (``<name>.o``) beside
+    the library, for reading one source's device code (``cuobjdump -sass
+    regen.o``) without the whole library's."""
+    return BUILD_DIR / f"obj_{source_hash()}"
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libbft_<hash>.so`` unless that
     file exists; returns its path. The sources compile in parallel, one
-    ``nvcc`` each; the compiler's ``-Xptxas -v`` report (registers, shared
-    memory, spills of every kernel) goes to ``_build/nvcc.log``, each
-    command with its seconds."""
+    ``nvcc`` each, and their objects stay in :func:`objects_dir`; the
+    compiler's ``-Xptxas -v`` report (registers, shared memory, spills of
+    every kernel) goes to ``_build/nvcc.log``, each command with its
+    seconds."""
     global last_build_seconds
     out = BUILD_DIR / f"libbft_{source_hash()}.so"
-    if out.exists():
+    if out.exists() and objects_dir().exists():
         last_build_seconds = 0.0
         return out
     nvcc = nvcc_path()
@@ -124,6 +132,10 @@ def build() -> Path:
         (BUILD_DIR / "nvcc.log").write_text(log)
         if any(p.returncode != 0 for p in procs):
             raise RuntimeError(f"nvcc failed:\n{log}")
+        obj_dir = objects_dir()
+        obj_dir.mkdir(exist_ok=True)
+        for obj in objs:
+            os.replace(obj, obj_dir / obj.name)
         os.replace(so_tmp, out)
     last_build_seconds = time.perf_counter() - t0
     return out

@@ -1,0 +1,106 @@
+"""The sampling contract that the stacked tiers share.
+
+Every projection of ``BlockStack``, ``BayesMoE`` and ``TransformerStack``
+is one sampled dense (:func:`bayes_dense`): the weight through
+``ops/fused_linear.py::bayes_linear`` with independent draws, S = 1 a
+call, the scale-mixture prior and ``save_weights=True`` (on a CUDA tensor
+kernels #7/#8 forward and #9 backward), then a sampled bias.
+
+A projection's draw is a pure function of the draw's integer seed and the
+projection's path of integers, never of the activation, the microbatch or
+the routing: the weight's kernel seed is ``derive_seed(seed, *path, 0)``
+and the bias's eps comes from a ``torch.Generator`` on the activation's
+device seeded with ``derive_seed(seed, *path, 1)``. The paths are those of
+the reference's key folds (``fold_in(key, global_idx)``, then
+``fold_in(bkey, j)``, the bias from ``fold_in(skey, 1)``): a block ``(l,)``
+(BlockStack), an expert's two projections ``(e, j)`` (BayesMoE), a
+transformer block's four ``(l, j)`` and its experts' ``(l, 2, e, j)``. The
+S draws of a step take the seeds :func:`draw_seeds` (the reference's
+``jax.random.split(key, S)``).
+
+:func:`eps_hook` installs a function ``hook(seed, path, what, shape)``
+(``what`` is ``"kernel"``, shape (K, N), or ``"bias"``, shape (N,)) that
+supplies the draws instead (tests: the JAX package's draws); each sampled
+dense then runs the plain version of the op.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from bayeformers_tpu_torch.core import distributions as dist
+from bayeformers_tpu_torch.core import prior as prior_lib
+from bayeformers_tpu_torch.core.init import DEFAULT_UNIFORM
+from bayeformers_tpu_torch.nn.fused import derive_seed
+from bayeformers_tpu_torch.ops import fused_linear as ops_fused
+from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
+
+_PRIOR = prior_lib.DEFAULT_SCALE_MIXTURE
+MIXTURE = (_PRIOR.pi, _PRIOR.sigma1, _PRIOR.sigma2)
+ITEM_6C = "ROADMAP queue 1 item 6(c)"
+
+_hook: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def eps_hook(hook: Callable):
+    """Within the context every sampled dense takes its draws from
+    ``hook(seed, path, what, shape)``."""
+    global _hook
+    prev, _hook = _hook, hook
+    try:
+        yield
+    finally:
+        _hook = prev
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def draw_seeds(seed: int, n_samples: int) -> list[int]:
+    """The seeds of a step's ``n_samples`` draws."""
+    return [derive_seed(seed, s) for s in range(n_samples)]
+
+
+def check_group(group, what: str) -> None:
+    """``None`` or a process group of one runs on the caller's device; a
+    larger group is the ranks' schedule, not ported yet."""
+    if group is not None and group.size() > 1:
+        raise NotImplementedError(
+            f"{what} over a process group of {group.size()} ranks is {ITEM_6C}, "
+            "not ported yet; pass group=None (one device)")
+
+
+def bayes_dense(h: torch.Tensor, mu, rho, b_mu, b_rho, seed: int, path: tuple,
+                plain: bool = False):
+    """One sampled dense on ``h`` (N, K): ``(y (N, N_out), log_q, log_p)``,
+    the log-probs 0-d (weight and bias). ``plain=True`` runs the op's plain
+    version on the tensors' device (the card's reference for the
+    kernels)."""
+    eps = b_eps = None
+    if _hook is not None:
+        eps = _hook(seed, path, "kernel", tuple(mu.shape))[None].to(mu.device)
+        b_eps = _hook(seed, path, "bias", tuple(b_mu.shape)).to(b_mu.device)
+        plain = True
+    seeds = torch.tensor([derive_seed(seed, *path, 0)], dtype=torch.int32, device=h.device)
+    y, lq, lp = ops_fused.bayes_linear(h[None], mu, rho, seeds, mixture=MIXTURE,
+                                       eps=eps, plain=plain)
+    if b_eps is None:
+        gen = torch.Generator(device=b_mu.device).manual_seed(derive_seed(seed, *path, 1))
+        b_eps = torch.randn(tuple(b_mu.shape), generator=gen, device=b_mu.device)
+    b_sig = dist.sigma_from_rho(b_rho)
+    b = b_mu + b_sig * b_eps
+    log_q = lq[0] + torch.sum(-dist.LOG_SQRT_2PI - torch.log(b_sig) - 0.5 * b_eps * b_eps)
+    log_p = lp[0] + torch.sum(mixture_log_pdf(b, *MIXTURE))
+    return y[0] + b[None].to(y.dtype), log_q, log_p
+
+
+def stacked_uniform(generator: torch.Generator, shape, device):
+    """(mu, rho) of the reference's ``DEFAULT_UNIFORM`` as parameters."""
+    mu, rho = DEFAULT_UNIFORM(generator, shape, torch.float32, device)
+    return torch.nn.Parameter(mu), torch.nn.Parameter(rho)

@@ -26,11 +26,16 @@ HF initialises a new head, and the other heads' tensors are dropped, as HF's
 that the task model has none of (the span heads', RoBERTa's). Any other missing or unexpected tensor, or
 one of another shape, raises, naming it.
 
-T5, Whisper, ViT and CLIP (``model_type`` ``t5``, ``whisper``, ``vit``,
-``clip``) map the same way (:func:`load_family`), a convolution's (out, in,
-*k) weight to Flax's (*k, in, out) kernel; T5's stacks' copies of
-``shared`` and a tied ``lm_head`` (Whisper's ``proj_out``) are the table
-itself, and an untied one is the port's ``lm_head``.
+T5, Whisper, ViT, CLIP and the causal LMs (``model_type`` ``t5``,
+``whisper``, ``vit``, ``clip``, ``gpt2``, ``llama``, ``mistral``,
+``gemma``) map the same way (:func:`load_family`), a convolution's (out,
+in, *k) weight to Flax's (*k, in, out) kernel; T5's stacks' copies of
+``shared`` and a tied ``lm_head`` (Whisper's ``proj_out``, GPT-2's, a tied
+Gemma's) are the table itself, and an untied one is the port's
+``lm_head``. GPT-2's ``Conv1D`` weights are stored (in, out), so the
+port's (out, in) kernel is their transpose, as for any linear weight; a
+base model's checkpoint (``GPT2Model``, ``LlamaModel``) gains the LM's
+prefix (``transformer.``, ``model.``).
 """
 from __future__ import annotations
 
@@ -119,7 +124,10 @@ def port_name(hf: str, ours, family: str) -> tuple[str, str]:
 
 
 # the families that are not encoders, by ``model_type``
-OTHER_FAMILIES = ("t5", "whisper", "vit", "clip")
+CAUSAL_LMS = ("gpt2", "llama", "mistral", "gemma")
+OTHER_FAMILIES = ("t5", "whisper", "vit", "clip") + CAUSAL_LMS
+# GPT-2's activations that the port's tanh GELU computes
+GPT2_ACTIVATIONS = ("gelu_new", "gelu_pytorch_tanh")
 
 
 def convert_leaf(tensor: torch.Tensor, kind: str) -> torch.Tensor:
@@ -147,11 +155,44 @@ def leaf_name(hf: str, params) -> tuple[str, str]:
     return hf, ""
 
 
+def causal_lm(config: dict, seed: int, dtype, device):
+    """GPT-2, LLaMA, Mistral or Gemma of an HF config, initialised from
+    ``seed``, with the checkpoint names it skips (a tied head's copy of the
+    table, GPT-2's attention-mask buffers, stored rotary frequencies) and
+    the prefix that a base model's checkpoint lacks. Config fields that
+    the stock Flax classes ignore (``rope_theta``, ``rope_scaling``) stay
+    ignored."""
+    from bayeformers_tpu_torch.models import gpt2, llama
+
+    mtype = config["model_type"]
+    if mtype == "gpt2":
+        if config.get("activation_function", "gelu_new") not in GPT2_ACTIVATIONS:
+            raise ValueError(f"GPT-2 activation {config['activation_function']!r}: the "
+                             f"port's GPT-2 computes {GPT2_ACTIVATIONS}")
+        if not config.get("tie_word_embeddings", True):
+            raise ValueError("an untied GPT-2 head: the port's GPT-2 ties lm_head to wte")
+        names = {f.name for f in dataclasses.fields(gpt2.GPT2Config)}
+        cfg = gpt2.GPT2Config(**{k: v for k, v in config.items() if k in names})
+        model = gpt2.GPT2LMHeadModel(cfg, dtype=dtype, device=device)
+        gpt2.init_weights(model, seed)
+        return model, ("lm_head.", ".attn.bias", ".attn.masked_bias"), "transformer."
+    # a config.json leaves out the fields at PretrainedConfig's defaults:
+    # tie_word_embeddings is then True (stock Gemma's)
+    cfg = llama.LlamaConfig.from_dict(
+        mtype, dict(config, tie_word_embeddings=config.get("tie_word_embeddings", True)))
+    model = llama.LlamaForCausalLM(cfg, dtype=dtype, device=device)
+    llama.init_weights(model, seed)
+    skip = (".rotary_emb.inv_freq",) + (("lm_head.",) if cfg.tie_word_embeddings else ())
+    return model, skip, "model."
+
+
 @torch.no_grad()
 def load_family(directory: str, config: dict, n_labels: int, seed: int, dtype, device):
-    """T5, Whisper, ViT or CLIP of a local HF directory (the JAX package's
-    ``build_t5``, ``build_whisper``, ``build_vit``, ``build_clip`` with
-    ``pretrained=``): the port's model of the config, its weights from the
+    """T5, Whisper, ViT, CLIP or a causal LM (GPT-2, LLaMA, Mistral, Gemma)
+    of a local HF directory (the JAX package's ``build_t5``,
+    ``build_whisper``, ``build_vit``, ``build_clip``, ``build_gpt2`` and
+    ``build_llama_family`` with ``pretrained=``): the port's model of the
+    config, its weights from the
     checkpoint (tied copies of a table and the position-id buffers
     skipped; ViT's classifier of ``n_labels`` from ``seed`` where the
     checkpoint has none, as Flax's ``from_pretrained(num_labels=...)``
@@ -160,8 +201,11 @@ def load_family(directory: str, config: dict, n_labels: int, seed: int, dtype, d
     from bayeformers_tpu_torch.models import clip, t5, vit, whisper
 
     mtype = config["model_type"]
-    fresh = ()
-    if mtype == "t5":
+    fresh, prefix = (), None
+    if mtype in CAUSAL_LMS:
+        model, skip, prefix = causal_lm(config, seed, dtype, device)
+        renames = {}
+    elif mtype == "t5":
         cfg = t5.T5Config.from_hf(config)
         model = t5.T5ForConditionalGeneration(cfg, dtype=dtype, device=device)
         t5.init_t5(model, seed)
@@ -196,6 +240,10 @@ def load_family(directory: str, config: dict, n_labels: int, seed: int, dtype, d
                 hf = new + hf[len(old):]
         if mtype == "vit" and not hf.startswith(("vit.", "classifier.")):
             hf = "vit." + hf  # a ViTModel checkpoint: the base model's names
+        if prefix and not hf.startswith((prefix, "lm_head.")):
+            hf = prefix + hf  # a base model's checkpoint (GPT2Model, LlamaModel)
+        if hf.startswith(skip) or hf.endswith(skip):
+            continue
         name, kind = leaf_name(hf, params)
         if name not in params:
             unexpected.append(hf)
@@ -218,6 +266,17 @@ def load_family(directory: str, config: dict, n_labels: int, seed: int, dtype, d
         print(f"[pretrained] {directory}: new head from seed {seed}: {new}")
     model.requires_grad_(False)
     return model
+
+
+def load_causal_lm(directory: str, family: str, dtype=torch.float32, device="cuda"):
+    """The causal LM of ``family`` (``gpt2``, ``llama``, ``mistral``,
+    ``gemma``) from a local HF directory whose config names that family
+    (another family raises), as :func:`load_pretrained` builds it."""
+    with open(os.path.join(directory, "config.json")) as fh:
+        mtype = json.load(fh).get("model_type")
+    if mtype != family:
+        raise ValueError(f"{directory}: model_type {mtype!r}, not {family!r}")
+    return load_pretrained(directory, dtype=dtype, device=device)
 
 
 @torch.no_grad()

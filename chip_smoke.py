@@ -218,14 +218,15 @@ Phases, each timed, each raising on failure:
     both estimators; (c) #10 at BERT-base's tables (30522, 512 and 2 rows
     of 768), pair and independent instances, and the ``sampled_weights``
     VJP, bit-equal to the plain versions (:func:`embed_regen20`); (d)
-    ViT-base/16 at its published widths (seed 0, frozen MOPED 0.05 under
+    ViT-base/16 at its published widths, 6 of its 12 layers
+    (:data:`VISION_DEPTH`) (seed 0, frozen MOPED 0.05 under
     ``(*DEFAULT_RULES, CONV_RULE)``: the patch conv Bayesian) served at S =
     10, B = 8 under both estimators (outputs and the posterior summary
     against the plain path, :func:`serve_vision`) and trained (bf16 steps
     against the plain step, an independent-draw step, an f32 request and
     step at B = 2; :func:`train_vision`), flipout and LRT (a forward and a
     step each) and the naive tier (a forward at B = 2), launches counted
-    around each; (e) CLIP at ViT-B/32's widths with ``CONV_RULE``, its
+    around each; (e) CLIP at ViT-B/32's widths, 6 layers a tower, with ``CONV_RULE``, its
     fused forward untiled by ``untile_axes=(1,)`` and one contrastive ELBO
     step against the plain path; TinyCNN served and trained; (f) BERT-base
     with ``EMBEDDING_RULE``: an antithetic request (#10's pair instance a
@@ -261,10 +262,32 @@ Phases, each timed, each raising on failure:
     recomputes the prefix, and the wall time a step of each, in turns
     (:func:`generate21`).
 
+22. the stacked hand-built tiers and ``pretrained=`` for the causal LMs
+    (:func:`phase22`; random init under the scale mixture, f32, S = 2,
+    every projection one call of #7/#8 forward and #9 backward at S = 1):
+    (a) #7 and #9 against their plain versions at the tiers' new shapes
+    (768 -> 768 at M = 16; 768 -> 2304, 768 -> 768, 768 -> 3072 and
+    3072 -> 768 at M = 8 x 127; 768 -> 3072 and 3072 -> 768 at M = 159, one
+    expert's capacity); (b) BlockStack at BERT-base's width and depth (12 x
+    768, B = 64 in 4 microbatches): an ELBO step against the plain step
+    (loss 1e-5, see :func:`block22`; each leaf 1e-3 relative L2), a
+    bit-equal rerun, #7/#9 96 times each around exactly that step, M = 1
+    and M = 4 equal, three Adam steps timed; (c) the transformer LM at
+    GPT-2 small's widths on a 2-block copy against the plain path (logits,
+    log-probs, a step; ``make_pp_lm_train_step`` at M = 2 against the single
+    step), then ``stack_lm --arch transformer`` at 12 blocks for three
+    steps; (d) the same with Switch-Base-8's MoE FFN through
+    ``make_ep_lm_train_step``, each block's kept and dropped tokens by
+    expert and the routers' gradients printed (non-zero); each step also
+    run plain in f64 (:func:`module_f64`); (e) GPT-2 base and LLaMA base
+    written under HF names into a safetensors file and built by
+    ``build_model(name, pretrained=DIR)``: an 8 x 128 request's logits equal
+    to the source model's.
+
 The timed requests and steps of phases 13-16 are three each
-(:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``,
-``--from 18``, ``--from 19``, ``--from 20``, ``--from 21``) runs the build,
-the eps stream and the phases from there on only. The line before the last is a JSON object with one entry per kernel,
+(:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``
+... ``--from 22``) runs the build, the eps stream and the phases from
+there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA card it prints no result and exits with code 2.
@@ -634,12 +657,12 @@ def plain_iters(K: int, N: int) -> tuple[int, int]:
 
 
 def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
-                       family=BERT, path=None) -> list[dict]:
+                       family=BERT, path=None, S=10) -> list[dict]:
     """A forward kernel's instance for ``dtype`` and ``prior`` against its
     plain version, at the shapes of ``family``'s serving path that the
-    rows do not hold yet; returns the timing rows, whose launches come from
-    the run of ``path`` (default: the family's requests)."""
-    S = 10
+    rows do not hold yet, at ``S`` samples; returns the timing rows, whose
+    launches come from the run of ``path`` (default: the family's
+    requests)."""
     n_draws = S // 2 if antithetic else S
     name = "bayes_linear_anti" if antithetic else "bayes_linear"
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
@@ -1021,15 +1044,14 @@ REDUCE_INSTANCES = {  # tag: (x's and g's type, W's type, path of its launches)
 
 
 def phase_reduce(fl, fb, moped_rho, antithetic, tag="bf16", prior="on_mu",
-                 family=BERT, path=None) -> list[dict]:
+                 family=BERT, path=None, S=10) -> list[dict]:
     """A reduce kernel's instance against its plain version, on the W the
     forward kernel wrote (saved residuals: bf16, f32) or on the regenerated
     f32 W (``bf16x-f32w``), under ``prior`` (the priors not centred on mu
     add U, the mixture's taken of its score); returns the timing rows of
     the training shapes, whose launches come from the run of ``path``
-    (default: the family's steps). A/B/(U/)V within 1e-4 (bf16) or 1e-5
-    (an f32 operand: x or W) of each one's largest entry."""
-    S = 10
+    (default: the family's steps), at ``S`` samples. A/B/(U/)V within 1e-4
+    (bf16) or 1e-5 (an f32 operand: x or W) of each one's largest entry."""
     n_draws = S // 2 if antithetic else S
     xdt, wdt, instance_path = REDUCE_INSTANCES[tag]
     path = path or instance_path + prior_suffix(prior)
@@ -1917,10 +1939,16 @@ BERT_LEAVES = (((768, 768),) * 4 + ((768, 3072), (3072, 768))) * 12 + ((768, 768
 CHECK_GROUP = ((300, 130), (768, 2)) + BERT_LEAVES[:-1]
 
 
-def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int], dict[str, tuple]]:
+# the sources whose kernels' SASS the bounds of #10, #11 and #13 read (the
+# whole library's takes cuobjdump ~37 s: 180 MB of text, mostly attention)
+SASS_SOURCES = ("regen", "logprob")
+
+
+def sass_mufu(obj_dir) -> tuple[dict[str, int], dict[str, int], dict[str, tuple]]:
     """MUFU instructions (the card's special-function unit: exp2, log2,
     rsqrt, reciprocal, sin, cos) and all instructions in each kernel of the
-    built library, from ``cuobjdump -sass``: two {mangled name: count}; and
+    objects of :data:`SASS_SOURCES` in ``obj_dir``, from ``cuobjdump
+    -sass``: two {mangled name: count}; and
     per kernel with a loop, its widest loop (from the target of its widest
     backward branch to the branch; in the draw kernel one draw of its loop
     over draws): (MUFU, all, fast path, before), where the fast path leaves
@@ -1933,8 +1961,10 @@ def sass_mufu(lib_path) -> tuple[dict[str, int], dict[str, int], dict[str, tuple
     from bayeformers_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=600).stdout
+    sass = "".join(
+        subprocess.run([cuobjdump, "-sass", os.path.join(obj_dir, f"{src}.o")],
+                       capture_output=True, text=True, check=True, timeout=600).stdout
+        for src in SASS_SOURCES)
     code, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -4356,11 +4386,15 @@ def phase19(bt, fl, fb, at, moped_rho, paths) -> list[dict]:
 VIT, CLIP, CNN, EMB = "vit/", "clip/", "cnn/", "bert-emb/"
 VIT_B, VIT_L = 8, 197
 CLIP_L, CLIP_EOS = 77, 49407
+# ViT-base/16 and CLIP B/32 at 6 of their 12 layers (cut, when phase 22
+# came, for the script's time limit; their widths are whole)
+VISION_DEPTH = 6
 CLIP_B32 = dict(
     text_config=dict(vocab_size=49408, hidden_size=512, intermediate_size=2048,
-                     num_hidden_layers=12, num_attention_heads=8,
+                     num_hidden_layers=VISION_DEPTH, num_attention_heads=8,
                      max_position_embeddings=CLIP_L),
-    vision_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+    vision_config=dict(hidden_size=768, intermediate_size=3072,
+                       num_hidden_layers=VISION_DEPTH,
                        num_attention_heads=12, image_size=224, patch_size=32),
     projection_dim=512)
 # the linear kernels' new shapes (M a draw, B = 8): ViT's patch conv as an
@@ -4416,7 +4450,8 @@ def vision_base(bt, which, dtype):
     other phases build it. Returns it and its trainable tensors."""
     rules = (*bt.DEFAULT_RULES, bt.EMBEDDING_RULE if which == EMB else bt.CONV_RULE)
     if which == VIT:
-        model = bt.build_vit(size="base", n_labels=1000, seed=0, dtype=dtype, device="cuda")
+        model = bt.build_vit(size="base", n_labels=1000, seed=0, dtype=dtype, device="cuda",
+                             num_hidden_layers=VISION_DEPTH)
     elif which == CLIP:
         model = bt.build_clip(seed=0, dtype=dtype, device="cuda", **CLIP_B32)
     elif which == CNN:
@@ -4537,9 +4572,10 @@ def vision_want(bmodel, which, B, tag, anti, n_req=0, n_steps=0) -> dict:
         want["regen"] = regen
     if which in (VIT, EMB):
         akey = (10 * B, VIT_L if which == VIT else 128, 768, tag, False)
-        want["mha_fwd"] = {akey: 12 * n}
+        depth = VISION_DEPTH if which == VIT else 12
+        want["mha_fwd"] = {akey: depth * n}
         if n_steps:
-            want["mha_bwd"] = {akey: 12 * n_steps}
+            want["mha_bwd"] = {akey: depth * n_steps}
     return want
 
 
@@ -4708,7 +4744,8 @@ def train_vision(bt, fl, fb, at, sl, lpm, which, estimator, dtype=BF16, B=VIT_B,
     else:
         counts = estimator_counts(fl, fb, at, sl, lpm)
         n_layers = len([p for p in bmodel.spec.paths if p.endswith("/kernel")])
-        want = want_counts(estimator, "on_mu", n_layers, 12 if which == VIT else 0, n_steps)
+        want = want_counts(estimator, "on_mu", n_layers, VISION_DEPTH if which == VIT else 0,
+                           n_steps)
         check(all(counts[k] == want.get(k, 0) for k in counts),
               f"{label}: {n_steps} steps launched {counts}, want {want} (0 elsewhere)")
     ms = float(np.median(times))
@@ -4738,7 +4775,8 @@ def tier_vision(bt, fl, fb, at, sl, lpm, which, estimator, B=VIT_B) -> tuple[dic
     ms = (time.perf_counter() - t) * 1e3
     counts = estimator_counts(fl, fb, at, sl, lpm)
     n_layers = len([p for p in bmodel.spec.paths if p.endswith("/kernel")])
-    want = want_counts(estimator, "on_mu", n_layers, 12 if which in (VIT, EMB) else 0, 0)
+    want = want_counts(estimator, "on_mu", n_layers,
+                       {VIT: VISION_DEPTH, EMB: 12}.get(which, 0), 0)
     check(all(counts[k] == want.get(k, 0) for k in counts),
           f"{label}: one request launched {counts}, want {want} (0 elsewhere)")
     again, _ = vision_forward(bt, bmodel, which, estimator, inputs)
@@ -5510,6 +5548,399 @@ def phase21(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the hand-built stacked tiers (BlockStack, BayesMoE,
+# TransformerStack, stack_lm at pp = ep = 1) and pretrained= for the causal LMs
+# ---------------------------------------------------------------------------
+
+# the stacked tiers' main paths by their launch paths' prefix: BlockStack at
+# BERT-base's hidden width and depth (768, 12 blocks), stack_lm's defaults
+# otherwise (B = 64 in 4 microbatches, S = 2, Adam 1e-3); the transformer LM
+# at GPT-2 small's published widths (openai-community/gpt2: d_model 768, 12
+# heads, d_ff 3072, vocab 50257, seq_len 128, B = 8: 8 x 127 token rows);
+# its MoE FFN at Switch-Base-8's (google/switch-base-8: d_model 768, d_ff
+# 3072, 8 experts, vocab 32128, capacity factor 1.25: C = 159 slots). Every
+# projection is f32 under the scale mixture, one draw a call (S = 1).
+BLOCK, STACK_LM, STACK_MOE = "stack-block/", "stack-lm/", "stack-moe/"
+STACK_L, STACK_D, STACK_FF, STACK_HEADS = 12, 768, 3072, 12
+STACK_B, STACK_MB, STACK_S = 64, 4, 2
+LM_B, LM_T, GPT2_VOCAB, SWITCH_VOCAB, SWITCH_E = 8, 128, 50257, 32128, 8
+LM_ROWS = LM_B * (LM_T - 1)
+MOE_C = math.ceil(LM_ROWS / SWITCH_E * 1.25)
+FAMILY_SHAPES[BLOCK] = ((STACK_B // STACK_MB, STACK_D, STACK_D),)
+FAMILY_SHAPES[STACK_LM] = tuple((LM_ROWS, k, n) for k, n in (
+    (STACK_D, 3 * STACK_D), (STACK_D, STACK_D), (STACK_D, STACK_FF), (STACK_FF, STACK_D)))
+FAMILY_SHAPES[STACK_MOE] = ((MOE_C, STACK_D, STACK_FF), (MOE_C, STACK_FF, STACK_D))
+STACK_STEPS = 3  # the full-depth steps of (c) and (d), launches counted around them
+
+
+class GradSnap:
+    """An optimizer for a step factory that keeps the step's gradients and
+    updates nothing (the kernels' and the plain step start from the same
+    parameters)."""
+
+    def __init__(self, module):
+        self.module, self.grads = module, {}
+
+    def zero_grad(self):
+        for p in self.module.parameters():
+            p.grad = None
+
+    def step(self):
+        self.grads = {n: p.grad.detach().clone() for n, p in self.module.named_parameters()}
+
+
+def stack_counts(fl, fb) -> dict:
+    torch.cuda.synchronize()
+    check(fl.LAUNCHES.count == fb.LAUNCHES.count == 0,
+          "a stacked tier launched an antithetic kernel")
+    return {"bayes_linear": dict(fl.INDEP_LAUNCHES.by_shape),
+            "reduce_abuv": dict(fb.INDEP_LAUNCHES.by_shape)}
+
+
+def stack_want(shapes: dict) -> dict:
+    """The launches of #7 and of #9 wanted by (M, K, N): each once a call."""
+    want = {(M, K, N, "f32/mixture"): n for (M, K, N), n in shapes.items()}
+    return {"bayes_linear": want, "reduce_abuv": want}
+
+
+@contextlib.contextmanager
+def module_f64(module):
+    """A copy of ``module`` in f64 with ``Tensor.float()`` a no-op on f64
+    tensors (as :func:`in_f64`): the plain path in f64 at the same draws
+    (the eps stream stays the f32 one); ``float`` restored on exit."""
+    import copy
+
+    m64 = copy.deepcopy(module).double()
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else orig(t, *a, **k)
+    try:
+        yield m64
+    finally:
+        torch.Tensor.float = orig
+
+
+def stack_step22(label, fl, fb, module, make_step, batch, seed, want=None, loss_gate=1e-6):
+    """One ELBO step of a stacked tier through the kernels against the plain
+    step at the same draws (``make_step(module, optimizer, plain)``): the
+    loss within ``loss_gate`` relative (``phase_train``'s f32 1e-6 unless a
+    caller says why not) and each leaf's gradient within 1e-3 relative L2
+    (``phase_train``'s f32 gate), a bit-equal rerun and (``want``) the
+    launches of exactly the first kernel step; both losses are printed
+    beside the plain step's in f64 (:func:`module_f64`), the measure of
+    which f32 path rounds more. Returns the kernel step's gradients and
+    launches."""
+    snap = GradSnap(module)
+    reset_counters(fl, fb)
+    mk = make_step(module, snap, False)(seed, batch)
+    counts = stack_counts(fl, fb)
+    gk = snap.grads
+    if want is not None:
+        check(counts == want, f"{label}: one step launched {counts}, want {want}")
+    mk2 = make_step(module, snap, False)(seed, batch)
+    check(torch.equal(mk["loss"], mk2["loss"]) and all(torch.equal(gk[n], snap.grads[n])
+                                                       for n in gk),
+          f"{label}: the same seed gave another loss or gradient")
+    mp = make_step(module, snap, True)(seed, batch)
+    gp = snap.grads
+    with module_f64(module) as m64:
+        b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        m64_loss = make_step(m64, GradSnap(m64), True)(seed, b64)["loss"].item()
+    lk, lp = mk["loss"].item(), mp["loss"].item()
+    e_k, e_p = abs(lk - m64_loss), abs(lp - m64_loss)
+    loss_rel = abs(lk - lp) / abs(lp)
+    rel = {n: ((gk[n] - gp[n]).double().norm() / gp[n].double().norm().clamp_min(1e-300)).item()
+           for n in gk}
+    worst = max(rel, key=rel.get)
+    say(f"{label}: loss kernels {lk:.9g} vs plain {lp:.9g} (rel {loss_rel:.3g}), plain in "
+        f"f64 {m64_loss:.12g} (kernels {e_k / abs(m64_loss):.3g}, plain f32 "
+        f"{e_p / abs(m64_loss):.3g} of it); gradients worst rel L2 {rel[worst]:.3g} "
+        f"({worst}) of {len(rel)} leaves; reruns bit-equal; launches {counts}")
+    check(loss_rel <= loss_gate, f"{label}: loss kernels {lk} vs plain {lp} (f64 "
+          f"{m64_loss}; gate {loss_gate})")
+    check(all(torch.isfinite(g).all() for g in gk.values()) and rel[worst] <= 1e-3,
+          f"{label}: {worst} gradient rel L2 {rel[worst]} from the plain step")
+    return gk, counts
+
+
+def block22(fl, fb) -> tuple[dict, float]:
+    """(b) BlockStack, 12 blocks of 768, B = 64 in 4 microbatches, S = 2:
+    one ELBO step through the kernels against the plain step (#7 and #9 each
+    once a block, microbatch and draw: 96), then M = 1 and M = 4 equal (out
+    and log-probs 1e-6 relative) and three Adam steps timed. Returns the
+    launches of the checked step and the median Adam step (ms)."""
+    from bayeformers_tpu_torch.parallel import pipeline as pp
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    stack = pp.BlockStack(STACK_L, STACK_D, generator=0, device="cuda")
+    X, y = stack_lm.synthetic_task(0, STACK_B, STACK_D)
+    batch = {"x": torch.from_numpy(X).cuda(), "y": torch.from_numpy(y).cuda()}
+
+    def make(module, opt, plain):
+        return pp.make_pp_train_step(module, opt, n_samples=STACK_S, n_batches=1024 // STACK_B,
+                                     n_microbatches=STACK_MB,
+                                     loss_fn=stack_lm.classification_loss, plain=plain)
+
+    want = stack_want({FAMILY_SHAPES[BLOCK][0]: STACK_L * STACK_MB * STACK_S})
+    # the loss at 1e-5: the f32 kernels' 3xTF32 products (each within ~2e-7
+    # of the exact one) compound through 12 residual GELU blocks that grow
+    # the activations block by block, and the loss, the CE of logits in the
+    # 1e5s, is linear in them: the kernels' loss stands 2.2e-6 from the
+    # plain step in f64, the plain f32 step's 1.7e-8 (PERF.md, §6)
+    _, counts = stack_step22("phase 22 (b) BlockStack step", fl, fb, stack, make, batch, 31,
+                             want, loss_gate=1e-5)
+    with torch.no_grad():
+        one = pp.pipeline_apply(stack, 5, batch["x"], n_microbatches=1)
+        four = pp.pipeline_apply(stack, 5, batch["x"], n_microbatches=STACK_MB)
+    errs = [rel_err(a, b) if a.dim() else abs((a - b).item()) / abs(b.item())
+            for a, b in zip(four, one)]
+    say(f"phase 22 (b) BlockStack M=4 vs M=1: out, log_q, log_p rel err {errs}; "
+        f"max |out| {one[0].abs().max().item():.4g}")
+    check(max(errs) <= 1e-6, f"BlockStack M=4 vs M=1 differ: {errs}")
+    step = make(stack, torch.optim.Adam(stack.parameters(), 1e-3, eps=1e-8), False)
+    times = []
+    for i in range(STACK_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(100 + i, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(math.isfinite(m["loss"].item()), f"BlockStack Adam step loss {m['loss']}")
+    say(f"phase 22 (b) BlockStack Adam steps: loss {m['loss'].item():.6g}, acc "
+        f"{m['acc'].item():.3f}, ms {[round(t, 3) for t in times]}")
+    return counts, float(np.median(times))
+
+
+def lm_batch22(vocab, seed=0) -> dict:
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    toks, tgts, mask = stack_lm.synthetic_copy_corpus(seed, LM_B, LM_T, vocab)
+    return {"tokens": torch.from_numpy(toks).cuda(), "targets": torch.from_numpy(tgts).cuda(),
+            "eval_mask": torch.from_numpy(mask).cuda()}
+
+
+def lm_copy22(fl, fb, moe: bool) -> None:
+    """(c)/(d) on a 2-block copy at full width: the logits and log-probs of
+    ``lm_logits_single`` against the plain path (logits 1e-4 of the largest,
+    log-probs 1e-5 relative), one step's gradients against the plain step
+    (:func:`stack_step22`), the dense stack's ``make_pp_lm_train_step`` at
+    M = 2 against its single step (loss 1e-6 relative, each leaf's gradient
+    1e-5 relative L2), and the MoE routers' gradients non-zero."""
+    from bayeformers_tpu_torch.parallel import transformer as tfm
+
+    vocab = SWITCH_VOCAB if moe else GPT2_VOCAB
+    moe_kw = dict(n_experts=SWITCH_E, ffn=STACK_FF) if moe else None
+    what = "MoE (Switch-Base-8)" if moe else "dense (GPT-2 small)"
+    lm = tfm.lm_init(tfm.TransformerStack(2, STACK_D, STACK_HEADS, STACK_FF, moe=moe_kw,
+                                          generator=0, device="cuda"), vocab, LM_T, 1)
+    batch = lm_batch22(vocab)
+    with torch.no_grad():
+        lk = tfm.lm_logits_single(lm, 7, batch["tokens"])
+        lp = tfm.lm_logits_single(lm, 7, batch["tokens"], plain=True)
+    err = rel_err(lk[0], lp[0])
+    lq_err = [abs((a - b).item()) / abs(b.item()) for a, b in zip(lk[1:], lp[1:])]
+    say(f"phase 22 {what}, 2 blocks: logits max|d| {err:.3g} of max |logits| "
+        f"{lp[0].abs().max().item():.4g}; log_q, log_p rel err {lq_err}")
+    check(err <= 1e-4 and max(lq_err) <= 1e-5, f"{what} logits or log-probs differ from plain")
+    factory = tfm.make_ep_lm_train_step if moe else tfm.make_single_lm_train_step
+
+    def make(module, opt, plain):
+        return factory(module, opt, n_samples=STACK_S, n_batches=8, plain=plain)
+    gk, _ = stack_step22(f"phase 22 {what} step, 2 blocks", fl, fb, lm, make, batch, 41)
+    if moe:
+        norms = gk["stack.moe.router"].flatten(1).norm(dim=1).tolist()
+        say(f"phase 22 {what}: router gradient norm by block {norms}")
+        check(all(n > 0 for n in norms), f"router gradients {norms}")
+        return
+    snap = GradSnap(lm)
+    mpp = tfm.make_pp_lm_train_step(lm, snap, n_samples=STACK_S, n_batches=8,
+                                    n_microbatches=2)(41, batch)
+    snap1 = GradSnap(lm)
+    m1 = make(lm, snap1, False)(41, batch)
+    loss_rel = abs(mpp["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+    rel = max(((snap.grads[n] - snap1.grads[n]).double().norm()
+               / snap1.grads[n].double().norm().clamp_min(1e-300)).item() for n in snap.grads)
+    say(f"phase 22 {what}: make_pp_lm_train_step (M=2) vs single step: loss rel "
+        f"{loss_rel:.3g}, gradients worst rel L2 {rel:.3g}")
+    check(loss_rel <= 1e-6 and rel <= 1e-5, "pp step (M=2) differs from the single step")
+
+
+def lm_full22(fl, fb, moe: bool) -> tuple[dict, float, float]:
+    """(c) ``stack_lm --arch transformer`` at GPT-2 small's widths (12
+    blocks, B = 8, 128 positions, 64 examples) for three steps through the
+    kernels, or (d) the MoE-FFN LM at Switch-Base-8's through
+    ``make_ep_lm_train_step`` at one rank for three steps; finite losses, the
+    launches of exactly those steps (#7/#9 once a projection a draw), the
+    median step time (ms) and the peak memory (GiB); (d) prints each block's
+    kept and dropped tokens by expert on the first step's batch."""
+    import argparse
+
+    from bayeformers_tpu_torch.parallel import transformer as tfm
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    args = argparse.Namespace(
+        arch="transformer", pp=1, ep=1, heads=STACK_HEADS, seq_len=LM_T,
+        vocab=SWITCH_VOCAB if moe else GPT2_VOCAB, blocks=STACK_L, experts=SWITCH_E,
+        features=STACK_D, ffn=STACK_FF, microbatches=4, steps=STACK_STEPS,
+        samples=STACK_S, batch_size=LM_B, n_examples=64, lr=1e-3, eval_every=1, seed=0,
+        logs=tempfile.mkdtemp(), device="cuda")
+    n = STACK_L * STACK_S * STACK_STEPS
+    if moe:
+        want = {FAMILY_SHAPES[STACK_LM][0]: n, FAMILY_SHAPES[STACK_LM][1]: n}
+        want.update({s: n * SWITCH_E for s in FAMILY_SHAPES[STACK_MOE]})
+    else:
+        want = {s: n for s in FAMILY_SHAPES[STACK_LM]}
+    torch.cuda.reset_peak_memory_stats()
+    if moe:
+        args.n_batches = 8
+        lm, step = stack_lm.build_transformer(args, torch.device("cuda"), "ep")
+        batch = lm_batch22(args.vocab, 1)
+        routing = []
+        route = lm.stack.moe.route
+        lm.stack.moe.route = lambda r, x: routing.append(route(r, x)) or routing[-1]
+        with torch.no_grad():
+            tfm.lm_logits_single(lm, 3, batch["tokens"])
+        del lm.stack.moe.route
+        kept = [torch.bincount(r.expert[r.keep], minlength=SWITCH_E).tolist() for r in routing]
+        dropped = [torch.bincount(r.expert[~r.keep], minlength=SWITCH_E).tolist()
+                   for r in routing]
+        say(f"phase 22 (d) tokens kept by expert, block by block (C = {MOE_C} of "
+            f"{LM_ROWS}): {kept}; dropped: {dropped}")
+        reset_counters(fl, fb)
+        times, losses = [], []
+        for i in range(STACK_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(200 + i, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(m["loss"].item())
+        counts = stack_counts(fl, fb)
+        norms = lm.stack.moe.router.grad.flatten(1).norm(dim=1).tolist()
+        say(f"phase 22 (d) router gradient norm by block, last step: {norms}")
+        check(all(v > 0 for v in norms), f"MoE router gradients {norms}")
+    else:
+        reset_counters(fl, fb)
+        t = time.perf_counter()
+        last = stack_lm.run(args)
+        counts = stack_counts(fl, fb)
+        with open(os.path.join(args.logs, "stack_lm.jsonl")) as fh:
+            lines = [json.loads(s) for s in fh]
+        walls = [0.0] + [s["wall_s"] for s in lines]
+        times = [(b - a) * 1e3 for a, b in zip(walls[:-1], walls[1:])]
+        losses = [s["loss"] for s in lines]
+        say(f"phase 22 (c) stack_lm --arch transformer: {last} "
+            f"({time.perf_counter() - t:.2f} s with the set-up)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = "(d) MoE LM" if moe else "(c) stack_lm"
+    check(all(math.isfinite(v) for v in losses), f"{label} losses {losses}")
+    check(counts == stack_want(want), f"{label} launched {counts}, want {stack_want(want)}")
+    say(f"phase 22 {label}: losses {losses}, step ms {[round(t, 3) for t in times]}, "
+        f"peak {peak:.3f} GiB; launches {counts}")
+    return counts, float(np.median(times)), peak
+
+
+def hf_state(model) -> dict:
+    """A port model's parameters under HF PyTorch names: a ``kernel``
+    transposed to ``weight`` (GPT-2's stored (out, in) to Conv1D's (in,
+    out), a Dense's (in, out) to Linear's (out, in)), an ``embedding`` and a
+    LayerNorm ``scale`` to ``weight``."""
+    out = {}
+    for name, p in model.named_parameters():
+        head, _, leaf = name.rpartition(".")
+        t = p.detach().t() if leaf == "kernel" else p.detach()
+        out[f"{head}.weight" if leaf in ("kernel", "embedding", "scale") else name] = t
+    return out
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """The safetensors format: an 8-byte little-endian header length, a JSON
+    header of names, dtypes, shapes and byte offsets, then the raw
+    little-endian f32 bytes."""
+    import struct
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        b = t.float().contiguous().cpu().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(b)]}
+        blobs.append(b)
+        offset += len(b)
+    h = json.dumps(header).encode()
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(h)))
+        fh.write(h)
+        for b in blobs:
+            fh.write(b)
+
+
+def pretrained22(bt) -> str:
+    """(e) GPT-2 base's and LLaMA base's random state dicts (seed 0) under HF
+    names in a safetensors file with their config, built by
+    ``build_model(name, pretrained=DIR)`` on the card: one 8 x 128 request's
+    f32 logits equal to the source model's, bit for bit."""
+    import dataclasses
+
+    from bayeformers_tpu_torch.models.gpt2 import build_gpt2
+
+    out = []
+    for name in ("gpt2", "llama"):
+        if name == "gpt2":
+            model = build_gpt2("base", seed=0, dtype=F32, device="cuda")
+        else:
+            model = bt.build_llama_family("llama", "base", seed=0, dtype=F32, device="cuda")
+        cfg = {k: v for k, v in dataclasses.asdict(model.config).items() if k != "family"}
+        vocab = cfg["vocab_size"]
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "config.json"), "w") as fh:
+                json.dump(dict(cfg, model_type=name), fh)
+            t = time.perf_counter()
+            write_safetensors(os.path.join(d, "model.safetensors"), hf_state(model))
+            mb = os.path.getsize(os.path.join(d, "model.safetensors")) / 2**20
+            loaded = bt.build_model(name, task="causal-lm", pretrained=d, dtype=F32,
+                                    device="cuda")
+            load_s = time.perf_counter() - t
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        ids = torch.randint(0, vocab, (8, 128), device="cuda", generator=gen)
+        with torch.no_grad():
+            want, got = model(ids), loaded(ids)
+        check(torch.equal(want, got), f"{name} pretrained= logits differ: "
+              f"{(want - got).abs().max().item()}")
+        out.append(f"{name} base ({mb:.1f} MiB written and loaded in {load_s:.2f} s): "
+                   f"8x128 logits equal to the source model's")
+        del model, loaded
+    return "; ".join(out)
+
+
+def phase22(bt, fl, fb, moped_rho, paths) -> tuple[list[dict], dict]:
+    """Phase 22 (module note): (a) #7 and #9 at the stacked tiers' new
+    shapes against their plain versions (f32, mixture, S = 1); (b) BlockStack;
+    (c) the dense transformer LM; (d) its MoE FFN; (e) ``pretrained=`` for
+    GPT-2 and LLaMA base. Fills ``paths``; returns the rows and the step
+    times (ms) and peak memories (GiB)."""
+    rows, ms = [], {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        say(f"phase 22 {label}: {time.perf_counter() - t:.2f} s")
+        return out
+
+    for fam, path in ((BLOCK, "stack/block"), (STACK_LM, "stack/lm"), (STACK_MOE, "stack/moe")):
+        rows += timed(f"(a) bayes_linear {fam}", phase_bayes_linear, fl, moped_rho, False, F32,
+                      "mixture", fam, path, 1)
+        rows += timed(f"(a) reduce {fam}", phase_reduce, fl, fb, moped_rho, False, "f32",
+                      "mixture", fam, path, 1)
+    paths["stack/block"], ms["step", "BlockStack"] = timed("(b) BlockStack", block22, fl, fb)
+    for moe in (False, True):
+        timed(f"({'d' if moe else 'c'}) 2 blocks", lm_copy22, fl, fb, moe)
+        key, what = ("stack/moe", "MoE LM") if moe else ("stack/lm", "transformer LM")
+        paths[key], ms["step", what], ms["peak GiB", what] = timed(
+            f"({'d' if moe else 'c'}) 12 blocks", lm_full22, fl, fb, moe)
+    say(timed("(e) pretrained=", pretrained22, bt))
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -5549,7 +5980,10 @@ def main() -> int:
     lib = _build.library()
     say(f"phase build: {time.perf_counter() - t:.2f} s (nvcc {_build.last_build_seconds:.2f} s)")
     timed("eps", phase_eps, lib, common, _build)
-    sass = sass_mufu(_build.build())
+    _build.build()
+    t = time.perf_counter()
+    sass = sass_mufu(_build.objects_dir())
+    say(f"SASS of {SASS_SOURCES}: {time.perf_counter() - t:.2f} s")
     mufu, n_sass, loops = sass
     rate, clock = mufu_rate()
     say(f"MUFU / all instructions (cuobjdump -sass) of the draw and split ops' kernels "
@@ -5715,11 +6149,19 @@ def main() -> int:
         rows += rows20
         say(f"phase 20 (ViT, CLIP, convs, tables): {time.perf_counter() - t20:.2f} s")
 
-    # phase 21: T5, Whisper and mc_generate
-    t21 = time.perf_counter()
-    rows21, s2s_ms = phase21(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate)
-    rows += rows21
-    say(f"phase 21 (T5, Whisper, mc_generate): {time.perf_counter() - t21:.2f} s")
+    s2s_ms = {}
+    if first <= 21:
+        # phase 21: T5, Whisper and mc_generate
+        t21 = time.perf_counter()
+        rows21, s2s_ms = phase21(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate)
+        rows += rows21
+        say(f"phase 21 (T5, Whisper, mc_generate): {time.perf_counter() - t21:.2f} s")
+
+    # phase 22: the stacked tiers and pretrained= for the causal LMs
+    t22 = time.perf_counter()
+    rows22, stack_ms = phase22(bt, fl, fb, moped_rho, paths)
+    rows += rows22
+    say(f"phase 22 (stacked tiers, pretrained= causal LMs): {time.perf_counter() - t22:.2f} s")
 
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
@@ -5774,13 +6216,18 @@ def main() -> int:
         say(f"{smi}; phase 20 (frozen MOPED, S=10, B=8 unless named), request / ELBO step "
             "(ms): " + "; ".join(f"{what} {NAMES20[which]} ({key}) {v:.3f}"
                                  for (what, which, key), v in vis_ms.items()))
-    names = dict(NAMES21, **{"gpt2/": "GPT-2 base"})
-    say(f"{smi}; phase 21 (frozen MOPED 0.05, S=10, bf16; T5-small 8 x 256 -> 64, "
-        "Whisper-base 2 x 3000 frames -> 64), request / ELBO step (ms), mc_generate (S=4, "
-        "B=2, f32) ms a generated token: "
-        + "; ".join(f"{what} {names[which]} ({key}) {v:.3f}"
-                    for (what, which, key), v in s2s_ms.items())
-        + f"; total {time.perf_counter() - t_all:.1f} s")
+    if first <= 21:
+        names = dict(NAMES21, **{"gpt2/": "GPT-2 base"})
+        say(f"{smi}; phase 21 (frozen MOPED 0.05, S=10, bf16; T5-small 8 x 256 -> 64, "
+            "Whisper-base 2 x 3000 frames -> 64), request / ELBO step (ms), mc_generate "
+            "(S=4, B=2, f32) ms a generated token: "
+            + "; ".join(f"{what} {names[which]} ({key}) {v:.3f}"
+                        for (what, which, key), v in s2s_ms.items()))
+    say(f"{smi}; phase 22 (random init, scale mixture, f32, S=2; BlockStack 12 x 768, B=64 "
+        "in 4 microbatches; LM 12 blocks at GPT-2 small's and Switch-Base-8's widths, 8 x "
+        "128): " + "; ".join(f"{what} {name} {v:.3f}" for (what, name), v in stack_ms.items())
+        + f"; phase 22 {time.perf_counter() - t22:.1f} s; total "
+        f"{time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,8 +132,11 @@ def test_clip_contrastive_loss_matches_jax():
 def test_clip_contrastive_elbo_step():
     """The step factory with CLIP's inputs and ``untile_axes=(1,)``: the
     summed contrastive loss of the S-averaged similarity, finite over two
-    steps, frozen mu unchanged, rho moved."""
-    _, _, _, port = pair()
+    steps, frozen mu unchanged, rho moved. The steps move the model in
+    place, so it takes its own copy, not the shared ``pair()`` that
+    ``test_torch_clip_fused.py`` holds against the JAX package when both
+    files run in one process."""
+    _, _, _, port = pair.__wrapped__()
     named = port.trainable_parameters()
     opt = training.adamw_with_decay_groups(1e-3, 0.0, training.default_no_decay).init(named)
 

@@ -23,7 +23,9 @@ checkpoints (``utils/checkpoint.py``). Hand-built Bayesian models compose
 ``workloads/mlp_mnist.py`` converts the reference MLP (``models/mlp.py``)
 instead. The stacked hand-built tiers (``parallel/``: ``BlockStack`` and its
 microbatch schedule, ``BayesMoE``, ``TransformerStack`` and its causal LM)
-run on one device, and ``workloads/stack_lm.py`` trains them. The fused S-sample
+run on one device, and ``workloads/stack_lm.py`` trains them; the data- and
+tensor-parallel tier (``parallel/mesh.py``, ``train.py``) runs the fused
+step over ``torch.distributed`` ranks. The fused S-sample
 forward and its backward run the Bayesian linear layers, their dmu/drho
 reduce and attention on hand-written Hopper kernels (``csrc/``, built with
 ``nvcc`` at first use). Entry points run on

@@ -59,21 +59,25 @@ class GPT2Config:
     pad_token_id: Optional[int] = None
 
 
-def causal_attention(mod, hidden, bias, dense, plain: bool = False, cache=None):
+def causal_attention(mod, hidden, bias, dense, plain: bool = False, cache=None,
+                     n_heads=None):
     """GPT-2's attention block (the JAX package's ``handle_gpt2_attention``,
     ``nn/fused.py:771-775``): the packed ``c_attn`` through ``dense``, a
     three-way split, ``mha(causal=True)`` and ``c_proj``. The split's
     q/k/v are column slices of the packed (.., 3H) output: each is copied
     contiguous, since the attention kernels read (N, L, H) rows. With a
     decode's ``cache`` (K, V, start), k and v go into it and q attends to
-    its keys in plain torch, ``bias`` being ``ops_attention.cache_bias``'s."""
+    its keys in plain torch, ``bias`` being ``ops_attention.cache_bias``'s.
+    ``n_heads`` (default the module's) is the heads of a tensor-parallel
+    rank's block of c_attn."""
+    n_heads = n_heads or mod.n_heads
     q, k, v = torch.chunk(dense(mod.c_attn, hidden), 3, dim=-1)
     if cache is not None:
         ctx = ops_attention.plain_attention(q, *ops_attention.cache_kv(cache, k, v), bias,
-                                            mod.n_heads)
+                                            n_heads)
     else:
         q, k, v = (t.contiguous() for t in (q, k, v))
-        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, causal=True, plain=plain)
+        ctx = ops_attention.mha(q, k, v, bias, n_heads, causal=True, plain=plain)
     return dense(mod.c_proj, ctx)
 
 

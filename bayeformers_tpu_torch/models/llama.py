@@ -239,16 +239,19 @@ def banded_attention(q, k, v, bias, n_heads: int, window: int) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(N, L, H).to(q.dtype)
 
 
-def gqa_attention(mod, hidden, bias, position_ids, dense, plain: bool = False, cache=None):
+def gqa_attention(mod, hidden, bias, position_ids, dense, plain: bool = False, cache=None,
+                  n_heads=None, n_kv=None):
     """The LLaMA-architecture attention block (the JAX package's
     ``handle_gqa_attention``, ``nn/fused.py:778-873``): q/k/v through
     ``dense``, rotary, k/v repeated to the full head count, ``mha(causal=
     True)`` (or :func:`banded_attention` where Mistral's window bites) and
     ``o_proj``. With a decode's ``cache`` (K, V, start), the rotated k and v
     (the shared kv heads) go into it and q attends to its keys in plain
-    torch, ``bias`` being ``cache_bias``'s (Mistral's band in it)."""
+    torch, ``bias`` being ``cache_bias``'s (Mistral's band in it).
+    ``n_heads`` / ``n_kv`` (default the module's) are a tensor-parallel
+    rank's heads."""
     N, L = hidden.shape[:2]
-    nh, nkv, d = mod.n_heads, mod.n_kv_heads, mod.head_dim
+    nh, nkv, d = n_heads or mod.n_heads, n_kv or mod.n_kv_heads, mod.head_dim
     qh = dense(mod.q_proj, hidden).reshape(N, L, nh, d)
     kh = dense(mod.k_proj, hidden).reshape(N, L, nkv, d)
     vh = dense(mod.v_proj, hidden).reshape(N, L, nkv, d)

@@ -47,6 +47,7 @@ from bayeformers_tpu_torch.ops import attention as ops_attention
 from bayeformers_tpu_torch.ops import common as ops_common
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
 from bayeformers_tpu_torch.ops.logprob import ON_MU, prior_log_prob, prior_of
+from bayeformers_tpu_torch.parallel import collectives as coll
 
 SEP = "/"
 _M64 = (1 << 64) - 1
@@ -141,15 +142,18 @@ def transposed_view(mod, rho):
     return mod.kernel, rho
 
 
-def unit_bias_eps(seed_rows: torch.Tensor, widths) -> list[torch.Tensor]:
+def unit_bias_eps(seed_rows: torch.Tensor, widths, offsets=None) -> list[torch.Tensor]:
     """Biases' eps in one batched draw: ``seed_rows`` (n_leaves, n) int32,
     ``widths`` the leaves' N; returns each leaf's (n, N) eps, element j of
-    draw t being the unit stream's element (0, j) for the leaf's seed t, a
-    pure function of (seed, j // 128, j % 128) like the JAX package's
-    ``_unit_bias_eps``."""
-    eps = ops_common.unit_eps(seed_rows.reshape(-1), (1, max(widths)))
+    draw t being the unit stream's element (0, n0 + j) for the leaf's seed
+    t, a pure function of (seed, (n0 + j) // 128, (n0 + j) % 128) like the
+    JAX package's ``_unit_bias_eps``. ``offsets`` gives each leaf's column
+    offset n0 (a column shard's place in its whole bias; default 0)."""
+    offsets = offsets or [0] * len(widths)
+    eps = ops_common.unit_eps(seed_rows.reshape(-1),
+                              (1, max(o + w for o, w in zip(offsets, widths))))
     eps = eps.reshape(seed_rows.shape[0], seed_rows.shape[1], -1)
-    return [eps[i, :, :w] for i, w in enumerate(widths)]
+    return [eps[i, :, o:o + w] for i, (o, w) in enumerate(zip(offsets, widths))]
 
 
 class MCBase:
@@ -163,6 +167,7 @@ class MCBase:
     the draws (tests only) and implies it."""
 
     tier = ""
+    tp = None  # the tensor-parallel context; only the fused tier takes one
 
     def __init__(self, bmodel, n_samples: int, impl: str, eps_hook):
         if impl not in ("kernel", "plain"):
@@ -180,13 +185,43 @@ class MCBase:
     def bias_paths(self) -> list[str]:
         return [p for p in self.paths if p.endswith(SEP + "bias")]
 
+    def kind(self, kpath: str) -> str:
+        """A converted leaf's tensor-parallel kind (``'col'``, ``'row'``);
+        ``'rep'`` without tp and for an unconverted one."""
+        if self.tp is None or kpath not in self.bmodel.rho:
+            return "rep"
+        return self.tp.kind_fn(kpath)
+
+    def local_heads(self, mod, names, n_heads: int, n_kv=None, row=None):
+        """This rank's head counts (the reference's ``_local_heads``):
+        ``(n_heads, n_kv)`` as given without tp or with q/k/v (the layers
+        ``names``) replicated, divided by tp where they are column-sharded
+        (the rules' blocks are whole heads). Mixed kinds, a head count that
+        tp does not divide, and an output projection (``row``: GPT-2's
+        c_proj) that is not row-sharded under column-sharded q/k/v raise."""
+        kinds = {self.kind(getattr(mod, n).path + SEP + "kernel") for n in names}
+        out = "rep" if row is None else self.kind(getattr(mod, row).path + SEP + "kernel")
+        if kinds == {"rep"} and out == "rep":
+            return n_heads, n_kv
+        where = getattr(mod, names[0]).path.rpartition(SEP)[0]
+        if kinds != {"col"} or (row is not None and out != "row"):
+            raise ValueError(f"tp sharding of attention {where} must column-shard all of "
+                             f"{names} (and row-shard {row}) or none; got {kinds}, {out}")
+        tp = self.tp.size
+        if n_heads % tp or (n_kv is not None and n_kv % tp):
+            kv = "" if n_kv is None else f" and n_kv={n_kv}"
+            raise ValueError(f"n_heads={n_heads}{kv} must divide by tp={tp} "
+                             f"(attention {where})")
+        return n_heads // tp, None if n_kv is None else n_kv // tp
+
     def self_attention(self, mod, hidden, bias):
         """The whole self-attention block: q/k/v through :meth:`dense` and
-        attention through the flat-layout mha op."""
+        attention through the flat-layout mha op, on this rank's heads."""
+        nh, _ = self.local_heads(mod, ("query", "key", "value"), mod.n_heads)
         q = self.dense(mod.query, hidden)
         k = self.dense(mod.key, hidden)
         v = self.dense(mod.value, hidden)
-        return ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+        return ops_attention.mha(q, k, v, bias, nh, plain=self.plain)
 
     def albert_attention(self, mod, hidden, bias):
         """ALBERT's attention block (``handle_albert_attention``): q/k/v and
@@ -194,34 +229,43 @@ class MCBase:
         then the module's own LayerNorm over ``proj + hidden``. ALBERT's one
         layer is called once a repetition: each call draws the same W (the
         leaf's seeds) and the leaf's log-probs count once (``seen``)."""
+        nh, _ = self.local_heads(mod, ("query", "key", "value"), mod.n_heads)
         q = self.dense(mod.query, hidden)
         k = self.dense(mod.key, hidden)
         v = self.dense(mod.value, hidden)
-        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+        ctx = ops_attention.mha(q, k, v, bias, nh, plain=self.plain)
         return mod.LayerNorm(self.dense(mod.dense, ctx) + hidden)
 
     def distilbert_attention(self, mod, hidden, bias):
         """DistilBERT's attention block (``handle_distilbert_attention``):
         q/k/v and ``out_lin`` through :meth:`dense`, the flat-layout mha op
         with DistilBERT's f32 bias ``-1e30 * (1 - mask)`` as it is."""
+        nh, _ = self.local_heads(mod, ("q_lin", "k_lin", "v_lin"), mod.n_heads)
         q = self.dense(mod.q_lin, hidden)
         k = self.dense(mod.k_lin, hidden)
         v = self.dense(mod.v_lin, hidden)
-        ctx = ops_attention.mha(q, k, v, bias, mod.n_heads, plain=self.plain)
+        ctx = ops_attention.mha(q, k, v, bias, nh, plain=self.plain)
         return self.dense(mod.out_lin, ctx)
 
     def gpt2_attention(self, mod, hidden, bias):
         """GPT-2's attention block (``handle_gpt2_attention``): the packed
         ``c_attn`` and ``c_proj`` through :meth:`dense`, attention through
-        the flat-layout mha op with the causal mask."""
-        return causal_attention(mod, hidden, bias, self.dense, plain=self.plain)
+        the flat-layout mha op with the causal mask; under tp the packed
+        c_attn is column-sharded in the head-aligned layout of
+        ``parallel/mesh.py::permute_gpt2_qkv`` and c_proj row-sharded."""
+        nh, _ = self.local_heads(mod, ("c_attn",), mod.n_heads, row="c_proj")
+        return causal_attention(mod, hidden, bias, self.dense, plain=self.plain, n_heads=nh)
 
     def gqa_attention(self, mod, hidden, bias, position_ids):
         """The LLaMA-architecture attention block (``handle_gqa_attention``):
         q/k/v and o_proj through :meth:`dense`, rotary, k/v repeated to the
         full head count, the flat-layout mha op with the causal mask (plain
-        banded attention where Mistral's window bites)."""
-        return gqa_attention(mod, hidden, bias, position_ids, self.dense, plain=self.plain)
+        banded attention where Mistral's window bites), on this rank's
+        heads: under GQA tp must divide the kv heads too."""
+        nh, nkv = self.local_heads(mod, ("q_proj", "k_proj", "v_proj"), mod.n_heads,
+                                   mod.n_kv_heads)
+        return gqa_attention(mod, hidden, bias, position_ids, self.dense, plain=self.plain,
+                             n_heads=nh, n_kv=nkv)
 
     def embed(self, mod, ids):
         """A tier with no embedding handler (flipout, as in the reference)
@@ -287,32 +331,86 @@ class FusedMC(MCBase):
     tier = "fused"
 
     def __init__(self, bmodel, seed: int, n_samples: int, *,
-                 antithetic: bool, save_weights: bool, impl: str, eps_hook):
+                 antithetic: bool, save_weights: bool, impl: str, eps_hook, tp=None):
         if antithetic and n_samples % 2:
             raise ValueError(f"antithetic needs an even n_samples; got {n_samples}")
         super().__init__(bmodel, n_samples, impl, eps_hook)
         self.antithetic = antithetic
         self.save_weights = save_weights
         self.n_draws = n_samples // 2 if antithetic else n_samples
-        dev = bmodel.device
-        # every leaf's n_draws seeds, uploaded once per request
-        self.seeds = torch.tensor(
-            [[derive_seed(seed, i, t) for t in range(self.n_draws)]
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        # every leaf's n_draws seeds, uploaded once per request; under tp
+        # also the seeds of a leaf whose shards draw apart (see _plan)
+        self.seeds = self._seed_table(seed)
+        self.rank_seeds = (self.seeds if self.tp is None
+                           else self._seed_table(seed, self.tp.rank))
+        self.bias_eps = {} if eps_hook is not None else self._all_bias_eps()
+        # (log_q, log_p, sharded over tp) of each leaf, once a forward
+        self.collected: list[tuple[torch.Tensor, torch.Tensor, bool]] = []
+        self._f_in = None  # (source, f(xs)) of the last column input
+
+    def _seed_table(self, seed: int, *extra: int) -> torch.Tensor:
+        """(n_leaves, n_draws) int32 seeds ``derive_seed(seed, leaf, t,
+        *extra)`` on the model's device."""
+        return torch.tensor(
+            [[derive_seed(seed, i, t, *extra) for t in range(self.n_draws)]
              for i in range(len(self.paths))],
             dtype=torch.int32,
-        ).to(dev)
-        self.bias_eps = {} if eps_hook is not None else self._all_bias_eps()
-        self.collected: list[tuple[torch.Tensor, torch.Tensor]] = []
+        ).to(self.bmodel.device)
+
+    def _plan(self, kpath: str, shape) -> tuple[str, tuple[int, int], bool]:
+        """``(kind, unit_offsets, apart)`` of a converted kernel whose local
+        (K, N) view is ``shape`` (the reference's ``_tp_kernel_plan``): a
+        column shard sits at (0, r N), a row shard at (r K, 0); where that
+        lands on the (256, 128) unit grid the shard draws exactly its slice
+        of the whole layer's noise, else (``apart``) it takes the rank's own
+        seeds, ``derive_seed(seed, leaf, t, rank)``, so that the shards of
+        one layer never share noise."""
+        kind = self.kind(kpath)
+        r = 0 if self.tp is None else self.tp.rank
+        K, N = shape
+        if kind == "col":
+            return (kind, (0, r * N), False) if N % ops_common.UNIT_N == 0 else (kind, (0, 0), True)
+        if kind == "row":
+            return (kind, (r * K, 0), False) if K % ops_common.UNIT_K == 0 else (kind, (0, 0), True)
+        return kind, (0, 0), False
+
+    def _bias_plan(self, bpath: str, N: int) -> tuple[bool, int, bool]:
+        """``(sharded, n0, apart)`` of a converted bias with N local columns:
+        sharded with its kernel's column shard, at element offset r N where
+        N is whole 128-wide units, else on the rank's own seeds."""
+        if self.kind(bpath.rpartition(SEP)[0] + SEP + "kernel") != "col":
+            return False, 0, False
+        if N % ops_common.UNIT_N == 0:
+            return True, self.tp.rank * N, False
+        return True, 0, True
+
+    def _global_eps(self, path: str, shape, kind: str) -> torch.Tensor:
+        """The eps hook's draw of a leaf: the hook gives the whole layer's
+        (n_draws, *shape) draw; a shard takes its rank's block of it."""
+        tp = 1 if kind == "rep" else self.tp.size
+        dim = {"col": len(shape) - 1, "row": 0, "rep": 0}[kind]
+        whole = list(shape)
+        whole[dim] *= tp
+        eps = self.eps_hook(path, self.n_draws, tuple(whole))
+        if tp == 1:
+            return eps
+        return eps.narrow(dim + 1, self.tp.rank * shape[dim], shape[dim])
 
     def _all_bias_eps(self) -> dict[str, torch.Tensor]:
         """Every converted bias's (n_draws, N) eps in one batched draw
-        (:func:`unit_bias_eps` on the leaf's seeds)."""
+        (:func:`unit_bias_eps` on the leaf's seeds, at its column offset)."""
         bpaths = self.bias_paths()
         if not bpaths:
             return {}
-        rows = self.seeds[[self.path_index[p] for p in bpaths]]  # (nb, n_draws)
         widths = [self.bmodel.rho[p].shape[0] for p in bpaths]
-        return dict(zip(bpaths, unit_bias_eps(rows, widths)))
+        plans = [self._bias_plan(p, w) for p, w in zip(bpaths, widths)]
+        idx = [self.path_index[p] for p in bpaths]
+        rows = self.seeds[idx]  # (nb, n_draws)
+        apart = [j for j, (_, _, a) in enumerate(plans) if a]
+        if apart:
+            rows[apart] = self.rank_seeds[[idx[j] for j in apart]]
+        return dict(zip(bpaths, unit_bias_eps(rows, widths, [n0 for _, n0, _ in plans])))
 
     @staticmethod
     def interleave(a_half: torch.Tensor) -> torch.Tensor:
@@ -336,25 +434,44 @@ class FusedMC(MCBase):
             return {"prior_mu": pm if view is None else view(pm)}
         return {"mixture": self.mixture}
 
-    def _route_matmul(self, kpath, mu, rho, xs, view=None):
+    def _copy_to_shards(self, xs, source):
+        """Megatron's "f" on a column shard's input ``xs``, once for each
+        ``source`` tensor it was reshaped from: q, k and v read one hidden
+        state, whose cotangents autograd then sums before one all-reduce
+        (the reference applies f per layer; the sum is the same)."""
+        if source is not None and self._f_in is not None and self._f_in[0] is source:
+            return self._f_in[1]
+        fx = coll.copy_to_shards(xs, self.tp.group)
+        self._f_in = (source, fx)
+        return fx
+
+    def _route_matmul(self, kpath, mu, rho, xs, view=None, source=None):
         """The Bayesian linear op of a converted kernel in its (K, N)
         orientation (``mu``, ``rho``; ``view`` as in :meth:`_prior_kwargs`)
         over ``xs`` (S, M, K), shared by :meth:`dense` and :meth:`conv`; the
-        leaf's log-probs are collected once a forward. Returns ``(y,
-        new_leaf)``."""
-        seeds = self.seeds[self.path_index[kpath]]
+        leaf's log-probs are collected once a forward. Under tp (the
+        reference's Megatron plan) a column shard's input passes "f"
+        (:meth:`_copy_to_shards`, ``xs`` reshaped from ``source``) and a row
+        shard's partial output "g" (``parallel/collectives.py``). Returns
+        ``(y, new_leaf, kind)``."""
+        kind, offsets, apart = self._plan(kpath, tuple(mu.shape))
+        seeds = (self.rank_seeds if apart else self.seeds)[self.path_index[kpath]]
         eps = None
         if self.eps_hook is not None:
-            eps = self.eps_hook(kpath, self.n_draws, tuple(mu.shape))
+            eps = self._global_eps(kpath, tuple(mu.shape), kind)
+        if kind == "col":
+            xs = self._copy_to_shards(xs, source)
         y, lq, lp = ops_fused.bayes_linear(
             xs, mu, rho, seeds, save_weights=self.save_weights,
             antithetic=self.antithetic, plain=self.plain, eps=eps,
-            **self._prior_kwargs(kpath, view))
+            unit_offsets=offsets, **self._prior_kwargs(kpath, view))
+        if kind == "row":
+            y = coll.reduce_from_shards(y, self.tp.group)
         new_leaf = kpath not in self.seen
         if new_leaf:
             self.seen.add(kpath)
-            self.collected.append((lq, lp))
-        return y, new_leaf
+            self.collected.append((lq, lp, kind != "rep"))
+        return y, new_leaf, kind
 
     def dense(self, mod, x: torch.Tensor) -> torch.Tensor:
         """A converted ``Dense`` or ``Conv1D`` over an S-major (S*B, ..., K)
@@ -370,12 +487,13 @@ class FusedMC(MCBase):
         xs = x.reshape(self.S, -1, K).contiguous()
         mu, rho = transposed_view(mod, self.bmodel.rho[kpath])
         view = (lambda a: a.t().contiguous()) if mod.transposed else None
-        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, view)
+        y, new_leaf, _ = self._route_matmul(kpath, mu, rho, xs, view, source=x)
         return self._bias(y, mod, new_leaf).reshape(lead + (y.shape[-1],))
 
     def _bias(self, y, mod, new_leaf):
         """A converted layer's bias: sampled where it is converted, else
-        the frequentist one."""
+        the frequentist one (under tp a column layer's block of it; a row
+        layer's whole bias, added once after "g")."""
         bpath = mod.path + SEP + "bias"
         if bpath in self.bmodel.rho:
             return self._add_bias(y, mod, bpath, new_leaf)
@@ -394,7 +512,7 @@ class FusedMC(MCBase):
         kpath, patches, out_spatial = conv_lib.lower_conv(mod, x)
         mu, rho = conv_lib.reorder(mod.kernel), conv_lib.reorder(self.bmodel.rho[kpath])
         xs = patches.reshape(self.S, -1, patches.shape[-1]).contiguous()
-        y, new_leaf = self._route_matmul(kpath, mu, rho, xs, conv_lib.reorder)
+        y, new_leaf, _ = self._route_matmul(kpath, mu, rho, xs, conv_lib.reorder)
         y = self._bias(y, mod, new_leaf)
         return y.reshape((x.shape[0],) + out_spatial + (y.shape[-1],))
 
@@ -424,14 +542,16 @@ class FusedMC(MCBase):
             self.seen.add(epath)
             dims = (1, 2)
             lq = dist.gaussian_log_prob(tables, mu, dist.sigma_from_rho(rho), dim=dims)
-            self.collected.append((lq, self.bmodel.prior_log_prob(epath, tables, dim=dims)))
+            self.collected.append(
+                (lq, self.bmodel.prior_log_prob(epath, tables, dim=dims), False))
         return out.reshape(tuple(ids.shape) + (D,))
 
     def _add_bias(self, y, mod, bpath, new_leaf):
         bmu = mod.bias
         brho = self.bmodel.rho[bpath]
+        sharded = self._bias_plan(bpath, bmu.shape[0])[0]
         if self.eps_hook is not None:
-            beps = self.eps_hook(bpath, self.n_draws, tuple(bmu.shape))
+            beps = self._global_eps(bpath, tuple(bmu.shape), "col" if sharded else "rep")
         else:
             beps = self.bias_eps[bpath]
         beps = beps.to(bmu.dtype)
@@ -444,22 +564,28 @@ class FusedMC(MCBase):
             kw = self._prior_kwargs(bpath)
             prior = prior_of(**kw)
             centre = bmu if prior == ON_MU else kw.get("prior_mu")
-            self.collected.append(bias_logprobs(b, bsig, beps, prior, centre))
+            self.collected.append(bias_logprobs(b, bsig, beps, prior, centre) + (sharded,))
         return y
 
     def aux(self) -> dict[str, torch.Tensor]:
+        """The summed log-probs; under tp the sharded leaves' local sums
+        are all-reduced once ("g"), the replicated leaves counted once."""
         self.check_seen(self.collected)
-        return {
-            "log_prior": torch.stack([lp for _, lp in self.collected]).sum(0),
-            "log_variational_posterior": torch.stack(
-                [lq for lq, _ in self.collected]).sum(0),
-        }
+        out = {}
+        for key, j in (("log_prior", 1), ("log_variational_posterior", 0)):
+            total = torch.stack([c[j] for c in self.collected if not c[2]]).sum(0)
+            sharded = [c[j] for c in self.collected if c[2]]
+            if sharded:
+                total = total + coll.reduce_from_shards(torch.stack(sharded).sum(0),
+                                                        self.tp.group)
+            out[key] = total
+        return out
 
 
 def fused_mc_apply(bmodel, seed: int, n_samples: int, *args,
                    save_weights: bool = True, antithetic: bool = False,
                    impl: str = "kernel", eps_hook=None, untile_axes: tuple[int, ...] = (),
-                   **inputs):
+                   tp=None, **inputs):
     """S-sample fused forward of a converted model over its inputs (``args``
     and ``inputs``, as the model takes them: :func:`run_mc`). Returns
     ``(outputs, aux)``: outputs (S, B, ...) and aux ``log_prior`` /
@@ -467,7 +593,11 @@ def fused_mc_apply(bmodel, seed: int, n_samples: int, *args,
     the draws (even ``n_samples``). ``save_weights=False`` writes no W
     residuals; a backward through such a forward regenerates each layer's
     W from its seeds (``ops/fused_linear.py::BayesLinearRegen``).
-    ``untile_axes``: :func:`untile_samples`."""
+    ``untile_axes``: :func:`untile_samples`. ``tp`` (a
+    ``parallel.collectives.TPContext``) runs the Megatron plan over a model
+    whose leaves hold this rank's shards (``parallel/mesh.py``); an
+    ``eps_hook`` then still gives each leaf's whole draw, of which the rank
+    takes its block."""
     mc = FusedMC(bmodel, seed, n_samples, antithetic=antithetic,
-                 save_weights=save_weights, impl=impl, eps_hook=eps_hook)
+                 save_weights=save_weights, impl=impl, eps_hook=eps_hook, tp=tp)
     return run_mc(mc, n_samples, *args, untile_axes=untile_axes, **inputs)

@@ -149,7 +149,7 @@ class BayesianModel:
     def mc_apply_fused(self, seed: int, n_samples: int, *args,
                        save_weights: bool = True, antithetic: bool = False,
                        impl: str = "kernel", eps_hook=None,
-                       untile_axes: tuple[int, ...] = (), **inputs):
+                       untile_axes: tuple[int, ...] = (), tp=None, **inputs):
         """S Monte-Carlo forwards as one S-major super-batch through the
         fused tier, of the model's inputs (``args`` and ``inputs``, as the
         model's forward takes them: ``input_ids, attention_mask,
@@ -173,13 +173,14 @@ class BayesianModel:
         leaf's draw (tests only; implies the plain versions).
         ``untile_axes``: the output's other S-tiled axes, of which each
         sample's diagonal block is kept (CLIP's similarity: ``(1,)``;
-        ``nn.fused.untile_samples``)."""
+        ``nn.fused.untile_samples``). ``tp``: the tensor-parallel context
+        of a sharded model (``nn.fused.fused_mc_apply``)."""
         from bayeformers_tpu_torch.nn import fused as fused_lib
 
         return fused_lib.fused_mc_apply(
             self, seed, n_samples, *args, save_weights=save_weights,
             antithetic=antithetic, impl=impl, eps_hook=eps_hook,
-            untile_axes=untile_axes, **inputs)
+            untile_axes=untile_axes, tp=tp, **inputs)
 
     def sample(self, generator: torch.Generator):
         """Draw one concrete set of converted leaves with ``generator`` (the

@@ -142,33 +142,54 @@ def make_elbo_train_step(bmodel, optimizer: ClippedAdamW, n_samples: int,
     the others may be odd. ``untile_axes`` goes to the forward (CLIP:
     ``(1,)``)."""
     mc = pick_mc(bmodel, fused, estimator)
-    n_chunks, chunk = 1, n_samples
-    if mc_chunk is not None and mc_chunk < n_samples:
-        if n_samples % mc_chunk:
-            raise ValueError(f"mc_chunk={mc_chunk} must divide n_samples={n_samples}")
-        n_chunks, chunk = n_samples // mc_chunk, mc_chunk
+    n_chunks, chunk = chunks(n_samples, mc_chunk)
 
     def step(seed: int, batch: dict) -> dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        totals: dict[str, torch.Tensor] = {}
-        for c in range(n_chunks):
-            hook = None if eps_hook is None else functools.partial(eps_hook, c)
-            loss, metrics = elbo_objective(
-                mc, seed if n_chunks == 1 else derive_seed(seed, c), chunk, batch,
-                n_batches, loss_fn, input_keys, eps_hook=hook, untile_axes=untile_axes)
-            loss.backward()
-            for k, v in metrics.items():
-                v = torch.as_tensor(v).detach()
-                totals[k] = totals[k] + v if k in totals else v
-        if n_chunks > 1:
-            with torch.no_grad():
-                for g in optimizer.grads():
-                    g.div_(n_chunks)
-            totals = {k: v / n_chunks for k, v in totals.items()}
+        totals = accumulate_grads(mc, optimizer, seed, n_chunks, chunk, batch, n_batches,
+                                  loss_fn, input_keys, eps_hook, untile_axes)
         optimizer.step()
         return totals
 
     return step
+
+
+def chunks(n_samples: int, mc_chunk: Optional[int]) -> tuple[int, int]:
+    """``(n_chunks, chunk)`` of S samples run ``mc_chunk`` at a time (one
+    chunk of S without it); ``mc_chunk`` must divide S."""
+    if mc_chunk is not None and mc_chunk < n_samples:
+        if n_samples % mc_chunk:
+            raise ValueError(f"mc_chunk={mc_chunk} must divide n_samples={n_samples}")
+        return n_samples // mc_chunk, mc_chunk
+    return 1, n_samples
+
+
+def accumulate_grads(mc, optimizer: ClippedAdamW, seed: int, n_chunks: int, chunk: int,
+                     batch: dict, n_batches: int, loss_fn: Callable,
+                     input_keys: tuple[str, ...], eps_hook: Optional[Callable] = None,
+                     untile_axes: tuple[int, ...] = (), **mc_kwargs) -> dict:
+    """A step's gradients in ``optimizer``'s tensors (zeroed first): the
+    ELBO objective of each chunk (seeds ``derive_seed(seed, c)`` when there
+    are several) backwarded, then the gradients and the metrics averaged
+    over the chunks; returns the metrics (detached 0-d tensors).
+    ``mc_kwargs`` go to the forward."""
+    optimizer.zero_grad()
+    totals: dict[str, torch.Tensor] = {}
+    for c in range(n_chunks):
+        hook = None if eps_hook is None else functools.partial(eps_hook, c)
+        loss, metrics = elbo_objective(
+            mc, seed if n_chunks == 1 else derive_seed(seed, c), chunk, batch,
+            n_batches, loss_fn, input_keys, eps_hook=hook, untile_axes=untile_axes,
+            **mc_kwargs)
+        loss.backward()
+        for k, v in metrics.items():
+            v = torch.as_tensor(v).detach()
+            totals[k] = totals[k] + v if k in totals else v
+    if n_chunks > 1:
+        with torch.no_grad():
+            for g in optimizer.grads():
+                g.div_(n_chunks)
+        totals = {k: v / n_chunks for k, v in totals.items()}
+    return totals
 
 
 def make_elbo_eval_step(bmodel, n_samples: int,

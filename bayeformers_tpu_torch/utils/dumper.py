@@ -42,8 +42,10 @@ class Dumper:
         dumper.flush()   # also flushed automatically on outermost __exit__
     """
 
-    def __init__(self, path: str):
-        self.path = path if path.endswith(".json") else path + ".json"
+    def __init__(self, path: Optional[str]):
+        """``path=None`` keeps the records and writes nothing (a rank
+        other than 0)."""
+        self.path = path if path is None or path.endswith(".json") else path + ".json"
         self.root = Section("root")
         self._stack: list[Section] = [self.root]
 
@@ -54,6 +56,8 @@ class Dumper:
         self._stack[-1].record(**values)
 
     def flush(self) -> None:
+        if self.path is None:
+            return
         parent = os.path.dirname(self.path)
         if parent:
             os.makedirs(parent, exist_ok=True)

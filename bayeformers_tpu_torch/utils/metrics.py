@@ -72,6 +72,20 @@ class MetricsWriter:
             self._tb.close()
 
 
+class NullWriter:
+    """A :class:`MetricsWriter` that writes nothing: the ranks other than 0
+    of a data- or tensor-parallel run."""
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def scalars(self, prefix: str, values: dict[str, float], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def run_name(exp: str, **qualifiers) -> str:
     """``exp.KEY_value`` naming (reference `bert_glue.py:91-92`)."""
     parts = [exp] + [f"{k.upper()}_{v}" for k, v in qualifiers.items()]

@@ -25,8 +25,11 @@ variational state after each Bayesian epoch (``utils/checkpoint.py``) and
 ``--resume`` continues phase D from the latest one (a resume past the last
 epoch evaluates the restored state); ``--hypersearch N`` runs N trials of
 the reference's random search over ``delta`` and ``weight_decay``
-(``utils/hypersearch.py``). The dp/tp/sp mesh raises (ROADMAP queue 1 item
-6). The estimator is antithetic pairs when S (and
+(``utils/hypersearch.py``). ``--dp``/``--tp`` run the data- and
+tensor-parallel tier (``parallel/``) over ranks that ``python -m
+torch.distributed.run`` starts, ``--backend gloo`` where ranks share a
+card; ``--sp`` (and tp on the naive tier) is ROADMAP queue 1 item 6(d).
+The estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws (``fused``) otherwise, as in
 the reference, or ``--estimator`` (any of the reference's five:
 ``fused``, ``naive``, ``flipout``, ``antithetic``, ``local``), under which
@@ -39,6 +42,8 @@ the backward, as the reference routes them.
     python -m bayeformers_tpu_torch.workloads.bert_glue --bf16 --samples 9
     python -m bayeformers_tpu_torch.workloads.bert_glue --data glue/MRPC \
         --vocab bert/vocab.txt --bf16 --save-dir ckpt
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m bayeformers_tpu_torch.workloads.bert_glue --dp 2 --backend gloo
 """
 from __future__ import annotations
 
@@ -54,13 +59,15 @@ from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.parallel import train as ptrain
+from bayeformers_tpu_torch.parallel.train import add_mesh_args, launcher_print, mesh_kwargs
+from bayeformers_tpu_torch.parallel.mesh import shard_batch
 from bayeformers_tpu_torch.pretrained import load_pretrained
 from bayeformers_tpu_torch.utils import checkpoint as ckpt_lib
 from bayeformers_tpu_torch.utils import glue as glue_lib
 from bayeformers_tpu_torch.utils import metrics as metrics_lib
 from bayeformers_tpu_torch.utils.hypersearch import search_delta_weight_decay
-from bayeformers_tpu_torch.utils.dumper import Dumper
-from bayeformers_tpu_torch.utils.metrics import MetricsWriter, Report, run_name
+from bayeformers_tpu_torch.utils.metrics import Report, run_name
 from bayeformers_tpu_torch.utils.optim import masked_optimizer
 
 # Reference constants
@@ -173,26 +180,35 @@ def train(
     dp: int = 1,
     tp: int = 1,
     sp: int = 1,
+    independent_draws: bool = False,
+    backend: str | None = None,
     estimator: str | None = None,
     mc_chunk: int | None = None,
     warmup: float = 0.0,
     device: str = "cuda",
+    keep: dict | None = None,
 ) -> float:
-    """Run phases A-D; returns the task's headline dev score after phase D."""
+    """Run phases A-D; returns the task's headline dev score after phase D.
+    ``dp``/``tp`` (``dp=0``: the world over tp) run on the ranks of the
+    launcher (``parallel/train.py::init_mesh``, ``backend``): each rank takes
+    its dp slice of every batch, phase A all-reduces its gradients and is
+    replicated over tp, phase D is ``parallel/train.py::make_train_step``
+    (``independent_draws``: each dp rank its own draws), the evaluations
+    sum over dp, and rank 0 alone logs and writes checkpoints (whole, the tp
+    shards gathered). ``keep``, a dict, receives the rank's converted model
+    and mesh at the end (``"bmodel"``, ``"mesh"``)."""
     if any(f in model_name.lower() for f in ("gpt2", "gpt-2", "llama", "mistral", "gemma")):
         raise ValueError(f"bert_glue: model {model_name!r} is a causal LM; the causal "
                          "LMs run in workloads/gpt2_lm.py")
-    if (dp, tp, sp) != (1, 1, 1):
-        raise NotImplementedError("bert_glue: the dp/tp/sp mesh comes with the parallel "
-                                  "tiers (ROADMAP queue 1 item 6)")
     if estimator is None:
         anti_ok = samples % 2 == 0 and (mc_chunk is None or mc_chunk % 2 == 0)
         estimator = "antithetic" if anti_ok else "fused"
+    ptrain.check_mesh(dp, tp, estimator, batch_size)
+    mesh, dev = ptrain.init_mesh(dp, tp, sp, backend, device)
+    tp = 1 if mesh is None else mesh.tp
 
     name = run_name(exp, delta=round(delta, 5), weight_decay=round(weight_decay, 6))
-    writer = MetricsWriter(logs, name)
-    dumper = Dumper(os.path.join(logs, name + ".results"))
-    dev = torch.device(device)
+    writer, dumper, say = ptrain.rank_logging(mesh, logs, name)
 
     spec = glue_lib.task_spec(task)
     regression = spec.regression
@@ -209,7 +225,7 @@ def train(
         data, model.config.vocab_size, seed, n_labels=spec.n_labels,
         regression=regression, task=task, vocab=vocab)
     if synthetic:
-        print("[bert_glue] no dataset found; using synthetic stand-in")
+        say("[bert_glue] no dataset found; using synthetic stand-in")
     n_batches = len(train_data["labels"]) // batch_size
     if limit_batches:
         n_batches = min(n_batches, limit_batches)
@@ -244,19 +260,24 @@ def train(
     opt = tx.init(training.model_parameters(model, tx.mask_no_decay))
 
     def f_step(batch):
+        # the rank's dp slice; the gradients summed over dp are the batch's
         opt.zero_grad()
-        logits = model(**{k: batch[k] for k in input_keys})
-        loss = frequentist_nll(logits, batch["labels"])
+        local = shard_batch(batch, mesh)
+        logits = model(**{k: local[k] for k in input_keys})
+        loss = frequentist_nll(logits, local["labels"])
         loss.backward()
+        ptrain.all_reduce_grads(opt.params, mesh)
         opt.step()
-        return loss.detach()
+        return ptrain.dp_sum(loss.detach(), mesh)
 
     @torch.inference_mode()
     def eval_frequentist():
         report = Report("nll", "n")
         preds, labels = [], []
         for batch in batches(dev_data):
-            logits = model(**{k: batch[k] for k in input_keys})
+            local = shard_batch(batch, mesh)
+            logits = ptrain.gather_outputs(model(**{k: local[k] for k in input_keys}),
+                                           mesh, dim=0)
             nll = frequentist_nll(logits, batch["labels"])
             report.update(nll=float(nll), n=len(batch["labels"]))
             p = logits[..., 0].float() if regression else torch.argmax(logits, -1)
@@ -275,16 +296,18 @@ def train(
             metrics = eval_frequentist()
             writer.scalars("frequentist_test", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
-            print(f"[freq {epoch}] train loss={float(loss):.4f} "
-                  f"nll={metrics['nll']:.4f} {spec.metric}={metrics['score']:.4f}")
+            say(f"[freq {epoch}] train loss={float(loss):.4f} "
+                f"nll={metrics['nll']:.4f} {spec.metric}={metrics['score']:.4f}")
     opt.zero_grad()
 
     # ---------------- Phase B: conversion ----------------------------------
     bmodel = to_bayesian(model, delta=delta, freeze=True)
+    # replicas equal to rank 0's, then the rank's tp shards
+    ptrain.prepare_bayes_params(bmodel, mesh)
     # --resume (the reference only saves): phase D continues from the latest step
-    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_glue")
-    eval_step = training.make_elbo_eval_step(
-        bmodel, samples, loss_fn=loss_fn, input_keys=input_keys,
+    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_glue", mesh)
+    eval_step = ptrain.make_eval_step(
+        bmodel, samples, mesh, loss_fn=loss_fn, input_keys=input_keys,
         estimator=estimator)
     sample_keys = ("mse", "mse_std") if regression else ("acc", "acc_std")
     draws = itertools.count()  # the step key stream: seed + 1, split per use
@@ -329,29 +352,33 @@ def train(
         metrics = eval_bayesian()
         writer.scalars("bayesian_eval", metrics, 0)
         dumper.record(**metrics)
-        print(f"[baye eval] {spec.metric}={metrics['score']:.4f} "
-              f"{sample_keys[1]}={metrics[sample_keys[1]]:.4f}")
+        say(f"[baye eval] {spec.metric}={metrics['score']:.4f} "
+            f"{sample_keys[1]}={metrics[sample_keys[1]]:.4f}")
 
     # ---------------- Phase D: Bayesian ELBO fine-tune ---------------------
+    # under tp the step clips sharded-aware: the optimizer's own clip would
+    # take each rank's norm and desynchronise the replicated leaves
     btx = training.adamw_with_decay_groups(
         make_schedule(lr, max(1, n_batches * b_epochs)), weight_decay,
-        training.default_no_decay, eps=ADAM_EPSILON, clip_norm=CLIP_NORM)
+        training.default_no_decay, eps=ADAM_EPSILON,
+        clip_norm=None if tp > 1 else CLIP_NORM)
     b_opt = masked_optimizer(btx, bmodel)
-    b_step = training.make_elbo_train_step(
-        bmodel, b_opt, samples, n_batches, loss_fn=loss_fn,
-        input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk)
+    b_step = ptrain.make_train_step(
+        bmodel, b_opt, samples, n_batches, mesh, loss_fn=loss_fn,
+        input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk,
+        independent_draws=independent_draws, clip_norm=CLIP_NORM if tp > 1 else None)
     with dumper.section("bayesian_train"):
         for epoch in range(start_epoch, b_epochs):
             for batch in batches(train_data, seed + 100 + epoch, limit_batches):
-                m = b_step(next_seed(), batch)
+                m = b_step(next_seed(), shard_batch(batch, mesh))
             metrics = eval_bayesian()
             writer.scalars("bayesian_test", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
-            print(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
-                  f"nll={metrics['nll']:.4f} {spec.metric}={metrics['score']:.4f} "
-                  f"{sample_keys[1]}={metrics[sample_keys[1]]:.4f}")
+            say(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
+                f"nll={metrics['nll']:.4f} {spec.metric}={metrics['score']:.4f} "
+                f"{sample_keys[1]}={metrics[sample_keys[1]]:.4f}")
             ckpt_lib.save_epoch(save_dir, bmodel, epoch, {
-                "delta": delta, "weight_decay": weight_decay, **metrics})
+                "delta": delta, "weight_decay": weight_decay, **metrics}, mesh)
     if start_epoch >= b_epochs and start_epoch > 0:
         # resumed past the end of the Bayesian phase: the loop never ran, so
         # evaluate the restored state, not return phase C's score
@@ -359,6 +386,8 @@ def train(
         writer.scalars("bayesian_test", metrics, start_epoch)
     writer.close()
     dumper.flush()
+    if keep is not None:
+        keep.update(bmodel=bmodel, mesh=mesh)
     return float(metrics["score"])
 
 
@@ -403,6 +432,7 @@ def main():
     parser.add_argument("--resume", action="store_true",
                         help="continue the Bayesian phase from --save-dir")
     parser.add_argument("--device", default="cuda")
+    add_mesh_args(parser)
     parser.add_argument("--hypersearch", type=int, default=0,
                         help="run N random-search trials over delta/weight_decay")
     args = parser.parse_args()
@@ -413,18 +443,19 @@ def main():
         size=args.size, bf16=args.bf16, pretrained=args.pretrained, seed=args.seed,
         limit_batches=args.limit_batches, save_dir=args.save_dir, resume=args.resume,
         estimator=args.estimator, mc_chunk=args.mc_chunk, warmup=args.warmup,
-        device=args.device,
+        device=args.device, **mesh_kwargs(args),
     )
     t0 = time.time()
     if args.hypersearch:
         # the reference script: delta log-uniform over (1e-2, 1e-1), weight
         # decay uniform over [0, 1e-3] (``examples/bert_glue.py:324-331``)
         best = search_delta_weight_decay(train, args.hypersearch, args.seed, **kwargs)
-        print(f"best score={best.value:.4f} with {best.hyperparameters}")
+        launcher_print(f"best score={best.value:.4f} with {best.hyperparameters}")
     else:
         score = train(delta=args.delta, weight_decay=args.weight_decay, **kwargs)
-        print(f"final score={score:.4f}")
-    print(f"done in {time.time() - t0:.1f}s")
+        launcher_print(f"final score={score:.4f}")
+    launcher_print(f"done in {time.time() - t0:.1f}s")
+    ptrain.finish()
 
 
 if __name__ == "__main__":

@@ -30,7 +30,9 @@ directory without ``vocab.txt`` raises: the JAX package reads it with
 ``--pretrained DIR`` starts from a local Hugging Face checkpoint,
 ``--save-dir`` / ``--resume`` write and continue the Bayesian phase and
 ``--hypersearch N`` runs the reference's random search, as in
-``bert_glue``; the dp/tp/sp mesh raises (ROADMAP queue 1 item 6). The
+``bert_glue``, as do ``--dp``/``--tp``/``--independent-draws`` (the
+data- and tensor-parallel tier over ``torch.distributed.run``'s ranks;
+``--sp`` is ROADMAP queue 1 item 6(d)). The
 estimator is antithetic pairs when S (and
 ``--mc-chunk``) is even and independent draws otherwise, or
 ``--estimator``. Activations are f32 by default and bf16 with ``--bf16``.
@@ -54,12 +56,14 @@ from bayeformers_tpu_torch import elbo, training
 from bayeformers_tpu_torch.models import families
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.parallel import train as ptrain
+from bayeformers_tpu_torch.parallel.mesh import shard_batch
+from bayeformers_tpu_torch.parallel.train import add_mesh_args, launcher_print, mesh_kwargs
 from bayeformers_tpu_torch.pretrained import load_pretrained
 from bayeformers_tpu_torch.utils import checkpoint as ckpt_lib
 from bayeformers_tpu_torch.utils import squad as squad_lib
-from bayeformers_tpu_torch.utils.dumper import Dumper
 from bayeformers_tpu_torch.utils.hypersearch import search_delta_weight_decay
-from bayeformers_tpu_torch.utils.metrics import MetricsWriter, Report, run_name
+from bayeformers_tpu_torch.utils.metrics import Report, run_name
 from bayeformers_tpu_torch.utils.optim import masked_optimizer
 
 # Reference constants (``bayeformers_tpu/workloads/bert_squad.py:42-51``)
@@ -186,13 +190,18 @@ def train(
     estimator: Optional[str] = None,
     mc_chunk: Optional[int] = None,
     independent_draws: bool = False,
+    backend: Optional[str] = None,
     device: str = "cuda",
 ) -> float:
     """Run phases A-D; returns the dev F1 after phase D on real data, or the
-    span accuracy on the synthetic stand-in."""
-    if (dp, tp, sp) != (1, 1, 1) or independent_draws:
-        raise NotImplementedError("bert_squad: the dp/tp/sp mesh comes with a later slice "
-                                  "of the port (ROADMAP queue 1 item 6, the parallel tiers)")
+    span accuracy on the synthetic stand-in. ``dp``/``tp``,
+    ``independent_draws`` and ``backend`` as in ``bert_glue.train``."""
+    if estimator is None:
+        anti_ok = samples % 2 == 0 and (mc_chunk is None or mc_chunk % 2 == 0)
+        estimator = ("antithetic" if anti_ok else "fused") if fused else "naive"
+    ptrain.check_mesh(dp, tp, estimator, batch_size)
+    mesh, dev = ptrain.init_mesh(dp, tp, sp, backend, device)
+    tp = 1 if mesh is None else mesh.tp
     special = {}
     if tokenizer:
         from bayeformers_tpu_torch.native import WordPieceTokenizer
@@ -200,14 +209,9 @@ def train(
         wp = WordPieceTokenizer(wordpiece_vocab(tokenizer))
         tokenize, offsets_fn = wp.tokenize, wp.tokenize_with_offsets
         special = {"cls_id": wp.special_id("cls"), "sep_id": wp.special_id("sep")}
-    if estimator is None:
-        anti_ok = samples % 2 == 0 and (mc_chunk is None or mc_chunk % 2 == 0)
-        estimator = ("antithetic" if anti_ok else "fused") if fused else "naive"
 
     name = run_name(exp, delta=round(delta, 5), weight_decay=round(weight_decay, 6))
-    writer = MetricsWriter(logs, name)
-    dumper = Dumper(os.path.join(logs, name + ".results"))
-    dev = torch.device(device)
+    writer, dumper, say = ptrain.rank_logging(mesh, logs, name)
 
     dtype = torch.bfloat16 if bf16 else torch.float32
     if pretrained:
@@ -222,7 +226,7 @@ def train(
         data_dir, tokenize, net.config.vocab_size, max_seq, seed, doc_stride, offsets_fn,
         net.config.pad_token_id, **special)
     if synthetic:
-        print("[bert_squad] no dataset/tokenizer found; synthetic stand-in")
+        say("[bert_squad] no dataset/tokenizer found; synthetic stand-in")
     n_batches = train_data["input_ids"].shape[0] // batch_size
     if limit_batches:
         n_batches = min(n_batches, limit_batches)
@@ -237,7 +241,10 @@ def train(
             yield to_dev(batch)
 
     def qa_apply(batch):
-        return net(**{k: batch[k] for k in input_keys})
+        """The whole batch's (start, end) logits, each dp rank running its
+        slice."""
+        local = shard_batch(batch, mesh)
+        return ptrain.gather_outputs(net(**{k: local[k] for k in input_keys}), mesh, dim=0)
 
     # ---------------- Phase A: frequentist fine-tune -----------------------
     tx = training.adamw_with_decay_groups(
@@ -247,12 +254,14 @@ def train(
 
     def f_step(batch):
         opt.zero_grad()
-        start, end = qa_apply(batch)
-        loss = 0.5 * (elbo.cross_entropy_sum(start, batch["start_positions"])
-                      + elbo.cross_entropy_sum(end, batch["end_positions"]))
+        local = shard_batch(batch, mesh)
+        start, end = net(**{k: local[k] for k in input_keys})
+        loss = 0.5 * (elbo.cross_entropy_sum(start, local["start_positions"])
+                      + elbo.cross_entropy_sum(end, local["end_positions"]))
         loss.backward()
+        ptrain.all_reduce_grads(opt.params, mesh)
         opt.step()
-        return loss.detach()
+        return ptrain.dp_sum(loss.detach(), mesh)
 
     with dumper.section("frequentist"):
         for epoch in range(epochs):
@@ -260,7 +269,7 @@ def train(
                       for batch in batches(train_data, seed + epoch, limit_batches)]
             writer.scalar("frequentist/loss", float(np.mean(losses)), epoch)
             dumper.record(**{f"epoch_{epoch}_loss": float(np.mean(losses))})
-            print(f"[freq {epoch}] train loss={np.mean(losses):.4f}")
+            say(f"[freq {epoch}] train loss={np.mean(losses):.4f}")
     opt.zero_grad()
 
     def decode_and_score(get_logits):
@@ -313,16 +322,17 @@ def train(
         writer.scalars("frequentist_eval", freq_metrics, 0)
         with dumper.section("frequentist_eval"):
             dumper.record(**freq_metrics)
-        print(f"[freq eval] {freq_metrics}")
+        say(f"[freq eval] {freq_metrics}")
 
     # ---------------- Phase B: conversion ----------------------------------
     bmodel = to_bayesian(net, delta=delta, freeze=True)
+    ptrain.prepare_bayes_params(bmodel, mesh)
     # --resume (the reference only saves): phase D continues from the latest step
-    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_squad")
-    eval_step = training.make_elbo_eval_step(
-        bmodel, samples, loss_fn=training.qa_span_loss, fused=fused,
+    start_epoch = ckpt_lib.resume_epoch(save_dir, bmodel, resume, "bert_squad", mesh)
+    eval_step = ptrain.make_eval_step(
+        bmodel, samples, mesh, loss_fn=training.qa_span_loss, fused=fused,
         input_keys=input_keys, estimator=estimator)
-    mc = training.pick_mc(bmodel, fused, estimator, save_weights=False)
+    mc = ptrain.make_mc(bmodel, mesh, fused, estimator, save_weights=False, gather=True)
     draws = itertools.count()  # the step key stream: seed + 1, split per use
 
     def next_seed() -> int:
@@ -356,27 +366,29 @@ def train(
         metrics = eval_bayesian()
         writer.scalars("bayesian_eval", metrics, 0)
         dumper.record(**metrics)
-        print(f"[baye eval] {metrics}")
+        say(f"[baye eval] {metrics}")
 
     # ---------------- Phase D: Bayesian ELBO fine-tune ---------------------
+    # under tp the step clips sharded-aware (see bert_glue)
     btx = training.adamw_with_decay_groups(
         training.linear_schedule(lr, 0.0, max(1, n_batches * b_epochs)), weight_decay,
-        training.default_no_decay, eps=ADAM_EPSILON, clip_norm=CLIP_NORM)
+        training.default_no_decay, eps=ADAM_EPSILON, clip_norm=None if tp > 1 else CLIP_NORM)
     b_opt = masked_optimizer(btx, bmodel)
-    b_step = training.make_elbo_train_step(
-        bmodel, b_opt, samples, n_batches, loss_fn=training.qa_span_loss, fused=fused,
-        input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk)
+    b_step = ptrain.make_train_step(
+        bmodel, b_opt, samples, n_batches, mesh, loss_fn=training.qa_span_loss, fused=fused,
+        input_keys=input_keys, estimator=estimator, mc_chunk=mc_chunk,
+        independent_draws=independent_draws, clip_norm=CLIP_NORM if tp > 1 else None)
     with dumper.section("bayesian_train"):
         for epoch in range(start_epoch, b_epochs):
             for batch in batches(train_data, seed + 100 + epoch, limit_batches):
-                m = b_step(next_seed(), batch)
+                m = b_step(next_seed(), shard_batch(batch, mesh))
             metrics = eval_bayesian()
             writer.scalars("bayesian_test", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
-            print(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
-                  f"acc={float(m['acc']):.4f} {metrics}")
+            say(f"[baye {epoch}] train loss={float(m['loss']):.4f} "
+                f"acc={float(m['acc']):.4f} {metrics}")
             ckpt_lib.save_epoch(save_dir, bmodel, epoch, {
-                "delta": delta, "weight_decay": weight_decay, **metrics})
+                "delta": delta, "weight_decay": weight_decay, **metrics}, mesh)
     if start_epoch >= b_epochs and start_epoch > 0:
         # resumed past the end: evaluate the restored state
         metrics = eval_bayesian()
@@ -424,7 +436,7 @@ def main():
                         help="write the variational state after each Bayesian epoch")
     parser.add_argument("--resume", action="store_true",
                         help="continue the Bayesian phase from --save-dir")
-    parser.add_argument("--independent-draws", action="store_true")
+    add_mesh_args(parser)
     parser.add_argument("--hypersearch", type=int, default=0,
                         help="run N random-search trials over delta/weight_decay")
     parser.add_argument("--device", default="cuda")
@@ -437,15 +449,16 @@ def main():
         bf16=args.bf16, pretrained=args.pretrained, seed=args.seed,
         limit_batches=args.limit_batches, fused=not args.no_fused,
         estimator=args.estimator, mc_chunk=args.mc_chunk, save_dir=args.save_dir,
-        resume=args.resume, independent_draws=args.independent_draws, device=args.device)
+        resume=args.resume, device=args.device, **mesh_kwargs(args))
     t0 = time.time()
     if args.hypersearch:
         best = search_delta_weight_decay(train, args.hypersearch, args.seed, **kwargs)
-        print(f"best score={best.value:.4f} with {best.hyperparameters}")
+        launcher_print(f"best score={best.value:.4f} with {best.hyperparameters}")
     else:
         score = train(delta=args.delta, weight_decay=args.weight_decay, **kwargs)
-        print(f"final score={score:.4f}")
-    print(f"done in {time.time() - t0:.1f}s")
+        launcher_print(f"final score={score:.4f}")
+    launcher_print(f"done in {time.time() - t0:.1f}s")
+    ptrain.finish()
 
 
 if __name__ == "__main__":

@@ -25,17 +25,21 @@ and sum exactly what the JAX workload takes over the whole set at once
 base). ``train(**config_overrides)`` go to the model's build function, as
 in the JAX workload (``max_position_embeddings=1024``,
 ``sliding_window=...``); ``--seq`` may go up to the model's maximum
-position. The dp/tp mesh raises, naming its ROADMAP item.
+position. ``--dp``/``--tp``/``--independent-draws`` run the data- and
+tensor-parallel tier over the ranks of ``python -m torch.distributed.run``
+(``parallel/``; tp needs ``--estimator fused`` or ``antithetic``: tp on the
+naive tier and ``--sp`` are ROADMAP queue 1 item 6(d)).
 
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --limit-batches 3
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --estimator antithetic --bf16
     python -m bayeformers_tpu_torch.workloads.gpt2_lm --model llama --limit-batches 3
+    python -m torch.distributed.run --nproc-per-node 2 -m \
+        bayeformers_tpu_torch.workloads.gpt2_lm --tp 2 --estimator antithetic --backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import itertools
-import os
 import time
 
 import numpy as np
@@ -46,10 +50,11 @@ from bayeformers_tpu_torch.models.gpt2 import build_gpt2, synthetic_lm_batch
 from bayeformers_tpu_torch.models.llama import FAMILIES, build_llama_family
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.nn.surgery import to_bayesian
+from bayeformers_tpu_torch.parallel import train as ptrain
+from bayeformers_tpu_torch.parallel.mesh import shard_batch
+from bayeformers_tpu_torch.parallel.train import add_mesh_args, launcher_print, mesh_kwargs
 from bayeformers_tpu_torch.utils.data import load_lm_corpus
-from bayeformers_tpu_torch.utils.dumper import Dumper
-from bayeformers_tpu_torch.utils.metrics import (MetricsWriter, Report,
-                                                 ece_from_confidence, run_name)
+from bayeformers_tpu_torch.utils.metrics import Report, ece_from_confidence, run_name
 from bayeformers_tpu_torch.utils.optim import ClippedAdamW
 
 EPOCHS = 1
@@ -124,12 +129,6 @@ def _eval_sums(out: torch.Tensor, ids: torch.Tensor) -> dict:
     }
 
 
-def _later(option: str, item: str):
-    return NotImplementedError(
-        f"gpt2_lm: {option} comes with a later slice of the port (ROADMAP queue 1: "
-        f"{item})")
-
-
 def build_lm(model: str, size: str, seed: int, dtype, device, **overrides):
     """GPT-2 or a LLaMA-architecture family at ``size``, from ``seed``;
     returns ``(model, vocab size, maximum position)``."""
@@ -164,21 +163,24 @@ def train(
     bf16: bool = False,
     dp: int = 1,
     tp: int = 1,
+    sp: int = 1,
     mc_chunk: int | None = None,
     independent_draws: bool = False,
+    backend: str | None = None,
     corpus: str | None = None,
     device: str = "cuda",
     **config_overrides,
 ) -> dict[str, float]:
     """Run phases 1-4; returns the frequentist, MOPED and final Bayesian
     next-token accuracies, the last ``acc_std`` and, on the synthetic
-    language, the Bayes rate."""
-    if (dp, tp) != (1, 1) or independent_draws:
-        raise _later("the dp/tp mesh", "item 6, the parallel tiers")
+    language, the Bayes rate. ``dp``/``tp``, ``independent_draws`` and
+    ``backend`` as in ``bert_glue.train``; GPT-2's packed c_attn is permuted
+    to the head-aligned tp layout before sharding."""
     if estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator {estimator!r}")
+    ptrain.check_mesh(dp, tp, estimator, batch_size)
+    mesh, dev = ptrain.init_mesh(dp, tp, sp, backend, device)
     exp = exp or f"{model}_lm"
-    dev = torch.device(device)
     rng = np.random.default_rng(seed)
     corpus_split = None
     if corpus is not None:
@@ -209,8 +211,7 @@ def train(
     n_tok = n_test * (seq - 1)
 
     name = run_name(exp, delta=delta)
-    writer = MetricsWriter(logs, name)
-    dumper = Dumper(os.path.join(logs, name + ".results"))
+    writer, dumper, say = ptrain.rank_logging(mesh, logs, name)
 
     def epoch_batches(ep):
         order = np.random.default_rng(seed + ep).permutation(len(train_ids))
@@ -226,11 +227,13 @@ def train(
 
     @torch.inference_mode()
     def f_eval():
-        nll = correct = 0.0
+        sums = torch.zeros(2, dtype=torch.float64, device=dev)  # nll, correct
         for ids in test_batches():
+            ids = shard_batch(ids, mesh)
             logits = net(ids)
-            nll += float(lm_nll_sum(logits, ids))
-            correct += float((torch.argmax(logits[:, :-1], -1) == ids[:, 1:]).sum())
+            sums[0] += lm_nll_sum(logits, ids).double()
+            sums[1] += (torch.argmax(logits[:, :-1], -1) == ids[:, 1:]).sum().double()
+        nll, correct = ptrain.dp_sum(sums, mesh).tolist()
         return {"nll": nll / n_tok, "acc": correct / n_tok,
                 **({"bayes_rate": bayes_rate} if bayes_rate is not None else {})}
 
@@ -239,24 +242,28 @@ def train(
             report = Report("nll")
             for ids in epoch_batches(epoch):
                 opt.zero_grad()
+                ids = shard_batch(ids, mesh)
                 loss = lm_nll_sum(net(ids), ids)
                 loss.backward()
+                ptrain.all_reduce_grads(opt.params, mesh)
                 opt.step()
-                report.update(nll=float(loss.detach()))
+                report.update(nll=float(ptrain.dp_sum(loss.detach(), mesh)))
             metrics = f_eval()
             writer.scalars("frequentist", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
             ceiling = f" (bayes rate {bayes_rate:.4f})" if bayes_rate is not None else ""
-            print(f"[freq {epoch}] nll/tok={metrics['nll']:.4f} acc={metrics['acc']:.4f}"
-                  f"{ceiling}")
+            say(f"[freq {epoch}] nll/tok={metrics['nll']:.4f} acc={metrics['acc']:.4f}"
+                f"{ceiling}")
     opt.zero_grad()
     freq_acc = metrics["acc"]
 
     # ---------------- Phase 2: MOPED conversion ----------------------------
     bmodel = to_bayesian(net, delta=delta, freeze=True)
+    ptrain.prepare_bayes_params(bmodel, mesh)
 
     # ---------------- Phase 3 & 4: Bayesian eval + ELBO train --------------
-    eval_mc = training.pick_mc(bmodel, True, estimator, save_weights=False)
+    # each rank evaluates its dp slice of every test batch; the sums add up
+    eval_mc = ptrain.make_mc(bmodel, mesh, True, estimator, save_weights=False)
     draws = itertools.count()  # the key stream: seed + 1, split per use
 
     def next_seed() -> int:
@@ -268,6 +275,7 @@ def train(
         sums = {"nll": 0.0, "correct": 0.0, "entropy": 0.0}
         per_draw, conf, hit, aux_p, aux_q = 0.0, [], [], [], []
         for j, ids in enumerate(test_batches()):
+            ids = shard_batch(ids, mesh)
             out, aux = eval_mc(derive_seed(key, j), samples, ids)
             part = _eval_sums(out, ids)
             for k in sums:
@@ -277,6 +285,13 @@ def train(
             hit.append(part["hit"])
             aux_p.append(float(torch.mean(aux["log_prior"])))
             aux_q.append(float(torch.mean(aux["log_variational_posterior"])))
+        if mesh is not None and mesh.dp > 1:
+            total = ptrain.dp_sum(torch.tensor(list(sums.values()), dtype=torch.float64,
+                                               device=dev), mesh)
+            sums = dict(zip(sums, total.tolist()))
+            per_draw = ptrain.dp_sum(per_draw, mesh)
+            conf, hit = ([ptrain.gather_outputs(torch.from_numpy(np.concatenate(a)).to(dev),
+                                                mesh, dim=0).cpu().numpy()] for a in (conf, hit))
         return {
             "nll": sums["nll"] / n_tok, "acc": sums["correct"] / n_tok,
             "acc_std": float(torch.std(per_draw / n_tok, unbiased=False)),
@@ -287,29 +302,29 @@ def train(
         }
 
     b_opt = adamw(bmodel.trainable_parameters(), lr)
-    b_step = training.make_elbo_train_step(
-        bmodel, b_opt, samples, n_batches, loss_fn=lm_loss, input_keys=("input_ids",),
-        estimator=estimator, mc_chunk=mc_chunk)
+    b_step = ptrain.make_train_step(
+        bmodel, b_opt, samples, n_batches, mesh, loss_fn=lm_loss, input_keys=("input_ids",),
+        estimator=estimator, mc_chunk=mc_chunk, independent_draws=independent_draws)
 
     with dumper.section("bayesian_eval"):
         metrics = b_eval()
         writer.scalars("bayesian_eval", metrics, 0)
         dumper.record(**metrics)
-        print(f"[baye eval] acc={metrics['acc']:.4f} acc_std={metrics['acc_std']:.4f} "
-              f"H={metrics['entropy']:.4f}")
+        say(f"[baye eval] acc={metrics['acc']:.4f} acc_std={metrics['acc_std']:.4f} "
+            f"H={metrics['entropy']:.4f}")
     moped_acc = metrics["acc"]
 
     with dumper.section("bayesian_train"):
         for epoch in range(b_epochs):
             report = Report("loss", "nll")
             for ids in epoch_batches(100 + epoch):
-                m = b_step(next_seed(), {"input_ids": ids})
+                m = b_step(next_seed(), {"input_ids": shard_batch(ids, mesh)})
                 report.update(loss=float(m["loss"]), nll=float(m["nll"]))
             metrics = b_eval()
             writer.scalars("bayesian", metrics, epoch)
             dumper.record(**{f"epoch_{epoch}_{k}": v for k, v in metrics.items()})
-            print(f"[baye {epoch}] loss={float(m['loss']):.4f} acc={metrics['acc']:.4f} "
-                  f"acc_std={metrics['acc_std']:.4f}")
+            say(f"[baye {epoch}] loss={float(m['loss']):.4f} acc={metrics['acc']:.4f} "
+                f"acc_std={metrics['acc_std']:.4f}")
 
     writer.close()
     dumper.flush()
@@ -337,12 +352,8 @@ def main():
     parser.add_argument("--estimator", default="naive", choices=list(ESTIMATORS))
     parser.add_argument("--limit-batches", type=int, default=None)
     parser.add_argument("--bf16", action="store_true")
-    parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel mesh size (comes with the parallel tiers)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="tensor parallelism (comes with the parallel tiers)")
+    add_mesh_args(parser)
     parser.add_argument("--mc-chunk", type=int, default=None)
-    parser.add_argument("--independent-draws", action="store_true")
     parser.add_argument("--corpus", default=None,
                         help="real-text corpus (.txt file or directory); needs "
                              "vocab.json + merges.txt (or tokenizer.json) next to it")
@@ -355,11 +366,11 @@ def main():
         n_train=args.n_train, n_test=args.n_test, lr=args.lr, delta=args.delta,
         order_frac=args.order_frac, seed=args.seed, size=args.size,
         estimator=args.estimator, limit_batches=args.limit_batches, bf16=args.bf16,
-        dp=args.dp, tp=args.tp, mc_chunk=args.mc_chunk,
-        independent_draws=args.independent_draws, corpus=args.corpus,
-        device=args.device,
+        mc_chunk=args.mc_chunk, corpus=args.corpus, device=args.device,
+        **mesh_kwargs(args),
     )
-    print(f"done in {time.time() - t0:.1f}s: {results}")
+    launcher_print(f"done in {time.time() - t0:.1f}s: {results}")
+    ptrain.finish()
 
 
 if __name__ == "__main__":

@@ -284,9 +284,27 @@ Phases, each timed, each raising on failure:
     ``build_model(name, pretrained=DIR)``: an 8 x 128 request's logits equal
     to the source model's.
 
+23. the data- and tensor-parallel tier (``parallel/``; :func:`phase23`), two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one device;
+    gloo takes CUDA tensors for all-reduce and broadcast, the only
+    collectives of a step): #1, #6, #3 and #5 at BERT-base's tp = 2 shard
+    shapes (768 -> 384, 768 -> 1536, 384 -> 768, 1536 -> 768 at M = 1024;
+    6 heads of 64) in bf16 and f32, and #2 at 3072 -> 768, M = 512 (the dp
+    = 2 step's rows) and 2048 -> 1024 (BERT-large's row shard) against
+    their plain versions, timed; then two ranks spawned (:func:`rank23`,
+    launches counted in them): (a) dp = 2 in f32 against the one-process
+    step on the whole batch; (b) tp = 2 in f32 and bf16, each rank's
+    objective through the kernels against its plain one at the same draws;
+    (c) tp = 2 at BERT-large's widths (2 layers), every shard on the unit
+    grid, against the one-process objective; (d) GPT-2 base at tp = 2
+    (c_attn permuted) in bf16, kernels against plain; (e) ``bert_glue --dp
+    2 --backend gloo`` under ``torch.distributed.run`` (:func:`glue23`),
+    rank 0's checkpoint reloaded in one process with its plain logits bit
+    for bit. Its times are two ranks sharing one card, not a scaling figure.
+
 The timed requests and steps of phases 13-16 are three each
 (:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``
-... ``--from 22``) runs the build, the eps stream and the phases from
+... ``--from 23``) runs the build, the eps stream and the phases from
 there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -716,9 +734,12 @@ def phase_bayes_linear(fl, moped_rho, antithetic, dtype=BF16, prior="on_mu",
     return rows
 
 
-def phase_mha(at, dtype=BF16) -> dict:
+def phase_mha(at, dtype=BF16, shape=(80, 128, 768, 12), path=None) -> dict:
+    """Kernel #3's instance for ``dtype`` against its plain version at
+    ``shape`` (N, L, H, heads), timed; its launches come from the run of
+    ``path`` (default: the antithetic requests)."""
     dev = torch.device("cuda")
-    N, L, H, nh = 80, 128, 768, 12
+    N, L, H, nh = shape
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn(N, L, H, device=dev, generator=gen).to(dtype)
@@ -757,7 +778,7 @@ def phase_mha(at, dtype=BF16) -> dict:
         f"{b[0]:.4f} ms ({b[1]})")
     suffix = "" if dtype == BF16 else f",{tag}"
     return row(f"mha_fwd[N={N},L={L},H={H}{suffix}]", "mha_fwd", (N, L, H, tag, False),
-               f"serve/anti/{tag}", "bayeformers_tpu_torch/csrc/mha.cu",
+               path or f"serve/anti/{tag}", "bayeformers_tpu_torch/csrc/mha.cu",
                "bayeformers_tpu/ops/attention.py:119", err, ms, plain_ms, b, lib_ms)
 
 
@@ -783,8 +804,9 @@ def convert(bt, model, prior):
 
 
 def converted_base(bt, dtype, prior="on_mu", family=BERT, size="base", **overrides):
-    """BERT-base (or, ``family=GPT2``, GPT-2 base; ``LLAMA``, ``MISTRAL``,
-    ``GEMMA``: that family at ``size`` with config ``overrides``) from seed
+    """BERT-base (with config ``overrides``: a cut depth; or, ``family=GPT2``,
+    GPT-2 base; ``LLAMA``, ``MISTRAL``, ``GEMMA``: that family at ``size``
+    with config ``overrides``) from seed
     0 in ``dtype`` activations, converted for ``prior`` (:func:`convert`),
     and its trainable tensors. GPT-2's zero leaves (its biases) are set to
     0.01 first, as the JAX package's tests do (``tests/test_models.py:204-
@@ -799,6 +821,9 @@ def converted_base(bt, dtype, prior="on_mu", family=BERT, size="base", **overrid
         with torch.no_grad():
             for p in model.parameters():
                 p.masked_fill_(p == 0, 0.01)
+    elif overrides:
+        model = bt.build_model("bert-base-uncased", size="base", seed=0, dtype=dtype,
+                               device="cuda", **overrides)
     else:
         model = bt.build_bert(size="base", n_labels=2, seed=0, dtype=dtype, device="cuda")
     bmodel = convert(bt, model, prior)
@@ -975,7 +1000,7 @@ MIXTURE_F32_LOGITS = 2e-3
 
 
 def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err,
-                        forward=None) -> str:
+                        forward=None, overrides=None) -> str:
     """The end-to-end gate of the random-init (mixture) path, whose logits
     are ill-conditioned: at U(-0.2, 0.2) weights each layer amplifies a
     rounding difference, so that f32 products taken in f64 instead moved
@@ -987,12 +1012,13 @@ def mixture_logits_gate(bt, fl, bmodel, args, antithetic, dtype, lk, lp, err,
     (read 0.13) must fail: the f32 instances must be true f32. Every layer
     is also held against its plain version (:class:`LayerCheck`).
     ``forward(bmodel, impl)`` runs the request's forward (default: the
-    fused tier's at ``antithetic``)."""
+    fused tier's at ``antithetic``); ``overrides``, the config's, as
+    :func:`converted_base` takes them (the f32 twin's depth)."""
     if forward is None:
         def forward(m, impl):
             return m.mc_apply_fused(12345, 10, *args, antithetic=antithetic, impl=impl)[0]
     if dtype == BF16:
-        twin, _ = converted_base(bt, F32, "mixture")
+        twin, _ = converted_base(bt, F32, "mixture", **(overrides or {}))
         with torch.inference_mode():
             l32 = forward(twin, "plain")
         dk, dp = max_dist(lk, l32), max_dist(lp, l32)
@@ -1357,13 +1383,15 @@ def mha_bwd_inputs(at, N, L, H, seed, dtype=BF16):
     return q, k, v, at.mask_to_bias(mask), g
 
 
-def phase_mha_bwd(at, dtype=BF16) -> dict:
-    """Kernel #5's instance for ``dtype`` against its plain version; returns
-    the timing row of the training shape."""
-    nh = 12
+def phase_mha_bwd(at, dtype=BF16, shapes=((80, 128, 768), (8, 512, 768)), nh=12,
+                  path=None) -> dict:
+    """Kernel #5's instance for ``dtype`` against its plain version at
+    ``shapes`` (N, L, H) of ``nh`` heads; returns the timing row of the
+    training shape (L = 128), whose launches come from the run of ``path``
+    (default: the antithetic steps)."""
     tag, isz = TAG[dtype], torch.finfo(dtype).bits // 8
     out_row = None
-    for N, L, H in ((80, 128, 768), (8, 512, 768)):
+    for N, L, H in shapes:
         q, k, v, bias, g = mha_bwd_inputs(at, N, L, H, L, dtype)
         out = at.mha_bwd_cuda(q, k, v, bias, g, nh)
         again = at.mha_bwd_cuda(q, k, v, bias, g, nh)
@@ -1401,7 +1429,7 @@ def phase_mha_bwd(at, dtype=BF16) -> dict:
             f"bound {b[0]:.4f} ms ({b[1]})")
         suffix = "" if dtype == BF16 else f",{tag}"
         out_row = row(f"mha_bwd[N={N},L={L},H={H}{suffix}]", "mha_bwd", (N, L, H, tag, False),
-                      f"train/anti/{tag}", "bayeformers_tpu_torch/csrc/mha_bwd.cu",
+                      path or f"train/anti/{tag}", "bayeformers_tpu_torch/csrc/mha_bwd.cu",
                       "bayeformers_tpu/ops/attention.py:181", max(errs), ms, plain_ms,
                       b, lib_ms)
     return out_row
@@ -1933,6 +1961,11 @@ REGEN_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 2))
 # classifier (the group of one grouped #11 launch, a forward, under the
 # mixture)
 BERT_LEAVES = (((768, 768),) * 4 + ((768, 3072), (3072, 768))) * 12 + ((768, 768), (768, 2))
+# phase 14's BERT-base runs of the estimators at 6 of its 12 layers (every
+# width published): the depth cut that keeps the script inside its time
+# limit; the grouped #11 and its VJP are timed at that path's group
+ESTIMATOR_DEPTH = 6
+ESTIMATOR_LEAVES = BERT_LEAVES[:6 * ESTIMATOR_DEPTH] + BERT_LEAVES[-2:]
 # the groups the grouped kernels are checked on: BERT-base's leaves and an
 # odd shape, the last leaf one with several blocks, whose last block holds
 # elements (the forward's planted fault drops it)
@@ -2200,8 +2233,8 @@ def phase_logprob_vjp(lpm, mufu, rate) -> list[dict]:
                    f"{n} leaves, reruns equal, {extra} B allocated (its outputs "
                    f"{2 * n_el * 4}); planted fault (draw S - 1 dropped): "
                    f"{fault:.3g}x the gate at least (failed)")
-        # the time at the path's group: BERT-base's 74 leaves, model order
-        mus, rhos, pms, seeds = group_inputs(BERT_LEAVES, S, prior, seed=13)
+        # the time at the path's group: phase 14's BERT leaves, model order
+        mus, rhos, pms, seeds = group_inputs(ESTIMATOR_LEAVES, S, prior, seed=13)
         n = len(mus)
         g_q, g_p = g_q[:n].contiguous(), g_p[:n].contiguous()
         ms = time_ms(lambda: lpm.logprob_vjp_grouped_cuda(mus, rhos, seeds, ptuple, g_q, g_p,
@@ -2209,12 +2242,12 @@ def phase_logprob_vjp(lpm, mufu, rate) -> list[dict]:
         plain_ms = time_ms(lambda: [lpm.logprob_vjp_plain(
             mus[i], rhos[i], g_q[i], g_p[i], seeds[i], ptuple, None if pms is None else pms[i])
             for i in range(n)], 2, 1)
-        n_el = sum(K * N for K, N in BERT_LEAVES)
+        n_el = sum(K * N for K, N in ESTIMATOR_LEAVES)
         n_bytes = n_el * 4 * (4 + (pms is not None)) + 2 * n * S * 4
         inst = "ILi2ELi4ELi128E" if prior == "mixture" else "ILi1ELi4ELi128E"
-        n_mufu = group_quads(BERT_LEAVES) * mufu_of(mufu, "logprob_vjp_kernel" + inst)
+        n_mufu = group_quads(ESTIMATOR_LEAVES) * mufu_of(mufu, "logprob_vjp_kernel" + inst)
         b = bound_mufu(n_bytes, n_mufu, rate)
-        say(f"logprob_vjp ({prior}) S={S}: {summary}; BERT-base's {n} leaves: kernel "
+        say(f"logprob_vjp ({prior}) S={S}: {summary}; phase 14's BERT's {n} leaves: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (a leaf at a time), bound {b[0]:.4f} ms "
             f"({b[1]}; bytes {n_bytes / H100_BYTES_PER_S * 1e3:.4f}, MUFU {n_mufu:.4g} at "
             f"{rate:.4g}/s {n_mufu / rate * 1e3:.4f}), no library call")
@@ -2327,7 +2360,8 @@ def phase_logprob(lpm, common, mufu, rate) -> list[dict]:
     log sigma per block), each leaf's ``(log_q, log_p)`` within 1e-5
     relative of the plain version's, a bit-equal rerun, and a planted fault
     (the last leaf's last block dropped) that must fail the log-prob gate;
-    then timed at the path's group, BERT-base's 74 leaves in model order,
+    then timed at the path's group, the leaves of phase 14's BERT
+    (:data:`ESTIMATOR_LEAVES`) in model order,
     its bound counting the 4-draw instance's static MUFU count once a quad
     (its draws unrolled: the count of S = 4, with the one or two MUFU of
     slow paths no input here takes). Returns the timing rows; only the
@@ -2376,19 +2410,20 @@ def phase_logprob(lpm, common, mufu, rate) -> list[dict]:
                    f"{ls_ratio:.3g}x) their gate, log_q/log_p rel err {rel[0]:.3g}/"
                    f"{rel[1]:.3g}, reruns equal; planted fault (last leaf's last block "
                    f"dropped) rel {fault:.3g} (failed)")
-        mus, rhos, pms, seeds = group_inputs(BERT_LEAVES, S, prior, seed=1)
+        mus, rhos, pms, seeds = group_inputs(ESTIMATOR_LEAVES, S, prior, seed=1)
         n = len(mus)
         ms = time_ms(lambda: lpm.logprobs_grouped_cuda(mus, rhos, seeds, ptuple, pms), 20,
                      windows=WINDOWS)
         plain_ms = time_ms(lambda: [lpm.logprobs_plain(
             mus[i], rhos[i], seeds[i], ptuple, None if pms is None else pms[i])
             for i in range(n)], 2, 1)
-        n_el = sum(K * N for K, N in BERT_LEAVES)
+        n_el = sum(K * N for K, N in ESTIMATOR_LEAVES)
         n_bytes = n_el * 4 * (2 + (pms is not None)) + n * S * 12
         inst = "ILi2ELi4ELi128E" if prior == "mixture" else "ILi1ELi4ELi128E"
-        n_mufu = group_quads(BERT_LEAVES) * mufu_of(mufu, "logprob_kernel" + inst)
+        n_mufu = group_quads(ESTIMATOR_LEAVES) * mufu_of(mufu, "logprob_kernel" + inst)
         b = bound_mufu(n_bytes, n_mufu, rate)
-        say(f"logprob ({prior}) S={S}: {summary}; BERT-base's {n} leaves: kernel {ms:.4f} ms, "
+        say(f"logprob ({prior}) S={S}: {summary}; phase 14's BERT's {n} leaves: kernel "
+            f"{ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (a leaf at a time), bound {b[0]:.4f} ms ({b[1]}; bytes "
             f"{n_bytes / H100_BYTES_PER_S * 1e3:.4f}, MUFU {n_mufu:.4g} at {rate:.4g}/s "
             f"{n_mufu / rate * 1e3:.4f}), no library call")
@@ -2439,8 +2474,9 @@ def want_counts(estimator, prior, n_layers, n_attn, backward: int) -> dict:
 
 def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BERT,
                     with_step=True):
-    """One of the new estimators on BERT-base (or, ``family=GPT2``, GPT-2
-    base; ``LLAMA``: LLaMA base, the request only, ``with_step=False``) at
+    """One of the new estimators on BERT-base, cut to
+    :data:`ESTIMATOR_DEPTH` layers (or, ``family=GPT2``, GPT-2 base;
+    ``LLAMA``: LLaMA base, the request only, ``with_step=False``) at
     S=10 in ``dtype`` under the conversion of ``prior``: the 8x128
     request (the forward and the posterior summaries, under
     ``torch.inference_mode()``) and the ELBO step at B=8, L=128, each
@@ -2458,9 +2494,11 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     mc_of = lambda m: bt.training.pick_mc(m, True, estimator)
     counters = (sl.LAUNCHES, sl.REGEN_LAUNCHES, fb.INDEP_LAUNCHES, lpm.LAUNCHES,
                 lpm.VJP_LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)
-    bmodel, named = converted_base(bt, dtype, prior, family)
-    n_layers, n_attn = len([p for p in bmodel.spec.paths if p.endswith("/kernel")]), 12
-    want_layers = sum(LM_LAYERS[family].values()) if family else BERT_BASE_LAYERS
+    depth = {} if family else {"num_hidden_layers": ESTIMATOR_DEPTH}
+    bmodel, named = converted_base(bt, dtype, prior, family, **depth)
+    n_layers = len([p for p in bmodel.spec.paths if p.endswith("/kernel")])
+    n_attn = 12 if family else ESTIMATOR_DEPTH
+    want_layers = sum(LM_LAYERS[family].values()) if family else len(ESTIMATOR_LEAVES)
     check(n_layers == want_layers, f"{label}: {n_layers} converted kernels")
     req = (gpt2_requests(LM_VOCAB[family]) if family else serving_requests(bt))[1]
     dev = bmodel.device
@@ -2501,7 +2539,8 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     err = max_dist(lk, lp_)
     if prior == "mixture":
         note = mixture_logits_gate(bt, fl, bmodel, args, False, dtype, lk, lp_, err,
-                                   forward=lambda m, impl: serve(m, 12345, impl)[0])
+                                   forward=lambda m, impl: serve(m, 12345, impl)[0],
+                                   overrides=depth)
     elif dtype == BF16 and family not in (BERT, GPT2):
         note = f32_logits_gate(bt, family, lambda m: serve(m, 12345, "plain")[0], lk, lp_)
     else:
@@ -2536,7 +2575,7 @@ def phase_estimator(bt, fl, fb, at, sl, lpm, estimator, dtype, prior, family=BER
     batch = train_batch(bt, family=family)
     mu_names = [] if prior == "on_mu" else [f"params/{p}" for p in bmodel.spec.paths]
     if dtype == BF16:
-        m32, n32 = converted_base(bt, F32, prior, family)
+        m32, n32 = converted_base(bt, F32, prior, family, **depth)
         _, _, g32 = grads_of(bt, m32, n32, 123, batch, "plain", estimator, family=family)
         del m32, n32
         torch.cuda.empty_cache()
@@ -5941,10 +5980,357 @@ def phase22(bt, fl, fb, moped_rho, paths) -> tuple[list[dict], dict]:
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the data- and tensor-parallel tier (``parallel/``), two ranks
+# sharing the one card over gloo (NCCL refuses two ranks on one device).
+# ---------------------------------------------------------------------------
+TP23 = "tp23/"      # BERT-base's shard shapes at tp = 2, M = S/2 x 8 x 128 rows
+DP23 = "dp23/"      # #2 in the dp = 2 f32 step: each rank's 4 x 128 rows
+LARGE23 = "large23/"  # #2 at BERT-large's widths, tp = 2 (k0 = 2048)
+FAMILY_SHAPES[TP23] = ((1024, 768, 384), (1024, 768, 1536), (1024, 384, 768),
+                       (1024, 1536, 768))
+FAMILY_SHAPES[DP23] = ((512, 3072, 768),)
+FAMILY_SHAPES[LARGE23] = ((1024, 2048, 1024),)
+BERT_LARGE23 = dict(hidden_size=1024, num_attention_heads=16, intermediate_size=4096,
+                    num_hidden_layers=2)
+# a column (q), a row (the attention output) and a replicated (the
+# classifier) leaf
+LEAVES23 = ("bert/encoder/layer/0/attention/self/query/kernel",
+            "bert/encoder/layer/0/attention/output/dense/kernel", "classifier/kernel")
+RANKS23 = 2
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def grads23(bt, ptrain, bmodel, named, mesh, seed, batch, impl, family=BERT):
+    """Loss, metrics and the rank's gradients of one ELBO objective (S=10,
+    antithetic) through the rank's forward (its tp plan); gradients of the
+    rank's shards."""
+    for _, t, _ in named:
+        t.grad = None
+    mc = ptrain.make_mc(bmodel, mesh, True, "antithetic")
+    loss, m = bt.training.elbo_objective(mc, seed, 10, batch, 256, impl=impl,
+                                         **loss_keywords(family))
+    loss.backward()
+    return loss.detach(), m, {n: t.grad.clone() for n, t, _ in named}
+
+
+def step_ms23(step, batch, seeds) -> float:
+    """Median wall time (ms) of the given steps."""
+    times = []
+    for s in seeds:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(s, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(m["loss"])), f"step {s}: loss {m['loss']}")
+    return float(np.median(times))
+
+
+def adamw23(bt, named, clip=1.0):
+    tx = bt.training.adamw_with_decay_groups(
+        bt.training.linear_schedule(2e-5, 0.0, 100), 0.0, bt.training.default_no_decay,
+        eps=1e-8, clip_norm=clip)
+    return tx.init(named)
+
+
+def dp23(bt, ptrain, coll, mesh_lib, fl, fb, at, mesh, out) -> None:
+    """(a) dp = 2, f32: rank 0's loss (1e-6 relative), the gradients (1e-3
+    relative L2: phase_train's f32 gates) and the updated rho (1e-4
+    relative, 1e-6 absolute: the reference's dp test) of a column, a row and
+    a replicated leaf against the one-process step on the whole batch at
+    the same seed (rank 0 runs it first)."""
+    batch = train_batch(bt)
+    if mesh.rank == 0:
+        one, named1 = converted_base(bt, F32)
+        rho0 = {p: one.rho[p].detach().clone() for p in LEAVES23}
+        step1 = bt.training.make_elbo_train_step(one, adamw23(bt, named1), 10, 256,
+                                                 estimator="antithetic")
+        m1 = step1(55, batch)
+        ref = {p: (one.rho[p].grad.clone(), one.rho[p].detach().clone()) for p in LEAVES23}
+        out["one_ms"] = step_ms23(step1, batch, (1000, 1001, 1002))
+        del one, named1, step1
+        torch.cuda.empty_cache()
+    bmodel, named = converted_base(bt, F32)
+    opt = adamw23(bt, named)
+    step = ptrain.make_train_step(bmodel, opt, 10, 256, mesh, estimator="antithetic")
+    local = mesh_lib.shard_batch(batch, mesh)
+    reset_counters(fl, fb, at)
+    m = step(55, local)
+    out["paths"][DP23 + "f32"] = {fl.LAUNCHES.name: dict(fl.LAUNCHES.by_shape)}
+    if mesh.rank == 0:
+        rel = abs(m["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+        check(rel <= 1e-6, f"dp=2 f32: loss {m['loss'].item()} vs one process "
+              f"{m1['loss'].item()}")
+        notes = [f"loss {m['loss'].item():.9g} vs one process {m1['loss'].item():.9g} "
+                 f"(rel {rel:.3g})"]
+        for p in LEAVES23:
+            g, rho = bmodel.rho[p].grad, bmodel.rho[p].detach()
+            rg = rel_l2(g, ref[p][0])
+            ok = torch.allclose(rho, ref[p][1], rtol=1e-4, atol=1e-6)
+            check(rg <= 1e-3 and ok, f"dp=2 f32 {p}: gradient rel L2 {rg}, updated rho max "
+                  f"|d| {(rho - ref[p][1]).abs().max().item()} from the one-process step")
+            notes.append(f"{p}: grad rel L2 {rg:.3g}, updated rho max |d| "
+                         f"{(rho - ref[p][1]).abs().max().item():.3g}")
+        say("phase 23 (a) dp=2 f32 against the one-process step: " + "; ".join(notes))
+    out["dp_ms"] = step_ms23(step, local, (1000, 1001, 1002))
+    grads = opt.grads()
+
+    def reduce_once():
+        coll.all_reduce_coalesced_(grads, mesh.dp_group)
+
+    reduce_once()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["allreduce_ms"] = float(np.median(times))
+    out["allreduce_mb"] = sum(g.numel() * g.element_size() for g in grads) / 2**20
+    del bmodel, named, opt, step, grads
+    torch.cuda.empty_cache()
+
+
+def tp23(bt, ptrain, mesh_lib, fl, fb, at, mesh, out) -> None:
+    """(b) tp = 2 on BERT-base, f32 then bf16: each rank's objective
+    through the kernels against the same tp = 2 objective with
+    ``impl="plain"`` at the same draws (phase_train's gates; bf16's
+    LayerNorm and embedding groups against the f32 plain tp step), launch
+    counts around the kernel objective, then the step timed."""
+    batch = train_batch(bt)
+    g32 = None
+    for dtype in (F32, BF16):
+        tag = TAG[dtype]
+        label = f"phase 23 (b) tp=2 {tag} rank {mesh.rank}"
+        bmodel, _ = converted_base(bt, dtype)
+        ptrain.prepare_bayes_params(bmodel, mesh)
+        named = bmodel.trainable_parameters()
+        reset_counters(fl, fb, at)
+        loss_k, mk, gk = grads23(bt, ptrain, bmodel, named, mesh, 123, batch, "kernel")
+        out["paths"][TP23 + tag] = {c.name: dict(c.by_shape) for c in (
+            fl.LAUNCHES, fb.LAUNCHES, at.LAUNCHES, at.BWD_LAUNCHES)}
+        loss_k2, _, gk2 = grads23(bt, ptrain, bmodel, named, mesh, 123, batch, "kernel")
+        check(torch.equal(loss_k, loss_k2) and all(torch.equal(gk[n], gk2[n]) for n in gk),
+              f"{label}: the same seed gave another loss or gradient")
+        loss_p, mp, gp = grads23(bt, ptrain, bmodel, named, mesh, 123, batch, "plain")
+        if dtype == F32:
+            rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            check(rel <= 1e-6, f"{label}: loss {loss_k.item()} vs plain {loss_p.item()}")
+            notes = [f"loss rel {rel:.3g}"]
+            for group, names in grad_groups(list(gk)).items():
+                r, _, at_ = worst_agreement(gk, gp, names)
+                check(r <= 1e-3, f"{label}: {group} gradients rel L2 {r} at {at_}")
+                notes.append(f"{group} worst rel L2 {r:.3g}")
+            say(f"{label}: kernels vs plain at the same draws: " + "; ".join(notes))
+            g32 = gp
+        else:
+            check_bf16_step(label, loss_k, loss_p, mk, mp, gk, gp, g32)
+        del gk, gk2, gp
+        opt = adamw23(bt, named, clip=None)
+        step = ptrain.make_train_step(bmodel, opt, 10, 256, mesh, estimator="antithetic",
+                                      clip_norm=1.0)
+        out[f"tp_ms_{tag}"] = step_ms23(step, batch, (1000, 1001, 1002))
+        del bmodel, named, opt, step
+        torch.cuda.empty_cache()
+
+
+def large23(bt, ptrain, mesh_lib, fl, fb, at, mesh, out) -> None:
+    """(c) tp = 2 at BERT-large's widths (2 layers), f32: every shard on the
+    unit grid, so the tp objective through the kernels equals the
+    one-process objective through the kernels at the same seed; each
+    rank's gradients against its block of the one-process gradients."""
+    batch = train_batch(bt)
+
+    def build():
+        model = bt.build_model("bert-base-uncased", size="base", seed=0, dtype=F32,
+                               device="cuda", **BERT_LARGE23)
+        bm = bt.to_bayesian(model, delta=0.05, freeze=True)
+        return bm, bm.trainable_parameters()
+
+    one, named1 = build()
+    loss1, _, g1 = grads23(bt, ptrain, one, named1, None, 77, batch, "kernel")
+    del one, named1
+    bmodel, _ = build()
+    ptrain.prepare_bayes_params(bmodel, mesh)
+    named = bmodel.trainable_parameters()
+    reset_counters(fl, fb, at)
+    loss, _, g = grads23(bt, ptrain, bmodel, named, mesh, 77, batch, "kernel")
+    out["paths"][LARGE23 + "f32"] = {fl.LAUNCHES.name: dict(fl.LAUNCHES.by_shape)}
+    specs = mesh_lib.bayes_param_specs(bmodel)
+    rel = abs(loss.item() - loss1.item()) / abs(loss1.item())
+    label = f"phase 23 (c) tp=2 BERT-large widths f32 rank {mesh.rank}"
+    check(rel <= 1e-6, f"{label}: loss {loss.item()} vs one process {loss1.item()}")
+    worst, at_ = 0.0, ""
+    for name, t in g.items():
+        part, path = name.split("/", 1)
+        dim = mesh_lib.sharded_dim(specs[part][path])
+        want = g1[name] if dim is None else mesh_lib._block(g1[name], dim, 2, mesh.tp_rank)
+        r = rel_l2(t, want)
+        if r > worst:
+            worst, at_ = r, name
+    check(worst <= 1e-3, f"{label}: gradients rel L2 {worst} at {at_}")
+    say(f"{label}: loss {loss.item():.9g} vs one process {loss1.item():.9g} (rel {rel:.3g}); "
+        f"gradients against the one-process blocks worst rel L2 {worst:.3g} ({at_})")
+    del bmodel, named, g, g1
+    torch.cuda.empty_cache()
+
+
+def gpt2_23(bt, ptrain, mesh_lib, fl, fb, at, mesh, out) -> None:
+    """(d) GPT-2 base, tp = 2, bf16: c_attn permuted and sharded; the
+    objective through the kernels against plain at the same draws (loss 1e-2
+    relative, rho gradients 5e-2 relative L2 and cosine 0.999)."""
+    batch = train_batch(bt, family=GPT2)
+    bmodel, _ = converted_base(bt, BF16, family=GPT2)
+    ptrain.prepare_bayes_params(bmodel, mesh)
+    named = bmodel.trainable_parameters()
+    c_attn = "transformer/h/0/attn/c_attn/kernel"
+    check(bmodel.rho[c_attn].shape == (1152, 768), f"c_attn shard {bmodel.rho[c_attn].shape}")
+    loss_k, _, gk = grads23(bt, ptrain, bmodel, named, mesh, 123, batch, "kernel", GPT2)
+    loss_p, _, gp = grads23(bt, ptrain, bmodel, named, mesh, 123, batch, "plain", GPT2)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    r, cos, at_ = worst_agreement(gk, gp, [n for n in gk if n.startswith("rho/")])
+    label = f"phase 23 (d) GPT-2 base tp=2 bf16 rank {mesh.rank}"
+    check(rel <= 1e-2 and r <= 5e-2 and cos >= 0.999,
+          f"{label}: loss rel {rel}, rho gradients rel L2 {r} cosine {cos} at {at_}")
+    say(f"{label}: kernels vs plain: loss rel {rel:.3g}; rho gradients worst rel L2 "
+        f"{r:.4g} ({at_}), worst cosine {cos:.7f}")
+    del bmodel, named, gk, gp
+    torch.cuda.empty_cache()
+
+
+def rank23(rank: int, store_path: str, out_dir: str) -> None:
+    """One rank of phase 23 (``torch.multiprocessing.spawn``): (a)-(d) over
+    gloo groups on a ``FileStore``; its launch counts and times to
+    ``out_dir/rank{rank}.pt``. Raises on any failed gate."""
+    import torch.distributed as dist
+
+    import bayeformers_tpu_torch as bt
+    from bayeformers_tpu_torch.ops import _build
+    from bayeformers_tpu_torch.ops import attention as at
+    from bayeformers_tpu_torch.ops import fused_backward as fb
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+    from bayeformers_tpu_torch.parallel import collectives as coll
+    from bayeformers_tpu_torch.parallel import mesh as mesh_lib
+    from bayeformers_tpu_torch.parallel import train as ptrain
+
+    torch.cuda.set_device(0)
+    require_f32_matmuls()
+    _build.library()  # built by the parent before the spawn: loaded here
+    store = dist.FileStore(store_path, RANKS23)
+
+    def mesh_of(dp, tp, tag):
+        return mesh_lib.make_mesh(dp, tp, backend="gloo", store=dist.PrefixStore(tag, store),
+                                  rank=rank, world_size=RANKS23)
+
+    out = {"paths": {}}
+    t = time.perf_counter()
+    dp23(bt, ptrain, coll, mesh_lib, fl, fb, at, mesh_of(2, 1, "a/"), out)
+    out["a_s"] = time.perf_counter() - t
+    tp_mesh = mesh_of(1, 2, "b/")
+    for part, fn in (("b", tp23), ("c", large23), ("d", gpt2_23)):
+        t = time.perf_counter()
+        fn(bt, ptrain, mesh_lib, fl, fb, at, tp_mesh, out)
+        out[f"{part}_s"] = time.perf_counter() - t
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def plain_logits23(bt, bmodel) -> torch.Tensor:
+    """The plain forward's logits (S=10, antithetic, seed 99) of a fixed
+    8 x 128 batch: the yardstick of a checkpoint's reload."""
+    batch = train_batch(bt, seed=99)
+    with torch.inference_mode():
+        out, _ = bmodel.mc_apply_fused(99, 10, batch["input_ids"], batch["attention_mask"],
+                                       batch["token_type_ids"], antithetic=True,
+                                       impl="plain")
+    return out.float().cpu()
+
+
+def glue23(out_dir: str) -> int:
+    """(e), one rank of ``bert_glue --dp 2 --backend gloo`` under
+    ``torch.distributed.run`` (``chip_smoke.py --glue23 DIR``): phases A-D
+    at BERT-base for two batches, the checkpoint written by rank 0, whose
+    score and plain logits of the trained state go to ``DIR/glue.pt``."""
+    import bayeformers_tpu_torch as bt
+    from bayeformers_tpu_torch.parallel import train as ptrain
+    from bayeformers_tpu_torch.workloads import bert_glue
+
+    keep = {}
+    score = bert_glue.train(limit_batches=2, epochs=1, b_epochs=1, dp=2, backend="gloo",
+                            logs=os.path.join(out_dir, "logs"),
+                            save_dir=os.path.join(out_dir, "ckpt"), keep=keep)
+    if keep["mesh"].rank == 0:
+        torch.save({"score": score, "logits": plain_logits23(bt, keep["bmodel"])},
+                   os.path.join(out_dir, "glue.pt"))
+    ptrain.finish()
+    return 0
+
+
+def phase23(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
+    """Phase 23: the kernels at the tier's new shapes against their plain
+    versions (timed; launches from the ranks' runs), then two ranks on the
+    card (:func:`rank23`: (a)-(d)), then (e) the workload under
+    ``torch.distributed.run`` and its checkpoint reloaded in one process."""
+    import torch.multiprocessing as mp
+
+    from bayeformers_tpu_torch.utils import checkpoint as ckpt
+
+    rows = []
+    for dtype in (BF16, F32):
+        tag = TAG[dtype]
+        rows += phase_bayes_linear(fl, moped_rho, True, dtype, "on_mu", TP23,
+                                   path=TP23 + tag)
+        rows += phase_reduce(fl, fb, moped_rho, True, tag, "on_mu", TP23, path=TP23 + tag)
+        rows.append(phase_mha(at, dtype, (80, 128, 384, 6), path=TP23 + tag))
+        rows.append(phase_mha_bwd(at, dtype, ((80, 128, 384),), 6, path=TP23 + tag))
+    for fam in (DP23, LARGE23):
+        rows += phase_bayes_linear(fl, moped_rho, True, F32, "on_mu", fam, path=fam + "f32")
+    torch.cuda.empty_cache()
+    ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mp.spawn(rank23, args=(os.path.join(tmp, "store"), tmp), nprocs=RANKS23, join=True,
+                 start_method="spawn")
+        ms["ranks_s"] = time.perf_counter() - t
+        res = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+        paths.update(res["paths"])
+        ms.update({k: v for k, v in res.items() if k != "paths"})
+        t = time.perf_counter()
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(RANKS23), os.path.abspath(__file__), "--glue23", tmp],
+            capture_output=True, text=True, timeout=600, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, "bert_glue --dp 2 failed:\n" + proc.stdout[-4000:]
+              + proc.stderr[-4000:])
+        got = torch.load(os.path.join(tmp, "glue.pt"), weights_only=False)
+        check(math.isfinite(got["score"]), f"bert_glue --dp 2 score {got['score']}")
+        bmodel, _ = converted_base(bt, F32)
+        ckpt.load_checkpoint(os.path.join(tmp, "ckpt"), bmodel, step=1)
+        again = plain_logits23(bt, bmodel)
+        check(torch.equal(again, got["logits"]), "the dp=2 run's checkpoint, reloaded in one "
+              f"process, gives other plain logits: max |d| "
+              f"{(again - got['logits']).abs().max().item()}")
+        ms["glue_s"] = time.perf_counter() - t
+        say(f"phase 23 (e) bert_glue --dp 2 --backend gloo (BERT-base, 2 batches, f32): score "
+            f"{got['score']:.4f}; rank 0's checkpoint reloaded in one process gives its plain "
+            f"logits bit for bit; {ms['glue_s']:.1f} s with the launch")
+        del bmodel
+    torch.cuda.empty_cache()
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
+    if "--glue23" in sys.argv:  # a rank of phase 23's (e), under torch.distributed.run
+        return glue23(sys.argv[sys.argv.index("--glue23") + 1])
     t_all = time.perf_counter()
     # ``--from 16`` (or 17) runs only the phases from there on, after the
     # build and the eps stream (a quicker check of a later slice); no
@@ -6157,11 +6543,21 @@ def main() -> int:
         rows += rows21
         say(f"phase 21 (T5, Whisper, mc_generate): {time.perf_counter() - t21:.2f} s")
 
-    # phase 22: the stacked tiers and pretrained= for the causal LMs
-    t22 = time.perf_counter()
-    rows22, stack_ms = phase22(bt, fl, fb, moped_rho, paths)
-    rows += rows22
-    say(f"phase 22 (stacked tiers, pretrained= causal LMs): {time.perf_counter() - t22:.2f} s")
+    stack_ms = {}
+    if first <= 22:
+        # phase 22: the stacked tiers and pretrained= for the causal LMs
+        t22 = time.perf_counter()
+        rows22, stack_ms = phase22(bt, fl, fb, moped_rho, paths)
+        rows += rows22
+        t22 = time.perf_counter() - t22
+        say(f"phase 22 (stacked tiers, pretrained= causal LMs): {t22:.2f} s")
+
+    # phase 23: the dp x tp tier, two ranks sharing the card over gloo
+    t23 = time.perf_counter()
+    rows23, ms23 = phase23(bt, fl, fb, at, moped_rho, paths)
+    rows += rows23
+    t23 = time.perf_counter() - t23
+    say(f"phase 23 (dp x tp over gloo, two ranks on one card): {t23:.2f} s")
 
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
@@ -6223,11 +6619,22 @@ def main() -> int:
             "(S=4, B=2, f32) ms a generated token: "
             + "; ".join(f"{what} {names[which]} ({key}) {v:.3f}"
                         for (what, which, key), v in s2s_ms.items()))
-    say(f"{smi}; phase 22 (random init, scale mixture, f32, S=2; BlockStack 12 x 768, B=64 "
-        "in 4 microbatches; LM 12 blocks at GPT-2 small's and Switch-Base-8's widths, 8 x "
-        "128): " + "; ".join(f"{what} {name} {v:.3f}" for (what, name), v in stack_ms.items())
-        + f"; phase 22 {time.perf_counter() - t22:.1f} s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+    if first <= 22:
+        say(f"{smi}; phase 22 (random init, scale mixture, f32, S=2; BlockStack 12 x 768, "
+            "B=64 in 4 microbatches; LM 12 blocks at GPT-2 small's and Switch-Base-8's "
+            "widths, 8 x 128): "
+            + "; ".join(f"{what} {name} {v:.3f}" for (what, name), v in stack_ms.items())
+            + f"; phase 22 {t22:.1f} s")
+    say(f"{smi}; phase 23, two ranks sharing one card over gloo (not a scaling figure; "
+        "BERT-base, frozen MOPED 0.05, S=10 antithetic, B=8, L=128): dp=2 f32 step "
+        f"{ms23['dp_ms']:.3f} ms (the one-process f32 step on the whole batch "
+        f"{ms23['one_ms']:.3f} ms); tp=2 step bf16 {ms23['tp_ms_bf16']:.3f} ms, f32 "
+        f"{ms23['tp_ms_f32']:.3f} ms (medians of 3); gloo all-reduce of the dp step's "
+        f"gradients ({ms23['allreduce_mb']:.1f} MiB f32, CUDA tensors) "
+        f"{ms23['allreduce_ms']:.3f} ms; ranks {ms23['ranks_s']:.1f} s ((a) "
+        f"{ms23['a_s']:.1f}, (b) {ms23['b_s']:.1f}, (c) {ms23['c_s']:.1f}, (d) "
+        f"{ms23['d_s']:.1f} s of rank 0), (e) {ms23['glue_s']:.1f} s; phase 23 {t23:.1f} s; "
+        f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

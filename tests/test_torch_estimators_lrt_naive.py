@@ -8,6 +8,7 @@ under flipout.
 from test_torch_estimators import check_against_jax, conversion  # noqa: F401 (a fixture)
 
 from bayeformers_tpu_torch import training
+from bayeformers_tpu_torch.parallel import train as ptrain
 from bayeformers_tpu_torch.workloads import bert_glue
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
@@ -30,7 +31,8 @@ def test_bert_glue_runs_flipout_on_cpu(tmp_path, monkeypatch):
     """``bert_glue.train(estimator="flipout")`` runs phases A-D on the CPU
     at tiny size, phases C and D under flipout."""
     picked = []
-    make_eval, make_step = training.make_elbo_eval_step, training.make_elbo_train_step
+    # the workloads' step factory; their eval step is make_elbo_eval_step's
+    make_eval, make_step = training.make_elbo_eval_step, ptrain.make_train_step
 
     def spy(make):
         def run(*args, **kwargs):
@@ -39,7 +41,7 @@ def test_bert_glue_runs_flipout_on_cpu(tmp_path, monkeypatch):
         return run
 
     monkeypatch.setattr(training, "make_elbo_eval_step", spy(make_eval))
-    monkeypatch.setattr(training, "make_elbo_train_step", spy(make_step))
+    monkeypatch.setattr(ptrain, "make_train_step", spy(make_step))
     score = bert_glue.train(size="tiny", limit_batches=1, epochs=1, b_epochs=1, samples=2,
                             batch_size=64, estimator="flipout", device="cpu",
                             logs=str(tmp_path))

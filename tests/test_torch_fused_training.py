@@ -26,6 +26,7 @@ from bayeformers_tpu.utils.optim import masked_optimizer as jmasked_optimizer
 from bayeformers_tpu_torch import training
 from bayeformers_tpu_torch.nn.surgery import leaf
 from bayeformers_tpu_torch.ops import fused_linear as fl
+from bayeformers_tpu_torch.parallel import train as ptrain
 from bayeformers_tpu_torch.utils import optim
 from bayeformers_tpu_torch.workloads import bert_glue
 from test_torch_training import LR, N_BATCHES, WD, _batch, _hook, _port, _port_batch
@@ -97,13 +98,13 @@ def test_fused_two_steps_match_jax(jax_model, S, mc_chunk):
 def test_bert_glue_odd_samples_run_fused_on_cpu(tmp_path, monkeypatch):
     """An odd S takes the independent-draw estimator end to end."""
     picked = []
-    make_step = training.make_elbo_train_step
+    make_step = ptrain.make_train_step  # the workloads' step factory
 
     def spy(*args, **kwargs):
         picked.append(kwargs["estimator"])
         return make_step(*args, **kwargs)
 
-    monkeypatch.setattr(training, "make_elbo_train_step", spy)
+    monkeypatch.setattr(ptrain, "make_train_step", spy)
     score = bert_glue.train(size="tiny", limit_batches=3, epochs=1, b_epochs=1,
                             samples=3, batch_size=16, device="cpu",
                             logs=str(tmp_path))
@@ -143,7 +144,7 @@ def test_bert_glue_f32_default_trains_on_cpu(tmp_path, monkeypatch):
     down-projections, K = 3072, pass), so the threshold is lowered to 0
     here: every converted layer then trains through the regenerating VJP."""
     picked, regen = [], []
-    make_step = training.make_elbo_train_step
+    make_step = ptrain.make_train_step  # the workloads' step factory
     real_regen = fl.regenerate_weights
 
     def spy_step(*args, **kwargs):
@@ -154,7 +155,7 @@ def test_bert_glue_f32_default_trains_on_cpu(tmp_path, monkeypatch):
         regen.append(tuple(mu.shape))
         return real_regen(mu, rho, seeds, **kwargs)
 
-    monkeypatch.setattr(training, "make_elbo_train_step", spy_step)
+    monkeypatch.setattr(ptrain, "make_train_step", spy_step)
     monkeypatch.setattr(fl, "regenerate_weights", spy_regen)
     monkeypatch.setattr(fl, "ANTI_F32_SAVED_MAX_KP", 0)
     score = bert_glue.train(size="tiny", limit_batches=2, epochs=1, b_epochs=1,

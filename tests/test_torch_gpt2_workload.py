@@ -174,12 +174,15 @@ def test_gpt2_lm_runs_on_cpu(tmp_path, estimator):
 
 
 def test_what_still_raises(tmp_path):
-    """The mesh names its ROADMAP item; a corpus without its tokenizer's
-    files raises, naming them; a sequence longer than the model's maximum
-    position raises; ``bert_glue`` sends GPT-2 to this workload."""
+    """The mesh in one process (no launcher's world) raises, and tp on the
+    naive tier names its ROADMAP item (6(d)); a corpus without its
+    tokenizer's files raises, naming them; a sequence longer than the
+    model's maximum position raises; ``bert_glue`` sends GPT-2 to this
+    workload."""
     kw = dict(size="tiny", device="cpu", logs=str(tmp_path))
-    for bad, item in (({"dp": 2}, "parallel tiers"), ({"tp": 2}, "parallel tiers")):
-        with pytest.raises(NotImplementedError, match=item):
+    for bad, err, item in (({"dp": 2}, ValueError, "the world has 1"),
+                           ({"tp": 2}, NotImplementedError, r"item 6\(d\)")):
+        with pytest.raises(err, match=item):
             gpt2_lm.train(**bad, **kw)
     (tmp_path / "x.txt").write_text("some text")
     with pytest.raises(FileNotFoundError, match="vocab.json"):

@@ -49,10 +49,11 @@ def test_bert_squad_json_gives_em_f1(tmp_path, capsys):
 
 
 def test_bert_squad_refusals_name_their_items(tmp_path):
-    """The mesh names its ROADMAP item; a ``--tokenizer`` that is neither a
-    vocab.txt nor a directory holding one names what it needs."""
-    with pytest.raises(NotImplementedError, match="item 6, the parallel tiers"):
-        bert_squad.train(logs=str(tmp_path), **dict(TINY, dp=2))
+    """Sequence parallelism names its ROADMAP item (6(d)); a ``--tokenizer``
+    that is neither a vocab.txt nor a directory holding one names what it
+    needs."""
+    with pytest.raises(NotImplementedError, match=r"item 6\(d\)"):
+        bert_squad.train(logs=str(tmp_path), **dict(TINY, sp=2))
     with pytest.raises(ValueError, match="vocab.txt"):
         bert_squad.train(logs=str(tmp_path), **dict(TINY, tokenizer=str(tmp_path)))
 

@@ -339,7 +339,9 @@ def test_bert_glue_runs_on_cpu(tmp_path):
     lines = (tmp_path / "bert_glue.DELTA_0.05.WEIGHT_DECAY_0.0.jsonl").read_text()
     assert "bayesian_test/ece" in lines
     assert (tmp_path / "ckpt" / "step_1" / "rho.pt").exists()
-    with pytest.raises(NotImplementedError, match="parallel tiers"):
+    # dp = 2 in one process (no launcher's WORLD_SIZE): the world does not
+    # match the mesh
+    with pytest.raises(ValueError, match="needs 2 ranks; the world has 1"):
         bert_glue.train(size="tiny", dp=2, device="cpu", logs=str(tmp_path))
 
 

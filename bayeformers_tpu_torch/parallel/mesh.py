@@ -24,6 +24,7 @@ mu, so that sampling and the KL terms stay local.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import re
@@ -295,6 +296,47 @@ def default_backend(device) -> str:
 TIMEOUT = datetime.timedelta(minutes=10)
 
 
+def _world(backend: str, store, rank: Optional[int],
+           world_size: Optional[int]) -> tuple[int, int]:
+    """``(rank, world_size)`` of the calling rank: from the default process
+    group (initialised here from the environment with ``backend`` if it is
+    not yet) without ``store``, else as given."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
+    if store is None:
+        if not dist.is_initialized():
+            dist.init_process_group(backend=backend, timeout=TIMEOUT)
+        elif dist.get_backend() != backend:
+            raise ValueError(f"the default process group runs {dist.get_backend()!r}, "
+                             f"the mesh was asked for {backend!r}")
+        return dist.get_rank(), dist.get_world_size()
+    if backend != "gloo":
+        raise ValueError("a mesh on a store builds gloo groups only; nccl ranks take "
+                         "the default process group")
+    if rank is None or world_size is None:
+        raise ValueError("a mesh on a store needs rank and world_size")
+    return rank, world_size
+
+
+def group_factory(backend: str, store, rank: int) -> Callable:
+    """``group(ranks, tag, kind=backend)``: the process group of ``ranks``
+    (None when of one rank, or, on a store, when the caller is not in it),
+    from the default group or, with ``store``, a gloo group on it under
+    ``tag``. Every rank creates every group, in one order
+    (``torch.distributed``'s rule)."""
+    def group(ranks, tag, kind=backend):
+        if len(ranks) == 1:
+            return None
+        if store is None:
+            return dist.new_group(ranks, backend=kind, timeout=TIMEOUT)
+        if rank not in ranks:
+            return None
+        sub = dist.PrefixStore(f"bft_mesh/{tag}/", store)
+        return dist.ProcessGroupGloo(sub, ranks.index(rank), len(ranks), TIMEOUT)
+
+    return group
+
+
 def make_mesh(dp: int, tp: int = 1, sp: int = 1, *, backend: str,
               store=None, rank: Optional[int] = None,
               world_size: Optional[int] = None) -> Mesh:
@@ -316,20 +358,7 @@ def make_mesh(dp: int, tp: int = 1, sp: int = 1, *, backend: str,
         raise NotImplementedError(
             f"sequence parallelism (sp={sp}) is {ITEM_6D}: in the reference it is a "
             "GSPMD layout over the token axis, not a shard_map program; run sp=1")
-    if backend not in ("gloo", "nccl"):
-        raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
-    if store is None:
-        if not dist.is_initialized():
-            dist.init_process_group(backend=backend, timeout=TIMEOUT)
-        elif dist.get_backend() != backend:
-            raise ValueError(f"the default process group runs {dist.get_backend()!r}, "
-                             f"the mesh was asked for {backend!r}")
-        rank, world_size = dist.get_rank(), dist.get_world_size()
-    elif backend != "gloo":
-        raise ValueError("make_mesh(store=...) builds gloo groups only; nccl ranks take "
-                         "the default process group")
-    elif rank is None or world_size is None:
-        raise ValueError("make_mesh(store=...) needs rank and world_size")
+    rank, world_size = _world(backend, store, rank, world_size)
     if tp < 1:
         raise ValueError(f"tp must be at least 1, got {tp}")
     if dp <= 0:
@@ -337,18 +366,7 @@ def make_mesh(dp: int, tp: int = 1, sp: int = 1, *, backend: str,
     if dp * tp != world_size:
         raise ValueError(f"mesh dp={dp} x tp={tp} needs {dp * tp} ranks; the world has "
                          f"{world_size}")
-
-    def group(ranks, tag, kind=backend):
-        if len(ranks) == 1:
-            return None
-        if store is None:
-            return dist.new_group(ranks, backend=kind, timeout=TIMEOUT)
-        if rank not in ranks:
-            return None
-        sub = dist.PrefixStore(f"bft_mesh/{tag}/", store)
-        return dist.ProcessGroupGloo(sub, ranks.index(rank), len(ranks), TIMEOUT)
-
-    # every rank creates every group, in one order (torch.distributed's rule)
+    group = group_factory(backend, store, rank)
     dp_groups = [group([d * tp + t for d in range(dp)], f"dp{t}") for t in range(tp)]
     tp_ranks = [[d * tp + t for t in range(tp)] for d in range(dp)]
     tp_groups = [group(r, f"tp{d}") for d, r in enumerate(tp_ranks)]
@@ -360,6 +378,26 @@ def make_mesh(dp: int, tp: int = 1, sp: int = 1, *, backend: str,
     d, t = divmod(rank, tp)
     return Mesh(dp, tp, rank, backend, dp_groups[t], tp_groups[d], world,
                 export_groups[d])
+
+
+def make_axis(n: int, axis: str, *, backend: str, store=None, rank: Optional[int] = None,
+              world_size: Optional[int] = None, hops: bool = False) -> coll.Ranks:
+    """The calling rank's place on a one-axis mesh of ``n`` ranks named
+    ``axis`` (``"pp"`` or ``"ep"``): its group of all ``n`` and, with
+    ``hops`` under gloo, the pair groups {i, i + 1} of the pipeline's shift.
+    The groups and the keywords are :func:`make_mesh`'s; a world size other
+    than ``n`` raises."""
+    if n < 1:
+        raise ValueError(f"{axis} must be at least 1, got {n}")
+    rank, world_size = _world(backend, store, rank, world_size)
+    if world_size != n:
+        raise ValueError(f"mesh {axis}={n} needs {n} ranks; the world has {world_size}")
+    group = group_factory(backend, store, rank)
+    world = group(list(range(n)), f"{axis}/world")
+    pairs = ()
+    if hops and backend == "gloo":
+        pairs = tuple(group([i, i + 1], f"{axis}/hop{i}") for i in range(n - 1))
+    return coll.Ranks(axis, rank, n, world, backend, pairs)
 
 
 def shard_batch(batch, mesh: Optional[Mesh]):
@@ -414,14 +452,47 @@ def bayes_param_specs(bmodel: BayesianModel, spec_fn=None) -> dict[str, dict[str
             "prior_mu": {p: spec(p) for p in bmodel.prior_mu}}
 
 
-def _block(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+def _block(t: torch.Tensor, dim: int, n: int, r: int, axis: str = "tp") -> torch.Tensor:
+    """Rank ``r``'s block of ``n`` along ``dim``, a copy of its own."""
     size = t.shape[dim]
     if size % n:
-        raise ValueError(f"a dim of {size} does not divide over tp={n}")
+        raise ValueError(f"a dim of {size} does not divide over {axis}={n}")
     b = size // n
     # a copy, never a view: the block must own its storage (the whole
     # tensor is freed, and the optimizer updates the block in place)
     return t.narrow(dim, r * b, b).clone(memory_format=torch.contiguous_format)
+
+
+@torch.no_grad()
+def shard_params(module: torch.nn.Module, dims: dict[str, int], ranks: coll.Ranks) -> None:
+    """Keep, in place, the rank's block of each parameter named in ``dims``
+    along its dim there, on a one-axis mesh (:func:`make_axis`; the
+    pipeline's ``shard_stack``, the experts' ``shard_experts``). The
+    parameter objects stay, so an optimizer built before or after holds the
+    blocks. The whole module is drawn first, so that a rank's block is the
+    slice of the one-process init at the same seed."""
+    for name, p in module.named_parameters():
+        if name in dims:
+            p.data = _block(p.data, dims[name], ranks.world_size, ranks.rank, ranks.axis)
+            p.grad = None
+
+
+@torch.no_grad()
+def unshard_params(module: torch.nn.Module, dims: dict[str, int],
+                   ranks: Optional[coll.Ranks]) -> torch.nn.Module:
+    """A copy of ``module`` with every parameter named in ``dims`` gathered
+    from the ranks' blocks (an all-reduce of zero-padded blocks on the
+    tensors' device; every rank must call it) and ``n_shards`` 1 on every
+    submodule."""
+    whole = copy.deepcopy(module)
+    for name, p in whole.named_parameters():
+        p.grad = None
+        if ranks is not None and name in dims:
+            p.data = coll.gather_rows(p.data, ranks.group, ranks.rank, dims[name])
+    for m in whole.modules():
+        if hasattr(m, "n_shards"):
+            m.n_shards = 1
+    return whole
 
 
 def shard_bayes_params(bmodel: BayesianModel, mesh: Mesh, spec_fn=None) -> BayesianModel:

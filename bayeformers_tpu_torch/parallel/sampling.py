@@ -22,6 +22,12 @@ S draws of a step take the seeds :func:`draw_seeds` (the reference's
 (``what`` is ``"kernel"``, shape (K, N), or ``"bias"``, shape (N,)) that
 supplies the draws instead (tests: the JAX package's draws); each sampled
 dense then runs the plain version of the op.
+
+Across ranks (``pipeline.make_pp_mesh``, ``moe.make_ep_mesh``) a stacked
+module keeps only its rank's block of the stacked axis
+(``mesh.shard_params``, which the pipeline's ``shard_stack`` and the
+experts' ``shard_experts`` call); its ``n_shards`` says into how many
+blocks it was cut, and :func:`check_group` holds a step's group to it.
 """
 from __future__ import annotations
 
@@ -37,10 +43,10 @@ from bayeformers_tpu_torch.core.init import DEFAULT_UNIFORM
 from bayeformers_tpu_torch.nn.fused import derive_seed
 from bayeformers_tpu_torch.ops import fused_linear as ops_fused
 from bayeformers_tpu_torch.ops.logprob import mixture_log_pdf
+from bayeformers_tpu_torch.parallel import collectives as coll
 
 _PRIOR = prior_lib.DEFAULT_SCALE_MIXTURE
 MIXTURE = (_PRIOR.pi, _PRIOR.sigma1, _PRIOR.sigma2)
-ITEM_6C = "ROADMAP queue 1 item 6(c)"
 
 _hook: Optional[Callable] = None
 
@@ -67,13 +73,22 @@ def draw_seeds(seed: int, n_samples: int) -> list[int]:
     return [derive_seed(seed, s) for s in range(n_samples)]
 
 
-def check_group(group, what: str) -> None:
-    """``None`` or a process group of one runs on the caller's device; a
-    larger group is the ranks' schedule, not ported yet."""
-    if group is not None and group.size() > 1:
-        raise NotImplementedError(
-            f"{what} over a process group of {group.size()} ranks is {ITEM_6C}, "
-            "not ported yet; pass group=None (one device)")
+def check_group(group, module, what: str) -> Optional[coll.Ranks]:
+    """The rank's place for a step over ``module``: None (one rank) for a
+    group of None or of one, else the :class:`collectives.Ranks` of
+    ``make_pp_mesh`` / ``make_ep_mesh``. A group of another size than the
+    number of shards ``module`` was cut into raises ``ValueError``."""
+    size, shards = coll.group_size(group), getattr(module, "n_shards", 1)
+    if size != shards:
+        raise ValueError(
+            f"{what}: a group of {size} ranks, but the module is cut into {shards} "
+            "shard(s); shard it for this mesh (pipeline.shard_stack, moe.shard_experts)")
+    if size == 1:
+        return None
+    if not isinstance(group, coll.Ranks):
+        raise TypeError(f"{what}: pass the Ranks of make_pp_mesh / make_ep_mesh as group, "
+                        f"not a {type(group).__name__}")
+    return group
 
 
 def bayes_dense(h: torch.Tensor, mu, rho, b_mu, b_rho, seed: int, path: tuple,

@@ -54,21 +54,50 @@ def init_mesh(dp: int, tp: int = 1, sp: int = 1, backend: Optional[str] = None,
     device and ``gloo`` on the CPU (two ranks on one card take ``gloo``); a
     CUDA device without an index becomes ``cuda:LOCAL_RANK`` (modulo the
     cards there are, so that ranks may share one)."""
-    dev = torch.device(device)
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if (dp, tp, sp) == (1, 1, 1) and world == 1:
-        return None, dev
-    if sp == 1 and dp > 0 and dp * tp != world:
-        raise ValueError(f"mesh dp={dp} x tp={tp} needs {dp * tp} ranks; the world has {world} "
+    if (dp, tp, sp) == (1, 1, 1) and _launched_world() == 1:
+        return None, torch.device(device)
+    need = dp * tp if sp == 1 and dp > 0 else None
+    backend, dev = _launched_rank(need, f"mesh dp={dp} x tp={tp}", backend, device)
+    return mesh_lib.make_mesh(dp, tp, sp, backend=backend), dev
+
+
+def init_axis(make: Callable, n: int, what: str, backend: Optional[str] = None,
+              device="cuda"):
+    """``(ranks, device)`` of a workload's rank on a one-axis mesh of ``n``
+    ranks (``make``: ``pipeline.make_pp_mesh`` or
+    ``moe.make_ep_mesh``): ``(None, device)`` for n = 1, else under
+    :func:`init_mesh`'s rules for the launcher's world, the backend and the
+    device; ``what`` names the flag in the error."""
+    if n == 1:
+        return None, torch.device(device)
+    backend, dev = _launched_rank(n, what, backend, device)
+    return make(n, backend=backend), dev
+
+
+def _launched_world() -> int:
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _launched_rank(need: Optional[int], what: str, backend: Optional[str],
+                   device) -> tuple[str, torch.device]:
+    """``(backend, device)`` of a rank that ``python -m
+    torch.distributed.run`` started, once its world is held to ``need``
+    ranks (None: not checked here). A CUDA device without an index becomes
+    ``cuda:LOCAL_RANK`` (modulo the cards there are, so that ranks may share
+    one), made current."""
+    world = _launched_world()
+    if need is not None and need != world:
+        raise ValueError(f"{what} needs {need} ranks; the world has {world} "
                          "(start the ranks with python -m torch.distributed.run "
-                         "--nproc-per-node N)")
+                         f"--nproc-per-node {need})")
+    dev = torch.device(device)
     backend = backend or mesh_lib.default_backend(dev)
     if dev.type == "cuda" and dev.index is None:
         local = int(os.environ.get("LOCAL_RANK", "0"))
         dev = torch.device("cuda", local % torch.cuda.device_count())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return mesh_lib.make_mesh(dp, tp, sp, backend=backend), dev
+    return backend, dev
 
 
 def add_mesh_args(parser) -> None:

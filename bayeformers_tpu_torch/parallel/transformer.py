@@ -1,5 +1,5 @@
 """Depth-stacked Bayesian transformer blocks and their causal LM (counterpart
-of ``bayeformers_tpu/parallel/transformer.py`` at pp = ep = 1).
+of ``bayeformers_tpu/parallel/transformer.py``).
 
 :class:`TransformerStack` holds L pre-LN blocks ``h <- h + O(attn(LN1(h)))``,
 ``h <- h + FFN(LN2(h))`` with every projection a Gaussian variational
@@ -21,8 +21,14 @@ from (the draw's seed, (l, j)); its experts from (seed, (l, 2, e, j)).
 d) and positions ``pos`` (T, d), the readout tied to ``embed``. The three
 step factories are the reference's: :func:`make_single_lm_train_step`,
 :func:`make_pp_lm_train_step` (the pipeline schedule over microbatches; a
-MoE stack raises) and :func:`make_ep_lm_train_step` (a MoE stack), each at
-one rank (``group`` None or of one; ranks are ROADMAP queue 1 item 6(c)).
+MoE stack raises) and :func:`make_ep_lm_train_step` (a MoE stack). Across
+ranks (``group``, one process or thread a rank, collectives over gloo or
+NCCL) the pp step runs the stack's stages by ``pipeline_apply`` over the
+point-to-point shift, every stage embedding the batch (through the "f"
+``copy_to_shards``, so that the embed and pos gradients are whole and
+equal on every stage) and reading out the whole output; the ep step runs
+every block's experts as ``BayesMoE`` shards (``moe.shard_experts``), the
+attention, LayerNorms, routers and tables replicated.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from torch import nn
 
 from bayeformers_tpu_torch.models.bert import check_device, lookup
 from bayeformers_tpu_torch.nn.layers import Generator, as_generator
+from bayeformers_tpu_torch.parallel import collectives as coll
 from bayeformers_tpu_torch.parallel import sampling
 from bayeformers_tpu_torch.parallel.moe import BayesMoE
 from bayeformers_tpu_torch.parallel.pipeline import elbo_step, pipeline_apply
@@ -64,6 +71,7 @@ class TransformerStack(nn.Module):
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} % n_heads {n_heads} != 0")
         self.n_blocks, self.d_model, self.n_heads, self.d_ff = n_blocks, d_model, n_heads, d_ff
+        self.n_shards = 1
         device = check_device(device, "TransformerStack")
         gen = as_generator(generator)
         L, d, f = n_blocks, d_model, d_ff
@@ -100,9 +108,10 @@ class TransformerStack(nn.Module):
         return self.ln1_scale.new_zeros((1, 1, self.d_model))
 
     def block_apply(self, leaf, seed: int, global_idx: int, h: torch.Tensor,
-                    plain: bool = False):
+                    plain: bool = False, group=None):
         """One block on ``h`` (mb, T, d): ``(h', log_q, log_p)``; the draws
-        are functions of (seed, global_idx) only."""
+        are functions of (seed, global_idx) only. ``group``: the ep ranks
+        of a MoE stack's expert shards."""
         mb, T, d = h.shape
         nh, hd = self.n_heads, d // self.n_heads
         x = _layer_norm(h, leaf["ln1_scale"], leaf["ln1_bias"])
@@ -126,17 +135,23 @@ class TransformerStack(nn.Module):
             lq_ffn, lp_ffn = lq3 + lq4, lp3 + lp4
         else:
             out, lq_ffn, lp_ffn = self.moe.apply_local(leaf["moe"], seed, tokens,
-                                                       path=(global_idx, 2), plain=plain)
+                                                       path=(global_idx, 2), group=group,
+                                                       plain=plain)
         h = h + out.reshape(mb, T, d)
         return h, lq + lq2 + lq_ffn, lp + lp2 + lp_ffn
 
     def apply_stack(self, seed: int, h: torch.Tensor, *, group=None, plain: bool = False):
         """Every block in depth order on ``h`` (B, T, d): ``(h', log_q,
-        log_p)``."""
-        sampling.check_group(group, "TransformerStack.apply_stack")
+        log_p)``. ``group``: the ep ranks of a MoE stack cut by
+        ``moe.shard_experts`` (a dense stack runs over ranks by
+        ``pipeline_apply``)."""
+        if self.moe is None and coll.group_size(group) > 1:
+            raise ValueError("apply_stack's group shards a MoE stack's experts; a dense "
+                             "stack runs its stages over ranks by pipeline_apply")
+        sampling.check_group(group, self.moe, "TransformerStack.apply_stack")
         log_q = log_p = None
         for l, leaf in enumerate(self.leaves()):
-            h, lq, lp = self.block_apply(leaf, seed, l, h, plain)
+            h, lq, lp = self.block_apply(leaf, seed, l, h, plain, group)
             log_q = lq if log_q is None else log_q + lq
             log_p = lp if log_p is None else log_p + lp
         return h, log_q, log_p
@@ -170,9 +185,10 @@ def lm_init(stack: TransformerStack, vocab: int, seq_len: int,
 
 
 def lm_logits_single(lm: TransformerLM, seed: int, tokens: torch.Tensor,
-                     plain: bool = False):
-    """``tokens`` (B, T) -> ``(logits (B, T, V), log_q, log_p)``."""
-    h, lq, lp = lm.stack.apply_stack(seed, lm.inputs(tokens), plain=plain)
+                     plain: bool = False, group=None):
+    """``tokens`` (B, T) -> ``(logits (B, T, V), log_q, log_p)``; ``group``:
+    a MoE stack's ep ranks."""
+    h, lq, lp = lm.stack.apply_stack(seed, lm.inputs(tokens), group=group, plain=plain)
     return lm.readout(h), lq, lp
 
 
@@ -189,13 +205,14 @@ def _lm_loss(logits, batch):
 
 
 def make_single_lm_train_step(lm: TransformerLM, optimizer, *, n_samples: int,
-                              n_batches: int, plain: bool = False):
+                              n_batches: int, plain: bool = False, group=None):
     """``step(seed, batch) -> metrics``: the LM's MC-ELBO step on
     ``batch["tokens"]`` (``pipeline.elbo_step``), updating ``lm`` in place
-    through ``optimizer``."""
+    through ``optimizer``; ``group`` the ranks of a MoE stack's experts
+    (:func:`make_ep_lm_train_step`)."""
     def step(seed: int, batch: dict) -> dict[str, torch.Tensor]:
         return elbo_step(optimizer, n_samples, n_batches,
-                         lambda s: lm_logits_single(lm, s, batch["tokens"], plain),
+                         lambda s: lm_logits_single(lm, s, batch["tokens"], plain, group),
                          _lm_loss, batch, seed)
 
     return step
@@ -204,17 +221,23 @@ def make_single_lm_train_step(lm: TransformerLM, optimizer, *, n_samples: int,
 def make_pp_lm_train_step(lm: TransformerLM, optimizer, *, n_samples: int, n_batches: int,
                           n_microbatches: int, group=None, plain: bool = False):
     """The LM's step with the stack run by ``pipeline_apply`` over
-    ``n_microbatches`` microbatches; a MoE stack raises, as in the
-    reference."""
+    ``n_microbatches`` microbatches, its stages over the ranks of ``group``
+    (``pipeline.make_pp_mesh``, the stack cut by ``pipeline.shard_stack``);
+    a MoE stack raises, as in the reference."""
     if lm.stack.moe is not None:
         raise NotImplementedError(
             "pp over a MoE-FFN TransformerStack needs a pp x ep mesh; "
             "shard experts with make_ep_lm_train_step or use a dense FFN")
-    sampling.check_group(group, "make_pp_lm_train_step")
+    ranks = sampling.check_group(group, lm.stack, "make_pp_lm_train_step")
 
     def forward(s, tokens):
-        out, lq, lp = pipeline_apply(lm.stack, s, lm.inputs(tokens),
-                                     n_microbatches=n_microbatches, plain=plain)
+        h = lm.inputs(tokens)
+        if ranks is not None:
+            # the "f": only stage 0 reads the embedded input, so its
+            # cotangent is summed onto every stage in the backward
+            h = coll.copy_to_shards(h, ranks.group)
+        out, lq, lp = pipeline_apply(lm.stack, s, h, n_microbatches=n_microbatches,
+                                     group=group, plain=plain)
         return lm.readout(out), lq, lp
 
     def step(seed: int, batch: dict) -> dict[str, torch.Tensor]:
@@ -226,11 +249,12 @@ def make_pp_lm_train_step(lm: TransformerLM, optimizer, *, n_samples: int, n_bat
 
 def make_ep_lm_train_step(lm: TransformerLM, optimizer, *, n_samples: int, n_batches: int,
                           group=None, plain: bool = False):
-    """The MoE-FFN LM's step (at one rank, :func:`make_single_lm_train_step`'s
-    computation); a dense stack raises ``ValueError``, as in the
-    reference."""
+    """The MoE-FFN LM's step, every block's experts over the ranks of
+    ``group`` (``moe.make_ep_mesh``, the LM cut by ``moe.shard_experts``;
+    at one rank :func:`make_single_lm_train_step`'s computation); a dense
+    stack raises ``ValueError``, as in the reference."""
     if lm.stack.moe is None:
         raise ValueError("make_ep_lm_train_step needs a MoE TransformerStack")
-    sampling.check_group(group, "make_ep_lm_train_step")
-    return make_single_lm_train_step(lm, optimizer, n_samples=n_samples,
-                                     n_batches=n_batches, plain=plain)
+    sampling.check_group(group, lm.stack.moe, "make_ep_lm_train_step")
+    return make_single_lm_train_step(lm, optimizer, n_samples=n_samples, n_batches=n_batches,
+                                     plain=plain, group=group)

@@ -1,29 +1,41 @@
-"""The hand-built stacked tiers' training CLI on one GPU (counterpart of
+"""The hand-built stacked tiers' training CLI (counterpart of
 ``bayeformers_tpu/workloads/stack_lm.py``, with its flags and defaults).
 
 - ``--arch dense`` (the default) trains a ``parallel/pipeline.py::BlockStack``
   through ``make_pp_train_step`` (``--microbatches`` microbatches) on
   linearly separable two-class data in ``--features`` dims, the first two
-  output features read as the class logits.
+  output features read as the class logits; with ``--ep N`` (N > 1) a
+  ``parallel/moe.py::BayesMoE`` through ``make_ep_train_step`` instead.
 - ``--arch transformer`` trains the causal LM of
-  ``parallel/transformer.py`` through ``make_single_lm_train_step`` on the
-  repeated-half copy corpus (``copy_acc`` -> 1.0 on the predictable half).
+  ``parallel/transformer.py`` through ``make_single_lm_train_step``,
+  ``make_pp_lm_train_step`` (``--pp N``) or, with its MoE FFN,
+  ``make_ep_lm_train_step`` (``--ep N``) on the repeated-half copy corpus
+  (``copy_acc`` -> 1.0 on the predictable half).
 
 The mode rule is the reference's (``--pp 1 --ep 1`` with ``--arch dense``
-is the pipeline mode), and ``--pp N`` / ``--ep N`` with N > 1, the ranks'
-schedules, raise ``NotImplementedError`` (ROADMAP queue 1 item 6(c)); both
-above 1 raise ``ValueError``. Every projection runs kernels #7/#8 forward
-and #9 backward on the card (f32, scale-mixture prior, S = 1 a call).
-The optimizer is ``torch.optim.Adam(lr, eps=1e-8)``, optax's ``adam(lr)``.
-One JSON line an eval interval goes to ``--logs/stack_lm.jsonl`` and the
-last metrics to stdout.
+is the pipeline mode; both above 1 raise ``ValueError``). ``--pp N`` /
+``--ep N`` with N > 1 run one process a rank under ``python -m
+torch.distributed.run --nproc-per-node N``: the stages' blocks or the
+experts sharded over the ranks (every rank draws the whole model from
+``--seed`` and keeps its block), the activations shifted stage to stage
+and the combines summed over ``--backend`` (gloo, or NCCL on several
+cards; default nccl on the card, gloo on the CPU; gloo where ranks share
+one card); a world size other than N raises. Every projection runs kernels
+#7/#8 forward and #9 backward on the card (f32, scale-mixture prior, S = 1
+a call). The optimizer is ``torch.optim.Adam(lr, eps=1e-8)``, optax's
+``adam(lr)``, over the rank's leaves. Rank 0 writes one JSON line an eval
+interval to ``--logs/stack_lm.jsonl`` (with ``n_dev``) and prints the last
+metrics.
 
     python -m bayeformers_tpu_torch.workloads.stack_lm --steps 3
     python -m bayeformers_tpu_torch.workloads.stack_lm --arch transformer --steps 3
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m bayeformers_tpu_torch.workloads.stack_lm --pp 2 --backend gloo --steps 3
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -33,11 +45,11 @@ import torch
 
 from bayeformers_tpu_torch import elbo
 from bayeformers_tpu_torch.nn.fused import derive_seed
+from bayeformers_tpu_torch.models.bert import check_device
 from bayeformers_tpu_torch.parallel import moe as moe_lib
 from bayeformers_tpu_torch.parallel import pipeline as pp_lib
+from bayeformers_tpu_torch.parallel import train as ptrain
 from bayeformers_tpu_torch.parallel import transformer as tfm_lib
-from bayeformers_tpu_torch.models.bert import check_device
-from bayeformers_tpu_torch.parallel.sampling import ITEM_6C
 
 
 def synthetic_task(seed: int, n: int, d: int):
@@ -80,29 +92,35 @@ def adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(module.parameters(), lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def build_pp(args, device):
+def build_pp(args, device, ranks=None):
+    """A ``BlockStack`` and its step; under ``ranks`` (``make_pp_mesh``) the
+    stage's blocks of the whole stack drawn from ``--seed``."""
     stack = pp_lib.BlockStack(args.blocks, args.features, residual=True,
                               generator=args.seed, device=device)
+    pp_lib.shard_stack(stack, ranks)
     step = pp_lib.make_pp_train_step(
         stack, adam(stack, args.lr), n_samples=args.samples, n_batches=args.n_batches,
-        n_microbatches=args.microbatches, loss_fn=classification_loss)
+        n_microbatches=args.microbatches, loss_fn=classification_loss, group=ranks)
     return stack, step
 
 
-def build_ep(args, device):
+def build_ep(args, device, ranks=None):
     """A ``BayesMoE`` (``--experts``, ``--features``, ``--ffn``) and its
-    step at one rank (``run`` reaches it only with ``--ep`` above 1)."""
+    step; under ``ranks`` (``make_ep_mesh``) the rank's experts."""
     moe = moe_lib.BayesMoE(args.experts, args.features, args.ffn, generator=args.seed,
                            device=device)
+    moe_lib.shard_experts(moe, ranks)
     step = moe_lib.make_ep_train_step(moe, adam(moe, args.lr), n_samples=args.samples,
-                                      n_batches=args.n_batches, loss_fn=classification_loss)
+                                      n_batches=args.n_batches, loss_fn=classification_loss,
+                                      group=ranks)
     return moe, step
 
 
-def build_transformer(args, device, mode: str = "single"):
+def build_transformer(args, device, mode: str = "single", ranks=None):
     """The LM and its step: ``mode`` ``"single"``, ``"pp"`` (the pipeline
     schedule over ``--microbatches``) or ``"ep"`` (the MoE FFN of
-    ``--experts``, ``--ffn``), each at one rank."""
+    ``--experts``, ``--ffn``); under ``ranks`` the stage's blocks or the
+    rank's experts of the whole LM drawn from ``--seed``."""
     moe = dict(n_experts=args.experts, ffn=args.ffn) if mode == "ep" else None
     stack = tfm_lib.TransformerStack(args.blocks, args.features, args.heads, args.ffn,
                                      moe=moe, generator=derive_seed(args.seed, 0),
@@ -110,17 +128,21 @@ def build_transformer(args, device, mode: str = "single"):
     lm = tfm_lib.lm_init(stack, args.vocab, args.seq_len, derive_seed(args.seed, 1))
     kw = dict(n_samples=args.samples, n_batches=args.n_batches)
     if mode == "pp":
+        pp_lib.shard_stack(lm, ranks)
         step = tfm_lib.make_pp_lm_train_step(lm, adam(lm, args.lr),
-                                             n_microbatches=args.microbatches, **kw)
+                                             n_microbatches=args.microbatches, group=ranks,
+                                             **kw)
     elif mode == "ep":
-        step = tfm_lib.make_ep_lm_train_step(lm, adam(lm, args.lr), **kw)
+        moe_lib.shard_experts(lm, ranks)
+        step = tfm_lib.make_ep_lm_train_step(lm, adam(lm, args.lr), group=ranks, **kw)
     else:
         step = tfm_lib.make_single_lm_train_step(lm, adam(lm, args.lr), **kw)
     return lm, step
 
 
 def run(args) -> dict:
-    """Train as the flags say; returns the last logged metrics."""
+    """Train as the flags say; returns the last logged metrics (on every
+    rank: the loss and metrics are whole on each)."""
     if not hasattr(args, "arch"):
         args.arch = "dense"
     if (args.pp > 1) == (args.ep > 1) and args.pp > 1:
@@ -130,28 +152,29 @@ def run(args) -> dict:
     else:
         mode = "pp" if args.pp > 1 or args.ep == 1 else "ep"
     n_dev = {"pp": args.pp, "ep": args.ep, "single": 1}[mode]
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"--{mode} {n_dev}: the stages' and experts' schedules over ranks are "
-            f"{ITEM_6C}, not ported yet; --pp 1 --ep 1 runs on one GPU")
     device = check_device(getattr(args, "device", "cuda"), "stack_lm")
+    make = pp_lib.make_pp_mesh if mode == "pp" else moe_lib.make_ep_mesh
+    ranks, device = ptrain.init_axis(make, n_dev, f"--{mode} {n_dev}",
+                                     getattr(args, "backend", None), device)
     args.n_batches = max(1, args.n_examples // args.batch_size)
     if args.arch == "transformer":
         toks, tgts, mask = synthetic_copy_corpus(args.seed, args.n_examples, args.seq_len,
                                                  args.vocab)
         data = {"tokens": toks, "targets": tgts, "eval_mask": mask}
-        _, step = build_transformer(args, device, mode)
+        _, step = build_transformer(args, device, mode, ranks)
     else:
         X, y = synthetic_task(args.seed, args.n_examples, args.features)
         data = {"x": X, "y": y}
-        _, step = build_pp(args, device)
+        _, step = (build_pp if mode == "pp" else build_ep)(args, device, ranks)
     data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
 
-    os.makedirs(args.logs, exist_ok=True)
+    rank0 = ranks is None or ranks.rank == 0
+    if rank0:
+        os.makedirs(args.logs, exist_ok=True)
     log_path = os.path.join(args.logs, "stack_lm.jsonl")
     t0 = time.time()
     last = {}
-    with open(log_path, "a") as fh:
+    with (open(log_path, "a") if rank0 else contextlib.nullcontext()) as fh:
         for it in range(args.steps):
             # the reference's dynamic_slice: a start past n - B clamps to it
             lo = max(0, min((it * args.batch_size) % args.n_examples,
@@ -162,18 +185,21 @@ def run(args) -> dict:
                 last = {k: float(v) for k, v in metrics.items()} | {
                     "step": it, "mode": mode, "arch": args.arch, "n_dev": n_dev,
                     "wall_s": round(time.time() - t0, 2)}
-                fh.write(json.dumps(last) + "\n")
+                if rank0:
+                    fh.write(json.dumps(last) + "\n")
     return last
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Stacked Bayesian blocks / MoE / transformer LM "
-                                            "on one GPU")
+                                            "over pp / ep ranks")
     p.add_argument("--arch", choices=("dense", "transformer"), default="dense",
                    help="dense stacks (BlockStack) or the depth-stacked Bayesian "
                         "transformer LM")
-    p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 on one GPU)")
-    p.add_argument("--ep", type=int, default=1, help="expert-parallel ranks (1 on one GPU)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages, one rank each (torch.distributed.run)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ranks (torch.distributed.run)")
     p.add_argument("--heads", type=int, default=4, help="attention heads (transformer arch)")
     p.add_argument("--seq-len", type=int, default=16,
                    help="copy-task sequence length (transformer arch)")
@@ -193,11 +219,16 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--logs", default="logs")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="process-group backend of --pp/--ep: default nccl on the card, "
+                        "gloo on the CPU; gloo where ranks share one card")
     return p
 
 
 def main():
-    print(json.dumps(run(parser().parse_args())))
+    last = run(parser().parse_args())
+    ptrain.launcher_print(json.dumps(last))
+    ptrain.finish()
 
 
 if __name__ == "__main__":

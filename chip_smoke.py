@@ -180,14 +180,15 @@ Phases, each timed, each raising on failure:
     end logits against the plain path, :func:`encoder_logits_gate`, and the
     best spans against the plain path's, :func:`spans_check`), its
     ``qa_span_loss`` ELBO step at S = 10, B = 13, L = 384 against the plain
-    step (antithetic bf16; 12 ``mha_bwd`` a step), one independent-draw
+    step (antithetic bf16; 6 ``mha_bwd`` a step), one independent-draw
     step, and the f32 antithetic step at ``mc_chunk=2`` against its plain
     step and the plain step in f64 (each leaf within 1e-3 of the f64
     gradient plus twice the plain f32 step's distance from it:
     :func:`check_f32_leaves`; :func:`train_encoder`, peak memory);
     DistilBERT-base (6 layers),
-    ALBERT-base (its layer 12 times: 12 launches a forward of each shared
-    leaf), RoBERTa-base and Electra-base at full depth, an 8x128
+    ALBERT-base (its layer 6 times: 6 launches a forward of each shared
+    leaf), RoBERTa-base and Electra-base, every encoder (BERT's QA path
+    too) at 6 layers (:data:`ENCODER_DEPTH18`), an 8x128
     classification request and an ELBO step each against the plain path
     (:func:`serve_encoder`, :func:`train_encoder`); and
     ``workloads/bert_squad.train`` and ``bert_glue --model
@@ -247,6 +248,7 @@ Phases, each timed, each raising on failure:
     (three ELBO steps through ``make_elbo_train_step`` with the
     teacher-forced token CE as ``loss_fn``) under both estimators, and
     Whisper-base at openai/whisper-base's widths (``WHISPER_BASE_KWARGS``,
+    both at 3 of their 6 + 6 layers, :data:`SEQ2SEQ_DEPTH`;
     ``CONV_RULE``: the stems through the kernels; features (2, 80, 3000),
     64 decoder ids) antithetic: launches counted around exactly the timed
     requests and steps, reruns bit-equal, the log-probs and gradients
@@ -277,8 +279,9 @@ Phases, each timed, each raising on failure:
     log-probs, a step; ``make_pp_lm_train_step`` at M = 2 against the single
     step), then ``stack_lm --arch transformer`` at 12 blocks for three
     steps; (d) the same with Switch-Base-8's MoE FFN through
-    ``make_ep_lm_train_step``, each block's kept and dropped tokens by
-    expert and the routers' gradients printed (non-zero); each step also
+    ``make_ep_lm_train_step`` (at 6 of 12 blocks), each block's kept and
+    dropped tokens by expert and the routers' gradients printed (non-zero);
+    each step also
     run plain in f64 (:func:`module_f64`); (e) GPT-2 base and LLaMA base
     written under HF names into a safetensors file and built by
     ``build_model(name, pretrained=DIR)``: an 8 x 128 request's logits equal
@@ -293,7 +296,8 @@ Phases, each timed, each raising on failure:
     = 2 step's rows) and 2048 -> 1024 (BERT-large's row shard) against
     their plain versions, timed; then two ranks spawned (:func:`rank23`,
     launches counted in them): (a) dp = 2 in f32 against the one-process
-    step on the whole batch; (b) tp = 2 in f32 and bf16, each rank's
+    step on the whole batch; (b) tp = 2 in f32 and bf16 ((a) and (b) at 6
+    of BERT-base's 12 layers, :data:`DEPTH23`), each rank's
     objective through the kernels against its plain one at the same draws;
     (c) tp = 2 at BERT-large's widths (2 layers), every shard on the unit
     grid, against the one-process objective; (d) GPT-2 base at tp = 2
@@ -302,9 +306,29 @@ Phases, each timed, each raising on failure:
     rank 0's checkpoint reloaded in one process with its plain logits bit
     for bit. Its times are two ranks sharing one card, not a scaling figure.
 
+24. pp and ep across ranks (:func:`phase24`; random init under the scale
+    mixture, f32, S = 2, at phase 22's widths), two ranks sharing the card
+    over gloo: (a) #7 and #9 at the pipeline's LM microbatch (768 -> 2304,
+    768 -> 768, 768 -> 3072, 3072 -> 768 at M = 8 x 127 / 4 = 254) against
+    their plain versions, timed, with ``torch.bmm``; then two ranks spawned
+    (:func:`rank24`, launches counted in them around exactly the timed
+    steps): (b) BlockStack 12 x 768 at pp = 2 (6 blocks a stage, B = 64 in
+    4 microbatches) against the one-process step at the same seed (loss
+    1e-6, gathered gradients and, after three Adam steps, leaves 1e-5
+    relative L2); (c) the LM at GPT-2 small's widths at pp = 2 against the
+    one-process ``make_pp_lm_train_step`` at the same microbatches, the
+    embed and pos gradients bit-equal on both ranks; (d) the LM with
+    Switch-Base-8's MoE FFN at ep = 2 (4 experts a rank) against the
+    one-process step: the routers' gradients bit-equal on both ranks, the
+    experts' gradients slices of the one-process ones, the kept and
+    dropped tokens by expert equal on both ranks and to one process's; (e) ``stack_lm --pp 2`` and ``--ep 2
+    --backend gloo`` under ``torch.distributed.run`` (:func:`stack24`),
+    the ``--pp 2`` losses within 1e-5 of ``--pp 1``'s. Its times are two
+    ranks sharing one card, not a scaling figure.
+
 The timed requests and steps of phases 13-16 are three each
 (:data:`TIMED`). ``python3 chip_smoke.py --from 16`` (or ``--from 17``
-... ``--from 23``) runs the build, the eps stream and the phases from
+... ``--from 24``) runs the build, the eps stream and the phases from
 there on only. The line before the last is a JSON object with one entry per kernel,
 instance (operand types and prior) and shape; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3525,19 +3549,26 @@ SQUAD_M = SQUAD_B * SQUAD_L
 FAMILY_SHAPES["squad/"] = ((SQUAD_M, 768, 2),)
 FAMILY_SHAPES["albert/"] = ((1024, 128, 768),)
 # the encoders of phase 18, served (8x128) and trained at base width and
-# full depth: DistilBERT's 6 layers, ALBERT's one layer 12 times, RoBERTa's
-# and Electra's 12
+# 6 layers each (:data:`ENCODER_DEPTH18`): DistilBERT's own depth, ALBERT's
+# one layer 6 times, RoBERTa's and Electra's 6 of 12
 ENCODERS18 = ("distilbert", "albert", "roberta", "electra")
 
 
+# phase 18's depth cut (for the script's time limit): every encoder at 6
+# layers (DistilBERT's own depth; BERT's QA path, RoBERTa's, Electra's and
+# ALBERT's shared layer at 6 of 12), the base widths kept
+ENCODER_DEPTH18 = 6
+
+
 def encoder_base(bt, family, task, dtype):
-    """An encoder of ``family`` at its base preset from seed 0 for ``task``,
-    frozen MOPED 0.05 (``to_bayesian(delta=0.05, freeze=True)``), in
-    ``dtype`` activations, and its trainable tensors."""
+    """An encoder of ``family`` at its base preset (:data:`ENCODER_DEPTH18`
+    layers) from seed 0 for ``task``, frozen MOPED 0.05
+    (``to_bayesian(delta=0.05, freeze=True)``), in ``dtype`` activations,
+    and its trainable tensors."""
     from bayeformers_tpu_torch.models import families
 
     model = families.build_family(family, task, size="base", seed=0, dtype=dtype,
-                                  device="cuda")
+                                  device="cuda", num_hidden_layers=ENCODER_DEPTH18)
     bmodel = bt.to_bayesian(model, delta=0.05, freeze=True)
     return bmodel, bmodel.trainable_parameters()
 
@@ -5008,7 +5039,7 @@ def phase20(bt, fl, fb, at, sl, lpm, moped_rho, paths, sass, rate) -> tuple[list
 
 # the main paths of phase 21 by their launch paths' prefix: T5-small at its
 # published config (t5-small) and Whisper-base at openai/whisper-base's
-# widths, both at full depth (6 + 6 layers)
+# widths, both at 3 of their 6 + 6 layers (``SEQ2SEQ_DEPTH``)
 T5S, WHB = "t5/", "whisper/"
 T5_B, T5_SRC, T5_TGT = 8, 256, 64
 WH_B, WH_TGT = 2, 64
@@ -5026,17 +5057,27 @@ FAMILY_SHAPES[WHB] = ((WH_B * 3000, 240, 512), (WH_B * 1500, 1536, 512)) + tuple
     for k, n in ((512, 512), (512, 2048), (2048, 512)))
 
 
+# phase 21's depth cut (for the script's time limit): T5-small's and
+# Whisper-base's encoder and decoder at 3 of their 6 layers each, the
+# published widths kept
+SEQ2SEQ_DEPTH = 3
+T5_DEPTH = dict(num_layers=SEQ2SEQ_DEPTH)
+WHISPER_DEPTH = dict(encoder_layers=SEQ2SEQ_DEPTH, decoder_layers=SEQ2SEQ_DEPTH)
+
+
 def seq2seq_base(bt, which, dtype):
     """The converted model of a phase-21 path in ``dtype`` activations from
     seed 0, its zero leaves at 0.01 first, frozen MOPED 0.05: T5-small
     (``T5_SMALL_KWARGS``) under the default rules, Whisper-base
     (``WHISPER_BASE_KWARGS``) under ``(*DEFAULT_RULES, CONV_RULE)``, its conv
-    stems Bayesian. Returns it and its trainable tensors."""
+    stems Bayesian, each at :data:`SEQ2SEQ_DEPTH` layers a stack. Returns it
+    and its trainable tensors."""
     if which == T5S:
-        model = bt.build_t5("small", seed=0, dtype=dtype, device="cuda")
+        model = bt.build_t5("small", seed=0, dtype=dtype, device="cuda", **T5_DEPTH)
         rules = bt.DEFAULT_RULES
     else:
-        model = bt.build_whisper(seed=0, dtype=dtype, device="cuda", **bt.WHISPER_BASE_KWARGS)
+        model = bt.build_whisper(seed=0, dtype=dtype, device="cuda",
+                                 **dict(bt.WHISPER_BASE_KWARGS, **WHISPER_DEPTH))
         rules = (*bt.DEFAULT_RULES, bt.CONV_RULE)
     with torch.no_grad():
         for p in model.parameters():
@@ -5475,7 +5516,7 @@ def generate21(bt, which) -> dict:
         model = bt.build_gpt2("base", seed=0, dtype=F32, device="cuda")
         vocab, name, first = 50257, "GPT-2 base", 16
     else:
-        model = bt.build_t5("small", seed=0, dtype=F32, device="cuda")
+        model = bt.build_t5("small", seed=0, dtype=F32, device="cuda", **T5_DEPTH)
         vocab, name, first = 32128, "T5-small", 1
     # MOPED gives an exactly-zero weight rho = 0 (sigma = softplus(0) =
     # 0.69) at every delta, as the reference does; delta -> 0 holds only
@@ -5611,6 +5652,9 @@ FAMILY_SHAPES[STACK_LM] = tuple((LM_ROWS, k, n) for k, n in (
     (STACK_D, 3 * STACK_D), (STACK_D, STACK_D), (STACK_D, STACK_FF), (STACK_FF, STACK_D)))
 FAMILY_SHAPES[STACK_MOE] = ((MOE_C, STACK_D, STACK_FF), (MOE_C, STACK_FF, STACK_D))
 STACK_STEPS = 3  # the full-depth steps of (c) and (d), launches counted around them
+# (d)'s one-rank MoE LM at 6 of 12 blocks (for the script's time limit;
+# phase 24 (d) runs the 12-block one-process step as its reference)
+MOE_BLOCKS22 = 6
 
 
 class GradSnap:
@@ -5807,8 +5851,9 @@ def lm_copy22(fl, fb, moe: bool) -> None:
 def lm_full22(fl, fb, moe: bool) -> tuple[dict, float, float]:
     """(c) ``stack_lm --arch transformer`` at GPT-2 small's widths (12
     blocks, B = 8, 128 positions, 64 examples) for three steps through the
-    kernels, or (d) the MoE-FFN LM at Switch-Base-8's through
-    ``make_ep_lm_train_step`` at one rank for three steps; finite losses, the
+    kernels, or (d) the MoE-FFN LM at Switch-Base-8's (:data:`MOE_BLOCKS22`
+    blocks) through ``make_ep_lm_train_step`` at one rank for three steps;
+    finite losses, the
     launches of exactly those steps (#7/#9 once a projection a draw), the
     median step time (ms) and the peak memory (GiB); (d) prints each block's
     kept and dropped tokens by expert on the first step's batch."""
@@ -5817,13 +5862,14 @@ def lm_full22(fl, fb, moe: bool) -> tuple[dict, float, float]:
     from bayeformers_tpu_torch.parallel import transformer as tfm
     from bayeformers_tpu_torch.workloads import stack_lm
 
+    blocks = MOE_BLOCKS22 if moe else STACK_L
     args = argparse.Namespace(
         arch="transformer", pp=1, ep=1, heads=STACK_HEADS, seq_len=LM_T,
-        vocab=SWITCH_VOCAB if moe else GPT2_VOCAB, blocks=STACK_L, experts=SWITCH_E,
+        vocab=SWITCH_VOCAB if moe else GPT2_VOCAB, blocks=blocks, experts=SWITCH_E,
         features=STACK_D, ffn=STACK_FF, microbatches=4, steps=STACK_STEPS,
         samples=STACK_S, batch_size=LM_B, n_examples=64, lr=1e-3, eval_every=1, seed=0,
         logs=tempfile.mkdtemp(), device="cuda")
-    n = STACK_L * STACK_S * STACK_STEPS
+    n = blocks * STACK_S * STACK_STEPS
     if moe:
         want = {FAMILY_SHAPES[STACK_LM][0]: n, FAMILY_SHAPES[STACK_LM][1]: n}
         want.update({s: n * SWITCH_E for s in FAMILY_SHAPES[STACK_MOE]})
@@ -5998,6 +6044,9 @@ BERT_LARGE23 = dict(hidden_size=1024, num_attention_heads=16, intermediate_size=
 LEAVES23 = ("bert/encoder/layer/0/attention/self/query/kernel",
             "bert/encoder/layer/0/attention/output/dense/kernel", "classifier/kernel")
 RANKS23 = 2
+# phase 23's depth cut (for the script's time limit): (a) and (b) run
+# BERT-base at 6 of its 12 layers, the widths kept
+DEPTH23 = dict(num_hidden_layers=6)
 
 
 def rel_l2(a, b) -> float:
@@ -6045,7 +6094,7 @@ def dp23(bt, ptrain, coll, mesh_lib, fl, fb, at, mesh, out) -> None:
     the same seed (rank 0 runs it first)."""
     batch = train_batch(bt)
     if mesh.rank == 0:
-        one, named1 = converted_base(bt, F32)
+        one, named1 = converted_base(bt, F32, **DEPTH23)
         rho0 = {p: one.rho[p].detach().clone() for p in LEAVES23}
         step1 = bt.training.make_elbo_train_step(one, adamw23(bt, named1), 10, 256,
                                                  estimator="antithetic")
@@ -6054,7 +6103,7 @@ def dp23(bt, ptrain, coll, mesh_lib, fl, fb, at, mesh, out) -> None:
         out["one_ms"] = step_ms23(step1, batch, (1000, 1001, 1002))
         del one, named1, step1
         torch.cuda.empty_cache()
-    bmodel, named = converted_base(bt, F32)
+    bmodel, named = converted_base(bt, F32, **DEPTH23)
     opt = adamw23(bt, named)
     step = ptrain.make_train_step(bmodel, opt, 10, 256, mesh, estimator="antithetic")
     local = mesh_lib.shard_batch(batch, mesh)
@@ -6107,7 +6156,7 @@ def tp23(bt, ptrain, mesh_lib, fl, fb, at, mesh, out) -> None:
     for dtype in (F32, BF16):
         tag = TAG[dtype]
         label = f"phase 23 (b) tp=2 {tag} rank {mesh.rank}"
-        bmodel, _ = converted_base(bt, dtype)
+        bmodel, _ = converted_base(bt, dtype, **DEPTH23)
         ptrain.prepare_bayes_params(bmodel, mesh)
         named = bmodel.trainable_parameters()
         reset_counters(fl, fb, at)
@@ -6325,12 +6374,387 @@ def phase23(bt, fl, fb, at, moped_rho, paths) -> tuple[list[dict], dict]:
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: pp and ep across ranks (the pipeline's tick schedule over the
+# point-to-point shift, the expert shards, the stacked step factories and
+# stack_lm --pp 2 / --ep 2), two ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+# the LM's microbatch at phase 22's widths: 8 x 127 token rows in 4
+# microbatches, M = 254 a projection call of a stage
+PP24 = "stack-pp24/"
+FAMILY_SHAPES[PP24] = tuple((LM_ROWS // STACK_MB, k, n) for _, k, n in FAMILY_SHAPES[STACK_LM])
+RANKS24 = 2
+
+
+def gathered24(tensors: dict, specs: dict, ranks) -> dict:
+    """Each of ``tensors`` whole: those named in ``specs`` gathered over the
+    ranks along their dim there (every rank calls it), the others as they
+    are."""
+    from bayeformers_tpu_torch.parallel import collectives as coll
+
+    return {n: coll.gather_rows(t, ranks.group, ranks.rank, specs[n]) if n in specs else t
+            for n, t in tensors.items()}
+
+
+def equal_on_ranks24(t: torch.Tensor, ranks) -> bool:
+    """Whether ``t`` is bit-equal on every rank (the ranks' copies side by
+    side, then compared)."""
+    from bayeformers_tpu_torch.parallel import collectives as coll
+
+    both = coll.gather_rows(t[None], ranks.group, ranks.rank, 0)
+    return all(torch.equal(both[0], both[i]) for i in range(1, both.shape[0]))
+
+
+def steps24(step, batch, seeds) -> tuple[list[float], list[float]]:
+    """Each step's wall time (ms) and loss."""
+    times, losses = [], []
+    for s in seeds:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(s, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    return times, losses
+
+
+def against24(label, loss, ref_loss, grads, ref_grads, loss_gate=1e-6, grad_gate=1e-5) -> str:
+    """Rank 0's loss (relative) and every gathered gradient (relative L2)
+    against the one-process step's."""
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(set(grads) == set(ref_grads), f"{label}: leaves {set(grads) ^ set(ref_grads)}")
+    rel = {n: rel_l2(grads[n], ref_grads[n]) for n in grads}
+    worst = max(rel, key=rel.get)
+    check(loss_rel <= loss_gate, f"{label}: loss {loss} vs one process {ref_loss}")
+    check(rel[worst] <= grad_gate, f"{label}: {worst} gradient rel L2 {rel[worst]} from the "
+          "one-process step")
+    return (f"loss {loss:.9g} vs one process {ref_loss:.9g} (rel {loss_rel:.3g}); gathered "
+            f"gradients worst rel L2 {rel[worst]:.3g} ({worst}) of {len(rel)} leaves")
+
+
+def block24(ranks, fl, fb, out) -> None:
+    """(b) BlockStack 12 x 768 at pp = 2 (6 blocks a stage), B = 64 in 4
+    microbatches, S = 2: one step's loss (1e-6 relative) and gathered
+    gradients, then three Adam steps' losses (1e-6) and the gathered leaves
+    after them (1e-5 relative L2), against the one-process pp = 1 steps at
+    the same seeds (rank 0 runs them first); the Adam steps timed, the
+    launches of #7/#9 counted around exactly them."""
+    from bayeformers_tpu_torch.parallel import pipeline as pp
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    X, y = stack_lm.synthetic_task(0, STACK_B, STACK_D)
+    batch = {"x": torch.from_numpy(X).cuda(), "y": torch.from_numpy(y).cuda()}
+    seeds = [100 + i for i in range(STACK_STEPS)]
+
+    def make(module, opt, group):
+        return pp.make_pp_train_step(module, opt, n_samples=STACK_S, n_batches=1024 // STACK_B,
+                                     n_microbatches=STACK_MB,
+                                     loss_fn=stack_lm.classification_loss, group=group)
+
+    def adam(module):
+        return torch.optim.Adam(module.parameters(), 1e-3, eps=1e-8)
+
+    if ranks.rank == 0:
+        one = pp.BlockStack(STACK_L, STACK_D, generator=0, device="cuda")
+        snap = GradSnap(one)
+        ref_loss = make(one, snap, None)(31, batch)["loss"].item()
+        _, ref_losses = steps24(make(one, adam(one), None), batch, seeds)
+        ref_leaves = {n: p.detach().clone() for n, p in one.named_parameters()}
+        ref_grads = snap.grads
+        del one
+    stack = pp.shard_stack(pp.BlockStack(STACK_L, STACK_D, generator=0, device="cuda"), ranks)
+    specs = pp.stack_specs(stack)
+    snap = GradSnap(stack)
+    loss = make(stack, snap, ranks)(31, batch)["loss"].item()
+    grads = gathered24(snap.grads, specs, ranks)
+    step = make(stack, adam(stack), ranks)
+    reset_counters(fl, fb)
+    times, losses = steps24(step, batch, seeds)
+    counts = stack_counts(fl, fb)
+    n_local = STACK_L // ranks.world_size
+    want = stack_want({FAMILY_SHAPES[BLOCK][0]: n_local * STACK_MB * STACK_S * STACK_STEPS})
+    check(counts == want, f"pp=2 BlockStack launched {counts}, want {want}")
+    leaves = gathered24({n: p.detach() for n, p in stack.named_parameters()}, specs, ranks)
+    if ranks.rank == 0:
+        note = against24("phase 24 (b) BlockStack pp=2", loss, ref_loss, grads, ref_grads)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        leaf_rel = {n: rel_l2(leaves[n], ref_leaves[n]) for n in leaves}
+        check(max(rel) <= 1e-6, f"pp=2 BlockStack Adam losses {losses} vs {ref_losses}")
+        check(max(leaf_rel.values()) <= 1e-5, f"pp=2 BlockStack leaves {leaf_rel}")
+        say(f"phase 24 (b) BlockStack 12 x 768 at pp=2 against one process: {note}; Adam "
+            f"losses rel {[f'{v:.3g}' for v in rel]}; gathered leaves after them worst rel "
+            f"L2 {max(leaf_rel.values()):.3g}; step ms {[round(t, 3) for t in times]}; "
+            f"launches (rank 0, the timed steps) {counts}")
+    out["block_ms"] = float(np.median(times))
+
+
+def lm24(ranks, fl, fb, out) -> None:
+    """(c) the transformer LM at GPT-2 small's widths at pp = 2 (12 blocks,
+    6 a stage; 8 x 128, 4 microbatches, S = 2): one step's loss and gathered
+    gradients against the one-process ``make_pp_lm_train_step`` at the same
+    microbatches (rank 0 first), the embed and pos gradients equal on both
+    ranks, then three Adam steps timed with the launches of #7/#9 (at M =
+    254) counted around exactly them."""
+    from bayeformers_tpu_torch.parallel import pipeline as pp
+    from bayeformers_tpu_torch.parallel import transformer as tfm
+
+    def build():
+        stack = tfm.TransformerStack(STACK_L, STACK_D, STACK_HEADS, STACK_FF, generator=0,
+                                     device="cuda")
+        return tfm.lm_init(stack, GPT2_VOCAB, LM_T, 1)
+
+    def make(module, opt, group):
+        return tfm.make_pp_lm_train_step(module, opt, n_samples=STACK_S, n_batches=8,
+                                         n_microbatches=STACK_MB, group=group)
+
+    batch = lm_batch22(GPT2_VOCAB)
+    lm = build()
+    if ranks.rank == 0:  # the one-process step updates nothing: its model is then cut
+        snap = GradSnap(lm)
+        ref_loss = make(lm, snap, None)(41, batch)["loss"].item()
+        ref_grads = snap.grads
+        del snap
+    lm = pp.shard_stack(lm, ranks)
+    snap = GradSnap(lm)
+    loss = make(lm, snap, ranks)(41, batch)["loss"].item()
+    tables = {n: equal_on_ranks24(snap.grads[n], ranks) for n in ("embed", "pos")}
+    check(all(tables.values()), f"pp=2 LM: embed/pos gradients differ between the ranks "
+          f"{tables}")
+    grads = gathered24(snap.grads, pp.stack_specs(lm), ranks)
+    step = make(lm, torch.optim.Adam(lm.parameters(), 1e-3, eps=1e-8), ranks)
+    reset_counters(fl, fb)
+    times, losses = steps24(step, batch, [200 + i for i in range(STACK_STEPS)])
+    counts = stack_counts(fl, fb)
+    n = (STACK_L // ranks.world_size) * STACK_MB * STACK_S * STACK_STEPS
+    want = stack_want({s: n for s in FAMILY_SHAPES[PP24]})
+    check(counts == want, f"pp=2 LM launched {counts}, want {want}")
+    out["paths"]["stack/pp24"] = counts
+    if ranks.rank == 0:
+        note = against24("phase 24 (c) LM pp=2", loss, ref_loss, grads, ref_grads)
+        say(f"phase 24 (c) LM at GPT-2 small's widths, pp=2 (M=4) against one process: "
+            f"{note}; embed and pos gradients bit-equal on both ranks; Adam losses "
+            f"{losses}, step ms {[round(t, 3) for t in times]}; launches (rank 0) {counts}")
+    out["lm_ms"] = float(np.median(times))
+    del lm, snap, grads, step
+    torch.cuda.empty_cache()
+
+
+def moe24(ranks, fl, fb, out) -> None:
+    """(d) the LM with Switch-Base-8's MoE FFN at ep = 2 (8 experts, 4 a
+    rank; 12 blocks, 8 x 128, S = 2): one step's loss, the routers'
+    gradients (bit-equal on both ranks, 1e-5 relative L2 from one process)
+    and each rank's expert gradients as slices of the one-process ones
+    (gathered, 1e-5), the kept and dropped tokens by expert (equal on both
+    ranks and to one process's on the same batch and draw), then three Adam
+    steps timed with the launches of #7/#9 counted around exactly them."""
+    from bayeformers_tpu_torch.parallel import moe as moe_lib
+    from bayeformers_tpu_torch.parallel import transformer as tfm
+
+    def build():
+        stack = tfm.TransformerStack(STACK_L, STACK_D, STACK_HEADS, STACK_FF, generator=0,
+                                     moe=dict(n_experts=SWITCH_E, ffn=STACK_FF),
+                                     device="cuda")
+        return tfm.lm_init(stack, SWITCH_VOCAB, LM_T, 1)
+
+    def make(module, opt, group):
+        return tfm.make_ep_lm_train_step(module, opt, n_samples=STACK_S, n_batches=8,
+                                         group=group)
+
+    def tokens_by_expert(module, group):
+        """(L, 2, E): each block's kept and dropped tokens by expert in one
+        forward of ``batch`` at draw seed 3."""
+        routing = []
+        route = module.stack.moe.route
+        module.stack.moe.route = lambda r, x: routing.append(route(r, x)) or routing[-1]
+        with torch.no_grad():
+            tfm.lm_logits_single(module, 3, batch["tokens"], group=group)
+        del module.stack.moe.route
+        return torch.stack([torch.stack([torch.bincount(r.expert[r.keep], minlength=SWITCH_E),
+                                         torch.bincount(r.expert[~r.keep],
+                                                        minlength=SWITCH_E)])
+                            for r in routing])
+
+    batch = lm_batch22(SWITCH_VOCAB, 1)
+    lm = build()
+    if ranks.rank == 0:  # the one-process step updates nothing: its model is then cut
+        ref_tokens = tokens_by_expert(lm, None)
+        snap = GradSnap(lm)
+        ref_loss = make(lm, snap, None)(43, batch)["loss"].item()
+        ref_grads = snap.grads
+        del snap
+    lm = moe_lib.shard_experts(lm, ranks)
+    torch.cuda.empty_cache()
+    specs = moe_lib.expert_specs(lm)
+    tokens = tokens_by_expert(lm, ranks)
+    check(equal_on_ranks24(tokens.float(), ranks),
+          "ep=2 MoE LM: the kept and dropped tokens by expert differ between the ranks")
+    snap = GradSnap(lm)
+    loss = make(lm, snap, ranks)(43, batch)["loss"].item()
+    router_equal = equal_on_ranks24(snap.grads["stack.moe.router"], ranks)
+    check(router_equal, "ep=2 MoE LM: the routers' gradients differ between the ranks")
+    grads = gathered24(snap.grads, specs, ranks)
+    step = make(lm, torch.optim.Adam(lm.parameters(), 1e-3, eps=1e-8), ranks)
+    reset_counters(fl, fb)
+    times, losses = steps24(step, batch, [300 + i for i in range(STACK_STEPS)])
+    counts = stack_counts(fl, fb)
+    n = STACK_L * STACK_S * STACK_STEPS
+    e_local = SWITCH_E // ranks.world_size
+    want = {FAMILY_SHAPES[STACK_LM][0]: n, FAMILY_SHAPES[STACK_LM][1]: n}
+    want.update({s: n * e_local for s in FAMILY_SHAPES[STACK_MOE]})
+    check(counts == stack_want(want), f"ep=2 MoE LM launched {counts}, want "
+          f"{stack_want(want)}")
+    if ranks.rank == 0:
+        check(torch.equal(tokens, ref_tokens), "ep=2 MoE LM: the kept and dropped tokens by "
+              f"expert {tokens.tolist()} differ from one process's {ref_tokens.tolist()}")
+        note = against24("phase 24 (d) MoE LM ep=2", loss, ref_loss, grads, ref_grads)
+        r_rel = rel_l2(grads["stack.moe.router"], ref_grads["stack.moe.router"])
+        say(f"phase 24 (d) tokens kept by expert, block by block (C = {MOE_C} of "
+            f"{LM_ROWS}), the same on both ranks and in one process: "
+            f"{tokens[:, 0].tolist()}; dropped: {tokens[:, 1].tolist()}")
+        say(f"phase 24 (d) MoE LM (Switch-Base-8 widths) at ep=2 against one process: {note}; "
+            f"routers' gradients bit-equal on both ranks, rel L2 {r_rel:.3g} from one "
+            f"process; Adam losses {losses}, step ms {[round(t, 3) for t in times]}; "
+            f"launches (rank 0) {counts}")
+    out["moe_ms"] = float(np.median(times))
+    del lm, snap, grads, step
+    torch.cuda.empty_cache()
+
+
+def rank24(rank: int, store_path: str, out_dir: str) -> None:
+    """One rank of phase 24 (``torch.multiprocessing.spawn``): (b)-(d) over
+    gloo groups on a ``FileStore``; its launch counts and times to
+    ``out_dir/rank{rank}.pt``. Raises on any failed gate."""
+    import torch.distributed as dist
+
+    from bayeformers_tpu_torch.ops import _build
+    from bayeformers_tpu_torch.ops import fused_backward as fb
+    from bayeformers_tpu_torch.ops import fused_linear as fl
+    from bayeformers_tpu_torch.parallel import moe as moe_lib
+    from bayeformers_tpu_torch.parallel import pipeline as pp
+
+    torch.cuda.set_device(0)
+    require_f32_matmuls()
+    _build.library()  # built by the parent before the spawn: loaded here
+    # torch.optim's first step imports torch._dynamo (seconds): not in a
+    # timed step
+    warm = torch.nn.Parameter(torch.zeros(1, device="cuda"))
+    warm.grad = torch.zeros(1, device="cuda")
+    torch.optim.Adam([warm]).step()
+    store = dist.FileStore(store_path, RANKS24)
+    kw = dict(backend="gloo", rank=rank, world_size=RANKS24)
+    pp_ranks = pp.make_pp_mesh(RANKS24, store=dist.PrefixStore("pp/", store), **kw)
+    ep_ranks = moe_lib.make_ep_mesh(RANKS24, store=dist.PrefixStore("ep/", store), **kw)
+    out = {"paths": {}}
+    for part, fn, ranks in (("b", block24, pp_ranks), ("c", lm24, pp_ranks),
+                            ("d", moe24, ep_ranks)):
+        t = time.perf_counter()
+        fn(ranks, fl, fb, out)
+        out[f"{part}_s"] = time.perf_counter() - t
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def flags24() -> list[str]:
+    """``stack_lm``'s flags of (e): BlockStack 12 x 768 (B = 64 in 4
+    microbatches) and the BayesMoE at Switch-Base-8's widths, S = 2, three
+    steps, each logged."""
+    flags = dict(blocks=STACK_L, features=STACK_D, experts=SWITCH_E, ffn=STACK_FF,
+                 microbatches=STACK_MB, steps=STACK_STEPS, samples=STACK_S,
+                 batch_size=STACK_B, eval_every=1)
+    return [f"--{k.replace('_', '-')}={v}" for k, v in flags.items()]
+
+
+def stack24(out_dir: str) -> int:
+    """(e), one rank of ``stack_lm --pp 2`` then ``--ep 2`` with ``--backend
+    gloo`` under ``torch.distributed.run`` (``chip_smoke.py --stack24
+    DIR``): ``stack_lm.run`` on its parsed flags, as its CLI runs it, each
+    log under DIR."""
+    from bayeformers_tpu_torch.parallel import train as ptrain
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    for axis in ("pp", "ep"):
+        stack_lm.run(stack_lm.parser().parse_args(
+            [*flags24(), f"--{axis}", str(RANKS24), "--backend", "gloo",
+             "--logs", os.path.join(out_dir, axis + "2")]))
+    ptrain.finish()
+    return 0
+
+
+def stack_lm24(tmp: str) -> dict:
+    """(e) ``stack_lm --pp 2`` and ``--ep 2`` (:func:`stack24`) under
+    ``torch.distributed.run``, three steps each; the ``--pp 2`` losses
+    within 1e-5 relative of ``--pp 1``'s, run here in one process. Returns
+    the seconds of each."""
+    from bayeformers_tpu_torch.workloads import stack_lm
+
+    secs = {}
+    t = time.perf_counter()
+    one = os.path.join(tmp, "pp1")
+    stack_lm.run(stack_lm.parser().parse_args([*flags24(), "--logs", one]))
+    secs["pp1_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(RANKS24), os.path.abspath(__file__), "--stack24", tmp],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, "stack_lm --pp 2 / --ep 2 failed:\n" + proc.stdout[-4000:]
+          + proc.stderr[-4000:])
+    secs["launch_s"] = time.perf_counter() - t
+    lines = {}
+    for key in ("pp1", "pp2", "ep2"):
+        with open(os.path.join(tmp, key, "stack_lm.jsonl")) as fh:
+            lines[key] = [json.loads(s) for s in fh]
+    l1, l2, le = ([s["loss"] for s in lines[k]] for k in ("pp1", "pp2", "ep2"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
+    check(len(l2) == len(l1) == STACK_STEPS and max(rel) <= 1e-5,
+          f"stack_lm --pp 2 losses {l2} vs --pp 1 {l1}")
+    check(all(s["n_dev"] == RANKS24 and s["mode"] == "pp" for s in lines["pp2"]),
+          f"stack_lm --pp 2 log {lines['pp2']}")
+    check(len(le) == STACK_STEPS and all(math.isfinite(v) for v in le)
+          and all(s["n_dev"] == RANKS24 and s["mode"] == "ep" for s in lines["ep2"]),
+          f"stack_lm --ep 2 log {lines['ep2']}")
+    say(f"phase 24 (e) stack_lm (BlockStack 12 x 768) --pp 2 --backend gloo losses {l2} vs "
+        f"--pp 1 {l1} (rel {[f'{v:.3g}' for v in rel]}); --ep 2 (BayesMoE, 8 experts, "
+        f"768 -> 3072) losses {le}; seconds {secs} (the launch runs both)")
+    return secs
+
+
+def phase24(bt, fl, fb, moped_rho, paths) -> tuple[list[dict], dict]:
+    """Phase 24: (a) #7 and #9 at the pipeline's LM microbatch (M = 254)
+    against their plain versions (f32, mixture, S = 1; launches from the
+    ranks' (c)), then two ranks on the card (:func:`rank24`: (b)-(d)), then
+    (e) ``stack_lm --pp 2 / --ep 2`` under ``torch.distributed.run``."""
+    import torch.multiprocessing as mp
+
+    rows = phase_bayes_linear(fl, moped_rho, False, F32, "mixture", PP24, "stack/pp24", 1)
+    rows += phase_reduce(fl, fb, moped_rho, False, "f32", "mixture", PP24, "stack/pp24", 1)
+    torch.cuda.empty_cache()
+    ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mp.spawn(rank24, args=(os.path.join(tmp, "store"), tmp), nprocs=RANKS24, join=True,
+                 start_method="spawn")
+        ms["ranks_s"] = time.perf_counter() - t
+        res = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+        paths.update(res["paths"])
+        ms.update({k: v for k, v in res.items() if k != "paths"})
+        t = time.perf_counter()
+        ms.update(stack_lm24(tmp))
+        ms["e_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    return rows, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
     if "--glue23" in sys.argv:  # a rank of phase 23's (e), under torch.distributed.run
         return glue23(sys.argv[sys.argv.index("--glue23") + 1])
+    if "--stack24" in sys.argv:  # a rank of phase 24's (e), under torch.distributed.run
+        return stack24(sys.argv[sys.argv.index("--stack24") + 1])
     t_all = time.perf_counter()
     # ``--from 16`` (or 17) runs only the phases from there on, after the
     # build and the eps stream (a quicker check of a later slice); no
@@ -6552,12 +6976,20 @@ def main() -> int:
         t22 = time.perf_counter() - t22
         say(f"phase 22 (stacked tiers, pretrained= causal LMs): {t22:.2f} s")
 
-    # phase 23: the dp x tp tier, two ranks sharing the card over gloo
-    t23 = time.perf_counter()
-    rows23, ms23 = phase23(bt, fl, fb, at, moped_rho, paths)
-    rows += rows23
-    t23 = time.perf_counter() - t23
-    say(f"phase 23 (dp x tp over gloo, two ranks on one card): {t23:.2f} s")
+    if first <= 23:
+        # phase 23: the dp x tp tier, two ranks sharing the card over gloo
+        t23 = time.perf_counter()
+        rows23, ms23 = phase23(bt, fl, fb, at, moped_rho, paths)
+        rows += rows23
+        t23 = time.perf_counter() - t23
+        say(f"phase 23 (dp x tp over gloo, two ranks on one card): {t23:.2f} s")
+
+    # phase 24: pp and ep across ranks, two ranks sharing the card over gloo
+    t24 = time.perf_counter()
+    rows24, ms24 = phase24(bt, fl, fb, moped_rho, paths)
+    rows += rows24
+    t24 = time.perf_counter() - t24
+    say(f"phase 24 (pp and ep over gloo, two ranks on one card): {t24:.2f} s")
 
     # each kernel's launches are those of the main-path run it serves: the
     # forward kernels' and mha_fwd's the requests', the backward kernels'
@@ -6615,26 +7047,36 @@ def main() -> int:
     if first <= 21:
         names = dict(NAMES21, **{"gpt2/": "GPT-2 base"})
         say(f"{smi}; phase 21 (frozen MOPED 0.05, S=10, bf16; T5-small 8 x 256 -> 64, "
-            "Whisper-base 2 x 3000 frames -> 64), request / ELBO step (ms), mc_generate "
+            f"Whisper-base 2 x 3000 frames -> 64, {SEQ2SEQ_DEPTH} + {SEQ2SEQ_DEPTH} layers), "
+            "request / ELBO step (ms), mc_generate "
             "(S=4, B=2, f32) ms a generated token: "
             + "; ".join(f"{what} {names[which]} ({key}) {v:.3f}"
                         for (what, which, key), v in s2s_ms.items()))
     if first <= 22:
         say(f"{smi}; phase 22 (random init, scale mixture, f32, S=2; BlockStack 12 x 768, "
-            "B=64 in 4 microbatches; LM 12 blocks at GPT-2 small's and Switch-Base-8's "
-            "widths, 8 x 128): "
+            "B=64 in 4 microbatches; LM 12 blocks at GPT-2 small's widths and "
+            f"{MOE_BLOCKS22} at Switch-Base-8's, 8 x 128): "
             + "; ".join(f"{what} {name} {v:.3f}" for (what, name), v in stack_ms.items())
             + f"; phase 22 {t22:.1f} s")
-    say(f"{smi}; phase 23, two ranks sharing one card over gloo (not a scaling figure; "
-        "BERT-base, frozen MOPED 0.05, S=10 antithetic, B=8, L=128): dp=2 f32 step "
-        f"{ms23['dp_ms']:.3f} ms (the one-process f32 step on the whole batch "
-        f"{ms23['one_ms']:.3f} ms); tp=2 step bf16 {ms23['tp_ms_bf16']:.3f} ms, f32 "
-        f"{ms23['tp_ms_f32']:.3f} ms (medians of 3); gloo all-reduce of the dp step's "
-        f"gradients ({ms23['allreduce_mb']:.1f} MiB f32, CUDA tensors) "
-        f"{ms23['allreduce_ms']:.3f} ms; ranks {ms23['ranks_s']:.1f} s ((a) "
-        f"{ms23['a_s']:.1f}, (b) {ms23['b_s']:.1f}, (c) {ms23['c_s']:.1f}, (d) "
-        f"{ms23['d_s']:.1f} s of rank 0), (e) {ms23['glue_s']:.1f} s; phase 23 {t23:.1f} s; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+    if first <= 23:
+        say(f"{smi}; phase 23, two ranks sharing one card over gloo (not a scaling figure; "
+            "BERT-base at 6 layers, frozen MOPED 0.05, S=10 antithetic, B=8, L=128): dp=2 "
+            "f32 step "
+            f"{ms23['dp_ms']:.3f} ms (the one-process f32 step on the whole batch "
+            f"{ms23['one_ms']:.3f} ms); tp=2 step bf16 {ms23['tp_ms_bf16']:.3f} ms, f32 "
+            f"{ms23['tp_ms_f32']:.3f} ms (medians of 3); gloo all-reduce of the dp step's "
+            f"gradients ({ms23['allreduce_mb']:.1f} MiB f32, CUDA tensors) "
+            f"{ms23['allreduce_ms']:.3f} ms; ranks {ms23['ranks_s']:.1f} s ((a) "
+            f"{ms23['a_s']:.1f}, (b) {ms23['b_s']:.1f}, (c) {ms23['c_s']:.1f}, (d) "
+            f"{ms23['d_s']:.1f} s of rank 0), (e) {ms23['glue_s']:.1f} s; phase 23 {t23:.1f} s; "
+            f"total {time.perf_counter() - t_all:.1f} s")
+    say(f"{smi}; phase 24, two ranks sharing one card over gloo (not a scaling figure; "
+        "random init, scale mixture, f32, S=2), median of 3 steps: BlockStack 12 x 768 at "
+        f"pp=2 (B=64 in 4 microbatches) {ms24['block_ms']:.3f} ms; LM at GPT-2 small's widths "
+        f"at pp=2 (8 x 128, 4 microbatches) {ms24['lm_ms']:.3f} ms; with Switch-Base-8's MoE "
+        f"FFN at ep=2 {ms24['moe_ms']:.3f} ms; ranks {ms24['ranks_s']:.1f} s ((b) "
+        f"{ms24['b_s']:.1f}, (c) {ms24['c_s']:.1f}, (d) {ms24['d_s']:.1f} s of rank 0), (e) "
+        f"{ms24['e_s']:.1f} s; phase 24 {t24:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 workload: the numpy data bit-equal, the flags and defaults the same, ``run``
 for ``--arch dense`` and ``--arch transformer`` at one device (the same
 metric keys and mode, one JSONL line an eval interval, the dense task and
-the copy task learning), and ``--pp 2`` / ``--ep 2`` raising with ROADMAP
-queue 1 item 6(c)."""
+the copy task learning), and ``--pp 2`` / ``--ep 2`` outside a launcher of
+two ranks raising with the world size. Their runs under ``python -m
+torch.distributed.run`` are in ``test_torch_parallel_stack_lm.py``."""
 import argparse
 import json
 
@@ -30,9 +31,11 @@ def test_data_matches_jax_workload():
 
 def test_flags_and_defaults_match_jax():
     """Every flag of the reference's CLI with its default (the port adds
-    ``--device``, default cuda)."""
+    ``--device``, default cuda, and ``--backend`` of the ranks, default
+    None: the device's)."""
     port = vars(tlm.parser().parse_args([]))
     assert port.pop("device") == "cuda"
+    assert port.pop("backend") is None
     want = dict(arch="dense", pp=1, ep=1, heads=4, seq_len=16, vocab=64, blocks=8,
                 experts=8, features=128, ffn=256, microbatches=4, steps=100, samples=2,
                 batch_size=64, n_examples=1024, lr=1e-3, eval_every=10, seed=0,
@@ -78,8 +81,14 @@ def test_dense_task_learns(tmp_path):
 
 @pytest.mark.parametrize("arch", ["dense", "transformer"])
 @pytest.mark.parametrize("axis", ["pp", "ep"])
-def test_ranks_raise(tmp_path, arch, axis):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6\(c\)"):
+def test_world_size_other_than_n_raises(tmp_path, monkeypatch, arch, axis):
+    """``--pp 2`` / ``--ep 2`` in a world of one rank (no launcher) or of
+    three raise before any group is built, naming the launch."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=f"--{axis} 2 needs 2 ranks; the world has 1"):
+        tlm.run(_args(tmp_path, "x", arch=arch, device="cpu", **{axis: 2}))
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         tlm.run(_args(tmp_path, "x", arch=arch, device="cpu", **{axis: 2}))
 
 

@@ -5,14 +5,17 @@ tokens), at the JAX package's own draws (``stack_draws.jax_hook``): the
 routing (the reference's one-hot dispatch and gated combine rebuilt from the
 port's expert, slot, keep and gate), capacity overflow, outputs at 1e-5,
 log-probs at 2e-5 relative, the router's gradient, and parameters after one
-and two steps (Adam and SGD) at 1e-5."""
+and two steps (Adam and SGD) at 1e-5; the same layer on two expert ranks
+(threads), and a group of another size than its shards raising. The steps
+over ranks are in ``test_torch_parallel_ep*.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from stack_draws import assert_tree_close, close, jax_hook, numpy_tree, step_keys
-from test_torch_stack_pipeline import OPTIMIZERS, _Group, mse_jax, mse_torch
+from test_torch_stack_pipeline import OPTIMIZERS, mse_jax, mse_torch
+from torch_ranks import run_axis
 from torch_threads import one_torch_thread  # noqa: F401
 
 from bayeformers_tpu.parallel import moe as jmoe
@@ -126,10 +129,33 @@ def test_draws_ignore_routing(setup):
     assert torch.equal(lqs[0][0], lqs[1][0]) and torch.equal(lqs[0][1], lqs[1][1])
 
 
-def test_group_of_ranks_raises(setup):
+def test_group_of_two_ranks_runs(setup):
+    """The same call on two expert ranks (ranks as threads, the layer cut
+    by ``shard_experts``) gives every rank the JAX layer's output and
+    log-probs."""
+    moe, params, x = setup
+    key = jax.random.key(5)
+    want = moe.apply_local(params, key, jnp.asarray(x))
+
+    def rank(r, ranks):
+        with torch.no_grad():
+            return tmoe.shard_experts(port_moe(params), ranks).apply_local(
+                None, 5, torch.from_numpy(x), group=ranks)
+
+    with sampling.eps_hook(jax_hook({5: key})):
+        got = run_axis(2, "ep", rank)
+    for out, lq, lp in got:
+        np.testing.assert_allclose(out.numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+        close(lq, want[1], 2e-5)
+        close(lp, want[2], 2e-5)
+
+
+def test_group_of_another_size_raises(setup):
+    """A whole layer on a group of two raises, naming the mismatch."""
     _, params, x = setup
-    with pytest.raises(NotImplementedError, match=r"item 6\(c\)"):
-        port_moe(params).apply_local(None, 1, torch.from_numpy(x), group=_Group())
+    with pytest.raises(ValueError, match="a group of 2 ranks, but the module is cut into 1"):
+        run_axis(2, "ep", lambda r, ranks: port_moe(params).apply_local(
+            None, 1, torch.from_numpy(x), group=ranks))
 
 
 @pytest.mark.parametrize("opt", sorted(OPTIMIZERS))

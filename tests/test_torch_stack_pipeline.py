@@ -3,7 +3,9 @@
 at pp = 1 (a one-device mesh), at the JAX tests' sizes (4 blocks of 32), at
 the JAX package's own draws (``stack_draws.jax_hook``): outputs at 1e-5,
 log-probs at 2e-5 relative (XLA's CPU sums), parameters after one and two
-steps (Adam and SGD) at 1e-5."""
+steps (Adam and SGD) at 1e-5; the same pipeline on two stages (ranks as
+threads), and a group of another size than the stack's shards raising.
+The steps over ranks are in ``test_torch_parallel_pp*.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 from stack_draws import assert_tree_close, close, jax_hook, numpy_tree, step_keys
+from torch_ranks import run_axis
 from torch_threads import one_torch_thread  # noqa: F401
 
 from bayeformers_tpu.parallel import pipeline as jpp
@@ -108,16 +111,42 @@ def test_batch_not_divisible_raises(setup):
         tpp.pipeline_apply(port_stack(params), 1, torch.from_numpy(x), n_microbatches=3)
 
 
-class _Group:
-    def size(self):
-        return 2
+def test_group_of_two_ranks_runs(setup):
+    """The same call on two stages (ranks as threads, the stack sharded by
+    ``shard_stack``) gives every rank the one-rank pipeline's output and
+    log-probs, and the JAX package's."""
+    stack, params, x = setup
+    key = jax.random.key(7)
+    want = jax_pipeline(stack, params, key, x, 2)
+
+    def rank(r, ranks):
+        with torch.no_grad():
+            return tpp.pipeline_apply(tpp.shard_stack(port_stack(params), ranks), 5,
+                                      torch.from_numpy(x), n_microbatches=2, group=ranks)
+
+    with sampling.eps_hook(jax_hook({5: key})):
+        got = run_axis(2, "pp", rank)
+    for h, lq, lp in got:
+        np.testing.assert_allclose(h.numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+        close(lq, want[1], 2e-5)
+        close(lp, want[2], 2e-5)
 
 
-def test_group_of_ranks_raises(setup):
+def test_group_of_another_size_raises(setup):
+    """A stack cut for two stages on no group, and a whole one on a group of
+    two, raise naming the mismatch."""
     _, params, x = setup
-    with pytest.raises(NotImplementedError, match=r"item 6\(c\)"):
-        tpp.pipeline_apply(port_stack(params), 1, torch.from_numpy(x), n_microbatches=2,
-                           group=_Group())
+
+    def rank(r, ranks):
+        return tpp.shard_stack(port_stack(params), ranks)
+
+    cut = run_axis(2, "pp", rank)[0]
+    with pytest.raises(ValueError, match="a group of 1 ranks, but the module is cut into 2"):
+        tpp.pipeline_apply(cut, 1, torch.from_numpy(x), n_microbatches=2)
+    with pytest.raises(ValueError, match="a group of 2 ranks, but the module is cut into 1"):
+        run_axis(2, "pp", lambda r, ranks: tpp.make_pp_train_step(
+            port_stack(params), None, n_samples=1, n_batches=1, n_microbatches=2,
+            loss_fn=mse_torch, group=ranks))
 
 
 def mse_jax(out, batch):

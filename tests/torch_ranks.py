@@ -3,7 +3,8 @@
 :func:`run_ranks` starts one thread a rank; each calls ``fn(rank, mesh,
 *args)`` with its :class:`parallel.mesh.Mesh`, whose gloo groups are built
 on one ``HashStore`` (``make_mesh(store=...)``), so that no default process
-group is needed. A rank that raises fails the call; its peers, blocked in
+group is needed; :func:`run_axis` does the same with a pp or ep mesh
+(``make_pp_mesh``, ``make_ep_mesh``). A rank that raises fails the call; its peers, blocked in
 a collective, are daemon threads and are left behind. Also the small
 models, batches and optimizers the parallel tests share, and
 :func:`whole_grads`, a rank's gradients with the tp shards gathered.
@@ -32,15 +33,28 @@ ALIGNED = dict(hidden_size=512, num_attention_heads=4, intermediate_size=1024,
 
 def run_ranks(dp: int, tp: int, fn, *args):
     """``[fn(rank, mesh, *args) for rank]`` run on dp x tp threads."""
-    world = dp * tp
+    return _threads(dp * tp, lambda store, rank, world: mesh_lib.make_mesh(
+        dp, tp, backend="gloo", store=store, rank=rank, world_size=world), fn, *args)
+
+
+def run_axis(n: int, axis: str, fn, *args):
+    """``[fn(rank, ranks, *args) for rank]`` on ``n`` threads, ``ranks`` the
+    rank's ``make_pp_mesh(n)`` (``axis`` ``"pp"``) or ``make_ep_mesh(n)``
+    (``"ep"``) on one store."""
+    from bayeformers_tpu_torch.parallel import moe, pipeline
+
+    make = pipeline.make_pp_mesh if axis == "pp" else moe.make_ep_mesh
+    return _threads(n, lambda store, rank, world: make(
+        n, backend="gloo", store=store, rank=rank, world_size=world), fn, *args)
+
+
+def _threads(world: int, make, fn, *args):
     store = dist.HashStore()
     results, errors = [None] * world, []
 
     def target(rank):
         try:
-            mesh = mesh_lib.make_mesh(dp, tp, backend="gloo", store=store, rank=rank,
-                                      world_size=world)
-            results[rank] = fn(rank, mesh, *args)
+            results[rank] = fn(rank, make(store, rank, world), *args)
         except BaseException as e:  # noqa: BLE001 (re-raised by the caller)
             errors.append(e)
 
